@@ -1,0 +1,179 @@
+// Grouped expert GEMMs over tile-aligned groups, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/gmm.py:
+//   * gmm_tiled      (_gmm_kernel, pallas_call at gmm.py:69)
+//       out[m-tile] = lhs[m-tile] @ rhs[tile_group[m-tile]]
+//   * _gmm_glu_call  (_gmm_glu_kernel, pallas_call at gmm.py:222), reached
+//     from gmm_glu_tiled_pair / gmm_glu_tiled
+//       out[m-tile] = silu(lhs @ Wg[g]) * (lhs @ Wu[g]),  g = tile_group[..]
+//
+// Layout contract (the packed domain of ops.moe_ffn): lhs [Mp, K] row-major,
+// rows sorted by group and every group starting on a block_m boundary;
+// W [G, K, ldw] row-major per group; tile_group [Mp / block_m] int32.
+//
+// Design. One CUDA block per (64-row m-tile, 64-column n-tile). The block
+// reads tile_group itself and selects its group's weight pointer (the TPU
+// kernel's scalar-prefetched index map). A loop over 16-deep k-tiles staged
+// in shared memory replaces the TPU's sequential k grid axis; sums stay in
+// f32 registers (each thread owns a 4x4 micro-tile; the GLU variant owns a
+// gate and an up micro-tile that share every lhs tile), and the silu*mul
+// epilogue runs on the f32 sums before the single store. Ragged K/N edges
+// are masked in the loads, so the wrapper pads nothing. Operands are
+// widened to f32 in shared memory and multiplied with FMA, in bf16 and f32
+// alike: the simple first version, with no tensor cores.
+//
+// Bound on the card: at the serving shapes (K = 2048, N = 7168, 24 experts,
+// a few hundred routed rows) the needed work is a weight stream, ~1.4 GB
+// per GLU call, so the floor is bytes / 3.35 TB/s. This kernel instead
+// runs every padded row on the FP32 pipe, so it sits far above that floor;
+// tensor-core MMA (wgmma) with TMA-fed stages is the later fix.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;
+constexpr int BN = 64;
+constexpr int BK = 16;
+constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T, bool GLU>
+__global__ void __launch_bounds__(THREADS)
+gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ w_gate,
+           const T* __restrict__ w_up, const int* __restrict__ tile_group,
+           T* __restrict__ out, int K, int N, int ldw, int u_off,
+           int block_m) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bg[BK][BN];
+  __shared__ float Bu[GLU ? BK : 1][GLU ? BN : 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int g = tile_group[m0 / block_m];
+  const size_t wstride = (size_t)K * ldw;
+  const T* wg = w_gate + g * wstride;
+  const T* wu = GLU ? w_up + g * wstride + u_off : nullptr;
+
+  float acc_g[4][4] = {};
+  float acc_u[GLU ? 4 : 1][GLU ? 4 : 1] = {};
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
+      int idx = tid + i * THREADS;
+      int r = idx / BK, c = idx % BK;
+      int k = k0 + c;
+      As[c][r] = k < K ? to_f32(lhs[(size_t)(m0 + r) * K + k]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
+      int idx = tid + i * THREADS;
+      int r = idx / BN, c = idx % BN;
+      int k = k0 + r, n = n0 + c;
+      bool in = k < K && n < N;
+      Bg[r][c] = in ? to_f32(wg[(size_t)k * ldw + n]) : 0.f;
+      if constexpr (GLU) Bu[r][c] = in ? to_f32(wu[(size_t)k * ldw + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], bg[4], bu[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bg[j] = Bg[kk][tx * 4 + j];
+        if constexpr (GLU) bu[j] = Bu[kk][tx * 4 + j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc_g[i][j] = fmaf(a[i], bg[j], acc_g[i][j]);
+          if constexpr (GLU) acc_u[i][j] = fmaf(a[i], bu[j], acc_u[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int n = n0 + tx * 4 + j;
+      if (n >= N) continue;
+      float v = acc_g[i][j];
+      if constexpr (GLU) {
+        float gate = v;
+        v = gate * (1.f / (1.f + expf(-gate))) * acc_u[i][j];
+      }
+      out[(size_t)m * N + n] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T, bool GLU>
+int launch(const void* lhs, const void* w_gate, const void* w_up,
+           const void* tile_group, void* out, int Mp, int K, int N, int ldw,
+           int u_off, int block_m, void* stream) {
+  dim3 grid((N + BN - 1) / BN, Mp / BM);
+  gmm_kernel<T, GLU><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)lhs, (const T*)w_gate, (const T*)w_up,
+      (const int*)tile_group, (T*)out, K, N, ldw, u_off, block_m);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows per CUDA block; the wrapper requires block_m % gmm_block_rows() == 0.
+int gmm_block_rows() { return BM; }
+
+int gmm_bf16(const void* lhs, const void* rhs, const void* tile_group,
+             void* out, int Mp, int K, int N, int ldw, int block_m,
+             void* stream) {
+  return launch<__nv_bfloat16, false>(lhs, rhs, nullptr, tile_group, out, Mp,
+                                      K, N, ldw, 0, block_m, stream);
+}
+
+int gmm_f32(const void* lhs, const void* rhs, const void* tile_group,
+            void* out, int Mp, int K, int N, int ldw, int block_m,
+            void* stream) {
+  return launch<float, false>(lhs, rhs, nullptr, tile_group, out, Mp, K, N,
+                              ldw, 0, block_m, stream);
+}
+
+int gmm_glu_bf16(const void* lhs, const void* w_gate, const void* w_up,
+                 const void* tile_group, void* out, int Mp, int K, int N,
+                 int ldw, int u_off, int block_m, void* stream) {
+  return launch<__nv_bfloat16, true>(lhs, w_gate, w_up, tile_group, out, Mp,
+                                     K, N, ldw, u_off, block_m, stream);
+}
+
+int gmm_glu_f32(const void* lhs, const void* w_gate, const void* w_up,
+                const void* tile_group, void* out, int Mp, int K, int N,
+                int ldw, int u_off, int block_m, void* stream) {
+  return launch<float, true>(lhs, w_gate, w_up, tile_group, out, Mp, K, N,
+                             ldw, u_off, block_m, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels (grouped expert GEMMs, paged decode attention).
+
+Each kernel has a plain-torch version beside its wrapper, taken for CPU
+tensors; :mod:`repro_torch.kernels.ref` holds the oracles and
+:mod:`repro_torch.kernels.ops` the wrappers the model calls. Kernels are
+compiled by :mod:`repro_torch.kernels._build` at first launch.
+"""
+
+from repro_torch.kernels import gmm, ops, paged_attention, ref
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {**gmm.LAUNCHES, **paged_attention.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for counts in (gmm.LAUNCHES, paged_attention.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+__all__ = ["ops", "ref", "launch_counts", "reset_launch_counts"]

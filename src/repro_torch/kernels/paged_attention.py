@@ -1,0 +1,111 @@
+"""Paged single-token decode attention (mirror of
+``repro/kernels/paged_attention.py``).
+
+Flash-style decode over a PAGED KV pool: the physical pool is
+``[n_pages, page_size, KH, hd]`` shared by every slot, and slot ``b`` reads
+the pages named by ``page_table[b]``. Key positions are structural (line
+``l`` of table slot ``j`` is position ``j * page_size + l``), so stale lines
+of recycled pages sit past the owner's causal frontier and are never
+attended (DESIGN.md §9.2).
+
+:func:`paged_decode_forward` launches the CUDA kernel of
+``csrc/paged_attention.cu`` for CUDA tensors and runs
+:func:`paged_decode_plain` for CPU tensors; on any other device, or when a
+build or launch fails, it raises. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES = {"paged_decode": 0}
+
+_NEG = -0.7 * torch.finfo(torch.float32).max
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("paged_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for dt in _DTYPES.values():
+        fn = getattr(lib, f"paged_decode_{dt}")
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, p]
+        fn.restype = i
+    return lib
+
+
+def paged_decode_plain(q, k_pool, v_pool, page_table, q_pos, *, scale,
+                       softcap=0.0, window=0):
+    """Plain version of the kernel, same semantics: f32 softmax over the
+    live lines only (masked lines contribute exactly 0), a slot with no
+    live key divides by 1, a dead slot (q_pos < 0) returns 0."""
+    B, KH, G, hd = q.shape
+    ps = k_pool.shape[1]
+    MP = page_table.shape[1]
+    ptc = page_table.clamp(min=0).long()
+    k = k_pool[ptc].reshape(B, MP * ps, KH, hd).float()
+    v = v_pool[ptc].reshape(B, MP * ps, KH, hd).float()
+    s = torch.einsum("bkgh,btkh->bkgt", q.float(), k) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(MP * ps, device=q.device)
+    qp = q_pos.long()[:, None]
+    mask = (page_table >= 0).repeat_interleave(ps, dim=1) & (kpos <= qp)
+    if window > 0:
+        mask &= (qp - kpos) < window
+    mask = mask[:, None, None, :]
+    s = torch.where(mask, s, _NEG)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgt,btkh->bkgh", p, v) / torch.where(l == 0, 1.0, l)
+    out = torch.where((q_pos >= 0)[:, None, None, None], out, 0.0)
+    return out.to(q.dtype)
+
+
+def paged_decode_forward(q, k_pool, v_pool, page_table, q_pos, *, scale,
+                         softcap=0.0, window=0):
+    """q: [B, KH, G, hd]; pools: [P, page_size, KH, hd]; page_table:
+    [B, MP] int32 (-1 = unallocated slot); q_pos: [B] int32 (< 0 = dead).
+
+    Returns [B, KH, G, hd] in q's dtype (zeros for dead slots)."""
+    tensors = (q, k_pool, v_pool, page_table, q_pos)
+    if _build.on_cpu(*tensors):
+        return paged_decode_plain(q, k_pool, v_pool, page_table, q_pos,
+                                  scale=scale, softcap=softcap, window=window)
+    B, KH, G, hd = q.shape
+    P, ps = k_pool.shape[0], k_pool.shape[1]
+    MP = page_table.shape[1]
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"paged decode takes one of bf16/f32 for q and "
+                        f"pools, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if k_pool.shape != (P, ps, KH, hd) or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if page_table.dtype != torch.int32 or q_pos.dtype != torch.int32 \
+            or page_table.shape[0] != B or q_pos.shape != (B,):
+        raise ValueError("page_table [B, MP] and q_pos [B] must be int32")
+    if hd % 32 or hd > 256 or ps > 128 or G > 32:
+        raise ValueError(f"kernel takes head_dim % 32 == 0 and <= 256, "
+                         f"page_size <= 128, G <= 32; got hd={hd}, "
+                         f"ps={ps}, G={G}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("paged decode takes contiguous tensors")
+    out = torch.empty_like(q)
+    fn = getattr(_lib(), f"paged_decode_{_DTYPES[q.dtype]}")
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+             B, KH, G, hd, ps, MP, float(scale), float(softcap), int(window),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
+    LAUNCHES["paged_decode"] += 1
+    return out

@@ -1,0 +1,18 @@
+"""Paged continuous-batching serving (mirror of ``repro/serve``)."""
+
+from repro_torch.serve.config import (PagedCfg, ServeConfig,
+                                      ServeConfigError, build_deployment)
+from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                      ContinuousProgram,
+                                      make_continuous_program)
+from repro_torch.serve.kv_blocks import BlockAllocator, pages_for
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.sampling import GREEDY, SamplingParams
+from repro_torch.serve.scheduler import (DecodeScheduler, PrefillScheduler,
+                                         Request, Scheduler)
+
+__all__ = ["ContinuousBatchingEngine", "ContinuousProgram",
+           "make_continuous_program", "ServeMetrics", "SamplingParams",
+           "GREEDY", "Request", "Scheduler", "PrefillScheduler",
+           "DecodeScheduler", "BlockAllocator", "pages_for", "ServeConfig",
+           "ServeConfigError", "build_deployment", "PagedCfg"]

@@ -1,0 +1,408 @@
+"""Continuous-batching serving engine over a paged KV pool (mirror of the
+paged mode of ``repro/serve/engine.py``, DESIGN.md §7 / §9).
+
+``make_continuous_program`` builds the steps of the engine; the
+``ContinuousBatchingEngine`` drives them from host-side scheduling state:
+chunked prefill at batch 1 writing straight into the request's pool pages,
+per-slot sampled decode over all live slots through per-slot page tables,
+page growth on demand and preempt-newest on pool exhaustion.
+
+Differences from the JAX engine, all about execution and none about
+results: the steps run eagerly (no jit) under ``torch.inference_mode``;
+the KV pools are updated in place where JAX returns a new state; the
+engine keeps one compute-dtype copy of each weight matrix made at load
+(``stack.compute_params``) instead of casting every call. Only the paged
+build is ported; dense per-slot caches, expert-parallel decode, prefix
+caching and tracing are later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.models import stack
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import RunConfig, apply_unembedding
+from repro_torch.serve import sampling
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.scheduler import PrefillChunk, Request, Scheduler
+
+
+@dataclasses.dataclass
+class ContinuousProgram:
+    """The steps of the paged continuous-batching engine.
+
+      prefill_step(params, state, prec, tokens[1,c], offset, ptrow[1,MP])
+          -> (state, prec, last_logits [1,V] f32)
+      insert_step(state, prec, slot) -> state
+      decode_step(params, state, tok[B,1], pos[B], ptabs[B,MP], active[B],
+                  rids[B], ngen[B], temp[B], topk[B], topp[B])
+          -> (state, next[B], last_logits [B,V] f32)
+      sample_step(logits[N,V], rids, ngen, temp, topk, topp) -> [N]
+
+    Step inputs may be numpy arrays; outputs are tensors on ``device``.
+    """
+
+    cfg: ModelConfig
+    run: RunConfig
+    device: torch.device
+    n_slots: int
+    max_len: int
+    prefill_step: Callable
+    insert_step: Callable
+    decode_step: Callable
+    sample_step: Callable
+    init_state: Callable     # () -> paged decode state (B = n_slots)
+    init_prec: Callable      # () -> batch-1 prefill recurrent carry
+    page_size: int = 0
+    n_pages: int = 0
+    max_pages: int = 0       # page-table slots per request
+
+
+def make_continuous_program(cfg: ModelConfig, run: RunConfig, serve_cfg, *,
+                            device="cuda") -> ContinuousProgram:
+    """Build the paged engine's steps. ``serve_cfg`` (a
+    :class:`repro_torch.serve.config.ServeConfig`) supplies slots, max_len,
+    seed and the page geometry; ``paged.pool_pages`` defaults to full
+    reservation capacity (slots x pages per sequence)."""
+    if cfg.is_encdec or cfg.vision_seq > 0:
+        raise ValueError("continuous batching supports decoder-only LMs")
+    return _make_paged_program(
+        cfg, run, n_slots=serve_cfg.slots, max_len=serve_cfg.max_len,
+        seed=serve_cfg.seed, page_size=serve_cfg.paged.page_size,
+        n_pages=serve_cfg.paged.pool_pages, device=torch.device(device))
+
+
+def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
+                        max_len: int, seed: int, page_size: int,
+                        n_pages: int | None,
+                        device: torch.device) -> ContinuousProgram:
+    """Paged-KV program (DESIGN.md §9.4): KV never moves at admission or
+    recycling — prefill scatters straight into the request's pool pages,
+    the insert step copies only the batch-1 recurrent carry, and freeing is
+    the allocator's page-table reset."""
+    B = n_slots
+    max_pages = -(-max_len // page_size)
+    n_pages = n_pages if n_pages is not None else B * max_pages
+    if n_pages < max_pages:
+        raise ValueError("pool smaller than one sequence")
+    dtype = run.policy.compute_dtype
+
+    def dev(x, dt=None):
+        return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
+
+    def unembed(params, hidden):
+        return apply_unembedding(params["embed"], params.get("lm_head"), cfg,
+                                 run.policy, hidden).float()
+
+    @torch.inference_mode()
+    def prefill(params, state, prec, tokens, offset, ptrow):
+        """One prompt chunk at batch 1, scattered through the request's
+        page table straight into the shared pools."""
+        kv_s, rec_s = stack.split_kv_state(state)
+        merged = stack.merge_kv_state(kv_s, prec)
+        hidden, new_merged, _ = stack.apply_model(
+            params, cfg, run, dev(tokens, torch.int64), decode_state=merged,
+            cache_index=int(offset), return_hidden=True,
+            page_table=dev(ptrow, torch.int32))
+        kv_n, prec_n = stack.split_kv_state(new_merged)
+        return (stack.merge_kv_state(kv_n, rec_s), prec_n,
+                unembed(params, hidden[:, -1]))
+
+    @torch.inference_mode()
+    def insert(state, prec, slot):
+        """Admission copies ONLY the recurrent carry into the slot row; the
+        KV pages are already in the pool (written by prefill). In place:
+        returns the same state."""
+        _, rec_s = stack.split_kv_state(state)
+        for dst, src in zip(rec_s["tails"], prec["tails"]):
+            _copy_into_slot(dst, src, int(slot), axis=0)
+        if rec_s["blocks"] is not None:
+            for k, dst in rec_s["blocks"].items():
+                _copy_into_slot(dst, prec["blocks"][k], int(slot), axis=1)
+        return state
+
+    def sample(logits, rids, ngen, temp, topk, topp):
+        temp = np.asarray(temp, np.float32)
+        noise = sampling.request_noise(seed, rids, ngen, temp > 0,
+                                       logits.shape[-1], device)
+        return sampling.sample_tokens(logits.float(), noise, dev(temp),
+                                      dev(topk, torch.int64),
+                                      dev(topp, torch.float32))
+
+    @torch.inference_mode()
+    def decode(params, state, tok, pos, ptabs, active, rids, ngen, temp,
+               topk, topp):
+        """One decode step for every slot; dead slots (pos < 0) write no
+        cache lines and emit token 0."""
+        logits, state, _ = stack.apply_model(
+            params, cfg, run, dev(tok, torch.int64), decode_state=state,
+            cache_index=dev(pos, torch.int32),
+            page_table=dev(ptabs, torch.int32))
+        last = logits[:, -1].float()
+        nxt = sample(last, rids, ngen, temp, topk, topp)
+        nxt = torch.where(dev(active, torch.bool), nxt, 0)
+        return state, nxt, last
+
+    return ContinuousProgram(
+        cfg=cfg, run=run, device=device, n_slots=B, max_len=max_len,
+        prefill_step=prefill, insert_step=insert, decode_step=decode,
+        sample_step=torch.inference_mode()(sample),
+        init_state=lambda: stack.init_paged_decode_state(
+            cfg, B, n_pages, page_size, dtype, device),
+        init_prec=lambda: stack.split_kv_state(
+            stack.init_decode_state(cfg, 1, 1, dtype, device))[1],
+        page_size=page_size, n_pages=n_pages,
+        max_pages=max_pages)
+
+
+def _copy_into_slot(dst, src, slot: int, axis: int):
+    """Write the batch-1 tree ``src`` into row ``slot`` (batch axis
+    ``axis``) of every leaf of ``dst``, in place."""
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _copy_into_slot(d, src[k], slot, axis)
+        else:
+            d.narrow(axis, slot, 1).copy_(src[k])
+
+
+class ContinuousBatchingEngine:
+    """Continuous-batching serving loop over a paged pool (DESIGN.md §7,
+    §9.4).
+
+    One ``tick`` = up to ``scheduler.token_budget`` chunked-prefill tokens
+    (admitting at most one request at a time into a freed slot) followed by
+    ONE batched decode step over all live slots. The scheduler carries a
+    ``BlockAllocator``; the engine mirrors each slot's page table, claims a
+    page whenever a slot's next write position crosses a page boundary, and
+    relieves pool OOM by preempting the newest running request before the
+    decode step runs. Generated tokens land in ``results[rid]``.
+    """
+
+    def __init__(self, program: ContinuousProgram, params,
+                 scheduler: Scheduler, *, metrics: ServeMetrics = None,
+                 on_token: Callable = None, record_logits: bool = False):
+        self.p = program
+        # One compute-dtype copy of each weight matrix, made at load; the
+        # caller's f32 params are not modified.
+        self.params = stack.compute_params(params, program.run.policy)
+        self.sched = scheduler
+        self.metrics = metrics or ServeMetrics()
+        self.on_token = on_token  # callable(rid, token, finished)
+        self.record_logits = record_logits
+        self.logits: Dict[int, List[np.ndarray]] = {}  # rid -> [V] rows
+        self.rejected: List[int] = []  # rids refused admission
+        self.tick_count = 0
+        self.n_prefill_chunks = 0  # prefill_step calls
+        self.n_decode_steps = 0    # decode_step calls
+        B = program.n_slots
+        self.state = program.init_state()
+        self.prec = None  # batch-1 prefill recurrent carry
+        # Host mirrors of the per-slot decode inputs.
+        self._tok = np.zeros((B,), np.int32)
+        self._pos = np.full((B,), -1, np.int32)
+        self._active = np.zeros((B,), bool)
+        self._rid = np.zeros((B,), np.int32)
+        self._ngen = np.zeros((B,), np.int32)
+        self._temp = np.zeros((B,), np.float32)
+        self._topk = np.zeros((B,), np.int32)
+        self._topp = np.ones((B,), np.float32)
+        alloc = scheduler.allocator
+        if alloc is None:
+            raise ValueError("the paged program needs an allocator")
+        if alloc.page_size != program.page_size \
+                or alloc.n_pages != program.n_pages \
+                or alloc.max_pages_per_seq < program.max_pages:
+            raise ValueError("allocator geometry disagrees with the program")
+        self._ptab = np.full((B, program.max_pages), -1, np.int32)
+        self.page_peak = 0
+        self._page_ticks: List[tuple] = []  # (pages_in_use, n_active)
+
+    @property
+    def results(self) -> Dict[int, List[int]]:
+        return self.sched.results
+
+    def submit(self, req: Request) -> None:
+        self.sched.submit(req)
+        self.metrics.on_submit(req.rid, len(req.prompt))
+
+    # -- one engine tick ----------------------------------------------------
+
+    def tick(self) -> None:
+        budget = self.sched.token_budget
+        while budget > 0:
+            chunk = self.sched.plan_prefill(budget)
+            if chunk is None:
+                break
+            self._run_prefill_chunk(chunk)
+            budget -= chunk.length
+        self._ensure_pages()
+        if self._active.any():
+            self._decode_once()
+        self.metrics.on_tick(self.sched.queue_depth, self.sched.n_active)
+        in_use = self.sched.allocator.pages_in_use
+        self.page_peak = max(self.page_peak, in_use)
+        self._page_ticks.append((in_use, self.sched.n_active))
+        self.tick_count += 1
+
+    def _run_prefill_chunk(self, chunk: PrefillChunk) -> None:
+        req = chunk.request
+        toks = np.asarray(
+            chunk.tokens[chunk.start:chunk.start + chunk.length],
+            np.int32)[None, :]
+        if chunk.first:  # fresh (or resumed) request -> fresh rec carry
+            self.prec = self.p.init_prec()
+        ptrow = self.sched.allocator.table(req.rid, self.p.max_pages)[None, :]
+        self.state, self.prec, logits = self.p.prefill_step(
+            self.params, self.state, self.prec, toks, chunk.start, ptrow)
+        self.n_prefill_chunks += 1
+        if self.sched.finish_prefill_chunk(chunk):
+            self._admit(chunk, logits)
+
+    def _admit(self, chunk: PrefillChunk, last_logits) -> None:
+        """Sample the next token from the prefill logits and insert the
+        prefilled state into the freed slot. For a preemption resume
+        (``chunk.n_done > 0``) the re-prefill replayed prompt + generated
+        tokens, so the sample index continues at ``n_done`` — the
+        (seed, rid, n) noise makes the continuation token-exact (§7.4)."""
+        req, slot = chunk.request, chunk.slot
+        sp = req.sampling
+        first = self.p.sample_step(
+            last_logits, np.asarray([req.rid], np.int32),
+            np.asarray([chunk.n_done], np.int32),
+            np.asarray([sp.temperature], np.float32),
+            np.asarray([sp.top_k], np.int32),
+            np.asarray([sp.top_p], np.float32))
+        self.state = self.p.insert_step(self.state, self.prec, slot)
+        self.prec = None
+        self._ptab[slot] = self.sched.allocator.table(req.rid,
+                                                      self.p.max_pages)
+        first = int(first[0])
+        if self.record_logits:
+            row = last_logits[0].cpu().numpy()
+            if chunk.n_done == 0:
+                self.logits[req.rid] = [row]
+            else:
+                self.logits[req.rid].append(row)
+        self.metrics.on_token(req.rid, self.tick_count)
+        finished = self.sched.activate(chunk, first)
+        if self.on_token:
+            self.on_token(req.rid, first, finished)
+        if finished:
+            self.metrics.on_finish(req.rid, self.tick_count)
+            self._ptab[slot] = -1
+            return
+        self._tok[slot] = first
+        self._pos[slot] = len(chunk.tokens)
+        self._active[slot] = True
+        self._rid[slot] = req.rid
+        self._ngen[slot] = chunk.n_done + 1
+        self._temp[slot] = sp.temperature
+        self._topk[slot] = sp.top_k
+        self._topp[slot] = sp.top_p
+
+    def _ensure_pages(self) -> None:
+        """Claim a pool page for every live slot whose next write position
+        has crossed its allocated frontier; on pool OOM, preempt the newest
+        running request (oldest slots are served first, so the loop always
+        converges — down to one live request, which submit() guaranteed
+        fits the pool)."""
+        alloc = self.sched.allocator
+        order = sorted((int(s) for s in np.nonzero(self._active)[0]),
+                       key=lambda s: self.sched.running[s].seq)
+        for slot in order:
+            if not self._active[slot]:
+                continue  # evicted by an earlier slot's OOM relief
+            rid = int(self._rid[slot])
+            while not alloc.covers(rid, int(self._pos[slot])):
+                if alloc.extend(rid):
+                    self._ptab[slot] = alloc.table(rid, self.p.max_pages)
+                    continue
+                victim = self.sched.preempt_newest()
+                if victim is None:
+                    raise RuntimeError("pool OOM with nothing to preempt")
+                self._clear_slot(victim)
+                if victim == slot:
+                    break  # this slot itself was evicted; it will resume
+
+    def _decode_once(self) -> None:
+        self.state, nxt, logits = self.p.decode_step(
+            self.params, self.state, self._tok[:, None], self._pos,
+            self._ptab, self._active, self._rid, self._ngen, self._temp,
+            self._topk, self._topp)
+        self.n_decode_steps += 1
+        nxt = nxt.cpu().numpy()
+        if self.record_logits:
+            logits = logits.cpu().numpy()
+        for slot in np.nonzero(self._active)[0]:
+            slot = int(slot)
+            tok = int(nxt[slot])
+            rid = int(self._rid[slot])
+            if self.record_logits:
+                self.logits[rid].append(logits[slot])
+            self.metrics.on_token(rid, self.tick_count)
+            finished = self.sched.note_token(slot, tok)
+            if self.on_token:
+                self.on_token(rid, tok, finished)
+            if finished:
+                self.metrics.on_finish(rid, self.tick_count)
+                self._clear_slot(slot)
+            else:
+                self._tok[slot] = tok
+                self._pos[slot] += 1
+                self._ngen[slot] += 1
+
+    def _clear_slot(self, slot: int) -> None:
+        self._active[slot] = False
+        self._pos[slot] = -1
+        self._tok[slot] = 0
+        self._ngen[slot] = 0
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        self._topp[slot] = 1.0
+        self._ptab[slot] = -1
+
+    def page_occupancy(self) -> dict:
+        """Pool occupancy over the run: peak pages in use and the
+        time-averaged cache lines held per active slot."""
+        ticks = [t for t in self._page_ticks if t[1] > 0]
+        lines = [p * self.p.page_size / a for p, a in ticks]
+        alloc = self.sched.allocator
+        return {
+            "page_size": self.p.page_size,
+            "n_pages": self.p.n_pages,
+            "page_peak": self.page_peak,
+            "mean_lines_per_active_slot":
+                round(sum(lines) / len(lines), 2) if lines else 0.0,
+            "n_preempted": self.sched.n_preempted,
+            "pages_allocated": alloc.n_fresh_allocs,
+            "prefill_chunks": self.n_prefill_chunks,
+            "decode_steps": self.n_decode_steps,
+        }
+
+    # -- trace driver -------------------------------------------------------
+
+    def run(self, requests: List[Request], max_ticks: int = 100_000):
+        """Drive a trace to completion. ``Request.arrival`` is in engine
+        ticks (the simulated clock); requests are submitted when the tick
+        counter reaches their arrival time."""
+        pending = sorted(requests, key=lambda r: r.arrival)
+        while True:
+            while pending and pending[0].arrival <= self.tick_count:
+                req = pending.pop(0)
+                try:
+                    self.submit(req)
+                except ValueError:
+                    # inadmissible (oversized / empty): reject this request,
+                    # keep serving the rest
+                    self.rejected.append(req.rid)
+            if not pending and not self.sched.has_work() \
+                    and not self._active.any():
+                return self.results
+            self.tick()
+            if self.tick_count > max_ticks:
+                raise RuntimeError(f"serve trace exceeded {max_ticks} ticks")

@@ -1,0 +1,43 @@
+"""The port stands alone: importing every ``repro_torch`` module leaves
+``jax`` and the JAX package ``repro`` out of ``sys.modules``."""
+
+import pathlib
+import subprocess
+import sys
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+SCRIPT = r"""
+import importlib, pathlib, sys
+root = pathlib.Path(sys.argv[1])
+mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
+              .replace(".__init__", "")
+              for p in (root / "repro_torch").rglob("*.py"))
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(mods), bad)
+assert not bad, bad
+"""
+
+
+def test_repro_torch_imports_no_jax_and_no_repro():
+    out = subprocess.run([sys.executable, "-c", SCRIPT, str(SRC)],
+                         env={"PYTHONPATH": str(SRC), "PATH": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 25 and bad.strip() == "[]"
+
+
+def test_no_import_statement_names_jax_or_repro():
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
+    files = list((SRC / "repro_torch").rglob("*.py"))
+    files.append(SRC.parent / "chip_smoke.py")
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+    assert not hits, hits

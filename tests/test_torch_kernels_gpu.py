@@ -1,0 +1,150 @@
+"""repro_torch CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: they need a CUDA device (decided inside the ``cuda``
+fixture) and skip elsewhere. On a machine with a card, run them with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+(``--noconftest``: the JAX package's conftest imports jax, which the card
+machine does not have). Tolerances: f32 inputs at 1e-4 (FMA vs. the plain
+version's matmul order), bf16 at the 2e-2 tier with inputs scaled so one
+bf16 ulp of the output stays below it.
+"""
+
+import math
+
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import gmm, ops
+from repro_torch.kernels import paged_attention as pa
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+def _packed(sizes, K, N, dtype, dev, block_m, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    M, G = sum(sizes), len(sizes)
+    dest, tg, mp = ops._pack_meta(gs, M, G, block_m)
+    x = 0.5 * torch.randn((M, K), generator=g, device=dev)
+    lhs = ops._scatter_rows(x.to(dtype), dest, mp)
+
+    def w():
+        return (torch.randn((G, K, N), generator=g, device=dev)
+                / math.sqrt(K)).to(dtype)
+    return lhs, w(), w(), tg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,K,N,block_m", [
+    ([37, 0, 90, 73], 96, 80, 64),      # zero-token group, ragged N
+    ([1, 1, 1, 197], 200, 72, 128),     # ragged K and N
+    ([300, 5], 256, 128, 128),
+])
+def test_gmm_kernels_match_plain(cuda, dtype, sizes, K, N, block_m):
+    lhs, wg, wu, tg = _packed(sizes, K, N, dtype, cuda, block_m)
+    got = gmm.gmm_tiled(lhs, wg, tg, block_m=block_m)
+    want = gmm.gmm_tiled_plain(lhs, wg, tg, block_m=block_m)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(dtype))
+    got = gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg, block_m=block_m)
+    want = gmm.gmm_glu_plain(lhs, wg, wu, tg, block_m=block_m)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(dtype))
+    stacked = torch.cat([wg, wu], dim=-1).contiguous()
+    assert torch.equal(gmm.gmm_glu_tiled(lhs, stacked, tg, block_m=block_m),
+                       got)
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda):
+    g = torch.Generator().manual_seed(3)
+    sizes = [37, 0, 90, 73]
+    x = 0.5 * torch.randn((200, 64), generator=g)
+    ws = [0.1 * torch.randn(s, generator=g)
+          for s in ((4, 64, 96), (4, 64, 96), (4, 96, 64))]
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    sc = torch.rand(200, generator=g)
+    want = ops.moe_ffn(x, *ws, gs, row_scales=sc)
+    kernels.reset_launch_counts()
+    got = ops.moe_ffn(x.to(cuda), *(w.to(cuda) for w in ws), gs.to(cuda),
+                      row_scales=sc.to(cuda))
+    assert kernels.launch_counts()["gmm_glu"] == 1
+    assert kernels.launch_counts()["gmm"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_group_dense_bf16_on_card_keeps_f32_products(cuda):
+    """The group-dense route's bf16 products are f32 on the card (GEMM with
+    an f32 output) as on the CPU (widened operands): only the summation
+    order differs, which flips at most 1% of the bf16 outputs by one ulp
+    (plus 1e-3 * max|out| near 0)."""
+    g = torch.Generator().manual_seed(4)
+    sizes = [3, 1, 0, 4]
+    x = (0.5 * torch.randn((8, 256), generator=g)).bfloat16()
+    ws = [(torch.randn(s, generator=g) / math.sqrt(s[1])).bfloat16()
+          for s in ((4, 256, 512), (4, 256, 512), (4, 512, 256))]
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    want = ops.moe_ffn(x, *ws, gs, small_m=True).float()
+    got = ops.moe_ffn(x.to(cuda), *(w.to(cuda) for w in ws), gs.to(cuda),
+                      small_m=True).float().cpu()
+    one_ulp = 2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+    assert torch.all((got - want).abs()
+                     <= one_ulp + 1e-3 * want.abs().max())
+    assert (got != want).float().mean() <= 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KH,G,hd,ps,MP,kw", [
+    (3, 2, 2, 32, 8, 4, {}),
+    (3, 2, 2, 32, 8, 4, dict(window=6, softcap=5.0)),
+    (4, 4, 4, 128, 16, 26, {}),          # mixtral-w2 decode shapes
+    (2, 1, 8, 64, 64, 3, dict(window=40)),  # 64-line pages, MQA
+])
+def test_paged_decode_matches_plain(cuda, dtype, B, KH, G, hd, ps, MP, kw):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    P = B * MP + 2
+    q = torch.randn((B, KH, G, hd), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((P, ps, KH, hd), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((P, ps, KH, hd), generator=g, device=cuda).to(dtype)
+    table = torch.randperm(P, generator=g, device=cuda)[:B * MP]
+    table = table.reshape(B, MP).to(torch.int32).contiguous()
+    q_pos = torch.randint(0, MP * ps, (B,), generator=g, device=cuda,
+                          dtype=torch.int32)
+    q_pos[0] = -1              # dead slot
+    table[-1, 0] = -1          # an unallocated slot mid-sequence
+    for b, p in enumerate(q_pos.tolist()):
+        table[b, max(p, 0) // ps + 1:] = -1
+    got = pa.paged_decode_forward(q, kp, vp, table, q_pos,
+                                  scale=hd ** -0.5, **kw)
+    want = pa.paged_decode_plain(q, kp, vp, table, q_pos, scale=hd ** -0.5,
+                                 **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(dtype))
+    assert torch.all(got[0] == 0)
+
+
+def test_launch_counters_and_refusals(cuda):
+    lhs, wg, _, tg = _packed([70, 60], 64, 64, torch.float32, cuda, 64)
+    kernels.reset_launch_counts()
+    gmm.gmm_tiled(lhs, wg, tg, block_m=64)
+    gmm.gmm_tiled(lhs, wg, tg, block_m=64)
+    assert kernels.launch_counts() == {"gmm_glu": 0, "gmm": 2,
+                                       "paged_decode": 0}
+    with pytest.raises(ValueError):  # tiles smaller than the kernel's
+        gmm.gmm_tiled(lhs, wg, torch.cat([tg, tg]), block_m=32)
+    with pytest.raises(TypeError):
+        gmm.gmm_tiled(lhs.half(), wg.half(), tg, block_m=64)
+    assert kernels.launch_counts()["gmm"] == 2
