@@ -5,32 +5,47 @@ Run from the root of a checkout on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/csrc``, serves a
-Poisson trace on the full-width ``mixtral-w2`` (4 layers, d_model 2048, 24
-experts top-2, random weights from seed 0) through the port's own driver
-(``repro_torch.launch.serve``) with the paged engine, and fails unless:
+It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives
+the port's two main paths through its own drivers, at full width and full
+depth, with random weights from seed 0:
+
+* serve: a Poisson trace on ``mixtral-w2`` (4 layers, d_model 2048, 24
+  experts top-2) through ``repro_torch.launch.serve`` with the paged
+  engine;
+* train: ``repro_torch.launch.train`` on ``mixtral-w1`` (4 layers, d_model
+  2048, 12 experts top-2), 6 steps of batch 8 x seq 256 (forward, the
+  recomputing backward, AdamW; bf16 compute, f32 params).
+
+It fails unless:
 
 * every request finishes with its full budget and the page allocator's
-  accounting is clean;
-* each kernel of that path was launched during the serve run (launch
-  counters set to 0 just before it and read just after);
+  accounting is clean; every train step's loss and grad norm are finite;
+* each kernel of a path was launched during that path's run (launch
+  counters set to 0 just before it and read just after), and the train
+  run launched each grouped kernel the expected number of times per layer
+  and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3);
 * each kernel agrees with its plain PyTorch version on the card, at the
-  serve run's shapes, within 2e-2 * min(1, max|plain|) (bf16: 2e-2 where
-  the outputs reach 1, less where they stay smaller), taken per decode
-  slot for paged decode so that a long slot's small outputs are held at
-  their own size;
+  main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
+  bf16 tier, scaled down where the outputs stay below 1; per decode slot
+  for paged decode), f32 outputs within 1e-4 * max|plain| (f32 sums in
+  another order only);
+* the MoE FFN's five gradients (dx, dwg, dwu, dwo, dscales) from its
+  autograd Function (the kernels) agree with autograd through the plain
+  composition within 1e-4 * max|plain| each, at one layer's train shapes
+  in f32;
 * under the f32 policy, the paged engine's first-token logits of the
   trace's first request whose prompt spans several prefill chunks match
   the cache-free forward's within 1e-3 * max|logit|.
 
-One untimed warm-up request (its own engine, launches not counted) runs
-before the timed serve run, so that one-time costs (library handles,
-allocator growth) stay out of the timed window.
+One untimed warm-up request (its own engine) and one untimed warm-up train
+step (its own model) run before the timed runs, launches not counted, so
+that one-time costs (library handles, allocator growth) stay out of the
+timed windows. The serve model is released before the train phase.
 
 Printed in order: the device line (torch's name and nvidia-smi's name and
-power limit), the kernel build time, the warm-up run's lines, the serve
-run's lines, the kernel tolerances, the ``kernels`` JSON line, the serve line,
-the parity line, and last
+power limit), the kernel build time, the warm-up and serve runs' lines,
+the train runs' lines, the kernel tolerances, the ``kernels`` JSON line,
+the serve, parity, train and grad lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -39,6 +54,7 @@ Details (nvcc register reports, the full result) go to
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -51,9 +67,19 @@ SERVE_ARGS = ["--arch", "mixtral-w2", "--paged", "--page-size", "16",
               "--prefill-chunk", "256", "--prompt-len", "384", "--gen", "32",
               "--slots", "4", "--requests", "6"]
 WARMUP_ARGS = SERVE_ARGS + ["--requests", "1", "--gen", "4"]  # last wins
+TRAIN_ARGS = ["--arch", "mixtral-w1", "--no-zebra", "--mesh", "1x1",
+              "--steps", "6", "--batch", "8", "--seq", "256"]
+TRAIN_WARMUP_ARGS = TRAIN_ARGS + ["--steps", "1"]
+SERVE_KERNELS = ("gmm_glu", "gmm", "paged_decode")
+# Launches per layer and train step: the forward and its remat recompute
+# (one GLU and one down GEMM each), and the MoE FFN backward (gmm: g, u,
+# y, dh, dx twice; gmm_dw: dwo, dwg, dwu).
+TRAIN_LAUNCHES = {"gmm_glu": 2, "gmm": 8, "gmm_dw": 3}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 TOL_BF16 = 2e-2             # the bf16 tier of tests/test_kernels.py:40
+TOL_F32 = 1e-4              # f32 outputs: sum order only
 PARITY_REL = 1e-3
 
 
@@ -73,10 +99,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS):
+    """Least time in ms: bytes over the HBM rate or operations over
+    ``peak`` (the bf16 tensor-core rate for bf16 operands, FP32_FLOPS
+    where an operand is f32), whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_f32(got, want):
+    """(max abs error, tolerance, ok) for f32 outputs: 1e-4 * max|plain|."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = TOL_F32 * float(want.float().abs().max())
+    return err, tol, err <= tol
+
+
+def grouped_mm_ms(torch, fn):
+    """(ms, note) of a ``torch._grouped_mm`` yardstick call, or (None, the
+    reason) where this torch lacks it or refuses the operands."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm not in this torch"
+    try:
+        return cuda_ms(fn, 5), "torch._grouped_mm"
+    except RuntimeError as e:  # optional yardstick: record why not
+        return None, f"torch._grouped_mm refused: {str(e)[:160]}"
 
 
 def compare(got, want, per_row: bool = False):
@@ -95,7 +142,14 @@ def compare(got, want, per_row: bool = False):
     return (float(err.max()), float(tol.min()), bool((err <= tol).all()))
 
 
-def check_gmm_kernels(torch, cfg, launches):
+def tile_ends(torch, tg, n_groups: int, block_m: int):
+    """int32 end row of each group in the packed layout (the offsets that
+    ``torch._grouped_mm`` takes): group g owns rows [ends[g-1], ends[g])."""
+    counts = torch.bincount(tg.long(), minlength=n_groups) * block_m
+    return torch.cumsum(counts, 0).to(torch.int32)
+
+
+def check_gmm_kernels(torch, cfg):
     """Fused GLU and down GEMM at the serve run's prefill-chunk shapes: a
     256-token chunk routed top-2 over the experts (M = 512 rows, padded to
     Mp = round_up(512, 128) + 24 * 128 = 3584)."""
@@ -132,8 +186,7 @@ def check_gmm_kernels(torch, cfg, launches):
         "name": "gmm_glu", "route": "cuda",
         "source": "src/repro_torch/csrc/gmm.cu",
         "replaces": "src/repro/kernels/gmm.py:222",
-        "launches": launches["gmm_glu"], "max_abs_err": err, "tol": tol,
-        "ok": ok,
+        "max_abs_err": err, "tol": tol, "ok": ok,
         "ms": cuda_ms(lambda: gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg,
                                                      block_m=block_m), 10),
         "plain_ms": cuda_ms(lambda: gmm.gmm_glu_plain(lhs, wg, wu, tg,
@@ -151,22 +204,14 @@ def check_gmm_kernels(torch, cfg, launches):
     t_bound, by = bound(2 * (M * f + used * f * d + M * d), 2 * M * f * d)
     # Yardstick only: PyTorch's grouped GEMM over the same packed groups
     # (group g owns rows [ends[g-1], ends[g]) of the padded layout).
-    ends = torch.cumsum(torch.bincount(tg.long(), minlength=E) * block_m,
-                        0).to(torch.int32)
-    lib_ms, lib_note = None, "torch._grouped_mm not in this torch"
-    if hasattr(torch, "_grouped_mm"):
-        try:
-            lib_ms = cuda_ms(lambda: torch._grouped_mm(lhs, wo, offs=ends),
-                             10)
-            lib_note = "torch._grouped_mm"
-        except RuntimeError as e:  # optional yardstick: record why not
-            lib_note = f"torch._grouped_mm refused: {str(e)[:160]}"
+    ends = tile_ends(torch, tg, E, block_m)
+    lib_ms, lib_note = grouped_mm_ms(
+        torch, lambda: torch._grouped_mm(lhs, wo, offs=ends))
     out.append({
-        "name": "gmm", "route": "cuda",
+        "name": "gmm:bf16.bf16->bf16", "route": "cuda",
         "source": "src/repro_torch/csrc/gmm.cu",
         "replaces": "src/repro/kernels/gmm.py:69",
-        "launches": launches["gmm"], "max_abs_err": err, "tol": tol,
-        "ok": ok,
+        "max_abs_err": err, "tol": tol, "ok": ok,
         "ms": cuda_ms(lambda: gmm.gmm_tiled(lhs, wo, tg, block_m=block_m),
                       10),
         "plain_ms": cuda_ms(lambda: gmm.gmm_tiled_plain(lhs, wo, tg,
@@ -178,7 +223,7 @@ def check_gmm_kernels(torch, cfg, launches):
     return out
 
 
-def check_paged_kernel(torch, cfg, launches):
+def check_paged_kernel(torch, cfg):
     """Paged decode at the serve run's decode shapes: 4 slots, 26 table
     slots of 16 lines (max_len 416), a 104-page pool."""
     from repro_torch.kernels import paged_attention as pa
@@ -207,8 +252,7 @@ def check_paged_kernel(torch, cfg, launches):
         "name": "paged_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:109",
-        "launches": launches["paged_decode"], "max_abs_err": err,
-        "tol": tol, "ok": ok,
+        "max_abs_err": err, "tol": tol, "ok": ok,
         "ms": cuda_ms(lambda: pa.paged_decode_forward(q, kp, vp, table,
                                                       q_pos, **kw), 50),
         "plain_ms": cuda_ms(lambda: pa.paged_decode_plain(q, kp, vp, table,
@@ -216,6 +260,173 @@ def check_paged_kernel(torch, cfg, launches):
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
         "shapes": {"q": list(q.shape), "pools": list(kp.shape),
                    "table": list(table.shape), "live_lines": lines}}]
+
+
+def train_routing(torch, cfg, gen, tokens: int, block_m: int = 128):
+    """Random top-2 routing of ``tokens`` tokens over the experts, as the
+    train run's: (sizes, dest, tile_group, Mp, M)."""
+    from repro_torch.kernels import ops
+    E = cfg.n_experts
+    logits = torch.randn((tokens, E), generator=gen, device="cuda")
+    idx = torch.topk(logits, cfg.top_k, dim=-1).indices.reshape(-1)
+    sizes = torch.bincount(idx, minlength=E).to(torch.int32)
+    M = int(sizes.sum())
+    dest, tg, mp = ops._pack_meta(sizes, M, E, block_m)
+    return sizes, dest, tg, mp, M
+
+
+def check_train_kernels(torch, cfg, train_tokens: int):
+    """The MoE FFN backward's grouped kernels at the train run's shapes:
+    2048 tokens routed top-2 over 12 experts (M = 4096 rows, padded to
+    Mp = 4096 + 12 * 128 = 5632), d 2048, f 7168; operand types as under
+    the bf16 policy (bf16 x_p and weights, f32 h_p and cotangents)."""
+    from repro_torch.kernels import gmm, ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    E, d, f, bm = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, 128
+    sizes, dest, tg, mp, M = train_routing(torch, cfg, gen, train_tokens)
+    used = int((sizes > 0).sum())
+    ends = tile_ends(torch, tg, E, bm)
+
+    def rows(k, dtype, scale=0.5):  # packed rows, pad rows zero
+        x = scale * torch.randn((M, k), generator=gen, device=dev)
+        return ops._scatter_rows(x.to(dtype), dest, mp)
+
+    def weights(k, n):
+        w = torch.randn((E, k, n), generator=gen, device=dev) / math.sqrt(k)
+        return w.to(torch.bfloat16)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    x_p, h_p, dout_p, dg_p = rows(d, bf), rows(f, f32), rows(d, f32), \
+        rows(f, f32)
+    wg, wo = weights(d, f), weights(f, d)
+    wo_t = wo.transpose(1, 2)
+    out = []
+
+    def entry(name, fn, plain, bytes_moved, flops, peak, lib, shapes):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err, tol, ok = compare_f32(got, want)
+        del got, want
+        t_bound, by = bound(bytes_moved, flops, peak)
+        lib_ms, lib_note = lib()
+        out.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/csrc/gmm_dw.cu"
+                       if name.startswith("gmm_dw")
+                       else "src/repro_torch/csrc/gmm.cu"),
+            "replaces": ("src/repro/kernels/gmm.py:300"
+                         if name.startswith("gmm_dw")
+                         else "src/repro/kernels/gmm.py:69"),
+            "max_abs_err": err, "tol": tol, "ok": ok,
+            "ms": cuda_ms(fn, 5), "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms,
+            "library": lib_note,
+            "shapes": dict(shapes, rows=M, padded_rows=mp,
+                           groups_used=used)})
+
+    kw = dict(block_m=bm, out_dtype=f32)
+    # g, u recompute: bf16 x bf16 -> f32 (bf16 operands: tensor-core peak)
+    entry("gmm:bf16.bf16->f32",
+          lambda: gmm.gmm_tiled(x_p, wg, tg, **kw),
+          lambda: gmm.gmm_tiled_plain(x_p, wg, tg, **kw),
+          2 * M * d + 2 * used * d * f + 4 * M * f, 2 * M * d * f,
+          BF16_FLOPS,
+          lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
+              x_p, wg, offs=ends, out_dtype=f32)),
+          {"lhs": list(x_p.shape), "w": list(wg.shape)})
+    # y = h @ wo on the unrounded f32 h: f32 x bf16 -> f32
+    entry("gmm:f32.bf16->f32",
+          lambda: gmm.gmm_tiled(h_p, wo, tg, **kw),
+          lambda: gmm.gmm_tiled_plain(h_p, wo, tg, **kw),
+          4 * M * f + 2 * used * f * d + 4 * M * d, 2 * M * f * d,
+          FP32_FLOPS,
+          lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
+              h_p, wo, offs=ends)),
+          {"lhs": list(h_p.shape), "w": list(wo.shape)})
+    # dh = dout @ wo^T, the transposed weight read by stride
+    entry("gmm:f32.bf16T->f32",
+          lambda: gmm.gmm_tiled(dout_p, wo_t, tg, **kw),
+          lambda: gmm.gmm_tiled_plain(dout_p, wo_t, tg, **kw),
+          4 * M * d + 2 * used * f * d + 4 * M * f, 2 * M * d * f,
+          FP32_FLOPS,
+          lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
+              dout_p, wo_t, offs=ends)),
+          {"lhs": list(dout_p.shape), "w": list(wo_t.shape),
+           "w_strides": list(wo_t.stride())})
+    # dwo from the f32 h and cotangent; dwg from the bf16 x and f32 dg
+    entry("gmm_dw:f32.f32->f32",
+          lambda: gmm.gmm_dw_tiled(h_p, dout_p, tg, E, block_m=bm),
+          lambda: gmm.gmm_dw_tiled_plain(h_p, dout_p, tg, E, block_m=bm),
+          4 * M * f + 4 * M * d + 4 * E * f * d, 2 * M * f * d,
+          FP32_FLOPS,
+          lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
+              h_p.t(), dout_p, offs=ends)),
+          {"lhs": list(h_p.shape), "dout": list(dout_p.shape),
+           "out": [E, f, d]})
+    entry("gmm_dw:bf16.f32->f32",
+          lambda: gmm.gmm_dw_tiled(x_p, dg_p, tg, E, block_m=bm),
+          lambda: gmm.gmm_dw_tiled_plain(x_p, dg_p, tg, E, block_m=bm),
+          2 * M * d + 4 * M * f + 4 * E * d * f, 2 * M * d * f,
+          FP32_FLOPS,
+          lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
+              x_p.t(), dg_p, offs=ends)),
+          {"lhs": list(x_p.shape), "dout": list(dg_p.shape),
+           "out": [E, d, f]})
+    return out
+
+
+def grad_phase(torch, cfg, train_tokens: int):
+    """The MoE FFN autograd Function (the grouped kernels and their
+    backward) against torch.autograd through the plain composition
+    scatter -> gmm_glu_plain -> gmm_tiled_plain -> gather x scales, at
+    one layer's train shapes in f32: all five gradients."""
+    from repro_torch.kernels import gmm, ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    E, d, f, bm = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, 128
+    sizes, dest, tg, mp, M = train_routing(torch, cfg, gen, train_tokens)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    inputs = [rand(M, d, scale=0.5), rand(E, d, f, scale=d ** -0.5),
+              rand(E, d, f, scale=d ** -0.5), rand(E, f, d, scale=f ** -0.5),
+              torch.rand((M,), generator=gen, device=dev)]
+    ct = rand(M, d)
+
+    def plain(x, wg, wu, wo, sc):
+        x_p = ops._scatter_rows(x, dest, mp)
+        h_p = gmm.gmm_glu_plain(x_p, wg, wu, tg, block_m=bm)
+        out_p = gmm.gmm_tiled_plain(h_p, wo, tg, block_m=bm)
+        return ops._gather_rows(out_p, dest) * sc[:, None]
+
+    def kernel(x, wg, wu, wo, sc):
+        return ops.moe_ffn(x, wg, wu, wo, sizes, row_scales=sc,
+                           block_m=bm, small_m=False)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in inputs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*ins)
+        out.backward(ct)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return [out.detach()] + [t.grad for t in ins], dt
+
+    got, t_kernel = grads(kernel)
+    want, t_plain = grads(plain)
+    names = ("out", "dx", "dwg", "dwu", "dwo", "dscales")
+    res = {}
+    for name, a, b in zip(names, got, want):
+        err, tol, ok = compare_f32(a, b)
+        res[name] = {"max_abs_err": err, "tol": tol, "ok": ok}
+    zero = [g for g, n in enumerate(sizes.tolist()) if n == 0]
+    return {"shapes": {"x": [M, d], "w": [E, d, f], "padded_rows": mp},
+            "groups_empty": zero, "results": res,
+            "fwd_bwd_s": t_kernel, "plain_fwd_bwd_s": t_plain,
+            "ok": all(r["ok"] for r in res.values())}
 
 
 def parity_f32(torch, serve_mod):
@@ -254,6 +465,51 @@ def parity_f32(torch, serve_mod):
             and engine.n_prefill_chunks >= 2}
 
 
+def train_phase(torch, train_mod, smi: str):
+    """The train main path: one untimed warm-up step on a model of its
+    own, then the driver's 6 steps with the launch counters reset just
+    before and read just after."""
+    from repro_torch import kernels
+    warm = train_mod.train_arch(
+        "mixtral-w1", train_mod.build_parser().parse_args(TRAIN_WARMUP_ARGS))
+    if not warm["ok"]:
+        raise RuntimeError("warm-up train step failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train warm-up: 1 step (untimed, not counted), loss "
+          f"{warm['history'][0]['loss']:.4f}", flush=True)
+
+    args = train_mod.build_parser().parse_args(TRAIN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    summary = train_mod.train_arch("mixtral-w1", args)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    variants = kernels.variant_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not summary["ok"]:
+        raise RuntimeError("train run: a loss or grad norm is not finite")
+    missing = [k for k in TRAIN_LAUNCHES if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the train path: "
+                           f"{missing} ({launches})")
+    from repro_torch.models import registry
+    layers = registry.get_config("mixtral-w1").n_layers
+    expected = {k: n * layers * args.steps for k, n in TRAIN_LAUNCHES.items()}
+    line = {
+        "arch": "mixtral-w1", "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi, "params": summary["params"],
+        "steps": args.steps, "batch": args.batch, "seq": args.seq,
+        "ms_per_step": summary["ms_per_step"],
+        "tokens_per_s": summary["tokens_per_s"],
+        "step_ms": [t * 1e3 for t in summary["step_s"]],
+        "loss": [m["loss"] for m in summary["history"]],
+        "grad_norm": [m["grad_norm"] for m in summary["history"]],
+        "max_memory_allocated": peak, "launches": launches,
+        "launches_expected": expected, "variant_launches": variants}
+    return line, {**launches, **variants}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -263,6 +519,7 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import registry
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32 here
@@ -288,28 +545,45 @@ def main() -> int:
           f"{warm['n_generated_tokens']} tokens (untimed, not counted)",
           flush=True)
 
-    # -- the main path: the port's serve driver at full width ---------------
+    # -- main path 1: the port's serve driver at full width -----------------
     args = serve_mod.build_parser().parse_args(SERVE_ARGS)
     kernels.reset_launch_counts()
     summary = serve_mod.serve_arch("mixtral-w2", args)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    serve_counts = {**launches, **kernels.variant_launch_counts()}
     if not summary["ok"]:
         raise RuntimeError("serve run failed its gate")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
-        raise RuntimeError(f"kernels never launched on the main path: "
+        raise RuntimeError(f"kernels never launched on the serve path: "
                            f"{missing} ({launches})")
     torch.cuda.empty_cache()
 
-    # -- each kernel against its plain version at the main path's shapes ----
+    # -- each serve kernel against its plain version at the serve shapes ---
     cfg = registry.get_config("mixtral-w2")
-    entries = check_gmm_kernels(torch, cfg, launches) \
-        + check_paged_kernel(torch, cfg, launches)
-    bad = [e["name"] for e in entries if not e["ok"]]
+    entries = check_gmm_kernels(torch, cfg) + check_paged_kernel(torch, cfg)
+    torch.cuda.empty_cache()
+    parity = parity_f32(torch, serve_mod)
+    gc.collect()
+    torch.cuda.empty_cache()  # the serve models are released here
+
+    # -- main path 2: the port's train driver at full width -----------------
+    train_line, train_counts = train_phase(torch, train_mod, smi)
+    gc.collect()
     torch.cuda.empty_cache()
 
-    parity = parity_f32(torch, serve_mod)
+    # -- the train path's kernels at the train shapes, and the gradients ----
+    w1 = registry.get_config("mixtral-w1")
+    tokens = train_line["batch"] * train_line["seq"]
+    entries += check_train_kernels(torch, w1, tokens)
+    torch.cuda.empty_cache()
+    grad = grad_phase(torch, w1, tokens)
+    for e in entries:  # launches: the sum over both main-path runs
+        e["launches_by_path"] = {"serve": serve_counts.get(e["name"], 0),
+                                 "train": train_counts.get(e["name"], 0)}
+        e["launches"] = sum(e["launches_by_path"].values())
+    bad = [e["name"] for e in entries if not e["ok"]]
 
     steps = summary["paged"]
     serve_line = {
@@ -328,7 +602,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": name, "nvidia_smi": smi, "build_s": build_s,
         "nvcc_reports": _build.build_logs(), "kernels": entries,
-        "serve": serve_line, "parity": parity}, indent=1))
+        "serve": serve_line, "parity": parity, "train": train_line,
+        "grad": grad}, indent=1))
 
     contract = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -339,6 +614,8 @@ def main() -> int:
                                   for e in entries]}), flush=True)
     print("serve: " + json.dumps(serve_line), flush=True)
     print("parity: " + json.dumps(parity), flush=True)
+    print("train: " + json.dumps(train_line), flush=True)
+    print("grad: " + json.dumps(grad), flush=True)
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions "
                            f"beyond their tolerance: {bad}")
@@ -346,6 +623,14 @@ def main() -> int:
         raise RuntimeError("paged engine logits disagree with the "
                            "cache-free forward under the f32 policy, or the "
                            "prompt did not span several chunks")
+    if train_line["launches_expected"] != {
+            k: train_line["launches"][k] for k in TRAIN_LAUNCHES}:
+        raise RuntimeError(f"train launches {train_line['launches']} differ "
+                           f"from the expected "
+                           f"{train_line['launches_expected']}")
+    if not grad["ok"]:
+        raise RuntimeError("MoE FFN gradients disagree with autograd through "
+                           "the plain composition beyond their tolerance")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,17 @@
 //
 // Layout contract (the packed domain of ops.moe_ffn): lhs [Mp, K] row-major,
 // rows sorted by group and every group starting on a block_m boundary;
-// W [G, K, ldw] row-major per group; tile_group [Mp / block_m] int32.
+// tile_group [Mp / block_m] int32. The weight element (k, n) of group g is
+// read at W + g * gstride + k * ldw + n, or, for a transposed operand
+// (TRANS_B: the backward's swapaxes(W, 1, 2), read by stride instead of
+// copied), at W + g * gstride + n * ldw + k.
+//
+// Types. lhs, rhs and out each have their own type: the forward runs
+// bf16 x bf16 -> bf16 (f32 x f32 -> f32 under the f32 policy); the MoE
+// backward (ops.py:414-437) runs bf16 x bf16 -> f32 (recompute of g and
+// u), f32 x bf16 -> f32 (y = h @ wo on the unrounded f32 h) and
+// f32 x bf16^T -> f32 / f32 x f32^T -> f32 (data gradients against the
+// transposed weights). Only those combinations are exported below.
 //
 // Design. One CUDA block per (64-row m-tile, 64-column n-tile). The block
 // reads tile_group itself and selects its group's weight pointer (the TPU
@@ -19,14 +29,20 @@
 // gate and an up micro-tile that share every lhs tile), and the silu*mul
 // epilogue runs on the f32 sums before the single store. Ragged K/N edges
 // are masked in the loads, so the wrapper pads nothing. Operands are
-// widened to f32 in shared memory and multiplied with FMA, in bf16 and f32
-// alike: the simple first version, with no tensor cores.
+// widened to f32 in shared memory (exact for bf16) and multiplied with
+// FMA: the simple first version, with no tensor cores. A transposed
+// operand is loaded k-fastest, so neighbouring threads still read
+// neighbouring addresses, into a shared tile padded by one column so the
+// k-fastest stores hit distinct banks.
 //
 // Bound on the card: at the serving shapes (K = 2048, N = 7168, 24 experts,
 // a few hundred routed rows) the needed work is a weight stream, ~1.4 GB
-// per GLU call, so the floor is bytes / 3.35 TB/s. This kernel instead
-// runs every padded row on the FP32 pipe, so it sits far above that floor;
-// tensor-core MMA (wgmma) with TMA-fed stages is the later fix.
+// per GLU call, so the floor is bytes / 3.35 TB/s. At the training shapes
+// (4096 routed rows over 12 experts) every call is bound by operations:
+// bf16 operands by the tensor-core peak, f32 operands by the FP32 pipe.
+// This kernel runs every padded row on the FP32 pipe, so it sits far above
+// either floor; tensor-core MMA (wgmma) with TMA-fed stages is the later
+// fix.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -52,24 +68,25 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, bool GLU>
+template <typename TA, typename TB, typename TO, bool GLU, bool TRANS_B>
 __global__ void __launch_bounds__(THREADS)
-gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ w_gate,
-           const T* __restrict__ w_up, const int* __restrict__ tile_group,
-           T* __restrict__ out, int K, int N, int ldw, int u_off,
+gmm_kernel(const TA* __restrict__ lhs, const TB* __restrict__ w_gate,
+           const TB* __restrict__ w_up, const int* __restrict__ tile_group,
+           TO* __restrict__ out, int K, int N, int ldw, int u_off,
            int block_m) {
+  constexpr int BNP = TRANS_B ? BN + 1 : BN;
   __shared__ float As[BK][BM];
-  __shared__ float Bg[BK][BN];
-  __shared__ float Bu[GLU ? BK : 1][GLU ? BN : 1];
+  __shared__ float Bg[BK][BNP];
+  __shared__ float Bu[GLU ? BK : 1][GLU ? BNP : 1];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int g = tile_group[m0 / block_m];
-  const size_t wstride = (size_t)K * ldw;
-  const T* wg = w_gate + g * wstride;
-  const T* wu = GLU ? w_up + g * wstride + u_off : nullptr;
+  const size_t gstride = (size_t)(TRANS_B ? N : K) * ldw;
+  const TB* wg = w_gate + g * gstride;
+  const TB* wu = GLU ? w_up + g * gstride + u_off : nullptr;
 
   float acc_g[4][4] = {};
   float acc_u[GLU ? 4 : 1][GLU ? 4 : 1] = {};
@@ -85,11 +102,15 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ w_gate,
 #pragma unroll
     for (int i = 0; i < (BK * BN) / THREADS; ++i) {
       int idx = tid + i * THREADS;
-      int r = idx / BN, c = idx % BN;
+      // k-fastest for a transposed operand, n-fastest otherwise: either way
+      // neighbouring threads read neighbouring addresses.
+      int r = TRANS_B ? idx % BK : idx / BN;
+      int c = TRANS_B ? idx / BK : idx % BN;
       int k = k0 + r, n = n0 + c;
       bool in = k < K && n < N;
-      Bg[r][c] = in ? to_f32(wg[(size_t)k * ldw + n]) : 0.f;
-      if constexpr (GLU) Bu[r][c] = in ? to_f32(wu[(size_t)k * ldw + n]) : 0.f;
+      size_t at = TRANS_B ? (size_t)n * ldw + k : (size_t)k * ldw + n;
+      Bg[r][c] = in ? to_f32(wg[at]) : 0.f;
+      if constexpr (GLU) Bu[r][c] = in ? to_f32(wu[at]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -125,19 +146,20 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ w_gate,
         float gate = v;
         v = gate * (1.f / (1.f + expf(-gate))) * acc_u[i][j];
       }
-      out[(size_t)m * N + n] = from_f32<T>(v);
+      out[(size_t)m * N + n] = from_f32<TO>(v);
     }
   }
 }
 
-template <typename T, bool GLU>
+template <typename TA, typename TB, typename TO, bool GLU, bool TRANS_B>
 int launch(const void* lhs, const void* w_gate, const void* w_up,
            const void* tile_group, void* out, int Mp, int K, int N, int ldw,
            int u_off, int block_m, void* stream) {
   dim3 grid((N + BN - 1) / BN, Mp / BM);
-  gmm_kernel<T, GLU><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)lhs, (const T*)w_gate, (const T*)w_up,
-      (const int*)tile_group, (T*)out, K, N, ldw, u_off, block_m);
+  gmm_kernel<TA, TB, TO, GLU, TRANS_B>
+      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          (const TA*)lhs, (const TB*)w_gate, (const TB*)w_up,
+          (const int*)tile_group, (TO*)out, K, N, ldw, u_off, block_m);
   return (int)cudaGetLastError();
 }
 
@@ -148,32 +170,40 @@ extern "C" {
 // Rows per CUDA block; the wrapper requires block_m % gmm_block_rows() == 0.
 int gmm_block_rows() { return BM; }
 
-int gmm_bf16(const void* lhs, const void* rhs, const void* tile_group,
-             void* out, int Mp, int K, int N, int ldw, int block_m,
-             void* stream) {
-  return launch<__nv_bfloat16, false>(lhs, rhs, nullptr, tile_group, out, Mp,
-                                      K, N, ldw, 0, block_m, stream);
-}
+// gmm_<lhs>_<rhs>_<out>: out = lhs @ rhs[g], rhs row-major [G, K, ldw].
+// gmm_t_<lhs>_<rhs>_<out>: the same with rhs[g] = W[g]^T, W row-major
+// [G, N, ldw] (ldw >= K), read by stride.
+#define GMM_ENTRY(NAME, TA, TB, TO, TRANS)                                  \
+  int NAME(const void* lhs, const void* rhs, const void* tile_group,       \
+           void* out, int Mp, int K, int N, int ldw, int block_m,          \
+           void* stream) {                                                  \
+    return launch<TA, TB, TO, false, TRANS>(lhs, rhs, nullptr, tile_group, \
+                                            out, Mp, K, N, ldw, 0, block_m, \
+                                            stream);                        \
+  }
 
-int gmm_f32(const void* lhs, const void* rhs, const void* tile_group,
-            void* out, int Mp, int K, int N, int ldw, int block_m,
-            void* stream) {
-  return launch<float, false>(lhs, rhs, nullptr, tile_group, out, Mp, K, N,
-                              ldw, 0, block_m, stream);
-}
+using bf16 = __nv_bfloat16;
+GMM_ENTRY(gmm_bf16_bf16_bf16, bf16, bf16, bf16, false)
+GMM_ENTRY(gmm_f32_f32_f32, float, float, float, false)
+GMM_ENTRY(gmm_bf16_bf16_f32, bf16, bf16, float, false)
+GMM_ENTRY(gmm_f32_bf16_f32, float, bf16, float, false)
+GMM_ENTRY(gmm_t_f32_bf16_f32, float, bf16, float, true)
+GMM_ENTRY(gmm_t_f32_f32_f32, float, float, float, true)
 
 int gmm_glu_bf16(const void* lhs, const void* w_gate, const void* w_up,
                  const void* tile_group, void* out, int Mp, int K, int N,
                  int ldw, int u_off, int block_m, void* stream) {
-  return launch<__nv_bfloat16, true>(lhs, w_gate, w_up, tile_group, out, Mp,
-                                     K, N, ldw, u_off, block_m, stream);
+  return launch<bf16, bf16, bf16, true, false>(
+      lhs, w_gate, w_up, tile_group, out, Mp, K, N, ldw, u_off, block_m,
+      stream);
 }
 
 int gmm_glu_f32(const void* lhs, const void* w_gate, const void* w_up,
                 const void* tile_group, void* out, int Mp, int K, int N,
                 int ldw, int u_off, int block_m, void* stream) {
-  return launch<float, true>(lhs, w_gate, w_up, tile_group, out, Mp, K, N,
-                             ldw, u_off, block_m, stream);
+  return launch<float, float, float, true, false>(
+      lhs, w_gate, w_up, tile_group, out, Mp, K, N, ldw, u_off, block_m,
+      stream);
 }
 
 }  // extern "C"

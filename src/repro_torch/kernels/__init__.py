@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels (grouped expert GEMMs, paged decode attention).
+"""Hand-written CUDA kernels (grouped expert GEMMs and their weight
+gradient, paged decode attention).
 
 Each kernel has a plain-torch version beside its wrapper, taken for CPU
 tensors; :mod:`repro_torch.kernels.ref` holds the oracles and
@@ -14,10 +15,18 @@ def launch_counts() -> dict:
     return {**gmm.LAUNCHES, **paged_attention.LAUNCHES}
 
 
+def variant_launch_counts() -> dict:
+    """The grouped GEMM launches of :func:`launch_counts` split by operand
+    types (``"gmm:f32.bf16T->f32"``, ``"gmm_dw:bf16.f32->f32"``, ...)."""
+    return dict(gmm.VARIANT_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     for counts in (gmm.LAUNCHES, paged_attention.LAUNCHES):
         for name in counts:
             counts[name] = 0
+    gmm._reset_variants()
 
 
-__all__ = ["ops", "ref", "launch_counts", "reset_launch_counts"]
+__all__ = ["ops", "ref", "launch_counts", "reset_launch_counts",
+           "variant_launch_counts"]

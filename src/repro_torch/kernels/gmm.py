@@ -5,12 +5,16 @@ The packed-domain contract is the JAX package's (DESIGN.md §5): the caller
 repacks expert-sorted rows so every group starts on a ``block_m`` boundary,
 ``tile_group[i]`` names the group of m-tile ``i``, and pad rows are zero.
 Each public function launches the hand-written CUDA kernel of
-``csrc/gmm.cu`` for a CUDA tensor and runs its plain version (the
-``*_plain`` function beside it) for a CPU tensor; on any other device, or
-when a build or launch fails, it raises. Output dtype = lhs dtype.
+``csrc/gmm.cu`` (``csrc/gmm_dw.cu`` for the weight gradient) for a CUDA
+tensor and runs its plain version (the ``*_plain`` function beside it) for
+a CPU tensor; on any other device, or when a build or launch fails, it
+raises. Output dtype = ``out_dtype`` or the lhs dtype, as in the JAX
+package.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain ints), so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; ``VARIANT_LAUNCHES``
+splits the same launches by operand types (``"f32.bf16T->f32"``: f32 lhs,
+transposed bf16 rhs, f32 out).
 """
 
 from __future__ import annotations
@@ -22,25 +26,71 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"gmm_glu": 0, "gmm": 0}
+LAUNCHES = {"gmm_glu": 0, "gmm": 0, "gmm_dw": 0}
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# (lhs, rhs, out, rhs transposed) combinations of gmm_tiled with a kernel:
+# the forward, and the MoE FFN backward's uses (ops.py:414-437).
+_GMM_VARIANTS = (("bf16", "bf16", "bf16", False), ("f32", "f32", "f32", False),
+                 ("bf16", "bf16", "f32", False), ("f32", "bf16", "f32", False),
+                 ("f32", "bf16", "f32", True), ("f32", "f32", "f32", True))
+VARIANT_LAUNCHES = {}
+
+
+def variant_name(lhs: str, rhs: str, out: str, trans: bool) -> str:
+    return f"{lhs}.{rhs}{'T' if trans else ''}->{out}"
+
+
+def _reset_variants():
+    VARIANT_LAUNCHES.clear()
+    VARIANT_LAUNCHES.update({f"gmm:{variant_name(*v)}": 0
+                             for v in _GMM_VARIANTS})
+    VARIANT_LAUNCHES.update({f"gmm_dw:{dt}.f32->f32": 0
+                             for dt in _DTYPES.values()})
+
+
+_reset_variants()
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for dt in _DTYPES.values():
-        fn = getattr(lib, f"gmm_{dt}")
+    for a, b, o, t in _GMM_VARIANTS:
+        fn = getattr(lib, f"gmm_{'t_' if t else ''}{a}_{b}_{o}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
+    for dt in _DTYPES.values():
         fn = getattr(lib, f"gmm_glu_{dt}")
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
     lib.gmm_block_rows.argtypes = []
     lib.gmm_block_rows.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_lib() -> ctypes.CDLL:
+    lib = _build.load("gmm_dw")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for dt in _DTYPES.values():
+        fn = getattr(lib, f"gmm_dw_{dt}")
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+    lib.gmm_dw_block_rows.argtypes = []
+    lib.gmm_dw_block_rows.restype = i
+    return lib
+
+
+def _check_tiles(Mp: int, tile_group, block_m: int, rows: int):
+    if tile_group.dtype != torch.int32:
+        raise TypeError("tile_group must be int32")
+    if Mp % block_m or tile_group.numel() != Mp // block_m:
+        raise ValueError(f"Mp={Mp} is not {tile_group.numel()} tiles of "
+                         f"block_m={block_m}")
+    if block_m % rows:
+        raise ValueError(f"block_m={block_m} must be a multiple of the "
+                         f"kernel's {rows}-row tile")
 
 
 def _check(lhs, weights, tile_group, block_m: int):
@@ -51,15 +101,7 @@ def _check(lhs, weights, tile_group, block_m: int):
         if w.dtype != lhs.dtype or w.dim() != 3 or w.shape[1] != K:
             raise ValueError(f"weights {tuple(w.shape)} {w.dtype} do not "
                              f"match lhs {tuple(lhs.shape)} {lhs.dtype}")
-    if tile_group.dtype != torch.int32:
-        raise TypeError("tile_group must be int32")
-    if Mp % block_m or tile_group.numel() != Mp // block_m:
-        raise ValueError(f"Mp={Mp} is not {tile_group.numel()} tiles of "
-                         f"block_m={block_m}")
-    rows = _lib().gmm_block_rows()
-    if block_m % rows:
-        raise ValueError(f"block_m={block_m} must be a multiple of the "
-                         f"kernel's {rows}-row tile")
+    _check_tiles(Mp, tile_group, block_m, _lib().gmm_block_rows())
     for t in (lhs, *weights, tile_group):
         if not t.is_contiguous():
             raise ValueError("gmm kernels take contiguous tensors")
@@ -74,35 +116,129 @@ def _raise_on(err: int, name: str):
 # gmm_tiled
 # ---------------------------------------------------------------------------
 
-def gmm_tiled_plain(lhs, rhs, tile_group, *, block_m: int = 128):
+def gmm_tiled_plain(lhs, rhs, tile_group, *, block_m: int = 128,
+                    out_dtype=None):
     """Plain version of :func:`gmm_tiled` (the JAX package's
     ``ops._tiles_gemm_xla``): a batched matmul over m-tiles with the
-    per-tile weight selected by ``tile_group``, in f32, rounded once."""
+    per-tile weight selected by ``tile_group``, in f32, rounded once to
+    ``out_dtype`` (default: the lhs dtype). ``rhs`` may be a strided view
+    (a transposed weight)."""
     Mp, K = lhs.shape
     n_m = Mp // block_m
     lt = lhs.reshape(n_m, block_m, K).float()
     rt = rhs[tile_group.long()].float()
-    return torch.bmm(lt, rt).reshape(Mp, rhs.shape[-1]).to(lhs.dtype)
+    out = torch.bmm(lt, rt).reshape(Mp, rhs.shape[-1])
+    return out.to(out_dtype or lhs.dtype)
 
 
-def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128):
+def _rhs_layout(rhs, K: int):
+    """(transposed, ldw) of a [G, K, N] weight operand: row-major, or a
+    transposed view of a row-major [G, N, K] tensor (``swapaxes(W, 1, 2)``,
+    read by stride). Raises for any other layout."""
+    G, _, N = rhs.shape
+    if rhs.is_contiguous():
+        return False, N
+    if rhs.stride() == (N * K, 1, K):
+        return True, K
+    raise ValueError(f"gmm rhs must be row-major or a transposed row-major "
+                     f"weight, got strides {rhs.stride()}")
+
+
+def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     """Dense tiled grouped matmul over tile-aligned groups.
 
-    lhs: [Mp, K]; rhs: [G, K, N]; tile_group: [Mp // block_m] int32.
-    Returns [Mp, N] with out[tile] = lhs[tile] @ rhs[tile_group[tile]]."""
+    lhs: [Mp, K]; rhs: [G, K, N], row-major or a transposed view of a
+    row-major [G, N, K] weight (the backward's ``swapaxes(W, 1, 2)``; read
+    by stride, widened in the kernel, never copied); tile_group:
+    [Mp // block_m] int32. Returns [Mp, N] in ``out_dtype`` (default: the
+    lhs dtype) with out[tile] = lhs[tile] @ rhs[tile_group[tile]], f32
+    sums rounded once. Kernels exist for the (lhs, rhs, out) types of
+    ``_GMM_VARIANTS``."""
     if _build.on_cpu(lhs, rhs, tile_group):
-        return gmm_tiled_plain(lhs, rhs, tile_group, block_m=block_m)
-    _check(lhs, (rhs,), tile_group, block_m)
+        return gmm_tiled_plain(lhs, rhs, tile_group, block_m=block_m,
+                               out_dtype=out_dtype)
+    out_dtype = out_dtype or lhs.dtype
     Mp, K = lhs.shape
+    if rhs.dim() != 3 or rhs.shape[1] != K:
+        raise ValueError(f"rhs {tuple(rhs.shape)} does not match lhs "
+                         f"{tuple(lhs.shape)}")
+    names = [_DTYPES.get(t) for t in (lhs.dtype, rhs.dtype, out_dtype)]
+    trans, ldw = _rhs_layout(rhs, K)
+    variant = (*names, trans)
+    if variant not in _GMM_VARIANTS:
+        raise TypeError(f"no gmm kernel for {lhs.dtype} x {rhs.dtype}"
+                        f"{' (transposed)' if trans else ''} -> {out_dtype}")
+    if not (lhs.is_contiguous() and tile_group.is_contiguous()):
+        raise ValueError("gmm kernels take a contiguous lhs and tile_group")
+    _check_tiles(Mp, tile_group, block_m, _lib().gmm_block_rows())
     N = rhs.shape[-1]
-    out = torch.empty((Mp, N), dtype=lhs.dtype, device=lhs.device)
-    fn = getattr(_lib(), f"gmm_{_DTYPES[lhs.dtype]}")
+    out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
+    a, b, o, t = variant
+    fn = getattr(_lib(), f"gmm_{'t_' if t else ''}{a}_{b}_{o}")
     err = fn(lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
-             out.data_ptr(), Mp, K, N, N, block_m,
+             out.data_ptr(), Mp, K, N, ldw, block_m,
              torch.cuda.current_stream(lhs.device).cuda_stream)
     _raise_on(err, "gmm")
     LAUNCHES["gmm"] += 1
+    VARIANT_LAUNCHES[f"gmm:{variant_name(*variant)}"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# gmm_dw_tiled (weight gradient)
+# ---------------------------------------------------------------------------
+
+def gmm_dw_tiled_plain(lhs, dout, tile_group, n_groups: int, *,
+                       block_m: int = 128, out_dtype=torch.float32):
+    """Plain version of :func:`gmm_dw_tiled` (the JAX package's
+    ``ops._tiles_dw_xla``): per-tile ``lhs_t^T @ dout_t`` in f32, summed
+    per group (a segment sum over ``tile_group``). Groups with no tile are
+    exact zeros."""
+    Mp, K = lhs.shape
+    N = dout.shape[1]
+    n_m = Mp // block_m
+    lt = lhs.reshape(n_m, block_m, K).float()
+    dt = dout.reshape(n_m, block_m, N).float()
+    per_tile = torch.bmm(lt.transpose(1, 2), dt)
+    out = torch.zeros((n_groups, K, N), dtype=torch.float32,
+                      device=lhs.device)
+    out.index_add_(0, tile_group.long(), per_tile)
+    return out.to(out_dtype)
+
+
+def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
+                 out_dtype=torch.float32):
+    """Gradient with respect to the grouped weight: [G, K, N] with
+    drhs[g] = sum over g's m-tiles t of lhs_t^T @ dout_t (f32 sums, rounded
+    once to ``out_dtype``), from tile-aligned lhs [Mp, K] (bf16 or f32;
+    bf16 is widened exactly, as the reference's ``astype(f32)``) and dout
+    [Mp, N] f32. A group that owns no tile gets exact zeros."""
+    if _build.on_cpu(lhs, dout, tile_group):
+        return gmm_dw_tiled_plain(lhs, dout, tile_group, n_groups,
+                                  block_m=block_m, out_dtype=out_dtype)
+    Mp, K = lhs.shape
+    N = dout.shape[1]
+    if lhs.dtype not in _DTYPES or dout.dtype != torch.float32:
+        raise TypeError(f"gmm_dw takes a bf16 or f32 lhs and an f32 dout, "
+                        f"got {lhs.dtype} and {dout.dtype}")
+    if dout.shape[0] != Mp:
+        raise ValueError(f"dout {tuple(dout.shape)} does not match lhs "
+                         f"{tuple(lhs.shape)}")
+    _check_tiles(Mp, tile_group, block_m, _dw_lib().gmm_dw_block_rows())
+    for t in (lhs, dout, tile_group):
+        if not t.is_contiguous():
+            raise ValueError("gmm_dw takes contiguous tensors")
+    out = torch.empty((n_groups, K, N), dtype=torch.float32,
+                      device=lhs.device)
+    dt = _DTYPES[lhs.dtype]
+    err = getattr(_dw_lib(), f"gmm_dw_{dt}")(
+        lhs.data_ptr(), dout.data_ptr(), tile_group.data_ptr(),
+        out.data_ptr(), n_groups, K, N, Mp // block_m, block_m,
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    _raise_on(err, "gmm_dw")
+    LAUNCHES["gmm_dw"] += 1
+    VARIANT_LAUNCHES[f"gmm_dw:{dt}.f32->f32"] += 1
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

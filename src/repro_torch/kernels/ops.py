@@ -1,14 +1,17 @@
-"""Wrappers around the kernels, forward subset (mirror of
-``repro/kernels/ops.py``): pack metadata and row scatter/gather of the
-packed expert domain, the single-pack MoE expert FFN with its small-M
-group-dense route, and paged decode attention.
+"""Wrappers around the kernels (mirror of ``repro/kernels/ops.py``): pack
+metadata and row scatter/gather of the packed expert domain, the
+single-pack MoE expert FFN with its small-M group-dense route, and paged
+decode attention.
 
 Routing decisions are the JAX package's, so both packages compute the same
 things: the small-M crossover (``M * (G - 1) <= G * block_m``), the padded
 size ``Mp = round_up(M, block_m) + G * block_m`` and the clipping of
 trailing tiles to group G - 1. The kernel wrappers choose kernel or plain
 version by the device of their tensors, so there is no ``use_kernel``
-switch. Forward only: serving needs no gradients.
+switch. The packed route's gradient is one ``torch.autograd.Function``
+(the JAX package's ``_make_moe_ffn`` custom_vjp) whose backward runs the
+grouped GEMM and weight-gradient kernels; the group-dense route is
+differentiated by autograd, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -121,20 +124,48 @@ def _gather_rows(packed, dest):
     return packed[dest]
 
 
+class _GroupProductsF32(torch.autograd.Function):
+    """Unrounded f32 products of low-precision operands, with their
+    gradient. On the card the GEMM writes f32 straight from bf16 operands
+    (``torch.bmm(..., out_dtype=float32)``, which autograd cannot
+    differentiate); on the CPU the operands are widened first, which gives
+    the same exact products. The backward is the same f32 products of the
+    cotangent with the widened other operand, rounded once to each
+    input's dtype (the JAX package's transpose of a dot with
+    ``preferred_element_type=float32``)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        a3 = a.expand(w.shape[0], *a.shape) if a.dim() == 2 else a
+        if a.is_cuda:
+            return torch.bmm(a3, w, out_dtype=torch.float32)
+        return torch.bmm(a3.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, w = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(dy, w.float().transpose(1, 2))
+            if a.dim() == 2:
+                da = da.sum(0)
+            da = da.to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            a3 = a.expand(w.shape[0], *a.shape) if a.dim() == 2 else a
+            db = torch.bmm(a3.float().transpose(1, 2), dy).to(w.dtype)
+        return da, db
+
+
 def _group_products_f32(a, w):
     """Unrounded f32 products of ``a`` ([M, K], shared by every group, or
     [G, M, K]) with each group's ``w`` [G, K, N] -> [G, M, N] — the JAX
-    package's ``preferred_element_type=float32``. On the card a bf16
-    product is written in f32 straight from the GEMM (``out_dtype``),
-    reading the weights as they lie; on the CPU the operands are widened
-    first, which gives the same exact products and f32 sums."""
-    if a.dim() == 2:
-        a = a.expand(w.shape[0], *a.shape)
-    if a.dtype == torch.float32:
+    package's ``preferred_element_type=float32``, differentiable."""
+    if a.dtype == torch.float32 and w.dtype == torch.float32:
+        if a.dim() == 2:
+            a = a.expand(w.shape[0], *a.shape)
         return torch.bmm(a, w)
-    if a.is_cuda:
-        return torch.bmm(a, w, out_dtype=torch.float32)
-    return torch.bmm(a.float(), w.float())
+    return _GroupProductsF32.apply(a, w)
 
 
 def moe_ffn_group_dense(x_sorted, wi_gate, wi_up, wo, group_sizes, *,
@@ -159,6 +190,85 @@ def moe_ffn_group_dense(x_sorted, wi_gate, wi_up, wo, group_sizes, *,
     return y.to(x_sorted.dtype)
 
 
+class _MoEFFN(torch.autograd.Function):
+    """The packed route of :func:`moe_ffn` with its gradient (the JAX
+    package's ``_make_moe_ffn`` custom_vjp, ops.py:341-444, pack=True).
+
+    Saves the inputs only; the backward rebuilds the pack metadata and
+    recomputes the packed activations (stage-granular remat), in the
+    reference's order: g and u in f32, the row-scale gradient from one
+    extra grouped GEMM on the unrounded f32 h (scaled variant only), dwo,
+    dh, dg/du through silu', dwg, dwu, dx. Data gradients multiply by the
+    transposed weights read by stride (never copied); weight gradients come
+    from the ``gmm_dw`` kernel. Gradients come back in each input's dtype,
+    so under the bf16 policy the weight gradients are rounded to bf16 as
+    in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, wi_gate, wi_up, wo, scales, group_sizes,
+                block_m: int):
+        M, G = x.shape[0], wi_gate.shape[0]
+        dest, tile_group, mp = _pack_meta(group_sizes, M, G, block_m)
+        ctx.block_m = block_m
+        ctx.save_for_backward(x, wi_gate, wi_up, wo, scales, group_sizes)
+        x_p = _scatter_rows(x, dest, mp)
+        h_p = gmm_kernel.gmm_glu_tiled_pair(x_p, wi_gate, wi_up, tile_group,
+                                            block_m=block_m)
+        out_p = gmm_kernel.gmm_tiled(h_p, wo, tile_group, block_m=block_m)
+        out = _gather_rows(out_p, dest)
+        if scales is not None:
+            out = out * scales.to(out.dtype)[:, None]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, wi_gate, wi_up, wo, scales, group_sizes = ctx.saved_tensors
+        bm = ctx.block_m
+        M, G = x.shape[0], wi_gate.shape[0]
+        f32 = torch.float32
+        dest, tg, mp = _pack_meta(group_sizes, M, G, bm)
+
+        def gemm(lhs, rhs):
+            return gmm_kernel.gmm_tiled(lhs, rhs, tg, block_m=bm,
+                                        out_dtype=f32)
+
+        def dw(lhs, d, dtype):
+            return gmm_kernel.gmm_dw_tiled(lhs, d, tg, G, block_m=bm,
+                                           out_dtype=dtype)
+
+        dout_f = dout.to(f32)
+        d_rows = dout_f * scales.to(f32)[:, None] if scales is not None \
+            else dout_f
+        x_p = _scatter_rows(x, dest, mp)
+        dout_p = _scatter_rows(d_rows, dest, mp)
+        # Recompute the pre-activations (f32) in the packed domain.
+        g_p = gemm(x_p, wi_gate)
+        u_p = gemm(x_p, wi_up)
+        sg = torch.sigmoid(g_p)
+        act = g_p * sg  # silu(g)
+        h_p = act * u_p
+        dscales = None
+        if scales is not None:
+            # d(scale_r) = dout_r . y_r needs the unscaled output rows:
+            # one extra grouped GEMM (nothing was stored).
+            y_rows = _gather_rows(gemm(h_p, wo), dest)
+            dscales = (dout_f * y_rows).sum(-1).to(scales.dtype)
+            del y_rows
+        dwo = dw(h_p, dout_p, wo.dtype)
+        del h_p
+        dh_p = gemm(dout_p, wo.transpose(1, 2))
+        del dout_p
+        dg_p = dh_p * u_p * (sg * (1.0 + g_p * (1.0 - sg)))  # silu'
+        du_p = dh_p * act
+        del dh_p, g_p, u_p, sg, act
+        dwg = dw(x_p, dg_p, wi_gate.dtype)
+        dwu = dw(x_p, du_p, wi_up.dtype)
+        dx_p = gemm(dg_p, wi_gate.transpose(1, 2)) \
+            + gemm(du_p, wi_up.transpose(1, 2))
+        dx = _gather_rows(dx_p, dest).to(x.dtype)
+        return dx, dwg, dwu, dwo, dscales, None, None
+
+
 def moe_ffn(x_sorted, wi_gate, wi_up, wo, group_sizes, *, row_scales=None,
             block_m: int = 128, small_m: bool | None = None):
     """Whole GLU expert FFN over expert-sorted rows, packed once.
@@ -172,7 +282,8 @@ def moe_ffn(x_sorted, wi_gate, wi_up, wo, group_sizes, *, row_scales=None,
     small_m: True forces / False forbids the group-dense route; None picks
     it when M * (G - 1) <= G * block_m. Otherwise: one pack scatter, the
     fused gate+up GLU kernel and the down-projection kernel in the packed
-    domain, one unpack gather."""
+    domain, one unpack gather, with the recomputing backward of
+    :class:`_MoEFFN`."""
     M = x_sorted.shape[0]
     G = wi_gate.shape[0]
     if small_m is None:
@@ -180,12 +291,5 @@ def moe_ffn(x_sorted, wi_gate, wi_up, wo, group_sizes, *, row_scales=None,
     if small_m:
         return moe_ffn_group_dense(x_sorted, wi_gate, wi_up, wo, group_sizes,
                                    row_scales=row_scales)
-    dest, tile_group, mp = _pack_meta(group_sizes, M, G, block_m)
-    x_p = _scatter_rows(x_sorted, dest, mp)
-    h_p = gmm_kernel.gmm_glu_tiled_pair(x_p, wi_gate, wi_up, tile_group,
-                                        block_m=block_m)
-    out_p = gmm_kernel.gmm_tiled(h_p, wo, tile_group, block_m=block_m)
-    out = _gather_rows(out_p, dest)
-    if row_scales is not None:
-        out = out * row_scales.to(out.dtype)[:, None]
-    return out
+    return _MoEFFN.apply(x_sorted, wi_gate, wi_up, wo, row_scales,
+                         group_sizes, block_m)

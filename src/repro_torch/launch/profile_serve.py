@@ -37,10 +37,11 @@ from repro_torch.models.modules import Policy, RunConfig
 from repro_torch.serve import ServeConfig, build_deployment
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("gmm_glu (port)", ("gmm_kernel<__nv_bfloat16, true>",
-                        "gmm_kernel<float, true>")),
-    ("gmm (port)", ("gmm_kernel<__nv_bfloat16, false>",
-                    "gmm_kernel<float, false>")),
+    ("gmm_glu (port)", (  # gmm_kernel<TA, TB, TO, GLU, TRANS_B>
+        "gmm_kernel<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true",
+        "gmm_kernel<float, float, float, true")),
+    ("gmm (port)", ("gmm_kernel<",)),
+    ("gmm_dw (port)", ("gmm_dw_kernel",)),
     ("paged_decode (port)", ("paged_decode_kernel",)),
     ("library gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "gemv",
                       "nvjet")),
@@ -109,28 +110,36 @@ def profile(args) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
+    return {"arch": cfg.name, **report(prof, wall_us, PHASES)}
+
+
+def report(prof, wall_us: float, phase_names) -> dict:
+    """The profile ``prof`` of a host window of ``wall_us``: the device's
+    busy and idle share, device time by kernel family, the top kernels,
+    and per phase (a ``record_function`` span that ends in a device
+    synchronize, so its kernels run within it) the calls, host time and
+    device time of its kernels."""
     kernels, spans = [], []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            if e.name not in PHASES:  # skip the annotations' device spans
+            if e.name not in phase_names:  # the annotations' device spans
                 kernels.append(e)
-        elif e.name in PHASES:
+        elif e.name in phase_names:
             spans.append((e.time_range.start, e.time_range.end, e.name))
     spans.sort()
     phases = {n: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0}
-              for n in PHASES}
+              for n in phase_names}
     for a, b, n in spans:
         phases[n]["calls"] += 1
         phases[n]["host_ms"] += (b - a) / 1e3
     by_family, by_name = {}, {}
     for k in kernels:
         a, b = k.time_range.start, k.time_range.end
-        fam = by_family.setdefault(family(k.name), {"ms": 0.0, "n": 0})
-        fam["ms"] += (b - a) / 1e3
-        fam["n"] += 1
-        name = by_name.setdefault(k.name[:120], {"ms": 0.0, "n": 0})
-        name["ms"] += (b - a) / 1e3
-        name["n"] += 1
+        for key, table in ((family(k.name), by_family),
+                           (k.name[:120], by_name)):
+            row = table.setdefault(key, {"ms": 0.0, "n": 0})
+            row["ms"] += (b - a) / 1e3
+            row["n"] += 1
         i = bisect.bisect_right(spans, (a, float("inf"), "")) - 1
         if i >= 0 and spans[i][0] <= a <= spans[i][1]:
             phases[spans[i][2]]["device_ms"] += (b - a) / 1e3
@@ -138,7 +147,7 @@ def profile(args) -> dict:
                         for k in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:15]
     return {
-        "arch": cfg.name, "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
         "kernels_launched": len(kernels),

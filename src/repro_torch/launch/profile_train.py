@@ -1,0 +1,83 @@
+"""Where the time of a train step goes, on the card (torch.profiler).
+
+Takes the train driver's flags, trains one step to warm up, then profiles
+``--steps`` more steps. Each step is split into its two phases, each
+ending in a device synchronize: ``gradient`` (the forward, with the
+per-layer recompute, and the backward) and ``optimizer`` (AdamW). It
+reports, as ``launch/profile_serve.py`` does for serving:
+
+* host wall time of the profiled steps, and the device's busy and idle
+  share of it;
+* device time by kernel family (the port's CUDA kernels by name; library
+  GEMMs; elementwise, indexing and reduction kernels; the rest);
+* per phase: calls, host time and the device time of its kernels;
+* the kernels with the most device time, by name.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        --arch mixtral-w1 --no-zebra --steps 3 --batch 8 --seq 256 \\
+        --out chiprun_out/profile_train.json
+
+Needs a CUDA device (it measures the card, never the CPU).
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+import time
+
+import torch
+
+from repro_torch.launch import train as train_mod
+from repro_torch.launch.profile_serve import report
+from repro_torch.train import optimizer as opt
+
+PHASES = ("gradient", "optimizer")  # record_function names
+
+
+def profile(args) -> dict:
+    cfg, program, loader = train_mod.build(args.arch, args)
+    params = program.init_params(seed=0)
+    opt_state = program.init_opt(params)
+
+    def step():
+        batch = next(loader)
+        with torch.profiler.record_function("gradient"):
+            grads, _ = program.grad_fn(params, batch)
+            torch.cuda.synchronize()
+        with torch.profiler.record_function("optimizer"):
+            opt.adamw_update(program.opt_cfg, params, grads, opt_state)
+            torch.cuda.synchronize()
+
+    step()  # warm-up: library handles, allocator growth
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return {"arch": cfg.name, "steps": args.steps, "batch": args.batch,
+            "seq": args.seq, **report(prof, wall_us, PHASES)}
+
+
+def main(argv=None) -> int:
+    ap = train_mod.build_parser()
+    ap.add_argument("--out", default=None,
+                    help="also write the report as JSON to this path")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available() or args.device != "cuda":
+        print("[profile] needs a CUDA device", file=sys.stderr)
+        return 2
+    rep = profile(args)
+    print(json.dumps(rep, indent=1))
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(rep, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

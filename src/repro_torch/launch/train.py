@@ -1,0 +1,181 @@
+"""End-to-end training driver of the port (mirror of
+``repro/launch/train.py``).
+
+It takes the JAX driver's flags and runs the JAX driver's step: forward
+with chunked attention and per-layer recompute (``remat="full"``), the
+MoE FFN's recomputing backward through the grouped GEMM kernels, AdamW.
+It runs on the CUDA device unless ``--device cpu`` is given; without a
+CUDA device and without ``--device cpu`` it exits non-zero.
+
+    # the paper's Mixtral-W1 at full width and depth on the card:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
+        --no-zebra --mesh 1x1 --steps 6 --batch 8 --seq 256
+
+    # smoke size on the CPU (plain versions of the kernels):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
+        --smoke --no-zebra --device cpu --steps 2
+
+Settings the port does not train with yet (zebra parallelism, which the
+JAX driver enables by default for MoE archs, a mesh other than 1x1,
+checkpointing and resume, tracing) are rejected by name in one
+``[train] invalid configuration:`` line, exit 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+import time
+
+import torch
+
+from repro_torch.data import DataConfig, DataLoader
+from repro_torch.models import registry
+from repro_torch.models.config import ShapeConfig
+from repro_torch.models.modules import Policy, RunConfig
+from repro_torch.pytree import flatten
+from repro_torch.train import optimizer as opt
+from repro_torch.train.step import make_train_program
+
+
+def build(arch: str, args):
+    """(cfg, program, loader) of the driver's command line: the JAX
+    driver's run policy (chunked attention, gather MoE, full remat, bf16
+    compute) and optimizer schedule."""
+    cfg = registry.get_config(arch)
+    if args.smoke:
+        cfg = registry.smoke_config(cfg)
+    run = RunConfig(policy=Policy(), attn_impl="chunked", moe_impl="gather",
+                    remat="full")
+    shape = ShapeConfig("cli", "train", args.seq, args.batch)
+    opt_cfg = opt.OptimizerConfig(peak_lr=args.lr, warmup_steps=20,
+                                  total_steps=args.steps)
+    program = make_train_program(cfg, run, shape, opt_cfg=opt_cfg,
+                                 device=args.device)
+    loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=args.seq, global_batch=args.batch,
+                                   path=args.data))
+    return cfg, program, loader
+
+
+def train_arch(arch: str, args) -> dict:
+    """Train ``arch`` for ``args.steps`` steps; returns a summary: the
+    per-step metrics (floats), the wall time of each step (host clock
+    around work that ends in a device synchronize), ms/step (median),
+    tokens/s and ``ok`` (every loss and grad norm finite)."""
+    cfg, program, loader = build(arch, args)
+    device = program.device
+    params = program.init_params(seed=0)
+    opt_state = program.init_opt(params)
+    n_params = sum(p.numel() for p in flatten(params).values())
+    print(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
+          f"mesh={{'data': 1, 'model': 1}} zebra=None device={device}",
+          flush=True)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    history, step_s = [], []
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        batch = next(loader)
+        ts = time.perf_counter()
+        params, opt_state, metrics = program.train_step(params, opt_state,
+                                                        batch)
+        sync()
+        step_s.append(time.perf_counter() - ts)
+        history.append({k: float(v) for k, v in metrics.items()})
+        if (step + 1) % args.log_every == 0 or step == 0:
+            m = history[-1]
+            dt = (time.perf_counter() - t0) / (step + 1)
+            print(f"step {step + 1:5d} loss={m['loss']:.4f} "
+                  f"nll={m['nll']:.4f} gnorm={m['grad_norm']:.3f} "
+                  f"lr={m['lr']:.2e} {dt * 1e3:.0f} ms/step", flush=True)
+    ms = sorted(step_s)[len(step_s) // 2] * 1e3 if step_s else float("nan")
+    ok = bool(history) and all(
+        math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+        for m in history)
+    final = history[-1]["loss"] if history else float("nan")
+    print(f"[train] done: final loss {final:.4f}", flush=True)
+    return {"ok": ok, "arch": cfg.name, "device": str(device),
+            "params": n_params, "steps": args.steps, "batch": args.batch,
+            "seq": args.seq, "history": history, "step_s": step_s,
+            "ms_per_step": ms,
+            "tokens_per_s": args.batch * args.seq / (ms / 1e3)}
+
+
+def _unported(args, is_moe: bool) -> list:
+    out = []
+    if args.zebra and is_moe:
+        out.append("--zebra (zebra parallelism, the JAX driver's default "
+                   "for MoE archs; pass --no-zebra)")
+    if args.mesh != "1x1":
+        out.append(f"--mesh {args.mesh} (one device only)")
+    if args.ckpt_dir:
+        out.append("--ckpt-dir")
+    if args.resume:
+        out.append("--resume")
+    if args.trace_out:
+        out.append("--trace-out")
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="repro_torch training driver")
+    ap.add_argument("--arch", default="mixtral-d2")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--mesh", default="1x1", help="1x1 only")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (default; fails without a CUDA device) or "
+                         "cpu (plain versions of the kernels)")
+    ap.add_argument("--zebra", action="store_true", default=True,
+                    help="not ported yet (the JAX default); pass --no-zebra")
+    ap.add_argument("--no-zebra", dest="zebra", action="store_false")
+    ap.add_argument("--zebra-mode", default="replicated",
+                    help="zebra only (not ported yet)")
+    ap.add_argument("--microbatches", type=int, default=2,
+                    help="zebra only (not ported yet)")
+    ap.add_argument("--n-chunks", type=int, default=1,
+                    help="zebra only (not ported yet)")
+    ap.add_argument("--offload-experts", type=int, default=0,
+                    help="zebra only (not ported yet)")
+    ap.add_argument("--ckpt-dir", default=None, help="not ported yet")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true", help="not ported yet")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--data", default=None, help="token .bin (else synthetic)")
+    ap.add_argument("--trace-out", default=None, help="not ported yet")
+    ap.add_argument("--trace-wall", action="store_true",
+                    help="with --trace-out only (not ported yet)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = registry.get_config(args.arch)
+    unported = _unported(args, cfg.is_moe)
+    if unported:
+        print("[train] invalid configuration: not ported to repro_torch "
+              "yet: " + ", ".join(unported), file=sys.stderr)
+        return 1
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("[train] no CUDA device: the port trains on the card; pass "
+              "--device cpu to run the plain versions on the CPU",
+              file=sys.stderr)
+        return 2
+    summary = train_arch(args.arch, args)
+    if not summary["ok"]:
+        print("[train] FAIL: a loss or grad norm is not finite",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

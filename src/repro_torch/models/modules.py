@@ -1,6 +1,7 @@
-"""Neural-net modules of the serving main path (mirror of
+"""Neural-net modules of the serving and training main paths (mirror of
 ``repro/models/modules.py``): norms, RoPE, embeddings, GQA attention
-(cache-free and paged), the dense and MoE FFNs, and the layer glue.
+(cache-free reference and chunked, and paged), the dense and MoE FFNs,
+and the layer glue.
 
 Each module is an (init, apply) pair. ``init_*`` returns a tree of
 :class:`repro_torch.pytree.ParamSpec` (shape + initializer) that
@@ -12,8 +13,14 @@ a tree that already holds those matrices in the compute dtype
 values.
 
 Ported: attention mixers (full and sliding-window) and dense / MoE FFNs.
-The recurrent mixers, cross-attention and the flash / chunked attention
-implementations are later slices; their init raises.
+The recurrent mixers, cross-attention and the flash attention kernel are
+later slices; their init (or ``RunConfig``) raises.
+
+Training runs these functions under autograd. The in-place writes on the
+cache-free path are autograd-safe: ``apply_moe``'s combine ``index_add_``
+writes into a fresh zero tensor that no backward reads, and the paged KV
+update, which writes into the serving pool in place, runs only with a
+cache, never in training.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import LayerSpec, ModelConfig
@@ -47,14 +55,36 @@ class Policy:
 class RunConfig:
     """Runtime knobs orthogonal to the architecture.
 
-    moe_impl: "gather" (default) is the single-pack ``ops.moe_ffn``
-    pipeline every serve path runs; "dense" is the every-token-through-
-    every-expert einsum, kept only as the exact test reference. There is
-    no kernel switch: the kernel wrappers launch their CUDA kernels for
-    CUDA tensors and run their plain versions for CPU tensors."""
+    attn_impl: "ref" (default; the materialized reference) or "chunked"
+    (query chunks with recomputed scores, what the trainer runs); the JAX
+    package's "flash" kernel is not ported yet and raises. moe_impl:
+    "gather" (default) is the single-pack ``ops.moe_ffn`` pipeline every
+    serve and train path runs; "dense" is the every-token-through-every-
+    expert einsum, kept only as the exact test reference. remat: "none"
+    or "full" (each layer recomputed in the backward); "dots" has no
+    counterpart in the port yet and raises. There is no kernel switch: the
+    kernel wrappers launch their CUDA kernels for CUDA tensors and run
+    their plain versions for CPU tensors."""
 
     policy: Policy = Policy()
+    attn_impl: str = "ref"
     moe_impl: str = "gather"
+    remat: str = "none"
+    chunk_q: int = 512  # query-chunk size of the chunked attention path
+
+    def __post_init__(self):
+        if self.attn_impl == "flash":
+            raise NotImplementedError("attn_impl='flash' (the flash "
+                                      "attention kernel) is not ported yet")
+        if self.attn_impl not in ("ref", "chunked"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.remat == "dots":
+            raise NotImplementedError("remat='dots' (save the matmul "
+                                      "outputs) is not ported yet")
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"unknown remat {self.remat!r}")
+        if self.moe_impl not in ("gather", "dense"):
+            raise ValueError(f"unknown moe_impl {self.moe_impl!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +225,64 @@ def ref_attention(q, k, v, mask, scale: float, softcap: float,
     return out.reshape(B, S, H, hd)
 
 
+def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
+                      scale: float, softcap: float, policy: Policy,
+                      chunk_q: int = 512):
+    """Flash-equivalent attention in plain torch: a loop over query chunks,
+    per-chunk structural masking, each chunk checkpointed so the backward
+    recomputes its scores (the JAX package's ``jax.checkpoint`` per chunk).
+    Never materializes the full [S, T] score matrix or mask.
+
+    q: [B,S,H,hd]; k/v: [B,T,KH,hd]; q_pos: [B,S]; kv_pos: [B,T]. Logits
+    and softmax in f32, probabilities cast to the compute dtype for the
+    value product, as :func:`ref_attention`."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    cq = min(chunk_q, S)
+    pad = (-S) % cq
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-1)
+    nq = (S + pad) // cq
+
+    def block(qb, qp, kb, vb, kvp):
+        qf = qb.reshape(B, cq, KH, G, hd)
+        logits = torch.einsum("bskgh,btkh->bkgst", qf.float(),
+                              kb.float()) * scale
+        if softcap > 0:
+            logits = softcap * torch.tanh(logits / softcap)
+        m = attention_mask(qp, kvp, causal, window)
+        m = m & (qp[..., :, None] >= 0)
+        logits = torch.where(m[:, None, None, :, :], logits, _BIG_NEG)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkgst,btkh->bskgh",
+                           probs.to(policy.compute_dtype), vb)
+        return out.reshape(B, cq, H, hd)
+
+    outs = [checkpoint(block, q[:, i * cq:(i + 1) * cq],
+                       q_pos[:, i * cq:(i + 1) * cq], k, v, kv_pos,
+                       use_reentrant=False)
+            for i in range(nq)]
+    o = outs[0] if nq == 1 else torch.cat(outs, dim=1)
+    return o[:, :S]
+
+
+def _attention_inner(q, k, v, cfg: ModelConfig, run: RunConfig, *,
+                     positions, kv_pos, causal: bool, window: int,
+                     structural: bool):
+    """Dispatch to chunked / materialized reference attention (the JAX
+    package's flash branch is refused by ``RunConfig``)."""
+    scale = cfg.head_dim ** -0.5
+    softcap = cfg.attn_logit_softcap
+    if structural and run.attn_impl == "chunked":
+        return chunked_attention(q, k, v, positions, kv_pos, causal=causal,
+                                 window=window, scale=scale, softcap=softcap,
+                                 policy=run.policy, chunk_q=run.chunk_q)
+    mask = attention_mask(positions, kv_pos, causal=causal, window=window)
+    return ref_attention(q, k, v, mask, scale, softcap, run.policy)
+
+
 def _project_qkv(params, cfg: ModelConfig, run: RunConfig, x, positions,
                  rope: bool = True):
     """q/k/v projection + qk-norm + rope. Returns (q, k, v, kv_pos)."""
@@ -270,9 +358,9 @@ def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
             scale=scale, softcap=softcap, window=window)[:, None]
     else:
         kg, vg, kv_pos = kops.paged_gather_kv(ck, cv, page_table)
-        mask = attention_mask(positions, kv_pos, causal=causal,
-                              window=window)
-        out = ref_attention(q, kg, vg, mask, scale, softcap, run.policy)
+        out = _attention_inner(q, kg, vg, cfg, run, positions=positions,
+                               kv_pos=kv_pos, causal=causal, window=window,
+                               structural=False)
     y = out.reshape(B, S, h * hd) @ params["wo"].to(cd)
     return y, cache
 
@@ -299,9 +387,9 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
     B, S, _ = x.shape
     cd = run.policy.compute_dtype
     q, k, v, kv_pos = _project_qkv(params, cfg, run, x, positions, rope)
-    mask = attention_mask(positions, kv_pos, causal=causal, window=window)
-    out = ref_attention(q, k, v, mask, cfg.head_dim ** -0.5,
-                        cfg.attn_logit_softcap, run.policy)
+    out = _attention_inner(q, k, v, cfg, run, positions=positions,
+                           kv_pos=kv_pos, causal=causal, window=window,
+                           structural=True)
     y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"].to(cd)
     return y, None
 

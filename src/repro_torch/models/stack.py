@@ -9,11 +9,19 @@ axis (the JAX package's ``lax.scan``). Decode states use the same stacked
 layout, so one layer's KV pool ``[P, ps, KH, hd]`` is a contiguous view of
 the ``[L, P, ps, KH, hd]`` leaf that the kernels read and that the paged
 attention updates in place.
+
+Training runs the same forward under autograd on the f32 params, whose
+matrices are cast to the compute dtype at their use in the graph, as in
+the JAX package (not through :func:`compute_params`, which would cut the
+gradient off the f32 params). With ``RunConfig(remat="full")`` each layer
+is checkpointed (the JAX package's ``jax.checkpoint`` of the scan body):
+its activations are recomputed in the backward.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import modules
 from repro_torch.models.config import ModelConfig
@@ -95,8 +103,17 @@ def compute_params(params, policy: Policy):
 # Apply
 # ---------------------------------------------------------------------------
 
-def _layer(tree, i: int):
-    return tree_map(lambda v: v[i], tree)
+def _unbind_layers(tree):
+    """Per-layer views of a stacked tree: a list over the leading layer
+    axis of trees of the same structure. ``unbind`` (not ``v[i]`` per
+    layer) gives autograd one node per stacked leaf, whose backward stacks
+    the layer gradients once instead of summing one full-size zero-padded
+    gradient per layer."""
+    if isinstance(tree, dict):
+        subs = {k: _unbind_layers(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
@@ -105,20 +122,36 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     """Run the stacked pattern layers + tail. Returns (x, new_states, aux).
 
     Block states are per-layer views of the stacked leaves and are updated
-    in place, so ``new_states`` holds the same tensors as ``states``."""
+    in place, so ``new_states`` holds the same tensors as ``states``.
+    Without states and with ``run.remat == "full"`` each repeat of the
+    pattern is one checkpoint (recomputed in the backward)."""
     aux = _zero_aux(x.device)
     decode = states is not None
     new_block_states = None
+
+    def one_block(x, layer_params, layer_states):
+        a = _zero_aux(x.device)
+        for pos, spec in enumerate(pattern):
+            key = f"pos{pos}"
+            st = layer_states[key] if decode else None
+            x, _, la = modules.apply_layer(
+                layer_params[key], cfg, run, spec, x, positions, state=st,
+                cache_index=cache_index, page_table=page_table)
+            a = _acc_aux(a, la)
+        return x, a
+
     if blocks is not None:
         block_states = states["blocks"] if decode else None
-        for i in range(cfg.n_pattern_repeats):
-            for pos, spec in enumerate(pattern):
-                key = f"pos{pos}"
-                st = _layer(block_states[key], i) if decode else None
-                x, _, a = modules.apply_layer(
-                    _layer(blocks[key], i), cfg, run, spec, x, positions,
-                    state=st, cache_index=cache_index, page_table=page_table)
-                aux = _acc_aux(aux, a)
+        layer_params = _unbind_layers(blocks)
+        layer_states = (_unbind_layers(block_states) if decode
+                        else [None] * len(layer_params))
+        remat = run.remat == "full" and not decode
+        for lp, ls in zip(layer_params, layer_states):
+            if remat:
+                x, a = checkpoint(one_block, x, lp, ls, use_reentrant=False)
+            else:
+                x, a = one_block(x, lp, ls)
+            aux = _acc_aux(aux, a)
         new_block_states = block_states
 
     new_tail_states = []

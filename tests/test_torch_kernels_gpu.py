@@ -69,6 +69,83 @@ def test_gmm_kernels_match_plain(cuda, dtype, sizes, K, N, block_m):
                        got)
 
 
+@pytest.mark.parametrize("lhs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,K,N,block_m", [
+    ([37, 0, 90, 73], 96, 80, 64),      # zero-token group, ragged N
+    ([1, 1, 1, 197], 200, 72, 128),     # ragged K and N
+    ([0, 300, 5, 0], 64, 256, 128),     # empty first and last groups
+])
+def test_gmm_dw_matches_plain(cuda, lhs_dtype, sizes, K, N, block_m):
+    lhs, _, _, tg = _packed(sizes, K, N, lhs_dtype, cuda, block_m)
+    dout, _, _, _ = _packed(sizes, N, N, torch.float32, cuda, block_m,
+                            seed=1)
+    G = len(sizes)
+    got = gmm.gmm_dw_tiled(lhs, dout, tg, G, block_m=block_m)
+    want = gmm.gmm_dw_tiled_plain(lhs, dout, tg, G, block_m=block_m)
+    assert got.dtype == torch.float32 and got.shape == (G, K, N)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    for g, n in enumerate(sizes):
+        if n == 0:
+            assert not got[g].any()
+    # one block per output tile, no atomics: bit-identical on a rerun
+    assert torch.equal(gmm.gmm_dw_tiled(lhs, dout, tg, G, block_m=block_m),
+                       got)
+
+
+@pytest.mark.parametrize("lhs_t,rhs_t,out_t,trans", [
+    (torch.bfloat16, torch.bfloat16, torch.float32, False),
+    (torch.float32, torch.bfloat16, torch.float32, False),
+    (torch.float32, torch.bfloat16, torch.float32, True),
+    (torch.float32, torch.float32, torch.float32, True),
+])
+@pytest.mark.parametrize("sizes,K,N,block_m", [
+    ([37, 0, 90, 73], 96, 80, 64),
+    ([1, 1, 1, 197], 200, 72, 128),
+])
+def test_gmm_backward_operand_types_match_plain(cuda, lhs_t, rhs_t, out_t,
+                                                trans, sizes, K, N, block_m):
+    lhs, w, _, tg = _packed(sizes, K, N, lhs_t, cuda, block_m)
+    w = w.to(rhs_t)
+    if trans:  # swapaxes(W, 1, 2) of a row-major [G, N, K] weight
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    got = gmm.gmm_tiled(lhs, w, tg, block_m=block_m, out_dtype=out_t)
+    want = gmm.gmm_tiled_plain(lhs, w, tg, block_m=block_m, out_dtype=out_t)
+    assert got.dtype == out_t
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_moe_ffn_grads_on_card_match_cpu(cuda, scaled):
+    g = torch.Generator().manual_seed(5)
+    sizes = [137, 0, 190, 73]
+    x = 0.5 * torch.randn((400, 64), generator=g)
+    ws = [0.1 * torch.randn(s, generator=g)
+          for s in ((4, 64, 96), (4, 64, 96), (4, 96, 64))]
+    sc = torch.rand(400, generator=g)
+    ct = torch.randn((400, 64), generator=g)
+    gs = torch.tensor(sizes, dtype=torch.int32)
+
+    def run(dev):
+        ins = [t.detach().to(dev).requires_grad_(True) for t in (x, *ws, sc)]
+        out = ops.moe_ffn(*ins[:4], gs.to(dev),
+                          row_scales=ins[4] if scaled else None,
+                          small_m=False)
+        out.backward(ct.to(dev))
+        return [out.detach()] + [t.grad for t in ins[:4 + scaled]]
+
+    want = run("cpu")
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    counts = kernels.launch_counts()
+    assert counts["gmm_glu"] == 1 and counts["gmm_dw"] == 3
+    assert counts["gmm"] == 1 + 2 + scaled + 3
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
 def test_moe_ffn_on_card_matches_cpu(cuda):
     g = torch.Generator().manual_seed(3)
     sizes = [37, 0, 90, 73]
@@ -141,8 +218,9 @@ def test_launch_counters_and_refusals(cuda):
     kernels.reset_launch_counts()
     gmm.gmm_tiled(lhs, wg, tg, block_m=64)
     gmm.gmm_tiled(lhs, wg, tg, block_m=64)
-    assert kernels.launch_counts() == {"gmm_glu": 0, "gmm": 2,
+    assert kernels.launch_counts() == {"gmm_glu": 0, "gmm": 2, "gmm_dw": 0,
                                        "paged_decode": 0}
+    assert kernels.variant_launch_counts()["gmm:f32.f32->f32"] == 2
     with pytest.raises(ValueError):  # tiles smaller than the kernel's
         gmm.gmm_tiled(lhs, wg, torch.cat([tg, tg]), block_m=32)
     with pytest.raises(TypeError):
