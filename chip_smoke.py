@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives
-the port's two main paths through its own drivers, at full width and full
+the port's main paths through its own drivers, at full width and full
 depth, with random weights from seed 0:
 
 * serve: a Poisson trace on ``mixtral-w2`` (4 layers, d_model 2048, 24
@@ -14,16 +14,24 @@ depth, with random weights from seed 0:
   engine;
 * train: ``repro_torch.launch.train`` on ``mixtral-w1`` (4 layers, d_model
   2048, 12 experts top-2), 6 steps of batch 8 x seq 256 (forward, the
-  recomputing backward, AdamW; bf16 compute, f32 params).
+  recomputing backward, AdamW; bf16 compute, f32 params), with the
+  driver's chunked attention;
+* train_flash: the same driver loop, steps and batches with
+  ``RunConfig(attn_impl="flash")``: every attention forward, recompute and
+  backward through the flash attention kernels.
 
 It fails unless:
 
 * every request finishes with its full budget and the page allocator's
   accounting is clean; every train step's loss and grad norm are finite;
 * each kernel of a path was launched during that path's run (launch
-  counters set to 0 just before it and read just after), and the train
+  counters set to 0 just before it and read just after), and each train
   run launched each grouped kernel the expected number of times per layer
-  and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3);
+  and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3); the chunked
+  run no flash kernel, the flash run flash_fwd 2 (forward + recompute),
+  flash_dq 1 and flash_dkv 1 per layer and step;
+* the flash run's step-1 loss and grad norm are within 1e-2 relative of
+  the chunked run's (the bf16 tier: the two round p at other places);
 * each kernel agrees with its plain PyTorch version on the card, at the
   main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
   bf16 tier, scaled down where the outputs stay below 1; per decode slot
@@ -32,7 +40,11 @@ It fails unless:
 * the MoE FFN's five gradients (dx, dwg, dwu, dwo, dscales) from its
   autograd Function (the kernels) agree with autograd through the plain
   composition within 1e-4 * max|plain| each, at one layer's train shapes
-  in f32;
+  in f32; so do the flash attention Function's dq, dk, dv against
+  autograd through the attention oracle;
+* the flash kernels agree with their plain versions at the train shape
+  and at batch 2 x seq 1024 (causal tile skipping), with a window, with a
+  softcap (forward) and in f32;
 * under the f32 policy, the paged engine's first-token logits of the
   trace's first request whose prompt spans several prefill chunks match
   the cache-free forward's within 1e-3 * max|logit|.
@@ -45,7 +57,8 @@ timed windows. The serve model is released before the train phase.
 Printed in order: the device line (torch's name and nvidia-smi's name and
 power limit), the kernel build time, the warm-up and serve runs' lines,
 the train runs' lines, the kernel tolerances, the ``kernels`` JSON line,
-the serve, parity, train and grad lines, and last
+the serve, parity, train, train_flash, grad, flash_grad and flash_cases
+lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -75,6 +88,14 @@ SERVE_KERNELS = ("gmm_glu", "gmm", "paged_decode")
 # (one GLU and one down GEMM each), and the MoE FFN backward (gmm: g, u,
 # y, dh, dx twice; gmm_dw: dwo, dwg, dwu).
 TRAIN_LAUNCHES = {"gmm_glu": 2, "gmm": 8, "gmm_dw": 3}
+# ... and of the flash attention kernels under attn_impl="flash" (0 under
+# the chunked attention): forward and its remat recompute, one backward.
+FLASH_LAUNCHES = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
+FLASH_GAP = 1e-2            # flash vs chunked step-1 loss / grad norm
+FLASH_REPLACES = {
+    "flash_fwd": "src/repro/kernels/flash_attention.py:122",
+    "flash_dq": "src/repro/kernels/flash_attention.py:245",
+    "flash_dkv": "src/repro/kernels/flash_attention.py:271"}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -465,39 +486,36 @@ def parity_f32(torch, serve_mod):
             and engine.n_prefill_chunks >= 2}
 
 
-def train_phase(torch, train_mod, smi: str):
-    """The train main path: one untimed warm-up step on a model of its
-    own, then the driver's 6 steps with the launch counters reset just
-    before and read just after."""
+def timed_train(torch, train_mod, smi: str, run=None):
+    """The train driver's 6 steps under ``run`` (default: the driver's
+    chunked attention), the launch counters set to 0 just before and read
+    just after. Raises on a non-finite step or a kernel of the path that
+    never launched; the exact counts are checked by the caller."""
     from repro_torch import kernels
-    warm = train_mod.train_arch(
-        "mixtral-w1", train_mod.build_parser().parse_args(TRAIN_WARMUP_ARGS))
-    if not warm["ok"]:
-        raise RuntimeError("warm-up train step failed")
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"train warm-up: 1 step (untimed, not counted), loss "
-          f"{warm['history'][0]['loss']:.4f}", flush=True)
-
+    from repro_torch.models import registry
     args = train_mod.build_parser().parse_args(TRAIN_ARGS)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    summary = train_mod.train_arch("mixtral-w1", args)
+    summary = train_mod.train_arch("mixtral-w1", args, run)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     variants = kernels.variant_launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    attn = run.attn_impl if run is not None else "chunked"
     if not summary["ok"]:
-        raise RuntimeError("train run: a loss or grad norm is not finite")
-    missing = [k for k in TRAIN_LAUNCHES if launches[k] == 0]
+        raise RuntimeError(f"train run ({attn}): a loss or grad norm is not "
+                           f"finite")
+    per_step = dict(TRAIN_LAUNCHES, **{
+        k: n if attn == "flash" else 0 for k, n in FLASH_LAUNCHES.items()})
+    missing = [k for k, n in per_step.items() if n and launches[k] == 0]
     if missing:
-        raise RuntimeError(f"kernels never launched on the train path: "
-                           f"{missing} ({launches})")
-    from repro_torch.models import registry
+        raise RuntimeError(f"kernels never launched on the train path "
+                           f"({attn}): {missing} ({launches})")
     layers = registry.get_config("mixtral-w1").n_layers
-    expected = {k: n * layers * args.steps for k, n in TRAIN_LAUNCHES.items()}
+    expected = {k: n * layers * args.steps for k, n in per_step.items()}
     line = {
-        "arch": "mixtral-w1", "device": torch.cuda.get_device_name(0),
+        "arch": "mixtral-w1", "attn_impl": attn,
+        "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi, "params": summary["params"],
         "steps": args.steps, "batch": args.batch, "seq": args.seq,
         "ms_per_step": summary["ms_per_step"],
@@ -508,6 +526,190 @@ def train_phase(torch, train_mod, smi: str):
         "max_memory_allocated": peak, "launches": launches,
         "launches_expected": expected, "variant_launches": variants}
     return line, {**launches, **variants}
+
+
+def train_phase(torch, train_mod, smi: str):
+    """The train main path: one untimed warm-up step on a model of its
+    own, then the driver's 6 steps (:func:`timed_train`)."""
+    warm = train_mod.train_arch(
+        "mixtral-w1", train_mod.build_parser().parse_args(TRAIN_WARMUP_ARGS))
+    if not warm["ok"]:
+        raise RuntimeError("warm-up train step failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train warm-up: 1 step (untimed, not counted), loss "
+          f"{warm['history'][0]['loss']:.4f}", flush=True)
+    return timed_train(torch, train_mod, smi)
+
+
+def train_flash_phase(torch, train_mod, smi: str, chunked: dict):
+    """The flash train path: the driver's 6 steps with attn_impl="flash"
+    (no separate warm-up: the kernels are built and the median is
+    reported), and its step-1 loss and grad norm against the chunked
+    run's."""
+    from repro_torch.models.modules import Policy, RunConfig
+    run = RunConfig(policy=Policy(), attn_impl="flash", moe_impl="gather",
+                    remat="full")
+    line, counts = timed_train(torch, train_mod, smi, run)
+    line["step1_rel_gap_vs_chunked"] = {
+        k: abs(line[k][0] - chunked[k][0]) / abs(chunked[k][0])
+        for k in ("loss", "grad_norm")}
+    return line, counts
+
+
+def sdpa_ms(torch, q, k, v, do, scale: float):
+    """(forward ms, backward ms, note) of PyTorch's causal GQA
+    scaled_dot_product_attention on the kernels' inputs ([B, heads, rows,
+    hd]): the yardstick of the flash kernels, never called by the port.
+    The backward is forward + backward minus forward (dq, dk, dv as one
+    figure); (None, None, the reason) where this torch refuses."""
+    F = torch.nn.functional
+
+    def fwd(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True,
+                                              scale=scale, enable_gqa=True)
+
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    try:
+        f_ms = cuda_ms(lambda: fwd(q, k, v), 10)
+        fb_ms = cuda_ms(lambda: torch.autograd.grad(fwd(*ins), ins, do), 10)
+    except (RuntimeError, TypeError) as e:  # optional yardstick
+        return None, None, f"SDPA refused: {str(e)[:160]}"
+    return f_ms, fb_ms - f_ms, "torch SDPA (is_causal, enable_gqa)"
+
+
+def flash_case(torch, label, B, S, H, KH, hd, dtype, window=0, softcap=0.0,
+               seed=5):
+    """The flash kernels against their plain versions on causal random
+    inputs of one shape: the forward (o in q's dtype, lse in f32) and,
+    without softcap, the dq and dk/dv kernels (fed the plain forward's o
+    and lse, as the backward of the Function is). Inputs are scaled so the
+    bf16 outputs stay below 4, where one bf16 ulp is below 2e-2; a softcap
+    case scales q up so the tanh bends the logits. Returns one entry per
+    kernel, with its time, the plain version's, its bound and the SDPA
+    yardstick (causal cases without window or softcap)."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(heads, scale):
+        x = torch.randn((B, heads, S, hd), generator=gen, device=dev)
+        return (scale * x).to(dtype)
+
+    q, k, v, do = rnd(H, 4.0 if softcap else 1.0), rnd(KH, 1.0), \
+        rnd(KH, 0.5), rnd(H, 0.25)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window)
+    bf16 = dtype == torch.bfloat16
+    check = compare if bf16 else compare_f32
+    es, peak = q.element_size(), BF16_FLOPS if bf16 else FP32_FLOPS
+    pairs = int(fa._mask(S, S, S, S, True, window, dev).sum()) * B * H
+    nq, nkv, rows = q.numel(), k.numel(), B * H * S
+    lib_f = lib_b = None
+    lib_note = "none: SDPA has no window / softcap of this form"
+    if not window and not softcap:
+        lib_f, lib_b, lib_note = sdpa_ms(torch, q, k, v, do, kw["scale"])
+    shapes = {"case": label, "q": list(q.shape), "kv": list(k.shape),
+              "dtype": str(dtype).replace("torch.", ""), "causal": True,
+              "window": window, "softcap": softcap, "live_pairs": pairs}
+
+    def entry(name, errs, ms, plain_ms, bytes_moved, flops, lib_ms):
+        t_bound, by = bound(bytes_moved, flops, peak)
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": FLASH_REPLACES[name],
+                "max_abs_err": max(e[0] for e in errs.values()),
+                "tol": min(e[1] for e in errs.values()),
+                "errors": {n: {"max_abs_err": e[0], "tol": e[1]}
+                           for n, e in errs.items()},
+                "ok": all(e[2] for e in errs.values()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
+                "bound_by": by, "library_ms": lib_ms, "library": lib_note,
+                "shapes": shapes}
+
+    fwd_kw = dict(kw, softcap=softcap)
+    o, lse = fa.flash_forward(q, k, v, **fwd_kw)
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, **fwd_kw)
+    torch.cuda.synchronize()
+    out = [entry(
+        "flash_fwd", {"o": check(o, o_p), "lse": compare_f32(lse, lse_p)},
+        cuda_ms(lambda: fa.flash_forward(q, k, v, **fwd_kw), 10),
+        cuda_ms(lambda: fa.flash_forward_plain(q, k, v, **fwd_kw), 3),
+        es * (2 * nq + 2 * nkv) + 4 * rows, 4 * hd * pairs, lib_f)]
+    del o, lse
+    if softcap:
+        return out
+    delta = (do.float() * o_p.float()).sum(-1).contiguous()
+    bw = (q, k, v, do, lse_p, delta)
+    (dq,) = fa._launch_backward("dq", *bw, **kw)
+    dk, dv = fa._launch_backward("dkv", *bw, **kw)
+    want = fa.flash_backward_plain(q, k, v, o_p, lse_p, do, **kw)
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: fa.flash_backward_plain(q, k, v, o_p, lse_p,
+                                                       do, **kw), 3)
+    out.append(entry(
+        "flash_dq", {"dq": check(dq, want[0])},
+        cuda_ms(lambda: fa._launch_backward("dq", *bw, **kw), 10), plain_ms,
+        es * (3 * nq + 2 * nkv) + 8 * rows, 6 * hd * pairs, lib_b))
+    out.append(entry(
+        "flash_dkv", {"dk": check(dk, want[1]), "dv": check(dv, want[2])},
+        cuda_ms(lambda: fa._launch_backward("dkv", *bw, **kw), 10), plain_ms,
+        es * (2 * nq + 4 * nkv) + 8 * rows, 8 * hd * pairs, lib_b))
+    for e in out[1:]:
+        e["plain"] = "flash_backward_plain (dq, dk, dv together)"
+        e["library"] = ("SDPA forward + backward minus forward (dq, dk, dv "
+                        "together)" if lib_b is not None else lib_note)
+    return out
+
+
+def check_flash_kernels(torch, cfg, batch: int, seq: int):
+    """The flash kernels at the flash train run's shapes (the kernel line's
+    entries) and at batch 2 x seq 1024 (8+ q-tiles: the causal skip), with
+    a window, with a softcap (forward only) and under f32 inputs."""
+    dims = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    bf, f32 = torch.bfloat16, torch.float32
+    main = flash_case(torch, f"{batch}x{seq}", batch, seq, *dims, bf)
+    cases = (flash_case(torch, "2x1024", 2, 1024, *dims, bf)
+             + flash_case(torch, f"{batch}x{seq}-window100", batch, seq,
+                          *dims, bf, window=100)
+             + flash_case(torch, f"{batch}x{seq}-softcap5", batch, seq,
+                          *dims, bf, softcap=5.0)
+             + flash_case(torch, f"{batch}x{seq}-f32", batch, seq, *dims,
+                          f32))
+    return main, cases
+
+
+def flash_grad_phase(torch, cfg, batch: int, seq: int):
+    """The flash attention Function (forward, dq and dk/dv kernels) against
+    torch.autograd through the attention oracle ``ref.attention`` with the
+    causal mask, at the train shape in f32: out, dq, dk, dv."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rand(heads, scale=1.0):
+        return scale * torch.randn((batch, seq, heads, hd), generator=gen,
+                                   device=dev)
+
+    inputs, ct = [rand(H), rand(KH), rand(KH, 0.5)], rand(H)
+    mask = ref.causal_window_mask(seq, seq, True, 0, device=dev)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in inputs]
+        out = fn(*ins)
+        out.backward(ct)
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in ins]
+
+    got = grads(lambda q, k, v: ops.flash_attention(q, k, v, causal=True))
+    want = grads(lambda q, k, v: ref.attention(q, k, v, mask=mask))
+    res = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        err, tol, ok = compare_f32(a, b)
+        res[name] = {"max_abs_err": err, "tol": tol, "ok": ok}
+    return {"shapes": {"q": list(inputs[0].shape),
+                       "kv": list(inputs[1].shape), "causal": True},
+            "results": res, "ok": all(r["ok"] for r in res.values())}
 
 
 def main() -> int:
@@ -573,17 +775,31 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- main path 3: the same driver loop through the flash kernels --------
+    flash_line, flash_counts = train_flash_phase(torch, train_mod, smi,
+                                                 train_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
-    tokens = train_line["batch"] * train_line["seq"]
-    entries += check_train_kernels(torch, w1, tokens)
+    batch, seq = train_line["batch"], train_line["seq"]
+    entries += check_train_kernels(torch, w1, batch * seq)
     torch.cuda.empty_cache()
-    grad = grad_phase(torch, w1, tokens)
-    for e in entries:  # launches: the sum over both main-path runs
-        e["launches_by_path"] = {"serve": serve_counts.get(e["name"], 0),
-                                 "train": train_counts.get(e["name"], 0)}
+    grad = grad_phase(torch, w1, batch * seq)
+    flash_entries, flash_cases = check_flash_kernels(torch, w1, batch, seq)
+    entries += flash_entries
+    torch.cuda.empty_cache()
+    flash_grad = flash_grad_phase(torch, w1, batch, seq)
+    for e in entries:  # launches: the sum over the main-path runs
+        e["launches_by_path"] = {
+            "serve": serve_counts.get(e["name"], 0),
+            "train": train_counts.get(e["name"], 0),
+            "train_flash": flash_counts.get(e["name"], 0)}
         e["launches"] = sum(e["launches_by_path"].values())
-    bad = [e["name"] for e in entries if not e["ok"]]
+    bad = [e["name"] for e in entries if not e["ok"]] + [
+        f"{e['name']}@{e['shapes']['case']}" for e in flash_cases
+        if not e["ok"]]
 
     steps = summary["paged"]
     serve_line = {
@@ -603,7 +819,8 @@ def main() -> int:
         "device": name, "nvidia_smi": smi, "build_s": build_s,
         "nvcc_reports": _build.build_logs(), "kernels": entries,
         "serve": serve_line, "parity": parity, "train": train_line,
-        "grad": grad}, indent=1))
+        "train_flash": flash_line, "grad": grad, "flash_grad": flash_grad,
+        "flash_cases": flash_cases}, indent=1))
 
     contract = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -615,7 +832,14 @@ def main() -> int:
     print("serve: " + json.dumps(serve_line), flush=True)
     print("parity: " + json.dumps(parity), flush=True)
     print("train: " + json.dumps(train_line), flush=True)
+    print("train_flash: " + json.dumps(flash_line), flush=True)
     print("grad: " + json.dumps(grad), flush=True)
+    print("flash_grad: " + json.dumps(flash_grad), flush=True)
+    print("flash_cases: " + json.dumps(
+        [{k: e[k] for k in ("name", "shapes", "errors", "ok", "ms",
+                            "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")} for e in flash_cases]),
+          flush=True)
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions "
                            f"beyond their tolerance: {bad}")
@@ -623,14 +847,23 @@ def main() -> int:
         raise RuntimeError("paged engine logits disagree with the "
                            "cache-free forward under the f32 policy, or the "
                            "prompt did not span several chunks")
-    if train_line["launches_expected"] != {
-            k: train_line["launches"][k] for k in TRAIN_LAUNCHES}:
-        raise RuntimeError(f"train launches {train_line['launches']} differ "
-                           f"from the expected "
-                           f"{train_line['launches_expected']}")
+    for line in (train_line, flash_line):
+        want = line["launches_expected"]
+        if want != {k: line["launches"][k] for k in want}:
+            raise RuntimeError(f"train launches ({line['attn_impl']}) "
+                               f"{line['launches']} differ from the "
+                               f"expected {want}")
+    gap = flash_line["step1_rel_gap_vs_chunked"]
+    if max(gap.values()) > FLASH_GAP:
+        raise RuntimeError(f"flash train run's step 1 differs from the "
+                           f"chunked run's by more than {FLASH_GAP}: {gap}")
     if not grad["ok"]:
         raise RuntimeError("MoE FFN gradients disagree with autograd through "
                            "the plain composition beyond their tolerance")
+    if not flash_grad["ok"]:
+        raise RuntimeError("flash attention gradients disagree with "
+                           "autograd through the oracle beyond their "
+                           "tolerance")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

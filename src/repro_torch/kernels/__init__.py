@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (grouped expert GEMMs and their weight
-gradient, paged decode attention).
+"""Hand-written CUDA kernels (flash attention forward and backward, grouped
+expert GEMMs and their weight gradient, paged decode attention).
 
 Each kernel has a plain-torch version beside its wrapper, taken for CPU
 tensors; :mod:`repro_torch.kernels.ref` holds the oracles and
@@ -7,12 +7,14 @@ tensors; :mod:`repro_torch.kernels.ref` holds the oracles and
 compiled by :mod:`repro_torch.kernels._build` at first launch.
 """
 
-from repro_torch.kernels import gmm, ops, paged_attention, ref
+from repro_torch.kernels import (flash_attention, gmm, ops, paged_attention,
+                                 ref)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**gmm.LAUNCHES, **paged_attention.LAUNCHES}
+    return {**gmm.LAUNCHES, **paged_attention.LAUNCHES,
+            **flash_attention.LAUNCHES}
 
 
 def variant_launch_counts() -> dict:
@@ -22,7 +24,8 @@ def variant_launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for counts in (gmm.LAUNCHES, paged_attention.LAUNCHES):
+    for counts in (gmm.LAUNCHES, paged_attention.LAUNCHES,
+                   flash_attention.LAUNCHES):
         for name in counts:
             counts[name] = 0
     gmm._reset_variants()

@@ -1,0 +1,224 @@
+"""Flash attention forward and backward, GQA-aware (mirror of
+``repro/kernels/flash_attention.py``).
+
+Layout (the reference's): q, o, do, dq ``[B, H, S, hd]``; k, v, dk, dv
+``[B, KH, T, hd]``; lse ``[B, H, S]`` f32; H = KH * G and query head h
+reads KV head ``h // G``. Tensors may be views with any strides over the
+first three axes (the model layout ``[B, S, H, hd]`` transposed, with no
+copy); head_dim must be contiguous. Masks are structural, from global
+positions counted from 0 in both sequences: query q sees key k when
+q < q_len, k < kv_len, k <= q under ``causal`` and q - k < window when
+window > 0. The kernel masks the ragged edge itself, so nothing is padded.
+A row with no live key gets o = 0 and lse = ``_NEG`` exactly.
+
+:func:`flash_forward` and :func:`flash_backward` launch the kernels of
+``csrc/flash_attention.cu`` for CUDA tensors and run
+:func:`flash_forward_plain` / :func:`flash_backward_plain` for CPU tensors;
+on any other device, an unsupported dtype or shape, or a failed build or
+launch they raise. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+_NEG = -0.7 * torch.finfo(torch.float32).max
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i] * 10  # B, H, KH, S, T, hd, q_len, kv_len, causal, window
+    for dt in _DTYPES.values():
+        for name, n_ptr, n_float in (("fwd", 5, 2), ("dq", 7, 1),
+                                     ("dkv", 8, 1)):
+            fn = getattr(lib, f"flash_{name}_{dt}")
+            fn.argtypes = [p] * (n_ptr + 1) + dims + [f] * n_float + [p]
+            fn.restype = i
+    return lib
+
+
+def _mask(S, T, q_len, kv_len, causal, window, device):
+    """[S, T] bool: the structural mask of the kernels, cut to the true
+    lengths."""
+    m = ref.causal_window_mask(S, T, causal, window, device=device)
+    return (m & (torch.arange(S, device=device)[:, None] < q_len)
+            & (torch.arange(T, device=device)[None, :] < kv_len))
+
+
+def _scores(q, k, scale):
+    """f32 q·kᵀ·scale per query head: [B, KH, G, S, T]."""
+    B, H, S, hd = q.shape
+    KH = k.shape[1]
+    qg = q.float().reshape(B, KH, H // KH, S, hd)
+    return torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) * scale
+
+
+def flash_forward_plain(q, k, v, *, scale, causal, window=0, softcap=0.0,
+                        q_len=None, kv_len=None):
+    """Plain version of the forward kernel, same semantics: f32 math over
+    a materialised [B, H, S, T] score matrix; o = 0 and lse = _NEG on rows
+    with no live key."""
+    B, H, S, hd = q.shape
+    KH, T = k.shape[1], k.shape[2]
+    mask = _mask(S, T, S if q_len is None else q_len,
+                 T if kv_len is None else kv_len, causal, window, q.device)
+    s = _scores(q, k, scale)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(mask, s, _NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    denom = torch.where(l == 0, 1.0, l)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float()) / denom
+    lse = torch.where(l == 0, _NEG, m + torch.log(denom))
+    return (o.reshape(B, H, S, hd).to(q.dtype),
+            lse.reshape(B, H, S))
+
+
+def flash_backward_plain(q, k, v, o, lse, do, *, scale, causal, window=0,
+                         q_len=None, kv_len=None):
+    """Plain version of the two backward kernels, same semantics:
+    p = exp(s - lse) only where the mask holds (selected, never multiplied
+    by a 0/1 mask: a dead row's s - lse overflows), ds = p·(dp - delta)·scale
+    with delta = Σ do·o in f32; dk, dv summed over the G query heads of
+    each KV head. Gradients come back in q's / k's / v's dtype."""
+    B, H, S, hd = q.shape
+    KH, T = k.shape[1], k.shape[2]
+    G = H // KH
+    mask = _mask(S, T, S if q_len is None else q_len,
+                 T if kv_len is None else kv_len, causal, window, q.device)
+    s = _scores(q, k, scale)
+    lse_g = lse.float().reshape(B, KH, G, S, 1)
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    do_g = do.float().reshape(B, KH, G, S, hd)
+    delta = (do_g * o.float().reshape(B, KH, G, S, hd)).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgsd,bktd->bkgst", do_g, v.float())
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.float())
+    qg = q.float().reshape(B, KH, G, S, hd)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, do_g)
+    return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check(q, k, v, q_len, kv_len, *others):
+    """Validate what the kernels take; returns (B, H, KH, S, T, hd,
+    q_len, kv_len)."""
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes one of bf16/f32 for q, k "
+                        f"and v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q [B,H,S,hd] and k, v [B,KH,T,hd] expected, got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    B, H, S, hd = q.shape
+    KH, T = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KH == 0 or H % KH:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} (H must be a multiple of KH)")
+    if hd % 32 or hd > 256:
+        raise ValueError(f"kernel takes head_dim % 32 == 0 and <= 256, got "
+                         f"{hd}")
+    q_len = S if q_len is None else q_len
+    kv_len = T if kv_len is None else kv_len
+    if not (0 <= q_len <= S and 0 <= kv_len <= T):
+        raise ValueError(f"q_len {q_len} / kv_len {kv_len} outside the "
+                         f"tensors' {S} / {T}")
+    for t in (q, k, v, *others):
+        if t.stride(-1) != 1:
+            raise ValueError("flash attention takes tensors whose head_dim "
+                             "is contiguous")
+    return B, H, KH, S, T, hd, q_len, kv_len
+
+
+def _strides(*tensors):
+    """The (batch, head, row) element strides of each tensor, as a C
+    array of int64 (the caller holds it across the call)."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_forward(q, k, v, *, scale, causal, window=0, softcap=0.0,
+                  q_len=None, kv_len=None):
+    """q: [B,H,S,hd]; k/v: [B,KH,T,hd]. Returns (o [B,H,S,hd] in q's dtype
+    and with q's strides, lse [B,H,S] f32). ``q_len`` / ``kv_len`` are
+    the true lengths used for masking (default: the tensors')."""
+    if _build.on_cpu(q, k, v):
+        return flash_forward_plain(q, k, v, scale=scale, causal=causal,
+                                   window=window, softcap=softcap,
+                                   q_len=q_len, kv_len=kv_len)
+    dims = _check(q, k, v, q_len, kv_len)
+    B, H, _, S = dims[:4]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    fn = getattr(_lib(), f"flash_fwd_{_DTYPES[q.dtype]}")
+    strides = _strides(q, k, v, o)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), ctypes.addressof(strides), *dims, int(causal),
+             int(window), float(scale), float(softcap), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def _launch_backward(name, q, k, v, do, lse, delta, *, scale, causal,
+                     window=0, q_len=None, kv_len=None):
+    """Launch one backward kernel on CUDA tensors: ``name`` "dq" returns
+    (dq,), "dkv" returns (dk, dv). lse and delta are [B, H, S] f32,
+    contiguous."""
+    dims = _check(q, k, v, q_len, kv_len, do)
+    B, H, _, S = dims[:4]
+    for t in (lse, delta):
+        if t.shape != (B, H, S) or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("lse and delta must be contiguous [B, H, S] "
+                             "f32")
+    outs = (torch.empty_like(q),) if name == "dq" else \
+        (torch.empty_like(k), torch.empty_like(v))
+    strides = _strides(q, k, v, do, *outs)
+    fn = getattr(_lib(), f"flash_{name}_{_DTYPES[q.dtype]}")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+             ctypes.addressof(strides), *dims, int(causal), int(window),
+             float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash_{name} launch failed: cudaError {err}")
+    LAUNCHES[f"flash_{name}"] += 1
+    return outs
+
+
+def flash_backward(q, k, v, o, lse, do, *, scale, causal, window=0,
+                   q_len=None, kv_len=None):
+    """Returns (dq [B,H,S,hd], dk, dv [B,KH,T,hd]), each in its input's
+    dtype and with its input's strides. delta = Σ do·o (f32) is one torch
+    expression here; the dq and dk/dv kernels both read it."""
+    kw = dict(scale=scale, causal=causal, window=window, q_len=q_len,
+              kv_len=kv_len)
+    if _build.on_cpu(q, k, v, o, lse, do):
+        return flash_backward_plain(q, k, v, o, lse, do, **kw)
+    _check(q, k, v, q_len, kv_len, o)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("o and do must match q")
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    (dq,) = _launch_backward("dq", q, k, v, do, lse.contiguous(), delta,
+                             **kw)
+    dk, dv = _launch_backward("dkv", q, k, v, do, lse.contiguous(), delta,
+                              **kw)
+    return dq, dk, dv

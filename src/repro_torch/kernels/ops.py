@@ -1,7 +1,7 @@
-"""Wrappers around the kernels (mirror of ``repro/kernels/ops.py``): pack
-metadata and row scatter/gather of the packed expert domain, the
-single-pack MoE expert FFN with its small-M group-dense route, and paged
-decode attention.
+"""Wrappers around the kernels (mirror of ``repro/kernels/ops.py``): flash
+attention with its gradient, pack metadata and row scatter/gather of the
+packed expert domain, the single-pack MoE expert FFN with its small-M
+group-dense route, and paged decode attention.
 
 Routing decisions are the JAX package's, so both packages compute the same
 things: the small-M crossover (``M * (G - 1) <= G * block_m``), the padded
@@ -19,12 +19,62 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_kernel
 from repro_torch.kernels import paged_attention as pa
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient (the JAX package's ``_make_flash``
+    custom_vjp). Works in the model layout [B, S, H, hd]: the kernels read
+    and write it through a transposed view, so nothing is copied or padded.
+    Saves q, k, v, o and lse; the backward runs the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float,
+                softcap: float):
+        o, lse = fa.flash_forward(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), scale=scale,
+                                  causal=causal, window=window,
+                                  softcap=softcap)
+        o = o.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(scale=scale, causal=causal, window=window)
+        ctx.softcap = softcap
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        if ctx.softcap > 0:
+            raise NotImplementedError(
+                "flash backward with softcap: use attn_impl='ref'")
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_backward(
+            *(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+            do.contiguous().transpose(1, 2), **ctx.kw)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    scale: float | None = None, softcap: float = 0.0):
+    """q: [B,S,H,hd]; k/v: [B,T,KH,hd] -> [B,S,H,hd] in q's dtype.
+
+    Structural masking only (causal / sliding window, positions counted
+    from 0 in both sequences); arbitrary masks take the reference path.
+    Differentiable, except with ``softcap > 0`` (the reference has no
+    softcap backward either)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(scale), float(softcap))
 
 
 # ---------------------------------------------------------------------------

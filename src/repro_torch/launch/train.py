@@ -4,6 +4,10 @@
 It takes the JAX driver's flags and runs the JAX driver's step: forward
 with chunked attention and per-layer recompute (``remat="full"``), the
 MoE FFN's recomputing backward through the grouped GEMM kernels, AdamW.
+A caller may hand :func:`build` / :func:`train_arch` another
+``RunConfig`` (``attn_impl="flash"`` trains through the flash attention
+kernels); the command line has no flag for it, as the JAX driver has
+none.
 It runs on the CUDA device unless ``--device cpu`` is given; without a
 CUDA device and without ``--device cpu`` it exits non-zero.
 
@@ -39,15 +43,16 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.step import make_train_program
 
 
-def build(arch: str, args):
-    """(cfg, program, loader) of the driver's command line: the JAX
-    driver's run policy (chunked attention, gather MoE, full remat, bf16
-    compute) and optimizer schedule."""
+def build(arch: str, args, run: RunConfig | None = None):
+    """(cfg, program, loader) of the driver's command line: ``run``, by
+    default the JAX driver's run policy (chunked attention, gather MoE,
+    full remat, bf16 compute), and the JAX driver's optimizer schedule."""
     cfg = registry.get_config(arch)
     if args.smoke:
         cfg = registry.smoke_config(cfg)
-    run = RunConfig(policy=Policy(), attn_impl="chunked", moe_impl="gather",
-                    remat="full")
+    if run is None:
+        run = RunConfig(policy=Policy(), attn_impl="chunked",
+                        moe_impl="gather", remat="full")
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
     opt_cfg = opt.OptimizerConfig(peak_lr=args.lr, warmup_steps=20,
                                   total_steps=args.steps)
@@ -59,12 +64,13 @@ def build(arch: str, args):
     return cfg, program, loader
 
 
-def train_arch(arch: str, args) -> dict:
-    """Train ``arch`` for ``args.steps`` steps; returns a summary: the
-    per-step metrics (floats), the wall time of each step (host clock
-    around work that ends in a device synchronize), ms/step (median),
-    tokens/s and ``ok`` (every loss and grad norm finite)."""
-    cfg, program, loader = build(arch, args)
+def train_arch(arch: str, args, run: RunConfig | None = None) -> dict:
+    """Train ``arch`` for ``args.steps`` steps under ``run`` (default: the
+    driver's, see :func:`build`); returns a summary: the per-step metrics
+    (floats), the wall time of each step (host clock around work that
+    ends in a device synchronize), ms/step (median), tokens/s and ``ok``
+    (every loss and grad norm finite)."""
+    cfg, program, loader = build(arch, args, run)
     device = program.device
     params = program.init_params(seed=0)
     opt_state = program.init_opt(params)

@@ -1,7 +1,7 @@
 """Neural-net modules of the serving and training main paths (mirror of
 ``repro/models/modules.py``): norms, RoPE, embeddings, GQA attention
-(cache-free reference and chunked, and paged), the dense and MoE FFNs,
-and the layer glue.
+(cache-free reference, chunked and flash, and paged), the dense and MoE
+FFNs, and the layer glue.
 
 Each module is an (init, apply) pair. ``init_*`` returns a tree of
 :class:`repro_torch.pytree.ParamSpec` (shape + initializer) that
@@ -12,9 +12,9 @@ a tree that already holds those matrices in the compute dtype
 (``stack.compute_params``), which makes the casts no-ops with identical
 values.
 
-Ported: attention mixers (full and sliding-window) and dense / MoE FFNs.
-The recurrent mixers, cross-attention and the flash attention kernel are
-later slices; their init (or ``RunConfig``) raises.
+Ported: attention mixers (full and sliding-window; reference, chunked and
+flash attention) and dense / MoE FFNs. The recurrent mixers and
+cross-attention are later slices; their init raises.
 
 Training runs these functions under autograd. The in-place writes on the
 cache-free path are autograd-safe: ``apply_moe``'s combine ``index_add_``
@@ -55,16 +55,16 @@ class Policy:
 class RunConfig:
     """Runtime knobs orthogonal to the architecture.
 
-    attn_impl: "ref" (default; the materialized reference) or "chunked"
-    (query chunks with recomputed scores, what the trainer runs); the JAX
-    package's "flash" kernel is not ported yet and raises. moe_impl:
-    "gather" (default) is the single-pack ``ops.moe_ffn`` pipeline every
-    serve and train path runs; "dense" is the every-token-through-every-
-    expert einsum, kept only as the exact test reference. remat: "none"
-    or "full" (each layer recomputed in the backward); "dots" has no
-    counterpart in the port yet and raises. There is no kernel switch: the
-    kernel wrappers launch their CUDA kernels for CUDA tensors and run
-    their plain versions for CPU tensors."""
+    attn_impl: "ref" (default; the materialized reference), "chunked"
+    (query chunks with recomputed scores, what the train driver runs) or
+    "flash" (the flash attention kernels and their backward, for
+    structural masks). moe_impl: "gather" (default) is the single-pack
+    ``ops.moe_ffn`` pipeline every serve and train path runs; "dense" is
+    the every-token-through-every-expert einsum, kept only as the exact
+    test reference. remat: "none" or "full" (each layer recomputed in the
+    backward); "dots" has no counterpart in the port yet and raises. There
+    is no kernel switch: the kernel wrappers launch their CUDA kernels for
+    CUDA tensors and run their plain versions for CPU tensors."""
 
     policy: Policy = Policy()
     attn_impl: str = "ref"
@@ -73,10 +73,7 @@ class RunConfig:
     chunk_q: int = 512  # query-chunk size of the chunked attention path
 
     def __post_init__(self):
-        if self.attn_impl == "flash":
-            raise NotImplementedError("attn_impl='flash' (the flash "
-                                      "attention kernel) is not ported yet")
-        if self.attn_impl not in ("ref", "chunked"):
+        if self.attn_impl not in ("ref", "chunked", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.remat == "dots":
             raise NotImplementedError("remat='dots' (save the matmul "
@@ -271,10 +268,15 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
 def _attention_inner(q, k, v, cfg: ModelConfig, run: RunConfig, *,
                      positions, kv_pos, causal: bool, window: int,
                      structural: bool):
-    """Dispatch to chunked / materialized reference attention (the JAX
-    package's flash branch is refused by ``RunConfig``)."""
+    """Dispatch to the flash kernels / chunked / materialized reference
+    attention. Flash and chunked apply to structural masks only (the
+    cache-free path, positions 0..S-1); flash masks from those positions
+    itself and is not handed them."""
     scale = cfg.head_dim ** -0.5
     softcap = cfg.attn_logit_softcap
+    if structural and run.attn_impl == "flash":
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale, softcap=softcap)
     if structural and run.attn_impl == "chunked":
         return chunked_attention(q, k, v, positions, kv_pos, causal=causal,
                                  window=window, scale=scale, softcap=softcap,

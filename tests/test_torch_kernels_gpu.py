@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm, ops
 from repro_torch.kernels import paged_attention as pa
 
@@ -219,10 +220,122 @@ def test_launch_counters_and_refusals(cuda):
     gmm.gmm_tiled(lhs, wg, tg, block_m=64)
     gmm.gmm_tiled(lhs, wg, tg, block_m=64)
     assert kernels.launch_counts() == {"gmm_glu": 0, "gmm": 2, "gmm_dw": 0,
-                                       "paged_decode": 0}
+                                       "paged_decode": 0, "flash_fwd": 0,
+                                       "flash_dq": 0, "flash_dkv": 0}
     assert kernels.variant_launch_counts()["gmm:f32.f32->f32"] == 2
     with pytest.raises(ValueError):  # tiles smaller than the kernel's
         gmm.gmm_tiled(lhs, wg, torch.cat([tg, tg]), block_m=32)
     with pytest.raises(TypeError):
         gmm.gmm_tiled(lhs.half(), wg.half(), tg, block_m=64)
     assert kernels.launch_counts()["gmm"] == 2
+
+
+def _flash_inputs(B, H, KH, S, T, hd, dtype, dev, model_layout, seed=0):
+    """q, k, v, do in the kernels' [B, heads, rows, hd] layout, either
+    contiguous or as transposed views of the model layout [B, rows, heads,
+    hd]; v and do scaled down (1/2, 1/4) so the bf16 outputs stay below 4,
+    where one bf16 ulp is below the 2e-2 tier."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(heads, rows, scale=1.0):
+        shape = (B, rows, heads, hd) if model_layout else (B, heads, rows, hd)
+        t = (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+        return t.transpose(1, 2) if model_layout else t
+    return rnd(H, S), rnd(KH, T), rnd(KH, T, 0.5), rnd(H, S, 0.25)
+
+
+def _close(got, want, dtype):
+    """bf16: 2e-2 * min(1, max|want|); f32: 1e-4 * max|want|."""
+    top = float(want.float().abs().max())
+    tol = 1e-4 * top if dtype == torch.float32 else 2e-2 * min(1.0, top)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=max(tol, 1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,S,T,hd,kw", [
+    (2, 4, 2, 200, 200, 32, dict(causal=True)),        # ragged tiles, GQA
+    (1, 4, 1, 96, 160, 64, dict(causal=False)),        # S != T, MQA
+    (2, 4, 2, 300, 300, 64, dict(causal=True, window=48)),
+    (1, 2, 2, 130, 130, 32, dict(causal=True, window=1, q_len=100,
+                                 kv_len=60)),          # rows with no key
+    (2, 16, 4, 256, 256, 128, dict(causal=True)),      # mixtral-w1 heads
+    (1, 4, 2, 150, 150, 256, dict(causal=True)),       # 32-row tiles
+    (1, 2, 1, 100, 100, 192, dict(causal=False, window=30)),
+])
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_flash_kernels_match_plain(cuda, dtype, B, H, KH, S, T, hd, kw,
+                                   model_layout):
+    q, k, v, do = _flash_inputs(B, H, KH, S, T, hd, dtype, cuda,
+                                model_layout)
+    kw = dict(kw, scale=hd ** -0.5)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
+    assert o.dtype == dtype and o.stride() == q.stride()
+    _close(o, o_p, dtype)
+    live = lse_p > fa._NEG
+    assert torch.equal(lse[~live], lse_p[~live])
+    assert torch.all(o[~live] == 0)
+    _close(lse[live], lse_p[live], torch.float32)
+    grads = fa.flash_backward(q, k, v, o_p, lse_p, do, **kw)
+    want = fa.flash_backward_plain(q, k, v, o_p, lse_p, do, **kw)
+    for got, ref_, x in zip(grads, want, (q, k, v)):
+        assert got.dtype == dtype and got.stride() == x.stride()
+        _close(got, ref_, dtype)
+    # one block per output tile, no atomics: bit-identical on a rerun
+    again = fa.flash_backward(q, k, v, o_p, lse_p, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+@pytest.mark.parametrize("kw", [dict(softcap=5.0), dict(softcap=3.0,
+                                                        window=40)])
+def test_flash_forward_softcap_matches_plain(cuda, kw):
+    q, k, v, _ = _flash_inputs(2, 4, 2, 160, 160, 64, torch.float32, cuda,
+                               True)
+    q = 4.0 * q
+    o, lse = fa.flash_forward(q, k, v, scale=0.125, causal=True, **kw)
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, scale=0.125, causal=True,
+                                        **kw)
+    _close(o, o_p, torch.float32)
+    _close(lse, lse_p, torch.float32)
+
+
+def test_flash_attention_grads_on_card_match_cpu(cuda):
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 200, 8, 64), generator=g)
+    k, v = (torch.randn((2, 200, 2, 64), generator=g) for _ in range(2))
+    ct = torch.randn((2, 200, 8, 64), generator=g)
+
+    def run(dev):
+        ins = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = ops.flash_attention(*ins, causal=True, window=120)
+        out.backward(ct.to(dev))
+        return [out.detach()] + [t.grad for t in ins]
+
+    want = run("cpu")
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    counts = kernels.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_dq"],
+            counts["flash_dkv"]) == (1, 1, 1)
+    for a, b in zip(got, want):
+        assert a.is_contiguous()
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_flash_refusals(cuda):
+    q, k, v, _ = _flash_inputs(1, 2, 1, 64, 64, 64, torch.float32, cuda,
+                               False)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError):  # head_dim not a multiple of 32
+        fa.flash_forward(q[..., :48], k[..., :48], v[..., :48], scale=1.0,
+                         causal=True)
+    with pytest.raises(TypeError):
+        fa.flash_forward(q, k.bfloat16(), v, scale=1.0, causal=True)
+    with pytest.raises(TypeError):
+        fa.flash_forward(q.half(), k.half(), v.half(), scale=1.0,
+                         causal=True)
+    with pytest.raises(ValueError):  # head_dim not contiguous
+        fa.flash_forward(q.transpose(2, 3), k, v, scale=1.0, causal=True)
+    assert kernels.launch_counts()["flash_fwd"] == 0

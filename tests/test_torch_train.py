@@ -5,11 +5,15 @@ d_model 128) through the port's ``make_train_program`` and the JAX
 package's ``make_train_program(zcfg=None)`` on a 1x1 mesh: the same
 weights (the JAX init, brought over by ``params_from_jax``), the same
 tokens (one ``write_token_bin`` file read by both ``MemmapSource``s), the
-f32 policy, ``remat="full"``, chunked attention in two query chunks. The
-per-step loss, nll, z-loss, aux losses, grad norm and learning rate agree
-within rtol 2e-5: the two packages sum in other orders (f32 rounding
-~1e-7 per op), and five AdamW steps carry those differences into the
-weights; the largest gap measured over these five steps is 7.4e-7.
+f32 policy, ``remat="full"``. Two attention paths: chunked attention in
+two query chunks (S 32), and the flash kernels (the port's plain versions
+against the JAX package's Pallas kernels in interpret mode) at S 160, not
+a multiple of the JAX kernel's 128-row blocks, so both ragged edges are
+masked. The per-step loss, nll, z-loss, aux losses, grad norm and
+learning rate agree within rtol 2e-5: the two packages sum in other
+orders (f32 rounding ~1e-7 per op), and five AdamW steps carry those
+differences into the weights; the largest gap measured over the chunked
+path's five steps is 7.4e-7.
 """
 
 import dataclasses
@@ -40,6 +44,7 @@ from torch_parity import jax_values_np, to_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
 B, S, STEPS = 4, 32, 5
+S_FLASH = 160
 METRICS = ("loss", "nll", "z_loss", "moe_aux_loss", "moe_z_loss",
            "grad_norm", "lr")
 
@@ -49,21 +54,30 @@ def _opt_cfg(mod):
                                total_steps=STEPS)
 
 
+def _token_file(tmp_path_factory, seq):
+    path = tmp_path_factory.mktemp("tokens") / "tokens.bin"
+    return write_token_bin(str(path), STEPS * B * seq + 1, 256, seed=3)
+
+
 @pytest.fixture(scope="module")
 def token_file(tmp_path_factory):
-    path = tmp_path_factory.mktemp("tokens") / "tokens.bin"
-    return write_token_bin(str(path), STEPS * B * S + 1, 256, seed=3)
+    return _token_file(tmp_path_factory, S)
 
 
-def _jax_run(cfg, token_file):
+@pytest.fixture(scope="module")
+def token_file_flash(tmp_path_factory):
+    return _token_file(tmp_path_factory, S_FLASH)
+
+
+def _jax_run(cfg, token_file, attn_impl="chunked", seq=S):
     mesh = make_mesh((1, 1), ("data", "model"))
     run = JRunConfig(policy=JPolicy(compute_dtype=jnp.float32),
-                     attn_impl="chunked", moe_impl="gather", remat="full",
+                     attn_impl=attn_impl, moe_impl="gather", remat="full",
                      chunk_q=16)
     prog = jmake_train_program(cfg, mesh, run,
-                               JShapeConfig("t", "train", S, B),
+                               JShapeConfig("t", "train", seq, B),
                                opt_cfg=_opt_cfg(jopt), zcfg=None)
-    loader = JDataLoader(JDataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+    loader = JDataLoader(JDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                      global_batch=B, path=token_file))
     with mesh:
         params = prog.init_params(seed=0)
@@ -78,24 +92,24 @@ def _jax_run(cfg, token_file):
     return init, out, batches
 
 
-def _port_program(cfg, remat="full"):
+def _port_program(cfg, remat="full", attn_impl="chunked", seq=S):
     run = RunConfig(policy=Policy(compute_dtype=torch.float32),
-                    attn_impl="chunked", moe_impl="gather", remat=remat,
+                    attn_impl=attn_impl, moe_impl="gather", remat=remat,
                     chunk_q=16)
-    return make_train_program(cfg, run, ShapeConfig("t", "train", S, B),
+    return make_train_program(cfg, run, ShapeConfig("t", "train", seq, B),
                               opt_cfg=_opt_cfg(opt), device="cpu")
 
 
-def test_train_steps_match_jax(token_file):
+def _check_train_steps_match_jax(token_file, attn_impl="chunked", seq=S):
     jcfg = jregistry.smoke_config(jregistry.get_config("mixtral-w1"))
-    init, want, jbatches = _jax_run(jcfg, token_file)
+    init, want, jbatches = _jax_run(jcfg, token_file, attn_impl, seq)
 
     cfg = registry.smoke_config(registry.get_config("mixtral-w1"))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    prog = _port_program(cfg)
+    prog = _port_program(cfg, attn_impl=attn_impl, seq=seq)
     params = params_from_jax(init)
     state = prog.init_opt(params)
-    loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+    loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                    global_batch=B, path=token_file))
     got = []
     for jb in jbatches:
@@ -109,6 +123,14 @@ def test_train_steps_match_jax(token_file):
         for k in METRICS:
             assert g[k] == pytest.approx(w[k], rel=2e-5, abs=1e-7), \
                 (step, k, g[k], w[k])
+
+
+def test_train_steps_match_jax(token_file):
+    _check_train_steps_match_jax(token_file)
+
+
+def test_flash_train_steps_match_jax(token_file_flash):
+    _check_train_steps_match_jax(token_file_flash, "flash", S_FLASH)
 
 
 def test_remat_full_gradients_equal_remat_none():
