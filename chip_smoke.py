@@ -18,7 +18,13 @@ depth, with random weights from seed 0:
   driver's chunked attention;
 * train_flash: the same driver loop, steps and batches with
   ``RunConfig(attn_impl="flash")``: every attention forward, recompute and
-  backward through the flash attention kernels.
+  backward through the flash attention kernels;
+* train_mamba2: ``repro_torch.launch.train`` on ``mamba2-2.7b`` (64 SSD
+  layers, d_model 2560, 80 heads of 64, state 128, chunk 256; 2.70 B
+  params), one untimed warm-up step and then 6 steps of batch 2 x seq 2048
+  (eight chunks per sequence, so the carried state is exercised): every
+  SSD mixer's scan, forward and remat recompute, through the SSD scan
+  kernel.
 
 It fails unless:
 
@@ -29,7 +35,8 @@ It fails unless:
   run launched each grouped kernel the expected number of times per layer
   and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3); the chunked
   run no flash kernel, the flash run flash_fwd 2 (forward + recompute),
-  flash_dq 1 and flash_dkv 1 per layer and step;
+  flash_dq 1 and flash_dkv 1 per layer and step; the mamba2 run ssd 2
+  (forward + recompute) per layer and step and no other kernel;
 * the flash run's step-1 loss and grad norm are within 1e-2 relative of
   the chunked run's (the bf16 tier: the two round p at other places);
 * each kernel agrees with its plain PyTorch version on the card, at the
@@ -45,6 +52,13 @@ It fails unless:
 * the flash kernels agree with their plain versions at the train shape
   and at batch 2 x seq 1024 (causal tile skipping), with a window, with a
   softcap (forward) and in f32;
+* the SSD scan kernel agrees with its plain version at the mamba2 run's
+  shape, at a ragged T (2 x 1000) and at T < 128, in bf16 and f32 (y at
+  the tiers above, the f32 final state within 1e-4 * max|plain|), and the
+  SSD autograd Function on the card agrees with the same Function on the
+  CPU in f32 (y and state within 1e-4 * max, the five gradients within
+  1e-3 * max: the backward's f32 exp(cum_i - cum_j) is only as exact as
+  the ulp of a chunk's cum, 2.4e-4 at |cum| ~ 3000);
 * under the f32 policy, the paged engine's first-token logits of the
   trace's first request whose prompt spans several prefill chunks match
   the cache-free forward's within 1e-3 * max|logit|.
@@ -57,8 +71,8 @@ timed windows. The serve model is released before the train phase.
 Printed in order: the device line (torch's name and nvidia-smi's name and
 power limit), the kernel build time, the warm-up and serve runs' lines,
 the train runs' lines, the kernel tolerances, the ``kernels`` JSON line,
-the serve, parity, train, train_flash, grad, flash_grad and flash_cases
-lines, and last
+the serve, parity, train, train_flash, train_mamba2, grad, flash_grad,
+flash_cases, ssd_cases and ssd_grad lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -92,6 +106,14 @@ TRAIN_LAUNCHES = {"gmm_glu": 2, "gmm": 8, "gmm_dw": 3}
 # the chunked attention): forward and its remat recompute, one backward.
 FLASH_LAUNCHES = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
 FLASH_GAP = 1e-2            # flash vs chunked step-1 loss / grad norm
+MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--mesh", "1x1", "--steps", "6",
+               "--batch", "2", "--seq", "2048"]
+MAMBA2_WARMUP_ARGS = MAMBA2_ARGS + ["--steps", "1"]
+# ... of the mamba2 run: the SSD scan's forward and its remat recompute
+# (the backward is autograd of ref.ssd_chunked, no kernel), nothing else.
+MAMBA2_LAUNCHES = {"ssd": 2}
+SSD_REPLACES = "src/repro/kernels/ssd.py:82"
+SSD_GRAD_TOL = 1e-3         # SSD Function gradients, card vs CPU (f32)
 FLASH_REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:122",
     "flash_dq": "src/repro/kernels/flash_attention.py:245",
@@ -486,35 +508,37 @@ def parity_f32(torch, serve_mod):
             and engine.n_prefill_chunks >= 2}
 
 
-def timed_train(torch, train_mod, smi: str, run=None):
-    """The train driver's 6 steps under ``run`` (default: the driver's
-    chunked attention), the launch counters set to 0 just before and read
-    just after. Raises on a non-finite step or a kernel of the path that
-    never launched; the exact counts are checked by the caller."""
+def timed_train(torch, train_mod, smi: str, argv, per_step: dict,
+                run=None):
+    """The train driver's steps of ``argv`` under ``run`` (default: the
+    driver's chunked attention), the launch counters set to 0 just before
+    and read just after. Raises on a non-finite step or a kernel of the
+    path that never launched; the exact counts (``per_step`` per layer and
+    step, 0 for every other kernel) are checked by the caller."""
     from repro_torch import kernels
     from repro_torch.models import registry
-    args = train_mod.build_parser().parse_args(TRAIN_ARGS)
+    args = train_mod.build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    summary = train_mod.train_arch("mixtral-w1", args, run)
+    summary = train_mod.train_arch(args.arch, args, run)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     variants = kernels.variant_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     attn = run.attn_impl if run is not None else "chunked"
+    label = f"{args.arch}, {attn}"
     if not summary["ok"]:
-        raise RuntimeError(f"train run ({attn}): a loss or grad norm is not "
-                           f"finite")
-    per_step = dict(TRAIN_LAUNCHES, **{
-        k: n if attn == "flash" else 0 for k, n in FLASH_LAUNCHES.items()})
+        raise RuntimeError(f"train run ({label}): a loss or grad norm is "
+                           f"not finite")
     missing = [k for k, n in per_step.items() if n and launches[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the train path "
-                           f"({attn}): {missing} ({launches})")
-    layers = registry.get_config("mixtral-w1").n_layers
-    expected = {k: n * layers * args.steps for k, n in per_step.items()}
+                           f"({label}): {missing} ({launches})")
+    layers = registry.get_config(args.arch).n_layers
+    expected = {k: per_step.get(k, 0) * layers * args.steps
+                for k in launches}
     line = {
-        "arch": "mixtral-w1", "attn_impl": attn,
+        "arch": args.arch, "attn_impl": attn,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi, "params": summary["params"],
         "steps": args.steps, "batch": args.batch, "seq": args.seq,
@@ -539,7 +563,8 @@ def train_phase(torch, train_mod, smi: str):
     torch.cuda.empty_cache()
     print(f"train warm-up: 1 step (untimed, not counted), loss "
           f"{warm['history'][0]['loss']:.4f}", flush=True)
-    return timed_train(torch, train_mod, smi)
+    return timed_train(torch, train_mod, smi, TRAIN_ARGS,
+                       dict(TRAIN_LAUNCHES))
 
 
 def train_flash_phase(torch, train_mod, smi: str, chunked: dict):
@@ -550,7 +575,8 @@ def train_flash_phase(torch, train_mod, smi: str, chunked: dict):
     from repro_torch.models.modules import Policy, RunConfig
     run = RunConfig(policy=Policy(), attn_impl="flash", moe_impl="gather",
                     remat="full")
-    line, counts = timed_train(torch, train_mod, smi, run)
+    line, counts = timed_train(torch, train_mod, smi, TRAIN_ARGS,
+                               dict(TRAIN_LAUNCHES, **FLASH_LAUNCHES), run)
     line["step1_rel_gap_vs_chunked"] = {
         k: abs(line[k][0] - chunked[k][0]) / abs(chunked[k][0])
         for k in ("loss", "grad_norm")}
@@ -712,6 +738,142 @@ def flash_grad_phase(torch, cfg, batch: int, seq: int):
             "results": res, "ok": all(r["ok"] for r in res.values())}
 
 
+def train_mamba2_phase(torch, train_mod, smi: str):
+    """The mamba2 train path: one untimed warm-up step on a model of its
+    own, then the driver's 6 steps of batch 2 x seq 2048 on full-width,
+    full-depth ``mamba2-2.7b`` (:func:`timed_train`)."""
+    warm = train_mod.train_arch(
+        "mamba2-2.7b",
+        train_mod.build_parser().parse_args(MAMBA2_WARMUP_ARGS))
+    if not warm["ok"]:
+        raise RuntimeError("mamba2 warm-up train step failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train_mamba2 warm-up: 1 step (untimed, not counted), loss "
+          f"{warm['history'][0]['loss']:.4f}", flush=True)
+    return timed_train(torch, train_mod, smi, MAMBA2_ARGS, MAMBA2_LAUNCHES)
+
+
+def ssd_inputs(torch, cfg, b: int, T: int, dtype, dev, seed: int):
+    """x, dt, A, B, C of one SSD mixer at ``cfg``'s widths, as the model
+    hands them to the scan: x, B and C strided views into one [b, T,
+    din + 2 ns] tensor (the conv output), dt = softplus(N(0,1)) f32, A =
+    -(1..16) as mamba2's init. x, B and C are scaled by 1/4 so |y| stays
+    near 1, where one bf16 ulp is below the 2e-2 tier."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, ns = cfg.ssm_heads, cfg.ssm_state
+    din = cfg.ssm_expand * cfg.d_model
+    xbc = 0.25 * torch.randn((b, T, din + 2 * ns), generator=gen,
+                             device=dev)
+    xbc = xbc.to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, T, h), generator=gen, device=dev))
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return (xbc[..., :din].reshape(b, T, h, din // h), dt, A,
+            xbc[..., din:din + ns], xbc[..., din + ns:])
+
+
+def ssd_work(b: int, T: int, h: int, hd: int, ns: int, Q: int,
+             es: int):
+    """(bytes, flops) the scan needs: x, dt, B, C read once, y and the
+    f32 state written once; products: per (batch, head) and chunk of r
+    live rows the causal half of G·x̄ (2·hd per live (i, j) pair), C·S
+    (but for the first chunk, where S = 0) and the state update (2·r·ns·hd
+    each), and C·Bᵀ once per (batch, chunk) over its live pairs."""
+    flops = 0
+    for c, c0 in enumerate(range(0, T, Q)):
+        r = min(Q, T - c0)
+        pairs = r * (r + 1) // 2
+        flops += b * h * (2 * hd * pairs + 2 * r * ns * hd * (2 if c else 1))
+        flops += b * 2 * ns * pairs
+    moved = (b * T * h * hd * es * 2 + b * T * h * 4 + h * 4
+             + 2 * b * T * ns * es + b * h * hd * ns * 4)
+    return moved, flops
+
+
+def ssd_case(torch, cfg, label: str, b: int, T: int, dtype, seed: int):
+    """The SSD scan kernel against its plain version at ``cfg``'s widths
+    and chunk on one (b, T): y at the tier of its dtype, the final state
+    at the f32 tier; its time, the plain version's and the bound."""
+    from repro_torch.kernels import ssd
+    dev = torch.device("cuda")
+    args = ssd_inputs(torch, cfg, b, T, dtype, dev, seed)
+    chunk = cfg.ssm_chunk
+    y, state = ssd.ssd_scan(*args, chunk=chunk)
+    y_p, state_p = ssd.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    errs = {"y": (compare if bf16 else compare_f32)(y, y_p),
+            "state": compare_f32(state, state_p)}
+    x = args[0]
+    Q = ssd.chunk_rows(T, chunk)
+    moved, flops = ssd_work(b, T, x.shape[2], x.shape[3], args[3].shape[-1],
+                            Q, x.element_size())
+    t_bound, by = bound(moved, flops, FP32_FLOPS)
+    return {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu", "replaces": SSD_REPLACES,
+        "max_abs_err": max(e[0] for e in errs.values()),
+        "tol": min(e[1] for e in errs.values()),
+        "errors": {n: {"max_abs_err": e[0], "tol": e[1]}
+                   for n, e in errs.items()},
+        "ok": all(e[2] for e in errs.values()),
+        "ms": cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), 10),
+        "plain_ms": cuda_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk),
+                            3),
+        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan",
+        "shapes": {"case": label, "x": list(x.shape),
+                   "x_strides": list(x.stride()), "B": list(args[3].shape),
+                   "dtype": str(dtype).replace("torch.", ""), "chunk": Q,
+                   "flops_needed": flops, "bytes_needed": moved}}
+
+
+def check_ssd_kernel(torch, cfg, batch: int, seq: int):
+    """The SSD scan kernel at the mamba2 run's shape (the kernels line's
+    entry, bf16 as under the bf16 policy), and at that shape in f32, at a
+    ragged T (2 x 1000) and at T < 128 (the chunk drops to 128), in bf16
+    and f32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    main = ssd_case(torch, cfg, f"{batch}x{seq}", batch, seq, bf, 9)
+    cases = [ssd_case(torch, cfg, f"{batch}x{seq}-f32", batch, seq, f32, 9)]
+    for b, T in ((2, 1000), (2, 100)):
+        for dtype in (bf, f32):
+            cases.append(ssd_case(torch, cfg, f"{b}x{T}", b, T, dtype, 10))
+    return main, cases
+
+
+def ssd_grad_phase(torch, cfg):
+    """The SSD autograd Function (kernel forward, autograd of
+    ref.ssd_chunked backward) on the card against the same Function on the
+    CPU (plain forward), f32, at the mamba2 widths on 1 x 600 (three
+    chunks, the last one ragged): y, state and the five gradients."""
+    from repro_torch.kernels import ops
+    args = ssd_inputs(torch, cfg, 1, 600, torch.float32, "cpu", 11)
+    gen = torch.Generator().manual_seed(12)
+    gy = torch.randn(args[0].shape, generator=gen)
+    gs = torch.randn((1, cfg.ssm_heads, args[0].shape[-1], cfg.ssm_state),
+                     generator=gen)
+
+    def run(dev):
+        ins = [t.detach().to(dev).requires_grad_(True) for t in args]
+        y, state = ops.ssd(*ins, chunk=cfg.ssm_chunk)
+        torch.autograd.backward([y, state], [gy.to(dev), gs.to(dev)])
+        return [y.detach(), state.detach()] + [t.grad for t in ins]
+
+    want = run("cpu")
+    got = run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    res = {}
+    for i, (name, a, b) in enumerate(zip(
+            ("y", "state", "dx", "ddt", "dA", "dB", "dC"), got, want)):
+        err = float((a.cpu() - b).abs().max())
+        tol = (TOL_F32 if i < 2 else SSD_GRAD_TOL) * float(b.abs().max())
+        res[name] = {"max_abs_err": err, "tol": tol, "ok": err <= tol}
+    return {"shapes": {"x": list(args[0].shape), "chunk": cfg.ssm_chunk},
+            "results": res, "ok": all(r["ok"] for r in res.values())}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -781,6 +943,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- main path 4: the train driver on mamba2-2.7b (the SSD scan) --------
+    mamba2_line, mamba2_counts = train_mamba2_phase(torch, train_mod, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
     batch, seq = train_line["batch"], train_line["seq"]
@@ -791,14 +958,21 @@ def main() -> int:
     entries += flash_entries
     torch.cuda.empty_cache()
     flash_grad = flash_grad_phase(torch, w1, batch, seq)
+    mamba2 = registry.get_config("mamba2-2.7b")
+    ssd_entry, ssd_cases = check_ssd_kernel(torch, mamba2,
+                                            mamba2_line["batch"],
+                                            mamba2_line["seq"])
+    entries.append(ssd_entry)
+    ssd_grad = ssd_grad_phase(torch, mamba2)
     for e in entries:  # launches: the sum over the main-path runs
         e["launches_by_path"] = {
             "serve": serve_counts.get(e["name"], 0),
             "train": train_counts.get(e["name"], 0),
-            "train_flash": flash_counts.get(e["name"], 0)}
+            "train_flash": flash_counts.get(e["name"], 0),
+            "train_mamba2": mamba2_counts.get(e["name"], 0)}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
-        f"{e['name']}@{e['shapes']['case']}" for e in flash_cases
+        f"{e['name']}@{e['shapes']['case']}" for e in flash_cases + ssd_cases
         if not e["ok"]]
 
     steps = summary["paged"]
@@ -819,8 +993,9 @@ def main() -> int:
         "device": name, "nvidia_smi": smi, "build_s": build_s,
         "nvcc_reports": _build.build_logs(), "kernels": entries,
         "serve": serve_line, "parity": parity, "train": train_line,
-        "train_flash": flash_line, "grad": grad, "flash_grad": flash_grad,
-        "flash_cases": flash_cases}, indent=1))
+        "train_flash": flash_line, "train_mamba2": mamba2_line,
+        "grad": grad, "flash_grad": flash_grad, "flash_cases": flash_cases,
+        "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
     contract = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -833,6 +1008,7 @@ def main() -> int:
     print("parity: " + json.dumps(parity), flush=True)
     print("train: " + json.dumps(train_line), flush=True)
     print("train_flash: " + json.dumps(flash_line), flush=True)
+    print("train_mamba2: " + json.dumps(mamba2_line), flush=True)
     print("grad: " + json.dumps(grad), flush=True)
     print("flash_grad: " + json.dumps(flash_grad), flush=True)
     print("flash_cases: " + json.dumps(
@@ -840,6 +1016,11 @@ def main() -> int:
                             "plain_ms", "bound_ms", "bound_by",
                             "library_ms")} for e in flash_cases]),
           flush=True)
+    print("ssd_cases: " + json.dumps(
+        [{k: e[k] for k in ("name", "shapes", "errors", "ok", "ms",
+                            "plain_ms", "bound_ms", "bound_by")}
+         for e in ssd_cases]), flush=True)
+    print("ssd_grad: " + json.dumps(ssd_grad), flush=True)
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions "
                            f"beyond their tolerance: {bad}")
@@ -847,12 +1028,12 @@ def main() -> int:
         raise RuntimeError("paged engine logits disagree with the "
                            "cache-free forward under the f32 policy, or the "
                            "prompt did not span several chunks")
-    for line in (train_line, flash_line):
+    for line in (train_line, flash_line, mamba2_line):
         want = line["launches_expected"]
         if want != {k: line["launches"][k] for k in want}:
-            raise RuntimeError(f"train launches ({line['attn_impl']}) "
-                               f"{line['launches']} differ from the "
-                               f"expected {want}")
+            raise RuntimeError(f"train launches ({line['arch']}, "
+                               f"{line['attn_impl']}) {line['launches']} "
+                               f"differ from the expected {want}")
     gap = flash_line["step1_rel_gap_vs_chunked"]
     if max(gap.values()) > FLASH_GAP:
         raise RuntimeError(f"flash train run's step 1 differs from the "
@@ -864,6 +1045,9 @@ def main() -> int:
         raise RuntimeError("flash attention gradients disagree with "
                            "autograd through the oracle beyond their "
                            "tolerance")
+    if not ssd_grad["ok"]:
+        raise RuntimeError("the SSD Function on the card disagrees with the "
+                           "same Function on the CPU beyond its tolerance")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels (flash attention forward and backward, grouped
-expert GEMMs and their weight gradient, paged decode attention).
+expert GEMMs and their weight gradient, paged decode attention, the mamba2
+SSD chunk scan).
 
 Each kernel has a plain-torch version beside its wrapper, taken for CPU
 tensors; :mod:`repro_torch.kernels.ref` holds the oracles and
@@ -8,13 +9,13 @@ compiled by :mod:`repro_torch.kernels._build` at first launch.
 """
 
 from repro_torch.kernels import (flash_attention, gmm, ops, paged_attention,
-                                 ref)
+                                 ref, ssd)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {**gmm.LAUNCHES, **paged_attention.LAUNCHES,
-            **flash_attention.LAUNCHES}
+            **flash_attention.LAUNCHES, **ssd.LAUNCHES}
 
 
 def variant_launch_counts() -> dict:
@@ -25,7 +26,7 @@ def variant_launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     for counts in (gmm.LAUNCHES, paged_attention.LAUNCHES,
-                   flash_attention.LAUNCHES):
+                   flash_attention.LAUNCHES, ssd.LAUNCHES):
         for name in counts:
             counts[name] = 0
     gmm._reset_variants()

@@ -1,7 +1,8 @@
 """Wrappers around the kernels (mirror of ``repro/kernels/ops.py``): flash
 attention with its gradient, pack metadata and row scatter/gather of the
 packed expert domain, the single-pack MoE expert FFN with its small-M
-group-dense route, and paged decode attention.
+group-dense route, paged decode attention, and the mamba2 SSD scan with its
+gradient.
 
 Routing decisions are the JAX package's, so both packages compute the same
 things: the small-M crossover (``M * (G - 1) <= G * block_m``), the padded
@@ -22,6 +23,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_kernel
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as ssd_kernel
 
 
 def _round_up(x: int, m: int) -> int:
@@ -343,3 +346,51 @@ def moe_ffn(x_sorted, wi_gate, wi_up, wo, group_sizes, *, row_scales=None,
                                    row_scales=row_scales)
     return _MoEFFN.apply(x_sorted, wi_gate, wi_up, wo, row_scales,
                          group_sizes, block_m)
+
+
+# ---------------------------------------------------------------------------
+# SSD (mamba2)
+# ---------------------------------------------------------------------------
+
+class _SSD(torch.autograd.Function):
+    """The SSD scan with its gradient (the JAX package's
+    ``_ssd_kernel_call`` custom_vjp, ops.py:674-707): the forward is the
+    scan kernel (its plain version for CPU tensors); the backward recomputes
+    ``ref.ssd_chunked`` under autograd from the saved inputs and returns its
+    vector-Jacobian product, as ``_ssd_bwd`` does. That backward is plain
+    torch on the card too: it is the reference's own backward (autodiff of
+    the chunked oracle, not a Pallas kernel), so it is no fallback."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd_kernel.ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        needs = ctx.needs_input_grad[:5]
+        cts = [(i, g) for i, g in enumerate((dy, dstate)) if g is not None]
+        if not cts or not any(needs):
+            return (None,) * 6
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, needs)]
+            outs = ref.ssd_chunked(*ins, chunk=ctx.chunk)
+            got = iter(torch.autograd.grad(
+                [outs[i] for i, _ in cts], [t for t in ins if t.requires_grad],
+                [g for _, g in cts]))
+        return (*(next(got) if n else None for n in needs), None)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128):
+    """mamba2 SSD scan. x: [b, T, h, hd]; dt: [b, T, h] f32; A: [h] f32;
+    B/C: [b, T, ns] in x's dtype.
+
+    Returns (y [b, T, h, hd] in x's dtype, final_state [b, h, hd, ns] f32).
+    The JAX package's ``use_kernel=True`` route: the scan kernel forward
+    (chunk Q = min(chunk, round_up(T, 128)), the ragged end masked), and
+    the backward by autograd of ``ref.ssd_chunked`` at ``chunk``. There is
+    no kernel switch: the port's only route is the kernel's."""
+    return _SSD.apply(x, dt, A, B, C, int(chunk))

@@ -43,6 +43,9 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("gmm (port)", ("gmm_kernel<",)),
     ("gmm_dw (port)", ("gmm_dw_kernel",)),
     ("paged_decode (port)", ("paged_decode_kernel",)),
+    ("flash (port)", ("flash_fwd_kernel", "flash_dq_kernel",
+                      "flash_dkv_kernel")),
+    ("ssd (port)", ("ssd_scan_kernel",)),
     ("library gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "gemv",
                       "nvjet")),
     ("memcpy / memset", ("memcpy", "memset")),

@@ -8,14 +8,22 @@ reports, as ``launch/profile_serve.py`` does for serving:
 
 * host wall time of the profiled steps, and the device's busy and idle
   share of it;
-* device time by kernel family (the port's CUDA kernels by name; library
-  GEMMs; elementwise, indexing and reduction kernels; the rest);
+* device time by kernel family (the port's CUDA kernels by name: the
+  grouped GEMMs, flash attention, the SSD scan; library GEMMs;
+  elementwise, indexing and reduction kernels; the rest);
 * per phase: calls, host time and the device time of its kernels;
-* the kernels with the most device time, by name.
+* the kernels with the most device time, by name;
+* device memory: what params and optimizer state hold, and the peak of
+  the profiled steps (``torch.cuda.max_memory_allocated``).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
         --arch mixtral-w1 --no-zebra --steps 3 --batch 8 --seq 256 \\
         --out chiprun_out/profile_train.json
+
+    # mamba2 at full width and depth (the SSD scan kernel):
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        --arch mamba2-2.7b --steps 3 --batch 2 --seq 2048 \\
+        --out chiprun_out/profile_train_mamba2.json
 
 Needs a CUDA device (it measures the card, never the CPU).
 """
@@ -40,6 +48,8 @@ def profile(args) -> dict:
     cfg, program, loader = train_mod.build(args.arch, args)
     params = program.init_params(seed=0)
     opt_state = program.init_opt(params)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
 
     def step():
         batch = next(loader)
@@ -51,6 +61,7 @@ def profile(args) -> dict:
             torch.cuda.synchronize()
 
     step()  # warm-up: library handles, allocator growth
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -59,7 +70,9 @@ def profile(args) -> dict:
             step()
         wall_us = (time.perf_counter() - t0) * 1e6
     return {"arch": cfg.name, "steps": args.steps, "batch": args.batch,
-            "seq": args.seq, **report(prof, wall_us, PHASES)}
+            "seq": args.seq, **report(prof, wall_us, PHASES),
+            "memory": {"state_bytes": state_bytes,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}}
 
 
 def main(argv=None) -> int:

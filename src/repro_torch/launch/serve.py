@@ -18,8 +18,10 @@ CUDA device and without ``--device cpu`` it exits non-zero.
 
 Flags for deployment shapes the port does not serve yet (``--disagg``,
 ``--fleet``, ``--ep-size``, ``--prefix-cache``, ``--tenants``,
-``--trace-out``, running without ``--paged``, ...) are rejected by name in
-one ``[serve] invalid configuration:`` line, exit 1.
+``--trace-out``, running without ``--paged``, ...) and archs with
+recurrent mixers (``--arch mamba2-2.7b``: the engines' recurrent decode
+state is not ported yet) are rejected by name in one ``[serve] invalid
+configuration:`` line, exit 1.
 
 Exit status: non-zero when any request is rejected or left unfinished,
 when the configuration is invalid, or when the device is missing.
@@ -150,13 +152,21 @@ _UNPORTED_VALUES = (("--prefix-capacity", int), ("--tenants", int),
 
 def _unported_flags(args) -> list:
     """The unported flags set on this command line (0 / off values, which
-    the JAX driver also reads as "off", pass), plus a mesh other than one
-    device."""
+    the JAX driver also reads as "off", pass), a mesh other than one
+    device, and an arch with recurrent mixers (the engines hold attention
+    caches only)."""
     flags = list(_UNPORTED_SWITCHES) + [f for f, _ in _UNPORTED_VALUES]
     out = [f for f in flags
            if getattr(args, f[2:].replace("-", "_")) not in (None, False, 0)]
     if args.mesh != "1x1":
         out.append(f"--mesh {args.mesh} (one device only)")
+    if args.arch is not None:
+        cfg = registry.get_config(args.arch)
+        rec = sorted({s.mixer for s in (*cfg.pattern, *cfg.tail_specs)
+                      if s.mixer in ("ssd", "rglru")})
+        if rec:
+            out.append(f"--arch {args.arch} (recurrent {'/'.join(rec)} "
+                       f"mixers: their decode state is not ported yet)")
     return out
 
 

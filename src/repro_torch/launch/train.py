@@ -4,6 +4,10 @@
 It takes the JAX driver's flags and runs the JAX driver's step: forward
 with chunked attention and per-layer recompute (``remat="full"``), the
 MoE FFN's recomputing backward through the grouped GEMM kernels, AdamW.
+A mamba2 arch (``--arch mamba2-2.7b``) runs each SSD mixer's scan through
+the SSD scan kernel (forward and its remat recompute) with the backward
+by autograd of the chunked oracle; zebra applies to MoE archs only, so it
+needs no ``--no-zebra``.
 A caller may hand :func:`build` / :func:`train_arch` another
 ``RunConfig`` (``attn_impl="flash"`` trains through the flash attention
 kernels); the command line has no flag for it, as the JAX driver has
@@ -14,6 +18,10 @@ CUDA device and without ``--device cpu`` it exits non-zero.
     # the paper's Mixtral-W1 at full width and depth on the card:
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
         --no-zebra --mesh 1x1 --steps 6 --batch 8 --seq 256
+
+    # mamba2-2.7b at full width and depth on the card (8 chunks of 256):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+        --steps 6 --batch 2 --seq 2048
 
     # smoke size on the CPU (plain versions of the kernels):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\

@@ -13,8 +13,11 @@ a tree that already holds those matrices in the compute dtype
 values.
 
 Ported: attention mixers (full and sliding-window; reference, chunked and
-flash attention) and dense / MoE FFNs. The recurrent mixers and
-cross-attention are later slices; their init raises.
+flash attention), the mamba2 SSD mixer (its cache-free path through the SSD
+scan kernel, its cached path through ``ref.ssd_decode_step``) and dense /
+MoE FFNs. The RG-LRU mixer and cross-attention are later slices; their init
+raises. The engines' decode states hold attention caches only: a model with
+an SSD layer trains, and ``init_layer_state`` refuses it.
 
 Training runs these functions under autograd. The in-place writes on the
 cache-free path are autograd-safe: ``apply_moe``'s combine ``index_add_``
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.pytree import ParamSpec
 
@@ -541,18 +545,135 @@ def apply_moe(params, cfg: ModelConfig, run: RunConfig, x):
 
 
 # ---------------------------------------------------------------------------
+# SSD block (mamba2)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, conv_w, conv_b, state=None):
+    """Depthwise causal conv. x: [B, S, C]; conv_w: [W, C]; state:
+    [B, W-1, C]. The per-tap sum in x's dtype and the reference's order
+    (not ``F.conv1d``, which goes through cuDNN: TF32 for f32 and another
+    bf16 rounding). Returns (out [B, S, C], new_state [B, W-1, C])."""
+    W = conv_w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1], :] * conv_w[i].to(x.dtype)
+              for i in range(W))
+    out = out + conv_b.to(x.dtype)
+    new_state = xp[:, -(W - 1):, :] if W > 1 else pad
+    return out, new_state
+
+
+def init_ssd(cfg: ModelConfig):
+    d = cfg.d_model
+    din = cfg.ssm_expand * d
+    nh, s, cw = cfg.ssm_heads, cfg.ssm_state, cfg.conv_width
+    proj_out = 2 * din + 2 * s + nh  # z, x, B, C, dt
+    return {
+        "in_proj": ParamSpec((d, proj_out), fan_in=d),
+        "conv_w": ParamSpec((cw, din + 2 * s), fan_in=cw),
+        "conv_b": ParamSpec((din + 2 * s,), "zeros"),
+        "dt_bias": ParamSpec((nh,), "zeros"),
+        "A_log": ParamSpec((nh,), "a_log"),  # A in [-16, -1]
+        "D": ParamSpec((nh,), "ones"),
+        "norm": ParamSpec((din,), "ones"),
+        "out_proj": ParamSpec((din, d), fan_in=din),
+    }
+
+
+def _softplus(x):
+    """``jax.nn.softplus`` (= logaddexp(x, 0))."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def apply_ssd(params, cfg: ModelConfig, run: RunConfig, x, state=None):
+    """mamba2 SSD mixer. x: [B, S, d] -> (y, new_state).
+
+    Without a state (training, cache-free forward) the scan is
+    ``ops.ssd``: the SSD scan kernel on the card, its plain version on the
+    CPU, and the backward by autograd of ``ref.ssd_chunked``; that is the
+    JAX package's ``use_gmm_kernel=True`` route, the only one the port has.
+    With a state ({"conv", "ssm"}, :func:`init_ssd_state`) it is the
+    sequential ``ref.ssd_decode_step``, as in the JAX package."""
+    cd = run.policy.compute_dtype
+    B, S, d = x.shape
+    din = cfg.ssm_expand * d
+    nh, ns = cfg.ssm_heads, cfg.ssm_state
+    hd = din // nh
+
+    zxbcdt = x @ params["in_proj"].to(cd)
+    z = zxbcdt[..., :din]
+    xbc = zxbcdt[..., din:din + din + 2 * ns]
+    dt_raw = zxbcdt[..., -nh:]
+
+    conv_state = state["conv"] if state is not None else None
+    xbc, new_conv = causal_conv1d(xbc, params["conv_w"], params["conv_b"],
+                                  conv_state)
+    xbc = F.silu(xbc)
+    xs = xbc[..., :din].reshape(B, S, nh, hd)
+    Bm = xbc[..., din:din + ns]
+    Cm = xbc[..., din + ns:]
+
+    dt = _softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])  # [nh]
+
+    if state is None:
+        y, last_state = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    else:
+        y, last_state = kref.ssd_decode_step(xs, dt, A, Bm, Cm,
+                                             state["ssm"].float())
+
+    y = y + params["D"].to(cd)[None, None, :, None] * xs
+    y = y.reshape(B, S, din)
+    # Gated RMSNorm (mamba2): norm(y * silu(z))
+    yf = (y * F.silu(z)).float()
+    ms = yf.square().mean(-1, keepdim=True)
+    yf = yf * torch.rsqrt(ms + 1e-6) * params["norm"]
+    out = yf.to(cd) @ params["out_proj"].to(cd)
+
+    new_state = None
+    if state is not None:
+        new_state = {"conv": new_conv.to(state["conv"].dtype),
+                     "ssm": last_state.to(state["ssm"].dtype)}
+    return out, new_state
+
+
+def init_ssd_state(cfg: ModelConfig, batch: int, dtype, device="cpu"):
+    din = cfg.ssm_expand * cfg.d_model
+    nh, ns = cfg.ssm_heads, cfg.ssm_state
+    hd = din // nh
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, din + 2 * ns),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, nh, hd, ns), dtype=torch.float32,
+                           device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
 # Transformer layer = mixer + ffn
 # ---------------------------------------------------------------------------
 
 def _check_spec(spec: LayerSpec):
-    if spec.mixer not in ("attn", "local_attn") or spec.cross_attn:
+    if spec.mixer not in ("attn", "local_attn", "ssd") or spec.cross_attn:
         raise NotImplementedError(f"layer kind {spec.tag()!r} is not ported "
-                                  f"yet (attention mixers only)")
+                                  f"yet (attention and SSD mixers only)")
+
+
+def _check_decode_spec(spec: LayerSpec):
+    _check_spec(spec)
+    if spec.mixer == "ssd":
+        raise NotImplementedError("the serving engines' recurrent (SSD) "
+                                  "decode state is not ported yet")
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec):
     _check_spec(spec)
-    params = {"norm1": init_norm(cfg), "mixer": init_attention(cfg)}
+    mixer = init_ssd(cfg) if spec.mixer == "ssd" else init_attention(cfg)
+    params = {"norm1": init_norm(cfg), "mixer": mixer}
     if spec.ffn != "none":
         params["norm2"] = init_norm(cfg)
         params["ffn"] = init_moe(cfg) if spec.ffn == "moe" else init_mlp(cfg)
@@ -562,10 +683,17 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec):
 def apply_mixer_part(params, cfg: ModelConfig, run: RunConfig,
                      spec: LayerSpec, x, positions, state=None,
                      cache_index=None, page_table=None):
-    """Pre-norm attention + residual. Returns (h, new_state)."""
+    """Pre-norm mixer (attention or SSD) + residual. Returns (h,
+    new_state)."""
     _check_spec(spec)
     new_state = dict(state) if state is not None else None
     u = apply_norm(params["norm1"], x, run.policy)
+    if spec.mixer == "ssd":
+        mixed, ns = apply_ssd(params["mixer"], cfg, run, u,
+                              state.get("ssd") if state else None)
+        if new_state is not None:
+            new_state["ssd"] = ns
+        return x + mixed, new_state
     window = cfg.window if spec.mixer == "local_attn" else 0
     causal = cfg.causal if spec.causal is None else spec.causal
     cache = state.get("kv") if state is not None else None
@@ -603,7 +731,7 @@ def apply_layer(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
 def init_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device="cpu"):
     """Decode-state tree for one layer (dense per-slot cache layout)."""
-    _check_spec(spec)
+    _check_decode_spec(spec)
     window = cfg.window if spec.mixer == "local_attn" else 0
     return {"kv": init_attention_cache(cfg, batch, max_len, window, dtype,
                                        device)}
@@ -615,6 +743,6 @@ def init_paged_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
     """Paged decode-state tree for one layer (DESIGN.md §9): attention KV
     is the SHARED pool (no batch dim)."""
     del batch  # per-slot recurrent states belong to unported mixers
-    _check_spec(spec)
+    _check_decode_spec(spec)
     return {"kv": init_paged_attention_cache(cfg, n_pages, page_size, dtype,
                                              device)}

@@ -30,11 +30,13 @@ from repro_torch.pytree import ParamSpec, flatten, materialize, tree_map
 
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss")
 
-# Matrices multiplied in the compute dtype (``.astype(cd)`` at their use in
-# the JAX package). Norm scales and the router stay f32: they are used in
-# the accum dtype.
+# Leaves cast to the compute dtype at their use in the JAX package
+# (``.astype(cd)``; the SSD conv taps and bias are cast to x's dtype, the
+# compute dtype, inside ``causal_conv1d``). Norm scales and the router stay
+# f32: they are used in the accum dtype; so do the SSD's dt_bias, A_log and
+# norm, and its D, which is cast at its use from f32.
 _COMPUTE_LEAVES = ("table", "lm_head", "wq", "wk", "wv", "wo", "wi_gate",
-                   "wi_up", "wi")
+                   "wi_up", "wi", "in_proj", "out_proj", "conv_w", "conv_b")
 
 
 def _zero_aux(device):

@@ -24,7 +24,7 @@ class ParamSpec:
     """One parameter leaf before materialization."""
 
     shape: tuple
-    init: str = "fan_in"  # fan_in | ones | zeros
+    init: str = "fan_in"  # fan_in | ones | zeros | a_log
     fan_in: int = 0       # fan_in init: stddev = 1 / sqrt(fan_in)
 
     def stacked(self, n: int) -> "ParamSpec":
@@ -79,6 +79,17 @@ def fan_in_init(shape, fan_in: int, generator: torch.Generator,
                              generator, device)
 
 
+def a_log_init(shape, device) -> torch.Tensor:
+    """mamba2's deterministic ``A_log`` = log(linspace(1, 16, nh)) over the
+    last axis (A = -exp(A_log) spans [-16, -1]), broadcast over leading
+    (stacked layer) axes. Computed in f64 and rounded once to f32: the
+    correctly rounded values, which XLA's f32 ``linspace`` and ``log`` on
+    the CPU match to within 2 ulp (and exactly at few heads)."""
+    nh = shape[-1]
+    row = torch.linspace(1.0, 16.0, nh, dtype=torch.float64).log()
+    return row.to(torch.float32).expand(shape).contiguous().to(device)
+
+
 def materialize(specs, generator: torch.Generator, device):
     """Tree of ParamSpec -> tree of f32 tensors on ``device``, drawn in the
     tree's insertion order from ``generator``."""
@@ -87,6 +98,8 @@ def materialize(specs, generator: torch.Generator, device):
             return torch.ones(spec.shape, dtype=torch.float32, device=device)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=torch.float32, device=device)
+        if spec.init == "a_log":
+            return a_log_init(spec.shape, device)
         return fan_in_init(spec.shape, spec.fan_in, generator, device)
     return tree_map(one, specs)
 

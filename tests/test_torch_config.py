@@ -24,10 +24,10 @@ from torch_parity import jax_values_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
 NAMES = sorted(jreg.names())
-# Decoder-only archs whose layers are all attention mixers: the ones whose
-# init the port has.
-PORTED = ["dbrx-132b", "llama3.2-3b", "mixtral-d1", "mixtral-d2",
-          "mixtral-d3", "mixtral-w1", "mixtral-w2", "qwen3-32b",
+# Decoder-only archs whose layers are all attention or SSD mixers: the ones
+# whose init the port has.
+PORTED = ["dbrx-132b", "llama3.2-3b", "mamba2-2.7b", "mixtral-d1",
+          "mixtral-d2", "mixtral-d3", "mixtral-w1", "mixtral-w2", "qwen3-32b",
           "qwen3-moe-30b-a3b", "starcoder2-15b", "yi-34b"]
 
 
@@ -55,10 +55,16 @@ def test_exact_param_count_matches_jax(name):
 
 
 def test_unported_layer_kinds_raise():
-    for name in ("mamba2-2.7b", "recurrentgemma-9b", "whisper-tiny",
-                 "llama-3.2-vision-90b"):
+    for name in ("recurrentgemma-9b", "whisper-tiny", "llama-3.2-vision-90b"):
         with pytest.raises(NotImplementedError):
             stack.param_specs(registry.get_config(name))
+    # mamba2 trains; the serving engines' SSD decode state is not ported
+    cfg = registry.smoke_config(registry.get_config("mamba2-2.7b"))
+    for init in (lambda: stack.init_decode_state(cfg, 1, 8, torch.float32),
+                 lambda: stack.init_paged_decode_state(cfg, 1, 4, 8,
+                                                       torch.float32)):
+        with pytest.raises(NotImplementedError, match="decode state"):
+            init()
 
 
 def test_params_from_jax_keeps_paths_layout_and_values():

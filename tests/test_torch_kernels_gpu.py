@@ -20,6 +20,7 @@ from repro_torch import kernels
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm, ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd
 
 pytestmark = pytest.mark.gpu
 
@@ -221,7 +222,8 @@ def test_launch_counters_and_refusals(cuda):
     gmm.gmm_tiled(lhs, wg, tg, block_m=64)
     assert kernels.launch_counts() == {"gmm_glu": 0, "gmm": 2, "gmm_dw": 0,
                                        "paged_decode": 0, "flash_fwd": 0,
-                                       "flash_dq": 0, "flash_dkv": 0}
+                                       "flash_dq": 0, "flash_dkv": 0,
+                                       "ssd": 0}
     assert kernels.variant_launch_counts()["gmm:f32.f32->f32"] == 2
     with pytest.raises(ValueError):  # tiles smaller than the kernel's
         gmm.gmm_tiled(lhs, wg, torch.cat([tg, tg]), block_m=32)
@@ -339,3 +341,89 @@ def test_flash_refusals(cuda):
     with pytest.raises(ValueError):  # head_dim not contiguous
         fa.flash_forward(q.transpose(2, 3), k, v, scale=1.0, causal=True)
     assert kernels.launch_counts()["flash_fwd"] == 0
+
+
+def _ssd_inputs(b, T, h, hd, ns, dtype, dev, seed=0):
+    """x, dt, A, B, C as the model hands them over: x, B and C are strided
+    views into one [b, T, h*hd + 2*ns] tensor (the conv output), dt =
+    softplus(N(0,1)) f32, A = -(1..16) as mamba2's init. x, B and C are
+    scaled so |y| stays below 1, where one bf16 ulp is below the 2e-2
+    tier."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    din = h * hd
+    xbc = 0.25 * torch.randn((b, T, din + 2 * ns), generator=g, device=dev)
+    xbc = xbc.to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, T, h), generator=g, device=dev))
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return (xbc[..., :din].reshape(b, T, h, hd), dt, A,
+            xbc[..., din:din + ns], xbc[..., din + ns:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,T,h,hd,ns,chunk", [
+    (2, 1000, 4, 64, 128, 256),   # ragged T: 4 chunks, the last one short
+    (2, 100, 3, 64, 128, 256),    # T < 128: the chunk drops to 128
+    (1, 512, 2, 32, 32, 64),      # 8 chunks of 64, hd 32
+    (1, 300, 2, 128, 48, 96),     # hd 128, ns 48, a chunk of 1.5 tiles
+    (2, 2048, 8, 64, 128, 256),   # mamba2-2.7b's chunk and widths
+])
+def test_ssd_scan_matches_plain(cuda, dtype, b, T, h, hd, ns, chunk):
+    args = _ssd_inputs(b, T, h, hd, ns, dtype, cuda)
+    y, state = ssd.ssd_scan(*args, chunk=chunk)
+    y_p, state_p = ssd.ssd_scan_plain(*args, chunk=chunk)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    assert y.shape == (b, T, h, hd) and state.shape == (b, h, hd, ns)
+    _close(y, y_p, dtype)
+    _close(state, state_p, torch.float32)
+    # one block per (batch, head), no atomics: bit-identical on a rerun
+    again = ssd.ssd_scan(*args, chunk=chunk)
+    assert torch.equal(again[0], y) and torch.equal(again[1], state)
+
+
+def test_ssd_grads_on_card_match_cpu(cuda):
+    """The autograd Function (kernel forward, autograd of ref.ssd_chunked
+    backward) on the card against the same Function on the CPU (plain
+    forward), f32: output and state within 1e-4 * max|cpu|, the five
+    gradients within 1e-3 * max|cpu|. The backward recomputes
+    ssd_chunked in f32 on each device, summing in other orders, and its
+    exp(cum_i - cum_j) is only as exact as the f32 cum: at A = -16 a
+    256-row chunk's cum reaches ~-3000, whose ulp is 2.4e-4 (ddt measured
+    1.2e-4 * max apart)."""
+    args = [t.float().cpu() for t in _ssd_inputs(2, 600, 4, 64, 128,
+                                                 torch.float32, "cpu")]
+    g = torch.Generator().manual_seed(7)
+    gy = torch.randn((2, 600, 4, 64), generator=g)
+    gs = torch.randn((2, 4, 64, 128), generator=g)
+
+    def run(dev):
+        ins = [t.detach().to(dev).requires_grad_(True) for t in args]
+        y, state = ops.ssd(*ins, chunk=256)
+        torch.autograd.backward([y, state], [gy.to(dev), gs.to(dev)])
+        return [y.detach(), state.detach()] + [t.grad for t in ins]
+
+    want = run("cpu")
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    assert kernels.launch_counts()["ssd"] == 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        rel = 1e-4 if i < 2 else 1e-3
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=rel * float(b.abs().max()))
+
+
+def test_ssd_refusals(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 64, 2, 64, 32, torch.float32, cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError):  # head_dim not built
+        ssd.ssd_scan(x[..., :48], dt, A, B, C, chunk=64)
+    with pytest.raises(ValueError):  # state size not a multiple of 16
+        ssd.ssd_scan(x, dt, A, B[..., :8], C[..., :8], chunk=64)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt.bfloat16(), A, B, C, chunk=64)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt, A, B.bfloat16(), C, chunk=64)
+    with pytest.raises(ValueError):  # state size not contiguous
+        ssd.ssd_scan(x, dt, A, B.transpose(1, 2).contiguous().transpose(
+            1, 2), C, chunk=64)
+    assert kernels.launch_counts()["ssd"] == 0

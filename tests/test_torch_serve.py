@@ -130,7 +130,8 @@ def test_driver_serves_on_cpu(capsys):
     (["--disagg"], "--disagg"), (["--ep-size", "2"], "--ep-size"),
     (["--prefix-cache"], "--prefix-cache"), (["--fleet"], "--fleet"),
     (["--tenants", "2"], "--tenants"), (["--trace-out", "t.json"],
-                                        "--trace-out")])
+                                        "--trace-out"),
+    (["--arch", "mamba2-2.7b"], "--arch mamba2-2.7b (recurrent ssd")])
 def test_driver_rejects_unported_flags(capsys, extra, named):
     assert serve_mod.main(SMOKE_ARGS + ["--device", "cpu"] + extra) == 1
     err = capsys.readouterr().err.strip().splitlines()

@@ -9,11 +9,21 @@ f32 policy, ``remat="full"``. Two attention paths: chunked attention in
 two query chunks (S 32), and the flash kernels (the port's plain versions
 against the JAX package's Pallas kernels in interpret mode) at S 160, not
 a multiple of the JAX kernel's 128-row blocks, so both ragged edges are
-masked. The per-step loss, nll, z-loss, aux losses, grad norm and
-learning rate agree within rtol 2e-5: the two packages sum in other
-orders (f32 rounding ~1e-7 per op), and five AdamW steps carry those
-differences into the weights; the largest gap measured over the chunked
-path's five steps is 7.4e-7.
+masked. Then five steps of ``smoke_config(mamba2-2.7b)`` (2 SSD layers,
+chunk 32) at S 80, so the chunks carry state and the last is ragged: the
+JAX package with ``use_gmm_kernel=True`` (its Pallas SSD kernel in
+interpret mode, the backward by autodiff of ``ssd_chunked``) against the
+port's scan plain version and the same backward. The per-step loss, nll,
+z-loss, aux losses, grad norm and learning rate agree within rtol 2e-5:
+the two packages sum in other orders (f32 rounding ~1e-7 per op), and
+five AdamW steps carry those differences into the weights; the largest
+gap measured over the chunked path's five steps is 7.4e-7. One exception:
+mamba2's grad norm is held at rtol 1e-3. Its step-5 gradient is
+ill-conditioned in f32: the JAX package's own two SSD routes
+(``use_gmm_kernel`` True and False, which differ only in the forward's
+summation order) give grad norms 1.7e-4 apart there, and the port lands
+4.1e-4 from the kernel route (steps 1-4: 5.5e-6 at most; the losses agree
+within 5e-7 at every step).
 """
 
 import dataclasses
@@ -45,6 +55,7 @@ from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
 B, S, STEPS = 4, 32, 5
 S_FLASH = 160
+S_MAMBA2 = 80
 METRICS = ("loss", "nll", "z_loss", "moe_aux_loss", "moe_z_loss",
            "grad_norm", "lr")
 
@@ -69,11 +80,16 @@ def token_file_flash(tmp_path_factory):
     return _token_file(tmp_path_factory, S_FLASH)
 
 
+@pytest.fixture(scope="module")
+def token_file_mamba2(tmp_path_factory):
+    return _token_file(tmp_path_factory, S_MAMBA2)
+
+
 def _jax_run(cfg, token_file, attn_impl="chunked", seq=S):
     mesh = make_mesh((1, 1), ("data", "model"))
     run = JRunConfig(policy=JPolicy(compute_dtype=jnp.float32),
                      attn_impl=attn_impl, moe_impl="gather", remat="full",
-                     chunk_q=16)
+                     chunk_q=16, use_gmm_kernel=not cfg.is_moe)
     prog = jmake_train_program(cfg, mesh, run,
                                JShapeConfig("t", "train", seq, B),
                                opt_cfg=_opt_cfg(jopt), zcfg=None)
@@ -100,11 +116,12 @@ def _port_program(cfg, remat="full", attn_impl="chunked", seq=S):
                               opt_cfg=_opt_cfg(opt), device="cpu")
 
 
-def _check_train_steps_match_jax(token_file, attn_impl="chunked", seq=S):
-    jcfg = jregistry.smoke_config(jregistry.get_config("mixtral-w1"))
+def _check_train_steps_match_jax(token_file, attn_impl="chunked", seq=S,
+                                 arch="mixtral-w1", rel_grad_norm=2e-5):
+    jcfg = jregistry.smoke_config(jregistry.get_config(arch))
     init, want, jbatches = _jax_run(jcfg, token_file, attn_impl, seq)
 
-    cfg = registry.smoke_config(registry.get_config("mixtral-w1"))
+    cfg = registry.smoke_config(registry.get_config(arch))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     prog = _port_program(cfg, attn_impl=attn_impl, seq=seq)
     params = params_from_jax(init)
@@ -121,7 +138,8 @@ def _check_train_steps_match_jax(token_file, attn_impl="chunked", seq=S):
     assert int(state["step"]) == STEPS
     for step, (g, w) in enumerate(zip(got, want)):
         for k in METRICS:
-            assert g[k] == pytest.approx(w[k], rel=2e-5, abs=1e-7), \
+            rel = rel_grad_norm if k == "grad_norm" else 2e-5
+            assert g[k] == pytest.approx(w[k], rel=rel, abs=1e-7), \
                 (step, k, g[k], w[k])
 
 
@@ -131,6 +149,11 @@ def test_train_steps_match_jax(token_file):
 
 def test_flash_train_steps_match_jax(token_file_flash):
     _check_train_steps_match_jax(token_file_flash, "flash", S_FLASH)
+
+
+def test_mamba2_train_steps_match_jax(token_file_mamba2):
+    _check_train_steps_match_jax(token_file_mamba2, seq=S_MAMBA2,
+                                 arch="mamba2-2.7b", rel_grad_norm=1e-3)
 
 
 def test_remat_full_gradients_equal_remat_none():
@@ -147,13 +170,15 @@ def test_remat_full_gradients_equal_remat_none():
                                    atol=1e-9, msg=name)
 
 
-def test_cli_trains_on_cpu_and_prints_done(capsys):
-    rc = train_cli.main(["--arch", "mixtral-w1", "--device", "cpu",
-                         "--smoke", "--no-zebra", "--steps", "2",
-                         "--batch", "2", "--seq", "32", "--log-every", "1"])
+@pytest.mark.parametrize("arch,extra", [("mixtral-w1", ["--no-zebra"]),
+                                        ("mamba2-2.7b", [])])
+def test_cli_trains_on_cpu_and_prints_done(capsys, arch, extra):
+    rc = train_cli.main(["--arch", arch, "--device", "cpu", "--smoke",
+                         "--steps", "2", "--batch", "2", "--seq", "64",
+                         "--log-every", "1", *extra])
     out = capsys.readouterr().out
     assert rc == 0
-    assert "[train] arch=mixtral-w1-smoke params=" in out
+    assert f"[train] arch={arch}-smoke params=" in out
     assert out.count("loss=") == 2 and "[train] done: final loss" in out
 
 
