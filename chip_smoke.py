@@ -5,9 +5,10 @@ Run from the root of a checkout on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives
-the port's main paths through its own drivers, at full width and full
-depth, with random weights from seed 0:
+It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (and
+counts the tensor-core instructions, HGMMA, in each library's SASS) and
+drives the port's main paths through its own drivers, at full width and
+full depth, with random weights from seed 0:
 
 * serve: a Poisson trace on ``mixtral-w2`` (4 layers, d_model 2048, 24
   experts top-2) through ``repro_torch.launch.serve`` with the paged
@@ -31,7 +32,11 @@ It fails unless:
 * every request finishes with its full budget and the page allocator's
   accounting is clean; every train step's loss and grad norm are finite;
 * each kernel of a path was launched during that path's run (launch
-  counters set to 0 just before it and read just after), and each train
+  counters set to 0 just before it and read just after), every flash
+  forward launch of the serve, train and flash runs went through the
+  tensor-core kernel (``flash_fwd_wgmma.cu``: its design counter; the
+  bf16 ``gmm_tiled`` launches take ``gmm_wgmma.cu`` by their operand
+  types), both libraries hold HGMMA instructions, and each train
   run launched each grouped kernel the expected number of times per layer
   and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3); the chunked
   run no flash kernel, the flash run flash_fwd 2 (forward + recompute),
@@ -69,8 +74,13 @@ that one-time costs (library handles, allocator growth) stay out of the
 timed windows. The serve model is released before the train phase.
 
 Printed in order: the device line (torch's name and nvidia-smi's name and
-power limit), the kernel build time, the warm-up and serve runs' lines,
-the train runs' lines, the kernel tolerances, the ``kernels`` JSON line,
+power limit), the kernel build time with each library's HGMMA count, the
+warm-up and serve runs' lines,
+the train runs' lines, the kernel tolerances, the ``kernels`` JSON line
+(each entry also names its ``design``: ``"wgmma"`` or ``"fma"``; ``ms``,
+``plain_ms`` and ``library_ms`` are device times per call, read with CUDA
+events behind a spin kernel that keeps the host's queueing out of them,
+and ``host_ms`` is the kernel wrapper's host time per call),
 the serve, parity, train, train_flash, train_mamba2, grad, flash_grad,
 flash_cases, ssd_cases and ssd_grad lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
@@ -126,20 +136,66 @@ TOL_F32 = 1e-4              # f32 outputs: sum order only
 PARITY_REL = 1e-3
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+_SPIN_CYCLES_PER_MS = []
+
+
+def spin_cycles_per_ms(torch) -> float:
+    """Clock cycles per ms of ``torch.cuda._sleep``'s spin kernel on this
+    card (measured once)."""
+    if not _SPIN_CYCLES_PER_MS:
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def cuda_times(fn, iters: int, warmup: int = 2) -> tuple:
+    """(device ms, host ms) per call of ``fn`` over ``iters`` back-to-back
+    calls. Device: CUDA events around the calls, queued behind a spin
+    kernel that holds the card until the host has queued them all, so the
+    reading is the card's time even where a wrapper's host cost per call
+    (argument checks, ctypes, tensor-map encoding) exceeds its kernel's.
+    Host: the host's time to queue one call. The spin is sized from one
+    call's host time and lengthened if the host outran it."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    spin_ms = 2e3 * (time.perf_counter() - t0) * iters + 1.0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(3):
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms(torch)))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        if queued_ms < spin_ms:
+            break
+        spin_ms = 2 * queued_ms
+    return start.elapsed_time(end) / iters, queued_ms / iters
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` per call (:func:`cuda_times`)."""
+    return cuda_times(fn, iters, warmup)[0]
+
+
+def kernel_times(fn, iters: int) -> dict:
+    """``ms`` (device) and ``host_ms`` of a kernel wrapper's call."""
+    ms, host_ms = cuda_times(fn, iters)
+    return {"ms": ms, "host_ms": host_ms}
 
 
 def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS):
@@ -185,6 +241,29 @@ def compare(got, want, per_row: bool = False):
     return (float(err.max()), float(tol.min()), bool((err <= tol).all()))
 
 
+def with_design(fn, default: str = "fma"):
+    """(fn(), design): the design ("wgmma" or "fma") whose launch counter
+    the call moved, for the wrappers that count one (gmm_tiled, the flash
+    forward); ``default`` for the kernels that have one design only."""
+    from repro_torch import kernels
+    before = kernels.design_launch_counts()
+    out = fn()
+    after = kernels.design_launch_counts()
+    moved = sorted({k.split(":")[1] for k in after if after[k] > before[k]})
+    return out, "+".join(moved) or default
+
+
+def check_designs(label: str, counts: dict):
+    """Every flash forward of a main-path run (bf16 at head_dim 128 on
+    these paths) took the tensor-core kernel. The grouped GEMM's design is
+    a function of its operand types (``gmm.gmm_route``), so its bf16
+    launches run on the tensor cores by construction; HGMMA in the built
+    library's SASS shows that kernel uses them."""
+    if counts["flash_fwd:wgmma"] != counts["flash_fwd"]:
+        raise RuntimeError(f"{label}: a flash forward launch did not take "
+                           f"the tensor-core kernel: {counts}")
+
+
 def tile_ends(torch, tg, n_groups: int, block_m: int):
     """int32 end row of each group in the packed layout (the offsets that
     ``torch._grouped_mm`` takes): group g owns rows [ends[g-1], ends[g])."""
@@ -219,19 +298,20 @@ def check_gmm_kernels(torch, cfg):
 
     out = []
     lhs, wg, wu = rows(d), weights(d, f), weights(d, f)
-    got = gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg, block_m=block_m)
+    got, design = with_design(lambda: gmm.gmm_glu_tiled_pair(
+        lhs, wg, wu, tg, block_m=block_m))
     want = gmm.gmm_glu_plain(lhs, wg, wu, tg, block_m=block_m)
     torch.cuda.synchronize()
     err, tol, ok = compare(got, want)
     t_bound, by = bound(2 * (M * d + used * d * 2 * f + M * f),
                         2 * M * d * 2 * f)
     out.append({
-        "name": "gmm_glu", "route": "cuda",
+        "name": "gmm_glu", "route": "cuda", "design": design,
         "source": "src/repro_torch/csrc/gmm.cu",
         "replaces": "src/repro/kernels/gmm.py:222",
         "max_abs_err": err, "tol": tol, "ok": ok,
-        "ms": cuda_ms(lambda: gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg,
-                                                     block_m=block_m), 10),
+        **kernel_times(lambda: gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg,
+                                                      block_m=block_m), 10),
         "plain_ms": cuda_ms(lambda: gmm.gmm_glu_plain(lhs, wg, wu, tg,
                                                       block_m=block_m), 5),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
@@ -240,7 +320,8 @@ def check_gmm_kernels(torch, cfg):
     del lhs, wg, wu, got, want
 
     lhs, wo = rows(f), weights(f, d)
-    got = gmm.gmm_tiled(lhs, wo, tg, block_m=block_m)
+    got, design = with_design(lambda: gmm.gmm_tiled(lhs, wo, tg,
+                                                    block_m=block_m))
     want = gmm.gmm_tiled_plain(lhs, wo, tg, block_m=block_m)
     torch.cuda.synchronize()
     err, tol, ok = compare(got, want)
@@ -251,12 +332,12 @@ def check_gmm_kernels(torch, cfg):
     lib_ms, lib_note = grouped_mm_ms(
         torch, lambda: torch._grouped_mm(lhs, wo, offs=ends))
     out.append({
-        "name": "gmm:bf16.bf16->bf16", "route": "cuda",
-        "source": "src/repro_torch/csrc/gmm.cu",
+        "name": "gmm:bf16.bf16->bf16", "route": "cuda", "design": design,
+        "source": "src/repro_torch/csrc/gmm_wgmma.cu",
         "replaces": "src/repro/kernels/gmm.py:69",
         "max_abs_err": err, "tol": tol, "ok": ok,
-        "ms": cuda_ms(lambda: gmm.gmm_tiled(lhs, wo, tg, block_m=block_m),
-                      10),
+        **kernel_times(lambda: gmm.gmm_tiled(lhs, wo, tg, block_m=block_m),
+                       10),
         "plain_ms": cuda_ms(lambda: gmm.gmm_tiled_plain(lhs, wo, tg,
                                                         block_m=block_m), 5),
         "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms,
@@ -292,12 +373,12 @@ def check_paged_kernel(torch, cfg):
     t_bound, by = bound(2 * (2 * q.numel() + 2 * lines * KH * hd),
                         4 * lines * KH * G * hd)
     return [{
-        "name": "paged_decode", "route": "cuda",
+        "name": "paged_decode", "route": "cuda", "design": "fma",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:109",
         "max_abs_err": err, "tol": tol, "ok": ok,
-        "ms": cuda_ms(lambda: pa.paged_decode_forward(q, kp, vp, table,
-                                                      q_pos, **kw), 50),
+        **kernel_times(lambda: pa.paged_decode_forward(q, kp, vp, table,
+                                                       q_pos, **kw), 50),
         "plain_ms": cuda_ms(lambda: pa.paged_decode_plain(q, kp, vp, table,
                                                           q_pos, **kw), 20),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
@@ -342,32 +423,47 @@ def check_train_kernels(torch, cfg, train_tokens: int):
     bf, f32 = torch.bfloat16, torch.float32
     x_p, h_p, dout_p, dg_p = rows(d, bf), rows(f, f32), rows(d, f32), \
         rows(f, f32)
+    hb_p = rows(f, bf)  # the forward's bf16 h (the down projection)
     wg, wo = weights(d, f), weights(f, d)
     wo_t = wo.transpose(1, 2)
     out = []
 
-    def entry(name, fn, plain, bytes_moved, flops, peak, lib, shapes):
-        got, want = fn(), plain()
+    def entry(name, fn, plain, bytes_moved, flops, peak, lib, shapes,
+              counter=None):
+        (got, design), want = with_design(fn), plain()
         torch.cuda.synchronize()
-        err, tol, ok = compare_f32(got, want)
+        err, tol, ok = (compare if got.dtype == bf else compare_f32)(got,
+                                                                     want)
         del got, want
         t_bound, by = bound(bytes_moved, flops, peak)
         lib_ms, lib_note = lib()
+        source = {"wgmma": "gmm_wgmma.cu", "fma": "gmm.cu"}[design]
         out.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": design,
+            "counter": counter or name,
             "source": ("src/repro_torch/csrc/gmm_dw.cu"
                        if name.startswith("gmm_dw")
-                       else "src/repro_torch/csrc/gmm.cu"),
+                       else f"src/repro_torch/csrc/{source}"),
             "replaces": ("src/repro/kernels/gmm.py:300"
                          if name.startswith("gmm_dw")
                          else "src/repro/kernels/gmm.py:69"),
             "max_abs_err": err, "tol": tol, "ok": ok,
-            "ms": cuda_ms(fn, 5), "plain_ms": cuda_ms(plain, 3),
+            **kernel_times(fn, 5), "plain_ms": cuda_ms(plain, 3),
             "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms,
             "library": lib_note,
             "shapes": dict(shapes, rows=M, padded_rows=mp,
                            groups_used=used)})
 
+    # the forward's down projection at the train shape: bf16 x bf16 -> bf16
+    entry("gmm:bf16.bf16->bf16 (train shape)",
+          lambda: gmm.gmm_tiled(hb_p, wo, tg, block_m=bm),
+          lambda: gmm.gmm_tiled_plain(hb_p, wo, tg, block_m=bm),
+          2 * M * f + 2 * used * f * d + 2 * M * d, 2 * M * f * d,
+          BF16_FLOPS,
+          lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
+              hb_p, wo, offs=ends)),
+          {"lhs": list(hb_p.shape), "w": list(wo.shape)},
+          counter="gmm:bf16.bf16->bf16")
     kw = dict(block_m=bm, out_dtype=f32)
     # g, u recompute: bf16 x bf16 -> f32 (bf16 operands: tensor-core peak)
     entry("gmm:bf16.bf16->f32",
@@ -524,6 +620,7 @@ def timed_train(torch, train_mod, smi: str, argv, per_step: dict,
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     variants = kernels.variant_launch_counts()
+    designs = kernels.design_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     attn = run.attn_impl if run is not None else "chunked"
     label = f"{args.arch}, {attn}"
@@ -548,8 +645,11 @@ def timed_train(torch, train_mod, smi: str, argv, per_step: dict,
         "loss": [m["loss"] for m in summary["history"]],
         "grad_norm": [m["grad_norm"] for m in summary["history"]],
         "max_memory_allocated": peak, "launches": launches,
-        "launches_expected": expected, "variant_launches": variants}
-    return line, {**launches, **variants}
+        "launches_expected": expected, "variant_launches": variants,
+        "design_launches": designs}
+    counts = {**launches, **variants, **designs}
+    check_designs(f"train run ({label})", counts)
+    return line, counts
 
 
 def train_phase(torch, train_mod, smi: str):
@@ -638,29 +738,33 @@ def flash_case(torch, label, B, S, H, KH, hd, dtype, window=0, softcap=0.0,
               "dtype": str(dtype).replace("torch.", ""), "causal": True,
               "window": window, "softcap": softcap, "live_pairs": pairs}
 
-    def entry(name, errs, ms, plain_ms, bytes_moved, flops, lib_ms):
+    def entry(name, errs, ms, plain_ms, bytes_moved, flops, lib_ms,
+              design="fma"):
         t_bound, by = bound(bytes_moved, flops, peak)
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/csrc/flash_attention.cu",
+        source = {"wgmma": "flash_fwd_wgmma.cu",
+                  "fma": "flash_attention.cu"}[design]
+        return {"name": name, "route": "cuda", "design": design,
+                "source": f"src/repro_torch/csrc/{source}",
                 "replaces": FLASH_REPLACES[name],
                 "max_abs_err": max(e[0] for e in errs.values()),
                 "tol": min(e[1] for e in errs.values()),
                 "errors": {n: {"max_abs_err": e[0], "tol": e[1]}
                            for n, e in errs.items()},
                 "ok": all(e[2] for e in errs.values()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
+                **ms, "plain_ms": plain_ms, "bound_ms": t_bound,
                 "bound_by": by, "library_ms": lib_ms, "library": lib_note,
                 "shapes": shapes}
 
     fwd_kw = dict(kw, softcap=softcap)
-    o, lse = fa.flash_forward(q, k, v, **fwd_kw)
+    (o, lse), design = with_design(lambda: fa.flash_forward(q, k, v,
+                                                            **fwd_kw))
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **fwd_kw)
     torch.cuda.synchronize()
     out = [entry(
         "flash_fwd", {"o": check(o, o_p), "lse": compare_f32(lse, lse_p)},
-        cuda_ms(lambda: fa.flash_forward(q, k, v, **fwd_kw), 10),
+        kernel_times(lambda: fa.flash_forward(q, k, v, **fwd_kw), 10),
         cuda_ms(lambda: fa.flash_forward_plain(q, k, v, **fwd_kw), 3),
-        es * (2 * nq + 2 * nkv) + 4 * rows, 4 * hd * pairs, lib_f)]
+        es * (2 * nq + 2 * nkv) + 4 * rows, 4 * hd * pairs, lib_f, design)]
     del o, lse
     if softcap:
         return out
@@ -674,11 +778,13 @@ def flash_case(torch, label, B, S, H, KH, hd, dtype, window=0, softcap=0.0,
                                                        do, **kw), 3)
     out.append(entry(
         "flash_dq", {"dq": check(dq, want[0])},
-        cuda_ms(lambda: fa._launch_backward("dq", *bw, **kw), 10), plain_ms,
+        kernel_times(lambda: fa._launch_backward("dq", *bw, **kw), 10),
+        plain_ms,
         es * (3 * nq + 2 * nkv) + 8 * rows, 6 * hd * pairs, lib_b))
     out.append(entry(
         "flash_dkv", {"dk": check(dk, want[1]), "dv": check(dv, want[2])},
-        cuda_ms(lambda: fa._launch_backward("dkv", *bw, **kw), 10), plain_ms,
+        kernel_times(lambda: fa._launch_backward("dkv", *bw, **kw), 10),
+        plain_ms,
         es * (2 * nq + 4 * nkv) + 8 * rows, 8 * hd * pairs, lib_b))
     for e in out[1:]:
         e["plain"] = "flash_backward_plain (dq, dk, dv together)"
@@ -811,14 +917,14 @@ def ssd_case(torch, cfg, label: str, b: int, T: int, dtype, seed: int):
                             Q, x.element_size())
     t_bound, by = bound(moved, flops, FP32_FLOPS)
     return {
-        "name": "ssd", "route": "cuda",
+        "name": "ssd", "route": "cuda", "design": "fma",
         "source": "src/repro_torch/csrc/ssd.cu", "replaces": SSD_REPLACES,
         "max_abs_err": max(e[0] for e in errs.values()),
         "tol": min(e[1] for e in errs.values()),
         "errors": {n: {"max_abs_err": e[0], "tol": e[1]}
                    for n, e in errs.items()},
         "ok": all(e[2] for e in errs.values()),
-        "ms": cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), 10),
+        **kernel_times(lambda: ssd.ssd_scan(*args, chunk=chunk), 10),
         "plain_ms": cuda_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk),
                             3),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
@@ -896,8 +1002,12 @@ def main() -> int:
     print(f"device: {name} | nvidia-smi: {smi}", flush=True)
 
     build_s = _build.build_all()
+    hgmma = _build.sass_counts("HGMMA")
     print(f"build: {len(_build.sources())} CUDA sources compiled in "
-          f"{build_s:.2f} s -> {_build.build_dir()}", flush=True)
+          f"{build_s:.2f} s -> {_build.build_dir()}; HGMMA in SASS: "
+          f"{json.dumps(hgmma)}", flush=True)
+    if not (hgmma.get("gmm_wgmma") and hgmma.get("flash_fwd_wgmma")):
+        raise RuntimeError(f"the tensor-core kernels hold no HGMMA: {hgmma}")
 
     # -- untimed warm-up: one short request on an engine of its own ---------
     warm = serve_mod.serve_arch(
@@ -915,9 +1025,11 @@ def main() -> int:
     summary = serve_mod.serve_arch("mixtral-w2", args)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    serve_counts = {**launches, **kernels.variant_launch_counts()}
+    serve_counts = {**launches, **kernels.variant_launch_counts(),
+                    **kernels.design_launch_counts()}
     if not summary["ok"]:
         raise RuntimeError("serve run failed its gate")
+    check_designs("serve run", serve_counts)
     missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the serve path: "
@@ -965,15 +1077,23 @@ def main() -> int:
     entries.append(ssd_entry)
     ssd_grad = ssd_grad_phase(torch, mamba2)
     for e in entries:  # launches: the sum over the main-path runs
+        c = e.get("counter", e["name"])
         e["launches_by_path"] = {
-            "serve": serve_counts.get(e["name"], 0),
-            "train": train_counts.get(e["name"], 0),
-            "train_flash": flash_counts.get(e["name"], 0),
-            "train_mamba2": mamba2_counts.get(e["name"], 0)}
+            "serve": serve_counts.get(c, 0),
+            "train": train_counts.get(c, 0),
+            "train_flash": flash_counts.get(c, 0),
+            "train_mamba2": mamba2_counts.get(c, 0)}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}" for e in flash_cases + ssd_cases
         if not e["ok"]]
+    # the bf16 grouped GEMMs and bf16 flash forwards run on the tensor cores
+    bad += [f"{e['name']}@{e['shapes'].get('case', '')}: design "
+            f"{e['design']}" for e in entries + flash_cases
+            if e["design"] != "wgmma" and (
+                e["name"].startswith("gmm:bf16.bf16->")
+                or (e["name"] == "flash_fwd"
+                    and e["shapes"]["dtype"] == "bfloat16"))]
 
     steps = summary["paged"]
     serve_line = {
@@ -986,20 +1106,23 @@ def main() -> int:
         "prefill_chunks": steps["prefill_chunks"],
         "decode_steps": steps["decode_steps"],
         "launches": launches, "allocator_check": "clean",
+        "design_launches": {k: serve_counts[k] for k in
+                            kernels.design_launch_counts()},
         "page_peak": steps["page_peak"], "preempted": steps["n_preempted"]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": name, "nvidia_smi": smi, "build_s": build_s,
-        "nvcc_reports": _build.build_logs(), "kernels": entries,
+        "sass_hgmma": hgmma, "nvcc_reports": _build.build_logs(),
+        "kernels": entries,
         "serve": serve_line, "parity": parity, "train": train_line,
         "train_flash": flash_line, "train_mamba2": mamba2_line,
         "grad": grad, "flash_grad": flash_grad, "flash_cases": flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
-    contract = ("name", "route", "source", "replaces", "launches",
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
+    contract = ("name", "route", "design", "source", "replaces", "launches",
+                "max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")
     print("kernel tolerances: " + json.dumps(
         {e["name"]: e["tol"] for e in entries}), flush=True)
     print(json.dumps({"kernels": [{k: e[k] for k in contract}
@@ -1012,9 +1135,10 @@ def main() -> int:
     print("grad: " + json.dumps(grad), flush=True)
     print("flash_grad: " + json.dumps(flash_grad), flush=True)
     print("flash_cases: " + json.dumps(
-        [{k: e[k] for k in ("name", "shapes", "errors", "ok", "ms",
-                            "plain_ms", "bound_ms", "bound_by",
-                            "library_ms")} for e in flash_cases]),
+        [{k: e[k] for k in ("name", "design", "shapes", "errors", "ok",
+                            "ms", "host_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}
+         for e in flash_cases]),
           flush=True)
     print("ssd_cases: " + json.dumps(
         [{k: e[k] for k in ("name", "shapes", "errors", "ok", "ms",
@@ -1023,7 +1147,8 @@ def main() -> int:
     print("ssd_grad: " + json.dumps(ssd_grad), flush=True)
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions "
-                           f"beyond their tolerance: {bad}")
+                           f"beyond their tolerance, or ran on the wrong "
+                           f"design: {bad}")
     if not parity["ok"]:
         raise RuntimeError("paged engine logits disagree with the "
                            "cache-free forward under the f32 policy, or the "

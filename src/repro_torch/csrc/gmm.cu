@@ -14,12 +14,14 @@
 // (TRANS_B: the backward's swapaxes(W, 1, 2), read by stride instead of
 // copied), at W + g * gstride + n * ldw + k.
 //
-// Types. lhs, rhs and out each have their own type: the forward runs
-// bf16 x bf16 -> bf16 (f32 x f32 -> f32 under the f32 policy); the MoE
-// backward (ops.py:414-437) runs bf16 x bf16 -> f32 (recompute of g and
-// u), f32 x bf16 -> f32 (y = h @ wo on the unrounded f32 h) and
-// f32 x bf16^T -> f32 / f32 x f32^T -> f32 (data gradients against the
-// transposed weights). Only those combinations are exported below.
+// Types. lhs, rhs and out each have their own type. This file keeps the
+// uses with an f32 operand: f32 x f32 -> f32 (the f32 policy's forward),
+// and in the MoE backward (ops.py:414-437) f32 x bf16 -> f32 (y = h @ wo
+// on the unrounded f32 h) and f32 x bf16^T -> f32 / f32 x f32^T -> f32
+// (data gradients against the transposed weights), plus the fused GLU in
+// bf16 and f32. bf16 x bf16 -> bf16 / f32 (the forward's down projection
+// and the backward's recompute of g and u) runs on the tensor cores in
+// gmm_wgmma.cu. Only those combinations are exported below.
 //
 // Design. One CUDA block per (64-row m-tile, 64-column n-tile). The block
 // reads tile_group itself and selects its group's weight pointer (the TPU
@@ -35,14 +37,14 @@
 // neighbouring addresses, into a shared tile padded by one column so the
 // k-fastest stores hit distinct banks.
 //
-// Bound on the card: at the serving shapes (K = 2048, N = 7168, 24 experts,
-// a few hundred routed rows) the needed work is a weight stream, ~1.4 GB
-// per GLU call, so the floor is bytes / 3.35 TB/s. At the training shapes
-// (4096 routed rows over 12 experts) every call is bound by operations:
-// bf16 operands by the tensor-core peak, f32 operands by the FP32 pipe.
-// This kernel runs every padded row on the FP32 pipe, so it sits far above
-// either floor; tensor-core MMA (wgmma) with TMA-fed stages is the later
-// fix.
+// Bound on the card: the fused GLU at the serving shapes (K = 2048,
+// N = 7168, 24 experts, a few hundred routed rows) needs a weight stream,
+// ~1.4 GB per call, so its floor is bytes / 3.35 TB/s. At the training
+// shapes (4096 routed rows over 12 experts) the f32-operand calls are bound
+// by the FP32 pipe's operations. This kernel runs every padded row on the
+// FP32 pipe, so it sits far above either floor; the GLU can reuse the
+// tensor-core mainloop of gmm_wgmma.cu, and the f32 operands need a
+// bf16-split or 3xTF32 scheme (later work).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -183,9 +185,7 @@ int gmm_block_rows() { return BM; }
   }
 
 using bf16 = __nv_bfloat16;
-GMM_ENTRY(gmm_bf16_bf16_bf16, bf16, bf16, bf16, false)
 GMM_ENTRY(gmm_f32_f32_f32, float, float, float, false)
-GMM_ENTRY(gmm_bf16_bf16_f32, bf16, bf16, float, false)
 GMM_ENTRY(gmm_f32_bf16_f32, float, bf16, float, false)
 GMM_ENTRY(gmm_t_f32_bf16_f32, float, bf16, float, true)
 GMM_ENTRY(gmm_t_f32_f32_f32, float, float, float, true)

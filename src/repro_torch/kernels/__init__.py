@@ -24,13 +24,23 @@ def variant_launch_counts() -> dict:
     return dict(gmm.VARIANT_LAUNCHES)
 
 
+def design_launch_counts() -> dict:
+    """The ``gmm_tiled`` and flash forward launches of
+    :func:`launch_counts` split by the design that ran them:
+    ``"gmm:wgmma"`` / ``"flash_fwd:wgmma"`` (tensor cores) or ``":fma"``.
+    The grouped GEMM's are read from its variant counts (its route is a
+    function of the operand types); the flash forward's are counted."""
+    return {**gmm.design_launches(), **flash_attention.DESIGN_LAUNCHES}
+
+
 def reset_launch_counts() -> None:
     for counts in (gmm.LAUNCHES, paged_attention.LAUNCHES,
-                   flash_attention.LAUNCHES, ssd.LAUNCHES):
+                   flash_attention.LAUNCHES,
+                   flash_attention.DESIGN_LAUNCHES, ssd.LAUNCHES):
         for name in counts:
             counts[name] = 0
     gmm._reset_variants()
 
 
 __all__ = ["ops", "ref", "launch_counts", "reset_launch_counts",
-           "variant_launch_counts"]
+           "variant_launch_counts", "design_launch_counts"]

@@ -25,6 +25,9 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# Shared memory one block can use on Hopper (227 KB, dynamic): the bound
+# of the tensor-core kernels' plans.
+SMEM_PER_BLOCK = 232448
 
 
 def _nvcc() -> str:
@@ -105,6 +108,19 @@ def on_cpu(*tensors) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     return False
+
+
+def sass_counts(opcode: str) -> dict:
+    """Lines of each built library's SASS (``cuobjdump -sass``) that hold
+    ``opcode`` (e.g. ``"HGMMA"``, the tensor-core wgmma), by source stem."""
+    tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    counts = {}
+    for lib in sorted(build_dir().glob("lib*.so")):
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts[lib.stem[3:]] = sum(opcode in ln for ln in sass.splitlines())
+    return counts
 
 
 def build_logs() -> dict:

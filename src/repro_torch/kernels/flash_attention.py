@@ -12,10 +12,14 @@ window > 0. The kernel masks the ragged edge itself, so nothing is padded.
 A row with no live key gets o = 0 and lse = ``_NEG`` exactly.
 
 :func:`flash_forward` and :func:`flash_backward` launch the kernels of
-``csrc/flash_attention.cu`` for CUDA tensors and run
+``csrc/flash_attention.cu`` (FMA) and ``csrc/flash_fwd_wgmma.cu`` (the
+forward on the tensor cores, bf16 at head_dim 64 and 128;
+:func:`flash_fwd_route` is the rule) for CUDA tensors and run
 :func:`flash_forward_plain` / :func:`flash_backward_plain` for CPU tensors;
 on any other device, an unsupported dtype or shape, or a failed build or
-launch they raise. ``LAUNCHES`` counts kernel launches.
+launch they raise. ``LAUNCHES`` counts kernel launches, and
+``DESIGN_LAUNCHES`` the forward's by design (``"flash_fwd:wgmma"``,
+``"flash_fwd:fma"``).
 """
 
 from __future__ import annotations
@@ -28,9 +32,16 @@ import torch
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+DESIGN_LAUNCHES = {"flash_fwd:wgmma": 0, "flash_fwd:fma": 0}
 
 _NEG = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+# The tensor-core forward, constants of csrc/flash_fwd_wgmma.cu: head_dims
+# it is built for, rows of a k-tile, stages of the K/V ring.
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_KV_ROWS = 64
+WGMMA_STAGES = 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,6 +56,51 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = [p] * (n_ptr + 1) + dims + [f] * n_float + [p]
             fn.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_fwd_wgmma")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd_wgmma_bf16.argtypes = ([p] * 6 + [i] * 10 + [f] * 2
+                                         + [i] * 2 + [p])
+    lib.flash_fwd_wgmma_bf16.restype = i
+    return lib
+
+
+def flash_fwd_route(dtype, hd: int) -> str:
+    """The design that runs :func:`flash_forward` on CUDA tensors:
+    ``"wgmma"`` (csrc/flash_fwd_wgmma.cu, tensor cores) for bf16 at a
+    head_dim in ``WGMMA_HEAD_DIMS``, ``"fma"`` (csrc/flash_attention.cu)
+    for f32 and for the other head_dims. Raises TypeError for other dtypes
+    and ValueError for a head_dim no kernel takes (not a multiple of 32, or
+    above 256)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash attention takes bf16 or f32, got {dtype}")
+    if hd % 32 or hd > 256:
+        raise ValueError(f"kernel takes head_dim % 32 == 0 and <= 256, got "
+                         f"{hd}")
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
+
+
+def flash_wgmma_plan(hd: int, S: int) -> dict:
+    """Query tile and shared memory of one tensor-core forward launch:
+    one 64-row warpgroup per block where S <= 64, else two (128 query
+    rows); the Q tile, WGMMA_STAGES stages of one K and one V tile (64 rows
+    each), two 8-byte barriers per stage plus Q's, and 1024 bytes to align
+    the tiles. Raises for a head_dim the kernel is not built for."""
+    if hd not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"no flash wgmma plan for hd={hd}")
+    q_rows = 64 if S <= 64 else 128
+    stage = 2 * WGMMA_KV_ROWS * hd * 2
+    smem = (q_rows * hd * 2 + WGMMA_STAGES * stage
+            + 8 * (1 + 2 * WGMMA_STAGES) + 1024)
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"flash plan needs {smem} bytes of shared memory, "
+                         f"more than {_build.SMEM_PER_BLOCK}")
+    return {"q_rows": q_rows, "stage_bytes": stage, "smem_bytes": smem}
 
 
 def _mask(S, T, q_len, kv_len, causal, window, device):
@@ -158,23 +214,45 @@ def flash_forward(q, k, v, *, scale, causal, window=0, softcap=0.0,
                   q_len=None, kv_len=None):
     """q: [B,H,S,hd]; k/v: [B,KH,T,hd]. Returns (o [B,H,S,hd] in q's dtype
     and with q's strides, lse [B,H,S] f32). ``q_len`` / ``kv_len`` are
-    the true lengths used for masking (default: the tensors')."""
+    the true lengths used for masking (default: the tensors').
+
+    On CUDA tensors :func:`flash_fwd_route` picks the kernel by dtype and
+    head_dim: bf16 at head_dim 64 or 128 runs on the tensor cores, which
+    read q, k, v and write o by TMA and so need every (batch, head, row)
+    stride a multiple of 8 elements and 16-byte aligned tensors (raises
+    otherwise, never falls back); f32, and bf16 at other head_dims, run
+    on the FMA kernel."""
     if _build.on_cpu(q, k, v):
         return flash_forward_plain(q, k, v, scale=scale, causal=causal,
                                    window=window, softcap=softcap,
                                    q_len=q_len, kv_len=kv_len)
     dims = _check(q, k, v, q_len, kv_len)
     B, H, _, S = dims[:4]
+    design = flash_fwd_route(q.dtype, dims[5])
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    fn = getattr(_lib(), f"flash_fwd_{_DTYPES[q.dtype]}")
     strides = _strides(q, k, v, o)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), ctypes.addressof(strides), *dims, int(causal),
-             int(window), float(scale), float(softcap), _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), ctypes.addressof(strides), *dims, int(causal),
+            int(window), float(scale), float(softcap))
+    if design == "wgmma":
+        tensors = (q, k, v, o)
+        if any(st % 8 for t in tensors for st in t.stride()[:3]) or any(
+                t.data_ptr() % 16 for t in tensors):
+            raise ValueError("the bf16 flash forward needs (batch, head, row)"
+                             " strides that are multiples of 8 and 16-byte "
+                             f"aligned tensors, got strides {list(strides)}")
+        plan = flash_wgmma_plan(dims[5], S)
+        err = _wgmma_lib().flash_fwd_wgmma_bf16(
+            *args, plan["q_rows"], plan["smem_bytes"], _stream(q))
+    else:
+        err = getattr(_lib(), f"flash_fwd_{_DTYPES[q.dtype]}")(*args,
+                                                               _stream(q))
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_fwd ({design}) launch failed: cudaError "
+                           f"{err}")
     LAUNCHES["flash_fwd"] += 1
+    DESIGN_LAUNCHES[f"flash_fwd:{design}"] += 1
     return o, lse
 
 

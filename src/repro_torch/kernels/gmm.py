@@ -4,17 +4,20 @@
 The packed-domain contract is the JAX package's (DESIGN.md §5): the caller
 repacks expert-sorted rows so every group starts on a ``block_m`` boundary,
 ``tile_group[i]`` names the group of m-tile ``i``, and pad rows are zero.
-Each public function launches the hand-written CUDA kernel of
-``csrc/gmm.cu`` (``csrc/gmm_dw.cu`` for the weight gradient) for a CUDA
+Each public function launches a hand-written CUDA kernel for a CUDA
 tensor and runs its plain version (the ``*_plain`` function beside it) for
 a CPU tensor; on any other device, or when a build or launch fails, it
 raises. Output dtype = ``out_dtype`` or the lhs dtype, as in the JAX
-package.
+package. Kernels: ``csrc/gmm_wgmma.cu`` (tensor cores) for ``gmm_tiled``
+on bf16 operands, ``csrc/gmm.cu`` (FMA) for its other operand types and
+the fused GLU, ``csrc/gmm_dw.cu`` for the weight gradient;
+:func:`gmm_route` is the rule.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain ints), so a run can
 show that its main path went through the kernels; ``VARIANT_LAUNCHES``
 splits the same launches by operand types (``"f32.bf16T->f32"``: f32 lhs,
-transposed bf16 rhs, f32 out).
+transposed bf16 rhs, f32 out), and :func:`design_launches` reads the
+``gmm_tiled`` launches by design from them.
 """
 
 from __future__ import annotations
@@ -30,11 +33,21 @@ LAUNCHES = {"gmm_glu": 0, "gmm": 0, "gmm_dw": 0}
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # (lhs, rhs, out, rhs transposed) combinations of gmm_tiled with a kernel:
-# the forward, and the MoE FFN backward's uses (ops.py:414-437).
-_GMM_VARIANTS = (("bf16", "bf16", "bf16", False), ("f32", "f32", "f32", False),
-                 ("bf16", "bf16", "f32", False), ("f32", "bf16", "f32", False),
+# the forward, and the MoE FFN backward's uses (ops.py:414-437). bf16
+# operands run on the tensor cores (csrc/gmm_wgmma.cu), the rest on the FMA
+# kernel (csrc/gmm.cu).
+_WGMMA_VARIANTS = (("bf16", "bf16", "bf16", False),
+                   ("bf16", "bf16", "f32", False))
+_FMA_VARIANTS = (("f32", "f32", "f32", False), ("f32", "bf16", "f32", False),
                  ("f32", "bf16", "f32", True), ("f32", "f32", "f32", True))
+_GMM_VARIANTS = _WGMMA_VARIANTS + _FMA_VARIANTS
 VARIANT_LAUNCHES = {}
+
+# The tensor-core kernel's tiles, constants of csrc/gmm_wgmma.cu: 64-deep
+# k-slices, GMM_TILE_N output columns, GMM_STAGES slices in flight.
+GMM_TILE_K = 64
+GMM_TILE_N = 256
+GMM_STAGES = 4
 
 
 def variant_name(lhs: str, rhs: str, out: str, trans: bool) -> str:
@@ -52,11 +65,22 @@ def _reset_variants():
 _reset_variants()
 
 
+def design_launches() -> dict:
+    """The ``gmm_tiled`` launches of ``VARIANT_LAUNCHES`` by design:
+    :func:`gmm_route` sends exactly the bf16-operand variants to the
+    tensor-core kernel and the others to the FMA kernel."""
+    wgmma = sum(VARIANT_LAUNCHES[f"gmm:{variant_name(*v)}"]
+                for v in _WGMMA_VARIANTS)
+    fma = sum(VARIANT_LAUNCHES[f"gmm:{variant_name(*v)}"]
+              for v in _FMA_VARIANTS)
+    return {"gmm:wgmma": wgmma, "gmm:fma": fma}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for a, b, o, t in _GMM_VARIANTS:
+    for a, b, o, t in _FMA_VARIANTS:
         fn = getattr(lib, f"gmm_{'t_' if t else ''}{a}_{b}_{o}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
@@ -66,6 +90,17 @@ def _lib() -> ctypes.CDLL:
         fn.restype = i
     lib.gmm_block_rows.argtypes = []
     lib.gmm_block_rows.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("gmm_wgmma")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for out in ("bf16", "f32"):
+        fn = getattr(lib, f"gmm_wgmma_{out}")
+        fn.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        fn.restype = i
     return lib
 
 
@@ -144,6 +179,68 @@ def _rhs_layout(rhs, K: int):
                      f"weight, got strides {rhs.stride()}")
 
 
+def gmm_route(lhs_dtype, rhs_dtype, out_dtype, trans: bool, K: int, N: int,
+              block_m: int) -> str:
+    """The design that runs :func:`gmm_tiled` on CUDA tensors: ``"wgmma"``
+    (csrc/gmm_wgmma.cu, tensor cores) for bf16 x bf16 (row-major rhs) ->
+    bf16 or f32, ``"fma"`` (csrc/gmm.cu) for f32 x f32, f32 x bf16 and
+    their transposed-rhs forms (-> f32). Raises TypeError for operand
+    types with no kernel, and ValueError where the tensor-core kernel
+    cannot take the shape: K and N must be multiples of 8 (TMA reads rows
+    whose byte strides are multiples of 16) and block_m a multiple of 64
+    (its row tile)."""
+    variant = (*(_DTYPES.get(t) for t in (lhs_dtype, rhs_dtype, out_dtype)),
+               bool(trans))
+    if variant in _WGMMA_VARIANTS:
+        if K % 8 or N % 8:
+            raise ValueError(f"the bf16 gmm kernel needs K % 8 == 0 and "
+                             f"N % 8 == 0 (TMA's 16-byte strides), got K={K}"
+                             f" N={N}")
+        if block_m % 64:
+            raise ValueError(f"the bf16 gmm kernel needs block_m % 64 == 0, "
+                             f"got {block_m}")
+        return "wgmma"
+    if variant in _FMA_VARIANTS:
+        return "fma"
+    raise TypeError(f"no gmm kernel for {lhs_dtype} x {rhs_dtype}"
+                    f"{' (transposed)' if trans else ''} -> {out_dtype}")
+
+
+def gmm_wgmma_plan(block_m: int) -> dict:
+    """Row tile and shared memory of one tensor-core launch: 128-row
+    tiles (two consumer warpgroups) where block_m allows, else 64; each of
+    the GMM_STAGES stages a [tile_m, 64] lhs slice and a [64, GMM_TILE_N]
+    weight slice in bf16 and two 8-byte barriers, plus 1024 bytes to align
+    the ring. Raises for a block_m the kernel cannot tile."""
+    if block_m <= 0 or block_m % 64:
+        raise ValueError(f"no gmm wgmma plan for block_m={block_m}")
+    tile_m = 128 if block_m % 128 == 0 else 64
+    stage = (tile_m + GMM_TILE_N) * GMM_TILE_K * 2
+    smem = GMM_STAGES * (stage + 16) + 1024
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"{GMM_STAGES} stages of {stage} bytes exceed the "
+                         f"{_build.SMEM_PER_BLOCK} bytes of shared memory")
+    return {"tile_m": tile_m, "stage_bytes": stage, "smem_bytes": smem}
+
+
+def _gmm_wgmma(lhs, rhs, tile_group, block_m: int, out_dtype, plan: dict):
+    """Launch the tensor-core kernel with ``plan`` (:func:`gmm_wgmma_plan`)
+    on bf16 lhs [Mp, K] and row-major rhs [G, K, N]."""
+    Mp, K = lhs.shape
+    G, _, N = rhs.shape
+    out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
+    if any(t.data_ptr() % 16 for t in (lhs, rhs, out)):
+        raise ValueError("the bf16 gmm kernel needs 16-byte aligned lhs, "
+                         "rhs and out")
+    fn = getattr(_wgmma_lib(), f"gmm_wgmma_{_DTYPES[out_dtype]}")
+    err = fn(lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
+             out.data_ptr(), Mp, K, N, G, block_m, plan["tile_m"],
+             plan["smem_bytes"],
+             torch.cuda.current_stream(lhs.device).cuda_stream)
+    _raise_on(err, "gmm (wgmma)")
+    return out
+
+
 def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     """Dense tiled grouped matmul over tile-aligned groups.
 
@@ -152,8 +249,10 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     by stride, widened in the kernel, never copied); tile_group:
     [Mp // block_m] int32. Returns [Mp, N] in ``out_dtype`` (default: the
     lhs dtype) with out[tile] = lhs[tile] @ rhs[tile_group[tile]], f32
-    sums rounded once. Kernels exist for the (lhs, rhs, out) types of
-    ``_GMM_VARIANTS``."""
+    sums rounded once. On CUDA tensors :func:`gmm_route` picks the kernel:
+    bf16 operands (-> bf16 or f32) run on the tensor cores and need K and
+    N multiples of 8 and 16-byte aligned tensors (raises otherwise, never
+    falls back); the f32-operand types run on the FMA kernel."""
     if _build.on_cpu(lhs, rhs, tile_group):
         return gmm_tiled_plain(lhs, rhs, tile_group, block_m=block_m,
                                out_dtype=out_dtype)
@@ -162,25 +261,27 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     if rhs.dim() != 3 or rhs.shape[1] != K:
         raise ValueError(f"rhs {tuple(rhs.shape)} does not match lhs "
                          f"{tuple(lhs.shape)}")
-    names = [_DTYPES.get(t) for t in (lhs.dtype, rhs.dtype, out_dtype)]
     trans, ldw = _rhs_layout(rhs, K)
-    variant = (*names, trans)
-    if variant not in _GMM_VARIANTS:
-        raise TypeError(f"no gmm kernel for {lhs.dtype} x {rhs.dtype}"
-                        f"{' (transposed)' if trans else ''} -> {out_dtype}")
+    N = rhs.shape[-1]
+    design = gmm_route(lhs.dtype, rhs.dtype, out_dtype, trans, K, N, block_m)
     if not (lhs.is_contiguous() and tile_group.is_contiguous()):
         raise ValueError("gmm kernels take a contiguous lhs and tile_group")
-    _check_tiles(Mp, tile_group, block_m, _lib().gmm_block_rows())
-    N = rhs.shape[-1]
-    out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
-    a, b, o, t = variant
-    fn = getattr(_lib(), f"gmm_{'t_' if t else ''}{a}_{b}_{o}")
-    err = fn(lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
-             out.data_ptr(), Mp, K, N, ldw, block_m,
-             torch.cuda.current_stream(lhs.device).cuda_stream)
-    _raise_on(err, "gmm")
+    variant = tuple(_DTYPES[t] for t in (lhs.dtype, rhs.dtype, out_dtype))
+    if design == "wgmma":
+        _check_tiles(Mp, tile_group, block_m, 64)
+        out = _gmm_wgmma(lhs, rhs, tile_group, block_m, out_dtype,
+                         gmm_wgmma_plan(block_m))
+    else:
+        _check_tiles(Mp, tile_group, block_m, _lib().gmm_block_rows())
+        out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
+        a, b, o = variant
+        fn = getattr(_lib(), f"gmm_{'t_' if trans else ''}{a}_{b}_{o}")
+        err = fn(lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
+                 out.data_ptr(), Mp, K, N, ldw, block_m,
+                 torch.cuda.current_stream(lhs.device).cuda_stream)
+        _raise_on(err, "gmm")
     LAUNCHES["gmm"] += 1
-    VARIANT_LAUNCHES[f"gmm:{variant_name(*variant)}"] += 1
+    VARIANT_LAUNCHES[f"gmm:{variant_name(*variant, trans)}"] += 1
     return out
 
 

@@ -40,11 +40,12 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("gmm_glu (port)", (  # gmm_kernel<TA, TB, TO, GLU, TRANS_B>
         "gmm_kernel<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true",
         "gmm_kernel<float, float, float, true")),
+    ("gmm wgmma (port)", ("gmm_wgmma_kernel",)),  # bf16 operands
     ("gmm (port)", ("gmm_kernel<",)),
     ("gmm_dw (port)", ("gmm_dw_kernel",)),
     ("paged_decode (port)", ("paged_decode_kernel",)),
-    ("flash (port)", ("flash_fwd_kernel", "flash_dq_kernel",
-                      "flash_dkv_kernel")),
+    ("flash (port)", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",
+                      "flash_dq_kernel", "flash_dkv_kernel")),
     ("ssd (port)", ("ssd_scan_kernel",)),
     ("library gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "gemv",
                       "nvjet")),

@@ -1,0 +1,153 @@
+"""The kernel wrappers' route rules and shared-memory plans, on the CPU.
+
+Which hand-written kernel runs a call on a CUDA tensor is a pure function
+of dtypes and shapes (``gmm.gmm_route``, ``flash_attention.flash_fwd_route``:
+``"wgmma"`` for the tensor-core kernels, ``"fma"`` for the others, or an
+error), and the tensor-core kernels' shared-memory plans are computed in
+Python and passed to the launch (``gmm.gmm_wgmma_plan``,
+``flash_attention.flash_wgmma_plan``). Both are held here to what the CUDA
+sources build: every plan fits in a block's 227 KB, and a bf16 call the
+tensor-core kernel cannot take raises instead of falling back.
+"""
+
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gmm
+
+BF, F32, F16 = torch.bfloat16, torch.float32, torch.float16
+HOPPER_SMEM = 227 * 1024  # bytes of shared memory one block can use
+
+
+@pytest.mark.parametrize("out", [BF, F32])
+@pytest.mark.parametrize("K,N,block_m", [(2048, 7168, 128), (7168, 2048, 128),
+                                         (96, 80, 64), (8, 8, 256)])
+def test_gmm_route_bf16_takes_tensor_cores(out, K, N, block_m):
+    assert gmm.gmm_route(BF, BF, out, False, K, N, block_m) == "wgmma"
+
+
+@pytest.mark.parametrize("lhs,rhs,trans", [(F32, F32, False), (F32, BF, False),
+                                           (F32, BF, True), (F32, F32, True)])
+@pytest.mark.parametrize("K,N,block_m", [(2048, 7168, 128), (60, 36, 64)])
+def test_gmm_route_f32_operands_take_fma(lhs, rhs, trans, K, N, block_m):
+    # the FMA kernel masks any K and N itself
+    assert gmm.gmm_route(lhs, rhs, F32, trans, K, N, block_m) == "fma"
+
+
+@pytest.mark.parametrize("K,N,block_m,why", [
+    (60, 64, 128, "K % 8"), (2044, 7168, 128, "K % 8"),
+    (64, 60, 128, "N % 8"), (2048, 7172, 64, "N % 8"),
+    (64, 64, 32, "block_m % 64"), (64, 64, 96, "block_m % 64"),
+])
+@pytest.mark.parametrize("out", [BF, F32])
+def test_gmm_route_refuses_what_wgmma_cannot_take(K, N, block_m, why, out):
+    with pytest.raises(ValueError, match=why):
+        gmm.gmm_route(BF, BF, out, False, K, N, block_m)
+
+
+@pytest.mark.parametrize("lhs,rhs,out,trans", [
+    (F16, F16, F16, False),      # no fp16 kernel
+    (BF, BF, BF, True),          # bf16 x bf16^T has no kernel
+    (F32, F32, BF, False),       # f32 sums are only stored in f32
+    (BF, F32, F32, False),
+])
+def test_gmm_route_refuses_types_without_kernel(lhs, rhs, out, trans):
+    with pytest.raises(TypeError):
+        gmm.gmm_route(lhs, rhs, out, trans, 64, 64, 128)
+
+
+def test_gmm_variant_and_design_counters_keep_their_names():
+    kernels.reset_launch_counts()
+    assert set(kernels.variant_launch_counts()) == {
+        "gmm:bf16.bf16->bf16", "gmm:f32.f32->f32", "gmm:bf16.bf16->f32",
+        "gmm:f32.bf16->f32", "gmm:f32.bf16T->f32", "gmm:f32.f32T->f32",
+        "gmm_dw:bf16.f32->f32", "gmm_dw:f32.f32->f32"}
+    assert kernels.design_launch_counts() == {
+        "gmm:wgmma": 0, "gmm:fma": 0, "flash_fwd:wgmma": 0,
+        "flash_fwd:fma": 0}
+
+
+def test_gmm_design_counts_follow_the_variant_counts():
+    kernels.reset_launch_counts()
+    gmm.VARIANT_LAUNCHES["gmm:bf16.bf16->bf16"] += 2
+    gmm.VARIANT_LAUNCHES["gmm:bf16.bf16->f32"] += 3
+    gmm.VARIANT_LAUNCHES["gmm:f32.bf16T->f32"] += 5
+    gmm.VARIANT_LAUNCHES["gmm_dw:bf16.f32->f32"] += 7   # not gmm_tiled
+    designs = kernels.design_launch_counts()
+    kernels.reset_launch_counts()
+    assert designs["gmm:wgmma"] == 5 and designs["gmm:fma"] == 5
+
+
+@pytest.mark.parametrize("block_m", [64, 128, 192, 256, 384])
+def test_gmm_wgmma_plan_fits_and_tiles_one_group(block_m):
+    plan = gmm.gmm_wgmma_plan(block_m)
+    tile_m = plan["tile_m"]
+    assert block_m % tile_m == 0       # a row tile never spans two groups
+    assert tile_m == (128 if block_m % 128 == 0 else 64)
+    assert plan["stage_bytes"] == ((tile_m + gmm.GMM_TILE_N)
+                                   * gmm.GMM_TILE_K * 2)
+    assert plan["smem_bytes"] == (gmm.GMM_STAGES * plan["stage_bytes"]
+                                  + 16 * gmm.GMM_STAGES + 1024)
+    assert plan["smem_bytes"] <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("block_m", [0, 32, 96, 200])
+def test_gmm_wgmma_plan_refusals(block_m):
+    with pytest.raises(ValueError):
+        gmm.gmm_wgmma_plan(block_m)
+
+
+def test_gmm_tiled_on_cpu_takes_any_shape():
+    """The route rule binds CUDA tensors only: on the CPU the plain
+    version runs, whatever K."""
+    g = torch.Generator().manual_seed(0)
+    lhs = torch.randn((128, 60), generator=g).to(BF)
+    w = torch.randn((1, 60, 36), generator=g).to(BF)
+    tg = torch.zeros(1, dtype=torch.int32)
+    kernels.reset_launch_counts()
+    out = gmm.gmm_tiled(lhs, w, tg, block_m=128, out_dtype=F32)
+    want = lhs.float() @ w[0].float()
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    assert kernels.launch_counts()["gmm"] == 0
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_route_bf16_takes_tensor_cores(hd):
+    assert fa.flash_fwd_route(BF, hd) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,hd", [(BF, 32), (BF, 96), (BF, 192),
+                                      (BF, 256), (F32, 64), (F32, 128),
+                                      (F32, 32)])
+def test_flash_route_other_inputs_take_fma(dtype, hd):
+    assert fa.flash_fwd_route(dtype, hd) == "fma"
+
+
+@pytest.mark.parametrize("dtype,hd,err", [(F16, 128, TypeError),
+                                          (BF, 48, ValueError),
+                                          (F32, 288, ValueError)])
+def test_flash_route_refusals(dtype, hd, err):
+    with pytest.raises(err):
+        fa.flash_fwd_route(dtype, hd)
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 64, 65, 256, 1024])
+def test_flash_wgmma_plan_fits(hd, S):
+    plan = fa.flash_wgmma_plan(hd, S)
+    q_rows = plan["q_rows"]
+    assert q_rows == (64 if S <= 64 else 128)
+    assert plan["stage_bytes"] == 2 * fa.WGMMA_KV_ROWS * hd * 2
+    assert plan["smem_bytes"] == (q_rows * hd * 2
+                                  + fa.WGMMA_STAGES * plan["stage_bytes"]
+                                  + 8 * (1 + 2 * fa.WGMMA_STAGES) + 1024)
+    assert plan["smem_bytes"] <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("hd", [32, 96, 256])
+def test_flash_wgmma_plan_refusals(hd):
+    with pytest.raises(ValueError):
+        fa.flash_wgmma_plan(hd, 256)

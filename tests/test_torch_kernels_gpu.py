@@ -118,6 +118,74 @@ def test_gmm_backward_operand_types_match_plain(cuda, lhs_t, rhs_t, out_t,
                                atol=1e-4 * float(want.abs().max()))
 
 
+def _gmm_close(got, want):
+    """bf16 out: 2e-2 * min(1, max|want|); f32 out: 1e-4 * max|want|."""
+    top = float(want.float().abs().max())
+    tol = 1e-4 * top if got.dtype == torch.float32 else 2e-2 * min(1.0, top)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=max(tol, 1e-30))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sizes,K,N,block_m", [
+    ([37, 0, 90, 73], 96, 80, 64),       # zero-token group, 64-row tiles
+    ([200, 0, 5], 200, 136, 128),        # K, N multiples of 8, not of tiles
+    ([130, 1, 0, 250], 256, 384, 128),   # trailing all-pad tiles
+    ([300, 5], 264, 128, 64),
+    ([0, 700, 310, 550, 0, 900, 129], 512, 640, 128),  # train-like, cut
+    ([128, 300, 45], 2048, 264, 256),    # 256-row groups, deep K
+])
+def test_gmm_wgmma_matches_plain(cuda, out_dtype, sizes, K, N, block_m):
+    lhs, w, _, tg = _packed(sizes, K, N, torch.bfloat16, cuda, block_m)
+    kernels.reset_launch_counts()
+    got = gmm.gmm_tiled(lhs, w, tg, block_m=block_m, out_dtype=out_dtype)
+    assert kernels.design_launch_counts()["gmm:wgmma"] == 1
+    assert kernels.design_launch_counts()["gmm:fma"] == 0
+    want = gmm.gmm_tiled_plain(lhs, w, tg, block_m=block_m,
+                               out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    _gmm_close(got, want)
+    pad = lhs.abs().sum(1) == 0          # pad rows are written, as zeros
+    assert pad.any() and not got[pad].any()
+    # one block per output tile, no atomics: bit-identical on a rerun
+    assert torch.equal(gmm.gmm_tiled(lhs, w, tg, block_m=block_m,
+                                     out_dtype=out_dtype), got)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gmm_wgmma_row_tiles_agree(cuda, out_dtype):
+    """The 64-row tiles (block_m 64: one consumer warpgroup) give the
+    128-row tiles' result bit for bit (the sums run in the same k
+    order)."""
+    lhs, w, _, tg = _packed([300, 0, 77, 140], 320, 384, torch.bfloat16,
+                            cuda, 128)
+    assert gmm.gmm_wgmma_plan(128)["tile_m"] == 128
+    assert gmm.gmm_wgmma_plan(64)["tile_m"] == 64
+    want = gmm.gmm_tiled(lhs, w, tg, block_m=128, out_dtype=out_dtype)
+    got = gmm.gmm_tiled(lhs, w, tg.repeat_interleave(2), block_m=64,
+                        out_dtype=out_dtype)
+    assert torch.equal(got, want)
+
+
+def test_gmm_wgmma_refusals(cuda):
+    lhs, w, _, tg = _packed([70, 60], 64, 64, torch.bfloat16, cuda, 64)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="K % 8"):   # K = 60
+        gmm.gmm_tiled(lhs[:, :60].contiguous(), w[:, :60].contiguous(), tg,
+                      block_m=64)
+    with pytest.raises(ValueError, match="N % 8"):   # N = 60
+        gmm.gmm_tiled(lhs, w[..., :60].contiguous(), tg, block_m=64)
+    shifted = torch.empty(lhs.numel() + 4, dtype=lhs.dtype, device=cuda)
+    shifted = shifted[4:].view(lhs.shape).copy_(lhs)  # 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        gmm.gmm_tiled(shifted, w, tg, block_m=64)
+    with pytest.raises(TypeError):                   # no bf16^T kernel
+        gmm.gmm_tiled(lhs, w.transpose(1, 2).contiguous().transpose(1, 2),
+                      tg, block_m=64)
+    assert kernels.launch_counts()["gmm"] == 0
+    assert sum(kernels.design_launch_counts().values()) == 0
+
+
 @pytest.mark.parametrize("scaled", [False, True])
 def test_moe_ffn_grads_on_card_match_cpu(cuda, scaled):
     g = torch.Generator().manual_seed(5)
@@ -341,6 +409,61 @@ def test_flash_refusals(cuda):
     with pytest.raises(ValueError):  # head_dim not contiguous
         fa.flash_forward(q.transpose(2, 3), k, v, scale=1.0, causal=True)
     assert kernels.launch_counts()["flash_fwd"] == 0
+
+
+@pytest.mark.parametrize("B,H,KH,S,T,hd,kw", [
+    (2, 4, 2, 200, 200, 64, dict(causal=True)),        # ragged tiles, GQA
+    (1, 4, 1, 96, 160, 128, dict(causal=False)),       # S != T, MQA
+    (1, 4, 2, 160, 96, 64, dict(causal=True)),         # S > T
+    (2, 4, 2, 300, 300, 64, dict(causal=True, window=48)),
+    (1, 2, 2, 130, 130, 128, dict(causal=True, window=1, q_len=100,
+                                  kv_len=60)),         # rows with no key
+    (2, 16, 4, 256, 256, 128, dict(causal=True)),      # mixtral-w1 heads
+    (1, 4, 2, 48, 48, 64, dict(causal=True)),          # one warpgroup
+    (1, 2, 1, 64, 200, 128, dict(causal=False, q_len=50)),
+    (2, 4, 2, 160, 160, 64, dict(causal=True, softcap=5.0)),
+    (1, 4, 2, 200, 200, 128, dict(causal=False, softcap=3.0, window=40)),
+])
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_flash_forward_wgmma_matches_plain(cuda, B, H, KH, S, T, hd, kw,
+                                           model_layout):
+    dtype = torch.bfloat16
+    q, k, v, _ = _flash_inputs(B, H, KH, S, T, hd, dtype, cuda,
+                               model_layout)
+    if kw.get("softcap"):
+        q = 4.0 * q      # logits large enough for the tanh to bend them
+    kw = dict(kw, scale=hd ** -0.5)
+    kernels.reset_launch_counts()
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    assert kernels.design_launch_counts() == {
+        "gmm:wgmma": 0, "gmm:fma": 0, "flash_fwd:wgmma": 1,
+        "flash_fwd:fma": 0}
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
+    assert o.dtype == dtype and o.stride() == q.stride()
+    _close(o, o_p, dtype)
+    live = lse_p > fa._NEG
+    assert torch.equal(lse[~live], lse_p[~live])
+    assert torch.all(o[~live] == 0)
+    _close(lse[live], lse_p[live], torch.float32)
+    # one block per q-tile, no atomics: bit-identical on a rerun
+    o2, lse2 = fa.flash_forward(q, k, v, **kw)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+def test_flash_forward_wgmma_refusals(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((1, 2, 64, 132), generator=g, device=cuda).bfloat16()
+    q = x[..., :128]                     # row stride 132: not a multiple of 8
+    k = v = torch.randn((1, 1, 64, 128), generator=g,
+                        device=cuda).bfloat16()
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_forward(q, k, v, scale=1.0, causal=True)
+    assert kernels.launch_counts()["flash_fwd"] == 0
+    # bf16 at a head_dim the tensor-core kernel is not built for: FMA
+    fa.flash_forward(q[..., :32], k[..., :32], v[..., :32], scale=1.0,
+                     causal=True)
+    assert kernels.design_launch_counts()["flash_fwd:fma"] == 1
 
 
 def _ssd_inputs(b, T, h, hd, ns, dtype, dev, seed=0):
