@@ -33,10 +33,11 @@ It fails unless:
   accounting is clean; every train step's loss and grad norm are finite;
 * each kernel of a path was launched during that path's run (launch
   counters set to 0 just before it and read just after), every flash
-  forward launch of the serve, train and flash runs went through the
-  tensor-core kernel (``flash_fwd_wgmma.cu``: its design counter; the
-  bf16 ``gmm_tiled`` launches take ``gmm_wgmma.cu`` by their operand
-  types), both libraries hold HGMMA instructions, and each train
+  forward, dq and dk/dv launch of the serve, train and flash runs went
+  through the tensor-core kernels (``flash_fwd_wgmma.cu``,
+  ``flash_bwd_wgmma.cu``: their design counters; the bf16 ``gmm_tiled``
+  launches take ``gmm_wgmma.cu`` by their operand types), the three
+  wgmma libraries hold HGMMA instructions, and each train
   run launched each grouped kernel the expected number of times per layer
   and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3); the chunked
   run no flash kernel, the flash run flash_fwd 2 (forward + recompute),
@@ -53,7 +54,12 @@ It fails unless:
   autograd Function (the kernels) agree with autograd through the plain
   composition within 1e-4 * max|plain| each, at one layer's train shapes
   in f32; so do the flash attention Function's dq, dk, dv against
-  autograd through the attention oracle;
+  autograd through the attention oracle; in bf16 at the flash run's
+  attention shape the Function's output and dq, dk, dv agree with the
+  plain forward and backward at the bf16 tier;
+* every grouped kernel (the six ``gmm_tiled`` operand types, the fused GLU
+  in bf16 and f32, ``gmm_dw`` with a bf16 and an f32 lhs) takes block_m 8,
+  16 and 32 and agrees with its plain version there;
 * the flash kernels agree with their plain versions at the train shape
   and at batch 2 x seq 1024 (causal tile skipping), with a window, with a
   softcap (forward) and in f32;
@@ -82,7 +88,10 @@ the train runs' lines, the kernel tolerances, the ``kernels`` JSON line
 events behind a spin kernel that keeps the host's queueing out of them,
 and ``host_ms`` is the kernel wrapper's host time per call),
 the serve, parity, train, train_flash, train_mamba2, grad, flash_grad,
-flash_cases, ssd_cases and ssd_grad lines, and last
+flash_grad_bf16, c1_tiles, flash_cases (the flash kernels at every case
+shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
+design replaced, timed on the same bf16 inputs), ssd_cases and ssd_grad
+lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -128,6 +137,9 @@ FLASH_REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:122",
     "flash_dq": "src/repro/kernels/flash_attention.py:245",
     "flash_dkv": "src/repro/kernels/flash_attention.py:271"}
+# the libraries built on wgmma: each must hold HGMMA in its SASS
+WGMMA_LIBS = ("gmm_wgmma", "flash_fwd_wgmma", "flash_bwd_wgmma")
+C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -254,14 +266,15 @@ def with_design(fn, default: str = "fma"):
 
 
 def check_designs(label: str, counts: dict):
-    """Every flash forward of a main-path run (bf16 at head_dim 128 on
-    these paths) took the tensor-core kernel. The grouped GEMM's design is
-    a function of its operand types (``gmm.gmm_route``), so its bf16
-    launches run on the tensor cores by construction; HGMMA in the built
-    library's SASS shows that kernel uses them."""
-    if counts["flash_fwd:wgmma"] != counts["flash_fwd"]:
-        raise RuntimeError(f"{label}: a flash forward launch did not take "
-                           f"the tensor-core kernel: {counts}")
+    """Every flash forward, dq and dk/dv launch of a main-path run (bf16 at
+    head_dim 128 on these paths) took the tensor-core kernel. The grouped
+    GEMM's design is a function of its operand types (``gmm.gmm_route``),
+    so its bf16 launches run on the tensor cores by construction; HGMMA in
+    the built library's SASS shows that kernel uses them."""
+    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if counts[f"{k}:wgmma"] != counts[k]:
+            raise RuntimeError(f"{label}: a {k} launch did not take the "
+                               f"tensor-core kernel: {counts}")
 
 
 def tile_ends(torch, tg, n_groups: int, block_m: int):
@@ -741,7 +754,8 @@ def flash_case(torch, label, B, S, H, KH, hd, dtype, window=0, softcap=0.0,
     def entry(name, errs, ms, plain_ms, bytes_moved, flops, lib_ms,
               design="fma"):
         t_bound, by = bound(bytes_moved, flops, peak)
-        source = {"wgmma": "flash_fwd_wgmma.cu",
+        source = {"wgmma": ("flash_fwd_wgmma.cu" if name == "flash_fwd"
+                            else "flash_bwd_wgmma.cu"),
                   "fma": "flash_attention.cu"}[design]
         return {"name": name, "route": "cuda", "design": design,
                 "source": f"src/repro_torch/csrc/{source}",
@@ -770,8 +784,10 @@ def flash_case(torch, label, B, S, H, KH, hd, dtype, window=0, softcap=0.0,
         return out
     delta = (do.float() * o_p.float()).sum(-1).contiguous()
     bw = (q, k, v, do, lse_p, delta)
-    (dq,) = fa._launch_backward("dq", *bw, **kw)
-    dk, dv = fa._launch_backward("dkv", *bw, **kw)
+    (dq,), dq_design = with_design(lambda: fa._launch_backward("dq", *bw,
+                                                               **kw))
+    (dk, dv), dkv_design = with_design(lambda: fa._launch_backward(
+        "dkv", *bw, **kw))
     want = fa.flash_backward_plain(q, k, v, o_p, lse_p, do, **kw)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: fa.flash_backward_plain(q, k, v, o_p, lse_p,
@@ -780,17 +796,47 @@ def flash_case(torch, label, B, S, H, KH, hd, dtype, window=0, softcap=0.0,
         "flash_dq", {"dq": check(dq, want[0])},
         kernel_times(lambda: fa._launch_backward("dq", *bw, **kw), 10),
         plain_ms,
-        es * (3 * nq + 2 * nkv) + 8 * rows, 6 * hd * pairs, lib_b))
+        es * (3 * nq + 2 * nkv) + 8 * rows, 6 * hd * pairs, lib_b,
+        dq_design))
     out.append(entry(
         "flash_dkv", {"dk": check(dk, want[1]), "dv": check(dv, want[2])},
         kernel_times(lambda: fa._launch_backward("dkv", *bw, **kw), 10),
         plain_ms,
-        es * (2 * nq + 4 * nkv) + 8 * rows, 8 * hd * pairs, lib_b))
+        es * (2 * nq + 4 * nkv) + 8 * rows, 8 * hd * pairs, lib_b,
+        dkv_design))
     for e in out[1:]:
         e["plain"] = "flash_backward_plain (dq, dk, dv together)"
         e["library"] = ("SDPA forward + backward minus forward (dq, dk, dv "
                         "together)" if lib_b is not None else lib_note)
+        # the FMA kernel the tensor-core design replaced, same inputs
+        e["fma_ms"] = (fma_backward_ms(torch, e["name"][6:], bw, kw)
+                       if e["design"] == "wgmma" else None)
     return out
+
+
+def fma_backward_ms(torch, name: str, bw, kw) -> float:
+    """Device ms of the FMA ``flash_<name>`` kernel of
+    csrc/flash_attention.cu on the inputs ``bw`` = (q, k, v, do, lse,
+    delta): the design that the tensor-core kernel replaced for bf16,
+    timed in the same run. It is launched through the library's C entry,
+    outside the wrapper, whose route sends bf16 to the tensor cores."""
+    import ctypes
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do, lse, delta = bw
+    dims = fa._check(q, k, v, kw.get("q_len"), kw.get("kv_len"), do)
+    outs = (torch.empty_like(q),) if name == "dq" else \
+        (torch.empty_like(k), torch.empty_like(v))
+    strides = fa._strides(q, k, v, do, *outs)
+    fn = getattr(fa._lib(), f"flash_{name}_{fa._DTYPES[q.dtype]}")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            ctypes.addressof(strides), *dims, int(kw["causal"]),
+            int(kw.get("window", 0)), float(kw["scale"]), fa._stream(q))
+
+    def launch():
+        if fn(*args) != 0:
+            raise RuntimeError(f"FMA flash_{name} launch failed")
+    return cuda_ms(launch, 10)
 
 
 def check_flash_kernels(torch, cfg, batch: int, seq: int):
@@ -842,6 +888,111 @@ def flash_grad_phase(torch, cfg, batch: int, seq: int):
     return {"shapes": {"q": list(inputs[0].shape),
                        "kv": list(inputs[1].shape), "causal": True},
             "results": res, "ok": all(r["ok"] for r in res.values())}
+
+
+def flash_grad_bf16_phase(torch, cfg, batch: int, seq: int):
+    """The flash attention Function in bf16 at the flash train run's
+    attention shape (causal, GQA, hd 128): its output and dq, dk, dv (the
+    tensor-core forward, dq and dk/dv kernels; each launch must take that
+    design) against the plain forward and backward on the same inputs,
+    within 2e-2 * min(1, max|plain|)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rand(heads, scale):  # |dq|, |dk|, |dv| stay below 1 at these scales
+        x = torch.randn((batch, seq, heads, hd), generator=gen, device=dev)
+        return (scale * x).to(torch.bfloat16)
+
+    q, k, v, ct = rand(H, 1.0), rand(KH, 1.0), rand(KH, 0.5), rand(H, 0.25)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = kernels.design_launch_counts()
+    out = ops.flash_attention(*ins, causal=True)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    after = kernels.design_launch_counts()
+    moved = {n: after[n] - before[n] for n in after if after[n] > before[n]}
+    kw = dict(scale=hd ** -0.5, causal=True)
+    o_p, lse_p = fa.flash_forward_plain(*(t.transpose(1, 2)
+                                          for t in (q, k, v)), **kw)
+    want = fa.flash_backward_plain(*(t.transpose(1, 2) for t in (q, k, v)),
+                                   o_p, lse_p, ct.transpose(1, 2), **kw)
+    res = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"),
+                          [out.detach()] + [t.grad for t in ins],
+                          [o_p] + list(want)):
+        err, tol, ok = compare(a, b.transpose(1, 2))
+        res[name] = {"max_abs_err": err, "tol": tol, "ok": ok}
+    designs_ok = moved == {"flash_fwd:wgmma": 1, "flash_dq:wgmma": 1,
+                           "flash_dkv:wgmma": 1}
+    return {"shapes": {"q": list(q.shape), "kv": list(k.shape),
+                       "dtype": "bfloat16", "causal": True},
+            "designs": moved, "results": res,
+            "ok": designs_ok and all(r["ok"] for r in res.values())}
+
+
+def c1_tiles_phase(torch):
+    """Every grouped kernel at block_m 8, 16 and 32 (row tiles under 64,
+    as the reference's capacity routing produces) against its plain
+    version at a small packed shape: groups of 37, 0, 90, 73 and 5 rows,
+    K 96, N 80; each call must launch its kernel once. bf16 outputs at
+    the bf16 tier, f32 at 1e-4 * max|plain|."""
+    from repro_torch import kernels
+    from repro_torch.kernels import gmm, ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf, f32 = torch.bfloat16, torch.float32
+    sizes = torch.tensor([37, 0, 90, 73, 5], dtype=torch.int32, device=dev)
+    M, G, K, N = int(sizes.sum()), sizes.numel(), 96, 80
+    x = 0.5 * torch.randn((M, K), generator=gen, device=dev)
+    dy = torch.randn((M, N), generator=gen, device=dev)
+    wg, wu = (torch.randn((G, K, N), generator=gen, device=dev)
+              / math.sqrt(K) for _ in range(2))
+    wgb, wub = wg.to(bf), wu.to(bf)
+
+    def transposed(w):  # swapaxes(W, 1, 2) of a row-major [G, N, K] weight
+        return w.transpose(1, 2).contiguous().transpose(1, 2)
+
+    tiled = (gmm.gmm_tiled, gmm.gmm_tiled_plain)
+    glu = (gmm.gmm_glu_tiled_pair, gmm.gmm_glu_plain)
+    dw = (gmm.gmm_dw_tiled, gmm.gmm_dw_tiled_plain)
+    results = {}
+    for bm in C1_BLOCK_M:
+        dest, tg, mp = ops._pack_meta(sizes, M, G, bm)
+        xb, xf, dyf = (ops._scatter_rows(t.to(dt), dest, mp)
+                       for t, dt in ((x, bf), (x, f32), (dy, f32)))
+        calls = {
+            "gmm:bf16.bf16->bf16": (tiled, (xb, wgb, tg), {}),
+            "gmm:bf16.bf16->f32": (tiled, (xb, wgb, tg), {"out_dtype": f32}),
+            "gmm:f32.f32->f32": (tiled, (xf, wg, tg), {}),
+            "gmm:f32.bf16->f32": (tiled, (xf, wgb, tg), {"out_dtype": f32}),
+            "gmm:f32.bf16T->f32": (tiled, (xf, transposed(wgb), tg),
+                                   {"out_dtype": f32}),
+            "gmm:f32.f32T->f32": (tiled, (xf, transposed(wg), tg), {}),
+            "gmm_glu:bf16": (glu, (xb, wgb, wub, tg), {}),
+            "gmm_glu:f32": (glu, (xf, wg, wu, tg), {}),
+            "gmm_dw:bf16.f32->f32": (dw, (xb, dyf, tg, G), {}),
+            "gmm_dw:f32.f32->f32": (dw, (xf, dyf, tg, G), {}),
+        }
+        for name, ((kernel, plain), args, kw) in calls.items():
+            before = sum(kernels.launch_counts().values())
+            got = kernel(*args, block_m=bm, **kw)
+            launched = sum(kernels.launch_counts().values()) - before
+            want = plain(*args, block_m=bm, **kw)
+            torch.cuda.synchronize()
+            err, tol, ok = (compare if got.dtype == bf else compare_f32)(
+                got, want)
+            results.setdefault(name, {})[bm] = {
+                "max_abs_err": err, "tol": tol, "launches": launched,
+                "ok": ok and launched == 1}
+    return {"block_m": list(C1_BLOCK_M),
+            "shape": {"groups": sizes.tolist(), "K": K, "N": N},
+            "results": results,
+            "ok": all(r["ok"] for per in results.values()
+                      for r in per.values())}
 
 
 def train_mamba2_phase(torch, train_mod, smi: str):
@@ -1006,7 +1157,7 @@ def main() -> int:
     print(f"build: {len(_build.sources())} CUDA sources compiled in "
           f"{build_s:.2f} s -> {_build.build_dir()}; HGMMA in SASS: "
           f"{json.dumps(hgmma)}", flush=True)
-    if not (hgmma.get("gmm_wgmma") and hgmma.get("flash_fwd_wgmma")):
+    if not all(hgmma.get(lib) for lib in WGMMA_LIBS):
         raise RuntimeError(f"the tensor-core kernels hold no HGMMA: {hgmma}")
 
     # -- untimed warm-up: one short request on an engine of its own ---------
@@ -1070,6 +1221,9 @@ def main() -> int:
     entries += flash_entries
     torch.cuda.empty_cache()
     flash_grad = flash_grad_phase(torch, w1, batch, seq)
+    flash_grad_bf16 = flash_grad_bf16_phase(torch, w1, batch, seq)
+    torch.cuda.empty_cache()
+    c1_tiles = c1_tiles_phase(torch)
     mamba2 = registry.get_config("mamba2-2.7b")
     ssd_entry, ssd_cases = check_ssd_kernel(torch, mamba2,
                                             mamba2_line["batch"],
@@ -1087,12 +1241,12 @@ def main() -> int:
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}" for e in flash_cases + ssd_cases
         if not e["ok"]]
-    # the bf16 grouped GEMMs and bf16 flash forwards run on the tensor cores
+    # the bf16 grouped GEMMs and bf16 flash kernels run on the tensor cores
     bad += [f"{e['name']}@{e['shapes'].get('case', '')}: design "
             f"{e['design']}" for e in entries + flash_cases
             if e["design"] != "wgmma" and (
                 e["name"].startswith("gmm:bf16.bf16->")
-                or (e["name"] == "flash_fwd"
+                or (e["name"].startswith("flash_")
                     and e["shapes"]["dtype"] == "bfloat16"))]
 
     steps = summary["paged"]
@@ -1117,7 +1271,9 @@ def main() -> int:
         "kernels": entries,
         "serve": serve_line, "parity": parity, "train": train_line,
         "train_flash": flash_line, "train_mamba2": mamba2_line,
-        "grad": grad, "flash_grad": flash_grad, "flash_cases": flash_cases,
+        "grad": grad, "flash_grad": flash_grad,
+        "flash_grad_bf16": flash_grad_bf16, "c1_tiles": c1_tiles,
+        "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
     contract = ("name", "route", "design", "source", "replaces", "launches",
@@ -1134,11 +1290,13 @@ def main() -> int:
     print("train_mamba2: " + json.dumps(mamba2_line), flush=True)
     print("grad: " + json.dumps(grad), flush=True)
     print("flash_grad: " + json.dumps(flash_grad), flush=True)
+    print("flash_grad_bf16: " + json.dumps(flash_grad_bf16), flush=True)
+    print("c1_tiles: " + json.dumps(c1_tiles), flush=True)
     print("flash_cases: " + json.dumps(
-        [{k: e[k] for k in ("name", "design", "shapes", "errors", "ok",
-                            "ms", "host_ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}
-         for e in flash_cases]),
+        [{k: e.get(k) for k in ("name", "design", "shapes", "errors", "ok",
+                                "ms", "host_ms", "fma_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
+         for e in flash_entries + flash_cases]),
           flush=True)
     print("ssd_cases: " + json.dumps(
         [{k: e[k] for k in ("name", "shapes", "errors", "ok", "ms",
@@ -1170,6 +1328,13 @@ def main() -> int:
         raise RuntimeError("flash attention gradients disagree with "
                            "autograd through the oracle beyond their "
                            "tolerance")
+    if not flash_grad_bf16["ok"]:
+        raise RuntimeError("bf16 flash attention gradients disagree with the "
+                           "plain backward beyond the bf16 tier, or a launch "
+                           "missed the tensor-core design")
+    if not c1_tiles["ok"]:
+        raise RuntimeError("a grouped kernel at block_m 8/16/32 disagrees "
+                           "with its plain version or did not launch")
     if not ssd_grad["ok"]:
         raise RuntimeError("the SSD Function on the card disagrees with the "
                            "same Function on the CPU beyond its tolerance")

@@ -46,12 +46,15 @@
 // Bound on the card. At the training shapes (8 x 256 causal, 16 heads,
 // 4 KV heads, hd 128, bf16) each kernel moves ~21-30 MB (6-9 us at
 // 3.35 TB/s) against ~2-4.5 GFLOP of products (2-5 us at the 989 TFLOP/s
-// bf16 tensor-core rate): bytes bound it. This first version multiplies
-// with FMA on the FP32 pipe out of shared memory (no mma / wgmma, no TMA),
-// so its products, not its bytes, set its time; tensor cores for q·kᵀ and
-// TMA-fed stages are the later fix. The dkv grid has only
-// B * KH * (T / TILE) blocks (128 at the training shapes) and each walks
-// G * (live q-tiles): it is the slowest of the three.
+// bf16 tensor-core rate): bytes bound it. These kernels multiply with FMA
+// on the FP32 pipe out of shared memory (no mma / wgmma, no TMA), so their
+// products, not their bytes, set their time. bf16 at head_dim 64 and 128,
+// the model's, runs on the tensor cores instead: the forward in
+// flash_fwd_wgmma.cu, dq and dk/dv in flash_bwd_wgmma.cu (the wrapper's
+// flash_fwd_route / flash_bwd_route). These kernels keep f32 inputs and
+// the other head_dims. The dkv grid has only B * KH * (T / TILE) blocks
+// (128 at the training shapes) and each walks G * (live q-tiles): it is
+// the slowest of the three.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -54,21 +54,16 @@
 // Not done yet: overlapping one tile's softmax with the next tile's Q·Kᵀ,
 // 128-row k-tiles, and a persistent grid.
 
-#include "sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace sm90;
+using namespace flash90;
 
-constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // as the TPU kernel
-constexpr int KR = 64;                                 // rows of a k-tile
-constexpr int STAGES = 3;                              // K/V tiles in flight
+constexpr int STAGES = 3;  // K/V tiles in flight
 constexpr float kLn2 = 0.6931471805599453f;
-
-struct Layout {  // element strides of [batch, head, row, hd]
-  long long b, h, s;
-};
 
 template <int D, int NWG>
 struct Tiles {
@@ -89,21 +84,6 @@ constexpr int smem_needed() {
          8 * (1 + 2 * STAGES) + 1024;
 }
 
-__device__ __forceinline__ bool live(int q, int k, int q_len, int kv_len,
-                                     int causal, int window) {
-  return q < q_len && k < kv_len && (!causal || k <= q) &&
-         (window <= 0 || q - k < window);
-}
-
-// Whether rows [q0, q0 + rows) and keys [k0, k0 + KR) can hold a live
-// element.
-__device__ __forceinline__ bool tile_live(int q0, int rows, int k0,
-                                          int causal, int window) {
-  if (causal && k0 > q0 + rows - 1) return false;
-  if (window > 0 && q0 - (k0 + KR - 1) >= window) return false;
-  return true;
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -111,16 +91,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Whether every (query, key) pair of rows [qw, qw + 64) and keys
-// [k0, k0 + KR) is live, so the mask can be skipped.
-__device__ __forceinline__ bool tile_full(int qw, int k0, int q_len,
-                                          int kv_len, int causal,
-                                          int window) {
-  return qw + 64 <= q_len && k0 + KR <= kv_len &&
-         (!causal || k0 + KR - 1 <= qw) &&
-         (window <= 0 || qw + 63 - k0 < window);
 }
 
 // One online-softmax step on the score registers sc of a k-tile (the
@@ -310,19 +280,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       lse[((long long)b * H + h) * S + row] =
           l[j] == 0.f ? kNeg : m[j] * kLn2 + logf(denom);
   }
-}
-
-// The 4D map of one of q, k, v: dims {hd, rows, heads, B}, the element
-// strides st[0..2] of (batch, head, row); a box of 64 columns x box_rows.
-int encode_qkv(CUtensorMap* map, const void* base, const long long* st,
-               int D, int rows, int heads, int B, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2,
-                                 (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 template <int D, int NWG>

@@ -23,7 +23,12 @@
 // and the backward's recompute of g and u) runs on the tensor cores in
 // gmm_wgmma.cu. Only those combinations are exported below.
 //
-// Design. One CUDA block per (64-row m-tile, 64-column n-tile). The block
+// Design. One CUDA block per (m-tile, 64-column n-tile). The m-tile has
+// rows = min(64, the largest power of two dividing block_m) rows, so it
+// lies in one group: any block_m that is a multiple of 8 is taken, as the
+// reference's capacity routing produces (ops.py:625-627); the block keeps
+// its 64-row thread layout and masks the rows past its tile out of the
+// loads and the store (up to 8x wasted FMA work at block_m 8). The block
 // reads tile_group itself and selects its group's weight pointer (the TPU
 // kernel's scalar-prefetched index map). A loop over 16-deep k-tiles staged
 // in shared memory replaces the TPU's sequential k grid axis; sums stay in
@@ -75,7 +80,7 @@ __global__ void __launch_bounds__(THREADS)
 gmm_kernel(const TA* __restrict__ lhs, const TB* __restrict__ w_gate,
            const TB* __restrict__ w_up, const int* __restrict__ tile_group,
            TO* __restrict__ out, int K, int N, int ldw, int u_off,
-           int block_m) {
+           int block_m, int rows) {
   constexpr int BNP = TRANS_B ? BN + 1 : BN;
   __shared__ float As[BK][BM];
   __shared__ float Bg[BK][BNP];
@@ -83,7 +88,7 @@ gmm_kernel(const TA* __restrict__ lhs, const TB* __restrict__ w_gate,
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.y * rows;
   const int n0 = blockIdx.x * BN;
   const int g = tile_group[m0 / block_m];
   const size_t gstride = (size_t)(TRANS_B ? N : K) * ldw;
@@ -99,7 +104,8 @@ gmm_kernel(const TA* __restrict__ lhs, const TB* __restrict__ w_gate,
       int idx = tid + i * THREADS;
       int r = idx / BK, c = idx % BK;
       int k = k0 + c;
-      As[c][r] = k < K ? to_f32(lhs[(size_t)(m0 + r) * K + k]) : 0.f;
+      As[c][r] = k < K && r < rows ? to_f32(lhs[(size_t)(m0 + r) * K + k])
+                                   : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < (BK * BN) / THREADS; ++i) {
@@ -138,6 +144,7 @@ gmm_kernel(const TA* __restrict__ lhs, const TB* __restrict__ w_gate,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    if (ty * 4 + i >= rows) break;
     int m = m0 + ty * 4 + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -157,11 +164,15 @@ template <typename TA, typename TB, typename TO, bool GLU, bool TRANS_B>
 int launch(const void* lhs, const void* w_gate, const void* w_up,
            const void* tile_group, void* out, int Mp, int K, int N, int ldw,
            int u_off, int block_m, void* stream) {
-  dim3 grid((N + BN - 1) / BN, Mp / BM);
+  if (block_m <= 0 || block_m % 8 || Mp % block_m)
+    return (int)cudaErrorInvalidValue;
+  const int pow2 = block_m & -block_m;  // largest power of two dividing it
+  const int rows = pow2 < BM ? pow2 : BM;
+  dim3 grid((N + BN - 1) / BN, Mp / rows);
   gmm_kernel<TA, TB, TO, GLU, TRANS_B>
       <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
           (const TA*)lhs, (const TB*)w_gate, (const TB*)w_up,
-          (const int*)tile_group, (TO*)out, K, N, ldw, u_off, block_m);
+          (const int*)tile_group, (TO*)out, K, N, ldw, u_off, block_m, rows);
   return (int)cudaGetLastError();
 }
 
@@ -169,12 +180,12 @@ int launch(const void* lhs, const void* w_gate, const void* w_up,
 
 extern "C" {
 
-// Rows per CUDA block; the wrapper requires block_m % gmm_block_rows() == 0.
-int gmm_block_rows() { return BM; }
-
 // gmm_<lhs>_<rhs>_<out>: out = lhs @ rhs[g], rhs row-major [G, K, ldw].
 // gmm_t_<lhs>_<rhs>_<out>: the same with rhs[g] = W[g]^T, W row-major
-// [G, N, ldw] (ldw >= K), read by stride.
+// [G, N, ldw] (ldw >= K), read by stride. Every entry takes a block_m
+// that is a multiple of 8 and divides Mp (a CUDA block's rows are min(64,
+// the largest power of two dividing block_m)) and returns
+// cudaErrorInvalidValue otherwise; the wrapper checks first.
 #define GMM_ENTRY(NAME, TA, TB, TO, TRANS)                                  \
   int NAME(const void* lhs, const void* rhs, const void* tile_group,       \
            void* out, int Mp, int K, int N, int ldw, int block_m,          \

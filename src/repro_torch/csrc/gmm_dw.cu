@@ -21,7 +21,11 @@
 // over those rows 16 at a time, staging a [16, 64] slice of lhs and of
 // dout in shared memory (both read row-major, so neighbouring threads read
 // neighbouring addresses) and keeping the f32 sums in registers (each
-// thread owns a 4 x 4 micro-tile). One store per output, no atomics: the
+// thread owns a 4 x 4 micro-tile). A group's rows are a multiple of
+// block_m, so of 8 but not always of 16: a last stage of 8 rows is masked
+// to zero past the group's end, never read from the next group or past
+// Mp (an instantiation of its own, taken where block_m % 16 == 8: the
+// others keep the unmasked loop). One store per output, no atomics: the
 // result is deterministic, and an empty group's loop runs zero times and
 // stores zeros. Multiplies are FMA on the FP32 pipe; TF32 tensor cores
 // would round the f32 dout and are not used.
@@ -63,7 +67,52 @@ __device__ __forceinline__ int search(const int* tile_group, int n, int g,
   return lo;
 }
 
-template <typename TA>
+// One stage: rows [r0, r0 + BR) of lhs and dout into shared memory as f32
+// (where TAIL, the rows at or past row_hi as zeros), then acc += the
+// stage's lhsᵀ·dout for this thread's 4 x 4 outputs.
+template <bool TAIL, typename TA>
+__device__ __forceinline__ void dw_stage(float (&As)[BR][BK],
+                                         float (&Bs)[BR][BN],
+                                         const TA* __restrict__ lhs,
+                                         const float* __restrict__ dout,
+                                         int r0, int row_hi, int k0, int n0,
+                                         int K, int N, float (&acc)[4][4]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int i = 0; i < (BR * BK) / THREADS; ++i) {
+    int idx = tid + i * THREADS;
+    int r = idx / BK, c = idx % BK;
+    int k = k0 + c;
+    As[r][c] = k < K && (!TAIL || r0 + r < row_hi)
+                   ? to_f32(lhs[(size_t)(r0 + r) * K + k]) : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < (BR * BN) / THREADS; ++i) {
+    int idx = tid + i * THREADS;
+    int r = idx / BN, c = idx % BN;
+    int n = n0 + c;
+    Bs[r][c] = n < N && (!TAIL || r0 + r < row_hi)
+                   ? dout[(size_t)(r0 + r) * N + n] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < BR; ++rr) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = As[rr][ty * 4 + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = Bs[rr][tx * 4 + j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+  __syncthreads();
+}
+
+// TAIL: block_m % 16 == 8, so a group may end half-way through a stage.
+template <typename TA, bool TAIL>
 __global__ void __launch_bounds__(THREADS)
 gmm_dw_kernel(const TA* __restrict__ lhs, const float* __restrict__ dout,
               const int* __restrict__ tile_group, float* __restrict__ out,
@@ -80,35 +129,15 @@ gmm_dw_kernel(const TA* __restrict__ lhs, const float* __restrict__ dout,
   const int row_hi = search(tile_group, n_tiles, g, true) * block_m;
 
   float acc[4][4] = {};
-  for (int r0 = row_lo; r0 < row_hi; r0 += BR) {
-#pragma unroll
-    for (int i = 0; i < (BR * BK) / THREADS; ++i) {
-      int idx = tid + i * THREADS;
-      int r = idx / BK, c = idx % BK;
-      int k = k0 + c;
-      As[r][c] = k < K ? to_f32(lhs[(size_t)(r0 + r) * K + k]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (BR * BN) / THREADS; ++i) {
-      int idx = tid + i * THREADS;
-      int r = idx / BN, c = idx % BN;
-      int n = n0 + c;
-      Bs[r][c] = n < N ? dout[(size_t)(r0 + r) * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < BR; ++rr) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[rr][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[rr][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  if constexpr (TAIL) {
+    int r0 = row_lo;
+    for (; r0 + BR <= row_hi; r0 += BR)
+      dw_stage<false>(As, Bs, lhs, dout, r0, row_hi, k0, n0, K, N, acc);
+    if (r0 < row_hi)  // 8 rows left: an odd number of 8-row tiles
+      dw_stage<true>(As, Bs, lhs, dout, r0, row_hi, k0, n0, K, N, acc);
+  } else {
+    for (int r0 = row_lo; r0 < row_hi; r0 += BR)
+      dw_stage<false>(As, Bs, lhs, dout, r0, row_hi, k0, n0, K, N, acc);
   }
 
   float* o = out + (size_t)g * K * N;
@@ -128,8 +157,11 @@ template <typename TA>
 int launch(const void* lhs, const void* dout, const void* tile_group,
            void* out, int G, int K, int N, int n_tiles, int block_m,
            void* stream) {
+  if (block_m <= 0 || block_m % 8) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (K + BK - 1) / BK, G);
-  gmm_dw_kernel<TA><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = block_m % BR ? gmm_dw_kernel<TA, true>
+                             : gmm_dw_kernel<TA, false>;
+  kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const TA*)lhs, (const float*)dout, (const int*)tile_group,
       (float*)out, K, N, n_tiles, block_m);
   return (int)cudaGetLastError();
@@ -139,10 +171,8 @@ int launch(const void* lhs, const void* dout, const void* tile_group,
 
 extern "C" {
 
-// Packed rows per shared-memory stage; the wrapper requires
-// block_m % gmm_dw_block_rows() == 0.
-int gmm_dw_block_rows() { return BR; }
-
+// Both entries take block_m % 8 == 0 and return cudaErrorInvalidValue
+// otherwise; the wrapper checks first.
 // gmm_dw_<lhs>: out [G, K, N] f32 = per-group lhs^T @ dout, dout f32.
 int gmm_dw_bf16(const void* lhs, const void* dout, const void* tile_group,
                 void* out, int G, int K, int N, int n_tiles, int block_m,

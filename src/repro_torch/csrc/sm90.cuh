@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gmm_wgmma.cu, flash_fwd_wgmma.cu), in inline PTX so that a build takes
-// seconds (no CUTLASS or PyTorch headers):
+// (gmm_wgmma.cu, flash_fwd_wgmma.cu, flash_bwd_wgmma.cu), in inline PTX so
+// that a build takes seconds (no CUTLASS or PyTorch headers):
 //   * mbarriers: init, arrive, arrive with an expected byte count, and a
 //     parity wait that traps after ~10 s instead of hanging the card;
 //   * TMA tile loads (cp.async.bulk.tensor, 2D to 4D) that complete on an

@@ -12,14 +12,15 @@ window > 0. The kernel masks the ragged edge itself, so nothing is padded.
 A row with no live key gets o = 0 and lse = ``_NEG`` exactly.
 
 :func:`flash_forward` and :func:`flash_backward` launch the kernels of
-``csrc/flash_attention.cu`` (FMA) and ``csrc/flash_fwd_wgmma.cu`` (the
-forward on the tensor cores, bf16 at head_dim 64 and 128;
-:func:`flash_fwd_route` is the rule) for CUDA tensors and run
+``csrc/flash_attention.cu`` (FMA), ``csrc/flash_fwd_wgmma.cu`` and
+``csrc/flash_bwd_wgmma.cu`` (the forward and the dq, dk/dv kernels on the
+tensor cores, bf16 at head_dim 64 and 128; :func:`flash_fwd_route` and
+:func:`flash_bwd_route` are the rule) for CUDA tensors and run
 :func:`flash_forward_plain` / :func:`flash_backward_plain` for CPU tensors;
 on any other device, an unsupported dtype or shape, or a failed build or
 launch they raise. ``LAUNCHES`` counts kernel launches, and
-``DESIGN_LAUNCHES`` the forward's by design (``"flash_fwd:wgmma"``,
-``"flash_fwd:fma"``).
+``DESIGN_LAUNCHES`` the same launches by design (``"flash_fwd:wgmma"``,
+``"flash_dq:fma"``, ...).
 """
 
 from __future__ import annotations
@@ -32,16 +33,20 @@ import torch
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-DESIGN_LAUNCHES = {"flash_fwd:wgmma": 0, "flash_fwd:fma": 0}
+DESIGN_LAUNCHES = {f"{k}:{d}": 0 for k in LAUNCHES for d in ("wgmma", "fma")}
 
 _NEG = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
-# The tensor-core forward, constants of csrc/flash_fwd_wgmma.cu: head_dims
-# it is built for, rows of a k-tile, stages of the K/V ring.
+# The tensor-core kernels, constants of csrc/flash_fwd_wgmma.cu and
+# csrc/flash_bwd_wgmma.cu: head_dims they are built for, rows of a k-tile
+# (and of a q-tile in dk/dv), stages of the forward's and dq's K/V ring,
+# and dk/dv's warpgroups, each with a ring of its own.
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_KV_ROWS = 64
 WGMMA_STAGES = 3
+DKV_WARPGROUPS = 2
+DKV_STAGES = 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,6 +73,18 @@ def _wgmma_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd_wgmma")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i] * 10  # B, H, KH, S, T, hd, q_len, kv_len, causal, window
+    for name, n_ptr, n_plan in (("dq", 7, 2), ("dkv", 8, 1)):
+        fn = getattr(lib, f"flash_{name}_wgmma_bf16")
+        fn.argtypes = [p] * (n_ptr + 1) + dims + [f] + [i] * n_plan + [p]
+        fn.restype = i
+    return lib
+
+
 def flash_fwd_route(dtype, hd: int) -> str:
     """The design that runs :func:`flash_forward` on CUDA tensors:
     ``"wgmma"`` (csrc/flash_fwd_wgmma.cu, tensor cores) for bf16 at a
@@ -83,6 +100,15 @@ def flash_fwd_route(dtype, hd: int) -> str:
     if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "fma"
+
+
+def flash_bwd_route(dtype, hd: int) -> str:
+    """The design that runs the dq and dk/dv kernels of
+    :func:`flash_backward` on CUDA tensors, by the rule of
+    :func:`flash_fwd_route`: ``"wgmma"`` (csrc/flash_bwd_wgmma.cu) for bf16
+    at a head_dim in ``WGMMA_HEAD_DIMS``, ``"fma"`` (csrc/flash_attention.cu)
+    otherwise; the same errors."""
+    return flash_fwd_route(dtype, hd)
 
 
 def flash_wgmma_plan(hd: int, S: int) -> dict:
@@ -101,6 +127,33 @@ def flash_wgmma_plan(hd: int, S: int) -> dict:
         raise ValueError(f"flash plan needs {smem} bytes of shared memory, "
                          f"more than {_build.SMEM_PER_BLOCK}")
     return {"q_rows": q_rows, "stage_bytes": stage, "smem_bytes": smem}
+
+
+def flash_bwd_wgmma_plan(hd: int, S: int) -> dict:
+    """Tiles and shared memory of the tensor-core backward launches.
+    dq: ``q_rows`` query rows per block as the forward's plan (64 where
+    S <= 64, else 128), its Q and dO tiles, WGMMA_STAGES stages of one K
+    and one V tile (64 rows), a full and an empty barrier per stage and
+    Q's. dk/dv: its K and V tiles (64 key rows), and for each of its
+    DKV_WARPGROUPS warpgroups DKV_STAGES stages of one Q and one dO tile
+    (64 rows) with their lse and delta (64 f32 each) and a full barrier,
+    plus K/V's. Both add 1024 bytes to align the tiles. Raises for a
+    head_dim the kernels are not built for."""
+    if hd not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"no flash backward wgmma plan for hd={hd}")
+    q_rows = 64 if S <= 64 else 128
+    tile = WGMMA_KV_ROWS * hd * 2          # 64 rows of one operand, bf16
+    dq_smem = (2 * q_rows * hd * 2 + WGMMA_STAGES * 2 * tile
+               + 8 * (1 + 2 * WGMMA_STAGES) + 1024)
+    stages = DKV_WARPGROUPS * DKV_STAGES
+    dkv_smem = (2 * tile + stages * (2 * tile + 2 * WGMMA_KV_ROWS * 4)
+                + 8 * (1 + stages) + 1024)
+    if max(dq_smem, dkv_smem) > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"flash backward plan needs {dq_smem} / {dkv_smem} "
+                         f"bytes of shared memory, more than "
+                         f"{_build.SMEM_PER_BLOCK}")
+    return {"q_rows": q_rows, "dq_smem_bytes": dq_smem,
+            "dkv_smem_bytes": dkv_smem}
 
 
 def _mask(S, T, q_len, kv_len, causal, window, device):
@@ -210,6 +263,17 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_tma(design: str, tensors, strides):
+    """TMA reads the tensor-core kernels' inputs: every (batch, head, row)
+    stride a multiple of 8 elements (16 bytes) and 16-byte aligned
+    tensors. Raises otherwise, never falls back."""
+    if any(st % 8 for t in tensors for st in t.stride()[:3]) or any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the bf16 flash {design} needs (batch, head, row) "
+                         f"strides that are multiples of 8 and 16-byte "
+                         f"aligned tensors, got strides {list(strides)}")
+
+
 def flash_forward(q, k, v, *, scale, causal, window=0, softcap=0.0,
                   q_len=None, kv_len=None):
     """q: [B,H,S,hd]; k/v: [B,KH,T,hd]. Returns (o [B,H,S,hd] in q's dtype
@@ -236,12 +300,7 @@ def flash_forward(q, k, v, *, scale, causal, window=0, softcap=0.0,
             lse.data_ptr(), ctypes.addressof(strides), *dims, int(causal),
             int(window), float(scale), float(softcap))
     if design == "wgmma":
-        tensors = (q, k, v, o)
-        if any(st % 8 for t in tensors for st in t.stride()[:3]) or any(
-                t.data_ptr() % 16 for t in tensors):
-            raise ValueError("the bf16 flash forward needs (batch, head, row)"
-                             " strides that are multiples of 8 and 16-byte "
-                             f"aligned tensors, got strides {list(strides)}")
+        _check_tma("forward", (q, k, v, o), strides)
         plan = flash_wgmma_plan(dims[5], S)
         err = _wgmma_lib().flash_fwd_wgmma_bf16(
             *args, plan["q_rows"], plan["smem_bytes"], _stream(q))
@@ -260,7 +319,10 @@ def _launch_backward(name, q, k, v, do, lse, delta, *, scale, causal,
                      window=0, q_len=None, kv_len=None):
     """Launch one backward kernel on CUDA tensors: ``name`` "dq" returns
     (dq,), "dkv" returns (dk, dv). lse and delta are [B, H, S] f32,
-    contiguous."""
+    contiguous. :func:`flash_bwd_route` picks the design: bf16 at
+    head_dim 64 or 128 runs on the tensor cores, whose TMA loads need
+    strides that are multiples of 8 and 16-byte aligned tensors (raises
+    otherwise)."""
     dims = _check(q, k, v, q_len, kv_len, do)
     B, H, _, S = dims[:4]
     for t in (lse, delta):
@@ -268,17 +330,29 @@ def _launch_backward(name, q, k, v, do, lse, delta, *, scale, causal,
                 or not t.is_contiguous():
             raise ValueError("lse and delta must be contiguous [B, H, S] "
                              "f32")
+    design = flash_bwd_route(q.dtype, dims[5])
     outs = (torch.empty_like(q),) if name == "dq" else \
         (torch.empty_like(k), torch.empty_like(v))
     strides = _strides(q, k, v, do, *outs)
-    fn = getattr(_lib(), f"flash_{name}_{_DTYPES[q.dtype]}")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-             ctypes.addressof(strides), *dims, int(causal), int(window),
-             float(scale), _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            ctypes.addressof(strides), *dims, int(causal), int(window),
+            float(scale))
+    if design == "wgmma":
+        _check_tma("backward", (q, k, v, do, *outs), strides)
+        plan = flash_bwd_wgmma_plan(dims[5], S)
+        tiles = (plan["q_rows"], plan["dq_smem_bytes"]) if name == "dq" \
+            else (plan["dkv_smem_bytes"],)
+        fn = getattr(_bwd_wgmma_lib(), f"flash_{name}_wgmma_bf16")
+        err = fn(*args, *tiles, _stream(q))
+    else:
+        fn = getattr(_lib(), f"flash_{name}_{_DTYPES[q.dtype]}")
+        err = fn(*args, _stream(q))
     if err != 0:
-        raise RuntimeError(f"flash_{name} launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_{name} ({design}) launch failed: "
+                           f"cudaError {err}")
     LAUNCHES[f"flash_{name}"] += 1
+    DESIGN_LAUNCHES[f"flash_{name}:{design}"] += 1
     return outs
 
 
@@ -286,7 +360,9 @@ def flash_backward(q, k, v, o, lse, do, *, scale, causal, window=0,
                    q_len=None, kv_len=None):
     """Returns (dq [B,H,S,hd], dk, dv [B,KH,T,hd]), each in its input's
     dtype and with its input's strides. delta = Σ do·o (f32) is one torch
-    expression here; the dq and dk/dv kernels both read it."""
+    expression here; the dq and dk/dv kernels both read it. On CUDA
+    tensors :func:`flash_bwd_route` picks their design (bf16 at head_dim
+    64 or 128: the tensor cores)."""
     kw = dict(scale=scale, causal=causal, window=window, q_len=q_len,
               kv_len=kv_len)
     if _build.on_cpu(q, k, v, o, lse, do):

@@ -88,8 +88,6 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"gmm_glu_{dt}")
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.gmm_block_rows.argtypes = []
-    lib.gmm_block_rows.restype = i
     return lib
 
 
@@ -112,20 +110,25 @@ def _dw_lib() -> ctypes.CDLL:
         fn = getattr(lib, f"gmm_dw_{dt}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
-    lib.gmm_dw_block_rows.argtypes = []
-    lib.gmm_dw_block_rows.restype = i
     return lib
 
 
-def _check_tiles(Mp: int, tile_group, block_m: int, rows: int):
+def _check_block_m(block_m: int):
+    """Every grouped kernel takes a block_m that is a positive multiple of
+    8 (its row tiles are 8, 16, 32, 64 or 128 rows, each inside one
+    block_m tile, so one group)."""
+    if block_m <= 0 or block_m % 8:
+        raise ValueError(f"the grouped kernels need block_m % 8 == 0, got "
+                         f"block_m={block_m}")
+
+
+def _check_tiles(Mp: int, tile_group, block_m: int):
     if tile_group.dtype != torch.int32:
         raise TypeError("tile_group must be int32")
+    _check_block_m(block_m)
     if Mp % block_m or tile_group.numel() != Mp // block_m:
         raise ValueError(f"Mp={Mp} is not {tile_group.numel()} tiles of "
                          f"block_m={block_m}")
-    if block_m % rows:
-        raise ValueError(f"block_m={block_m} must be a multiple of the "
-                         f"kernel's {rows}-row tile")
 
 
 def _check(lhs, weights, tile_group, block_m: int):
@@ -136,7 +139,7 @@ def _check(lhs, weights, tile_group, block_m: int):
         if w.dtype != lhs.dtype or w.dim() != 3 or w.shape[1] != K:
             raise ValueError(f"weights {tuple(w.shape)} {w.dtype} do not "
                              f"match lhs {tuple(lhs.shape)} {lhs.dtype}")
-    _check_tiles(Mp, tile_group, block_m, _lib().gmm_block_rows())
+    _check_tiles(Mp, tile_group, block_m)
     for t in (lhs, *weights, tile_group):
         if not t.is_contiguous():
             raise ValueError("gmm kernels take contiguous tensors")
@@ -185,37 +188,37 @@ def gmm_route(lhs_dtype, rhs_dtype, out_dtype, trans: bool, K: int, N: int,
     (csrc/gmm_wgmma.cu, tensor cores) for bf16 x bf16 (row-major rhs) ->
     bf16 or f32, ``"fma"`` (csrc/gmm.cu) for f32 x f32, f32 x bf16 and
     their transposed-rhs forms (-> f32). Raises TypeError for operand
-    types with no kernel, and ValueError where the tensor-core kernel
+    types with no kernel, and ValueError for a block_m that is not a
+    positive multiple of 8 (any kernel) or where the tensor-core kernel
     cannot take the shape: K and N must be multiples of 8 (TMA reads rows
-    whose byte strides are multiples of 16) and block_m a multiple of 64
-    (its row tile)."""
+    whose byte strides are multiples of 16)."""
     variant = (*(_DTYPES.get(t) for t in (lhs_dtype, rhs_dtype, out_dtype)),
                bool(trans))
-    if variant in _WGMMA_VARIANTS:
-        if K % 8 or N % 8:
-            raise ValueError(f"the bf16 gmm kernel needs K % 8 == 0 and "
-                             f"N % 8 == 0 (TMA's 16-byte strides), got K={K}"
-                             f" N={N}")
-        if block_m % 64:
-            raise ValueError(f"the bf16 gmm kernel needs block_m % 64 == 0, "
-                             f"got {block_m}")
-        return "wgmma"
+    if variant not in _GMM_VARIANTS:
+        raise TypeError(f"no gmm kernel for {lhs_dtype} x {rhs_dtype}"
+                        f"{' (transposed)' if trans else ''} -> {out_dtype}")
+    _check_block_m(block_m)
     if variant in _FMA_VARIANTS:
         return "fma"
-    raise TypeError(f"no gmm kernel for {lhs_dtype} x {rhs_dtype}"
-                    f"{' (transposed)' if trans else ''} -> {out_dtype}")
+    if K % 8 or N % 8:
+        raise ValueError(f"the bf16 gmm kernel needs K % 8 == 0 and "
+                         f"N % 8 == 0 (TMA's 16-byte strides), got K={K}"
+                         f" N={N}")
+    return "wgmma"
 
 
 def gmm_wgmma_plan(block_m: int) -> dict:
-    """Row tile and shared memory of one tensor-core launch: 128-row
-    tiles (two consumer warpgroups) where block_m allows, else 64; each of
-    the GMM_STAGES stages a [tile_m, 64] lhs slice and a [64, GMM_TILE_N]
-    weight slice in bf16 and two 8-byte barriers, plus 1024 bytes to align
-    the ring. Raises for a block_m the kernel cannot tile."""
-    if block_m <= 0 or block_m % 64:
-        raise ValueError(f"no gmm wgmma plan for block_m={block_m}")
-    tile_m = 128 if block_m % 128 == 0 else 64
-    stage = (tile_m + GMM_TILE_N) * GMM_TILE_K * 2
+    """Row tile and shared memory of one tensor-core launch: tile_m is
+    the largest of 128 (two consumer warpgroups), 64, 32, 16 and 8 (one)
+    that divides block_m, so a tile never spans two groups; each of the
+    GMM_STAGES stages holds a [max(tile_m, 64), 64] lhs slice (a warpgroup
+    multiplies 64 rows; under 64 the rows past the tile are not loaded)
+    and a [64, GMM_TILE_N] weight slice in bf16 and two 8-byte barriers,
+    plus 1024 bytes to align the ring. Raises for a block_m that is not a
+    positive multiple of 8."""
+    _check_block_m(block_m)
+    tile_m = next(t for t in (128, 64, 32, 16, 8) if block_m % t == 0)
+    stage = (max(tile_m, 64) + GMM_TILE_N) * GMM_TILE_K * 2
     smem = GMM_STAGES * (stage + 16) + 1024
     if smem > _build.SMEM_PER_BLOCK:
         raise ValueError(f"{GMM_STAGES} stages of {stage} bytes exceed the "
@@ -249,10 +252,11 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     by stride, widened in the kernel, never copied); tile_group:
     [Mp // block_m] int32. Returns [Mp, N] in ``out_dtype`` (default: the
     lhs dtype) with out[tile] = lhs[tile] @ rhs[tile_group[tile]], f32
-    sums rounded once. On CUDA tensors :func:`gmm_route` picks the kernel:
-    bf16 operands (-> bf16 or f32) run on the tensor cores and need K and
-    N multiples of 8 and 16-byte aligned tensors (raises otherwise, never
-    falls back); the f32-operand types run on the FMA kernel."""
+    sums rounded once. On CUDA tensors block_m must be a multiple of 8
+    and :func:`gmm_route` picks the kernel: bf16 operands (-> bf16 or f32)
+    run on the tensor cores and need K and N multiples of 8 and 16-byte
+    aligned tensors (raises otherwise, never falls back); the f32-operand
+    types run on the FMA kernel."""
     if _build.on_cpu(lhs, rhs, tile_group):
         return gmm_tiled_plain(lhs, rhs, tile_group, block_m=block_m,
                                out_dtype=out_dtype)
@@ -267,12 +271,11 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     if not (lhs.is_contiguous() and tile_group.is_contiguous()):
         raise ValueError("gmm kernels take a contiguous lhs and tile_group")
     variant = tuple(_DTYPES[t] for t in (lhs.dtype, rhs.dtype, out_dtype))
+    _check_tiles(Mp, tile_group, block_m)
     if design == "wgmma":
-        _check_tiles(Mp, tile_group, block_m, 64)
         out = _gmm_wgmma(lhs, rhs, tile_group, block_m, out_dtype,
                          gmm_wgmma_plan(block_m))
     else:
-        _check_tiles(Mp, tile_group, block_m, _lib().gmm_block_rows())
         out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
         a, b, o = variant
         fn = getattr(_lib(), f"gmm_{'t_' if trans else ''}{a}_{b}_{o}")
@@ -313,7 +316,8 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
     drhs[g] = sum over g's m-tiles t of lhs_t^T @ dout_t (f32 sums, rounded
     once to ``out_dtype``), from tile-aligned lhs [Mp, K] (bf16 or f32;
     bf16 is widened exactly, as the reference's ``astype(f32)``) and dout
-    [Mp, N] f32. A group that owns no tile gets exact zeros."""
+    [Mp, N] f32. A group that owns no tile gets exact zeros. On CUDA
+    tensors block_m must be a multiple of 8."""
     if _build.on_cpu(lhs, dout, tile_group):
         return gmm_dw_tiled_plain(lhs, dout, tile_group, n_groups,
                                   block_m=block_m, out_dtype=out_dtype)
@@ -325,7 +329,7 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
     if dout.shape[0] != Mp:
         raise ValueError(f"dout {tuple(dout.shape)} does not match lhs "
                          f"{tuple(lhs.shape)}")
-    _check_tiles(Mp, tile_group, block_m, _dw_lib().gmm_dw_block_rows())
+    _check_tiles(Mp, tile_group, block_m)
     for t in (lhs, dout, tile_group):
         if not t.is_contiguous():
             raise ValueError("gmm_dw takes contiguous tensors")

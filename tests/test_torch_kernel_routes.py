@@ -1,13 +1,16 @@
 """The kernel wrappers' route rules and shared-memory plans, on the CPU.
 
 Which hand-written kernel runs a call on a CUDA tensor is a pure function
-of dtypes and shapes (``gmm.gmm_route``, ``flash_attention.flash_fwd_route``:
-``"wgmma"`` for the tensor-core kernels, ``"fma"`` for the others, or an
-error), and the tensor-core kernels' shared-memory plans are computed in
-Python and passed to the launch (``gmm.gmm_wgmma_plan``,
-``flash_attention.flash_wgmma_plan``). Both are held here to what the CUDA
-sources build: every plan fits in a block's 227 KB, and a bf16 call the
-tensor-core kernel cannot take raises instead of falling back.
+of dtypes and shapes (``gmm.gmm_route``, ``flash_attention.flash_fwd_route``
+and ``flash_bwd_route``: ``"wgmma"`` for the tensor-core kernels, ``"fma"``
+for the others, or an error), and the tensor-core kernels' shared-memory
+plans are computed in Python and passed to the launch
+(``gmm.gmm_wgmma_plan``, ``flash_attention.flash_wgmma_plan`` and
+``flash_bwd_wgmma_plan``). Both are held here to what the CUDA sources
+build: every plan fits in a block's 227 KB, every grouped kernel takes a
+block_m that is a multiple of 8 (the reference's capacity routing), and a
+bf16 call the tensor-core kernel cannot take raises instead of falling
+back.
 """
 
 import pytest
@@ -24,23 +27,35 @@ HOPPER_SMEM = 227 * 1024  # bytes of shared memory one block can use
 
 @pytest.mark.parametrize("out", [BF, F32])
 @pytest.mark.parametrize("K,N,block_m", [(2048, 7168, 128), (7168, 2048, 128),
-                                         (96, 80, 64), (8, 8, 256)])
+                                         (96, 80, 64), (8, 8, 256),
+                                         (64, 64, 32), (64, 64, 96),
+                                         (96, 80, 8), (8, 8, 16)])
 def test_gmm_route_bf16_takes_tensor_cores(out, K, N, block_m):
     assert gmm.gmm_route(BF, BF, out, False, K, N, block_m) == "wgmma"
 
 
 @pytest.mark.parametrize("lhs,rhs,trans", [(F32, F32, False), (F32, BF, False),
                                            (F32, BF, True), (F32, F32, True)])
-@pytest.mark.parametrize("K,N,block_m", [(2048, 7168, 128), (60, 36, 64)])
+@pytest.mark.parametrize("K,N,block_m", [(2048, 7168, 128), (60, 36, 64),
+                                         (60, 36, 8), (96, 80, 200)])
 def test_gmm_route_f32_operands_take_fma(lhs, rhs, trans, K, N, block_m):
-    # the FMA kernel masks any K and N itself
+    # the FMA kernel masks any K and N itself, and rows past a small tile
     assert gmm.gmm_route(lhs, rhs, F32, trans, K, N, block_m) == "fma"
+
+
+@pytest.mark.parametrize("lhs,rhs,out,trans", [(F32, F32, F32, False),
+                                               (F32, BF, F32, True),
+                                               (BF, BF, F32, False)])
+@pytest.mark.parametrize("block_m", [0, 4, 12, 100])
+def test_gmm_route_refuses_block_m_off_eight(lhs, rhs, out, trans, block_m):
+    with pytest.raises(ValueError, match="block_m % 8"):
+        gmm.gmm_route(lhs, rhs, out, trans, 64, 64, block_m)
 
 
 @pytest.mark.parametrize("K,N,block_m,why", [
     (60, 64, 128, "K % 8"), (2044, 7168, 128, "K % 8"),
     (64, 60, 128, "N % 8"), (2048, 7172, 64, "N % 8"),
-    (64, 64, 32, "block_m % 64"), (64, 64, 96, "block_m % 64"),
+    (64, 64, 12, "block_m % 8"), (64, 64, 20, "block_m % 8"),
 ])
 @pytest.mark.parametrize("out", [BF, F32])
 def test_gmm_route_refuses_what_wgmma_cannot_take(K, N, block_m, why, out):
@@ -67,7 +82,8 @@ def test_gmm_variant_and_design_counters_keep_their_names():
         "gmm_dw:bf16.f32->f32", "gmm_dw:f32.f32->f32"}
     assert kernels.design_launch_counts() == {
         "gmm:wgmma": 0, "gmm:fma": 0, "flash_fwd:wgmma": 0,
-        "flash_fwd:fma": 0}
+        "flash_fwd:fma": 0, "flash_dq:wgmma": 0, "flash_dq:fma": 0,
+        "flash_dkv:wgmma": 0, "flash_dkv:fma": 0}
 
 
 def test_gmm_design_counts_follow_the_variant_counts():
@@ -81,22 +97,24 @@ def test_gmm_design_counts_follow_the_variant_counts():
     assert designs["gmm:wgmma"] == 5 and designs["gmm:fma"] == 5
 
 
-@pytest.mark.parametrize("block_m", [64, 128, 192, 256, 384])
-def test_gmm_wgmma_plan_fits_and_tiles_one_group(block_m):
+@pytest.mark.parametrize("block_m,tile_m", [
+    (64, 64), (128, 128), (192, 64), (256, 128), (384, 128),
+    (8, 8), (16, 16), (32, 32), (96, 32), (200, 8)])
+def test_gmm_wgmma_plan_fits_and_tiles_one_group(block_m, tile_m):
     plan = gmm.gmm_wgmma_plan(block_m)
-    tile_m = plan["tile_m"]
+    assert plan["tile_m"] == tile_m    # the largest of 128/64/32/16/8
     assert block_m % tile_m == 0       # a row tile never spans two groups
-    assert tile_m == (128 if block_m % 128 == 0 else 64)
-    assert plan["stage_bytes"] == ((tile_m + gmm.GMM_TILE_N)
+    # a warpgroup multiplies 64 lhs rows: under 64 the stage keeps 64
+    assert plan["stage_bytes"] == ((max(tile_m, 64) + gmm.GMM_TILE_N)
                                    * gmm.GMM_TILE_K * 2)
     assert plan["smem_bytes"] == (gmm.GMM_STAGES * plan["stage_bytes"]
                                   + 16 * gmm.GMM_STAGES + 1024)
     assert plan["smem_bytes"] <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("block_m", [0, 32, 96, 200])
+@pytest.mark.parametrize("block_m", [0, 4, 12, 20, 100])
 def test_gmm_wgmma_plan_refusals(block_m):
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="block_m % 8"):
         gmm.gmm_wgmma_plan(block_m)
 
 
@@ -114,24 +132,30 @@ def test_gmm_tiled_on_cpu_takes_any_shape():
     assert kernels.launch_counts()["gmm"] == 0
 
 
+_FLASH_ROUTES = [fa.flash_fwd_route, fa.flash_bwd_route]
+
+
+@pytest.mark.parametrize("route", _FLASH_ROUTES)
 @pytest.mark.parametrize("hd", [64, 128])
-def test_flash_route_bf16_takes_tensor_cores(hd):
-    assert fa.flash_fwd_route(BF, hd) == "wgmma"
+def test_flash_route_bf16_takes_tensor_cores(route, hd):
+    assert route(BF, hd) == "wgmma"
 
 
+@pytest.mark.parametrize("route", _FLASH_ROUTES)
 @pytest.mark.parametrize("dtype,hd", [(BF, 32), (BF, 96), (BF, 192),
                                       (BF, 256), (F32, 64), (F32, 128),
                                       (F32, 32)])
-def test_flash_route_other_inputs_take_fma(dtype, hd):
-    assert fa.flash_fwd_route(dtype, hd) == "fma"
+def test_flash_route_other_inputs_take_fma(route, dtype, hd):
+    assert route(dtype, hd) == "fma"
 
 
+@pytest.mark.parametrize("route", _FLASH_ROUTES)
 @pytest.mark.parametrize("dtype,hd,err", [(F16, 128, TypeError),
                                           (BF, 48, ValueError),
                                           (F32, 288, ValueError)])
-def test_flash_route_refusals(dtype, hd, err):
+def test_flash_route_refusals(route, dtype, hd, err):
     with pytest.raises(err):
-        fa.flash_fwd_route(dtype, hd)
+        route(dtype, hd)
 
 
 @pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
@@ -151,3 +175,28 @@ def test_flash_wgmma_plan_fits(hd, S):
 def test_flash_wgmma_plan_refusals(hd):
     with pytest.raises(ValueError):
         fa.flash_wgmma_plan(hd, 256)
+
+
+@pytest.mark.parametrize("hd", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 48, 64, 65, 256, 1024])
+def test_flash_bwd_wgmma_plan_fits(hd, S):
+    plan = fa.flash_bwd_wgmma_plan(hd, S)
+    q_rows, tile = plan["q_rows"], fa.WGMMA_KV_ROWS * hd * 2
+    assert q_rows == fa.flash_wgmma_plan(hd, S)["q_rows"]
+    assert plan["dq_smem_bytes"] == (2 * q_rows * hd * 2
+                                     + fa.WGMMA_STAGES * 2 * tile
+                                     + 8 * (1 + 2 * fa.WGMMA_STAGES) + 1024)
+    stages = fa.DKV_WARPGROUPS * fa.DKV_STAGES
+    assert plan["dkv_smem_bytes"] == (
+        2 * tile + stages * (2 * tile + 2 * fa.WGMMA_KV_ROWS * 4)
+        + 8 * (1 + stages) + 1024)
+    # warpgroup 1 hands its f32 dK and dV to warpgroup 0 through the stages
+    assert hd * 128 * 4 <= stages * 2 * tile
+    assert max(plan["dq_smem_bytes"], plan["dkv_smem_bytes"]) \
+        <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("hd", [32, 96, 256])
+def test_flash_bwd_wgmma_plan_refusals(hd):
+    with pytest.raises(ValueError):
+        fa.flash_bwd_wgmma_plan(hd, 256)

@@ -286,18 +286,79 @@ def test_paged_decode_matches_plain(cuda, dtype, B, KH, G, hd, ps, MP, kw):
 def test_launch_counters_and_refusals(cuda):
     lhs, wg, _, tg = _packed([70, 60], 64, 64, torch.float32, cuda, 64)
     kernels.reset_launch_counts()
-    gmm.gmm_tiled(lhs, wg, tg, block_m=64)
+    got = gmm.gmm_tiled(lhs, wg, tg, block_m=64)
     gmm.gmm_tiled(lhs, wg, tg, block_m=64)
     assert kernels.launch_counts() == {"gmm_glu": 0, "gmm": 2, "gmm_dw": 0,
                                        "paged_decode": 0, "flash_fwd": 0,
                                        "flash_dq": 0, "flash_dkv": 0,
                                        "ssd": 0}
     assert kernels.variant_launch_counts()["gmm:f32.f32->f32"] == 2
-    with pytest.raises(ValueError):  # tiles smaller than the kernel's
-        gmm.gmm_tiled(lhs, wg, torch.cat([tg, tg]), block_m=32)
+    # 32-row tiles (half a 64-row group tile each): the kernel runs them
+    tg32 = tg.repeat_interleave(2)
+    got32 = gmm.gmm_tiled(lhs, wg, tg32, block_m=32)
+    want32 = gmm.gmm_tiled_plain(lhs, wg, tg32, block_m=32)
+    torch.testing.assert_close(got32, want32, rtol=0,
+                               atol=1e-4 * float(want32.abs().max()))
+    assert torch.equal(got32, got)   # the same sums, in the same k order
+    assert kernels.launch_counts()["gmm"] == 3
+    with pytest.raises(ValueError, match="block_m % 8"):
+        gmm.gmm_tiled(lhs, wg, tg.repeat_interleave(16), block_m=4)
     with pytest.raises(TypeError):
         gmm.gmm_tiled(lhs.half(), wg.half(), tg, block_m=64)
-    assert kernels.launch_counts()["gmm"] == 2
+    assert kernels.launch_counts()["gmm"] == 3
+
+
+# Every grouped kernel (operand types as gmm_route names them) at the row
+# tiles the reference's capacity routing produces, with one group empty.
+_SMALL_TILE_VARIANTS = [
+    ("gmm", torch.bfloat16, torch.bfloat16, torch.bfloat16, False),
+    ("gmm", torch.bfloat16, torch.bfloat16, torch.float32, False),
+    ("gmm", torch.float32, torch.float32, torch.float32, False),
+    ("gmm", torch.float32, torch.bfloat16, torch.float32, False),
+    ("gmm", torch.float32, torch.bfloat16, torch.float32, True),
+    ("gmm", torch.float32, torch.float32, torch.float32, True),
+    ("glu", torch.bfloat16, torch.bfloat16, torch.bfloat16, False),
+    ("glu", torch.float32, torch.float32, torch.float32, False),
+    ("gmm_dw", torch.bfloat16, torch.float32, torch.float32, False),
+    ("gmm_dw", torch.float32, torch.float32, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("block_m", [8, 16, 32])
+@pytest.mark.parametrize("kind,lhs_t,rhs_t,out_t,trans", _SMALL_TILE_VARIANTS)
+def test_grouped_kernels_take_small_row_tiles(cuda, kind, lhs_t, rhs_t,
+                                              out_t, trans, block_m):
+    """block_m 8, 16 and 32 (multiples of 8, not of 64): each tile stays
+    in its group; bf16 out within 2e-2 * min(1, max|plain|), f32 within
+    1e-4 * max|plain|."""
+    sizes = [37, 0, 90, 73, 5]
+    G = len(sizes)
+    lhs, w, wu, tg = _packed(sizes, 96, 80, lhs_t, cuda, block_m)
+    assert tg.numel() * block_m == lhs.shape[0]
+    kernels.reset_launch_counts()
+    if kind == "gmm":
+        w = w.to(rhs_t)
+        if trans:  # swapaxes(W, 1, 2) of a row-major [G, N, K] weight
+            w = w.transpose(1, 2).contiguous().transpose(1, 2)
+        got = gmm.gmm_tiled(lhs, w, tg, block_m=block_m, out_dtype=out_t)
+        want = gmm.gmm_tiled_plain(lhs, w, tg, block_m=block_m,
+                                   out_dtype=out_t)
+        variant = gmm.variant_name(*(gmm._DTYPES[t] for t in
+                                     (lhs_t, rhs_t, out_t)), trans)
+        assert kernels.variant_launch_counts()[f"gmm:{variant}"] == 1
+    elif kind == "glu":
+        got = gmm.gmm_glu_tiled_pair(lhs, w, wu, tg, block_m=block_m)
+        want = gmm.gmm_glu_plain(lhs, w, wu, tg, block_m=block_m)
+        assert kernels.launch_counts()["gmm_glu"] == 1
+    else:
+        dout, _, _, _ = _packed(sizes, 80, 80, torch.float32, cuda, block_m,
+                                seed=1)
+        got = gmm.gmm_dw_tiled(lhs, dout, tg, G, block_m=block_m)
+        want = gmm.gmm_dw_tiled_plain(lhs, dout, tg, G, block_m=block_m)
+        assert not got[1].any()          # the empty group: exact zeros
+        assert kernels.launch_counts()["gmm_dw"] == 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _gmm_close(got, want)
 
 
 def _flash_inputs(B, H, KH, S, T, hd, dtype, dev, model_layout, seed=0):
@@ -435,9 +496,9 @@ def test_flash_forward_wgmma_matches_plain(cuda, B, H, KH, S, T, hd, kw,
     kw = dict(kw, scale=hd ** -0.5)
     kernels.reset_launch_counts()
     o, lse = fa.flash_forward(q, k, v, **kw)
-    assert kernels.design_launch_counts() == {
-        "gmm:wgmma": 0, "gmm:fma": 0, "flash_fwd:wgmma": 1,
-        "flash_fwd:fma": 0}
+    designs = kernels.design_launch_counts()
+    assert designs.pop("flash_fwd:wgmma") == 1
+    assert not any(designs.values())
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
     assert o.dtype == dtype and o.stride() == q.stride()
     _close(o, o_p, dtype)
@@ -464,6 +525,76 @@ def test_flash_forward_wgmma_refusals(cuda):
     fa.flash_forward(q[..., :32], k[..., :32], v[..., :32], scale=1.0,
                      causal=True)
     assert kernels.design_launch_counts()["flash_fwd:fma"] == 1
+
+
+@pytest.mark.parametrize("B,H,KH,S,T,hd,kw", [
+    (2, 4, 2, 200, 200, 64, dict(causal=True)),        # ragged tiles, GQA
+    (1, 4, 1, 96, 160, 128, dict(causal=False)),       # S != T, MQA
+    (1, 4, 2, 160, 96, 64, dict(causal=True)),         # S > T
+    (2, 4, 2, 300, 300, 64, dict(causal=True, window=48)),
+    # rows with no key; window 2, not 1: with one live key per row the
+    # gradients are 0 analytically (dp - delta cancels) and both versions
+    # give f32 rounding noise, which no relative tier can hold
+    (1, 2, 2, 130, 130, 128, dict(causal=True, window=2, q_len=100,
+                                  kv_len=60)),
+    (2, 16, 4, 256, 256, 128, dict(causal=True)),      # mixtral-w1 heads
+    (1, 4, 2, 48, 48, 64, dict(causal=True)),          # one warpgroup
+    (1, 2, 1, 64, 200, 128, dict(causal=False, q_len=50)),
+])
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_flash_backward_wgmma_matches_plain(cuda, B, H, KH, S, T, hd, kw,
+                                            model_layout):
+    """The tensor-core dq and dk/dv kernels against the plain backward,
+    fed the plain forward's o and lse: within 2e-2 * min(1, max|plain|)
+    (p and ds are rounded to bf16 as product operands), zero gradients on
+    rows with no live key, the inputs' strides, bit-identical reruns."""
+    dtype = torch.bfloat16
+    q, k, v, do = _flash_inputs(B, H, KH, S, T, hd, dtype, cuda,
+                                model_layout)
+    kw = dict(kw, scale=hd ** -0.5)
+    o, lse = fa.flash_forward_plain(q, k, v, **kw)
+    kernels.reset_launch_counts()
+    grads = fa.flash_backward(q, k, v, o, lse, do, **kw)
+    designs = kernels.design_launch_counts()
+    assert (designs["flash_dq:wgmma"], designs["flash_dkv:wgmma"]) == (1, 1)
+    assert designs["flash_dq:fma"] == designs["flash_dkv:fma"] == 0
+    want = fa.flash_backward_plain(q, k, v, o, lse, do, **kw)
+    for got, ref_, x in zip(grads, want, (q, k, v)):
+        assert got.dtype == dtype and got.stride() == x.stride()
+        _close(got, ref_, dtype)
+    dead = lse <= fa._NEG                 # query rows with no live key
+    assert torch.all(grads[0][dead] == 0)
+    kv_len = kw.get("kv_len", T)
+    assert not grads[1][:, :, kv_len:].any()
+    assert not grads[2][:, :, kv_len:].any()
+    # no atomics, a fixed order of the two warpgroups' sums: bit-identical
+    again = fa.flash_backward(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+def test_flash_backward_wgmma_refusals(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((1, 2, 64, 132), generator=g, device=cuda).bfloat16()
+    q = x[..., :128]                     # row stride 132: not a multiple of 8
+    k = v = torch.randn((1, 1, 64, 128), generator=g,
+                        device=cuda).bfloat16()
+    do = torch.randn((1, 2, 64, 128), generator=g, device=cuda).bfloat16()
+    o, lse = fa.flash_forward_plain(q, k, v, scale=1.0, causal=True)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_backward(q, k, v, o, lse, do, scale=1.0, causal=True)
+    shifted = torch.empty(do.numel() + 4, dtype=do.dtype, device=cuda)
+    shifted = shifted[4:].view(do.shape).copy_(do)  # 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_backward(q.contiguous(), k, v, o, lse, shifted, scale=1.0,
+                          causal=True)
+    assert kernels.launch_counts()["flash_dq"] == 0
+    assert kernels.launch_counts()["flash_dkv"] == 0
+    # bf16 at a head_dim the tensor-core kernels are not built for: FMA
+    fa.flash_backward(q[..., :32], k[..., :32], v[..., :32], o[..., :32],
+                      lse, do[..., :32], scale=1.0, causal=True)
+    designs = kernels.design_launch_counts()
+    assert (designs["flash_dq:fma"], designs["flash_dkv:fma"]) == (1, 1)
 
 
 def _ssd_inputs(b, T, h, hd, ns, dtype, dev, seed=0):
