@@ -33,11 +33,12 @@ It fails unless:
   accounting is clean; every train step's loss and grad norm are finite;
 * each kernel of a path was launched during that path's run (launch
   counters set to 0 just before it and read just after), every flash
-  forward, dq and dk/dv launch of the serve, train and flash runs went
-  through the tensor-core kernels (``flash_fwd_wgmma.cu``,
-  ``flash_bwd_wgmma.cu``: their design counters; the bf16 ``gmm_tiled``
-  launches take ``gmm_wgmma.cu`` by their operand types), the three
-  wgmma libraries hold HGMMA instructions, and each train
+  forward, dq and dk/dv launch and every ``gmm_dw`` launch of the serve,
+  train and flash runs went through the tensor-core kernels
+  (``flash_fwd_wgmma.cu``, ``flash_bwd_wgmma.cu``, ``gmm_dw_wgmma.cu``:
+  their design counters; the bf16 ``gmm_tiled`` launches take
+  ``gmm_wgmma.cu`` by their operand types), the four wgmma libraries hold
+  HGMMA instructions, and each train
   run launched each grouped kernel the expected number of times per layer
   and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3); the chunked
   run no flash kernel, the flash run flash_fwd 2 (forward + recompute),
@@ -58,8 +59,9 @@ It fails unless:
   attention shape the Function's output and dq, dk, dv agree with the
   plain forward and backward at the bf16 tier;
 * every grouped kernel (the six ``gmm_tiled`` operand types, the fused GLU
-  in bf16 and f32, ``gmm_dw`` with a bf16 and an f32 lhs) takes block_m 8,
-  16 and 32 and agrees with its plain version there;
+  in bf16 and f32, ``gmm_dw`` with a bf16 and an f32 lhs, on the
+  tensor-core design) takes block_m 8, 16 and 32 and agrees with its plain
+  version there;
 * the flash kernels agree with their plain versions at the train shape
   and at batch 2 x seq 1024 (causal tile skipping), with a window, with a
   softcap (forward) and in f32;
@@ -86,7 +88,9 @@ the train runs' lines, the kernel tolerances, the ``kernels`` JSON line
 (each entry also names its ``design``: ``"wgmma"`` or ``"fma"``; ``ms``,
 ``plain_ms`` and ``library_ms`` are device times per call, read with CUDA
 events behind a spin kernel that keeps the host's queueing out of them,
-and ``host_ms`` is the kernel wrapper's host time per call),
+``host_ms`` is the kernel wrapper's host time per call, and ``fma_ms``
+the FMA kernel that a tensor-core design replaced, on the same inputs:
+the ``gmm_dw`` and flash backward entries),
 the serve, parity, train, train_flash, train_mamba2, grad, flash_grad,
 flash_grad_bf16, c1_tiles, flash_cases (the flash kernels at every case
 shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
@@ -138,7 +142,8 @@ FLASH_REPLACES = {
     "flash_dq": "src/repro/kernels/flash_attention.py:245",
     "flash_dkv": "src/repro/kernels/flash_attention.py:271"}
 # the libraries built on wgmma: each must hold HGMMA in its SASS
-WGMMA_LIBS = ("gmm_wgmma", "flash_fwd_wgmma", "flash_bwd_wgmma")
+WGMMA_LIBS = ("gmm_wgmma", "gmm_dw_wgmma", "flash_fwd_wgmma",
+              "flash_bwd_wgmma")
 C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
@@ -267,11 +272,13 @@ def with_design(fn, default: str = "fma"):
 
 def check_designs(label: str, counts: dict):
     """Every flash forward, dq and dk/dv launch of a main-path run (bf16 at
-    head_dim 128 on these paths) took the tensor-core kernel. The grouped
-    GEMM's design is a function of its operand types (``gmm.gmm_route``),
-    so its bf16 launches run on the tensor cores by construction; HGMMA in
-    the built library's SASS shows that kernel uses them."""
-    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+    head_dim 128 on these paths) and every ``gmm_dw`` launch (K and N
+    multiples of 8 on these paths) took the tensor-core kernel. The
+    grouped GEMM's design is a function of its operand types
+    (``gmm.gmm_route``), so its bf16 launches run on the tensor cores by
+    construction; HGMMA in the built library's SASS shows that kernel
+    uses them."""
+    for k in ("gmm_dw", "flash_fwd", "flash_dq", "flash_dkv"):
         if counts[f"{k}:wgmma"] != counts[k]:
             raise RuntimeError(f"{label}: a {k} launch did not take the "
                                f"tensor-core kernel: {counts}")
@@ -442,7 +449,7 @@ def check_train_kernels(torch, cfg, train_tokens: int):
     out = []
 
     def entry(name, fn, plain, bytes_moved, flops, peak, lib, shapes,
-              counter=None):
+              counter=None, fma=None):
         (got, design), want = with_design(fn), plain()
         torch.cuda.synchronize()
         err, tol, ok = (compare if got.dtype == bf else compare_f32)(got,
@@ -450,18 +457,19 @@ def check_train_kernels(torch, cfg, train_tokens: int):
         del got, want
         t_bound, by = bound(bytes_moved, flops, peak)
         lib_ms, lib_note = lib()
-        source = {"wgmma": "gmm_wgmma.cu", "fma": "gmm.cu"}[design]
+        source = ({"wgmma": "gmm_dw_wgmma.cu", "fma": "gmm_dw.cu"}
+                  if name.startswith("gmm_dw")
+                  else {"wgmma": "gmm_wgmma.cu", "fma": "gmm.cu"})[design]
         out.append({
             "name": name, "route": "cuda", "design": design,
             "counter": counter or name,
-            "source": ("src/repro_torch/csrc/gmm_dw.cu"
-                       if name.startswith("gmm_dw")
-                       else f"src/repro_torch/csrc/{source}"),
+            "source": f"src/repro_torch/csrc/{source}",
             "replaces": ("src/repro/kernels/gmm.py:300"
                          if name.startswith("gmm_dw")
                          else "src/repro/kernels/gmm.py:69"),
             "max_abs_err": err, "tol": tol, "ok": ok,
             **kernel_times(fn, 5), "plain_ms": cuda_ms(plain, 3),
+            "fma_ms": cuda_ms(fma, 5) if fma and design == "wgmma" else None,
             "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms,
             "library": lib_note,
             "shapes": dict(shapes, rows=M, padded_rows=mp,
@@ -506,26 +514,53 @@ def check_train_kernels(torch, cfg, train_tokens: int):
               dout_p, wo_t, offs=ends)),
           {"lhs": list(dout_p.shape), "w": list(wo_t.shape),
            "w_strides": list(wo_t.stride())})
-    # dwo from the f32 h and cotangent; dwg from the bf16 x and f32 dg
+    # dwo from the f32 h and cotangent; dwg from the bf16 x and f32 dg.
+    # The tensor-core design's work: its bf16 products (six per f32 x f32
+    # pair of the three-term split, three for the bf16 lhs) at the bf16
+    # peak; "fma" times the replaced FMA kernel on the same inputs.
+    f32_passes = gmm.gmm_dw_wgmma_plan(bm, f32)["passes"]
+    bf16_passes = gmm.gmm_dw_wgmma_plan(bm, bf)["passes"]
     entry("gmm_dw:f32.f32->f32",
           lambda: gmm.gmm_dw_tiled(h_p, dout_p, tg, E, block_m=bm),
           lambda: gmm.gmm_dw_tiled_plain(h_p, dout_p, tg, E, block_m=bm),
-          4 * M * f + 4 * M * d + 4 * E * f * d, 2 * M * f * d,
-          FP32_FLOPS,
+          4 * M * f + 4 * M * d + 4 * E * f * d,
+          f32_passes * 2 * M * f * d, BF16_FLOPS,
           lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
               h_p.t(), dout_p, offs=ends)),
           {"lhs": list(h_p.shape), "dout": list(dout_p.shape),
-           "out": [E, f, d]})
+           "out": [E, f, d], "passes": f32_passes},
+          fma=fma_dw(torch, h_p, dout_p, tg, E, bm))
     entry("gmm_dw:bf16.f32->f32",
           lambda: gmm.gmm_dw_tiled(x_p, dg_p, tg, E, block_m=bm),
           lambda: gmm.gmm_dw_tiled_plain(x_p, dg_p, tg, E, block_m=bm),
-          2 * M * d + 4 * M * f + 4 * E * d * f, 2 * M * d * f,
-          FP32_FLOPS,
+          2 * M * d + 4 * M * f + 4 * E * d * f,
+          bf16_passes * 2 * M * d * f, BF16_FLOPS,
           lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
               x_p.t(), dg_p, offs=ends)),
           {"lhs": list(x_p.shape), "dout": list(dg_p.shape),
-           "out": [E, d, f]})
+           "out": [E, d, f], "passes": bf16_passes},
+          fma=fma_dw(torch, x_p, dg_p, tg, E, bm))
     return out
+
+
+def fma_dw(torch, lhs, dout, tg, n_groups: int, block_m: int):
+    """A call of the FMA ``gmm_dw`` kernel (csrc/gmm_dw.cu, the design the
+    tensor-core kernel replaced) on the same inputs, through its C entry:
+    no launch counter moves."""
+    from repro_torch.kernels import gmm
+    Mp, K = lhs.shape
+    N = dout.shape[1]
+    out = torch.empty((n_groups, K, N), dtype=torch.float32,
+                      device=lhs.device)
+    fn = getattr(gmm._dw_lib(), f"gmm_dw_{gmm._DTYPES[lhs.dtype]}")
+
+    def launch():
+        gmm._raise_on(fn(lhs.data_ptr(), dout.data_ptr(), tg.data_ptr(),
+                         out.data_ptr(), n_groups, K, N, Mp // block_m,
+                         block_m,
+                         torch.cuda.current_stream().cuda_stream),
+                      "gmm_dw (fma)")
+    return launch
 
 
 def grad_phase(torch, cfg, train_tokens: int):
@@ -979,15 +1014,17 @@ def c1_tiles_phase(torch):
         }
         for name, ((kernel, plain), args, kw) in calls.items():
             before = sum(kernels.launch_counts().values())
-            got = kernel(*args, block_m=bm, **kw)
+            got, design = with_design(lambda: kernel(*args, block_m=bm, **kw))
             launched = sum(kernels.launch_counts().values()) - before
             want = plain(*args, block_m=bm, **kw)
             torch.cuda.synchronize()
             err, tol, ok = (compare if got.dtype == bf else compare_f32)(
                 got, want)
+            # K 96, N 80: gmm_dw takes the tensor-core design
+            ok = ok and (design == "wgmma" or not name.startswith("gmm_dw"))
             results.setdefault(name, {})[bm] = {
                 "max_abs_err": err, "tol": tol, "launches": launched,
-                "ok": ok and launched == 1}
+                "design": design, "ok": ok and launched == 1}
     return {"block_m": list(C1_BLOCK_M),
             "shape": {"groups": sizes.tolist(), "K": K, "N": N},
             "results": results,
@@ -1241,11 +1278,12 @@ def main() -> int:
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}" for e in flash_cases + ssd_cases
         if not e["ok"]]
-    # the bf16 grouped GEMMs and bf16 flash kernels run on the tensor cores
+    # the bf16 grouped GEMMs, gmm_dw and the bf16 flash kernels run on the
+    # tensor cores
     bad += [f"{e['name']}@{e['shapes'].get('case', '')}: design "
             f"{e['design']}" for e in entries + flash_cases
             if e["design"] != "wgmma" and (
-                e["name"].startswith("gmm:bf16.bf16->")
+                e["name"].startswith(("gmm:bf16.bf16->", "gmm_dw:"))
                 or (e["name"].startswith("flash_")
                     and e["shapes"]["dtype"] == "bfloat16"))]
 
@@ -1277,11 +1315,11 @@ def main() -> int:
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
     contract = ("name", "route", "design", "source", "replaces", "launches",
-                "max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")
+                "max_abs_err", "ms", "host_ms", "fma_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
     print("kernel tolerances: " + json.dumps(
         {e["name"]: e["tol"] for e in entries}), flush=True)
-    print(json.dumps({"kernels": [{k: e[k] for k in contract}
+    print(json.dumps({"kernels": [{k: e.get(k) for k in contract}
                                   for e in entries]}), flush=True)
     print("serve: " + json.dumps(serve_line), flush=True)
     print("parity: " + json.dumps(parity), flush=True)

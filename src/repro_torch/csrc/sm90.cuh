@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gmm_wgmma.cu, flash_fwd_wgmma.cu, flash_bwd_wgmma.cu), in inline PTX so
-// that a build takes seconds (no CUTLASS or PyTorch headers):
+// (gmm_wgmma.cu, gmm_dw_wgmma.cu, flash_fwd_wgmma.cu, flash_bwd_wgmma.cu),
+// in inline PTX so that a build takes seconds (no CUTLASS or PyTorch
+// headers):
 //   * mbarriers: init, arrive, arrive with an expected byte count, and a
 //     parity wait that traps after ~10 s instead of hanging the card;
 //   * TMA tile loads (cp.async.bulk.tensor, 2D to 4D) that complete on an
@@ -22,7 +23,8 @@
 //     desc_k(start), start = chunk + 32 bytes per 16-deep k step inside the
 //     128-byte row; 8-row groups 1024 bytes apart (SBO).
 //   * MN-major operand (the reduction axis runs down the rows; B = a
-//     row-major weight [K, N] or V [T, hd], read with the transpose flag):
+//     row-major weight [K, N] or V [T, hd], A = lhs^T of a row-major lhs
+//     [rows, K], read with the transpose flag):
 //     desc_mn(start, chunk_stride), start = chunk + 2048 bytes per 16-deep
 //     k step (16 rows); 8-row groups 1024 bytes apart (SBO), 64-column
 //     chunks chunk_stride apart (LBO).
@@ -179,16 +181,23 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// Makes this thread's shared-memory stores (generic proxy) visible to
+// wgmma and TMA (async proxy); before the barrier that releases them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D[64 x N] += A[64 x 16] * B[16 x N], f32 accumulators d (N / 2 a thread).
-// mma_ss: A K-major in shared memory (desc_k); mma_rs: A in registers (the
+// mma_ss: A in shared memory, TRANS_A = 0: K-major (desc_k), 1: MN-major
+// (desc_mn; bf16 only, as every product here); mma_rs: A in registers (the
 // layout above). TRANS_B = 0: B K-major (desc_k); 1: MN-major (desc_mn).
 // clang-format off
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
                                        uint64_t db) {
   asm volatile(
@@ -197,15 +206,15 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
                                        uint64_t db) {
   asm volatile(
@@ -216,7 +225,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -225,10 +234,10 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[128], uint64_t da,
                                        uint64_t db) {
   asm volatile(
@@ -243,7 +252,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[128], uint64_t da,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -260,7 +269,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[128], uint64_t da,
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 template <int TRANS_B>

@@ -25,11 +25,12 @@ def variant_launch_counts() -> dict:
 
 
 def design_launch_counts() -> dict:
-    """The ``gmm_tiled`` and flash forward launches of
+    """The ``gmm_tiled``, ``gmm_dw_tiled`` and flash launches of
     :func:`launch_counts` split by the design that ran them:
-    ``"gmm:wgmma"`` / ``"flash_fwd:wgmma"`` (tensor cores) or ``":fma"``.
-    The grouped GEMM's are read from its variant counts (its route is a
-    function of the operand types); the flash forward's are counted."""
+    ``"gmm:wgmma"`` / ``"gmm_dw:wgmma"`` / ``"flash_fwd:wgmma"`` (tensor
+    cores) or ``":fma"``. The grouped GEMM's are read from its variant
+    counts (its route is a function of the operand types); the weight
+    gradient's and the flash kernels' are counted."""
     return {**gmm.design_launches(), **flash_attention.DESIGN_LAUNCHES}
 
 

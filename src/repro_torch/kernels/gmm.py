@@ -10,14 +10,18 @@ a CPU tensor; on any other device, or when a build or launch fails, it
 raises. Output dtype = ``out_dtype`` or the lhs dtype, as in the JAX
 package. Kernels: ``csrc/gmm_wgmma.cu`` (tensor cores) for ``gmm_tiled``
 on bf16 operands, ``csrc/gmm.cu`` (FMA) for its other operand types and
-the fused GLU, ``csrc/gmm_dw.cu`` for the weight gradient;
-:func:`gmm_route` is the rule.
+the fused GLU (:func:`gmm_route` is the rule); ``csrc/gmm_dw_wgmma.cu``
+(tensor cores, an exact three-term bf16 split of the f32 operands) for the
+weight gradient, ``csrc/gmm_dw.cu`` (FMA) for the shapes it does not take
+(:func:`gmm_dw_route`).
 
 ``LAUNCHES`` counts kernel launches per kernel (plain ints), so a run can
 show that its main path went through the kernels; ``VARIANT_LAUNCHES``
 splits the same launches by operand types (``"f32.bf16T->f32"``: f32 lhs,
 transposed bf16 rhs, f32 out), and :func:`design_launches` reads the
-``gmm_tiled`` launches by design from them.
+``gmm_tiled`` launches by design from them and adds the ``gmm_dw``
+launches by design (``DW_DESIGN_LAUNCHES``, counted: its route depends on
+the shape).
 """
 
 from __future__ import annotations
@@ -48,6 +52,18 @@ VARIANT_LAUNCHES = {}
 GMM_TILE_K = 64
 GMM_TILE_N = 256
 GMM_STAGES = 4
+# ... and of csrc/gmm_dw_wgmma.cu: a block owns GMM_DW_TILE x GMM_DW_TILE
+# outputs and walks its group's rows in GMM_DW_SLICE-row slices through
+# GMM_DW_STAGES shared-memory stages; a stage holds one bf16 plane per
+# split term of each operand ([GMM_DW_SLICE, GMM_DW_TILE] each): three for
+# an f32 operand, one for the bf16 lhs. GMM_DW_PASSES: the products per
+# slice (f32 lhs: six of the nine term pairs; bf16 lhs: three).
+GMM_DW_TILE = 128
+GMM_DW_SLICE = 64
+GMM_DW_STAGES = 2
+GMM_DW_PLANES = {"f32": 3, "bf16": 1}
+GMM_DW_PASSES = {"f32": 6, "bf16": 3}
+DW_DESIGN_LAUNCHES = {"gmm_dw:wgmma": 0, "gmm_dw:fma": 0}
 
 
 def variant_name(lhs: str, rhs: str, out: str, trans: bool) -> str:
@@ -60,20 +76,23 @@ def _reset_variants():
                              for v in _GMM_VARIANTS})
     VARIANT_LAUNCHES.update({f"gmm_dw:{dt}.f32->f32": 0
                              for dt in _DTYPES.values()})
+    for k in DW_DESIGN_LAUNCHES:
+        DW_DESIGN_LAUNCHES[k] = 0
 
 
 _reset_variants()
 
 
 def design_launches() -> dict:
-    """The ``gmm_tiled`` launches of ``VARIANT_LAUNCHES`` by design:
-    :func:`gmm_route` sends exactly the bf16-operand variants to the
-    tensor-core kernel and the others to the FMA kernel."""
+    """The ``gmm_tiled`` launches of ``VARIANT_LAUNCHES`` by design
+    (:func:`gmm_route` sends exactly the bf16-operand variants to the
+    tensor-core kernel and the others to the FMA kernel), and the
+    ``gmm_dw_tiled`` launches by design as counted."""
     wgmma = sum(VARIANT_LAUNCHES[f"gmm:{variant_name(*v)}"]
                 for v in _WGMMA_VARIANTS)
     fma = sum(VARIANT_LAUNCHES[f"gmm:{variant_name(*v)}"]
               for v in _FMA_VARIANTS)
-    return {"gmm:wgmma": wgmma, "gmm:fma": fma}
+    return {"gmm:wgmma": wgmma, "gmm:fma": fma, **DW_DESIGN_LAUNCHES}
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,6 +128,17 @@ def _dw_lib() -> ctypes.CDLL:
     for dt in _DTYPES.values():
         fn = getattr(lib, f"gmm_dw_{dt}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("gmm_dw_wgmma")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for dt in _DTYPES.values():
+        fn = getattr(lib, f"gmm_dw_wgmma_{dt}")
+        fn.argtypes = [p, p, p, p] + [i] * 6 + [p]
         fn.restype = i
     return lib
 
@@ -310,6 +340,42 @@ def gmm_dw_tiled_plain(lhs, dout, tile_group, n_groups: int, *,
     return out.to(out_dtype)
 
 
+def gmm_dw_route(lhs_dtype, dout_dtype, K: int, N: int, block_m: int) -> str:
+    """The design that runs :func:`gmm_dw_tiled` on CUDA tensors:
+    ``"wgmma"`` (csrc/gmm_dw_wgmma.cu, tensor cores on an exact three-term
+    bf16 split) for a bf16 or f32 lhs and an f32 dout when K and N are
+    multiples of 8 (its 16-byte loads of whole rows), ``"fma"``
+    (csrc/gmm_dw.cu) for any other K or N. Raises TypeError for other
+    operand types and ValueError for a block_m that is not a positive
+    multiple of 8."""
+    if _DTYPES.get(lhs_dtype) is None or dout_dtype != torch.float32:
+        raise TypeError(f"gmm_dw takes a bf16 or f32 lhs and an f32 dout, "
+                        f"got {lhs_dtype} and {dout_dtype}")
+    _check_block_m(block_m)
+    return "fma" if K % 8 or N % 8 else "wgmma"
+
+
+def gmm_dw_wgmma_plan(block_m: int, lhs_dtype) -> dict:
+    """Shared memory of one tensor-core ``gmm_dw`` launch: GMM_DW_STAGES
+    stages, each the lhs planes (three split terms of an f32 lhs, the bf16
+    lhs as it is) and dout's three, every plane [GMM_DW_SLICE,
+    GMM_DW_TILE] bf16, plus 1024 bytes to align the ring; and the products
+    per slice. The 64-row slices do not depend on block_m (rows past a
+    group's end are loaded as zeros), which must still be a positive
+    multiple of 8 (raises otherwise)."""
+    _check_block_m(block_m)
+    dt = _DTYPES[lhs_dtype]
+    plane = GMM_DW_SLICE * GMM_DW_TILE * 2
+    stage = (GMM_DW_PLANES[dt] + 3) * plane
+    smem = GMM_DW_STAGES * stage + 1024
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"{GMM_DW_STAGES} stages of {stage} bytes exceed "
+                         f"the {_build.SMEM_PER_BLOCK} bytes of shared "
+                         f"memory")
+    return {"stage_bytes": stage, "smem_bytes": smem,
+            "passes": GMM_DW_PASSES[dt]}
+
+
 def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
                  out_dtype=torch.float32):
     """Gradient with respect to the grouped weight: [G, K, N] with
@@ -317,15 +383,16 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
     once to ``out_dtype``), from tile-aligned lhs [Mp, K] (bf16 or f32;
     bf16 is widened exactly, as the reference's ``astype(f32)``) and dout
     [Mp, N] f32. A group that owns no tile gets exact zeros. On CUDA
-    tensors block_m must be a multiple of 8."""
+    tensors block_m must be a multiple of 8 and :func:`gmm_dw_route`
+    picks the kernel: the tensor-core kernel (16-byte aligned tensors,
+    raises otherwise) where K and N are multiples of 8, else the FMA
+    kernel; neither falls back to the other."""
     if _build.on_cpu(lhs, dout, tile_group):
         return gmm_dw_tiled_plain(lhs, dout, tile_group, n_groups,
                                   block_m=block_m, out_dtype=out_dtype)
     Mp, K = lhs.shape
     N = dout.shape[1]
-    if lhs.dtype not in _DTYPES or dout.dtype != torch.float32:
-        raise TypeError(f"gmm_dw takes a bf16 or f32 lhs and an f32 dout, "
-                        f"got {lhs.dtype} and {dout.dtype}")
+    design = gmm_dw_route(lhs.dtype, dout.dtype, K, N, block_m)
     if dout.shape[0] != Mp:
         raise ValueError(f"dout {tuple(dout.shape)} does not match lhs "
                          f"{tuple(lhs.shape)}")
@@ -336,13 +403,22 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
     out = torch.empty((n_groups, K, N), dtype=torch.float32,
                       device=lhs.device)
     dt = _DTYPES[lhs.dtype]
-    err = getattr(_dw_lib(), f"gmm_dw_{dt}")(
-        lhs.data_ptr(), dout.data_ptr(), tile_group.data_ptr(),
-        out.data_ptr(), n_groups, K, N, Mp // block_m, block_m,
-        torch.cuda.current_stream(lhs.device).cuda_stream)
-    _raise_on(err, "gmm_dw")
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    args = (lhs.data_ptr(), dout.data_ptr(), tile_group.data_ptr(),
+            out.data_ptr(), n_groups, K, N, Mp // block_m, block_m)
+    if design == "wgmma":
+        if any(t.data_ptr() % 16 for t in (lhs, dout, out)):
+            raise ValueError("the tensor-core gmm_dw kernel needs 16-byte "
+                             "aligned lhs, dout and out")
+        plan = gmm_dw_wgmma_plan(block_m, lhs.dtype)
+        err = getattr(_dw_wgmma_lib(), f"gmm_dw_wgmma_{dt}")(
+            *args, plan["smem_bytes"], stream)
+    else:
+        err = getattr(_dw_lib(), f"gmm_dw_{dt}")(*args, stream)
+    _raise_on(err, f"gmm_dw ({design})")
     LAUNCHES["gmm_dw"] += 1
     VARIANT_LAUNCHES[f"gmm_dw:{dt}.f32->f32"] += 1
+    DW_DESIGN_LAUNCHES[f"gmm_dw:{design}"] += 1
     return out.to(out_dtype)
 
 

@@ -42,6 +42,7 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
         "gmm_kernel<float, float, float, true")),
     ("gmm wgmma (port)", ("gmm_wgmma_kernel",)),  # bf16 operands
     ("gmm (port)", ("gmm_kernel<",)),
+    ("gmm_dw wgmma (port)", ("gmm_dw_wgmma_kernel",)),  # 3-term bf16 split
     ("gmm_dw (port)", ("gmm_dw_kernel",)),
     ("paged_decode (port)", ("paged_decode_kernel",)),
     ("flash (port)", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",

@@ -7,12 +7,19 @@ runs its Pallas kernels in interpret mode (and its XLA fallback
 group that owns no tile has an exactly zero gradient. bf16 inputs are
 rounded from the same f32 numpy arrays on both sides (round to nearest
 even in both packages), so the operands are identical.
+
+The tensor-core kernel (``csrc/gmm_dw_wgmma.cu``) cannot run here; its
+arithmetic can. :func:`_emulate_wgmma_dw` repeats it in plain torch (each
+f32 operand split into three bf16 terms, the kernel's six or three term
+products, each exact in f32, summed in f32) and is held to the JAX kernel
+at 1e-5 * max|JAX|, and the split itself is held to be exact.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import gmm as jgmm
 from repro.kernels import ops as jops
@@ -24,15 +31,22 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 BLOCK_M = 32
 
 
-def _packed(sizes, K, N, seed=0):
+def _packed(sizes, K, N, seed=0, block_m=BLOCK_M, wide=False):
     """Tile-aligned lhs [Mp, K] and dout [Mp, N] (pad rows zero) in numpy,
-    and the port's tile_group."""
+    and the port's tile_group. ``wide``: magnitudes 2^u, u uniform in
+    [-20, 20], random signs."""
     rng = np.random.RandomState(seed)
     gs = np.asarray(sizes, np.int32)
     M = int(gs.sum())
-    dest, tg, mp = ops._pack_meta(torch.from_numpy(gs), M, len(gs), BLOCK_M)
-    x = (rng.randn(M, K) * 0.5).astype(np.float32)
-    d = (rng.randn(M, N) * 0.5).astype(np.float32)
+    dest, tg, mp = ops._pack_meta(torch.from_numpy(gs), M, len(gs), block_m)
+    if wide:
+        def draw(*shape):
+            return (np.sign(rng.randn(*shape))
+                    * 2.0 ** rng.uniform(-20, 20, shape)).astype(np.float32)
+        x, d = draw(M, K), draw(M, N)
+    else:
+        x = (rng.randn(M, K) * 0.5).astype(np.float32)
+        d = (rng.randn(M, N) * 0.5).astype(np.float32)
     lhs = to_np(ops._scatter_rows(torch.from_numpy(x), dest, mp))
     dout = to_np(ops._scatter_rows(torch.from_numpy(d), dest, mp))
     return lhs, dout, tg
@@ -142,3 +156,109 @@ def test_gmm_dw_wrapper_refuses_other_devices():
         gmm.gmm_dw_tiled(lhs, torch.zeros((64, 4), device="meta"),
                          torch.zeros(1, dtype=torch.int32, device="meta"), 1,
                          block_m=64)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's arithmetic (csrc/gmm_dw_wgmma.cu)
+# ---------------------------------------------------------------------------
+
+# (lhs term, dout term) of each product the kernel takes: f32 lhs, six of
+# the nine (the three left out are each below 2^-24 |a||b|); bf16 lhs, its
+# one term against dout's three.
+F32_PASSES = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+BF16_PASSES = ((0, 0), (0, 1), (0, 2))
+# hi rounds to bf16 inf at and above (2 - 2^-8) 2^127; under 2^-110 the
+# third term falls below bf16's subnormal grid (2^-133).
+SPLIT_MIN, SPLIT_END = 2.0 ** -110, (2 - 2.0 ** -8) * 2.0 ** 127
+
+
+def _split3(x):
+    """The kernel's split of f32 x: hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid), each rounded to nearest even."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _emulate_wgmma_dw(lhs, dout, tg, n_groups, block_m):
+    """gmm_dw_tiled as the tensor-core kernel computes it: per m-tile, the
+    sum over its passes of term_a^T @ term_b (bf16 terms, so every product
+    is exact in f32; f32 sums), summed per group."""
+    bf16 = lhs.dtype == torch.bfloat16
+    a = (lhs,) if bf16 else _split3(lhs)
+    b = _split3(dout)
+    Mp, K = lhs.shape
+    N = dout.shape[1]
+    n_m = Mp // block_m
+    out = torch.zeros((n_groups, K, N), dtype=torch.float32)
+    for pa, pb in BF16_PASSES if bf16 else F32_PASSES:
+        at = a[pa].float().reshape(n_m, block_m, K)
+        bt = b[pb].float().reshape(n_m, block_m, N)
+        out.index_add_(0, tg.long(), torch.bmm(at.transpose(1, 2), bt))
+    return out
+
+
+@pytest.mark.parametrize("lhs_t", ["f32", "bf16"])
+@pytest.mark.parametrize("block_m", [8, 16, 32, 128])
+@pytest.mark.parametrize("wide", [False, True])
+def test_wgmma_dw_arithmetic_matches_pallas(lhs_t, block_m, wide):
+    """The split and its passes against the JAX kernel's f32 dot, at
+    1e-5 * max|JAX|, with a zero-token group (exact zeros), at every row
+    tile the reference's routing gives and at magnitudes 2^-20 .. 2^20."""
+    sizes = [37, 0, 90, 73]
+    G, K, N = len(sizes), 40, 48
+    lhs, dout, tg = _packed(sizes, K, N, seed=4, block_m=block_m, wide=wide)
+    tl = torch.from_numpy(lhs).to(_T[lhs_t])
+    jl = jnp.asarray(lhs).astype(_J[lhs_t]).astype(jnp.float32)
+    want = np.asarray(jgmm.gmm_dw_tiled(
+        jl, jnp.asarray(dout), jnp.asarray(to_np(tg)), G, block_m=block_m,
+        block_k=32, block_n=32, interpret=True))
+    got = to_np(_emulate_wgmma_dw(tl, torch.from_numpy(dout), tg, G,
+                                  block_m))
+    top = float(np.abs(want).max())
+    assert np.abs(got - want).max() <= 1e-5 * top
+    assert not got[1].any(), "empty group must be exact zeros"
+    # Against the exact (f64) sum, per output, in units of 2^-24 sum|a||b|:
+    # the three-term split leaves only f32 summation error (under 11 units
+    # at these inputs); a two-term split's dropped lo terms alone leave 36
+    # to 297, so the three terms are needed to pass.
+    a64, d64 = tl.double(), torch.from_numpy(dout).double()
+    exact = gmm.gmm_dw_tiled_plain(a64, d64, tg, G, block_m=block_m,
+                                   out_dtype=torch.float64)
+    scale = gmm.gmm_dw_tiled_plain(a64.abs(), d64.abs(), tg, G,
+                                   block_m=block_m, out_dtype=torch.float64)
+    assert torch.all((torch.from_numpy(got).double() - exact).abs()
+                     <= 16 * 2.0 ** -24 * scale)
+    plain = to_np(gmm.gmm_dw_tiled(tl, torch.from_numpy(dout), tg, G,
+                                   block_m=block_m))
+    assert np.abs(got - plain).max() <= 1e-5 * top
+
+
+@settings(max_examples=300, deadline=None, derandomize=True, database=None)
+@given(st.lists(st.floats(min_value=SPLIT_MIN, max_value=SPLIT_END,
+                          exclude_max=True, width=32),
+                min_size=1, max_size=64),
+       st.booleans())
+def test_split3_sums_to_x_exactly(mags, negative):
+    """hi + mid + lo == x for every f32 x with 2^-110 <= |x| <
+    (2 - 2^-8) 2^127 (the kernel's f32 operands: gradients and
+    activations lie far inside)."""
+    x = torch.tensor(mags, dtype=torch.float32) * (-1 if negative else 1)
+    hi, mid, lo = _split3(x)
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, x.double())
+
+
+@pytest.mark.parametrize("x", [SPLIT_MIN, 1.0, float(np.nextafter(
+    np.float32(1), np.float32(2))), 1 + 2 ** -8 + 2 ** -16 + 2 ** -23,
+    3.0 * 2 ** -100, 2.0 ** 126 * (2 - 2 ** -23), float(np.nextafter(
+        np.float32(SPLIT_END), np.float32(0)))])
+def test_split3_is_exact_at_the_edges(x):
+    """The split's edges: the smallest magnitude it holds, full 24-bit
+    significands (every term used) and the largest f32 that hi does not
+    round to inf."""
+    for v in (x, -x):
+        t = torch.tensor([v], dtype=torch.float32)
+        hi, mid, lo = _split3(t)
+        assert hi.double() + mid.double() + lo.double() == t.double()

@@ -1,15 +1,16 @@
 """The kernel wrappers' route rules and shared-memory plans, on the CPU.
 
 Which hand-written kernel runs a call on a CUDA tensor is a pure function
-of dtypes and shapes (``gmm.gmm_route``, ``flash_attention.flash_fwd_route``
-and ``flash_bwd_route``: ``"wgmma"`` for the tensor-core kernels, ``"fma"``
-for the others, or an error), and the tensor-core kernels' shared-memory
-plans are computed in Python and passed to the launch
-(``gmm.gmm_wgmma_plan``, ``flash_attention.flash_wgmma_plan`` and
-``flash_bwd_wgmma_plan``). Both are held here to what the CUDA sources
-build: every plan fits in a block's 227 KB, every grouped kernel takes a
-block_m that is a multiple of 8 (the reference's capacity routing), and a
-bf16 call the tensor-core kernel cannot take raises instead of falling
+of dtypes and shapes (``gmm.gmm_route``, ``gmm.gmm_dw_route``,
+``flash_attention.flash_fwd_route`` and ``flash_bwd_route``: ``"wgmma"``
+for the tensor-core kernels, ``"fma"`` for the others, or an error), and
+the tensor-core kernels' shared-memory plans are computed in Python and
+passed to the launch (``gmm.gmm_wgmma_plan``, ``gmm.gmm_dw_wgmma_plan``,
+``flash_attention.flash_wgmma_plan`` and ``flash_bwd_wgmma_plan``). Both
+are held here to what the CUDA sources build: every plan fits in a block's
+227 KB, every grouped kernel takes a block_m that is a multiple of 8 (the
+reference's capacity routing), and a bf16 call the tensor-core kernel
+cannot take raises instead of falling
 back.
 """
 
@@ -81,7 +82,8 @@ def test_gmm_variant_and_design_counters_keep_their_names():
         "gmm:f32.bf16->f32", "gmm:f32.bf16T->f32", "gmm:f32.f32T->f32",
         "gmm_dw:bf16.f32->f32", "gmm_dw:f32.f32->f32"}
     assert kernels.design_launch_counts() == {
-        "gmm:wgmma": 0, "gmm:fma": 0, "flash_fwd:wgmma": 0,
+        "gmm:wgmma": 0, "gmm:fma": 0, "gmm_dw:wgmma": 0, "gmm_dw:fma": 0,
+        "flash_fwd:wgmma": 0,
         "flash_fwd:fma": 0, "flash_dq:wgmma": 0, "flash_dq:fma": 0,
         "flash_dkv:wgmma": 0, "flash_dkv:fma": 0}
 
@@ -116,6 +118,55 @@ def test_gmm_wgmma_plan_fits_and_tiles_one_group(block_m, tile_m):
 def test_gmm_wgmma_plan_refusals(block_m):
     with pytest.raises(ValueError, match="block_m % 8"):
         gmm.gmm_wgmma_plan(block_m)
+
+
+@pytest.mark.parametrize("lhs", [BF, F32])
+@pytest.mark.parametrize("K,N,block_m", [(7168, 2048, 128), (2048, 7168, 128),
+                                         (96, 80, 8), (200, 72, 16),
+                                         (64, 256, 32), (8, 8, 200)])
+def test_gmm_dw_route_takes_tensor_cores(lhs, K, N, block_m):
+    assert gmm.gmm_dw_route(lhs, F32, K, N, block_m) == "wgmma"
+
+
+@pytest.mark.parametrize("lhs", [BF, F32])
+@pytest.mark.parametrize("K,N", [(100, 80), (96, 36), (7172, 2048),
+                                 (2048, 7170), (4, 4), (1, 8)])
+def test_gmm_dw_route_ragged_shapes_take_fma(lhs, K, N):
+    # the FMA kernel masks any K and N itself
+    assert gmm.gmm_dw_route(lhs, F32, K, N, 128) == "fma"
+
+
+@pytest.mark.parametrize("lhs", [BF, F32])
+@pytest.mark.parametrize("block_m", [0, 4, 12, 100])
+def test_gmm_dw_route_refuses_block_m_off_eight(lhs, block_m):
+    with pytest.raises(ValueError, match="block_m % 8"):
+        gmm.gmm_dw_route(lhs, F32, 64, 64, block_m)
+
+
+@pytest.mark.parametrize("lhs,dout", [(F32, BF), (BF, BF), (F16, F32),
+                                      (F32, F16), (torch.float64, F32)])
+def test_gmm_dw_route_refuses_types_without_kernel(lhs, dout):
+    with pytest.raises(TypeError):
+        gmm.gmm_dw_route(lhs, dout, 64, 64, 128)
+
+
+@pytest.mark.parametrize("lhs,planes,passes", [(F32, 3, 6), (BF, 1, 3)])
+@pytest.mark.parametrize("block_m", [8, 16, 32, 64, 128])
+def test_gmm_dw_wgmma_plan_fits(lhs, planes, passes, block_m):
+    plan = gmm.gmm_dw_wgmma_plan(block_m, lhs)
+    plane = gmm.GMM_DW_SLICE * gmm.GMM_DW_TILE * 2   # one bf16 term
+    assert plan["stage_bytes"] == (planes + 3) * plane
+    assert plan["smem_bytes"] == gmm.GMM_DW_STAGES * plan["stage_bytes"] \
+        + 1024
+    assert plan["smem_bytes"] <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
+    assert plan["passes"] == passes
+
+
+@pytest.mark.parametrize("lhs", [BF, F32])
+@pytest.mark.parametrize("block_m", [0, 4, 12, 20, 100])
+def test_gmm_dw_wgmma_plan_refusals(lhs, block_m):
+    with pytest.raises(ValueError, match="block_m % 8"):
+        gmm.gmm_dw_wgmma_plan(block_m, lhs)
 
 
 def test_gmm_tiled_on_cpu_takes_any_shape():

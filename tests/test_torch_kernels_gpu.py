@@ -71,18 +71,45 @@ def test_gmm_kernels_match_plain(cuda, dtype, sizes, K, N, block_m):
                        got)
 
 
-@pytest.mark.parametrize("lhs_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sizes,K,N,block_m", [
-    ([37, 0, 90, 73], 96, 80, 64),      # zero-token group, ragged N
-    ([1, 1, 1, 197], 200, 72, 128),     # ragged K and N
-    ([0, 300, 5, 0], 64, 256, 128),     # empty first and last groups
-])
-def test_gmm_dw_matches_plain(cuda, lhs_dtype, sizes, K, N, block_m):
+def _wide(t, seed):
+    """t's elements with magnitudes 2^u, u uniform in [-20, 20], random
+    signs; zero rows (the packed layout's pad rows) stay zero."""
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    u = torch.rand(t.shape, generator=g, device=t.device) * 40 - 20
+    sign = torch.randint(0, 2, t.shape, generator=g, device=t.device) * 2 - 1
+    return torch.where(t != 0, sign * torch.exp2(u), 0.0).to(t.dtype)
+
+
+def _dw_case(cuda, lhs_dtype, sizes, K, N, block_m, wide=False):
     lhs, _, _, tg = _packed(sizes, K, N, lhs_dtype, cuda, block_m)
     dout, _, _, _ = _packed(sizes, N, N, torch.float32, cuda, block_m,
                             seed=1)
+    if wide:
+        lhs, dout = _wide(lhs.float(), 2).to(lhs_dtype), _wide(dout, 3)
+    return lhs, dout, tg
+
+
+@pytest.mark.parametrize("lhs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,K,N,block_m,wide", [
+    ([37, 0, 90, 73], 96, 80, 64, False),   # zero-token group, ragged N
+    ([1, 1, 1, 197], 200, 72, 128, False),  # ragged K and N
+    ([0, 300, 5, 0], 64, 256, 128, False),  # empty first and last groups
+    ([37, 0, 90, 73], 96, 80, 64, True),    # magnitudes 2^-20 .. 2^20
+    ([300, 0, 5, 90], 136, 264, 128, True),
+    ([37, 0, 90, 73, 5], 96, 80, 8, False),   # row tiles under 64
+    ([37, 0, 90, 73, 5], 96, 80, 16, True),
+    ([37, 0, 90, 73, 5], 96, 80, 32, False),
+])
+def test_gmm_dw_matches_plain(cuda, lhs_dtype, sizes, K, N, block_m, wide):
+    """K and N multiples of 8: the tensor-core kernel (the design
+    counter says so), within 1e-4 * max|plain|."""
+    lhs, dout, tg = _dw_case(cuda, lhs_dtype, sizes, K, N, block_m, wide)
     G = len(sizes)
+    assert gmm.gmm_dw_route(lhs_dtype, dout.dtype, K, N, block_m) == "wgmma"
+    kernels.reset_launch_counts()
     got = gmm.gmm_dw_tiled(lhs, dout, tg, G, block_m=block_m)
+    assert kernels.design_launch_counts()["gmm_dw:wgmma"] == 1
+    assert kernels.design_launch_counts()["gmm_dw:fma"] == 0
     want = gmm.gmm_dw_tiled_plain(lhs, dout, tg, G, block_m=block_m)
     assert got.dtype == torch.float32 and got.shape == (G, K, N)
     torch.testing.assert_close(got, want, rtol=0,
@@ -93,6 +120,49 @@ def test_gmm_dw_matches_plain(cuda, lhs_dtype, sizes, K, N, block_m):
     # one block per output tile, no atomics: bit-identical on a rerun
     assert torch.equal(gmm.gmm_dw_tiled(lhs, dout, tg, G, block_m=block_m),
                        got)
+
+
+@pytest.mark.parametrize("lhs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,K,N,block_m", [
+    ([37, 0, 90, 73], 100, 80, 64),     # K % 8 != 0
+    ([1, 1, 1, 197], 96, 36, 128),      # N % 8 != 0
+    ([37, 0, 90, 73, 5], 60, 44, 8),    # both, 8-row tiles
+])
+def test_gmm_dw_ragged_shapes_take_fma(cuda, lhs_dtype, sizes, K, N,
+                                       block_m):
+    """K or N not a multiple of 8: the FMA kernel (csrc/gmm_dw.cu), at the
+    same tier, zeros for empty groups, bit-identical reruns."""
+    lhs, dout, tg = _dw_case(cuda, lhs_dtype, sizes, K, N, block_m)
+    G = len(sizes)
+    kernels.reset_launch_counts()
+    got = gmm.gmm_dw_tiled(lhs, dout, tg, G, block_m=block_m)
+    assert kernels.design_launch_counts()["gmm_dw:fma"] == 1
+    assert kernels.design_launch_counts()["gmm_dw:wgmma"] == 0
+    want = gmm.gmm_dw_tiled_plain(lhs, dout, tg, G, block_m=block_m)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    for g, n in enumerate(sizes):
+        if n == 0:
+            assert not got[g].any()
+    assert torch.equal(gmm.gmm_dw_tiled(lhs, dout, tg, G, block_m=block_m),
+                       got)
+
+
+def test_gmm_dw_wgmma_refusals(cuda):
+    """A CUDA call the routed kernel cannot take raises; nothing falls
+    back: a misaligned view, a non-f32 dout, block_m off 8."""
+    lhs, dout, tg = _dw_case(cuda, torch.float32, [70, 60], 64, 64, 64)
+    kernels.reset_launch_counts()
+    flat = torch.zeros(lhs.numel() + 1, device=cuda)
+    shifted = flat[1:].view_as(lhs)     # 4-byte, not 16-byte, aligned
+    shifted.copy_(lhs)
+    with pytest.raises(ValueError, match="16-byte"):
+        gmm.gmm_dw_tiled(shifted, dout, tg, 2, block_m=64)
+    with pytest.raises(TypeError):
+        gmm.gmm_dw_tiled(lhs, dout.to(torch.bfloat16), tg, 2, block_m=64)
+    with pytest.raises(ValueError, match="block_m % 8"):
+        gmm.gmm_dw_tiled(lhs, dout, tg.repeat_interleave(16), 2, block_m=4)
+    assert kernels.launch_counts()["gmm_dw"] == 0
 
 
 @pytest.mark.parametrize("lhs_t,rhs_t,out_t,trans", [
@@ -357,6 +427,7 @@ def test_grouped_kernels_take_small_row_tiles(cuda, kind, lhs_t, rhs_t,
         want = gmm.gmm_dw_tiled_plain(lhs, dout, tg, G, block_m=block_m)
         assert not got[1].any()          # the empty group: exact zeros
         assert kernels.launch_counts()["gmm_dw"] == 1
+        assert kernels.design_launch_counts()["gmm_dw:wgmma"] == 1
     assert got.dtype == want.dtype and got.shape == want.shape
     _gmm_close(got, want)
 
