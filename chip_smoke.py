@@ -24,8 +24,8 @@ full depth, with random weights from seed 0:
   layers, d_model 2560, 80 heads of 64, state 128, chunk 256; 2.70 B
   params), one untimed warm-up step and then 6 steps of batch 2 x seq 2048
   (eight chunks per sequence, so the carried state is exercised): every
-  SSD mixer's scan, forward and remat recompute, through the SSD scan
-  kernel.
+  SSD mixer's scan, forward and remat recompute, through the tensor-core
+  SSD scan (``ssd_wgmma.cu``).
 
 It fails unless:
 
@@ -34,11 +34,12 @@ It fails unless:
 * each kernel of a path was launched during that path's run (launch
   counters set to 0 just before it and read just after), every flash
   forward, dq and dk/dv launch and every ``gmm_dw`` launch of the serve,
-  train and flash runs went through the tensor-core kernels
-  (``flash_fwd_wgmma.cu``, ``flash_bwd_wgmma.cu``, ``gmm_dw_wgmma.cu``:
-  their design counters; the bf16 ``gmm_tiled`` launches take
-  ``gmm_wgmma.cu`` by their operand types), the four wgmma libraries hold
-  HGMMA instructions, and each train
+  train and flash runs and every ``ssd`` launch of the mamba2 run went
+  through the tensor-core kernels (``flash_fwd_wgmma.cu``,
+  ``flash_bwd_wgmma.cu``, ``gmm_dw_wgmma.cu``, ``ssd_wgmma.cu``: their
+  design counters; the bf16 ``gmm_tiled`` launches take ``gmm_wgmma.cu``
+  by their operand types), the five wgmma libraries hold HGMMA
+  instructions, and each train
   run launched each grouped kernel the expected number of times per layer
   and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3); the chunked
   run no flash kernel, the flash run flash_fwd 2 (forward + recompute),
@@ -66,8 +67,10 @@ It fails unless:
   and at batch 2 x seq 1024 (causal tile skipping), with a window, with a
   softcap (forward) and in f32;
 * the SSD scan kernel agrees with its plain version at the mamba2 run's
-  shape, at a ragged T (2 x 1000) and at T < 128, in bf16 and f32 (y at
-  the tiers above, the f32 final state within 1e-4 * max|plain|), and the
+  shape, at a ragged T (2 x 1000) and at T < 128, in bf16 (the tensor-core
+  design; a bf16 case on another design fails the run) and f32 (the FMA
+  design) (y at the tiers above, the f32 final state within 1e-4 *
+  max|plain|), and the
   SSD autograd Function on the card agrees with the same Function on the
   CPU in f32 (y and state within 1e-4 * max, the five gradients within
   1e-3 * max: the backward's f32 exp(cum_i - cum_j) is only as exact as
@@ -90,12 +93,12 @@ the train runs' lines, the kernel tolerances, the ``kernels`` JSON line
 events behind a spin kernel that keeps the host's queueing out of them,
 ``host_ms`` is the kernel wrapper's host time per call, and ``fma_ms``
 the FMA kernel that a tensor-core design replaced, on the same inputs:
-the ``gmm_dw`` and flash backward entries),
+the ``gmm_dw``, flash backward and SSD entries),
 the serve, parity, train, train_flash, train_mamba2, grad, flash_grad,
 flash_grad_bf16, c1_tiles, flash_cases (the flash kernels at every case
 shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
-design replaced, timed on the same bf16 inputs), ssd_cases and ssd_grad
-lines, and last
+design replaced, timed on the same bf16 inputs), ssd_cases (with
+``fma_ms`` on the tensor-core design) and ssd_grad lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -133,7 +136,8 @@ MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--mesh", "1x1", "--steps", "6",
                "--batch", "2", "--seq", "2048"]
 MAMBA2_WARMUP_ARGS = MAMBA2_ARGS + ["--steps", "1"]
 # ... of the mamba2 run: the SSD scan's forward and its remat recompute
-# (the backward is autograd of ref.ssd_chunked, no kernel), nothing else.
+# (the backward is autograd of ref.ssd_chunked, no kernel), nothing else;
+# one per ssd_scan call, whatever the CUDA launches of its design.
 MAMBA2_LAUNCHES = {"ssd": 2}
 SSD_REPLACES = "src/repro/kernels/ssd.py:82"
 SSD_GRAD_TOL = 1e-3         # SSD Function gradients, card vs CPU (f32)
@@ -143,7 +147,7 @@ FLASH_REPLACES = {
     "flash_dkv": "src/repro/kernels/flash_attention.py:271"}
 # the libraries built on wgmma: each must hold HGMMA in its SASS
 WGMMA_LIBS = ("gmm_wgmma", "gmm_dw_wgmma", "flash_fwd_wgmma",
-              "flash_bwd_wgmma")
+              "flash_bwd_wgmma", "ssd_wgmma")
 C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
@@ -272,13 +276,15 @@ def with_design(fn, default: str = "fma"):
 
 def check_designs(label: str, counts: dict):
     """Every flash forward, dq and dk/dv launch of a main-path run (bf16 at
-    head_dim 128 on these paths) and every ``gmm_dw`` launch (K and N
-    multiples of 8 on these paths) took the tensor-core kernel. The
+    head_dim 128 on these paths), every ``gmm_dw`` launch (K and N
+    multiples of 8 on these paths) and every ``ssd`` launch (bf16, head_dim
+    64, state 128, chunk 256, views of the conv output with 16-byte
+    aligned strides and bases) took the tensor-core kernel. The
     grouped GEMM's design is a function of its operand types
     (``gmm.gmm_route``), so its bf16 launches run on the tensor cores by
     construction; HGMMA in the built library's SASS shows that kernel
     uses them."""
-    for k in ("gmm_dw", "flash_fwd", "flash_dq", "flash_dkv"):
+    for k in ("gmm_dw", "flash_fwd", "flash_dq", "flash_dkv", "ssd"):
         if counts[f"{k}:wgmma"] != counts[k]:
             raise RuntimeError(f"{label}: a {k} launch did not take the "
                                f"tensor-core kernel: {counts}")
@@ -1068,45 +1074,84 @@ def ssd_inputs(torch, cfg, b: int, T: int, dtype, dev, seed: int):
 
 
 def ssd_work(b: int, T: int, h: int, hd: int, ns: int, Q: int,
-             es: int):
+             es: int, passes: int = 1):
     """(bytes, flops) the scan needs: x, dt, B, C read once, y and the
     f32 state written once; products: per (batch, head) and chunk of r
     live rows the causal half of G·x̄ (2·hd per live (i, j) pair), C·S
     (but for the first chunk, where S = 0) and the state update (2·r·ns·hd
-    each), and C·Bᵀ once per (batch, chunk) over its live pairs."""
+    each), each ``passes`` times (the tensor-core design's three bf16 terms
+    of each f32 factor), and C·Bᵀ once per (batch, chunk) over its live
+    pairs."""
     flops = 0
     for c, c0 in enumerate(range(0, T, Q)):
         r = min(Q, T - c0)
         pairs = r * (r + 1) // 2
-        flops += b * h * (2 * hd * pairs + 2 * r * ns * hd * (2 if c else 1))
+        flops += passes * b * h * (2 * hd * pairs
+                                   + 2 * r * ns * hd * (2 if c else 1))
         flops += b * 2 * ns * pairs
     moved = (b * T * h * hd * es * 2 + b * T * h * 4 + h * 4
              + 2 * b * T * ns * es + b * h * hd * ns * 4)
     return moved, flops
 
 
+def fma_ssd(torch, args, chunk: int):
+    """A call of the FMA SSD kernel (csrc/ssd.cu, the design the
+    tensor-core kernel replaced for bf16) on the same inputs, through its C
+    entry: no launch counter moves."""
+    import ctypes
+    from repro_torch.kernels import ssd
+    x, dt, A, B, C = args
+    b, T, h, hd = x.shape
+    ns = B.shape[-1]
+    y = torch.empty((b, T, h, hd), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, hd, ns), dtype=torch.float32,
+                        device=x.device)
+    st = [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+          *y.stride()[:3]]
+    strides = (ctypes.c_longlong * len(st))(*st)
+    fn = getattr(ssd._lib(), f"ssd_scan_{ssd._DTYPES[x.dtype]}")
+    Q = ssd.chunk_rows(T, chunk)
+
+    def launch():  # y, state and strides live as long as the closure
+        if fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+              C.data_ptr(), y.data_ptr(), state.data_ptr(),
+              ctypes.addressof(strides), b, T, h, hd, ns, Q,
+              torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("FMA ssd_scan launch failed")
+    return launch
+
+
 def ssd_case(torch, cfg, label: str, b: int, T: int, dtype, seed: int):
     """The SSD scan kernel against its plain version at ``cfg``'s widths
     and chunk on one (b, T): y at the tier of its dtype, the final state
-    at the f32 tier; its time, the plain version's and the bound."""
+    at the f32 tier; the design that ran (bf16: the tensor cores), its
+    time, the plain version's, the replaced FMA kernel's on the same
+    inputs (tensor-core design) and the bound of the design's work."""
     from repro_torch.kernels import ssd
     dev = torch.device("cuda")
     args = ssd_inputs(torch, cfg, b, T, dtype, dev, seed)
     chunk = cfg.ssm_chunk
-    y, state = ssd.ssd_scan(*args, chunk=chunk)
+    (y, state), design = with_design(lambda: ssd.ssd_scan(*args,
+                                                          chunk=chunk))
     y_p, state_p = ssd.ssd_scan_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
     errs = {"y": (compare if bf16 else compare_f32)(y, y_p),
             "state": compare_f32(state, state_p)}
+    del y, state, y_p, state_p
     x = args[0]
     Q = ssd.chunk_rows(T, chunk)
-    moved, flops = ssd_work(b, T, x.shape[2], x.shape[3], args[3].shape[-1],
-                            Q, x.element_size())
-    t_bound, by = bound(moved, flops, FP32_FLOPS)
+    wgmma = design == "wgmma"
+    hd, ns = x.shape[3], args[3].shape[-1]
+    passes = ssd.ssd_wgmma_plan(hd, ns, Q)["passes"] if wgmma else 1
+    moved, flops = ssd_work(b, T, x.shape[2], hd, ns, Q, x.element_size(),
+                            passes)
+    t_bound, by = bound(moved, flops, BF16_FLOPS if wgmma else FP32_FLOPS)
     return {
-        "name": "ssd", "route": "cuda", "design": "fma",
-        "source": "src/repro_torch/csrc/ssd.cu", "replaces": SSD_REPLACES,
+        "name": "ssd", "route": "cuda", "design": design,
+        "source": ("src/repro_torch/csrc/ssd_wgmma.cu" if wgmma
+                   else "src/repro_torch/csrc/ssd.cu"),
+        "replaces": SSD_REPLACES,
         "max_abs_err": max(e[0] for e in errs.values()),
         "tol": min(e[1] for e in errs.values()),
         "errors": {n: {"max_abs_err": e[0], "tol": e[1]}
@@ -1115,12 +1160,14 @@ def ssd_case(torch, cfg, label: str, b: int, T: int, dtype, seed: int):
         **kernel_times(lambda: ssd.ssd_scan(*args, chunk=chunk), 10),
         "plain_ms": cuda_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk),
                             3),
+        "fma_ms": cuda_ms(fma_ssd(torch, args, chunk), 10) if wgmma else None,
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
         "shapes": {"case": label, "x": list(x.shape),
                    "x_strides": list(x.stride()), "B": list(args[3].shape),
                    "dtype": str(dtype).replace("torch.", ""), "chunk": Q,
-                   "flops_needed": flops, "bytes_needed": moved}}
+                   "passes": passes, "flops_needed": flops,
+                   "bytes_needed": moved}}
 
 
 def check_ssd_kernel(torch, cfg, batch: int, seq: int):
@@ -1278,13 +1325,13 @@ def main() -> int:
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}" for e in flash_cases + ssd_cases
         if not e["ok"]]
-    # the bf16 grouped GEMMs, gmm_dw and the bf16 flash kernels run on the
-    # tensor cores
+    # the bf16 grouped GEMMs, gmm_dw, the bf16 flash kernels and the bf16
+    # SSD scan run on the tensor cores
     bad += [f"{e['name']}@{e['shapes'].get('case', '')}: design "
-            f"{e['design']}" for e in entries + flash_cases
+            f"{e['design']}" for e in entries + flash_cases + ssd_cases
             if e["design"] != "wgmma" and (
                 e["name"].startswith(("gmm:bf16.bf16->", "gmm_dw:"))
-                or (e["name"].startswith("flash_")
+                or (e["name"].startswith(("flash_", "ssd"))
                     and e["shapes"]["dtype"] == "bfloat16"))]
 
     steps = summary["paged"]
@@ -1337,8 +1384,9 @@ def main() -> int:
          for e in flash_entries + flash_cases]),
           flush=True)
     print("ssd_cases: " + json.dumps(
-        [{k: e[k] for k in ("name", "shapes", "errors", "ok", "ms",
-                            "plain_ms", "bound_ms", "bound_by")}
+        [{k: e[k] for k in ("name", "design", "source", "shapes", "errors",
+                            "ok", "ms", "host_ms", "fma_ms", "plain_ms",
+                            "bound_ms", "bound_by")}
          for e in ssd_cases]), flush=True)
     print("ssd_grad: " + json.dumps(ssd_grad), flush=True)
     if bad:

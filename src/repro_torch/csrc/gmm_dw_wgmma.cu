@@ -146,24 +146,8 @@ __device__ __forceinline__ int swz(int r, int c) {
          (c % 8) * 2;
 }
 
-// The three terms of the pair (x, y), each term a bf16x2 in a 32-bit word:
-// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (see the
-// header; both differences are exact in f32).
-__device__ __forceinline__ void split3(float x, float y, uint32_t (&t)[3]) {
-  float2 rest = make_float2(x, y);
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(rest.x, rest.y);
-    t[p] = *reinterpret_cast<const uint32_t*>(&h);
-    if (p < 2) {
-      const float2 hf = __bfloat1622float2(h);
-      rest = make_float2(rest.x - hf.x, rest.y - hf.y);
-    }
-  }
-}
-
 // Split 4 f32 values (columns c .. c + 3 of row r) into the three planes
-// at `planes`, 8 bytes each.
+// at `planes`, 8 bytes each (sm90.cuh split3).
 __device__ __forceinline__ void put_split(uint8_t* planes, int r, int c,
                                           float4 v) {
   uint32_t c01[3], c23[3];  // columns c, c + 1 and c + 2, c + 3

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gmm_wgmma.cu, gmm_dw_wgmma.cu, flash_fwd_wgmma.cu, flash_bwd_wgmma.cu),
+// (gmm_wgmma.cu, gmm_dw_wgmma.cu, flash_fwd_wgmma.cu, flash_bwd_wgmma.cu,
+// ssd_wgmma.cu),
 // in inline PTX so that a build takes seconds (no CUTLASS or PyTorch
 // headers):
 //   * mbarriers: init, arrive, arrive with an expected byte count, and a
@@ -10,6 +11,9 @@
 //     the 128-byte swizzle, fence / commit / wait, and m64nNk16 bf16
 //     products with f32 accumulators, A from shared memory (mma_ss) or from
 //     registers (mma_rs);
+//   * the exact three-term bf16 split of an f32 value (split3), which lets
+//     the f32 operands of gmm_dw_wgmma.cu and ssd_wgmma.cu go through the
+//     bf16 tensor cores without losing a bit;
 //   * the host-side encoding of a bf16 tensor map, with
 //     cuTensorMapEncodeTiled taken from the driver at run time
 //     (cudaGetDriverEntryPoint), so the library needs no -lcuda.
@@ -190,6 +194,25 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The three terms of the f32 pair (x, y), each term a bf16x2 in a 32-bit
+// word: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), rounded
+// to nearest. Both differences are exact in f32, and hi + mid + lo == x
+// exactly for 2^-110 <= |x| < (2 - 2^-8) 2^127 (below, lo falls under
+// bf16's subnormal grid; above, hi rounds to inf). A product of two terms
+// is exact in f32.
+__device__ __forceinline__ void split3(float x, float y, uint32_t (&t)[3]) {
+  float2 rest = make_float2(x, y);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(rest.x, rest.y);
+    t[p] = *reinterpret_cast<const uint32_t*>(&h);
+    if (p < 2) {
+      const float2 hf = __bfloat1622float2(h);
+      rest = make_float2(rest.x - hf.x, rest.y - hf.y);
+    }
+  }
 }
 
 // D[64 x N] += A[64 x 16] * B[16 x N], f32 accumulators d (N / 2 a thread).

@@ -20,10 +20,15 @@ A [h] f32, B/C [b, T, ns] in x's dtype; x, B and C may be strided views
 (slices of the conv output), their last axis contiguous. Returns y
 [b, T, h, hd] in x's dtype and the final state [b, h, hd, ns] f32.
 
-:func:`ssd_scan` launches the CUDA kernel of ``csrc/ssd.cu`` for CUDA
-tensors and runs :func:`ssd_scan_plain` for CPU tensors; on any other
-device, an unsupported dtype or shape, or a failed build or launch it
-raises. ``LAUNCHES`` counts kernel launches.
+:func:`ssd_scan` runs :func:`ssd_scan_plain` for CPU tensors. For CUDA
+tensors :func:`ssd_route` picks the kernel: ``csrc/ssd_wgmma.cu`` (tensor
+cores, parallel over chunks; each f32 factor split into three bf16 terms
+whose sum is exact) for bf16 at the shapes and alignments it takes,
+``csrc/ssd.cu`` (FMA) for f32 and every other shape; neither falls back to
+the other. On any other device, an unsupported dtype or shape, or a failed
+build or launch it raises. ``LAUNCHES`` counts ``ssd_scan`` calls that ran
+a kernel (one each, however many CUDA launches the design makes) and
+``DESIGN_LAUNCHES`` the design that ran them.
 """
 
 from __future__ import annotations
@@ -37,10 +42,19 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 LAUNCHES = {"ssd": 0}
+DESIGN_LAUNCHES = {"ssd:wgmma": 0, "ssd:fma": 0}
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 HEAD_DIMS = (32, 64, 128)  # head_dim values the kernel is built for
 MAX_STATE = 128            # ns % 16 == 0 and ns <= MAX_STATE
+# The tensor-core design (csrc/ssd_wgmma.cu): its head_dims and state sizes,
+# its 64-row tiles (Q a multiple of WGMMA_TILE up to WGMMA_MAX_Q) and its
+# three bf16 terms per f32 factor; constants of the source, mirrored here.
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_STATES = (64, 128)
+WGMMA_TILE = 64
+WGMMA_MAX_Q = 256
+WGMMA_PASSES = 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +65,15 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"ssd_scan_{dt}")
         fn.argtypes = [p] * 8 + [i] * 6 + [p]
         fn.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_wgmma")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_wgmma_bf16.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.ssd_wgmma_bf16.restype = i
     return lib
 
 
@@ -96,9 +119,63 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk):
     return y, S.transpose(-1, -2)
 
 
+def _check_dims(dtype, hd: int, ns: int) -> None:
+    """Raise for a dtype, head_dim or state size that no kernel takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the SSD scan takes one of bf16/f32 for x, B and "
+                        f"C, got {dtype}")
+    if hd not in HEAD_DIMS or ns % 16 or not 0 < ns <= MAX_STATE:
+        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS} and a state "
+                         f"size that is a multiple of 16 and <= "
+                         f"{MAX_STATE}; got hd={hd}, ns={ns}")
+
+
+def ssd_route(dtype, hd: int, ns: int, Q: int, strides=(), ptrs=()) -> str:
+    """The design that runs :func:`ssd_scan` on CUDA tensors: ``"wgmma"``
+    (csrc/ssd_wgmma.cu) for bf16 x, B and C at a head_dim in
+    ``WGMMA_HEAD_DIMS``, a state size in ``WGMMA_STATES`` and a chunk Q
+    that is a multiple of ``WGMMA_TILE`` up to ``WGMMA_MAX_Q``, when every
+    element stride in ``strides`` (x's batch, row and head strides, B's and
+    C's batch and row strides) is a multiple of 8 and every address in
+    ``ptrs`` (x, B, C) is 16-byte aligned, as its 16-byte copies need;
+    ``"fma"`` (csrc/ssd.cu) for f32 and every other shape or alignment.
+    Raises TypeError / ValueError, as :func:`ssd_scan` does, for a dtype,
+    head_dim or state size that no kernel takes."""
+    _check_dims(dtype, hd, ns)
+    if (dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            and ns in WGMMA_STATES and Q % WGMMA_TILE == 0
+            and 0 < Q <= WGMMA_MAX_Q and all(s % 8 == 0 for s in strides)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "fma"
+
+
+def ssd_wgmma_plan(hd: int, ns: int, Q: int) -> dict:
+    """Shared memory of the tensor-core design's two tiled launches (the
+    numbers ``csrc/ssd_wgmma.cu`` requires): chunk states, three [64, 64]
+    planes of x ⊙ dt·w and B ([64, ns]), a 64-row slice of each; chunk
+    outputs, C_i ([64, ns]), a region of three [64, 64] planes (a
+    64-column half of S_prevᵀ, later the second j-tile buffer) and the
+    first j-tile buffer, B_j ([64, ns]) and x_j ([64, 64]); both the
+    chunk's cum (f64), its dt (or w) rows (f32) and four scan totals
+    (f64), and 1024 bytes to align the tiles; and the bf16 terms per f32
+    factor (``passes``). Raises ValueError for a shape the kernel does not
+    take."""
+    if (hd not in WGMMA_HEAD_DIMS or ns not in WGMMA_STATES
+            or Q % WGMMA_TILE or not 0 < Q <= WGMMA_MAX_Q):
+        raise ValueError(f"no SSD wgmma plan for hd={hd}, ns={ns}, Q={Q}")
+    tile = WGMMA_TILE * 128          # 64 rows of a 64-column bf16 chunk
+    wide = (ns // 64) * tile         # a [64, ns] bf16 tile
+    scan = WGMMA_MAX_Q * 8 + WGMMA_MAX_Q * 4 + 4 * 8
+    states = 3 * tile + wide + scan + 1024
+    out = 2 * wide + 4 * tile + scan + 1024
+    return {"states_smem": states, "out_smem": out,
+            "passes": WGMMA_PASSES}
+
+
 def _check(x, dt, A, B, C):
-    """Validate what the kernel takes; returns (b, T, h, hd, ns)."""
-    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+    """Validate what the kernels take; returns (b, T, h, hd, ns)."""
+    if B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"the SSD scan takes one of bf16/f32 for x, B and "
                         f"C, got {x.dtype}/{B.dtype}/{C.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
@@ -113,10 +190,7 @@ def _check(x, dt, A, B, C):
         raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)} do not match "
                          f"x {tuple(x.shape)}")
-    if hd not in HEAD_DIMS or ns % 16 or not 0 < ns <= MAX_STATE:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS} and a state "
-                         f"size that is a multiple of 16 and <= "
-                         f"{MAX_STATE}; got hd={hd}, ns={ns}")
+    _check_dims(x.dtype, hd, ns)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if t.stride(-1) != 1:
             raise ValueError(f"the SSD scan takes {name} with its last axis "
@@ -128,22 +202,42 @@ def ssd_scan(x, dt, A, B, C, *, chunk):
     """x: [b, T, h, hd]; dt: [b, T, h] f32; A: [h] f32; B/C: [b, T, ns].
 
     Returns (y [b, T, h, hd] in x's dtype, final_state [b, h, hd, ns]
-    f32)."""
+    f32). On CUDA tensors :func:`ssd_route` picks the kernel; the
+    tensor-core design also takes a temporary f32 scratch of the chunk
+    states, [b, h, ceil(T / Q), hd, ns]."""
     if _build.on_cpu(x, dt, A, B, C):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     b, T, h, hd, ns = _check(x, dt, A, B, C)
+    Q = chunk_rows(T, chunk)
+    design = ssd_route(x.dtype, hd, ns, Q,
+                       (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
+                       (x.data_ptr(), B.data_ptr(), C.data_ptr()))
     y = torch.empty((b, T, h, hd), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, hd, ns), dtype=torch.float32, device=x.device)
     st = [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
           *y.stride()[:3]]
     strides = (ctypes.c_longlong * len(st))(*st)
-    fn = getattr(_lib(), f"ssd_scan_{_DTYPES[x.dtype]}")
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-             C.data_ptr(), y.data_ptr(), state.data_ptr(),
-             ctypes.addressof(strides), b, T, h, hd, ns,
-             chunk_rows(T, chunk),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if design == "wgmma":
+        plan = ssd_wgmma_plan(hd, ns, Q)
+        nc = -(-T // Q)
+        scratch = torch.empty((b, h, nc, hd, ns), dtype=torch.float32,
+                              device=x.device)
+        totals = torch.empty((b, h, nc), dtype=torch.float32,
+                             device=x.device)
+        err = _wgmma_lib().ssd_wgmma_bf16(
+            *ptrs, scratch.data_ptr(), totals.data_ptr(),
+            ctypes.addressof(strides), b, T, h, hd, ns, Q,
+            plan["states_smem"], plan["out_smem"], stream)
+    else:
+        fn = getattr(_lib(), f"ssd_scan_{_DTYPES[x.dtype]}")
+        err = fn(*ptrs, ctypes.addressof(strides), b, T, h, hd, ns, Q,
+                 stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
+        raise RuntimeError(f"ssd_scan ({design}) launch failed: cudaError "
+                           f"{err}")
     LAUNCHES["ssd"] += 1
+    DESIGN_LAUNCHES[f"ssd:{design}"] += 1
     return y, state

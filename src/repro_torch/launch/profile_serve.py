@@ -47,7 +47,9 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("paged_decode (port)", ("paged_decode_kernel",)),
     ("flash (port)", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",
                       "flash_dq_kernel", "flash_dkv_kernel")),
-    ("ssd (port)", ("ssd_scan_kernel",)),
+    ("ssd (port)", ("ssd_scan_kernel",  # FMA; then the wgmma design's 3
+                    "ssd_chunk_states_kernel", "ssd_state_pass_kernel",
+                    "ssd_chunk_out_kernel")),
     ("library gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "gemv",
                       "nvjet")),
     ("memcpy / memset", ("memcpy", "memset")),
@@ -120,8 +122,8 @@ def profile(args) -> dict:
 
 def report(prof, wall_us: float, phase_names) -> dict:
     """The profile ``prof`` of a host window of ``wall_us``: the device's
-    busy and idle share, device time by kernel family, the top kernels,
-    and per phase (a ``record_function`` span that ends in a device
+    busy and idle share, device time by kernel family, the top kernels
+    and every kernel of the port's own (by name), and per phase (a ``record_function`` span that ends in a device
     synchronize, so its kernels run within it) the calls, host time and
     device time of its kernels."""
     kernels, spans = [], []
@@ -150,7 +152,8 @@ def report(prof, wall_us: float, phase_names) -> dict:
             phases[spans[i][2]]["device_ms"] += (b - a) / 1e3
     busy_us = _union_us((k.time_range.start, k.time_range.end)
                         for k in kernels)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:15]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])
+    top = ranked[:15]
     return {
         "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
@@ -160,6 +163,8 @@ def report(prof, wall_us: float, phase_names) -> dict:
                                  key=lambda kv: -kv[1]["ms"])),
         "phases": phases,
         "top_kernels": dict(top),
+        "port_kernels": {n: r for n, r in ranked
+                         if family(n).endswith("(port)")},
     }
 
 

@@ -13,6 +13,9 @@ reports, as ``launch/profile_serve.py`` does for serving:
   elementwise, indexing and reduction kernels; the rest);
 * per phase: calls, host time and the device time of its kernels;
 * the kernels with the most device time, by name;
+* the device time of the SSD scan's backward (the ``_SSD`` Function's
+  autograd node and every kernel its ops launch: autograd of
+  ``ref.ssd_chunked``), 0 for models without SSD layers;
 * device memory: what params and optimizer state hold, and the peak of
   the profiled steps (``torch.cuda.max_memory_allocated``).
 
@@ -42,6 +45,7 @@ from repro_torch.launch.profile_serve import report
 from repro_torch.train import optimizer as opt
 
 PHASES = ("gradient", "optimizer")  # record_function names
+SSD_BACKWARD = "autograd::engine::evaluate_function: _SSDBackward"
 
 
 def profile(args) -> dict:
@@ -69,8 +73,11 @@ def profile(args) -> dict:
         for _ in range(args.steps):
             step()
         wall_us = (time.perf_counter() - t0) * 1e6
+    ssd_bwd_us = sum(e.device_time_total for e in prof.events()
+                     if e.name == SSD_BACKWARD)
     return {"arch": cfg.name, "steps": args.steps, "batch": args.batch,
             "seq": args.seq, **report(prof, wall_us, PHASES),
+            "ssd_backward_device_ms": ssd_bwd_us / 1e3,
             "memory": {"state_bytes": state_bytes,
                        "peak_bytes": torch.cuda.max_memory_allocated()}}
 

@@ -2,11 +2,13 @@
 
 Which hand-written kernel runs a call on a CUDA tensor is a pure function
 of dtypes and shapes (``gmm.gmm_route``, ``gmm.gmm_dw_route``,
-``flash_attention.flash_fwd_route`` and ``flash_bwd_route``: ``"wgmma"``
-for the tensor-core kernels, ``"fma"`` for the others, or an error), and
-the tensor-core kernels' shared-memory plans are computed in Python and
+``flash_attention.flash_fwd_route`` and ``flash_bwd_route``, and
+``ssd.ssd_route``, which also reads strides and alignment: ``"wgmma"`` for
+the tensor-core kernels, ``"fma"`` for the others, or an error), and the
+tensor-core kernels' shared-memory plans are computed in Python and
 passed to the launch (``gmm.gmm_wgmma_plan``, ``gmm.gmm_dw_wgmma_plan``,
-``flash_attention.flash_wgmma_plan`` and ``flash_bwd_wgmma_plan``). Both
+``flash_attention.flash_wgmma_plan`` and ``flash_bwd_wgmma_plan``,
+``ssd.ssd_wgmma_plan``). Both
 are held here to what the CUDA sources build: every plan fits in a block's
 227 KB, every grouped kernel takes a block_m that is a multiple of 8 (the
 reference's capacity routing), and a bf16 call the tensor-core kernel
@@ -21,6 +23,7 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm
+from repro_torch.kernels import ssd
 
 BF, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 HOPPER_SMEM = 227 * 1024  # bytes of shared memory one block can use
@@ -85,7 +88,8 @@ def test_gmm_variant_and_design_counters_keep_their_names():
         "gmm:wgmma": 0, "gmm:fma": 0, "gmm_dw:wgmma": 0, "gmm_dw:fma": 0,
         "flash_fwd:wgmma": 0,
         "flash_fwd:fma": 0, "flash_dq:wgmma": 0, "flash_dq:fma": 0,
-        "flash_dkv:wgmma": 0, "flash_dkv:fma": 0}
+        "flash_dkv:wgmma": 0, "flash_dkv:fma": 0,
+        "ssd:wgmma": 0, "ssd:fma": 0}
 
 
 def test_gmm_design_counts_follow_the_variant_counts():
@@ -251,3 +255,123 @@ def test_flash_bwd_wgmma_plan_fits(hd, S):
 def test_flash_bwd_wgmma_plan_refusals(hd):
     with pytest.raises(ValueError):
         fa.flash_bwd_wgmma_plan(hd, 256)
+
+
+def _conv_views(T=64, din=5120, ns=128, pad=0, shift=0):
+    """x [2, T, din / 64, 64], B and C [2, T, ns] as mamba2's mixer hands
+    them to the scan: views into one bf16 conv output [2, T, din + 2 ns +
+    pad], starting ``shift`` elements in (mamba2-2.7b: din 5120, ns 128, a
+    row stride of 5376 elements; x, B and C at bytes 0, 10240, 10496)."""
+    xbc = torch.zeros((2, T, din + 2 * ns + pad + shift), dtype=BF)
+    xbc = xbc[..., shift:]
+    x = xbc[..., :din].unflatten(-1, (din // 64, 64))
+    return x, xbc[..., din:din + ns], xbc[..., din + ns:din + 2 * ns]
+
+
+def _ssd_route_of(x, B, C, Q=256):
+    return ssd.ssd_route(x.dtype, x.shape[-1], B.shape[-1], Q,
+                         (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
+                         (x.data_ptr(), B.data_ptr(), C.data_ptr()))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("ns", [64, 128])
+@pytest.mark.parametrize("Q", [64, 128, 192, 256])
+def test_ssd_route_bf16_takes_tensor_cores(hd, ns, Q):
+    assert ssd.ssd_route(BF, hd, ns, Q) == "wgmma"
+    assert ssd.ssd_route(BF, hd, ns, Q, (2048 * 5376, 5376, hd), (0, 10240,
+                                                                   10496)) \
+        == "wgmma"
+
+
+def test_ssd_route_reads_the_conv_output_in_place():
+    x, B, C = _conv_views()
+    assert x.stride() == (64 * 5376, 5376, 64, 1)
+    assert (B.data_ptr() - x.data_ptr(), C.data_ptr() - x.data_ptr()) \
+        == (10240, 10496)
+    assert _ssd_route_of(x, B, C) == "wgmma"
+
+
+@pytest.mark.parametrize("pad,shift", [(1, 0), (4, 0), (0, 1), (0, 2),
+                                       (0, 4)])
+def test_ssd_route_misaligned_operands_take_fma(pad, shift):
+    """A row stride that is not a multiple of 8 elements (16 bytes), or a
+    base that is not 16-byte aligned, cannot be read by the tensor-core
+    kernel's 16-byte copies: the FMA kernel takes the call."""
+    x, B, C = _conv_views(pad=pad, shift=shift)
+    assert _ssd_route_of(x, B, C) == "fma"
+    assert _ssd_route_of(*_conv_views(pad=8 * pad, shift=8 * shift)) \
+        == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,hd,ns,Q", [
+    (F32, 64, 128, 256), (F32, 128, 64, 128),   # f32: the FMA kernel
+    (BF, 32, 128, 256),                         # head_dim 32
+    (BF, 64, 32, 256), (BF, 64, 48, 128),       # other state sizes
+    (BF, 64, 112, 256), (BF, 128, 16, 128),
+    (BF, 64, 128, 96), (BF, 64, 128, 100),      # chunks off 64 rows
+    (BF, 128, 64, 320), (BF, 64, 128, 512),     # chunks above 256 rows
+])
+def test_ssd_route_other_shapes_take_fma(dtype, hd, ns, Q):
+    assert ssd.ssd_route(dtype, hd, ns, Q) == "fma"
+
+
+@pytest.mark.parametrize("dtype,hd,ns,err", [
+    (F16, 64, 128, TypeError), (torch.float64, 64, 64, TypeError),
+    (BF, 48, 128, ValueError), (BF, 256, 128, ValueError),
+    (BF, 64, 8, ValueError), (BF, 64, 144, ValueError),
+    (F32, 64, 0, ValueError), (F32, 96, 64, ValueError),
+])
+def test_ssd_route_refusals(dtype, hd, ns, err):
+    """What no kernel takes raises as ``ssd_scan`` does on a CUDA tensor."""
+    with pytest.raises(err):
+        ssd.ssd_route(dtype, hd, ns, 256)
+
+
+@pytest.mark.parametrize("hd", ssd.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("ns", ssd.WGMMA_STATES)
+@pytest.mark.parametrize("Q", [64, 128, 192, 256])
+def test_ssd_wgmma_plan_fits(hd, ns, Q):
+    plan = ssd.ssd_wgmma_plan(hd, ns, Q)
+    tile = 64 * 128                       # 64 rows of 64 bf16 columns
+    wide = ns // 64 * tile                # a [64, ns] bf16 tile
+    scan = 256 * 8 + 256 * 4 + 4 * 8      # cum (f64), dt or w, warp totals
+    # three planes of x ⊙ dt·w and B, a 64-row slice of each
+    assert plan["states_smem"] == 3 * tile + wide + scan + 1024
+    # four chunk-state blocks share an SM
+    assert 4 * (plan["states_smem"] + 1024) <= 228 * 1024
+    # C_i, three [64, 64] planes (the second j-tile buffer after the inter
+    # term: B_j and x_j fit there) and the first j-tile buffer
+    assert plan["out_smem"] == 2 * wide + 4 * tile + scan + 1024
+    assert wide + tile <= 3 * tile
+    assert max(plan["states_smem"], plan["out_smem"]) \
+        <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
+    # three chunk-output blocks share an SM (228 KB, 1 KB reserved a block)
+    assert 3 * (plan["out_smem"] + 1024) <= 228 * 1024
+    assert plan["passes"] == 3
+
+
+@pytest.mark.parametrize("hd,ns,Q", [(32, 128, 256), (64, 96, 256),
+                                     (64, 128, 100), (64, 128, 320),
+                                     (128, 64, 0)])
+def test_ssd_wgmma_plan_refusals(hd, ns, Q):
+    with pytest.raises(ValueError):
+        ssd.ssd_wgmma_plan(hd, ns, Q)
+
+
+def test_ssd_scan_on_cpu_takes_any_layout():
+    """The route binds CUDA tensors only: on the CPU the plain version runs
+    on misaligned views too, and no kernel launch is counted."""
+    g = torch.Generator().manual_seed(0)
+    x, B, C = _conv_views(T=40, din=128, ns=64, shift=1)
+    for t in (x, B, C):
+        t.copy_(0.25 * torch.randn(t.shape, generator=g))
+    dt = torch.rand((2, 40, 2), generator=g)
+    A = -torch.ones(2)
+    kernels.reset_launch_counts()
+    y, state = ssd.ssd_scan(x, dt, A, B, C, chunk=256)
+    y_p, state_p = ssd.ssd_scan_plain(x.contiguous(), dt, A, B.contiguous(),
+                                      C.contiguous(), chunk=256)
+    assert torch.equal(y, y_p) and torch.equal(state, state_p)
+    assert kernels.launch_counts()["ssd"] == 0
+    assert kernels.design_launch_counts()["ssd:fma"] == 0

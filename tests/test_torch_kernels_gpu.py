@@ -692,18 +692,60 @@ def _ssd_inputs(b, T, h, hd, ns, dtype, dev, seed=0):
     (1, 512, 2, 32, 32, 64),      # 8 chunks of 64, hd 32
     (1, 300, 2, 128, 48, 96),     # hd 128, ns 48, a chunk of 1.5 tiles
     (2, 2048, 8, 64, 128, 256),   # mamba2-2.7b's chunk and widths
+    (1, 700, 3, 128, 64, 128),    # hd 128 (two column slices), ns 64, ragged
+    (2, 384, 2, 64, 64, 192),     # Q 192: three 64-row tiles a chunk
+    (1, 256, 2, 128, 128, 256),   # hd 128, ns 128, one chunk
 ])
 def test_ssd_scan_matches_plain(cuda, dtype, b, T, h, hd, ns, chunk):
+    """x, B and C strided views of one conv output (row stride h·hd +
+    2 ns, read in place); bf16 at head_dim 64/128, state 64/128 and a
+    chunk of 64-row tiles on the tensor-core design, the rest on FMA."""
     args = _ssd_inputs(b, T, h, hd, ns, dtype, cuda)
+    kernels.reset_launch_counts()
     y, state = ssd.ssd_scan(*args, chunk=chunk)
     y_p, state_p = ssd.ssd_scan_plain(*args, chunk=chunk)
     assert y.dtype == dtype and state.dtype == torch.float32
     assert y.shape == (b, T, h, hd) and state.shape == (b, h, hd, ns)
     _close(y, y_p, dtype)
     _close(state, state_p, torch.float32)
-    # one block per (batch, head), no atomics: bit-identical on a rerun
+    Q = ssd.chunk_rows(T, chunk)
+    wgmma = (dtype == torch.bfloat16 and hd in (64, 128) and ns in (64, 128)
+             and Q % 64 == 0)
+    design = "ssd:wgmma" if wgmma else "ssd:fma"
+    assert kernels.launch_counts()["ssd"] == 1
+    assert kernels.design_launch_counts()[design] == 1
+    # one store per output, no atomics: bit-identical on a rerun
     again = ssd.ssd_scan(*args, chunk=chunk)
     assert torch.equal(again[0], y) and torch.equal(again[1], state)
+
+
+def test_ssd_off_wgmma_inputs_take_fma(cuda):
+    """f32 at the tensor-core shapes, bf16 at head_dim 32, at state 48 and
+    at a chunk of 96 rows, and bf16 views whose base is not 16-byte
+    aligned run on the FMA kernel, and agree with the plain version."""
+    bf = torch.bfloat16
+    x, dt, A, B, C = _ssd_inputs(2, 300, 4, 64, 128, bf, cuda)
+    xbc = torch.empty((2, 300, 4 * 64 + 2 * 128 + 1), dtype=bf,
+                      device=cuda)[..., 1:]          # one element in
+    xbc[..., :256] = x.flatten(-2)
+    xbc[..., 256:384], xbc[..., 384:] = B, C
+    shifted = (xbc[..., :256].unflatten(-1, (4, 64)), dt, A,
+               xbc[..., 256:384], xbc[..., 384:])
+    cases = [
+        (_ssd_inputs(2, 300, 4, 64, 128, torch.float32, cuda), 256),
+        (_ssd_inputs(1, 300, 2, 32, 64, bf, cuda), 256),
+        (_ssd_inputs(1, 300, 2, 64, 48, bf, cuda), 256),
+        (_ssd_inputs(1, 300, 2, 64, 128, bf, cuda), 96),
+        (shifted, 256),
+    ]
+    for args, chunk in cases:
+        kernels.reset_launch_counts()
+        y, state = ssd.ssd_scan(*args, chunk=chunk)
+        assert kernels.design_launch_counts()["ssd:fma"] == 1
+        assert kernels.design_launch_counts()["ssd:wgmma"] == 0
+        y_p, state_p = ssd.ssd_scan_plain(*args, chunk=chunk)
+        _close(y, y_p, args[0].dtype)
+        _close(state, state_p, torch.float32)
 
 
 def test_ssd_grads_on_card_match_cpu(cuda):

@@ -16,7 +16,13 @@ the ragged T 200 with chunk 64, T 256 with chunk 128).
   against ``jax.vjp`` of the JAX ``ops.ssd(use_kernel=True)`` in f32,
   also at a ragged T and at T < 128 (the kernel's chunk drops to 128, the
   backward's to T), within 2e-5 * max|want| (the backward sums over every
-  row, dA over all of them).
+  row, dA over all of them);
+* the arithmetic of the tensor-core kernel (``csrc/ssd_wgmma.cu``), which
+  cannot run here: :func:`_emulate_wgmma_ssd` repeats it in plain torch
+  (dt folded into the f32 factors, each factor split into three bf16
+  terms, the products summed in f64, the chunk states passed in order) and
+  is held to the Pallas kernel's f32 y and state at 1e-5 * max|JAX| on
+  bf16 inputs.
 """
 
 import jax
@@ -24,9 +30,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import ssd as jssd
 from repro_torch.kernels import ops, ref, ssd
 from torch_parity import to_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
@@ -137,3 +145,154 @@ def test_ssd_grads_match_jax(b, T, h, hd, ns, chunk, state_ct):
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
         assert g.shape == tuple(w.shape), name
         _close(g, w, rel=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's arithmetic (csrc/ssd_wgmma.cu)
+# ---------------------------------------------------------------------------
+
+def _split3(x):
+    """The kernel's split of f32 x (sm90.cuh split3): hi = bf16(x),
+    mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest
+    even; hi + mid + lo == x."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _terms_dot(eq, factor, other):
+    """sum over the three bf16 terms of ``factor`` of einsum(eq, term,
+    other), in f64: each product of two bf16 values is exact, as on the
+    tensor cores."""
+    return sum(torch.einsum(eq, t.double(), other.double())
+               for t in _split3(factor))
+
+
+def _block_scan_f32(la):
+    """An f32 block scan of the kind a kernel would run (128 threads of two
+    rows each, a shuffle scan per warp, the warps' totals in order), the
+    f32 alternative to the kernel's f64 scan: [..., Q] -> [..., Q]."""
+    *lead, Q = la.shape
+    v = F.pad(la, (0, 256 - Q)).reshape(*lead, 4, 32, 2)
+    v0, v1 = v[..., 0], v[..., 1]
+    incl = v0 + v1
+    for off in (1, 2, 4, 8, 16):
+        nxt = incl.clone()
+        nxt[..., off:] = incl[..., off:] + incl[..., :-off]
+        incl = nxt
+    excl = F.pad(incl[..., :-1], (1, 0))
+    before = [torch.zeros_like(incl[..., 0, 0])]
+    for w in range(3):
+        before.append(before[-1] + incl[..., w, 31])
+    c0 = (torch.stack(before, -1)[..., None] + excl) + v0
+    return torch.stack([c0, c0 + v1], -1).reshape(*lead, 256)[..., :Q]
+
+
+def _emulate_wgmma_ssd(x, dt, A, B, C, *, chunk, scan=None):
+    """ssd_scan as the tensor-core kernel computes it, on bf16 x, B, C:
+    per (batch, head) and chunk of Q rows, la = dt·A (f32) and its cumsum in
+    f64, each exponent's argument an f64 difference rounded once to f32;
+    (a) ΔS_cᵀ = (x ⊙ dt·exp(total - cum))ᵀ·B on the split factor; (b) the
+    states passed in order, S = fma(exp(total), S, ΔS) in f32, keeping the
+    state entering each chunk; (c) y = exp(cum)·(C·S_prev) on the split
+    S_prev, plus M·x with M = (C·Bᵀ ⊙ exp(cum_i - cum_j))·dt_j (j <= i),
+    split. Products are summed in f64 (the kernel sums them in f32: only
+    the order and width of the sums differ). ``scan`` replaces the f64
+    cumsum by an f32 one (differences then in f32). Returns y unrounded
+    (f64) and the final state [b, h, hd, ns] f32."""
+    b, T, h, hd = x.shape
+    ns = B.shape[-1]
+    Q = ssd.chunk_rows(T, chunk)
+    nc = -(-T // Q)
+    pad = nc * Q - T
+    xc = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(
+        b, nc, Q, h, hd).permute(0, 3, 1, 2, 4)          # [b, h, nc, Q, hd]
+    dtc = F.pad(dt, (0, 0, 0, pad)).reshape(b, nc, Q, h).permute(0, 3, 1, 2)
+    Bc = F.pad(B.float(), (0, 0, 0, pad)).reshape(b, 1, nc, Q, ns)
+    Cc = F.pad(C.float(), (0, 0, 0, pad)).reshape(b, 1, nc, Q, ns)
+    live = (torch.arange(nc * Q) < T).reshape(nc, Q)
+    la = torch.where(live, dtc * A[None, :, None, None], 0.0)
+    cum = (torch.cumsum(la.double(), -1) if scan is None
+           else scan(la))                                 # [b, h, nc, Q]
+    total = cum[..., -1:]
+    # (a) chunk states, transposed: [b, h, nc, hd, ns]
+    w = torch.where(live, dtc * torch.exp((total - cum).float()), 0.0)
+    dS = _terms_dot("bhcjd,bxcjn->bhcdn", xc * w[..., None], Bc).float()
+    # (b) state passing
+    S = torch.zeros((b, h, hd, ns))
+    prev = []
+    for c in range(nc):
+        prev.append(S)
+        et = torch.exp(total[:, :, c].float()).double()[..., None]
+        S = (et * S.double() + dS[:, :, c].double()).float()
+    prev = torch.stack(prev, dim=2)
+    # (c) chunk outputs
+    G = torch.einsum("bxcin,bxcjn->bxcij", Cc.double(), Bc.double()).float()
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    diff = (cum[..., :, None] - cum[..., None, :]).float()
+    M = torch.where(tri, G * torch.exp(torch.where(tri, diff, 0.0))
+                    * dtc[..., None, :], 0.0)
+    inter = _terms_dot("bhcdn,bxcin->bhcid", prev, Cc).float() \
+        * torch.exp(cum.float())[..., None]
+    y = inter.double() + _terms_dot("bhcij,bhcjd->bhcid", M, xc)
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * Q, h, hd)[:, :T]
+    return y, S
+
+
+def _pallas_f32(x, dt, A, B, C, *, chunk):
+    """The JAX package's ``ssd_pallas`` (interpret mode) on the inputs as
+    its ``ops._ssd_kernel_call`` prepares them (x̄ = x·dt and la = dt·A in
+    f32, T padded to the chunk), with y left in f32 (the call rounds it to
+    x's dtype afterwards). Returns numpy y [b, T, h, hd] and state."""
+    b, T, h, hd = x.shape
+    ns = B.shape[-1]
+    Q = ssd.chunk_rows(T, chunk)
+    pad = (-T) % Q
+    la = (dt * A[None, None, :]).swapaxes(1, 2).reshape(b * h, T)
+    xbar = jnp.moveaxis(x.astype(jnp.float32) * dt[..., None], 2, 1)
+    y, state = jssd.ssd_pallas(
+        jnp.pad(xbar.reshape(b * h, T, hd), ((0, 0), (0, pad), (0, 0))),
+        jnp.pad(la, ((0, 0), (0, pad))),
+        jnp.pad(B.astype(jnp.float32), ((0, 0), (0, pad), (0, 0))),
+        jnp.pad(C.astype(jnp.float32), ((0, 0), (0, pad), (0, 0))),
+        h, chunk=Q, interpret=True)
+    y = np.asarray(y[:, :T]).reshape(b, h, T, hd).swapaxes(1, 2)
+    return y, np.asarray(state).reshape(b, h, hd, ns)
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+@pytest.mark.parametrize("b,T,h,hd,ns,chunk", [
+    (2, 300, 2, 64, 64, 128),     # three chunks, the last ragged
+    (1, 100, 2, 64, 128, 256),    # T < 128: one chunk of 128
+    (1, 640, 2, 128, 128, 256),   # hd 128 (two column slices), ragged
+    (2, 384, 3, 64, 128, 192),    # a chunk of three 64-row tiles
+])
+def test_wgmma_ssd_arithmetic_matches_pallas(b, T, h, hd, ns, chunk, seed):
+    """The kernel's arithmetic against the Pallas kernel's f32 y (before
+    the bf16 cast) and final state at 1e-5 * max|JAX| each, on bf16 x, B
+    and C; the bf16 y of ``ssd_scan_plain`` agrees with it at the bf16
+    tier."""
+    (x, dt, A, B, C), jargs = _inputs(b, T, h, hd, ns, "bf16", seed=seed)
+    y, state = _emulate_wgmma_ssd(x, dt, A, B, C, chunk=chunk)
+    jy, jstate = _pallas_f32(*jargs, chunk=chunk)
+    assert np.abs(y.numpy() - jy).max() <= 1e-5 * np.abs(jy).max()
+    assert np.abs(state.numpy() - jstate).max() \
+        <= 1e-5 * np.abs(jstate).max()
+    y_p, _ = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    _close(y_p, y.float().to(torch.bfloat16).float().numpy(), "bf16")
+
+
+def test_f32_block_scan_misses_the_state_tier():
+    """Why the kernel scans the chunk's cumsum in f64: with an f32 block
+    scan (another order than the reference's sequential cumsum) the
+    difference total - cum_j of two prefix sums near |cum| ~ 10^2..10^3
+    loses their shared rounding, and the state falls outside 1e-5 *
+    max|JAX| (3.05e-5 here); the same case passes with the f64 scan
+    above."""
+    (x, dt, A, B, C), jargs = _inputs(2, 300, 2, 64, 64, "bf16", seed=2)
+    _, state = _emulate_wgmma_ssd(x, dt, A, B, C, chunk=128,
+                                  scan=_block_scan_f32)
+    _, jstate = _pallas_f32(*jargs, chunk=128)
+    assert np.abs(state.numpy() - jstate).max() \
+        > 2e-5 * np.abs(jstate).max()
