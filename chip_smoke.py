@@ -32,14 +32,14 @@ It fails unless:
 * every request finishes with its full budget and the page allocator's
   accounting is clean; every train step's loss and grad norm are finite;
 * each kernel of a path was launched during that path's run (launch
-  counters set to 0 just before it and read just after), every flash
-  forward, dq and dk/dv launch and every ``gmm_dw`` launch of the serve,
-  train and flash runs and every ``ssd`` launch of the mamba2 run went
-  through the tensor-core kernels (``flash_fwd_wgmma.cu``,
-  ``flash_bwd_wgmma.cu``, ``gmm_dw_wgmma.cu``, ``ssd_wgmma.cu``: their
-  design counters; the bf16 ``gmm_tiled`` launches take ``gmm_wgmma.cu``
-  by their operand types), the five wgmma libraries hold HGMMA
-  instructions, and each train
+  counters set to 0 just before it and read just after), every fused GLU,
+  flash forward, dq and dk/dv launch, every ``gmm_dw`` launch and every
+  bf16 and f32 x bf16^T ``gmm_tiled`` launch of the serve, train and flash
+  runs and every ``ssd`` launch of the mamba2 run went through the
+  tensor-core kernels (``gmm_wgmma.cu``, ``gmm_f32_wgmma.cu``,
+  ``flash_fwd_wgmma.cu``, ``flash_bwd_wgmma.cu``, ``gmm_dw_wgmma.cu``,
+  ``ssd_wgmma.cu``: their design counters), the six wgmma libraries hold
+  HGMMA instructions, and each train
   run launched each grouped kernel the expected number of times per layer
   and step (gmm_glu 2: forward + recompute; gmm 8; gmm_dw 3); the chunked
   run no flash kernel, the flash run flash_fwd 2 (forward + recompute),
@@ -55,14 +55,17 @@ It fails unless:
 * the MoE FFN's five gradients (dx, dwg, dwu, dwo, dscales) from its
   autograd Function (the kernels) agree with autograd through the plain
   composition within 1e-4 * max|plain| each, at one layer's train shapes
-  in f32; so do the flash attention Function's dq, dk, dv against
+  in f32, and in bf16 (x, weights and row scales as the train runs give
+  them: the tensor-core GLU and the f32 x bf16^T data gradients) within
+  2e-2 * min(1, max|plain|); so do the flash attention Function's dq, dk,
+  dv against
   autograd through the attention oracle; in bf16 at the flash run's
   attention shape the Function's output and dq, dk, dv agree with the
   plain forward and backward at the bf16 tier;
 * every grouped kernel (the six ``gmm_tiled`` operand types, the fused GLU
-  in bf16 and f32, ``gmm_dw`` with a bf16 and an f32 lhs, on the
-  tensor-core design) takes block_m 8, 16 and 32 and agrees with its plain
-  version there;
+  in bf16 and f32, ``gmm_dw`` with a bf16 and an f32 lhs; the bf16 ones,
+  f32 x bf16^T and ``gmm_dw`` on the tensor-core design) takes block_m 8,
+  16 and 32 and agrees with its plain version there;
 * the flash kernels agree with their plain versions at the train shape
   and at batch 2 x seq 1024 (causal tile skipping), with a window, with a
   softcap (forward) and in f32;
@@ -93,8 +96,10 @@ the train runs' lines, the kernel tolerances, the ``kernels`` JSON line
 events behind a spin kernel that keeps the host's queueing out of them,
 ``host_ms`` is the kernel wrapper's host time per call, and ``fma_ms``
 the FMA kernel that a tensor-core design replaced, on the same inputs:
-the ``gmm_dw``, flash backward and SSD entries),
-the serve, parity, train, train_flash, train_mamba2, grad, flash_grad,
+the fused GLU, f32 x bf16^T ``gmm``, ``gmm_dw``, flash backward and SSD
+entries),
+the serve, parity, train, train_flash, train_mamba2, grad, grad_bf16,
+flash_grad,
 flash_grad_bf16, c1_tiles, flash_cases (the flash kernels at every case
 shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
 design replaced, timed on the same bf16 inputs), ssd_cases (with
@@ -146,8 +151,13 @@ FLASH_REPLACES = {
     "flash_dq": "src/repro/kernels/flash_attention.py:245",
     "flash_dkv": "src/repro/kernels/flash_attention.py:271"}
 # the libraries built on wgmma: each must hold HGMMA in its SASS
-WGMMA_LIBS = ("gmm_wgmma", "gmm_dw_wgmma", "flash_fwd_wgmma",
-              "flash_bwd_wgmma", "ssd_wgmma")
+WGMMA_LIBS = ("gmm_wgmma", "gmm_f32_wgmma", "gmm_dw_wgmma",
+              "flash_fwd_wgmma", "flash_bwd_wgmma", "ssd_wgmma")
+# gmm_tiled operand types that run on the tensor cores on the main paths
+# (bf16 operands; f32 x bf16^T at K and N multiples of 8)
+WGMMA_GMM = ("gmm:bf16.bf16->bf16", "gmm:bf16.bf16->f32",
+             "gmm:f32.bf16T->f32")
+GRAD_BF16_CT = 0.05         # cotangent scale: every bf16 gradient below 2
 C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
@@ -275,19 +285,68 @@ def with_design(fn, default: str = "fma"):
 
 
 def check_designs(label: str, counts: dict):
-    """Every flash forward, dq and dk/dv launch of a main-path run (bf16 at
-    head_dim 128 on these paths), every ``gmm_dw`` launch (K and N
-    multiples of 8 on these paths) and every ``ssd`` launch (bf16, head_dim
-    64, state 128, chunk 256, views of the conv output with 16-byte
-    aligned strides and bases) took the tensor-core kernel. The
-    grouped GEMM's design is a function of its operand types
-    (``gmm.gmm_route``), so its bf16 launches run on the tensor cores by
-    construction; HGMMA in the built library's SASS shows that kernel
-    uses them."""
-    for k in ("gmm_dw", "flash_fwd", "flash_dq", "flash_dkv", "ssd"):
+    """Every fused GLU launch of a main-path run (bf16, K and N multiples
+    of 8 on these paths), every flash forward, dq and dk/dv launch (bf16
+    at head_dim 128), every ``gmm_dw`` launch (K and N multiples of 8),
+    every ``ssd`` launch (bf16, head_dim 64, state 128, chunk 256, views of
+    the conv output with 16-byte aligned strides and bases) and every
+    bf16 or f32 x bf16^T ``gmm_tiled`` launch took the tensor-core kernel
+    (design counters; the ``gmm:wgmma`` count must equal those operand
+    types' launches, the only ones that route there). HGMMA in the built
+    libraries' SASS shows that those kernels use the tensor cores."""
+    for k in ("gmm_glu", "gmm_dw", "flash_fwd", "flash_dq", "flash_dkv",
+              "ssd"):
         if counts[f"{k}:wgmma"] != counts[k]:
             raise RuntimeError(f"{label}: a {k} launch did not take the "
                                f"tensor-core kernel: {counts}")
+    if counts["gmm:wgmma"] != sum(counts[v] for v in WGMMA_GMM):
+        raise RuntimeError(f"{label}: a bf16 or f32 x bf16^T gmm launch "
+                           f"did not take the tensor-core kernel: {counts}")
+
+
+def kernel_source(name: str, design: str) -> str:
+    """The CUDA source of a grouped kernel's design (entry ``name``)."""
+    if name.startswith("gmm_dw"):
+        f = {"wgmma": "gmm_dw_wgmma.cu", "fma": "gmm_dw.cu"}[design]
+    elif name.startswith("gmm:f32.bf16T") and design == "wgmma":
+        f = "gmm_f32_wgmma.cu"
+    else:
+        f = {"wgmma": "gmm_wgmma.cu", "fma": "gmm.cu"}[design]
+    return f"src/repro_torch/csrc/{f}"
+
+
+def kernel_replaces(name: str) -> str:
+    """The Pallas call site a grouped kernel entry replaces."""
+    line = (300 if name.startswith("gmm_dw")
+            else 222 if name.startswith("gmm_glu") else 69)
+    return f"src/repro/kernels/gmm.py:{line}"
+
+
+def fma_launch(torch, lib, entry: str, tensors, out, *ints):
+    """A call of the FMA kernel ``entry`` of ``lib`` (csrc/gmm.cu or
+    csrc/gmm_dw.cu: the design that a tensor-core kernel replaced) on the
+    same inputs, through its C entry, writing ``out``: no launch counter
+    moves. ``ints``: the entry's int arguments after its pointers."""
+    from repro_torch.kernels import gmm
+    fn = getattr(lib, entry)
+    ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()]
+
+    def launch():  # out lives as long as the closure
+        gmm._raise_on(fn(*ptrs, *ints,
+                         torch.cuda.current_stream().cuda_stream),
+                      f"{entry} (fma)")
+    launch.out = out
+    return launch
+
+
+def fma_glu(torch, lhs, wg, wu, tg, block_m: int):
+    """The FMA fused GLU (csrc/gmm.cu) on the pair-form inputs."""
+    from repro_torch.kernels import gmm
+    (Mp, K), N = lhs.shape, wg.shape[-1]
+    return fma_launch(torch, gmm._lib(), "gmm_glu_bf16", (lhs, wg, wu, tg),
+                      torch.empty((Mp, N), dtype=lhs.dtype,
+                                  device=lhs.device),
+                      Mp, K, N, N, 0, block_m)
 
 
 def tile_ends(torch, tg, n_groups: int, block_m: int):
@@ -333,14 +392,17 @@ def check_gmm_kernels(torch, cfg):
                         2 * M * d * 2 * f)
     out.append({
         "name": "gmm_glu", "route": "cuda", "design": design,
-        "source": "src/repro_torch/csrc/gmm.cu",
-        "replaces": "src/repro/kernels/gmm.py:222",
+        "source": kernel_source("gmm_glu", design),
+        "replaces": kernel_replaces("gmm_glu"),
         "max_abs_err": err, "tol": tol, "ok": ok,
         **kernel_times(lambda: gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg,
                                                       block_m=block_m), 10),
         "plain_ms": cuda_ms(lambda: gmm.gmm_glu_plain(lhs, wg, wu, tg,
                                                       block_m=block_m), 5),
+        "fma_ms": (cuda_ms(fma_glu(torch, lhs, wg, wu, tg, block_m), 5)
+                   if design == "wgmma" else None),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        "library": "none: no PyTorch call fuses the GLU",
         "shapes": {"lhs": list(lhs.shape), "w": list(wg.shape),
                    "rows": M, "groups_used": used}})
     del lhs, wg, wu, got, want
@@ -450,7 +512,7 @@ def check_train_kernels(torch, cfg, train_tokens: int):
     x_p, h_p, dout_p, dg_p = rows(d, bf), rows(f, f32), rows(d, f32), \
         rows(f, f32)
     hb_p = rows(f, bf)  # the forward's bf16 h (the down projection)
-    wg, wo = weights(d, f), weights(f, d)
+    wg, wu, wo = weights(d, f), weights(d, f), weights(f, d)
     wo_t = wo.transpose(1, 2)
     out = []
 
@@ -463,16 +525,11 @@ def check_train_kernels(torch, cfg, train_tokens: int):
         del got, want
         t_bound, by = bound(bytes_moved, flops, peak)
         lib_ms, lib_note = lib()
-        source = ({"wgmma": "gmm_dw_wgmma.cu", "fma": "gmm_dw.cu"}
-                  if name.startswith("gmm_dw")
-                  else {"wgmma": "gmm_wgmma.cu", "fma": "gmm.cu"})[design]
         out.append({
             "name": name, "route": "cuda", "design": design,
             "counter": counter or name,
-            "source": f"src/repro_torch/csrc/{source}",
-            "replaces": ("src/repro/kernels/gmm.py:300"
-                         if name.startswith("gmm_dw")
-                         else "src/repro/kernels/gmm.py:69"),
+            "source": kernel_source(name, design),
+            "replaces": kernel_replaces(name),
             "max_abs_err": err, "tol": tol, "ok": ok,
             **kernel_times(fn, 5), "plain_ms": cuda_ms(plain, 3),
             "fma_ms": cuda_ms(fma, 5) if fma and design == "wgmma" else None,
@@ -481,6 +538,15 @@ def check_train_kernels(torch, cfg, train_tokens: int):
             "shapes": dict(shapes, rows=M, padded_rows=mp,
                            groups_used=used)})
 
+    # the fused GLU at the train shape (forward and remat recompute)
+    entry("gmm_glu (train shape)",
+          lambda: gmm.gmm_glu_tiled_pair(x_p, wg, wu, tg, block_m=bm),
+          lambda: gmm.gmm_glu_plain(x_p, wg, wu, tg, block_m=bm),
+          2 * M * d + 2 * used * d * 2 * f + 2 * M * f, 2 * M * d * 2 * f,
+          BF16_FLOPS,
+          lambda: (None, "none: no PyTorch call fuses the GLU"),
+          {"lhs": list(x_p.shape), "w": list(wg.shape)},
+          counter="gmm_glu", fma=fma_glu(torch, x_p, wg, wu, tg, bm))
     # the forward's down projection at the train shape: bf16 x bf16 -> bf16
     entry("gmm:bf16.bf16->bf16 (train shape)",
           lambda: gmm.gmm_tiled(hb_p, wo, tg, block_m=bm),
@@ -510,16 +576,24 @@ def check_train_kernels(torch, cfg, train_tokens: int):
           lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
               h_p, wo, offs=ends)),
           {"lhs": list(h_p.shape), "w": list(wo.shape)})
-    # dh = dout @ wo^T, the transposed weight read by stride
+    # dh = dout @ wo^T, the transposed weight read by stride: the
+    # tensor-core design's work is its three bf16 products (the f32
+    # lhs's split terms) at the bf16 peak; "fma" times the replaced FMA
+    # kernel on the same inputs
+    split_passes = gmm.gmm_wgmma_plan(bm, f32)["passes"]
     entry("gmm:f32.bf16T->f32",
           lambda: gmm.gmm_tiled(dout_p, wo_t, tg, **kw),
           lambda: gmm.gmm_tiled_plain(dout_p, wo_t, tg, **kw),
-          4 * M * d + 2 * used * f * d + 4 * M * f, 2 * M * d * f,
-          FP32_FLOPS,
+          4 * M * d + 2 * used * f * d + 4 * M * f,
+          split_passes * 2 * M * d * f, BF16_FLOPS,
           lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
               dout_p, wo_t, offs=ends)),
           {"lhs": list(dout_p.shape), "w": list(wo_t.shape),
-           "w_strides": list(wo_t.stride())})
+           "w_strides": list(wo_t.stride()), "passes": split_passes},
+          fma=fma_launch(torch, gmm._lib(), "gmm_t_f32_bf16_f32",
+                         (dout_p, wo, tg),
+                         torch.empty((mp, f), dtype=f32, device=dev),
+                         mp, d, f, d, bm))
     # dwo from the f32 h and cotangent; dwg from the bf16 x and f32 dg.
     # The tensor-core design's work: its bf16 products (six per f32 x f32
     # pair of the three-term split, three for the bf16 lhs) at the bf16
@@ -550,23 +624,15 @@ def check_train_kernels(torch, cfg, train_tokens: int):
 
 
 def fma_dw(torch, lhs, dout, tg, n_groups: int, block_m: int):
-    """A call of the FMA ``gmm_dw`` kernel (csrc/gmm_dw.cu, the design the
-    tensor-core kernel replaced) on the same inputs, through its C entry:
-    no launch counter moves."""
+    """The FMA ``gmm_dw`` kernel (csrc/gmm_dw.cu) on the same inputs."""
     from repro_torch.kernels import gmm
     Mp, K = lhs.shape
     N = dout.shape[1]
-    out = torch.empty((n_groups, K, N), dtype=torch.float32,
-                      device=lhs.device)
-    fn = getattr(gmm._dw_lib(), f"gmm_dw_{gmm._DTYPES[lhs.dtype]}")
-
-    def launch():
-        gmm._raise_on(fn(lhs.data_ptr(), dout.data_ptr(), tg.data_ptr(),
-                         out.data_ptr(), n_groups, K, N, Mp // block_m,
-                         block_m,
-                         torch.cuda.current_stream().cuda_stream),
-                      "gmm_dw (fma)")
-    return launch
+    return fma_launch(torch, gmm._dw_lib(),
+                      f"gmm_dw_{gmm._DTYPES[lhs.dtype]}", (lhs, dout, tg),
+                      torch.empty((n_groups, K, N), dtype=torch.float32,
+                                  device=lhs.device),
+                      n_groups, K, N, Mp // block_m, block_m)
 
 
 def grad_phase(torch, cfg, train_tokens: int):
@@ -620,6 +686,79 @@ def grad_phase(torch, cfg, train_tokens: int):
             "groups_empty": zero, "results": res,
             "fwd_bwd_s": t_kernel, "plain_fwd_bwd_s": t_plain,
             "ok": all(r["ok"] for r in res.values())}
+
+
+def grad_bf16_phase(torch, cfg, train_tokens: int):
+    """The MoE FFN autograd Function as the train runs call it: bf16 x,
+    weights and row scales (the tensor-core GLU and bf16 gmm forward, the
+    f32 x bf16^T data gradients dh and dx, gmm_dw on the bf16 x), against
+    torch.autograd through the plain composition on the same bf16 inputs,
+    at one W1 layer's train shapes: the output and the five gradients
+    within 2e-2 * min(1, max|plain|) (the plain path rounds dh to bf16,
+    the Function keeps it in f32, as the reference). The cotangent is
+    scaled by GRAD_BF16_CT so every gradient stays below 2, where one bf16
+    ulp is under the tier. Every GLU and f32 x bf16^T launch must take the
+    tensor-core design."""
+    from repro_torch import kernels
+    from repro_torch.kernels import gmm, ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    E, d, f, bm = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, 128
+    sizes, dest, tg, mp, M = train_routing(torch, cfg, gen, train_tokens)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen,
+                                    device=dev)).to(bf)
+
+    inputs = [rand(M, d, scale=0.5), rand(E, d, f, scale=d ** -0.5),
+              rand(E, d, f, scale=d ** -0.5), rand(E, f, d, scale=f ** -0.5),
+              torch.rand((M,), generator=gen, device=dev).to(bf)]
+    ct = rand(M, d, scale=GRAD_BF16_CT)
+
+    def plain(x, wg, wu, wo, sc):
+        x_p = ops._scatter_rows(x, dest, mp)
+        h_p = gmm.gmm_glu_plain(x_p, wg, wu, tg, block_m=bm)
+        out_p = gmm.gmm_tiled_plain(h_p, wo, tg, block_m=bm)
+        return ops._gather_rows(out_p, dest) * sc[:, None]
+
+    def kernel(x, wg, wu, wo, sc):
+        return ops.moe_ffn(x, wg, wu, wo, sizes, row_scales=sc,
+                           block_m=bm, small_m=False)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in inputs]
+        out = fn(*ins)
+        out.backward(ct)
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in ins]
+
+    before = {**kernels.design_launch_counts(),
+              **kernels.variant_launch_counts()}
+    got = grads(kernel)
+    after = {**kernels.design_launch_counts(),
+             **kernels.variant_launch_counts()}
+    moved = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    want = grads(plain)
+    res = {}
+    for name, a, b in zip(("out", "dx", "dwg", "dwu", "dwo", "dscales"),
+                          got, want):
+        err, tol, ok = compare(a, b)
+        res[name] = {"max_abs_err": err, "tol": tol,
+                     "max_abs_plain": float(b.float().abs().max()),
+                     "ok": ok and a.dtype == bf}
+    # GLU 1; gmm: down 1, g and u 2, dh 1, dx 2 on the tensor cores, the
+    # scaled variant's y on the f32 h (f32 x bf16) 1 on FMA; gmm_dw 3
+    designs_ok = (moved.get("gmm_glu:wgmma") == 1
+                  and "gmm_glu:fma" not in moved
+                  and moved.get("gmm:f32.bf16T->f32") == 3
+                  and moved.get("gmm:wgmma") == 6
+                  and moved.get("gmm:fma") == 1
+                  and moved.get("gmm_dw:wgmma") == 3)
+    return {"shapes": {"x": [M, d], "w": [E, d, f], "padded_rows": mp,
+                       "dtype": "bfloat16", "ct_scale": GRAD_BF16_CT},
+            "designs": moved, "results": res,
+            "ok": designs_ok and all(r["ok"] for r in res.values())}
 
 
 def parity_f32(torch, serve_mod):
@@ -979,8 +1118,9 @@ def c1_tiles_phase(torch):
     """Every grouped kernel at block_m 8, 16 and 32 (row tiles under 64,
     as the reference's capacity routing produces) against its plain
     version at a small packed shape: groups of 37, 0, 90, 73 and 5 rows,
-    K 96, N 80; each call must launch its kernel once. bf16 outputs at
-    the bf16 tier, f32 at 1e-4 * max|plain|."""
+    K 96, N 80; each call must launch its kernel once, the bf16 ones, f32
+    x bf16^T and gmm_dw on the tensor-core design. bf16 outputs at the
+    bf16 tier, f32 at 1e-4 * max|plain|."""
     from repro_torch import kernels
     from repro_torch.kernels import gmm, ops
     dev = torch.device("cuda")
@@ -1026,8 +1166,11 @@ def c1_tiles_phase(torch):
             torch.cuda.synchronize()
             err, tol, ok = (compare if got.dtype == bf else compare_f32)(
                 got, want)
-            # K 96, N 80: gmm_dw takes the tensor-core design
-            ok = ok and (design == "wgmma" or not name.startswith("gmm_dw"))
+            # K 96, N 80: gmm_dw, the bf16 GLU, the bf16 gmm and f32 x
+            # bf16^T take the tensor-core design
+            ok = ok and (design == "wgmma" or not (
+                name.startswith("gmm_dw") or name == "gmm_glu:bf16"
+                or name in WGMMA_GMM))
             results.setdefault(name, {})[bm] = {
                 "max_abs_err": err, "tol": tol, "launches": launched,
                 "design": design, "ok": ok and launched == 1}
@@ -1301,6 +1444,9 @@ def main() -> int:
     entries += check_train_kernels(torch, w1, batch * seq)
     torch.cuda.empty_cache()
     grad = grad_phase(torch, w1, batch * seq)
+    torch.cuda.empty_cache()
+    grad_bf16 = grad_bf16_phase(torch, w1, batch * seq)
+    torch.cuda.empty_cache()
     flash_entries, flash_cases = check_flash_kernels(torch, w1, batch, seq)
     entries += flash_entries
     torch.cuda.empty_cache()
@@ -1325,12 +1471,13 @@ def main() -> int:
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}" for e in flash_cases + ssd_cases
         if not e["ok"]]
-    # the bf16 grouped GEMMs, gmm_dw, the bf16 flash kernels and the bf16
-    # SSD scan run on the tensor cores
+    # the bf16 grouped GEMMs and GLU, f32 x bf16^T, gmm_dw, the bf16 flash
+    # kernels and the bf16 SSD scan run on the tensor cores
     bad += [f"{e['name']}@{e['shapes'].get('case', '')}: design "
             f"{e['design']}" for e in entries + flash_cases + ssd_cases
             if e["design"] != "wgmma" and (
-                e["name"].startswith(("gmm:bf16.bf16->", "gmm_dw:"))
+                e["name"].startswith(("gmm:bf16.bf16->", "gmm_dw:",
+                                      "gmm_glu", "gmm:f32.bf16T->"))
                 or (e["name"].startswith(("flash_", "ssd"))
                     and e["shapes"]["dtype"] == "bfloat16"))]
 
@@ -1356,7 +1503,7 @@ def main() -> int:
         "kernels": entries,
         "serve": serve_line, "parity": parity, "train": train_line,
         "train_flash": flash_line, "train_mamba2": mamba2_line,
-        "grad": grad, "flash_grad": flash_grad,
+        "grad": grad, "grad_bf16": grad_bf16, "flash_grad": flash_grad,
         "flash_grad_bf16": flash_grad_bf16, "c1_tiles": c1_tiles,
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
@@ -1374,6 +1521,7 @@ def main() -> int:
     print("train_flash: " + json.dumps(flash_line), flush=True)
     print("train_mamba2: " + json.dumps(mamba2_line), flush=True)
     print("grad: " + json.dumps(grad), flush=True)
+    print("grad_bf16: " + json.dumps(grad_bf16), flush=True)
     print("flash_grad: " + json.dumps(flash_grad), flush=True)
     print("flash_grad_bf16: " + json.dumps(flash_grad_bf16), flush=True)
     print("c1_tiles: " + json.dumps(c1_tiles), flush=True)
@@ -1410,6 +1558,11 @@ def main() -> int:
     if not grad["ok"]:
         raise RuntimeError("MoE FFN gradients disagree with autograd through "
                            "the plain composition beyond their tolerance")
+    if not grad_bf16["ok"]:
+        raise RuntimeError("bf16 MoE FFN gradients disagree with autograd "
+                           "through the plain composition beyond the bf16 "
+                           "tier, or a GLU or f32 x bf16^T launch missed "
+                           "the tensor-core design")
     if not flash_grad["ok"]:
         raise RuntimeError("flash attention gradients disagree with "
                            "autograd through the oracle beyond their "

@@ -25,20 +25,18 @@ def variant_launch_counts() -> dict:
 
 
 def design_launch_counts() -> dict:
-    """The ``gmm_tiled``, ``gmm_dw_tiled``, flash and SSD scan launches of
-    :func:`launch_counts` split by the design that ran them:
-    ``"gmm:wgmma"`` / ``"gmm_dw:wgmma"`` / ``"flash_fwd:wgmma"`` /
-    ``"ssd:wgmma"`` (tensor cores) or ``":fma"``. The grouped GEMM's are
-    read from its variant counts (its route is a function of the operand
-    types); the weight gradient's, the flash kernels' and the SSD scan's
-    are counted."""
-    return {**gmm.design_launches(), **flash_attention.DESIGN_LAUNCHES,
+    """The ``gmm_tiled``, fused GLU, ``gmm_dw_tiled``, flash and SSD scan
+    launches of :func:`launch_counts` split by the design that ran them:
+    ``"gmm:wgmma"`` / ``"gmm_glu:wgmma"`` / ``"gmm_dw:wgmma"`` /
+    ``"flash_fwd:wgmma"`` / ``"ssd:wgmma"`` (tensor cores) or ``":fma"``,
+    each counted where it launches."""
+    return {**gmm.DESIGN_LAUNCHES, **flash_attention.DESIGN_LAUNCHES,
             **ssd.DESIGN_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (gmm.LAUNCHES, paged_attention.LAUNCHES,
-                   flash_attention.LAUNCHES,
+    for counts in (gmm.LAUNCHES, gmm.DESIGN_LAUNCHES,
+                   paged_attention.LAUNCHES, flash_attention.LAUNCHES,
                    flash_attention.DESIGN_LAUNCHES, ssd.LAUNCHES,
                    ssd.DESIGN_LAUNCHES):
         for name in counts:

@@ -8,20 +8,22 @@ Each public function launches a hand-written CUDA kernel for a CUDA
 tensor and runs its plain version (the ``*_plain`` function beside it) for
 a CPU tensor; on any other device, or when a build or launch fails, it
 raises. Output dtype = ``out_dtype`` or the lhs dtype, as in the JAX
-package. Kernels: ``csrc/gmm_wgmma.cu`` (tensor cores) for ``gmm_tiled``
-on bf16 operands, ``csrc/gmm.cu`` (FMA) for its other operand types and
-the fused GLU (:func:`gmm_route` is the rule); ``csrc/gmm_dw_wgmma.cu``
-(tensor cores, an exact three-term bf16 split of the f32 operands) for the
+package. Kernels (tensor cores unless named FMA): ``csrc/gmm_wgmma.cu``
+for ``gmm_tiled`` on bf16 operands and the bf16 fused GLU,
+``csrc/gmm_f32_wgmma.cu`` (an exact three-term bf16 split of the f32 lhs)
+for ``gmm_tiled`` of an f32 lhs against a transposed bf16 weight,
+``csrc/gmm.cu`` (FMA) for the other f32-operand types, the f32 GLU and
+shapes off the multiples of 8 (:func:`gmm_route`, :func:`gmm_glu_route`);
+``csrc/gmm_dw_wgmma.cu`` (the same split of the f32 operands) for the
 weight gradient, ``csrc/gmm_dw.cu`` (FMA) for the shapes it does not take
 (:func:`gmm_dw_route`).
 
 ``LAUNCHES`` counts kernel launches per kernel (plain ints), so a run can
 show that its main path went through the kernels; ``VARIANT_LAUNCHES``
 splits the same launches by operand types (``"f32.bf16T->f32"``: f32 lhs,
-transposed bf16 rhs, f32 out), and :func:`design_launches` reads the
-``gmm_tiled`` launches by design from them and adds the ``gmm_dw``
-launches by design (``DW_DESIGN_LAUNCHES``, counted: its route depends on
-the shape).
+transposed bf16 rhs, f32 out), and ``DESIGN_LAUNCHES`` by the design that
+ran them (``"gmm:wgmma"``, ``"gmm_glu:fma"``, ...: counted, since a route
+depends on the shape).
 """
 
 from __future__ import annotations
@@ -38,20 +40,30 @@ LAUNCHES = {"gmm_glu": 0, "gmm": 0, "gmm_dw": 0}
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # (lhs, rhs, out, rhs transposed) combinations of gmm_tiled with a kernel:
 # the forward, and the MoE FFN backward's uses (ops.py:414-437). bf16
-# operands run on the tensor cores (csrc/gmm_wgmma.cu), the rest on the FMA
-# kernel (csrc/gmm.cu).
-_WGMMA_VARIANTS = (("bf16", "bf16", "bf16", False),
-                   ("bf16", "bf16", "f32", False))
-_FMA_VARIANTS = (("f32", "f32", "f32", False), ("f32", "bf16", "f32", False),
-                 ("f32", "bf16", "f32", True), ("f32", "f32", "f32", True))
-_GMM_VARIANTS = _WGMMA_VARIANTS + _FMA_VARIANTS
+# operands run on the tensor cores (csrc/gmm_wgmma.cu), and so does the f32
+# lhs against a transposed bf16 weight (csrc/gmm_f32_wgmma.cu) where K and N
+# are multiples of 8; the rest on the FMA kernel (csrc/gmm.cu).
+_BF16_VARIANTS = (("bf16", "bf16", "bf16", False),
+                  ("bf16", "bf16", "f32", False))
+_SPLIT_VARIANT = ("f32", "bf16", "f32", True)
+_GMM_VARIANTS = _BF16_VARIANTS + (
+    ("f32", "f32", "f32", False), ("f32", "bf16", "f32", False),
+    _SPLIT_VARIANT, ("f32", "f32", "f32", True))
 VARIANT_LAUNCHES = {}
+DESIGN_LAUNCHES = {f"{k}:{d}": 0 for k in ("gmm", "gmm_glu", "gmm_dw")
+                   for d in ("wgmma", "fma")}
 
-# The tensor-core kernel's tiles, constants of csrc/gmm_wgmma.cu: 64-deep
-# k-slices, GMM_TILE_N output columns, GMM_STAGES slices in flight.
+# The tensor-core kernels' tiles, constants of csrc/gmm_wgmma.cu (bf16
+# lhs; the GLU's stage holds a gate and an up slice of GMM_TILE_N / 2
+# columns each, the same bytes): 64-deep k-slices, GMM_TILE_N output
+# columns, GMM_STAGES slices in flight; and of csrc/gmm_f32_wgmma.cu (f32
+# lhs, 4 bytes an element): GMM_F32_STAGES slices, GMM_F32_PASSES products
+# per k step (the lhs's three bf16 terms).
 GMM_TILE_K = 64
 GMM_TILE_N = 256
 GMM_STAGES = 4
+GMM_F32_STAGES = 3
+GMM_F32_PASSES = 3
 # ... and of csrc/gmm_dw_wgmma.cu: a block owns GMM_DW_TILE x GMM_DW_TILE
 # outputs and walks its group's rows in GMM_DW_SLICE-row slices through
 # GMM_DW_STAGES shared-memory stages; a stage holds one bf16 plane per
@@ -63,7 +75,6 @@ GMM_DW_SLICE = 64
 GMM_DW_STAGES = 2
 GMM_DW_PLANES = {"f32": 3, "bf16": 1}
 GMM_DW_PASSES = {"f32": 6, "bf16": 3}
-DW_DESIGN_LAUNCHES = {"gmm_dw:wgmma": 0, "gmm_dw:fma": 0}
 
 
 def variant_name(lhs: str, rhs: str, out: str, trans: bool) -> str:
@@ -76,30 +87,18 @@ def _reset_variants():
                              for v in _GMM_VARIANTS})
     VARIANT_LAUNCHES.update({f"gmm_dw:{dt}.f32->f32": 0
                              for dt in _DTYPES.values()})
-    for k in DW_DESIGN_LAUNCHES:
-        DW_DESIGN_LAUNCHES[k] = 0
 
 
 _reset_variants()
-
-
-def design_launches() -> dict:
-    """The ``gmm_tiled`` launches of ``VARIANT_LAUNCHES`` by design
-    (:func:`gmm_route` sends exactly the bf16-operand variants to the
-    tensor-core kernel and the others to the FMA kernel), and the
-    ``gmm_dw_tiled`` launches by design as counted."""
-    wgmma = sum(VARIANT_LAUNCHES[f"gmm:{variant_name(*v)}"]
-                for v in _WGMMA_VARIANTS)
-    fma = sum(VARIANT_LAUNCHES[f"gmm:{variant_name(*v)}"]
-              for v in _FMA_VARIANTS)
-    return {"gmm:wgmma": wgmma, "gmm:fma": fma, **DW_DESIGN_LAUNCHES}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for a, b, o, t in _FMA_VARIANTS:
+    for a, b, o, t in _GMM_VARIANTS:
+        if (a, b, o, t) in _BF16_VARIANTS:  # csrc/gmm_wgmma.cu only
+            continue
         fn = getattr(lib, f"gmm_{'t_' if t else ''}{a}_{b}_{o}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
@@ -118,6 +117,17 @@ def _wgmma_lib() -> ctypes.CDLL:
         fn = getattr(lib, f"gmm_wgmma_{out}")
         fn.argtypes = [p, p, p, p] + [i] * 7 + [p]
         fn.restype = i
+    lib.gmm_glu_wgmma.argtypes = [p] * 5 + [i] * 9 + [p]
+    lib.gmm_glu_wgmma.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("gmm_f32_wgmma")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gmm_t_f32_bf16_f32.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.gmm_t_f32_bf16_f32.restype = i
     return lib
 
 
@@ -215,57 +225,76 @@ def _rhs_layout(rhs, K: int):
 def gmm_route(lhs_dtype, rhs_dtype, out_dtype, trans: bool, K: int, N: int,
               block_m: int) -> str:
     """The design that runs :func:`gmm_tiled` on CUDA tensors: ``"wgmma"``
-    (csrc/gmm_wgmma.cu, tensor cores) for bf16 x bf16 (row-major rhs) ->
-    bf16 or f32, ``"fma"`` (csrc/gmm.cu) for f32 x f32, f32 x bf16 and
-    their transposed-rhs forms (-> f32). Raises TypeError for operand
-    types with no kernel, and ValueError for a block_m that is not a
-    positive multiple of 8 (any kernel) or where the tensor-core kernel
-    cannot take the shape: K and N must be multiples of 8 (TMA reads rows
-    whose byte strides are multiples of 16)."""
+    (tensor cores) for bf16 x bf16 (row-major rhs) -> bf16 or f32
+    (csrc/gmm_wgmma.cu) and for f32 x transposed bf16 -> f32 where K and N
+    are multiples of 8 (csrc/gmm_f32_wgmma.cu); ``"fma"`` (csrc/gmm.cu) for
+    f32 x f32, f32 x bf16 (row-major), f32 x transposed f32, and f32 x
+    transposed bf16 at any other K or N (-> f32). Raises TypeError for
+    operand types with no kernel, and ValueError for a block_m that is not
+    a positive multiple of 8 (any kernel) or for bf16 operands where K or N
+    is not a multiple of 8 (TMA reads rows whose byte strides are multiples
+    of 16; no other kernel takes bf16 x bf16)."""
     variant = (*(_DTYPES.get(t) for t in (lhs_dtype, rhs_dtype, out_dtype)),
                bool(trans))
     if variant not in _GMM_VARIANTS:
         raise TypeError(f"no gmm kernel for {lhs_dtype} x {rhs_dtype}"
                         f"{' (transposed)' if trans else ''} -> {out_dtype}")
     _check_block_m(block_m)
-    if variant in _FMA_VARIANTS:
-        return "fma"
-    if K % 8 or N % 8:
-        raise ValueError(f"the bf16 gmm kernel needs K % 8 == 0 and "
-                         f"N % 8 == 0 (TMA's 16-byte strides), got K={K}"
-                         f" N={N}")
-    return "wgmma"
+    aligned = K % 8 == 0 and N % 8 == 0
+    if variant in _BF16_VARIANTS:
+        if not aligned:
+            raise ValueError(f"the bf16 gmm kernel needs K % 8 == 0 and "
+                             f"N % 8 == 0 (TMA's 16-byte strides), got K={K}"
+                             f" N={N}")
+        return "wgmma"
+    return "wgmma" if variant == _SPLIT_VARIANT and aligned else "fma"
 
 
-def gmm_wgmma_plan(block_m: int) -> dict:
+def gmm_wgmma_plan(block_m: int, lhs_dtype=torch.bfloat16) -> dict:
     """Row tile and shared memory of one tensor-core launch: tile_m is
     the largest of 128 (two consumer warpgroups), 64, 32, 16 and 8 (one)
-    that divides block_m, so a tile never spans two groups; each of the
-    GMM_STAGES stages holds a [max(tile_m, 64), 64] lhs slice (a warpgroup
-    multiplies 64 rows; under 64 the rows past the tile are not loaded)
-    and a [64, GMM_TILE_N] weight slice in bf16 and two 8-byte barriers,
-    plus 1024 bytes to align the ring. Raises for a block_m that is not a
-    positive multiple of 8."""
+    that divides block_m, so a tile never spans two groups; each stage
+    holds a [max(tile_m, 64), 64] lhs slice (a warpgroup multiplies 64
+    rows; under 64 the rows past the tile are not loaded) and a
+    [64, GMM_TILE_N] bf16 weight slice (the GLU's: a gate and an up slice
+    of GMM_TILE_N / 2 columns) and two 8-byte barriers, plus 1024 bytes to
+    align the ring. A bf16 lhs (csrc/gmm_wgmma.cu): GMM_STAGES stages, one
+    product per k step; an f32 lhs (csrc/gmm_f32_wgmma.cu, split in
+    registers): 4 bytes an lhs element, GMM_F32_STAGES stages,
+    GMM_F32_PASSES products. Raises for a block_m that is not a positive
+    multiple of 8."""
     _check_block_m(block_m)
+    f32 = lhs_dtype == torch.float32
     tile_m = next(t for t in (128, 64, 32, 16, 8) if block_m % t == 0)
-    stage = (max(tile_m, 64) + GMM_TILE_N) * GMM_TILE_K * 2
-    smem = GMM_STAGES * (stage + 16) + 1024
+    stage = (max(tile_m, 64) * (4 if f32 else 2)
+             + GMM_TILE_N * 2) * GMM_TILE_K
+    stages = GMM_F32_STAGES if f32 else GMM_STAGES
+    smem = stages * (stage + 16) + 1024
     if smem > _build.SMEM_PER_BLOCK:
-        raise ValueError(f"{GMM_STAGES} stages of {stage} bytes exceed the "
+        raise ValueError(f"{stages} stages of {stage} bytes exceed the "
                          f"{_build.SMEM_PER_BLOCK} bytes of shared memory")
-    return {"tile_m": tile_m, "stage_bytes": stage, "smem_bytes": smem}
+    return {"tile_m": tile_m, "stage_bytes": stage, "smem_bytes": smem,
+            "passes": GMM_F32_PASSES if f32 else 1}
 
 
-def _gmm_wgmma(lhs, rhs, tile_group, block_m: int, out_dtype, plan: dict):
-    """Launch the tensor-core kernel with ``plan`` (:func:`gmm_wgmma_plan`)
-    on bf16 lhs [Mp, K] and row-major rhs [G, K, N]."""
+def _aligned16(name: str, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the tensor-core {name} kernel needs 16-byte "
+                         f"aligned tensors")
+
+
+def _gmm_wgmma(lhs, rhs, tile_group, block_m: int, out_dtype, trans: bool):
+    """Launch a tensor-core kernel on lhs [Mp, K] and rhs [G, K, N]: bf16
+    lhs and row-major rhs (csrc/gmm_wgmma.cu), or f32 lhs and the
+    transposed view of a row-major bf16 [G, N, K] weight, passed as that
+    weight (csrc/gmm_f32_wgmma.cu)."""
     Mp, K = lhs.shape
     G, _, N = rhs.shape
+    plan = gmm_wgmma_plan(block_m, lhs.dtype)
     out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
-    if any(t.data_ptr() % 16 for t in (lhs, rhs, out)):
-        raise ValueError("the bf16 gmm kernel needs 16-byte aligned lhs, "
-                         "rhs and out")
-    fn = getattr(_wgmma_lib(), f"gmm_wgmma_{_DTYPES[out_dtype]}")
+    _aligned16("gmm", lhs, rhs, out)
+    fn = (_f32_wgmma_lib().gmm_t_f32_bf16_f32 if trans else
+          getattr(_wgmma_lib(), f"gmm_wgmma_{_DTYPES[out_dtype]}"))
     err = fn(lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
              out.data_ptr(), Mp, K, N, G, block_m, plan["tile_m"],
              plan["smem_bytes"],
@@ -279,14 +308,13 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
 
     lhs: [Mp, K]; rhs: [G, K, N], row-major or a transposed view of a
     row-major [G, N, K] weight (the backward's ``swapaxes(W, 1, 2)``; read
-    by stride, widened in the kernel, never copied); tile_group:
-    [Mp // block_m] int32. Returns [Mp, N] in ``out_dtype`` (default: the
-    lhs dtype) with out[tile] = lhs[tile] @ rhs[tile_group[tile]], f32
-    sums rounded once. On CUDA tensors block_m must be a multiple of 8
-    and :func:`gmm_route` picks the kernel: bf16 operands (-> bf16 or f32)
-    run on the tensor cores and need K and N multiples of 8 and 16-byte
-    aligned tensors (raises otherwise, never falls back); the f32-operand
-    types run on the FMA kernel."""
+    by stride, never copied); tile_group: [Mp // block_m] int32. Returns
+    [Mp, N] in ``out_dtype`` (default: the lhs dtype) with out[tile] =
+    lhs[tile] @ rhs[tile_group[tile]], f32 sums rounded once. On CUDA
+    tensors block_m must be a multiple of 8 and :func:`gmm_route` picks
+    the kernel: the tensor-core kernels need 16-byte aligned tensors
+    (raise otherwise, never fall back); bf16 operands run only there (K
+    and N multiples of 8, raises otherwise)."""
     if _build.on_cpu(lhs, rhs, tile_group):
         return gmm_tiled_plain(lhs, rhs, tile_group, block_m=block_m,
                                out_dtype=out_dtype)
@@ -303,8 +331,7 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     variant = tuple(_DTYPES[t] for t in (lhs.dtype, rhs.dtype, out_dtype))
     _check_tiles(Mp, tile_group, block_m)
     if design == "wgmma":
-        out = _gmm_wgmma(lhs, rhs, tile_group, block_m, out_dtype,
-                         gmm_wgmma_plan(block_m))
+        out = _gmm_wgmma(lhs, rhs, tile_group, block_m, out_dtype, trans)
     else:
         out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
         a, b, o = variant
@@ -315,6 +342,7 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
         _raise_on(err, "gmm")
     LAUNCHES["gmm"] += 1
     VARIANT_LAUNCHES[f"gmm:{variant_name(*variant, trans)}"] += 1
+    DESIGN_LAUNCHES[f"gmm:{design}"] += 1
     return out
 
 
@@ -407,9 +435,7 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
     args = (lhs.data_ptr(), dout.data_ptr(), tile_group.data_ptr(),
             out.data_ptr(), n_groups, K, N, Mp // block_m, block_m)
     if design == "wgmma":
-        if any(t.data_ptr() % 16 for t in (lhs, dout, out)):
-            raise ValueError("the tensor-core gmm_dw kernel needs 16-byte "
-                             "aligned lhs, dout and out")
+        _aligned16("gmm_dw", lhs, dout, out)
         plan = gmm_dw_wgmma_plan(block_m, lhs.dtype)
         err = getattr(_dw_wgmma_lib(), f"gmm_dw_wgmma_{dt}")(
             *args, plan["smem_bytes"], stream)
@@ -418,7 +444,7 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
     _raise_on(err, f"gmm_dw ({design})")
     LAUNCHES["gmm_dw"] += 1
     VARIANT_LAUNCHES[f"gmm_dw:{dt}.f32->f32"] += 1
-    DW_DESIGN_LAUNCHES[f"gmm_dw:{design}"] += 1
+    DESIGN_LAUNCHES[f"gmm_dw:{design}"] += 1
     return out.to(out_dtype)
 
 
@@ -440,20 +466,49 @@ def gmm_glu_plain(lhs, rhs_g, rhs_u, tile_group, *, block_m: int = 128):
     return out.reshape(Mp, rhs_g.shape[-1]).to(lhs.dtype)
 
 
+def gmm_glu_route(dtype, K: int, N: int, ldw: int, u_off: int,
+                  block_m: int) -> str:
+    """The design that runs the fused GLU on CUDA tensors: ``"wgmma"``
+    (csrc/gmm_wgmma.cu, tensor cores) for bf16 where K, N, the weights' row
+    stride ``ldw`` and the up weight's column offset ``u_off`` are
+    multiples of 8 (TMA's 16-byte strides and boxes), ``"fma"``
+    (csrc/gmm.cu) for f32 and any other shape. Raises TypeError for other
+    dtypes and ValueError for a block_m that is not a positive multiple of
+    8."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"gmm_glu takes bf16 or f32, got {dtype}")
+    _check_block_m(block_m)
+    if dtype == torch.bfloat16 and not (K % 8 or N % 8 or ldw % 8
+                                        or u_off % 8):
+        return "wgmma"
+    return "fma"
+
+
 def _gmm_glu_call(lhs, w_gate, w_up, tile_group, N: int, ldw: int,
                   u_off: int, block_m: int):
-    """Launch the fused GLU kernel: the up weight of output column n is
-    read at column n + u_off of ``w_up``; both weights have row stride
-    ``ldw``."""
+    """Launch the fused GLU kernel that :func:`gmm_glu_route` names: the
+    up weight of output column n is read at column n + u_off of ``w_up``;
+    both weights have row stride ``ldw``. The tensor-core kernel needs
+    16-byte aligned tensors (raises otherwise, never falls back)."""
     _check(lhs, (w_gate, w_up), tile_group, block_m)
     Mp, K = lhs.shape
+    design = gmm_glu_route(lhs.dtype, K, N, ldw, u_off, block_m)
     out = torch.empty((Mp, N), dtype=lhs.dtype, device=lhs.device)
-    fn = getattr(_lib(), f"gmm_glu_{_DTYPES[lhs.dtype]}")
-    err = fn(lhs.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-             tile_group.data_ptr(), out.data_ptr(), Mp, K, N, ldw, u_off,
-             block_m, torch.cuda.current_stream(lhs.device).cuda_stream)
-    _raise_on(err, "gmm_glu")
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    ptrs = (lhs.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            tile_group.data_ptr(), out.data_ptr())
+    if design == "wgmma":
+        _aligned16("gmm_glu", lhs, w_gate, w_up, out)
+        plan = gmm_wgmma_plan(block_m)
+        err = _wgmma_lib().gmm_glu_wgmma(
+            *ptrs, Mp, K, N, w_gate.shape[0], ldw, u_off, block_m,
+            plan["tile_m"], plan["smem_bytes"], stream)
+    else:
+        err = getattr(_lib(), f"gmm_glu_{_DTYPES[lhs.dtype]}")(
+            *ptrs, Mp, K, N, ldw, u_off, block_m, stream)
+    _raise_on(err, f"gmm_glu ({design})")
     LAUNCHES["gmm_glu"] += 1
+    DESIGN_LAUNCHES[f"gmm_glu:{design}"] += 1
     return out
 
 

@@ -40,7 +40,9 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("gmm_glu (port)", (  # gmm_kernel<TA, TB, TO, GLU, TRANS_B>
         "gmm_kernel<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true",
         "gmm_kernel<float, float, float, true")),
+    ("gmm_glu wgmma (port)", ("gmm_glu_wgmma_kernel",)),  # bf16 GLU
     ("gmm wgmma (port)", ("gmm_wgmma_kernel",)),  # bf16 operands
+    ("gmm f32 wgmma (port)", ("gmm_f32_wgmma_kernel",)),  # f32 x bf16^T
     ("gmm (port)", ("gmm_kernel<",)),
     ("gmm_dw wgmma (port)", ("gmm_dw_wgmma_kernel",)),  # 3-term bf16 split
     ("gmm_dw (port)", ("gmm_dw_kernel",)),

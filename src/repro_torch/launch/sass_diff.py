@@ -5,8 +5,9 @@ checkout (``--base``: the root of an unpacked earlier commit) with the
 flags of :mod:`repro_torch.kernels._build`, disassembles both with
 ``cuobjdump -sass`` and compares their instructions, kernel by kernel
 (addresses, headers and the per-file tag of the anonymous namespace in
-mangled names left out). Prints one JSON line per library and exits 1 if
-any differs:
+mangled names left out). Prints one JSON line per library (the base's
+kernels that changed or went, and the kernels the checkout added) and
+exits 1 if any kernel of the base changed or went:
 
     PYTHONPATH=src python -m repro_torch.launch.sass_diff \\
         --base build/parent gmm_wgmma flash_fwd_wgmma flash_bwd_wgmma
@@ -75,15 +76,15 @@ def main(argv=None) -> int:
     same = True
     for stem in args.libs:
         base, head = (instructions(libs[(s, stem)]) for s in ("base", "head"))
-        equal = base == head
-        same &= equal
+        changed = sorted(k for k in base if base[k] != head.get(k))
+        same &= not changed
         print(json.dumps({
-            "lib": stem, "identical": equal, "kernels": len(head),
+            "lib": stem, "identical": base == head,
+            "base_kernels_unchanged": not changed, "kernels": len(head),
             "instructions": sum(map(len, head.values())),
             "base_instructions": sum(map(len, base.values())),
-            "differing_kernels": sorted(
-                k for k in set(base) | set(head)
-                if base.get(k) != head.get(k))}), flush=True)
+            "changed_or_gone_kernels": changed,
+            "added_kernels": sorted(set(head) - set(base))}), flush=True)
     return 0 if same else 1
 
 

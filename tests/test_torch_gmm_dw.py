@@ -24,6 +24,7 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels import gmm as jgmm
 from repro.kernels import ops as jops
 from repro_torch.kernels import gmm, ops
+from torch_parity import split3 as _split3
 from torch_parity import to_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
@@ -170,15 +171,6 @@ BF16_PASSES = ((0, 0), (0, 1), (0, 2))
 # hi rounds to bf16 inf at and above (2 - 2^-8) 2^127; under 2^-110 the
 # third term falls below bf16's subnormal grid (2^-133).
 SPLIT_MIN, SPLIT_END = 2.0 ** -110, (2 - 2.0 ** -8) * 2.0 ** 127
-
-
-def _split3(x):
-    """The kernel's split of f32 x: hi = bf16(x), mid = bf16(x - hi),
-    lo = bf16(x - hi - mid), each rounded to nearest even."""
-    hi = x.to(torch.bfloat16)
-    r = x - hi.float()
-    mid = r.to(torch.bfloat16)
-    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def _emulate_wgmma_dw(lhs, dout, tg, n_groups, block_m):

@@ -1,20 +1,25 @@
 """The kernel wrappers' route rules and shared-memory plans, on the CPU.
 
 Which hand-written kernel runs a call on a CUDA tensor is a pure function
-of dtypes and shapes (``gmm.gmm_route``, ``gmm.gmm_dw_route``,
-``flash_attention.flash_fwd_route`` and ``flash_bwd_route``, and
-``ssd.ssd_route``, which also reads strides and alignment: ``"wgmma"`` for
-the tensor-core kernels, ``"fma"`` for the others, or an error), and the
-tensor-core kernels' shared-memory plans are computed in Python and
-passed to the launch (``gmm.gmm_wgmma_plan``, ``gmm.gmm_dw_wgmma_plan``,
-``flash_attention.flash_wgmma_plan`` and ``flash_bwd_wgmma_plan``,
-``ssd.ssd_wgmma_plan``). Both
+of dtypes and shapes (``gmm.gmm_route``, ``gmm.gmm_glu_route``,
+``gmm.gmm_dw_route``, ``flash_attention.flash_fwd_route`` and
+``flash_bwd_route``, and ``ssd.ssd_route``, which also reads strides and
+alignment: ``"wgmma"`` for the tensor-core kernels, ``"fma"`` for the
+others, or an error), and the tensor-core kernels' shared-memory plans are
+computed in Python and passed to the launch (``gmm.gmm_wgmma_plan``,
+``gmm.gmm_dw_wgmma_plan``, ``flash_attention.flash_wgmma_plan`` and
+``flash_bwd_wgmma_plan``, ``ssd.ssd_wgmma_plan``). Both
 are held here to what the CUDA sources build: every plan fits in a block's
 227 KB, every grouped kernel takes a block_m that is a multiple of 8 (the
 reference's capacity routing), and a bf16 call the tensor-core kernel
 cannot take raises instead of falling
-back.
+back. The grouped GEMM wrappers' launches are also driven here against a
+stand-in for the card (:func:`fake_card`: the libraries' entry points
+recorded, not run), which shows which entry each call reaches and which
+design counter it moves.
 """
+
+import types
 
 import pytest
 import torch
@@ -38,13 +43,35 @@ def test_gmm_route_bf16_takes_tensor_cores(out, K, N, block_m):
     assert gmm.gmm_route(BF, BF, out, False, K, N, block_m) == "wgmma"
 
 
-@pytest.mark.parametrize("lhs,rhs,trans", [(F32, F32, False), (F32, BF, False),
-                                           (F32, BF, True), (F32, F32, True)])
-@pytest.mark.parametrize("K,N,block_m", [(2048, 7168, 128), (60, 36, 64),
-                                         (60, 36, 8), (96, 80, 200)])
+_F32_FMA_SHAPES = [(2048, 7168, 128), (60, 36, 64), (60, 36, 8),
+                   (96, 80, 200)]
+
+
+@pytest.mark.parametrize("lhs,rhs,trans,K,N,block_m", [
+    (lhs, rhs, trans, *shape)
+    for lhs, rhs, trans in [(F32, F32, False), (F32, BF, False),
+                            (F32, BF, True), (F32, F32, True)]
+    for shape in _F32_FMA_SHAPES
+    # K and N multiples of 8: f32 x bf16^T takes the tensor cores (below)
+    if not ((lhs, rhs, trans) == (F32, BF, True) and shape[0] % 8 == 0)])
 def test_gmm_route_f32_operands_take_fma(lhs, rhs, trans, K, N, block_m):
     # the FMA kernel masks any K and N itself, and rows past a small tile
     assert gmm.gmm_route(lhs, rhs, F32, trans, K, N, block_m) == "fma"
+
+
+@pytest.mark.parametrize("K,N,block_m", [
+    (2048, 7168, 128), (96, 80, 200),      # from the FMA test above
+    (7168, 2048, 128), (96, 80, 8), (8, 8, 16), (200, 72, 32)])
+def test_gmm_route_f32_lhs_transposed_bf16_takes_tensor_cores(K, N, block_m):
+    """The MoE backward's data gradients (f32 cotangent x swapaxes of a
+    bf16 weight): csrc/gmm_f32_wgmma.cu where K and N are multiples of 8."""
+    assert gmm.gmm_route(F32, BF, F32, True, K, N, block_m) == "wgmma"
+
+
+@pytest.mark.parametrize("K,N,block_m", [(100, 80, 128), (96, 36, 128),
+                                         (2044, 7168, 8), (2048, 7172, 16)])
+def test_gmm_route_f32_lhs_transposed_bf16_ragged_takes_fma(K, N, block_m):
+    assert gmm.gmm_route(F32, BF, F32, True, K, N, block_m) == "fma"
 
 
 @pytest.mark.parametrize("lhs,rhs,out,trans", [(F32, F32, F32, False),
@@ -85,22 +112,191 @@ def test_gmm_variant_and_design_counters_keep_their_names():
         "gmm:f32.bf16->f32", "gmm:f32.bf16T->f32", "gmm:f32.f32T->f32",
         "gmm_dw:bf16.f32->f32", "gmm_dw:f32.f32->f32"}
     assert kernels.design_launch_counts() == {
-        "gmm:wgmma": 0, "gmm:fma": 0, "gmm_dw:wgmma": 0, "gmm_dw:fma": 0,
+        "gmm:wgmma": 0, "gmm:fma": 0, "gmm_glu:wgmma": 0, "gmm_glu:fma": 0,
+        "gmm_dw:wgmma": 0, "gmm_dw:fma": 0,
         "flash_fwd:wgmma": 0,
         "flash_fwd:fma": 0, "flash_dq:wgmma": 0, "flash_dq:fma": 0,
         "flash_dkv:wgmma": 0, "flash_dkv:fma": 0,
         "ssd:wgmma": 0, "ssd:fma": 0}
 
 
-def test_gmm_design_counts_follow_the_variant_counts():
+class _Entry:
+    """A recorded C entry point: ``argtypes`` as the wrapper declares them,
+    each call checked against their number and appended to ``calls``."""
+
+    def __init__(self, lib, name, calls):
+        self.lib, self.name, self.calls = lib, name, calls
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        assert self.argtypes is not None and len(args) == len(
+            self.argtypes), (self.name, len(args), self.argtypes)
+        self.calls.append((self.lib, self.name, tuple(
+            a for a in args if isinstance(a, int) and abs(a) < 2 ** 31)))
+        return 0
+
+
+class _Lib:
+    def __init__(self, name, calls):
+        self._name, self._calls, self._entries = name, calls, {}
+
+    def __getattr__(self, entry):
+        if entry.startswith("_"):
+            raise AttributeError(entry)
+        return self._entries.setdefault(
+            entry, _Entry(self._name, entry, self._calls))
+
+
+_LIBS = ("_lib", "_wgmma_lib", "_f32_wgmma_lib", "_dw_lib", "_dw_wgmma_lib")
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The grouped GEMM wrappers as on a card, with the built libraries
+    replaced by recorders (no kernel runs): CPU tensors take the CUDA
+    route, each library declares its entries' argtypes as it does on the
+    card, and each launch is checked against them and appends (library,
+    entry, int arguments) to the returned list, reporting success."""
+    calls = []
+    monkeypatch.setattr(_build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_build, "load", lambda name: _Lib(name, calls))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    for fn in _LIBS:
+        getattr(gmm, fn).cache_clear()
     kernels.reset_launch_counts()
-    gmm.VARIANT_LAUNCHES["gmm:bf16.bf16->bf16"] += 2
-    gmm.VARIANT_LAUNCHES["gmm:bf16.bf16->f32"] += 3
-    gmm.VARIANT_LAUNCHES["gmm:f32.bf16T->f32"] += 5
-    gmm.VARIANT_LAUNCHES["gmm_dw:bf16.f32->f32"] += 7   # not gmm_tiled
+    yield calls
+    kernels.reset_launch_counts()
+    for fn in _LIBS:   # no recorder outlives the test
+        getattr(gmm, fn).cache_clear()
+
+
+def _operands(M, K, N, lhs, rhs, trans, block_m=64, G=2):
+    tg = torch.zeros(M // block_m, dtype=torch.int32)
+    w = torch.zeros((G, N, K) if trans else (G, K, N), dtype=rhs)
+    return torch.zeros((M, K), dtype=lhs), \
+        (w.transpose(1, 2) if trans else w), tg
+
+
+def test_gmm_design_counts_follow_the_variant_counts(fake_card):
+    """Every gmm_tiled launch moves its variant's counter and the counter
+    of the design it ran on, counted at the launch (f32 x bf16^T takes
+    either design, by shape)."""
+    for n, (lhs, rhs, out, trans, K, N) in (
+            (2, (BF, BF, BF, False, 96, 80)),
+            (3, (BF, BF, F32, False, 96, 80)),
+            (5, (F32, BF, F32, True, 96, 80)),    # tensor cores
+            (1, (F32, BF, F32, True, 60, 80)),    # ragged K: FMA
+            (4, (F32, F32, F32, True, 96, 80))):
+        for _ in range(n):
+            a, w, tg = _operands(128, K, N, lhs, rhs, trans)
+            gmm.gmm_tiled(a, w, tg, block_m=64, out_dtype=out)
+    variants = kernels.variant_launch_counts()
     designs = kernels.design_launch_counts()
-    kernels.reset_launch_counts()
-    assert designs["gmm:wgmma"] == 5 and designs["gmm:fma"] == 5
+    assert variants["gmm:f32.bf16T->f32"] == 6
+    assert designs["gmm:wgmma"] == 10 and designs["gmm:fma"] == 5
+    assert sum(v for k, v in variants.items() if k.startswith("gmm:")) \
+        == designs["gmm:wgmma"] + designs["gmm:fma"] \
+        == kernels.launch_counts()["gmm"]
+    assert [c[:2] for c in fake_card] == (
+        [("gmm_wgmma", "gmm_wgmma_bf16")] * 2
+        + [("gmm_wgmma", "gmm_wgmma_f32")] * 3
+        + [("gmm_f32_wgmma", "gmm_t_f32_bf16_f32")] * 5
+        + [("gmm", "gmm_t_f32_bf16_f32")] + [("gmm", "gmm_t_f32_f32_f32")] * 4)
+
+
+def test_gmm_tiled_split_launch_takes_the_weight_as_it_lies(fake_card):
+    """f32 x swapaxes(W) with W [G, N, K] bf16: the tensor-core entry gets
+    W's own pointer, (Mp, K, N, G, block_m) and the f32 plan's tile and
+    shared memory; the output is [Mp, N] f32."""
+    a, w, tg = _operands(256, 2048, 7168, F32, BF, True, block_m=128, G=3)
+    out = gmm.gmm_tiled(a, w, tg, block_m=128, out_dtype=F32)
+    assert out.shape == (256, 7168) and out.dtype == F32
+    plan = gmm.gmm_wgmma_plan(128, F32)
+    (lib, entry, ints), = fake_card
+    assert (lib, entry) == ("gmm_f32_wgmma", "gmm_t_f32_bf16_f32")
+    assert ints == (256, 2048, 7168, 3, 128, 128, plan["smem_bytes"], 0)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("dtype,K,N,design", [
+    (BF, 96, 80, "wgmma"), (BF, 2048, 7168, "wgmma"),
+    (BF, 100, 80, "fma"), (BF, 96, 36, "fma"),     # off the multiples of 8
+    (F32, 96, 80, "fma")])
+def test_gmm_glu_launch_by_design(fake_card, stacked, dtype, K, N, design):
+    """The pair form reads each weight with row stride N; the stacked form
+    [G, K, 2N] reads one weight with row stride 2N and the up half at
+    column offset N. Each call moves its design's counter."""
+    G, M, bm = 2, 128, 64
+    lhs = torch.zeros((M, K), dtype=dtype)
+    tg = torch.zeros(M // bm, dtype=torch.int32)
+    if stacked:
+        out = gmm.gmm_glu_tiled(lhs, torch.zeros((G, K, 2 * N), dtype=dtype),
+                                tg, block_m=bm)
+        ldw, u_off = 2 * N, N
+    else:
+        w = torch.zeros((G, K, N), dtype=dtype)
+        out = gmm.gmm_glu_tiled_pair(lhs, w, w.clone(), tg, block_m=bm)
+        ldw, u_off = N, 0
+    assert out.shape == (M, N) and out.dtype == dtype
+    assert gmm.gmm_glu_route(dtype, K, N, ldw, u_off, bm) == design
+    (lib, entry, ints), = fake_card
+    if design == "wgmma":
+        plan = gmm.gmm_wgmma_plan(bm)
+        assert (lib, entry) == ("gmm_wgmma", "gmm_glu_wgmma")
+        assert ints == (M, K, N, G, ldw, u_off, bm, plan["tile_m"],
+                        plan["smem_bytes"], 0)
+    else:
+        assert (lib, entry) == ("gmm", f"gmm_glu_{gmm._DTYPES[dtype]}")
+        assert ints == (M, K, N, ldw, u_off, bm, 0)
+    designs = kernels.design_launch_counts()
+    assert designs[f"gmm_glu:{design}"] == 1
+    assert kernels.launch_counts()["gmm_glu"] == 1
+    assert designs["gmm_glu:wgmma"] + designs["gmm_glu:fma"] == 1
+
+
+@pytest.mark.parametrize("call", ["glu", "split", "bf16"])
+def test_tensor_core_gmm_refuses_misaligned_tensors(fake_card, call):
+    """A tensor that is not 16-byte aligned raises on the tensor-core
+    routes; nothing falls back to the FMA kernel."""
+    dtype = F32 if call == "split" else BF
+    flat = torch.zeros(128 * 96 + 2, dtype=dtype)
+    lhs = flat[2:].view(128, 96)                   # 4 or 8 bytes off
+    tg = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        if call == "glu":
+            w = torch.zeros((2, 96, 80), dtype=BF)
+            gmm.gmm_glu_tiled_pair(lhs, w, w, tg, block_m=64)
+        else:
+            _, w, _ = _operands(128, 96, 80, dtype, BF, call == "split")
+            gmm.gmm_tiled(lhs, w, tg, block_m=64, out_dtype=F32)
+    assert fake_card == [] and kernels.launch_counts()["gmm"] == 0
+    assert sum(kernels.design_launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("block_m", [8, 16, 128, 200])
+@pytest.mark.parametrize("K,N,ldw,u_off", [
+    (2048, 7168, 7168, 0), (2048, 7168, 14336, 7168),   # pair, stacked
+    (96, 80, 80, 0), (96, 80, 160, 80), (8, 8, 8, 0)])
+def test_gmm_glu_route_bf16_takes_tensor_cores(block_m, K, N, ldw, u_off):
+    assert gmm.gmm_glu_route(BF, K, N, ldw, u_off, block_m) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,K,N,ldw,u_off", [
+    (F32, 2048, 7168, 7168, 0), (F32, 96, 80, 160, 80),   # f32: FMA
+    (BF, 100, 80, 80, 0), (BF, 96, 36, 36, 0),            # ragged K, N
+    (BF, 96, 36, 72, 36), (BF, 96, 80, 84, 0), (BF, 96, 80, 160, 84)])
+def test_gmm_glu_route_other_inputs_take_fma(dtype, K, N, ldw, u_off):
+    assert gmm.gmm_glu_route(dtype, K, N, ldw, u_off, 128) == "fma"
+
+
+@pytest.mark.parametrize("dtype,block_m,err", [
+    (F16, 128, TypeError), (torch.float64, 128, TypeError),
+    (BF, 12, ValueError), (F32, 0, ValueError), (BF, 100, ValueError)])
+def test_gmm_glu_route_refusals(dtype, block_m, err):
+    with pytest.raises(err):
+        gmm.gmm_glu_route(dtype, 96, 80, 80, 0, block_m)
 
 
 @pytest.mark.parametrize("block_m,tile_m", [
@@ -122,6 +318,37 @@ def test_gmm_wgmma_plan_fits_and_tiles_one_group(block_m, tile_m):
 def test_gmm_wgmma_plan_refusals(block_m):
     with pytest.raises(ValueError, match="block_m % 8"):
         gmm.gmm_wgmma_plan(block_m)
+
+
+@pytest.mark.parametrize("block_m,tile_m", [
+    (8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (200, 8)])
+def test_gmm_glu_plan_is_the_bf16_plan(block_m, tile_m):
+    """The GLU's stage holds the lhs slice, a gate and an up slice of
+    GMM_TILE_N / 2 columns each: the bytes of the bf16 GEMM's stage, so
+    it launches with that plan."""
+    plan = gmm.gmm_wgmma_plan(block_m)
+    assert plan["tile_m"] == tile_m and plan["passes"] == 1
+    glu_stage = (max(tile_m, 64) + 2 * (gmm.GMM_TILE_N // 2)) \
+        * gmm.GMM_TILE_K * 2
+    assert plan["stage_bytes"] == glu_stage
+    assert plan["smem_bytes"] == gmm.GMM_STAGES * (glu_stage + 16) + 1024
+
+
+@pytest.mark.parametrize("block_m,tile_m", [
+    (8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 128),
+    (96, 32), (200, 8)])
+def test_gmm_f32_wgmma_plan_fits(block_m, tile_m):
+    """f32 lhs (csrc/gmm_f32_wgmma.cu): the lhs slice at 4 bytes an element
+    beside the [GMM_TILE_N, 64] bf16 weight, GMM_F32_STAGES stages, the
+    three split terms as three products."""
+    plan = gmm.gmm_wgmma_plan(block_m, F32)
+    assert plan["tile_m"] == tile_m and block_m % tile_m == 0
+    assert plan["stage_bytes"] == (max(tile_m, 64) * 4
+                                   + gmm.GMM_TILE_N * 2) * gmm.GMM_TILE_K
+    assert plan["smem_bytes"] == (gmm.GMM_F32_STAGES
+                                  * (plan["stage_bytes"] + 16) + 1024)
+    assert plan["smem_bytes"] <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
+    assert plan["passes"] == 3
 
 
 @pytest.mark.parametrize("lhs", [BF, F32])

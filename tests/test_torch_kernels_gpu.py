@@ -256,6 +256,126 @@ def test_gmm_wgmma_refusals(cuda):
     assert sum(kernels.design_launch_counts().values()) == 0
 
 
+_ROW_TILE_CASES = [
+    ([37, 0, 90, 73, 5], 96, 80, 8),        # empty group, ragged groups
+    ([37, 0, 90, 73, 5], 96, 80, 16),
+    ([37, 0, 90, 73, 5], 136, 264, 32),
+    ([37, 0, 90, 73], 96, 80, 64),
+    ([200, 0, 5], 200, 136, 128),           # K, N multiples of 8, not 64
+    ([0, 700, 310, 550, 0, 900, 129], 512, 640, 128),  # train-like, cut
+]
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("sizes,K,N,block_m", _ROW_TILE_CASES)
+def test_gmm_glu_wgmma_matches_plain(cuda, stacked, sizes, K, N, block_m):
+    """The bf16 fused GLU on the tensor cores (gmm_glu:wgmma), pair and
+    stacked forms, within 2e-2 * min(1, max|plain|); pad rows zero; a
+    rerun is bit-identical and both forms agree bit for bit."""
+    lhs, wg, wu, tg = _packed(sizes, K, N, torch.bfloat16, cuda, block_m)
+    kernels.reset_launch_counts()
+    if stacked:
+        w = torch.cat([wg, wu], dim=-1).contiguous()
+
+        def call():
+            return gmm.gmm_glu_tiled(lhs, w, tg, block_m=block_m)
+    else:
+        def call():
+            return gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg, block_m=block_m)
+    got = call()
+    designs = kernels.design_launch_counts()
+    assert designs["gmm_glu:wgmma"] == 1 and designs["gmm_glu:fma"] == 0
+    want = gmm.gmm_glu_plain(lhs, wg, wu, tg, block_m=block_m)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _gmm_close(got, want)
+    pad = lhs.abs().sum(1) == 0
+    assert pad.any() and not got[pad].any()
+    assert torch.equal(call(), got)
+    other = (gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg, block_m=block_m)
+             if stacked else gmm.gmm_glu_tiled(
+                 lhs, torch.cat([wg, wu], dim=-1).contiguous(), tg,
+                 block_m=block_m))
+    assert torch.equal(other, got)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("sizes,K,N,block_m", _ROW_TILE_CASES)
+def test_gmm_f32_wgmma_matches_plain(cuda, wide, sizes, K, N, block_m):
+    """f32 lhs x swapaxes of a bf16 [G, N, K] weight -> f32 on the tensor
+    cores (the three-term split, gmm:wgmma), within 1e-4 * max|plain|, at
+    lhs magnitudes 2^-20 .. 2^20 too; pad rows zero, reruns
+    bit-identical."""
+    lhs, _, _, tg = _packed(sizes, K, N, torch.float32, cuda, block_m)
+    if wide:
+        lhs = _wide(lhs, 4)
+    _, w, _, _ = _packed(sizes, N, K, torch.bfloat16, cuda, block_m, seed=1)
+    w_t = w.transpose(1, 2)                   # [G, K, N] view of [G, N, K]
+    assert gmm.gmm_route(lhs.dtype, w.dtype, torch.float32, True, K, N,
+                         block_m) == "wgmma"
+    kernels.reset_launch_counts()
+    got = gmm.gmm_tiled(lhs, w_t, tg, block_m=block_m,
+                        out_dtype=torch.float32)
+    designs = kernels.design_launch_counts()
+    assert designs["gmm:wgmma"] == 1 and designs["gmm:fma"] == 0
+    assert kernels.variant_launch_counts()["gmm:f32.bf16T->f32"] == 1
+    want = gmm.gmm_tiled_plain(lhs, w_t, tg, block_m=block_m,
+                               out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _gmm_close(got, want)
+    pad = lhs.abs().sum(1) == 0
+    assert pad.any() and not got[pad].any()
+    assert torch.equal(gmm.gmm_tiled(lhs, w_t, tg, block_m=block_m,
+                                     out_dtype=torch.float32), got)
+
+
+@pytest.mark.parametrize("sizes,K,N,block_m", [
+    ([37, 0, 90, 73], 100, 80, 64),     # K % 8 != 0
+    ([1, 1, 1, 197], 96, 36, 128),      # N % 8 != 0
+    ([37, 0, 90, 73, 5], 60, 44, 8),    # both, 8-row tiles
+])
+def test_glu_and_split_gmm_ragged_shapes_take_fma(cuda, sizes, K, N,
+                                                  block_m):
+    """K or N off the multiples of 8: the bf16 GLU and f32 x bf16^T run on
+    the FMA kernel (csrc/gmm.cu; the design counters say so) at the same
+    tiers."""
+    lhs, wg, wu, tg = _packed(sizes, K, N, torch.bfloat16, cuda, block_m)
+    kernels.reset_launch_counts()
+    got = gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg, block_m=block_m)
+    _gmm_close(got, gmm.gmm_glu_plain(lhs, wg, wu, tg, block_m=block_m))
+    lhs32, _, _, _ = _packed(sizes, K, N, torch.float32, cuda, block_m)
+    w_t = wg.transpose(1, 2).contiguous().transpose(1, 2)
+    got = gmm.gmm_tiled(lhs32, w_t, tg, block_m=block_m,
+                        out_dtype=torch.float32)
+    _gmm_close(got, gmm.gmm_tiled_plain(lhs32, w_t, tg, block_m=block_m,
+                                        out_dtype=torch.float32))
+    designs = kernels.design_launch_counts()
+    assert designs["gmm_glu:fma"] == 1 and designs["gmm_glu:wgmma"] == 0
+    assert designs["gmm:fma"] == 1 and designs["gmm:wgmma"] == 0
+
+
+def test_glu_and_split_gmm_refuse_misaligned_tensors(cuda):
+    """A CUDA tensor that is not 16-byte aligned raises on the tensor-core
+    GLU and f32 x bf16^T routes; nothing falls back to the FMA kernel."""
+    lhs, wg, wu, tg = _packed([70, 60], 64, 64, torch.bfloat16, cuda, 64)
+    lhs32, _, _, _ = _packed([70, 60], 64, 64, torch.float32, cuda, 64)
+    kernels.reset_launch_counts()
+
+    def shifted(t):  # 8 bytes off a 16-byte boundary
+        off = 8 // t.element_size()
+        flat = torch.empty(t.numel() + off, dtype=t.dtype, device=cuda)
+        return flat[off:].view(t.shape).copy_(t)
+    with pytest.raises(ValueError, match="16-byte"):
+        gmm.gmm_glu_tiled_pair(shifted(lhs), wg, wu, tg, block_m=64)
+    with pytest.raises(ValueError, match="16-byte"):
+        gmm.gmm_glu_tiled_pair(lhs, wg, shifted(wu), tg, block_m=64)
+    with pytest.raises(ValueError, match="16-byte"):
+        gmm.gmm_tiled(shifted(lhs32), wg.transpose(1, 2), tg, block_m=64,
+                      out_dtype=torch.float32)
+    assert kernels.launch_counts()["gmm"] == 0
+    assert kernels.launch_counts()["gmm_glu"] == 0
+    assert sum(kernels.design_launch_counts().values()) == 0
+
+
 @pytest.mark.parametrize("scaled", [False, True])
 def test_moe_ffn_grads_on_card_match_cpu(cuda, scaled):
     g = torch.Generator().manual_seed(5)
@@ -416,10 +536,17 @@ def test_grouped_kernels_take_small_row_tiles(cuda, kind, lhs_t, rhs_t,
         variant = gmm.variant_name(*(gmm._DTYPES[t] for t in
                                      (lhs_t, rhs_t, out_t)), trans)
         assert kernels.variant_launch_counts()[f"gmm:{variant}"] == 1
+        # K 96, N 80: bf16 operands and f32 x bf16^T on the tensor cores
+        tensor_cores = rhs_t == torch.bfloat16 and (
+            lhs_t == torch.bfloat16 or trans)
+        design = "wgmma" if tensor_cores else "fma"
+        assert kernels.design_launch_counts()[f"gmm:{design}"] == 1
     elif kind == "glu":
         got = gmm.gmm_glu_tiled_pair(lhs, w, wu, tg, block_m=block_m)
         want = gmm.gmm_glu_plain(lhs, w, wu, tg, block_m=block_m)
         assert kernels.launch_counts()["gmm_glu"] == 1
+        design = "wgmma" if lhs_t == torch.bfloat16 else "fma"
+        assert kernels.design_launch_counts()[f"gmm_glu:{design}"] == 1
     else:
         dout, _, _, _ = _packed(sizes, 80, 80, torch.float32, cuda, block_m,
                                 seed=1)

@@ -36,6 +36,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import ssd as jssd
 from repro_torch.kernels import ops, ref, ssd
+from torch_parity import split3 as _split3
 from torch_parity import to_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
@@ -150,16 +151,6 @@ def test_ssd_grads_match_jax(b, T, h, hd, ns, chunk, state_ct):
 # ---------------------------------------------------------------------------
 # The tensor-core kernel's arithmetic (csrc/ssd_wgmma.cu)
 # ---------------------------------------------------------------------------
-
-def _split3(x):
-    """The kernel's split of f32 x (sm90.cuh split3): hi = bf16(x),
-    mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest
-    even; hi + mid + lo == x."""
-    hi = x.to(torch.bfloat16)
-    r = x - hi.float()
-    mid = r.to(torch.bfloat16)
-    return hi, mid, (r - mid.float()).to(torch.bfloat16)
-
 
 def _terms_dot(eq, factor, other):
     """sum over the three bf16 terms of ``factor`` of einsum(eq, term,

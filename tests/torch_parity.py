@@ -33,3 +33,14 @@ def jax_values_np(tree):
     if isinstance(tree, dict):
         return {k: jax_values_np(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+def split3(x):
+    """The tensor-core kernels' split of f32 x (csrc/sm90.cuh split3):
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded
+    to nearest even; hi + mid + lo == x for 2^-110 <= |x| <
+    (2 - 2^-8) 2^127 (tests/test_torch_gmm_dw.py holds it)."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
