@@ -34,9 +34,9 @@ It fails unless:
 * each kernel of a path was launched during that path's run (launch
   counters set to 0 just before it and read just after), every fused GLU,
   flash forward, dq and dk/dv launch, every ``gmm_dw`` launch and every
-  bf16 and f32 x bf16^T ``gmm_tiled`` launch of the serve, train and flash
-  runs and every ``ssd`` launch of the mamba2 run went through the
-  tensor-core kernels (``gmm_wgmma.cu``, ``gmm_f32_wgmma.cu``,
+  bf16, f32 x bf16 and f32 x bf16^T ``gmm_tiled`` launch of the serve,
+  train and flash runs (no ``gmm`` launch on the FMA kernel) and every
+  ``ssd`` launch of the mamba2 run went through the tensor-core kernels (``gmm_wgmma.cu``, ``gmm_f32_wgmma.cu``,
   ``flash_fwd_wgmma.cu``, ``flash_bwd_wgmma.cu``, ``gmm_dw_wgmma.cu``,
   ``ssd_wgmma.cu``: their design counters), the six wgmma libraries hold
   HGMMA instructions, and each train
@@ -51,7 +51,9 @@ It fails unless:
   main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
   bf16 tier, scaled down where the outputs stay below 1; per decode slot
   for paged decode), f32 outputs within 1e-4 * max|plain| (f32 sums in
-  another order only);
+  another order only); paged decode also at a long context (4 slots x
+  4096 positions) and in f32 (the ``paged_cases:`` line, with the split
+  count of each case);
 * the MoE FFN's five gradients (dx, dwg, dwu, dwo, dscales) from its
   autograd Function (the kernels) agree with autograd through the plain
   composition within 1e-4 * max|plain| each, at one layer's train shapes
@@ -64,7 +66,8 @@ It fails unless:
   plain forward and backward at the bf16 tier;
 * every grouped kernel (the six ``gmm_tiled`` operand types, the fused GLU
   in bf16 and f32, ``gmm_dw`` with a bf16 and an f32 lhs; the bf16 ones,
-  f32 x bf16^T and ``gmm_dw`` on the tensor-core design) takes block_m 8,
+  f32 x bf16, f32 x bf16^T and ``gmm_dw`` on the tensor-core design) takes
+  block_m 8,
   16 and 32 and agrees with its plain version there;
 * the flash kernels agree with their plain versions at the train shape
   and at batch 2 x seq 1024 (causal tile skipping), with a window, with a
@@ -96,11 +99,12 @@ the train runs' lines, the kernel tolerances, the ``kernels`` JSON line
 events behind a spin kernel that keeps the host's queueing out of them,
 ``host_ms`` is the kernel wrapper's host time per call, and ``fma_ms``
 the FMA kernel that a tensor-core design replaced, on the same inputs:
-the fused GLU, f32 x bf16^T ``gmm``, ``gmm_dw``, flash backward and SSD
-entries),
+the fused GLU, f32 x bf16 and f32 x bf16^T ``gmm``, ``gmm_dw``, flash
+backward and SSD entries),
 the serve, parity, train, train_flash, train_mamba2, grad, grad_bf16,
 flash_grad,
-flash_grad_bf16, c1_tiles, flash_cases (the flash kernels at every case
+flash_grad_bf16, c1_tiles, paged_cases, flash_cases (the flash kernels at
+every case
 shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
 design replaced, timed on the same bf16 inputs), ssd_cases (with
 ``fma_ms`` on the tensor-core design) and ssd_grad lines, and last
@@ -154,9 +158,9 @@ FLASH_REPLACES = {
 WGMMA_LIBS = ("gmm_wgmma", "gmm_f32_wgmma", "gmm_dw_wgmma",
               "flash_fwd_wgmma", "flash_bwd_wgmma", "ssd_wgmma")
 # gmm_tiled operand types that run on the tensor cores on the main paths
-# (bf16 operands; f32 x bf16^T at K and N multiples of 8)
+# (bf16 operands; f32 x bf16 and f32 x bf16^T at K and N multiples of 8)
 WGMMA_GMM = ("gmm:bf16.bf16->bf16", "gmm:bf16.bf16->f32",
-             "gmm:f32.bf16T->f32")
+             "gmm:f32.bf16->f32", "gmm:f32.bf16T->f32")
 GRAD_BF16_CT = 0.05         # cotangent scale: every bf16 gradient below 2
 C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -290,25 +294,27 @@ def check_designs(label: str, counts: dict):
     at head_dim 128), every ``gmm_dw`` launch (K and N multiples of 8),
     every ``ssd`` launch (bf16, head_dim 64, state 128, chunk 256, views of
     the conv output with 16-byte aligned strides and bases) and every
-    bf16 or f32 x bf16^T ``gmm_tiled`` launch took the tensor-core kernel
-    (design counters; the ``gmm:wgmma`` count must equal those operand
-    types' launches, the only ones that route there). HGMMA in the built
-    libraries' SASS shows that those kernels use the tensor cores."""
+    bf16, f32 x bf16 or f32 x bf16^T ``gmm_tiled`` launch took the
+    tensor-core kernel (design counters; the ``gmm:wgmma`` count must equal
+    those operand types' launches, the only ones that route there, and no
+    ``gmm`` launch may take the FMA kernel). HGMMA in the built libraries'
+    SASS shows that those kernels use the tensor cores."""
     for k in ("gmm_glu", "gmm_dw", "flash_fwd", "flash_dq", "flash_dkv",
               "ssd"):
         if counts[f"{k}:wgmma"] != counts[k]:
             raise RuntimeError(f"{label}: a {k} launch did not take the "
                                f"tensor-core kernel: {counts}")
-    if counts["gmm:wgmma"] != sum(counts[v] for v in WGMMA_GMM):
-        raise RuntimeError(f"{label}: a bf16 or f32 x bf16^T gmm launch "
-                           f"did not take the tensor-core kernel: {counts}")
+    if counts["gmm:wgmma"] != sum(counts[v] for v in WGMMA_GMM) \
+            or counts["gmm:fma"]:
+        raise RuntimeError(f"{label}: a bf16 or f32 x bf16 gmm launch did "
+                           f"not take the tensor-core kernel: {counts}")
 
 
 def kernel_source(name: str, design: str) -> str:
     """The CUDA source of a grouped kernel's design (entry ``name``)."""
     if name.startswith("gmm_dw"):
         f = {"wgmma": "gmm_dw_wgmma.cu", "fma": "gmm_dw.cu"}[design]
-    elif name.startswith("gmm:f32.bf16T") and design == "wgmma":
+    elif name.startswith("gmm:f32.bf16") and design == "wgmma":
         f = "gmm_f32_wgmma.cu"
     else:
         f = {"wgmma": "gmm_wgmma.cu", "fma": "gmm.cu"}[design]
@@ -435,33 +441,46 @@ def check_gmm_kernels(torch, cfg):
     return out
 
 
-def check_paged_kernel(torch, cfg):
-    """Paged decode at the serve run's decode shapes: 4 slots, 26 table
-    slots of 16 lines (max_len 416), a 104-page pool."""
+def paged_case(torch, cfg, label: str, B: int, MP: int, q_pos, dtype,
+               seed: int):
+    """Paged decode (the split kernel) against its plain version at
+    ``cfg``'s heads on B slots of MP table slots of 16 lines (a pool of B *
+    MP pages, shuffled), table slots past each slot's frontier ``q_pos``
+    -1: bf16 per slot at the bf16 tier, f32 at 1e-4 * max|plain|; its
+    time, host time, split count, the plain version's time and the byte
+    bound of the live lines."""
     from repro_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
-    B, KH, hd, ps, MP = 4, cfg.n_kv_heads, cfg.head_dim, 16, 26
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    KH, hd, ps = cfg.n_kv_heads, cfg.head_dim, 16
     G, P = cfg.n_heads // KH, B * MP
-    bf = torch.bfloat16
-    q = torch.randn((B, KH, G, hd), generator=gen, device=dev).to(bf)
-    kp = torch.randn((P, ps, KH, hd), generator=gen, device=dev).to(bf)
-    vp = torch.randn((P, ps, KH, hd), generator=gen, device=dev).to(bf)
+    q = torch.randn((B, KH, G, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((P, ps, KH, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((P, ps, KH, hd), generator=gen, device=dev).to(dtype)
     table = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
     table = table.reshape(B, MP).contiguous()
-    q_pos = torch.tensor([415, 300, 131, 17], dtype=torch.int32, device=dev)
+    q_pos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
     for b, p in enumerate(q_pos.tolist()):  # pages past the frontier: -1
         table[b, p // ps + 1:] = -1
     kw = dict(scale=hd ** -0.5)
     got = pa.paged_decode_forward(q, kp, vp, table, q_pos, **kw)
     want = pa.paged_decode_plain(q, kp, vp, table, q_pos, **kw)
     torch.cuda.synchronize()
-    err, tol, ok = compare(got, want, per_row=True)  # per slot
+    bf16 = dtype == torch.bfloat16
+    err, tol, ok = (compare(got, want, per_row=True) if bf16  # per slot
+                    else compare_f32(got, want))
+    ok = ok and torch.equal(
+        pa.paged_decode_forward(q, kp, vp, table, q_pos, **kw), got)
+    del got, want
     lines = sum(p + 1 for p in q_pos.tolist())
-    t_bound, by = bound(2 * (2 * q.numel() + 2 * lines * KH * hd),
-                        4 * lines * KH * G * hd)
-    return [{
-        "name": "paged_decode", "route": "cuda", "design": "fma",
+    es = q.element_size()
+    # no tensor cores: the FMA pipe's peak (the bytes bound it anyway)
+    t_bound, by = bound(es * (2 * q.numel() + 2 * lines * KH * hd),
+                        4 * lines * KH * G * hd, FP32_FLOPS)
+    plan = pa.paged_decode_plan(B, KH, G, hd, MP, es,
+                                pa._sm_count(dev.index or 0))
+    return {
+        "name": "paged_decode", "route": "cuda", "design": "split",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:109",
         "max_abs_err": err, "tol": tol, "ok": ok,
@@ -469,9 +488,33 @@ def check_paged_kernel(torch, cfg):
                                                        q_pos, **kw), 50),
         "plain_ms": cuda_ms(lambda: pa.paged_decode_plain(q, kp, vp, table,
                                                           q_pos, **kw), 20),
+        "fma_ms": None,
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-        "shapes": {"q": list(q.shape), "pools": list(kp.shape),
-                   "table": list(table.shape), "live_lines": lines}}]
+        "library": "none: no PyTorch call decodes over a page table",
+        "shapes": {"case": label, "q": list(q.shape),
+                   "pools": list(kp.shape), "table": list(table.shape),
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "live_lines": lines, "splits": plan["splits"],
+                   "pages_per_split": plan["pages_per_split"],
+                   "bytes_needed": es * (2 * q.numel()
+                                         + 2 * lines * KH * hd)}}
+
+
+def check_paged_kernel(torch, cfg):
+    """Paged decode at the serve run's decode shapes (the kernels line's
+    entry: 4 slots, 26 table slots of 16 lines, max_len 416, a 104-page
+    pool, bf16), and in f32, and at a long context: 4 slots x 4096
+    positions (256 table slots each, 16.8 MB of live K and V in bf16), in
+    bf16 and f32 (the ``paged_cases:`` line)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    serve_pos = [415, 300, 131, 17]
+    main = paged_case(torch, cfg, "serve", 4, 26, serve_pos, bf, 2)
+    cases = [paged_case(torch, cfg, "serve-f32", 4, 26, serve_pos, f32, 2)]
+    for dtype in (bf, f32):
+        tag = "" if dtype == bf else "-f32"
+        cases.append(paged_case(torch, cfg, f"4x4096{tag}", 4, 256,
+                                [4095] * 4, dtype, 14))
+    return main, cases
 
 
 def train_routing(torch, cfg, gen, tokens: int, block_m: int = 128):
@@ -567,20 +610,26 @@ def check_train_kernels(torch, cfg, train_tokens: int):
           lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
               x_p, wg, offs=ends, out_dtype=f32)),
           {"lhs": list(x_p.shape), "w": list(wg.shape)})
-    # y = h @ wo on the unrounded f32 h: f32 x bf16 -> f32
+    # y = h @ wo on the unrounded f32 h: f32 x bf16 -> f32, the row-major
+    # weight read MN-major; the tensor-core design's work is its three
+    # bf16 products (the f32 lhs's split terms) at the bf16 peak; "fma"
+    # times the replaced FMA kernel on the same inputs
+    split_passes = gmm.gmm_wgmma_plan(bm, f32)["passes"]
     entry("gmm:f32.bf16->f32",
           lambda: gmm.gmm_tiled(h_p, wo, tg, **kw),
           lambda: gmm.gmm_tiled_plain(h_p, wo, tg, **kw),
-          4 * M * f + 2 * used * f * d + 4 * M * d, 2 * M * f * d,
-          FP32_FLOPS,
+          4 * M * f + 2 * used * f * d + 4 * M * d,
+          split_passes * 2 * M * f * d, BF16_FLOPS,
           lambda: grouped_mm_ms(torch, lambda: torch._grouped_mm(
               h_p, wo, offs=ends)),
-          {"lhs": list(h_p.shape), "w": list(wo.shape)})
-    # dh = dout @ wo^T, the transposed weight read by stride: the
-    # tensor-core design's work is its three bf16 products (the f32
-    # lhs's split terms) at the bf16 peak; "fma" times the replaced FMA
-    # kernel on the same inputs
-    split_passes = gmm.gmm_wgmma_plan(bm, f32)["passes"]
+          {"lhs": list(h_p.shape), "w": list(wo.shape),
+           "passes": split_passes},
+          fma=fma_launch(torch, gmm._lib(), "gmm_f32_bf16_f32",
+                         (h_p, wo, tg),
+                         torch.empty((mp, d), dtype=f32, device=dev),
+                         mp, f, d, d, bm))
+    # dh = dout @ wo^T, the transposed weight read by stride (K-major), the
+    # same design
     entry("gmm:f32.bf16T->f32",
           lambda: gmm.gmm_tiled(dout_p, wo_t, tg, **kw),
           lambda: gmm.gmm_tiled_plain(dout_p, wo_t, tg, **kw),
@@ -697,8 +746,8 @@ def grad_bf16_phase(torch, cfg, train_tokens: int):
     within 2e-2 * min(1, max|plain|) (the plain path rounds dh to bf16,
     the Function keeps it in f32, as the reference). The cotangent is
     scaled by GRAD_BF16_CT so every gradient stays below 2, where one bf16
-    ulp is under the tier. Every GLU and f32 x bf16^T launch must take the
-    tensor-core design."""
+    ulp is under the tier. Every GLU and gmm launch (f32 x bf16 and f32 x
+    bf16^T included) must take the tensor-core design."""
     from repro_torch import kernels
     from repro_torch.kernels import gmm, ops
     dev = torch.device("cuda")
@@ -747,13 +796,14 @@ def grad_bf16_phase(torch, cfg, train_tokens: int):
         res[name] = {"max_abs_err": err, "tol": tol,
                      "max_abs_plain": float(b.float().abs().max()),
                      "ok": ok and a.dtype == bf}
-    # GLU 1; gmm: down 1, g and u 2, dh 1, dx 2 on the tensor cores, the
-    # scaled variant's y on the f32 h (f32 x bf16) 1 on FMA; gmm_dw 3
+    # GLU 1; gmm: down 1, g and u 2, the scaled variant's y on the f32 h
+    # (f32 x bf16) 1, dh 1, dx 2, all on the tensor cores; gmm_dw 3
     designs_ok = (moved.get("gmm_glu:wgmma") == 1
                   and "gmm_glu:fma" not in moved
                   and moved.get("gmm:f32.bf16T->f32") == 3
-                  and moved.get("gmm:wgmma") == 6
-                  and moved.get("gmm:fma") == 1
+                  and moved.get("gmm:f32.bf16->f32") == 1
+                  and moved.get("gmm:wgmma") == 7
+                  and "gmm:fma" not in moved
                   and moved.get("gmm_dw:wgmma") == 3)
     return {"shapes": {"x": [M, d], "w": [E, d, f], "padded_rows": mp,
                        "dtype": "bfloat16", "ct_scale": GRAD_BF16_CT},
@@ -1119,8 +1169,8 @@ def c1_tiles_phase(torch):
     as the reference's capacity routing produces) against its plain
     version at a small packed shape: groups of 37, 0, 90, 73 and 5 rows,
     K 96, N 80; each call must launch its kernel once, the bf16 ones, f32
-    x bf16^T and gmm_dw on the tensor-core design. bf16 outputs at the
-    bf16 tier, f32 at 1e-4 * max|plain|."""
+    x bf16, f32 x bf16^T and gmm_dw on the tensor-core design. bf16
+    outputs at the bf16 tier, f32 at 1e-4 * max|plain|."""
     from repro_torch import kernels
     from repro_torch.kernels import gmm, ops
     dev = torch.device("cuda")
@@ -1166,8 +1216,8 @@ def c1_tiles_phase(torch):
             torch.cuda.synchronize()
             err, tol, ok = (compare if got.dtype == bf else compare_f32)(
                 got, want)
-            # K 96, N 80: gmm_dw, the bf16 GLU, the bf16 gmm and f32 x
-            # bf16^T take the tensor-core design
+            # K 96, N 80: gmm_dw, the bf16 GLU, the bf16 gmm, f32 x bf16
+            # and f32 x bf16^T take the tensor-core design
             ok = ok and (design == "wgmma" or not (
                 name.startswith("gmm_dw") or name == "gmm_glu:bf16"
                 or name in WGMMA_GMM))
@@ -1416,7 +1466,8 @@ def main() -> int:
 
     # -- each serve kernel against its plain version at the serve shapes ---
     cfg = registry.get_config("mixtral-w2")
-    entries = check_gmm_kernels(torch, cfg) + check_paged_kernel(torch, cfg)
+    paged_entry, paged_cases = check_paged_kernel(torch, cfg)
+    entries = check_gmm_kernels(torch, cfg) + [paged_entry]
     torch.cuda.empty_cache()
     parity = parity_f32(torch, serve_mod)
     gc.collect()
@@ -1469,15 +1520,15 @@ def main() -> int:
             "train_mamba2": mamba2_counts.get(c, 0)}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
-        f"{e['name']}@{e['shapes']['case']}" for e in flash_cases + ssd_cases
-        if not e["ok"]]
-    # the bf16 grouped GEMMs and GLU, f32 x bf16^T, gmm_dw, the bf16 flash
-    # kernels and the bf16 SSD scan run on the tensor cores
+        f"{e['name']}@{e['shapes']['case']}"
+        for e in flash_cases + ssd_cases + paged_cases if not e["ok"]]
+    # the bf16 grouped GEMMs and GLU, f32 x bf16 and f32 x bf16^T, gmm_dw,
+    # the bf16 flash kernels and the bf16 SSD scan run on the tensor cores
     bad += [f"{e['name']}@{e['shapes'].get('case', '')}: design "
             f"{e['design']}" for e in entries + flash_cases + ssd_cases
             if e["design"] != "wgmma" and (
                 e["name"].startswith(("gmm:bf16.bf16->", "gmm_dw:",
-                                      "gmm_glu", "gmm:f32.bf16T->"))
+                                      "gmm_glu", "gmm:f32.bf16"))
                 or (e["name"].startswith(("flash_", "ssd"))
                     and e["shapes"]["dtype"] == "bfloat16"))]
 
@@ -1505,6 +1556,7 @@ def main() -> int:
         "train_flash": flash_line, "train_mamba2": mamba2_line,
         "grad": grad, "grad_bf16": grad_bf16, "flash_grad": flash_grad,
         "flash_grad_bf16": flash_grad_bf16, "c1_tiles": c1_tiles,
+        "paged_cases": [paged_entry] + paged_cases,
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
@@ -1525,6 +1577,11 @@ def main() -> int:
     print("flash_grad: " + json.dumps(flash_grad), flush=True)
     print("flash_grad_bf16: " + json.dumps(flash_grad_bf16), flush=True)
     print("c1_tiles: " + json.dumps(c1_tiles), flush=True)
+    print("paged_cases: " + json.dumps(
+        [{k: e.get(k) for k in ("name", "design", "shapes", "max_abs_err",
+                                "tol", "ok", "ms", "host_ms", "plain_ms",
+                                "bound_ms", "bound_by")}
+         for e in [paged_entry] + paged_cases]), flush=True)
     print("flash_cases: " + json.dumps(
         [{k: e.get(k) for k in ("name", "design", "shapes", "errors", "ok",
                                 "ms", "host_ms", "fma_ms", "plain_ms",

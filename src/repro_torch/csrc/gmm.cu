@@ -21,7 +21,9 @@
 // (data gradients against the transposed weights), plus the fused GLU in
 // bf16 and f32. bf16 x bf16 -> bf16 / f32 (the forward's down projection
 // and the backward's recompute of g and u) runs on the tensor cores in
-// gmm_wgmma.cu. Only those combinations are exported below.
+// gmm_wgmma.cu, and so do f32 x bf16 and f32 x bf16^T where K and N are
+// multiples of 8 (gmm_f32_wgmma.cu): here they keep the other shapes. Only
+// those combinations are exported below.
 //
 // Design. One CUDA block per (m-tile, 64-column n-tile). The m-tile has
 // rows = min(64, the largest power of two dividing block_m) rows, so it

@@ -1,19 +1,21 @@
-// Grouped expert GEMM of an f32 lhs against a transposed bf16 weight on the
-// tensor cores, held to the f32 tier by an exact three-term bf16 split of
-// the lhs (sm_90a).
+// Grouped expert GEMM of an f32 lhs against a bf16 weight on the tensor
+// cores, held to the f32 tier by an exact three-term bf16 split of the lhs
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gmm.py:gmm_tiled
-// (_gmm_kernel, pallas_call at gmm.py:69) for the MoE backward's data
-// gradients (src/repro/kernels/ops.py:426-435; kernels/ops.py, _MoEFFN):
-//   dh = dout @ wo^T,  dx = dg @ wi_gate^T + du @ wi_up^T
-// i.e. out[m-tile] = lhs[m-tile] @ W[tile_group[m-tile]]^T, with lhs [Mp, K]
+// (_gmm_kernel, pallas_call at gmm.py:69) for the MoE backward's f32-lhs
+// products (src/repro/kernels/ops.py:419-435; kernels/ops.py, _MoEFFN):
+//   y = h @ wo (the router-scale gradient's recompute of the unscaled
+//   rows), dh = dout @ wo^T,  dx = dg @ wi_gate^T + du @ wi_up^T
+// i.e. out[m-tile] = lhs[m-tile] @ W[tile_group[m-tile]] with lhs [Mp, K]
 // f32 row-major (rows sorted by group, every group starting on a block_m
-// boundary, pad rows zero), W [G, N, K] bf16 row-major (the weight as it
-// lies: the caller's swapaxes(W, 1, 2) view, never copied), tile_group
-// [Mp / block_m] int32, out [Mp, N] f32. The reference widens both tiles to
-// f32 before its dot; csrc/gmm.cu (FMA) keeps K or N off the multiples of 8
-// and the other f32-operand types (the wrapper's route,
-// kernels/gmm.py:gmm_route).
+// boundary, pad rows zero), tile_group [Mp / block_m] int32, out [Mp, N]
+// f32, and the weight bf16 as it lies, in one of two layouts (a tag of the
+// kernel): WeightKN, [G, K, N] row-major (y's wo); WeightNK, [G, N, K]
+// row-major (the data gradients' swapaxes(W, 1, 2) view, never copied).
+// The reference widens both tiles to f32 before its dot; csrc/gmm.cu (FMA)
+// keeps K or N off the multiples of 8 and the f32 x f32 types (the
+// wrapper's route, kernels/gmm.py:gmm_route).
 //
 // Numerics. Each f32 lhs value x is split into three bf16 terms (sm90.cuh
 // split3: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)) whose
@@ -33,11 +35,14 @@
 //   * A ring of STAGES = 3 stages in shared memory, each one 64-deep
 //     k-slice: the f32 lhs slice [tile_m, 64] as two TMA boxes of 32 f32
 //     columns (128-byte rows, 128-byte swizzle) and the weight slice
-//     [BN rows of n, 64 k] bf16, one box of the 3D map over [G, N, K] at
-//     group coordinate g. The weight is K-major, wgmma's native B layout
-//     (no transpose flag). Full and empty barriers per stage as in
-//     gmm_wgmma.cu: 4 bytes of shared memory an lhs element, no split
-//     planes.
+//     [64 k, BN n] bf16 (32 KB in either layout) from a 3D map at group
+//     coordinate g. WeightNK: one box [BN rows of n, 64 k], K-major,
+//     wgmma's native B layout (no transpose flag). WeightKN: BN / 64 boxes
+//     [64 rows of k, 64 n], MN-major, read with the transpose flag as
+//     gmm_wgmma.cu reads the same weight (+2048 bytes per 16-deep k step,
+//     the 64-column chunks BK * 128 bytes apart). Full and empty barriers
+//     per stage as in gmm_wgmma.cu: 4 bytes of shared memory an lhs
+//     element, no split planes.
 //   * The A operand comes from registers (mma_rs): for each 16-deep k step
 //     a consumer thread reads its m64k16 fragment (four f32 pairs) from the
 //     swizzled slice, splits each pair into three bf16x2 words and issues
@@ -70,12 +75,16 @@ constexpr int BN = 256;     // output columns of a tile: rows of W
 constexpr int STAGES = 3;   // k-slices in flight
 constexpr int TERMS = 3;    // bf16 terms of an f32 lhs value
 
+// The weight's layout (see the note above); TRANS_B is wgmma's flag.
+struct WeightNK { static constexpr int TRANS_B = 0; };  // [G, N, K]
+struct WeightKN { static constexpr int TRANS_B = 1; };  // [G, K, N]
+
 template <int NWG>
 struct Tile {
   static constexpr int M = 64 * NWG;            // lhs rows in shared memory
   static constexpr int A_CHUNK = M * 128;       // [M, 32] f32
   static constexpr int A_BYTES = 2 * A_CHUNK;   // [M, 64] f32
-  static constexpr int B_BYTES = BN * BK * 2;   // [256, 64] bf16, K-major
+  static constexpr int B_BYTES = BN * BK * 2;   // 256 x 64 bf16
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int THREADS = 128 * NWG + 32;
 };
@@ -98,7 +107,7 @@ __device__ __forceinline__ int a_off(int r, int c, int chunk) {
 }
 
 // PART: a tile of tile_m < 64 rows (NWG = 1); else tile_m = 64 NWG.
-template <int NWG, bool PART>
+template <typename W, int NWG, bool PART>
 __global__ void __launch_bounds__(Tile<NWG>::THREADS, 1)
 gmm_f32_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map,
                      const __grid_constant__ CUtensorMap w_map,
@@ -137,7 +146,14 @@ gmm_f32_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map,
         mbar_expect_tx(full(s), 2 * tile_m * 128 + T::B_BYTES);
         tma_load_2d(a, &lhs_map, full(s), kt * BK, m0);
         tma_load_2d(a + T::A_CHUNK, &lhs_map, full(s), kt * BK + 32, m0);
-        tma_load_3d(b, &w_map, full(s), kt * BK, n0, g);
+        if constexpr (W::TRANS_B) {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_3d(b + j * BK * 128, &w_map, full(s), n0 + 64 * j,
+                        kt * BK, g);
+        } else {
+          tma_load_3d(b, &w_map, full(s), kt * BK, n0, g);
+        }
       }
     }
     return;
@@ -174,7 +190,9 @@ gmm_f32_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map,
       wgmma_fence();  // the fragment's registers are written before wgmma
 #pragma unroll
       for (int p = 0; p < TERMS; ++p)
-        mma_rs<0>(acc, f[p], desc_k(b + kk * 32));
+        mma_rs<W::TRANS_B>(acc, f[p],
+                           W::TRANS_B ? desc_mn(b + kk * 2048, BK * 128)
+                                      : desc_k(b + kk * 32));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -202,7 +220,7 @@ gmm_f32_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map,
   }
 }
 
-template <int NWG, bool PART>
+template <typename W, int NWG, bool PART>
 int launch(const void* lhs, const void* w, const void* tile_group, void* out,
            int Mp, int K, int N, int G, int block_m, int tile_m,
            int smem_bytes, void* stream) {
@@ -217,13 +235,16 @@ int launch(const void* lhs, const void* w, const void* tile_group, void* out,
   const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)Mp};
   const cuuint64_t a_strides[1] = {(cuuint64_t)K * 4};
   const cuuint32_t a_box[2] = {32, (cuuint32_t)tile_m};
-  const cuuint64_t w_dims[3] = {(cuuint64_t)K, (cuuint64_t)N, (cuuint64_t)G};
-  const cuuint64_t w_strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)N * K * 2};
-  const cuuint32_t w_box[3] = {BK, BN, 1};
+  // WeightKN: [G, K, N], boxes of 64 n x 64 k; WeightNK: [G, N, K], boxes
+  // of 64 k x BN n.
+  const cuuint64_t w_inner = W::TRANS_B ? N : K, w_outer = W::TRANS_B ? K : N;
+  const cuuint64_t w_dims[3] = {w_inner, w_outer, (cuuint64_t)G};
+  const cuuint64_t w_strides[2] = {w_inner * 2, (cuuint64_t)N * K * 2};
+  const cuuint32_t w_box[3] = {64, W::TRANS_B ? (cuuint32_t)BK : BN, 1};
   if (encode_f32(&lhs_map, lhs, 2, a_dims, a_strides, a_box) ||
       encode_bf16(&w_map, w, 3, w_dims, w_strides, w_box))
     return kEncodeFailed;
-  auto kernel = gmm_f32_wgmma_kernel<NWG, PART>;
+  auto kernel = gmm_f32_wgmma_kernel<W, NWG, PART>;
   static int opted = 0;  // the shared memory this kernel is opted into
   if (int e = set_smem(kernel, smem_bytes, opted)) return e;
   dim3 grid((N + BN - 1) / BN, Mp / tile_m);
@@ -231,6 +252,22 @@ int launch(const void* lhs, const void* w, const void* tile_group, void* out,
       lhs_map, w_map, (const int*)tile_group, (float*)out, K, N, block_m,
       tile_m);
   return (int)cudaGetLastError();
+}
+
+template <typename W>
+int dispatch(const void* lhs, const void* w, const void* tile_group,
+             void* out, int Mp, int K, int N, int G, int block_m, int tile_m,
+             int smem_bytes, void* stream) {
+  if (tile_m == 128)
+    return launch<W, 2, false>(lhs, w, tile_group, out, Mp, K, N, G,
+                               block_m, tile_m, smem_bytes, stream);
+  if (tile_m == 64)
+    return launch<W, 1, false>(lhs, w, tile_group, out, Mp, K, N, G,
+                               block_m, tile_m, smem_bytes, stream);
+  if (tile_m == 32 || tile_m == 16 || tile_m == 8)
+    return launch<W, 1, true>(lhs, w, tile_group, out, Mp, K, N, G, block_m,
+                              tile_m, smem_bytes, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -246,16 +283,18 @@ int gmm_t_f32_bf16_f32(const void* lhs, const void* w,
                        const void* tile_group, void* out, int Mp, int K,
                        int N, int G, int block_m, int tile_m, int smem_bytes,
                        void* stream) {
-  if (tile_m == 128)
-    return launch<2, false>(lhs, w, tile_group, out, Mp, K, N, G, block_m,
+  return dispatch<WeightNK>(lhs, w, tile_group, out, Mp, K, N, G, block_m,
                             tile_m, smem_bytes, stream);
-  if (tile_m == 64)
-    return launch<1, false>(lhs, w, tile_group, out, Mp, K, N, G, block_m,
+}
+
+// The same with W [G, K, N] bf16 row-major: out = lhs @ W[g] per m-tile
+// (csrc/gmm.cu's FMA entry of these operand types is gmm_f32_bf16_f32).
+int gmm_f32_bf16_f32_wgmma(const void* lhs, const void* w,
+                           const void* tile_group, void* out, int Mp, int K,
+                           int N, int G, int block_m, int tile_m,
+                           int smem_bytes, void* stream) {
+  return dispatch<WeightKN>(lhs, w, tile_group, out, Mp, K, N, G, block_m,
                             tile_m, smem_bytes, stream);
-  if (tile_m == 32 || tile_m == 16 || tile_m == 8)
-    return launch<1, true>(lhs, w, tile_group, out, Mp, K, N, G, block_m,
-                           tile_m, smem_bytes, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -11,9 +11,10 @@ raises. Output dtype = ``out_dtype`` or the lhs dtype, as in the JAX
 package. Kernels (tensor cores unless named FMA): ``csrc/gmm_wgmma.cu``
 for ``gmm_tiled`` on bf16 operands and the bf16 fused GLU,
 ``csrc/gmm_f32_wgmma.cu`` (an exact three-term bf16 split of the f32 lhs)
-for ``gmm_tiled`` of an f32 lhs against a transposed bf16 weight,
-``csrc/gmm.cu`` (FMA) for the other f32-operand types, the f32 GLU and
-shapes off the multiples of 8 (:func:`gmm_route`, :func:`gmm_glu_route`);
+for ``gmm_tiled`` of an f32 lhs against a bf16 weight (row-major or
+transposed), ``csrc/gmm.cu`` (FMA) for the f32 x f32 types, the f32 GLU
+and shapes off the multiples of 8 (:func:`gmm_route`,
+:func:`gmm_glu_route`);
 ``csrc/gmm_dw_wgmma.cu`` (the same split of the f32 operands) for the
 weight gradient, ``csrc/gmm_dw.cu`` (FMA) for the shapes it does not take
 (:func:`gmm_dw_route`).
@@ -41,14 +42,15 @@ _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # (lhs, rhs, out, rhs transposed) combinations of gmm_tiled with a kernel:
 # the forward, and the MoE FFN backward's uses (ops.py:414-437). bf16
 # operands run on the tensor cores (csrc/gmm_wgmma.cu), and so does the f32
-# lhs against a transposed bf16 weight (csrc/gmm_f32_wgmma.cu) where K and N
-# are multiples of 8; the rest on the FMA kernel (csrc/gmm.cu).
+# lhs against a bf16 weight, row-major (y = h @ wo) or transposed (dh, dx),
+# through csrc/gmm_f32_wgmma.cu where K and N are multiples of 8; the rest
+# on the FMA kernel (csrc/gmm.cu).
 _BF16_VARIANTS = (("bf16", "bf16", "bf16", False),
                   ("bf16", "bf16", "f32", False))
-_SPLIT_VARIANT = ("f32", "bf16", "f32", True)
-_GMM_VARIANTS = _BF16_VARIANTS + (
-    ("f32", "f32", "f32", False), ("f32", "bf16", "f32", False),
-    _SPLIT_VARIANT, ("f32", "f32", "f32", True))
+_SPLIT_VARIANTS = (("f32", "bf16", "f32", False),
+                   ("f32", "bf16", "f32", True))
+_GMM_VARIANTS = _BF16_VARIANTS + _SPLIT_VARIANTS + (
+    ("f32", "f32", "f32", False), ("f32", "f32", "f32", True))
 VARIANT_LAUNCHES = {}
 DESIGN_LAUNCHES = {f"{k}:{d}": 0 for k in ("gmm", "gmm_glu", "gmm_dw")
                    for d in ("wgmma", "fma")}
@@ -126,8 +128,10 @@ def _wgmma_lib() -> ctypes.CDLL:
 def _f32_wgmma_lib() -> ctypes.CDLL:
     lib = _build.load("gmm_f32_wgmma")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gmm_t_f32_bf16_f32.argtypes = [p, p, p, p] + [i] * 7 + [p]
-    lib.gmm_t_f32_bf16_f32.restype = i
+    for name in ("gmm_t_f32_bf16_f32", "gmm_f32_bf16_f32_wgmma"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        fn.restype = i
     return lib
 
 
@@ -226,10 +230,10 @@ def gmm_route(lhs_dtype, rhs_dtype, out_dtype, trans: bool, K: int, N: int,
               block_m: int) -> str:
     """The design that runs :func:`gmm_tiled` on CUDA tensors: ``"wgmma"``
     (tensor cores) for bf16 x bf16 (row-major rhs) -> bf16 or f32
-    (csrc/gmm_wgmma.cu) and for f32 x transposed bf16 -> f32 where K and N
-    are multiples of 8 (csrc/gmm_f32_wgmma.cu); ``"fma"`` (csrc/gmm.cu) for
-    f32 x f32, f32 x bf16 (row-major), f32 x transposed f32, and f32 x
-    transposed bf16 at any other K or N (-> f32). Raises TypeError for
+    (csrc/gmm_wgmma.cu) and for f32 x bf16 (row-major or transposed) -> f32
+    where K and N are multiples of 8 (csrc/gmm_f32_wgmma.cu); ``"fma"``
+    (csrc/gmm.cu) for f32 x f32 (row-major or transposed), and f32 x bf16
+    at any other K or N (-> f32). Raises TypeError for
     operand types with no kernel, and ValueError for a block_m that is not
     a positive multiple of 8 (any kernel) or for bf16 operands where K or N
     is not a multiple of 8 (TMA reads rows whose byte strides are multiples
@@ -247,7 +251,7 @@ def gmm_route(lhs_dtype, rhs_dtype, out_dtype, trans: bool, K: int, N: int,
                              f"N % 8 == 0 (TMA's 16-byte strides), got K={K}"
                              f" N={N}")
         return "wgmma"
-    return "wgmma" if variant == _SPLIT_VARIANT and aligned else "fma"
+    return "wgmma" if variant in _SPLIT_VARIANTS and aligned else "fma"
 
 
 def gmm_wgmma_plan(block_m: int, lhs_dtype=torch.bfloat16) -> dict:
@@ -285,16 +289,19 @@ def _aligned16(name: str, *tensors):
 
 def _gmm_wgmma(lhs, rhs, tile_group, block_m: int, out_dtype, trans: bool):
     """Launch a tensor-core kernel on lhs [Mp, K] and rhs [G, K, N]: bf16
-    lhs and row-major rhs (csrc/gmm_wgmma.cu), or f32 lhs and the
-    transposed view of a row-major bf16 [G, N, K] weight, passed as that
-    weight (csrc/gmm_f32_wgmma.cu)."""
+    lhs and row-major rhs (csrc/gmm_wgmma.cu), or f32 lhs and a bf16 rhs
+    (csrc/gmm_f32_wgmma.cu), row-major or the transposed view of a
+    row-major [G, N, K] weight, passed as that weight."""
     Mp, K = lhs.shape
     G, _, N = rhs.shape
     plan = gmm_wgmma_plan(block_m, lhs.dtype)
     out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
     _aligned16("gmm", lhs, rhs, out)
-    fn = (_f32_wgmma_lib().gmm_t_f32_bf16_f32 if trans else
-          getattr(_wgmma_lib(), f"gmm_wgmma_{_DTYPES[out_dtype]}"))
+    if lhs.dtype == torch.float32:
+        lib = _f32_wgmma_lib()
+        fn = lib.gmm_t_f32_bf16_f32 if trans else lib.gmm_f32_bf16_f32_wgmma
+    else:
+        fn = getattr(_wgmma_lib(), f"gmm_wgmma_{_DTYPES[out_dtype]}")
     err = fn(lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
              out.data_ptr(), Mp, K, N, G, block_m, plan["tile_m"],
              plan["smem_bytes"],

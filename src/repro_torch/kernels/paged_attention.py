@@ -8,10 +8,15 @@ the pages named by ``page_table[b]``. Key positions are structural (line
 of recycled pages sit past the owner's causal frontier and are never
 attended (DESIGN.md §9.2).
 
-:func:`paged_decode_forward` launches the CUDA kernel of
+:func:`paged_decode_forward` launches the CUDA kernels of
 ``csrc/paged_attention.cu`` for CUDA tensors and runs
-:func:`paged_decode_plain` for CPU tensors; on any other device, or when a
-build or launch fails, it raises. ``LAUNCHES`` counts kernel launches.
+:func:`paged_decode_plain` for CPU tensors; on any other device, for a
+shape the kernel does not take, or when a build or launch fails, it
+raises. The kernel splits each slot's page walk across blocks
+(:func:`paged_decode_plan`: splits of ``pages_per_split`` table slots,
+each block writing an f32 partial softmax state) and a second kernel
+combines the splits in order, so reruns are bit-identical. ``LAUNCHES``
+counts wrapper calls that launched (one C call launches both kernels).
 """
 
 from __future__ import annotations
@@ -25,6 +30,14 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"paged_decode": 0}
 
+# Constants of csrc/paged_attention.cu: key lines a block scores at a time
+# and the tiles in flight (by element size).
+DECODE_TILE = 32
+DECODE_STAGES = {2: 3, 4: 2}
+# Blocks the split aims at per SM (the split kernel's grid covers the card
+# about this many times over).
+DECODE_BLOCKS_PER_SM = 2
+
 _NEG = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -35,9 +48,32 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for dt in _DTYPES.values():
         fn = getattr(lib, f"paged_decode_{dt}")
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [f, f, i, p]
         fn.restype = i
     return lib
+
+
+def paged_decode_plan(B: int, KH: int, G: int, hd: int, MP: int,
+                      elem_bytes: int, n_sm: int) -> dict:
+    """Grid and shared memory of one kernel call: the (B * KH) x splits
+    grid aims at DECODE_BLOCKS_PER_SM blocks per SM, each split a run of
+    ``pages_per_split`` >= 1 table slots (splits = ceil(MP /
+    pages_per_split); one split when MP = 0). Shared memory: q in f32, the
+    ring of K and V tiles of DECODE_TILE lines in the input type, the
+    tile's probabilities and rescale factors; ``scratch_floats``: the f32
+    partials (acc [G, hd], m, l) of every block."""
+    want = -(-DECODE_BLOCKS_PER_SM * n_sm // (B * KH))
+    per = max(1, -(-MP // want))
+    splits = max(1, -(-MP // per))
+    ring = DECODE_STAGES[elem_bytes] * 2 * DECODE_TILE * hd * elem_bytes
+    smem = -(-G * hd * 4 // 16) * 16 + ring + G * DECODE_TILE * 4 + G * 4
+    return {"splits": splits, "pages_per_split": per, "smem_bytes": smem,
+            "scratch_floats": B * KH * splits * G * (hd + 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_decode_plain(q, k_pool, v_pool, page_table, q_pos, *, scale,
@@ -99,11 +135,19 @@ def paged_decode_forward(q, k_pool, v_pool, page_table, q_pos, *, scale,
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("paged decode takes contiguous tensors")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged decode needs 16-byte aligned pools")
+    plan = paged_decode_plan(B, KH, G, hd, MP, q.element_size(),
+                             _sm_count(q.device.index or 0))
+    part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     fn = getattr(_lib(), f"paged_decode_{_DTYPES[q.dtype]}")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-             B, KH, G, hd, ps, MP, float(scale), float(softcap), int(window),
+             page_table.data_ptr(), q_pos.data_ptr(), part.data_ptr(),
+             out.data_ptr(), B, KH, G, hd, ps, MP, plan["splits"],
+             plan["pages_per_split"], plan["smem_bytes"], float(scale),
+             float(softcap), int(window),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {err}")

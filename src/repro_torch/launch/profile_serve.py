@@ -42,11 +42,15 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
         "gmm_kernel<float, float, float, true")),
     ("gmm_glu wgmma (port)", ("gmm_glu_wgmma_kernel",)),  # bf16 GLU
     ("gmm wgmma (port)", ("gmm_wgmma_kernel",)),  # bf16 operands
-    ("gmm f32 wgmma (port)", ("gmm_f32_wgmma_kernel",)),  # f32 x bf16^T
+    # f32 x bf16 by the weight's layout (the kernel's tag): the row-major
+    # wo of y = h @ wo, and the transposed weights of dh and dx
+    ("gmm f32 wgmma, W [G,K,N] (port)", ("WeightKN",)),
+    ("gmm f32 wgmma, W^T (port)", ("WeightNK",)),
     ("gmm (port)", ("gmm_kernel<",)),
     ("gmm_dw wgmma (port)", ("gmm_dw_wgmma_kernel",)),  # 3-term bf16 split
     ("gmm_dw (port)", ("gmm_dw_kernel",)),
-    ("paged_decode (port)", ("paged_decode_kernel",)),
+    ("paged_decode split (port)", ("paged_decode_split_kernel",)),
+    ("paged_decode combine (port)", ("paged_decode_combine_kernel",)),
     ("flash (port)", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",
                       "flash_dq_kernel", "flash_dkv_kernel")),
     ("ssd (port)", ("ssd_scan_kernel",  # FMA; then the wgmma design's 3

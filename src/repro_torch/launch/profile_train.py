@@ -9,8 +9,9 @@ reports, as ``launch/profile_serve.py`` does for serving:
 * host wall time of the profiled steps, and the device's busy and idle
   share of it;
 * device time by kernel family (the port's CUDA kernels by name: the
-  grouped GEMMs, flash attention, the SSD scan; library GEMMs;
-  elementwise, indexing and reduction kernels; the rest);
+  grouped GEMMs, the f32-lhs one split by its weight's layout, flash
+  attention, the SSD scan; library GEMMs; elementwise, indexing and
+  reduction kernels; the rest);
 * per phase: calls, host time and the device time of its kernels;
 * the kernels with the most device time, by name;
 * the device time of the SSD scan's backward (the ``_SSD`` Function's

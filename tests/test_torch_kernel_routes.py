@@ -8,7 +8,9 @@ alignment: ``"wgmma"`` for the tensor-core kernels, ``"fma"`` for the
 others, or an error), and the tensor-core kernels' shared-memory plans are
 computed in Python and passed to the launch (``gmm.gmm_wgmma_plan``,
 ``gmm.gmm_dw_wgmma_plan``, ``flash_attention.flash_wgmma_plan`` and
-``flash_bwd_wgmma_plan``, ``ssd.ssd_wgmma_plan``). Both
+``flash_bwd_wgmma_plan``, ``ssd.ssd_wgmma_plan``; the paged decode's split
+of the page walk across blocks, ``paged_attention.paged_decode_plan``).
+Both
 are held here to what the CUDA sources build: every plan fits in a block's
 227 KB, every grouped kernel takes a block_m that is a multiple of 8 (the
 reference's capacity routing), and a bf16 call the tensor-core kernel
@@ -16,7 +18,7 @@ cannot take raises instead of falling
 back. The grouped GEMM wrappers' launches are also driven here against a
 stand-in for the card (:func:`fake_card`: the libraries' entry points
 recorded, not run), which shows which entry each call reaches and which
-design counter it moves.
+design counter it moves; the paged decode wrapper's launch too.
 """
 
 import types
@@ -28,10 +30,12 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ssd
 
 BF, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 HOPPER_SMEM = 227 * 1024  # bytes of shared memory one block can use
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("out", [BF, F32])
@@ -52,8 +56,8 @@ _F32_FMA_SHAPES = [(2048, 7168, 128), (60, 36, 64), (60, 36, 8),
     for lhs, rhs, trans in [(F32, F32, False), (F32, BF, False),
                             (F32, BF, True), (F32, F32, True)]
     for shape in _F32_FMA_SHAPES
-    # K and N multiples of 8: f32 x bf16^T takes the tensor cores (below)
-    if not ((lhs, rhs, trans) == (F32, BF, True) and shape[0] % 8 == 0)])
+    # K and N multiples of 8: f32 x bf16 takes the tensor cores (below)
+    if not (rhs == BF and shape[0] % 8 == 0 and shape[1] % 8 == 0)])
 def test_gmm_route_f32_operands_take_fma(lhs, rhs, trans, K, N, block_m):
     # the FMA kernel masks any K and N itself, and rows past a small tile
     assert gmm.gmm_route(lhs, rhs, F32, trans, K, N, block_m) == "fma"
@@ -72,6 +76,24 @@ def test_gmm_route_f32_lhs_transposed_bf16_takes_tensor_cores(K, N, block_m):
                                          (2044, 7168, 8), (2048, 7172, 16)])
 def test_gmm_route_f32_lhs_transposed_bf16_ragged_takes_fma(K, N, block_m):
     assert gmm.gmm_route(F32, BF, F32, True, K, N, block_m) == "fma"
+
+
+@pytest.mark.parametrize("K,N,block_m", [
+    (7168, 2048, 128),                     # y = h @ wo at the W1 shapes
+    (2048, 7168, 128), (96, 80, 200), (96, 80, 8), (8, 8, 16),
+    (200, 72, 32)])
+def test_gmm_route_f32_lhs_bf16_takes_tensor_cores(K, N, block_m):
+    """The router-scale gradient's recompute y = h @ wo (f32 h, the bf16
+    weight row-major as it lies): csrc/gmm_f32_wgmma.cu, the weight read
+    MN-major, where K and N are multiples of 8."""
+    assert gmm.gmm_route(F32, BF, F32, False, K, N, block_m) == "wgmma"
+
+
+@pytest.mark.parametrize("K,N,block_m", [(100, 80, 128), (96, 36, 128),
+                                         (7172, 2048, 8), (7168, 2044, 16),
+                                         (60, 36, 64)])
+def test_gmm_route_f32_lhs_bf16_ragged_takes_fma(K, N, block_m):
+    assert gmm.gmm_route(F32, BF, F32, False, K, N, block_m) == "fma"
 
 
 @pytest.mark.parametrize("lhs,rhs,out,trans", [(F32, F32, F32, False),
@@ -163,13 +185,15 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
-    for fn in _LIBS:
-        getattr(gmm, fn).cache_clear()
+    monkeypatch.setattr(pa, "_sm_count", lambda index: H100_SMS)
+    caches = [getattr(gmm, fn) for fn in _LIBS] + [pa._lib]
+    for fn in caches:
+        fn.cache_clear()
     kernels.reset_launch_counts()
     yield calls
     kernels.reset_launch_counts()
-    for fn in _LIBS:   # no recorder outlives the test
-        getattr(gmm, fn).cache_clear()
+    for fn in caches:   # no recorder outlives the test
+        fn.cache_clear()
 
 
 def _operands(M, K, N, lhs, rhs, trans, block_m=64, G=2):
@@ -188,14 +212,17 @@ def test_gmm_design_counts_follow_the_variant_counts(fake_card):
             (3, (BF, BF, F32, False, 96, 80)),
             (5, (F32, BF, F32, True, 96, 80)),    # tensor cores
             (1, (F32, BF, F32, True, 60, 80)),    # ragged K: FMA
-            (4, (F32, F32, F32, True, 96, 80))):
+            (4, (F32, F32, F32, True, 96, 80)),
+            (2, (F32, BF, F32, False, 96, 80)),   # tensor cores
+            (3, (F32, BF, F32, False, 96, 36))):  # ragged N: FMA
         for _ in range(n):
             a, w, tg = _operands(128, K, N, lhs, rhs, trans)
             gmm.gmm_tiled(a, w, tg, block_m=64, out_dtype=out)
     variants = kernels.variant_launch_counts()
     designs = kernels.design_launch_counts()
     assert variants["gmm:f32.bf16T->f32"] == 6
-    assert designs["gmm:wgmma"] == 10 and designs["gmm:fma"] == 5
+    assert variants["gmm:f32.bf16->f32"] == 5
+    assert designs["gmm:wgmma"] == 12 and designs["gmm:fma"] == 8
     assert sum(v for k, v in variants.items() if k.startswith("gmm:")) \
         == designs["gmm:wgmma"] + designs["gmm:fma"] \
         == kernels.launch_counts()["gmm"]
@@ -203,7 +230,9 @@ def test_gmm_design_counts_follow_the_variant_counts(fake_card):
         [("gmm_wgmma", "gmm_wgmma_bf16")] * 2
         + [("gmm_wgmma", "gmm_wgmma_f32")] * 3
         + [("gmm_f32_wgmma", "gmm_t_f32_bf16_f32")] * 5
-        + [("gmm", "gmm_t_f32_bf16_f32")] + [("gmm", "gmm_t_f32_f32_f32")] * 4)
+        + [("gmm", "gmm_t_f32_bf16_f32")] + [("gmm", "gmm_t_f32_f32_f32")] * 4
+        + [("gmm_f32_wgmma", "gmm_f32_bf16_f32_wgmma")] * 2
+        + [("gmm", "gmm_f32_bf16_f32")] * 3)
 
 
 def test_gmm_tiled_split_launch_takes_the_weight_as_it_lies(fake_card):
@@ -217,6 +246,26 @@ def test_gmm_tiled_split_launch_takes_the_weight_as_it_lies(fake_card):
     (lib, entry, ints), = fake_card
     assert (lib, entry) == ("gmm_f32_wgmma", "gmm_t_f32_bf16_f32")
     assert ints == (256, 2048, 7168, 3, 128, 128, plan["smem_bytes"], 0)
+
+
+@pytest.mark.parametrize("block_m,tile_m", [(128, 128), (8, 8), (32, 32)])
+def test_gmm_tiled_f32_row_major_bf16_launch(fake_card, block_m, tile_m):
+    """f32 h x the row-major bf16 wo [G, K, N] (y = h @ wo): the
+    tensor-core entry of that layout gets wo's own pointer, (Mp, K, N, G,
+    block_m) and the f32 plan's tile and shared memory; the output is
+    [Mp, N] f32, counted as gmm:f32.bf16->f32 on gmm:wgmma."""
+    a, w, tg = _operands(256, 7168, 2048, F32, BF, False, block_m=block_m,
+                         G=3)
+    out = gmm.gmm_tiled(a, w, tg, block_m=block_m, out_dtype=F32)
+    assert out.shape == (256, 2048) and out.dtype == F32
+    plan = gmm.gmm_wgmma_plan(block_m, F32)
+    assert plan["tile_m"] == tile_m
+    (lib, entry, ints), = fake_card
+    assert (lib, entry) == ("gmm_f32_wgmma", "gmm_f32_bf16_f32_wgmma")
+    assert ints == (256, 7168, 2048, 3, block_m, tile_m, plan["smem_bytes"],
+                    0)
+    assert kernels.variant_launch_counts()["gmm:f32.bf16->f32"] == 1
+    assert kernels.design_launch_counts()["gmm:wgmma"] == 1
 
 
 @pytest.mark.parametrize("stacked", [False, True])
@@ -256,11 +305,11 @@ def test_gmm_glu_launch_by_design(fake_card, stacked, dtype, K, N, design):
     assert designs["gmm_glu:wgmma"] + designs["gmm_glu:fma"] == 1
 
 
-@pytest.mark.parametrize("call", ["glu", "split", "bf16"])
+@pytest.mark.parametrize("call", ["glu", "split", "bf16", "split_row_major"])
 def test_tensor_core_gmm_refuses_misaligned_tensors(fake_card, call):
     """A tensor that is not 16-byte aligned raises on the tensor-core
     routes; nothing falls back to the FMA kernel."""
-    dtype = F32 if call == "split" else BF
+    dtype = F32 if call.startswith("split") else BF
     flat = torch.zeros(128 * 96 + 2, dtype=dtype)
     lhs = flat[2:].view(128, 96)                   # 4 or 8 bytes off
     tg = torch.zeros(2, dtype=torch.int32)
@@ -398,6 +447,89 @@ def test_gmm_dw_wgmma_plan_fits(lhs, planes, passes, block_m):
 def test_gmm_dw_wgmma_plan_refusals(lhs, block_m):
     with pytest.raises(ValueError, match="block_m % 8"):
         gmm.gmm_dw_wgmma_plan(block_m, lhs)
+
+
+def _paged_operands(B, KH, G, hd, ps, MP, dtype=BF):
+    q = torch.zeros((B, KH, G, hd), dtype=dtype)
+    pool = torch.zeros((B * MP + 1, ps, KH, hd), dtype=dtype)
+    table = torch.zeros((B, MP), dtype=torch.int32)
+    return q, pool, pool.clone(), table, torch.zeros(B, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("B,KH,MP,splits,per", [
+    (4, 4, 26, 13, 2),      # the serve run's decode: 16 x 13 blocks
+    (4, 4, 256, 16, 16),    # 4096 positions a slot: 16 x 16 blocks
+    (4, 4, 1, 1, 1),        # one page: one split
+    (2, 1, 40, 40, 1),      # few (slot, head) pairs: a page a split
+    (64, 8, 26, 1, 26),     # 512 (slot, head) pairs cover the card
+    (3, 2, 0, 1, 1),        # an empty table: one split, no live line
+])
+def test_paged_decode_plan_splits_the_walk(B, KH, MP, splits, per):
+    """The page walk of each (slot, KV head) is cut into splits of
+    ``pages_per_split`` >= 1 table slots so the grid aims at
+    DECODE_BLOCKS_PER_SM blocks per SM (as many splits as that allows);
+    every table slot is in exactly one split."""
+    plan = pa.paged_decode_plan(B, KH, 4, 128, MP, 2, H100_SMS)
+    assert (plan["splits"], plan["pages_per_split"]) == (splits, per)
+    assert per >= 1 and splits * per >= MP > (splits - 1) * per or MP == 0
+    # the fewest pages a split that keeps the grid within the target: one
+    # page fewer would make more splits than it wants
+    want = -(-pa.DECODE_BLOCKS_PER_SM * H100_SMS // (B * KH))
+    assert splits <= want and (per == 1 or -(-MP // (per - 1)) > want)
+    assert plan["scratch_floats"] == B * KH * splits * 4 * (128 + 2)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("G,hd", [(1, 32), (4, 128), (8, 64), (32, 256)])
+def test_paged_decode_plan_shared_memory_fits(elem, G, hd):
+    """q in f32, DECODE_STAGES[elem] K and V tiles of DECODE_TILE lines in
+    the input type, the tile's probabilities and rescale factors: within a
+    block's 227 KB at every shape the kernel takes."""
+    plan = pa.paged_decode_plan(4, 4, G, hd, 26, elem, H100_SMS)
+    ring = pa.DECODE_STAGES[elem] * 2 * pa.DECODE_TILE * hd * elem
+    assert plan["smem_bytes"] == (-(-G * hd * 4 // 16) * 16 + ring
+                                  + G * pa.DECODE_TILE * 4 + G * 4)
+    assert plan["smem_bytes"] <= HOPPER_SMEM == _build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_paged_decode_launch(fake_card, dtype):
+    """One wrapper call: one C entry (it launches the split and the combine
+    kernels), given the plan's splits, pages per split and shared memory,
+    the window and the stream; an f32 scratch of the partials; one count in
+    LAUNCHES."""
+    B, KH, G, hd, ps, MP = 4, 4, 4, 128, 16, 26
+    args = _paged_operands(B, KH, G, hd, ps, MP, dtype)
+    out = pa.paged_decode_forward(*args, scale=hd ** -0.5, window=100)
+    assert out.shape == (B, KH, G, hd) and out.dtype == dtype
+    plan = pa.paged_decode_plan(B, KH, G, hd, MP, args[0].element_size(),
+                                H100_SMS)
+    (lib, entry, ints), = fake_card
+    assert (lib, entry) == ("paged_attention",
+                            f"paged_decode_{pa._DTYPES[dtype]}")
+    assert ints == (B, KH, G, hd, ps, MP, plan["splits"],
+                    plan["pages_per_split"], plan["smem_bytes"], 100, 0)
+    assert kernels.launch_counts()["paged_decode"] == 1
+
+
+@pytest.mark.parametrize("B,KH,G,hd,ps,MP,why", [
+    (2, 2, 4, 48, 16, 4, "head_dim"), (2, 2, 4, 288, 16, 4, "head_dim"),
+    (2, 2, 4, 64, 256, 4, "page_size"), (2, 2, 64, 64, 16, 4, "G <= 32")])
+def test_paged_decode_refuses_shapes_without_kernel(fake_card, B, KH, G, hd,
+                                                    ps, MP, why):
+    with pytest.raises(ValueError, match=why):
+        pa.paged_decode_forward(*_paged_operands(B, KH, G, hd, ps, MP),
+                                scale=0.125)
+    assert fake_card == [] and kernels.launch_counts()["paged_decode"] == 0
+
+
+def test_paged_decode_refuses_misaligned_pools(fake_card):
+    q, kp, vp, table, q_pos = _paged_operands(2, 2, 4, 64, 16, 4)
+    flat = torch.zeros(kp.numel() + 4, dtype=BF)
+    shifted = flat[4:].view(kp.shape)                 # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_decode_forward(q, kp, shifted, table, q_pos, scale=0.125)
+    assert fake_card == [] and kernels.launch_counts()["paged_decode"] == 0
 
 
 def test_gmm_tiled_on_cpu_takes_any_shape():

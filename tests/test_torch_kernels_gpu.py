@@ -298,26 +298,35 @@ def test_gmm_glu_wgmma_matches_plain(cuda, stacked, sizes, K, N, block_m):
     assert torch.equal(other, got)
 
 
+@pytest.mark.parametrize("trans", [True, False])
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("sizes,K,N,block_m", _ROW_TILE_CASES)
-def test_gmm_f32_wgmma_matches_plain(cuda, wide, sizes, K, N, block_m):
-    """f32 lhs x swapaxes of a bf16 [G, N, K] weight -> f32 on the tensor
-    cores (the three-term split, gmm:wgmma), within 1e-4 * max|plain|, at
-    lhs magnitudes 2^-20 .. 2^20 too; pad rows zero, reruns
-    bit-identical."""
+def test_gmm_f32_wgmma_matches_plain(cuda, wide, sizes, K, N, block_m,
+                                     trans):
+    """f32 lhs x a bf16 weight -> f32 on the tensor cores (the three-term
+    split, gmm:wgmma), the weight as it lies: swapaxes of a [G, N, K]
+    weight (trans, read K-major) or a row-major [G, K, N] one (read
+    MN-major); within 1e-4 * max|plain|, at lhs magnitudes 2^-20 .. 2^20
+    too; pad rows zero, reruns bit-identical."""
     lhs, _, _, tg = _packed(sizes, K, N, torch.float32, cuda, block_m)
     if wide:
         lhs = _wide(lhs, 4)
-    _, w, _, _ = _packed(sizes, N, K, torch.bfloat16, cuda, block_m, seed=1)
-    w_t = w.transpose(1, 2)                   # [G, K, N] view of [G, N, K]
-    assert gmm.gmm_route(lhs.dtype, w.dtype, torch.float32, True, K, N,
+    if trans:
+        _, w, _, _ = _packed(sizes, N, K, torch.bfloat16, cuda, block_m,
+                             seed=1)
+        w_t = w.transpose(1, 2)               # [G, K, N] view of [G, N, K]
+    else:
+        _, w_t, _, _ = _packed(sizes, K, N, torch.bfloat16, cuda, block_m,
+                               seed=1)
+    assert gmm.gmm_route(lhs.dtype, w_t.dtype, torch.float32, trans, K, N,
                          block_m) == "wgmma"
     kernels.reset_launch_counts()
     got = gmm.gmm_tiled(lhs, w_t, tg, block_m=block_m,
                         out_dtype=torch.float32)
     designs = kernels.design_launch_counts()
     assert designs["gmm:wgmma"] == 1 and designs["gmm:fma"] == 0
-    assert kernels.variant_launch_counts()["gmm:f32.bf16T->f32"] == 1
+    variant = "gmm:f32.bf16T->f32" if trans else "gmm:f32.bf16->f32"
+    assert kernels.variant_launch_counts()[variant] == 1
     want = gmm.gmm_tiled_plain(lhs, w_t, tg, block_m=block_m,
                                out_dtype=torch.float32)
     assert got.dtype == torch.float32 and got.shape == want.shape
@@ -335,9 +344,9 @@ def test_gmm_f32_wgmma_matches_plain(cuda, wide, sizes, K, N, block_m):
 ])
 def test_glu_and_split_gmm_ragged_shapes_take_fma(cuda, sizes, K, N,
                                                   block_m):
-    """K or N off the multiples of 8: the bf16 GLU and f32 x bf16^T run on
-    the FMA kernel (csrc/gmm.cu; the design counters say so) at the same
-    tiers."""
+    """K or N off the multiples of 8: the bf16 GLU, f32 x bf16^T and f32 x
+    bf16 run on the FMA kernel (csrc/gmm.cu; the design counters say so)
+    at the same tiers."""
     lhs, wg, wu, tg = _packed(sizes, K, N, torch.bfloat16, cuda, block_m)
     kernels.reset_launch_counts()
     got = gmm.gmm_glu_tiled_pair(lhs, wg, wu, tg, block_m=block_m)
@@ -348,14 +357,19 @@ def test_glu_and_split_gmm_ragged_shapes_take_fma(cuda, sizes, K, N,
                         out_dtype=torch.float32)
     _gmm_close(got, gmm.gmm_tiled_plain(lhs32, w_t, tg, block_m=block_m,
                                         out_dtype=torch.float32))
+    got = gmm.gmm_tiled(lhs32, wg, tg, block_m=block_m,
+                        out_dtype=torch.float32)
+    _gmm_close(got, gmm.gmm_tiled_plain(lhs32, wg, tg, block_m=block_m,
+                                        out_dtype=torch.float32))
     designs = kernels.design_launch_counts()
     assert designs["gmm_glu:fma"] == 1 and designs["gmm_glu:wgmma"] == 0
-    assert designs["gmm:fma"] == 1 and designs["gmm:wgmma"] == 0
+    assert designs["gmm:fma"] == 2 and designs["gmm:wgmma"] == 0
 
 
 def test_glu_and_split_gmm_refuse_misaligned_tensors(cuda):
     """A CUDA tensor that is not 16-byte aligned raises on the tensor-core
-    GLU and f32 x bf16^T routes; nothing falls back to the FMA kernel."""
+    GLU, f32 x bf16^T and f32 x bf16 routes; nothing falls back to the FMA
+    kernel."""
     lhs, wg, wu, tg = _packed([70, 60], 64, 64, torch.bfloat16, cuda, 64)
     lhs32, _, _, _ = _packed([70, 60], 64, 64, torch.float32, cuda, 64)
     kernels.reset_launch_counts()
@@ -370,6 +384,9 @@ def test_glu_and_split_gmm_refuse_misaligned_tensors(cuda):
         gmm.gmm_glu_tiled_pair(lhs, wg, shifted(wu), tg, block_m=64)
     with pytest.raises(ValueError, match="16-byte"):
         gmm.gmm_tiled(shifted(lhs32), wg.transpose(1, 2), tg, block_m=64,
+                      out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        gmm.gmm_tiled(lhs32, shifted(wg), tg, block_m=64,
                       out_dtype=torch.float32)
     assert kernels.launch_counts()["gmm"] == 0
     assert kernels.launch_counts()["gmm_glu"] == 0
@@ -443,15 +460,11 @@ def test_group_dense_bf16_on_card_keeps_f32_products(cuda):
     assert (got != want).float().mean() <= 0.01
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,KH,G,hd,ps,MP,kw", [
-    (3, 2, 2, 32, 8, 4, {}),
-    (3, 2, 2, 32, 8, 4, dict(window=6, softcap=5.0)),
-    (4, 4, 4, 128, 16, 26, {}),          # mixtral-w2 decode shapes
-    (2, 1, 8, 64, 64, 3, dict(window=40)),  # 64-line pages, MQA
-])
-def test_paged_decode_matches_plain(cuda, dtype, B, KH, G, hd, ps, MP, kw):
-    g = torch.Generator(device=cuda).manual_seed(1)
+def _paged_inputs(cuda, dtype, B, KH, G, hd, ps, MP, seed=1):
+    """Random q and pools, a shuffled table and random frontiers: slot 0
+    dead, slot B - 1's first table slot unallocated, every table slot past
+    a slot's frontier -1."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     P = B * MP + 2
     q = torch.randn((B, KH, G, hd), generator=g, device=cuda).to(dtype)
     kp = torch.randn((P, ps, KH, hd), generator=g, device=cuda).to(dtype)
@@ -464,6 +477,21 @@ def test_paged_decode_matches_plain(cuda, dtype, B, KH, G, hd, ps, MP, kw):
     table[-1, 0] = -1          # an unallocated slot mid-sequence
     for b, p in enumerate(q_pos.tolist()):
         table[b, max(p, 0) // ps + 1:] = -1
+    return q, kp, vp, table, q_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KH,G,hd,ps,MP,kw", [
+    (3, 2, 2, 32, 8, 4, {}),
+    (3, 2, 2, 32, 8, 4, dict(window=6, softcap=5.0)),
+    (4, 4, 4, 128, 16, 26, {}),          # mixtral-w2 decode shapes
+    (2, 1, 8, 64, 64, 3, dict(window=40)),  # 64-line pages, MQA
+    (4, 4, 4, 128, 16, 256, {}),         # 4096 positions a slot
+    (2, 2, 32, 256, 128, 40, dict(window=300)),  # widest: G 32, hd 256
+])
+def test_paged_decode_matches_plain(cuda, dtype, B, KH, G, hd, ps, MP, kw):
+    q, kp, vp, table, q_pos = _paged_inputs(cuda, dtype, B, KH, G, hd, ps,
+                                            MP)
     got = pa.paged_decode_forward(q, kp, vp, table, q_pos,
                                   scale=hd ** -0.5, **kw)
     want = pa.paged_decode_plain(q, kp, vp, table, q_pos, scale=hd ** -0.5,
@@ -471,6 +499,63 @@ def test_paged_decode_matches_plain(cuda, dtype, B, KH, G, hd, ps, MP, kw):
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=_tol(dtype))
     assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_empty_splits_match_plain(cuda, dtype):
+    """Splits with no live line (a slot whose frontier ends in its first
+    split, a window that leaves the early splits behind, a split of only
+    -1 table slots, a slot whose every table slot is -1) contribute
+    nothing: the combine skips them."""
+    B, KH, G, hd, ps, MP = 4, 2, 4, 128, 16, 64
+    q, kp, vp, table, q_pos = _paged_inputs(cuda, dtype, B, KH, G, hd, ps,
+                                            MP, seed=2)
+    plan = pa.paged_decode_plan(B, KH, G, hd, MP, q.element_size(),
+                                pa._sm_count(cuda.index or 0))
+    per = plan["pages_per_split"]
+    assert plan["splits"] >= 4
+    q_pos[:] = torch.tensor([5, MP * ps - 1, MP * ps - 1, 7 * per * ps],
+                            dtype=torch.int32)
+    table[1, per:3 * per] = -1      # two whole splits unallocated
+    table[3, :] = -1                # no live key: output 0
+    for kw in ({}, dict(window=per * ps + 3)):
+        got = pa.paged_decode_forward(q, kp, vp, table, q_pos,
+                                      scale=hd ** -0.5, **kw)
+        want = pa.paged_decode_plain(q, kp, vp, table, q_pos,
+                                     scale=hd ** -0.5, **kw)
+        _gmm_close(got, want)
+        assert torch.all(got[3] == 0) and torch.all(torch.isfinite(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_reruns_are_bitwise_equal(cuda, dtype):
+    """The splits are combined in order, without atomics: two calls give
+    the same bits."""
+    args = _paged_inputs(cuda, dtype, 4, 4, 4, 128, 16, 256, seed=3)
+    first = pa.paged_decode_forward(*args, scale=128 ** -0.5)
+    assert torch.equal(pa.paged_decode_forward(*args, scale=128 ** -0.5),
+                       first)
+
+
+def test_paged_decode_refusals(cuda):
+    """Shapes the kernel does not take and misaligned pools raise; nothing
+    falls back to the plain version."""
+    q, kp, vp, table, q_pos = _paged_inputs(cuda, torch.bfloat16, 2, 2, 2,
+                                            64, 8, 4)
+    kernels.reset_launch_counts()
+    kw = dict(scale=0.125)
+    with pytest.raises(ValueError, match="head_dim"):   # hd 48
+        pa.paged_decode_forward(q[..., :48].contiguous(),
+                                kp[..., :48].contiguous(),
+                                vp[..., :48].contiguous(), table, q_pos, **kw)
+    flat = torch.empty(kp.numel() + 4, dtype=kp.dtype, device=cuda)
+    shifted = flat[4:].view(kp.shape).copy_(kp)          # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_decode_forward(q, shifted, vp, table, q_pos, **kw)
+    with pytest.raises(TypeError):
+        pa.paged_decode_forward(q.half(), kp.half(), vp.half(), table, q_pos,
+                                **kw)
+    assert kernels.launch_counts()["paged_decode"] == 0
 
 
 def test_launch_counters_and_refusals(cuda):
@@ -536,9 +621,8 @@ def test_grouped_kernels_take_small_row_tiles(cuda, kind, lhs_t, rhs_t,
         variant = gmm.variant_name(*(gmm._DTYPES[t] for t in
                                      (lhs_t, rhs_t, out_t)), trans)
         assert kernels.variant_launch_counts()[f"gmm:{variant}"] == 1
-        # K 96, N 80: bf16 operands and f32 x bf16^T on the tensor cores
-        tensor_cores = rhs_t == torch.bfloat16 and (
-            lhs_t == torch.bfloat16 or trans)
+        # K 96, N 80: every bf16 rhs on the tensor cores
+        tensor_cores = rhs_t == torch.bfloat16
         design = "wgmma" if tensor_cores else "fma"
         assert kernels.design_launch_counts()[f"gmm:{design}"] == 1
     elif kind == "glu":

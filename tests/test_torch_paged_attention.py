@@ -4,7 +4,10 @@ The cases of the JAX package's paged serving tests (window, softcap, dead
 slot, unallocated table slots, a dense oracle, stale lines of recycled
 pages) at 2e-5: the port's plain version (CPU) against the Pallas kernel
 in interpret mode and against the XLA gather fallback. Plus the
-page-table scatter of ``_apply_attention_paged``.
+page-table scatter of ``_apply_attention_paged``, and the arithmetic of
+the CUDA kernel, which splits each slot's page walk across blocks and
+combines the splits (:func:`_emulate_split_decode`), against the Pallas
+kernel.
 """
 
 import jax
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import paged_attention as jpa
 from repro.models import modules as jmodules
 from repro.models.config import ModelConfig
 from repro.models.modules import Policy as JPolicy
@@ -110,6 +114,102 @@ def test_stale_lines_of_recycled_pages_unreachable():
     vp2[3, 4:] = -99.0
     got = to_np(ops.paged_decode_attention(*_t(q, kp2, vp2, pt, q_pos)))
     np.testing.assert_allclose(base, got, rtol=1e-6, atol=1e-6)
+
+
+def _emulate_split_decode(q, kp, vp, pt, q_pos, pages_per_split, *, scale,
+                          softcap=0.0, window=0):
+    """paged_decode_forward as csrc/paged_attention.cu computes it, in f32:
+    each (slot, KV head)'s table slots cut into splits of pages_per_split;
+    per split, over its live key positions (the frontier, the window; -1
+    table slots skipped) in tiles of pa.DECODE_TILE lines from the split's
+    start, the online softmax (m, l, acc), m = -inf and l = 0 where no
+    line is live; then the splits combined in order, those with m = -inf
+    skipped, divided by l (by 1 where no split had a live line); dead
+    slots 0."""
+    B, KH, G, hd = q.shape
+    ps, MP, TL = kp.shape[1], pt.shape[1], pa.DECODE_TILE
+    splits = max(1, -(-MP // pages_per_split))
+    out = torch.zeros((B, KH, G, hd))
+    for b in range(B):
+        qp = int(q_pos[b])
+        for h in range(KH):
+            parts = []
+            for s in range(splits):
+                j0 = s * pages_per_split
+                j1 = min(MP, j0 + pages_per_split)
+                lo = max(j0 * ps, qp - window + 1 if window > 0 else 0)
+                hi = min(j1 * ps - 1, qp)
+                m = torch.full((G,), -torch.inf)
+                l, acc = torch.zeros(G), torch.zeros((G, hd))
+                for t0 in range(j0 * ps, j1 * ps, TL):
+                    first, last = max(t0, lo), min(t0 + TL - 1, hi)
+                    if qp < 0 or first > last:
+                        continue
+                    kpos = torch.arange(first, last + 1)
+                    pages = pt[b, kpos // ps].long()
+                    kpos, pages = kpos[pages >= 0], pages[pages >= 0]
+                    if kpos.numel() == 0:
+                        continue
+                    k = kp[pages, kpos % ps, h].float()
+                    v = vp[pages, kpos % ps, h].float()
+                    sc = (q[b, h].float() @ k.T) * scale
+                    if softcap > 0:
+                        sc = softcap * torch.tanh(sc / softcap)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + p @ v
+                    m = m_new
+                parts.append((m, l, acc))
+            M = torch.stack([m for m, _, _ in parts]).amax(0)
+            L, A = torch.zeros(G), torch.zeros((G, hd))
+            for m, l, acc in parts:
+                live = m > -torch.inf
+                w = torch.where(live, torch.exp(m - M), 0.0)
+                L += torch.where(live, w * l, 0.0)
+                A += torch.where(live[:, None], w[:, None] * acc, 0.0)
+            out[b, h] = A / torch.where(L == 0, 1.0, L)[:, None]
+    return out
+
+
+def _long_table_inputs(seed=3):
+    """Two slots of 20 table slots of 8 lines: slot 0 at position 150 with
+    unallocated table slots 4, 5 and 9 and everything past its frontier
+    -1, slot 1 dead."""
+    rng = np.random.RandomState(seed)
+    Bl, MPl, Pl = 2, 20, 48
+    q = rng.randn(Bl, KH, H // KH, hd).astype(np.float32)
+    kp = rng.randn(Pl, ps, KH, hd).astype(np.float32)
+    vp = rng.randn(Pl, ps, KH, hd).astype(np.float32)
+    pt = rng.permutation(Pl)[:Bl * MPl].reshape(Bl, MPl).astype(np.int32)
+    pt[0, [4, 5, 9]] = -1
+    pt[0, 150 // ps + 1:] = -1
+    return q, kp, vp, pt, np.asarray([150, -1], np.int32)
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("kw", [{}, dict(window=6), dict(softcap=5.0),
+                                dict(window=37, softcap=5.0)])
+@pytest.mark.parametrize("table", ["short", "long"])
+def test_split_decode_arithmetic_matches_pallas(table, kw, pages_per_split):
+    """The split-then-combine arithmetic against the Pallas kernel in
+    interpret mode, within 1e-5 * max|JAX| (f32): splits of 1, 2, 3 and 7
+    pages (7 x 8 lines: two tiles a split), -1 table slots, dead slots,
+    splits with no live line (past the frontier, before the window, all
+    -1), window and softcap."""
+    if table == "short":
+        q, kp, vp, pt, q_pos = _inputs()
+        q = q.reshape(B, KH, H // KH, hd)
+    else:
+        q, kp, vp, pt, q_pos = _long_table_inputs()
+    kw = dict(kw, scale=hd ** -0.5)
+    got = to_np(_emulate_split_decode(*_t(q, kp, vp, pt, q_pos),
+                                      pages_per_split, **kw))
+    want = np.asarray(jpa.paged_decode_forward(*_j(q, kp, vp, pt, q_pos),
+                                               interpret=True, **kw))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.all(got[q_pos < 0] == 0) and np.all(np.isfinite(got))
 
 
 def test_paged_gather_and_positions_match_jax():
