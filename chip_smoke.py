@@ -25,7 +25,16 @@ full depth, with random weights from seed 0:
   params), one untimed warm-up step and then 6 steps of batch 2 x seq 2048
   (eight chunks per sequence, so the carried state is exercised): every
   SSD mixer's scan, forward and remat recompute, through the tensor-core
-  SSD scan (``ssd_wgmma.cu``).
+  SSD scan (``ssd_wgmma.cu``);
+* train_zebra: the train driver's default on ``mixtral-w1``, zebra
+  parallelism (replicated, 2 microbatches of 1024 tokens, capacity 1.25:
+  216 rows per expert, the grouped kernels at block_m 8), attention on one
+  CUDA stream beside the experts on a second; one untimed warm-up step,
+  then 6 steps of batch 8 x seq 256;
+* zebra_a2a: the same with ``--zebra-mode alltoall --n-chunks 2
+  --offload-experts 2`` (chunked dispatch and combine, the two offloaded
+  experts in chunk 0's grouped call; capacity 224 in chunks of 112 rows,
+  block_m 16), 3 steps.
 
 It fails unless:
 
@@ -47,6 +56,20 @@ It fails unless:
   (forward + recompute) per layer and step and no other kernel;
 * the flash run's step-1 loss and grad norm are within 1e-2 relative of
   the chunked run's (the bf16 tier: the two round p at other places);
+* the zebra runs launched exactly gmm_glu 4, gmm 14, gmm_dw 6 per layer
+  and step (replicated: per microbatch the GLU forward and recompute, gmm
+  2 + 5 and gmm_dw 3 of the FFN without row scales) and 8, 28, 12
+  (alltoall: one call per dispatch chunk), all on the tensor-core
+  designs, with the capacity and block_m above (the engine's record);
+  one step of each zebra mode at capacity 6 (= E / top_k: no drops,
+  C 1024, block_m 128) is within 1e-2 relative of the --no-zebra run's
+  step 1 in loss and grad norm (``zebra_equal:``); the zebra gradient step
+  run twice is bitwise equal, and equal to a one-stream run of the same
+  override within 1e-4 * max|one-stream| (``zebra_streams:``, with the
+  two timings); every grouped kernel at the zebra layouts (12 x 216 rows
+  at block_m 8, 2 x 224 + 10 x 112 at block_m 16) agrees with its plain
+  version at its tier on the tensor-core design (``zebra_tiles:``, each
+  timed beside the same rows at block_m 128);
 * each kernel agrees with its plain PyTorch version on the card, at the
   main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
   bf16 tier, scaled down where the outputs stay below 1; per decode slot
@@ -86,7 +109,8 @@ It fails unless:
   the cache-free forward's within 1e-3 * max|logit|.
 
 One untimed warm-up request (its own engine) and one untimed warm-up train
-step (its own model) run before the timed runs, launches not counted, so
+step (its own model; the zebra run has its own too) run before the timed
+runs, launches not counted, so
 that one-time costs (library handles, allocator growth) stay out of the
 timed windows. The serve model is released before the train phase.
 
@@ -107,7 +131,8 @@ flash_grad_bf16, c1_tiles, paged_cases, flash_cases (the flash kernels at
 every case
 shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
 design replaced, timed on the same bf16 inputs), ssd_cases (with
-``fma_ms`` on the tensor-core design) and ssd_grad lines, and last
+``fma_ms`` on the tensor-core design), ssd_grad, train_zebra, zebra_a2a,
+zebra_equal, zebra_streams and zebra_tiles lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -141,6 +166,24 @@ TRAIN_LAUNCHES = {"gmm_glu": 2, "gmm": 8, "gmm_dw": 3}
 # the chunked attention): forward and its remat recompute, one backward.
 FLASH_LAUNCHES = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
 FLASH_GAP = 1e-2            # flash vs chunked step-1 loss / grad norm
+# zebra, the train driver's default for MoE archs (replicated, 2
+# microbatches of 1024 tokens, capacity 1.25: C 216, block_m 8)
+ZEBRA_ARGS = ["--arch", "mixtral-w1", "--mesh", "1x1", "--steps", "6",
+              "--batch", "8", "--seq", "256"]
+A2A_FLAGS = ["--zebra-mode", "alltoall", "--n-chunks", "2",
+             "--offload-experts", "2"]
+ZEBRA_A2A_ARGS = ZEBRA_ARGS + ["--steps", "3"] + A2A_FLAGS
+# Launches per layer and step under zebra, no row scales (the combine
+# weights multiply outside the FFN): per expert call the GLU forward and
+# its remat recompute (2), gmm forward + recompute (2) and backward g, u,
+# dh, dx twice (5), gmm_dw 3; one call per microbatch (R = 2) in
+# replicated mode, one per dispatch chunk (Q = 2) in alltoall mode.
+ZEBRA_LAUNCHES = {"gmm_glu": 4, "gmm": 14, "gmm_dw": 6}
+ZEBRA_A2A_LAUNCHES = {"gmm_glu": 8, "gmm": 28, "gmm_dw": 12}
+ZEBRA_ENGINE = {"replicated": ([216], [8]),   # (capacities, block_m)
+                "alltoall": ([224], [16])}    # chunks of 112 rows
+ZEBRA_EQUAL_CF = 6.0        # = E / top_k: no drops, C 1024, block_m 128
+ZEBRA_GAP = 1e-2            # zebra (no drops) vs --no-zebra step 1
 MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--mesh", "1x1", "--steps", "6",
                "--batch", "2", "--seq", "2048"]
 MAMBA2_WARMUP_ARGS = MAMBA2_ARGS + ["--steps", "1"]
@@ -163,6 +206,9 @@ WGMMA_GMM = ("gmm:bf16.bf16->bf16", "gmm:bf16.bf16->f32",
              "gmm:f32.bf16->f32", "gmm:f32.bf16T->f32")
 GRAD_BF16_CT = 0.05         # cotangent scale: every bf16 gradient below 2
 C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
+# the zebra runs' packed layouts: (label, rows of each expert, block_m)
+ZEBRA_TILES = (("replicated", [216] * 12, 8),
+               ("alltoall chunk 0", [224] * 2 + [112] * 10, 16))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -848,25 +894,37 @@ def parity_f32(torch, serve_mod):
 
 
 def timed_train(torch, train_mod, smi: str, argv, per_step: dict,
-                run=None):
+                run=None, zcfg=None, zstats=None):
     """The train driver's steps of ``argv`` under ``run`` (default: the
-    driver's chunked attention), the launch counters set to 0 just before
-    and read just after. Raises on a non-finite step or a kernel of the
-    path that never launched; the exact counts (``per_step`` per layer and
-    step, 0 for every other kernel) are checked by the caller."""
+    driver's chunked attention) and ``zcfg`` (default: the command line's
+    zebra config), the launch counters set to 0 just before and read just
+    after. ``zstats``: the zebra engine's record (capacities, row tiles,
+    drops) put on the line; None records it during these steps, which
+    adds device work to every pack, so a timed run passes the record of
+    its untimed warm-up step (:func:`zebra_warmup`). Raises on a
+    non-finite step or a kernel of the path that never launched; the
+    exact counts (``per_step`` per layer and step, 0 for every other
+    kernel) are checked by the caller."""
     from repro_torch import kernels
+    from repro_torch.core import zebra_spmd
     from repro_torch.models import registry
     args = train_mod.build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
+    zebra_spmd.reset_stats(zstats is None)
     kernels.reset_launch_counts()
-    summary = train_mod.train_arch(args.arch, args, run)
+    summary = train_mod.train_arch(args.arch, args, run, zcfg)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     variants = kernels.variant_launch_counts()
     designs = kernels.design_launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    if zstats is None:
+        zstats = zebra_spmd.read_stats()
+    zebra_spmd.reset_stats(False)
     attn = run.attn_impl if run is not None else "chunked"
-    label = f"{args.arch}, {attn}"
+    zebra = summary["zebra"]
+    label = f"{args.arch}, {attn}" + (f", zebra {zebra['mode']}" if zebra
+                                      else "")
     if not summary["ok"]:
         raise RuntimeError(f"train run ({label}): a loss or grad norm is "
                            f"not finite")
@@ -877,8 +935,11 @@ def timed_train(torch, train_mod, smi: str, argv, per_step: dict,
     layers = registry.get_config(args.arch).n_layers
     expected = {k: per_step.get(k, 0) * layers * args.steps
                 for k in launches}
+    per_layer_step = {k: launches[k] / (layers * args.steps)
+                      for k in ("gmm_glu", "gmm", "gmm_dw")}
     line = {
-        "arch": args.arch, "attn_impl": attn,
+        "arch": args.arch, "attn_impl": attn, "zebra": zebra,
+        "zebra_engine": zstats, "launches_per_layer_step": per_layer_step,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi, "params": summary["params"],
         "steps": args.steps, "batch": args.batch, "seq": args.seq,
@@ -924,6 +985,297 @@ def train_flash_phase(torch, train_mod, smi: str, chunked: dict):
         k: abs(line[k][0] - chunked[k][0]) / abs(chunked[k][0])
         for k in ("loss", "grad_norm")}
     return line, counts
+
+
+def check_zebra_line(line: dict, mode: str):
+    """The zebra engine's record of a run: its capacity and block_m as
+    expected for ``mode`` at capacity 1.25 (ZEBRA_ENGINE)."""
+    caps, bms = ZEBRA_ENGINE[mode]
+    got = line["zebra_engine"]
+    if got.get("capacity") != caps or got.get("block_m") != bms:
+        raise RuntimeError(f"zebra {mode} run chose capacity "
+                           f"{got.get('capacity')} and block_m "
+                           f"{got.get('block_m')}, expected {caps}, {bms}")
+
+
+def zebra_warmup(torch, train_mod, argv, label: str) -> dict:
+    """One untimed step of ``argv`` on a model of its own (the one-time
+    costs: allocator growth, the first plans), with the zebra engine's
+    record on; returns that record (capacities, row tiles, dropped share
+    of this step's token copies) for the timed run's line."""
+    from repro_torch.core import zebra_spmd
+    zebra_spmd.reset_stats()
+    try:
+        warm = train_mod.train_arch(
+            "mixtral-w1", train_mod.build_parser().parse_args(
+                argv + ["--steps", "1"]))
+        zstats = zebra_spmd.read_stats()
+    finally:
+        zebra_spmd.reset_stats(False)
+    if not warm["ok"]:
+        raise RuntimeError(f"{label} warm-up train step failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label} warm-up: 1 step (untimed, not counted), loss "
+          f"{warm['history'][0]['loss']:.4f}", flush=True)
+    return zstats
+
+
+def train_zebra_phase(torch, train_mod, smi: str):
+    """The train driver's default on mixtral-w1 (zebra replicated, 2
+    microbatches, capacity 1.25): one untimed warm-up step, which records
+    the engine's choices, then the driver's 6 steps with the record off
+    (:func:`timed_train`)."""
+    zstats = zebra_warmup(torch, train_mod, ZEBRA_ARGS, "train_zebra")
+    line, counts = timed_train(torch, train_mod, smi, ZEBRA_ARGS,
+                               dict(ZEBRA_LAUNCHES), zstats=zstats)
+    check_zebra_line(line, "replicated")
+    return line, counts
+
+
+def zebra_a2a_phase(torch, train_mod, smi: str):
+    """The driver with ``--zebra-mode alltoall --n-chunks 2
+    --offload-experts 2`` (one rank: the all-to-alls are the identity; the
+    two offloaded experts join chunk 0's grouped call): one untimed
+    warm-up step, then 3 steps, as :func:`train_zebra_phase`."""
+    zstats = zebra_warmup(torch, train_mod, ZEBRA_A2A_ARGS, "zebra_a2a")
+    line, counts = timed_train(torch, train_mod, smi, ZEBRA_A2A_ARGS,
+                               dict(ZEBRA_A2A_LAUNCHES), zstats=zstats)
+    check_zebra_line(line, "alltoall")
+    return line, counts
+
+
+def zebra_equal_phase(torch, train_mod, smi: str, no_zebra: dict):
+    """One step of each zebra mode at capacity ZEBRA_EQUAL_CF (no drops:
+    C 1024, block_m 128; alltoall with 2 chunks and 2 offloaded experts):
+    step-1 loss and grad norm against the --no-zebra run's step 1, within
+    ZEBRA_GAP relative (the bf16 tier: the microbatches round and average
+    the aux losses in other places). The engine's record is on during the
+    step; no time of this phase is reported."""
+    from repro_torch.core.zebra_spmd import ZebraConfig
+    out = {}
+    for mode, flags, per_step, chunks, off in (
+            ("replicated", [], ZEBRA_LAUNCHES, 1, 0),
+            ("alltoall", A2A_FLAGS, ZEBRA_A2A_LAUNCHES, 2, 2)):
+        zcfg = ZebraConfig(mode=mode, num_microbatches=2,
+                           capacity_factor=ZEBRA_EQUAL_CF, n_chunks=chunks,
+                           offload_experts=off)
+        line, _ = timed_train(torch, train_mod, smi,
+                              ZEBRA_ARGS + ["--steps", "1"] + flags,
+                              dict(per_step), zcfg=zcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gap = {k: abs(line[k][0] - no_zebra[k][0]) / abs(no_zebra[k][0])
+               for k in ("loss", "grad_norm")}
+        engine = line["zebra_engine"]
+        want = {k: line["launches_expected"][k] for k in per_step}
+        out[mode] = {
+            "loss": line["loss"][0], "grad_norm": line["grad_norm"][0],
+            "rel_gap_vs_no_zebra": gap, "capacity": engine["capacity"],
+            "block_m": engine["block_m"],
+            "dropped_share": engine["dropped_share"],
+            "launches": {k: line["launches"][k] for k in per_step},
+            "ok": (max(gap.values()) <= ZEBRA_GAP
+                   and engine["capacity"] == [1024]
+                   and engine["block_m"] == [128]
+                   and engine["dropped_share"] == 0.0
+                   and want == {k: line["launches"][k] for k in want})}
+    return {"capacity_factor": ZEBRA_EQUAL_CF, "tol": ZEBRA_GAP,
+            "no_zebra": {k: no_zebra[k][0] for k in ("loss", "grad_norm")},
+            "modes": out, "ok": all(m["ok"] for m in out.values())}
+
+
+def zebra_streams_phase(torch, train_mod):
+    """The zebra step's gradients on the card: one batch through the
+    driver's program twice (two streams; the reruns must be bitwise
+    equal) and through the same override on one stream
+    (``zebra_streams=False``): every gradient and the loss within the f32
+    tier (1e-4 * max|one-stream|); and the gradient phase's host-clock ms
+    (median of 3 after a warm-up) on two streams and on one."""
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.step import make_train_program
+    args = train_mod.build_parser().parse_args(ZEBRA_ARGS)
+    cfg, program, loader = train_mod.build(args.arch, args)
+    one = make_train_program(
+        cfg, program.run, ShapeConfig("cli", "train", args.seq, args.batch),
+        opt_cfg=program.opt_cfg, device="cuda", zcfg=program.zcfg,
+        zebra_streams=False)
+    params = program.init_params(seed=0)
+    batch = next(loader)
+
+    def timed(prog):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads, m = prog.grad_fn(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del grads, m
+        return sorted(times[1:])[1] * 1e3
+
+    g1, m1 = program.grad_fn(params, batch)
+    g2, m2 = program.grad_fn(params, batch)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(m1["loss"], m2["loss"]) and all(
+        torch.equal(g1[k], g2[k]) for k in g1)
+    del g2, m2
+    g3, m3 = one.grad_fn(params, batch)
+    torch.cuda.synchronize()
+    worst, worst_rel, ok = None, 0.0, True
+    for k in g1:
+        err, tol, good = compare_f32(g1[k], g3[k])
+        rel = err / max(tol / TOL_F32, 1e-30)
+        ok = ok and good
+        if rel >= worst_rel:
+            worst, worst_rel = k, rel
+    loss_err, loss_tol, loss_ok = compare_f32(m1["loss"], m3["loss"])
+    same = all(torch.equal(g1[k], g3[k]) for k in g1)
+    del g1, g3, m1, m3
+    two_ms, one_ms = timed(program), timed(one)
+    return {"bitwise_rerun": bitwise, "one_stream_bitwise_equal": same,
+            "worst_grad": worst, "worst_grad_rel_err": worst_rel,
+            "loss_abs_err": loss_err, "loss_tol": loss_tol,
+            "grad_ms_two_streams": two_ms, "grad_ms_one_stream": one_ms,
+            "ok": bitwise and ok and loss_ok}
+
+
+def zebra_plain(torch, name: str, lhs, tg, bm: int, spans, G: int, *, wg,
+                wu, wo, wo_t, dout):
+    """The plain version of grouped kernel ``name`` on one packed layout,
+    evaluated one expert's rows at a time (the plain versions gather one
+    weight per row tile: 324 tiles of 8 rows would gather 19 GB of f32
+    weights at once). Returns a thunk."""
+    from repro_torch.kernels import gmm
+    rhs = {"gmm:bf16.bf16->bf16": wo, "gmm:bf16.bf16->f32": wg,
+           "gmm:f32.bf16->f32": wo, "gmm:f32.bf16T->f32": wo_t}.get(name)
+    o_dt = None if name.endswith("bf16") else torch.float32
+
+    def part(r0, r1):
+        t = tg[r0 // bm:r1 // bm]
+        if name == "gmm_glu":
+            return gmm.gmm_glu_plain(lhs[r0:r1], wg, wu, t, block_m=bm)
+        if name.startswith("gmm_dw"):
+            return gmm.gmm_dw_tiled_plain(lhs[r0:r1], dout[r0:r1], t, G,
+                                          block_m=bm)
+        return gmm.gmm_tiled_plain(lhs[r0:r1], rhs, t, block_m=bm,
+                                   out_dtype=o_dt)
+
+    if name.startswith("gmm_dw"):  # each expert's share: exact zeros else
+        return lambda: sum(part(r0, r1) for r0, r1 in spans)
+    return lambda: torch.cat([part(r0, r1) for r0, r1 in spans])
+
+
+def zebra_tiles_phase(torch, cfg, launches_by_path: dict):
+    """The grouped kernels at the zebra runs' packed layouts (W1 widths, 12
+    experts, ZEBRA_TILES: 12 x 216 rows at block_m 8 and alltoall chunk
+    0's 2 x 224 + 10 x 112 rows at block_m 16), each against its plain
+    version at its tier, on the tensor-core design, and timed beside the
+    same rows packed at block_m 128 (each expert padded to a multiple of
+    128 rows). Operand types as in the zebra backward: bf16 x and
+    weights, f32 h and cotangents. ``launches``: each path's count of the
+    kernel (the GLU's, or the gmm / gmm_dw operand type's)."""
+    from repro_torch.kernels import gmm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    d, f = cfg.d_model, cfg.d_ff_expert
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+    for label, caps, bm in ZEBRA_TILES:
+        G, M = len(caps), sum(caps)
+
+        def layout(block):  # (tile_group, row of each real row)
+            padded = [-(-c // block) * block for c in caps]
+            tg = torch.repeat_interleave(
+                torch.arange(G, dtype=torch.int32, device=dev),
+                torch.tensor([p // block for p in padded], device=dev))
+            starts = [sum(padded[:g]) for g in range(G)]
+            rows = torch.cat([torch.arange(s0, s0 + c, device=dev)
+                              for s0, c in zip(starts, caps)])
+            return tg, rows, sum(padded)
+
+        tg, _, mp = layout(bm)
+        tg128, rows128, mp128 = layout(128)
+
+        def rows(k, dtype, scale=0.5):  # the packed rows, and at 128
+            x = (scale * torch.randn((M, k), generator=gen,
+                                     device=dev)).to(dtype)
+            x128 = torch.zeros((mp128, k), dtype=dtype, device=dev)
+            x128[rows128] = x
+            return x, x128
+
+        def weights(k, n):
+            w = torch.randn((G, k, n), generator=gen, device=dev)
+            return (w / math.sqrt(k)).to(bf)
+
+        (x_p, x128), (hb, hb128) = rows(d, bf), rows(f, bf)
+        (h_p, h128), (do_p, do128) = rows(f, f32), rows(d, f32)
+        dg_p, dg128 = rows(f, f32)
+        wg, wu, wo = weights(d, f), weights(d, f), weights(f, d)
+        wo_t = wo.transpose(1, 2)
+        kw = dict(out_dtype=f32)
+        split = gmm.gmm_wgmma_plan(bm, f32)["passes"]
+        dw_f32 = gmm.gmm_dw_wgmma_plan(bm, f32)["passes"]
+        dw_bf16 = gmm.gmm_dw_wgmma_plan(bm, bf)["passes"]
+        wbytes = 2 * G * d * f
+        cases = (  # name, kernel(block_m, tg, lhs), lhs, work
+            ("gmm_glu", lambda b, t, x: gmm.gmm_glu_tiled_pair(
+                x, wg, wu, t, block_m=b), (x_p, x128),
+             (2 * M * d + 2 * wbytes + 2 * M * f, 4 * M * d * f)),
+            ("gmm:bf16.bf16->bf16", lambda b, t, x: gmm.gmm_tiled(
+                x, wo, t, block_m=b), (hb, hb128),
+             (2 * M * f + wbytes + 2 * M * d, 2 * M * f * d)),
+            ("gmm:bf16.bf16->f32", lambda b, t, x: gmm.gmm_tiled(
+                x, wg, t, block_m=b, **kw), (x_p, x128),
+             (2 * M * d + wbytes + 4 * M * f, 2 * M * d * f)),
+            ("gmm:f32.bf16->f32", lambda b, t, x: gmm.gmm_tiled(
+                x, wo, t, block_m=b, **kw), (h_p, h128),
+             (4 * M * f + wbytes + 4 * M * d, split * 2 * M * f * d)),
+            ("gmm:f32.bf16T->f32", lambda b, t, x: gmm.gmm_tiled(
+                x, wo_t, t, block_m=b, **kw), (do_p, do128),
+             (4 * M * d + wbytes + 4 * M * f, split * 2 * M * d * f)),
+            ("gmm_dw:f32.f32->f32", lambda b, t, x: gmm.gmm_dw_tiled(
+                x, do_p if b == bm else do128, t, G, block_m=b),
+             (h_p, h128),
+             (4 * M * f + 4 * M * d + 4 * G * f * d,
+              dw_f32 * 2 * M * f * d)),
+            ("gmm_dw:bf16.f32->f32", lambda b, t, x: gmm.gmm_dw_tiled(
+                x, dg_p if b == bm else dg128, t, G, block_m=b),
+             (x_p, x128),
+             (2 * M * d + 4 * M * f + 4 * G * d * f,
+              dw_bf16 * 2 * M * d * f)))
+        spans = [(sum(caps[:g]), sum(caps[:g + 1])) for g in range(G)]
+        for name, fn, (lhs, lhs128), (moved, flops) in cases:
+            plain = zebra_plain(torch, name, lhs, tg, bm, spans, G,
+                                wg=wg, wu=wu, wo=wo, wo_t=wo_t,
+                                dout=do_p if "f32.f32" in name else dg_p)
+            got, design = with_design(lambda: fn(bm, tg, lhs))
+            want = plain()
+            torch.cuda.synchronize()
+            err, tol, ok = (compare if got.dtype == bf else compare_f32)(
+                got, want)
+            del got, want
+            t_bound, by = bound(moved, flops)
+            plan = (gmm.gmm_wgmma_plan(bm, lhs.dtype) if "dw" not in name
+                    else None)
+            out.append({
+                "name": name, "layout": label, "route": "cuda",
+                "design": design, "source": kernel_source(name, design),
+                "replaces": kernel_replaces(name), "block_m": bm,
+                "tile_m": plan["tile_m"] if plan else bm,
+                "max_abs_err": err, "tol": tol,
+                "ok": ok and design == "wgmma",
+                **kernel_times(lambda: fn(bm, tg, lhs), 5),
+                "ms_block_m128": cuda_ms(lambda: fn(128, tg128, lhs128), 5),
+                "bound_ms": t_bound, "bound_by": by,
+                "launches": {p: c.get(name, 0)
+                             for p, c in launches_by_path.items()},
+                "shapes": {"rows": M, "padded_rows": mp,
+                           "padded_rows_block_m128": mp128, "groups": G,
+                           "K": lhs.shape[1]}})
+        del x_p, x128, hb, hb128, h_p, h128, do_p, do128, dg_p, dg128
+        torch.cuda.empty_cache()
+    return out
 
 
 def sdpa_ms(torch, q, k, v, do, scale: float):
@@ -1489,6 +1841,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- main path 5: the train driver's default, zebra replicated ----------
+    zebra_line, zebra_counts = train_zebra_phase(torch, train_mod, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- main path 6: zebra alltoall, 2 chunks, 2 offloaded experts ---------
+    a2a_line, a2a_counts = zebra_a2a_phase(torch, train_mod, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zebra_equal = zebra_equal_phase(torch, train_mod, smi, train_line)
+    zebra_streams = zebra_streams_phase(torch, train_mod)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
     batch, seq = train_line["batch"], train_line["seq"]
@@ -1505,6 +1871,8 @@ def main() -> int:
     flash_grad_bf16 = flash_grad_bf16_phase(torch, w1, batch, seq)
     torch.cuda.empty_cache()
     c1_tiles = c1_tiles_phase(torch)
+    zebra_tiles = zebra_tiles_phase(torch, w1, {"train_zebra": zebra_counts,
+                                                "zebra_a2a": a2a_counts})
     mamba2 = registry.get_config("mamba2-2.7b")
     ssd_entry, ssd_cases = check_ssd_kernel(torch, mamba2,
                                             mamba2_line["batch"],
@@ -1517,7 +1885,9 @@ def main() -> int:
             "serve": serve_counts.get(c, 0),
             "train": train_counts.get(c, 0),
             "train_flash": flash_counts.get(c, 0),
-            "train_mamba2": mamba2_counts.get(c, 0)}
+            "train_mamba2": mamba2_counts.get(c, 0),
+            "train_zebra": zebra_counts.get(c, 0),
+            "zebra_a2a": a2a_counts.get(c, 0)}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}"
@@ -1557,6 +1927,9 @@ def main() -> int:
         "grad": grad, "grad_bf16": grad_bf16, "flash_grad": flash_grad,
         "flash_grad_bf16": flash_grad_bf16, "c1_tiles": c1_tiles,
         "paged_cases": [paged_entry] + paged_cases,
+        "train_zebra": zebra_line, "zebra_a2a": a2a_line,
+        "zebra_equal": zebra_equal, "zebra_streams": zebra_streams,
+        "zebra_tiles": zebra_tiles,
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
@@ -1594,6 +1967,21 @@ def main() -> int:
                             "bound_ms", "bound_by")}
          for e in ssd_cases]), flush=True)
     print("ssd_grad: " + json.dumps(ssd_grad), flush=True)
+    zebra_keys = ("arch", "zebra", "zebra_engine", "ms_per_step",
+                  "tokens_per_s", "max_memory_allocated",
+                  "launches_per_layer_step", "step_ms", "loss", "grad_norm",
+                  "design_launches")
+    for label, line in (("train_zebra", zebra_line), ("zebra_a2a", a2a_line)):
+        print(f"{label}: " + json.dumps({k: line[k] for k in zebra_keys}),
+              flush=True)
+    print("zebra_equal: " + json.dumps(zebra_equal), flush=True)
+    print("zebra_streams: " + json.dumps(zebra_streams), flush=True)
+    print("zebra_tiles: " + json.dumps(
+        [{k: e[k] for k in ("name", "layout", "design", "block_m", "tile_m",
+                            "max_abs_err", "tol", "ok", "ms", "host_ms",
+                            "ms_block_m128", "bound_ms", "bound_by",
+                            "launches", "shapes")}
+         for e in zebra_tiles]), flush=True)
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions "
                            f"beyond their tolerance, or ran on the wrong "
@@ -1602,7 +1990,7 @@ def main() -> int:
         raise RuntimeError("paged engine logits disagree with the "
                            "cache-free forward under the f32 policy, or the "
                            "prompt did not span several chunks")
-    for line in (train_line, flash_line, mamba2_line):
+    for line in (train_line, flash_line, mamba2_line, zebra_line, a2a_line):
         want = line["launches_expected"]
         if want != {k: line["launches"][k] for k in want}:
             raise RuntimeError(f"train launches ({line['arch']}, "
@@ -1634,6 +2022,21 @@ def main() -> int:
     if not ssd_grad["ok"]:
         raise RuntimeError("the SSD Function on the card disagrees with the "
                            "same Function on the CPU beyond its tolerance")
+    if not zebra_equal["ok"]:
+        raise RuntimeError(f"a zebra mode without drops differs from the "
+                           f"--no-zebra step 1 by more than {ZEBRA_GAP}, or "
+                           f"chose another capacity, block_m or launch "
+                           f"count: {zebra_equal}")
+    if not zebra_streams["ok"]:
+        raise RuntimeError(f"the two-stream zebra step is not bitwise equal "
+                           f"to its rerun or differs from the one-stream "
+                           f"run beyond the f32 tier: {zebra_streams}")
+    bad_tiles = [f"{e['name']}@{e['layout']}" for e in zebra_tiles
+                 if not e["ok"]]
+    if bad_tiles:
+        raise RuntimeError(f"grouped kernels at the zebra row tiles disagree "
+                           f"with their plain versions or missed the "
+                           f"tensor-core design: {bad_tiles}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,13 +1,17 @@
 """Wrappers around the kernels (mirror of ``repro/kernels/ops.py``): flash
 attention with its gradient, pack metadata and row scatter/gather of the
 packed expert domain, the single-pack MoE expert FFN with its small-M
-group-dense route, paged decode attention, and the mamba2 SSD scan with its
-gradient.
+group-dense route, the FFN over capacity-packed [E, C, d] buffers that the
+zebra engines call (``moe_ffn_packed``, ``moe_ffn_packed_multi``,
+``chunk_capacity``), paged decode attention, and the mamba2 SSD scan with
+its gradient.
 
 Routing decisions are the JAX package's, so both packages compute the same
 things: the small-M crossover (``M * (G - 1) <= G * block_m``), the padded
 size ``Mp = round_up(M, block_m) + G * block_m`` and the clipping of
-trailing tiles to group G - 1. The kernel wrappers choose kernel or plain
+trailing tiles to group G - 1; and for capacity-packed buffers the
+capacities padded to multiples of 8 and the block_m picked from them
+(``packed_block_m``). The kernel wrappers choose kernel or plain
 version by the device of their tensors, so there is no ``use_kernel``
 switch. The packed route's gradient is one ``torch.autograd.Function``
 (the JAX package's ``_make_moe_ffn`` custom_vjp) whose backward runs the
@@ -243,43 +247,60 @@ def moe_ffn_group_dense(x_sorted, wi_gate, wi_up, wo, group_sizes, *,
     return y.to(x_sorted.dtype)
 
 
-class _MoEFFN(torch.autograd.Function):
-    """The packed route of :func:`moe_ffn` with its gradient (the JAX
-    package's ``_make_moe_ffn`` custom_vjp, ops.py:341-444, pack=True).
+def _tile_layout(meta, m: int, n_groups: int, block_m: int, pack: bool):
+    """(dest, tile_group, Mp) of :class:`_MoEFFN`'s two variants: with
+    ``pack`` the rows are expert-sorted and ``meta`` holds the group sizes
+    (:func:`_pack_meta`); without it the rows are already tile-aligned,
+    ``meta`` is the tile group of each m-tile and there is no dest map."""
+    if pack:
+        return _pack_meta(meta, m, n_groups, block_m)
+    return None, meta, m
 
-    Saves the inputs only; the backward rebuilds the pack metadata and
-    recomputes the packed activations (stage-granular remat), in the
-    reference's order: g and u in f32, the row-scale gradient from one
-    extra grouped GEMM on the unrounded f32 h (scaled variant only), dwo,
-    dh, dg/du through silu', dwg, dwu, dx. Data gradients multiply by the
-    transposed weights read by stride (never copied); weight gradients come
-    from the ``gmm_dw`` kernel. Gradients come back in each input's dtype,
-    so under the bf16 policy the weight gradients are rounded to bf16 as
-    in the JAX package."""
+
+class _MoEFFN(torch.autograd.Function):
+    """The packed-domain GLU FFN with its gradient (the JAX package's
+    ``_make_moe_ffn`` custom_vjp, ops.py:341-444).
+
+    ``pack=True`` (the route of :func:`moe_ffn`): x holds expert-sorted
+    rows and ``meta`` the group sizes; one pack scatter in, one unpack
+    gather out. ``pack=False`` (:func:`moe_ffn_packed_multi`): x is already
+    the tile-aligned packed domain (capacity-packed buffers flattened) and
+    ``meta`` the tile group of each m-tile; no scatter, no gather, and the
+    backward reads x and the cotangent as they are.
+
+    Saves the inputs only; the backward rebuilds the layout and recomputes
+    the packed activations (stage-granular remat), in the reference's
+    order: g and u in f32, the row-scale gradient from one extra grouped
+    GEMM on the unrounded f32 h (scaled variant only), dwo, dh, dg/du
+    through silu', dwg, dwu, dx. Data gradients multiply by the transposed
+    weights read by stride (never copied); weight gradients come from the
+    ``gmm_dw`` kernel. Gradients come back in each input's dtype, so under
+    the bf16 policy the weight gradients are rounded to bf16 as in the JAX
+    package."""
 
     @staticmethod
-    def forward(ctx, x, wi_gate, wi_up, wo, scales, group_sizes,
-                block_m: int):
+    def forward(ctx, x, wi_gate, wi_up, wo, scales, meta, block_m: int,
+                pack: bool):
         M, G = x.shape[0], wi_gate.shape[0]
-        dest, tile_group, mp = _pack_meta(group_sizes, M, G, block_m)
-        ctx.block_m = block_m
-        ctx.save_for_backward(x, wi_gate, wi_up, wo, scales, group_sizes)
-        x_p = _scatter_rows(x, dest, mp)
+        dest, tile_group, mp = _tile_layout(meta, M, G, block_m, pack)
+        ctx.block_m, ctx.pack = block_m, pack
+        ctx.save_for_backward(x, wi_gate, wi_up, wo, scales, meta)
+        x_p = _scatter_rows(x, dest, mp) if pack else x
         h_p = gmm_kernel.gmm_glu_tiled_pair(x_p, wi_gate, wi_up, tile_group,
                                             block_m=block_m)
         out_p = gmm_kernel.gmm_tiled(h_p, wo, tile_group, block_m=block_m)
-        out = _gather_rows(out_p, dest)
+        out = _gather_rows(out_p, dest) if pack else out_p
         if scales is not None:
             out = out * scales.to(out.dtype)[:, None]
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        x, wi_gate, wi_up, wo, scales, group_sizes = ctx.saved_tensors
-        bm = ctx.block_m
+        x, wi_gate, wi_up, wo, scales, meta = ctx.saved_tensors
+        bm, pack = ctx.block_m, ctx.pack
         M, G = x.shape[0], wi_gate.shape[0]
         f32 = torch.float32
-        dest, tg, mp = _pack_meta(group_sizes, M, G, bm)
+        dest, tg, mp = _tile_layout(meta, M, G, bm, pack)
 
         def gemm(lhs, rhs):
             return gmm_kernel.gmm_tiled(lhs, rhs, tg, block_m=bm,
@@ -289,11 +310,17 @@ class _MoEFFN(torch.autograd.Function):
             return gmm_kernel.gmm_dw_tiled(lhs, d, tg, G, block_m=bm,
                                            out_dtype=dtype)
 
+        def unpack(rows):
+            return _gather_rows(rows, dest) if pack else rows
+
         dout_f = dout.to(f32)
         d_rows = dout_f * scales.to(f32)[:, None] if scales is not None \
             else dout_f
-        x_p = _scatter_rows(x, dest, mp)
-        dout_p = _scatter_rows(d_rows, dest, mp)
+        if pack:
+            x_p = _scatter_rows(x, dest, mp)
+            dout_p = _scatter_rows(d_rows, dest, mp)
+        else:
+            x_p, dout_p = x, d_rows.contiguous()
         # Recompute the pre-activations (f32) in the packed domain.
         g_p = gemm(x_p, wi_gate)
         u_p = gemm(x_p, wi_up)
@@ -304,7 +331,7 @@ class _MoEFFN(torch.autograd.Function):
         if scales is not None:
             # d(scale_r) = dout_r . y_r needs the unscaled output rows:
             # one extra grouped GEMM (nothing was stored).
-            y_rows = _gather_rows(gemm(h_p, wo), dest)
+            y_rows = unpack(gemm(h_p, wo))
             dscales = (dout_f * y_rows).sum(-1).to(scales.dtype)
             del y_rows
         dwo = dw(h_p, dout_p, wo.dtype)
@@ -318,12 +345,13 @@ class _MoEFFN(torch.autograd.Function):
         dwu = dw(x_p, du_p, wi_up.dtype)
         dx_p = gemm(dg_p, wi_gate.transpose(1, 2)) \
             + gemm(du_p, wi_up.transpose(1, 2))
-        dx = _gather_rows(dx_p, dest).to(x.dtype)
-        return dx, dwg, dwu, dwo, dscales, None, None
+        dx = unpack(dx_p).to(x.dtype)
+        return dx, dwg, dwu, dwo, dscales, None, None, None
 
 
 def moe_ffn(x_sorted, wi_gate, wi_up, wo, group_sizes, *, row_scales=None,
-            block_m: int = 128, small_m: bool | None = None):
+            block_m: int = 128, small_m: bool | None = None,
+            ep_size: int = 1):
     """Whole GLU expert FFN over expert-sorted rows, packed once.
 
     x_sorted: [M, d] rows sorted by group (M == sum(group_sizes));
@@ -333,19 +361,130 @@ def moe_ffn(x_sorted, wi_gate, wi_up, wo, group_sizes, *, row_scales=None,
     unpacked rows in the compute dtype).
 
     small_m: True forces / False forbids the group-dense route; None picks
-    it when M * (G - 1) <= G * block_m. Otherwise: one pack scatter, the
-    fused gate+up GLU kernel and the down-projection kernel in the packed
-    domain, one unpack gather, with the recomputing backward of
-    :class:`_MoEFFN`."""
+    it when M * (Gs - 1) <= Gs * block_m, Gs = G // ep_size the per-shard
+    group count (``ep_size``: the expert-parallel shards the G groups are
+    spread over). Otherwise: one pack scatter, the fused gate+up GLU
+    kernel and the down-projection kernel in the packed domain, one unpack
+    gather, with the recomputing backward of :class:`_MoEFFN`."""
     M = x_sorted.shape[0]
     G = wi_gate.shape[0]
     if small_m is None:
-        small_m = M * (G - 1) <= G * block_m
+        Gs = max(G // max(int(ep_size), 1), 1)
+        small_m = M * (Gs - 1) <= Gs * block_m
     if small_m:
         return moe_ffn_group_dense(x_sorted, wi_gate, wi_up, wo, group_sizes,
                                    row_scales=row_scales)
     return _MoEFFN.apply(x_sorted, wi_gate, wi_up, wo, row_scales,
-                         group_sizes, block_m)
+                         group_sizes, block_m, True)
+
+
+def chunk_capacity(C: int, n_chunks: int) -> tuple:
+    """Pad a per-expert capacity so it splits into ``n_chunks`` equal
+    slices of a multiple of 8 rows (the zebra engines' chunked-dispatch
+    layout). Returns (C_padded, C_chunk), C_padded == n_chunks * C_chunk;
+    pad rows are zero and inert end to end."""
+    q = max(int(n_chunks), 1)
+    cq = _round_up(max(-(-C // q), 1), 8)
+    return cq * q, cq
+
+
+def packed_block_m(capacities) -> int:
+    """The row tile of the packed route over capacity-packed segments: the
+    largest of 128/64/32/16/8 dividing every capacity rounded up to a
+    multiple of 8 (ops.py:621-627)."""
+    caps = [_round_up(c, 8) for c in capacities]
+    return next(b for b in (128, 64, 32, 16, 8)
+                if all(c % b == 0 for c in caps))
+
+
+def moe_ffn_packed(buf, wi_gate, wi_up, wo, *, block_m: int | None = None,
+                   small_m: bool | None = False, ep_size: int = 1):
+    """:func:`moe_ffn` for ALREADY capacity-packed [E, C, d] buffers (the
+    zebra engines' dispatch layout): every expert owns exactly C contiguous
+    rows, so the buffer IS the packed domain: no sort, no pack scatter, no
+    unpack gather. Returns [E, C, d]."""
+    return moe_ffn_packed_multi([buf], [wi_gate], [wi_up], [wo],
+                                block_m=block_m, small_m=small_m,
+                                ep_size=ep_size)[0]
+
+
+def _packed_group_dense(bufs, wi_gates, wi_ups, wos):
+    """Group-dense evaluation of capacity-packed segments (the small-M
+    route): every [G_i, C_i, d] segment flattened to rows with uniform
+    group sizes C_i, through :func:`moe_ffn_group_dense` (autograd, no
+    tile padding). Returns the same list of [G_i, C_i, d] outputs as the
+    packed route."""
+    d = bufs[0].shape[-1]
+    dev = bufs[0].device
+    lhs = torch.cat([b.reshape(-1, d) for b in bufs])
+    sizes = torch.cat([torch.full((b.shape[0],), b.shape[1],
+                                  dtype=torch.int32, device=dev)
+                       for b in bufs])
+    out = moe_ffn_group_dense(lhs, torch.cat(wi_gates), torch.cat(wi_ups),
+                              torch.cat(wos), sizes)
+    outs, off = [], 0
+    for b in bufs:
+        g, c = b.shape[0], b.shape[1]
+        outs.append(out[off:off + g * c].reshape(g, c, d))
+        off += g * c
+    return outs
+
+
+def moe_ffn_packed_multi(bufs, wi_gates, wi_ups, wos, *,
+                         block_m: int | None = None,
+                         small_m: bool | None = False, ep_size: int = 1):
+    """ONE grouped-GEMM GLU FFN over SEVERAL capacity-packed buffers.
+
+    bufs[i]: [G_i, C_i, d] (capacities may differ per segment);
+    wi_gates[i]/wi_ups[i]: [G_i, d, f]; wos[i]: [G_i, f, d]. The segments'
+    weight stacks and rows are concatenated into one [G_total, ...] stack
+    and one tile-aligned lhs with one tile-group map, so the call is ONE
+    fused GLU launch and ONE down-projection launch (the no-pack variant of
+    :class:`_MoEFFN`, with its recomputing backward). Returns a list of
+    [G_i, C_i, d] outputs.
+
+    Capacities are padded to multiples of 8 (zero rows, inert); block_m,
+    when not given, is the largest of 128/64/32/16/8 dividing every padded
+    capacity. small_m: None routes to the group-dense evaluation when
+    rows * (Gs - 1) <= Gs * (block_m or 128), Gs the group count over
+    ``ep_size``; the default False keeps the training engines on the
+    packed route unconditionally."""
+    assert len(bufs) == len(wi_gates) == len(wi_ups) == len(wos)
+    assert bufs, "need at least one packed segment"
+    d = bufs[0].shape[-1]
+    if small_m is None:
+        G_tot = sum(b.shape[0] for b in bufs)
+        n_rows = sum(b.shape[0] * b.shape[1] for b in bufs)
+        Gs = max(G_tot // max(int(ep_size), 1), 1)
+        small_m = n_rows * (Gs - 1) <= Gs * (block_m or 128)
+    if small_m:
+        return _packed_group_dense(bufs, wi_gates, wi_ups, wos)
+    caps = [_round_up(b.shape[1], 8) for b in bufs]
+    if block_m is None:
+        block_m = packed_block_m(caps)
+    assert all(c % block_m == 0 for c in caps), (caps, block_m)
+    rows, tiles, n_tot = [], [], 0
+    dev = bufs[0].device
+    for buf, cp in zip(bufs, caps):
+        g, c = buf.shape[0], buf.shape[1]
+        if cp != c:
+            buf = F.pad(buf, (0, 0, 0, cp - c))
+        rows.append(buf.reshape(g * cp, d))
+        tiles.append(torch.arange(n_tot, n_tot + g, dtype=torch.int32,
+                                  device=dev).repeat_interleave(
+                                      cp // block_m))
+        n_tot += g
+    lhs = rows[0] if len(rows) == 1 else torch.cat(rows)
+    tile_group = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+    cat = (lambda ws: ws[0] if len(ws) == 1 else torch.cat(ws))
+    out = _MoEFFN.apply(lhs.contiguous(), cat(wi_gates), cat(wi_ups),
+                        cat(wos), None, tile_group, block_m, False)
+    outs, off = [], 0
+    for buf, cp in zip(bufs, caps):
+        g, c = buf.shape[0], buf.shape[1]
+        outs.append(out[off:off + g * cp].reshape(g, cp, d)[:, :c])
+        off += g * cp
+    return outs
 
 
 # ---------------------------------------------------------------------------

@@ -18,11 +18,23 @@ reports, as ``launch/profile_serve.py`` does for serving:
   autograd node and every kernel its ops launch: autograd of
   ``ref.ssd_chunked``), 0 for models without SSD layers;
 * device memory: what params and optimizer state hold, and the peak of
-  the profiled steps (``torch.cuda.max_memory_allocated``).
+  the profiled steps (``torch.cuda.max_memory_allocated``);
+* per CUDA stream (the profiler's stream id of each kernel): its kernels,
+  device-busy time (the union of its kernel intervals) and its largest
+  kernel families; and the device time during which kernels of two or
+  more streams run at once (``overlap_ms``). Under zebra parallelism (the
+  driver's default for MoE archs) attention runs on the caller's stream
+  and the experts on a second one, so ``overlap_ms`` is the overlap zebra
+  exists for; without zebra every kernel is on one stream.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
         --arch mixtral-w1 --no-zebra --steps 3 --batch 8 --seq 256 \\
         --out chiprun_out/profile_train.json
+
+    # zebra (the driver's default for MoE archs: replicated, 2 microbatches)
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        --arch mixtral-w1 --steps 3 --batch 8 --seq 256 \\
+        --out chiprun_out/profile_train_zebra.json
 
     # mamba2 at full width and depth (the SSD scan kernel):
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
@@ -34,6 +46,7 @@ Needs a CUDA device (it measures the card, never the CPU).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import sys
@@ -42,11 +55,54 @@ import time
 import torch
 
 from repro_torch.launch import train as train_mod
-from repro_torch.launch.profile_serve import report
+from repro_torch.launch.profile_serve import family, report
 from repro_torch.train import optimizer as opt
 
 PHASES = ("gradient", "optimizer")  # record_function names
 SSD_BACKWARD = "autograd::engine::evaluate_function: _SSDBackward"
+
+
+def _merged(intervals) -> list:
+    """Sorted, disjoint union of (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def streams_report(prof) -> dict:
+    """Device time per CUDA stream and the time two or more streams run
+    kernels at once, from the profiler's per-kernel stream ids."""
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name not in PHASES:
+            per.setdefault(e.device_resource_id, []).append(e)
+    streams, edges = {}, []
+    for sid, evs in sorted(per.items()):
+        spans = [(e.time_range.start, e.time_range.end) for e in evs]
+        fams = {}
+        for e in evs:
+            fams[family(e.name)] = fams.get(family(e.name), 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3
+        merged = _merged(spans)
+        streams[str(sid)] = {
+            "kernels": len(evs),
+            "busy_ms": sum(b - a for a, b in merged) / 1e3,
+            "top_families": dict(sorted(fams.items(),
+                                        key=lambda kv: -kv[1])[:4])}
+        for a, b in merged:
+            edges += [(a, 1), (b, -1)]
+    overlap_us, active, last = 0.0, 0, None
+    for t, step in sorted(edges, key=lambda ev: (ev[0], ev[1])):
+        if active >= 2:
+            overlap_us += t - last
+        active += step
+        last = t
+    return {"streams": streams, "overlap_ms": overlap_us / 1e3}
 
 
 def profile(args) -> dict:
@@ -77,7 +133,10 @@ def profile(args) -> dict:
     ssd_bwd_us = sum(e.device_time_total for e in prof.events()
                      if e.name == SSD_BACKWARD)
     return {"arch": cfg.name, "steps": args.steps, "batch": args.batch,
-            "seq": args.seq, **report(prof, wall_us, PHASES),
+            "seq": args.seq,
+            "zebra": (dataclasses.asdict(program.zcfg) if program.zcfg
+                      else None),
+            **report(prof, wall_us, PHASES), **streams_report(prof),
             "ssd_backward_device_ms": ssd_bwd_us / 1e3,
             "memory": {"state_bytes": state_bytes,
                        "peak_bytes": torch.cuda.max_memory_allocated()}}

@@ -4,6 +4,11 @@
 It takes the JAX driver's flags and runs the JAX driver's step: forward
 with chunked attention and per-layer recompute (``remat="full"``), the
 MoE FFN's recomputing backward through the grouped GEMM kernels, AdamW.
+For MoE archs zebra parallelism is on by default, as in the JAX driver
+(``--zebra-mode replicated``, ``--microbatches 2``): every MoE layer runs
+``core/zebra_spmd.py``'s override, attention of microbatch k on one CUDA
+stream beside the capacity-packed experts of microbatch k-1 on another;
+``--no-zebra`` runs the dropless single-pack MoE path instead.
 A mamba2 arch (``--arch mamba2-2.7b``) runs each SSD mixer's scan through
 the SSD scan kernel (forward and its remat recompute) with the backward
 by autograd of the chunked oracle; zebra applies to MoE archs only, so it
@@ -15,7 +20,17 @@ none.
 It runs on the CUDA device unless ``--device cpu`` is given; without a
 CUDA device and without ``--device cpu`` it exits non-zero.
 
-    # the paper's Mixtral-W1 at full width and depth on the card:
+    # the paper's Mixtral-W1 at full width and depth on the card (zebra
+    # replicated, 2 microbatches: the JAX driver's default):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
+        --steps 6 --batch 8 --seq 256
+
+    # the same with chunked all-to-all dispatch and 2 offloaded experts:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
+        --steps 6 --batch 8 --seq 256 --zebra-mode alltoall --n-chunks 2 \\
+        --offload-experts 2
+
+    # without zebra (the dropless single-pack MoE path):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
         --no-zebra --mesh 1x1 --steps 6 --batch 8 --seq 256
 
@@ -25,23 +40,25 @@ CUDA device and without ``--device cpu`` it exits non-zero.
 
     # smoke size on the CPU (plain versions of the kernels):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
-        --smoke --no-zebra --device cpu --steps 2
+        --smoke --device cpu --steps 2
 
-Settings the port does not train with yet (zebra parallelism, which the
-JAX driver enables by default for MoE archs, a mesh other than 1x1,
-checkpointing and resume, tracing) are rejected by name in one
-``[train] invalid configuration:`` line, exit 1.
+Settings the port does not train with yet (a mesh other than 1x1, so one
+EP rank; checkpointing and resume; tracing), an unknown ``--zebra-mode``
+and fewer than one microbatch are rejected by name in one ``[train]
+invalid configuration:`` line, exit 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import sys
 import time
 
 import torch
 
+from repro_torch.core.zebra_spmd import MODES, ZebraConfig
 from repro_torch.data import DataConfig, DataLoader
 from repro_torch.models import registry
 from repro_torch.models.config import ShapeConfig
@@ -51,40 +68,60 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.step import make_train_program
 
 
-def build(arch: str, args, run: RunConfig | None = None):
+def zebra_config(args, cfg) -> ZebraConfig | None:
+    """The ZebraConfig of the command line (the JAX driver's,
+    repro/launch/train.py:81-85): None with ``--no-zebra`` or for an arch
+    without experts."""
+    if not (args.zebra and cfg.is_moe):
+        return None
+    return ZebraConfig(mode=args.zebra_mode,
+                       num_microbatches=args.microbatches,
+                       n_chunks=args.n_chunks,
+                       offload_experts=args.offload_experts)
+
+
+def build(arch: str, args, run: RunConfig | None = None,
+          zcfg: ZebraConfig | None = None):
     """(cfg, program, loader) of the driver's command line: ``run``, by
     default the JAX driver's run policy (chunked attention, gather MoE,
-    full remat, bf16 compute), and the JAX driver's optimizer schedule."""
+    full remat, bf16 compute), the JAX driver's optimizer schedule, and
+    ``zcfg``, by default the command line's (:func:`zebra_config`; a
+    caller may hand another, e.g. with another capacity factor)."""
     cfg = registry.get_config(arch)
     if args.smoke:
         cfg = registry.smoke_config(cfg)
     if run is None:
         run = RunConfig(policy=Policy(), attn_impl="chunked",
                         moe_impl="gather", remat="full")
+    if zcfg is None:
+        zcfg = zebra_config(args, cfg)
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
     opt_cfg = opt.OptimizerConfig(peak_lr=args.lr, warmup_steps=20,
                                   total_steps=args.steps)
     program = make_train_program(cfg, run, shape, opt_cfg=opt_cfg,
-                                 device=args.device)
+                                 device=args.device, zcfg=zcfg)
     loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=args.seq, global_batch=args.batch,
                                    path=args.data))
     return cfg, program, loader
 
 
-def train_arch(arch: str, args, run: RunConfig | None = None) -> dict:
-    """Train ``arch`` for ``args.steps`` steps under ``run`` (default: the
-    driver's, see :func:`build`); returns a summary: the per-step metrics
+def train_arch(arch: str, args, run: RunConfig | None = None,
+               zcfg: ZebraConfig | None = None) -> dict:
+    """Train ``arch`` for ``args.steps`` steps under ``run`` and ``zcfg``
+    (default: the driver's, see :func:`build`); returns a summary: the
+    fitted zebra config (a dict, or None), the per-step metrics
     (floats), the wall time of each step (host clock around work that
     ends in a device synchronize), ms/step (median), tokens/s and ``ok``
     (every loss and grad norm finite)."""
-    cfg, program, loader = build(arch, args, run)
+    cfg, program, loader = build(arch, args, run, zcfg)
     device = program.device
     params = program.init_params(seed=0)
     opt_state = program.init_opt(params)
     n_params = sum(p.numel() for p in flatten(params).values())
+    zebra = dataclasses.asdict(program.zcfg) if program.zcfg else None
     print(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"mesh={{'data': 1, 'model': 1}} zebra=None device={device}",
+          f"mesh={{'data': 1, 'model': 1}} zebra={zebra} device={device}",
           flush=True)
 
     def sync():
@@ -114,17 +151,19 @@ def train_arch(arch: str, args, run: RunConfig | None = None) -> dict:
     final = history[-1]["loss"] if history else float("nan")
     print(f"[train] done: final loss {final:.4f}", flush=True)
     return {"ok": ok, "arch": cfg.name, "device": str(device),
-            "params": n_params, "steps": args.steps, "batch": args.batch,
-            "seq": args.seq, "history": history, "step_s": step_s,
+            "zebra": zebra, "params": n_params, "steps": args.steps,
+            "batch": args.batch, "seq": args.seq, "history": history, "step_s": step_s,
             "ms_per_step": ms,
             "tokens_per_s": args.batch * args.seq / (ms / 1e3)}
 
 
 def _unported(args, is_moe: bool) -> list:
     out = []
-    if args.zebra and is_moe:
-        out.append("--zebra (zebra parallelism, the JAX driver's default "
-                   "for MoE archs; pass --no-zebra)")
+    if args.zebra and is_moe and args.zebra_mode not in MODES:
+        out.append(f"--zebra-mode {args.zebra_mode} (replicated or "
+                   f"alltoall)")
+    if args.zebra and is_moe and args.microbatches < 1:
+        out.append(f"--microbatches {args.microbatches} (at least 1)")
     if args.mesh != "1x1":
         out.append(f"--mesh {args.mesh} (one device only)")
     if args.ckpt_dir:
@@ -148,16 +187,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default; fails without a CUDA device) or "
                          "cpu (plain versions of the kernels)")
     ap.add_argument("--zebra", action="store_true", default=True,
-                    help="not ported yet (the JAX default); pass --no-zebra")
+                    help="zebra parallelism for MoE archs (default)")
     ap.add_argument("--no-zebra", dest="zebra", action="store_false")
     ap.add_argument("--zebra-mode", default="replicated",
-                    help="zebra only (not ported yet)")
-    ap.add_argument("--microbatches", type=int, default=2,
-                    help="zebra only (not ported yet)")
+                    help="replicated (default) or alltoall")
+    ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--n-chunks", type=int, default=1,
-                    help="zebra only (not ported yet)")
+                    help="capacity chunks for overlapped dispatch "
+                         "(alltoall mode)")
     ap.add_argument("--offload-experts", type=int, default=0,
-                    help="zebra only (not ported yet)")
+                    help="experts kept replicated attention-side "
+                         "(alltoall mode Asym-EA offload)")
     ap.add_argument("--ckpt-dir", default=None, help="not ported yet")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true", help="not ported yet")

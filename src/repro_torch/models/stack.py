@@ -15,10 +15,14 @@ matrices are cast to the compute dtype at their use in the graph, as in
 the JAX package (not through :func:`compute_params`, which would cut the
 gradient off the f32 params). With ``RunConfig(remat="full")`` each layer
 is checkpointed (the JAX package's ``jax.checkpoint`` of the scan body):
-its activations are recomputed in the backward.
+its activations are recomputed in the backward. A ``layer_override``
+(zebra parallelism, ``core/zebra_spmd.py``) replaces every MoE layer
+without decode state, inside the checkpoint, so the recompute reruns it.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -118,15 +122,28 @@ def _unbind_layers(tree):
     return tree.unbind(0)
 
 
+def _apply_layer(p, cfg, run, spec, x, positions, state, cache_index,
+                 page_table, layer_override):
+    """One layer: ``layer_override`` (zebra) for a MoE layer without decode
+    state, else ``modules.apply_layer``. Returns (x, new_state, aux)."""
+    if layer_override is not None and spec.ffn == "moe" and state is None:
+        y, aux = layer_override(p, spec, x, positions)
+        return y, None, aux
+    return modules.apply_layer(p, cfg, run, spec, x, positions, state=state,
+                               cache_index=cache_index, page_table=page_table)
+
+
 def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                  x, positions, states=None, tail_states=None,
-                 cache_index=None, page_table=None):
+                 cache_index=None, page_table=None,
+                 layer_override: Optional[Callable] = None):
     """Run the stacked pattern layers + tail. Returns (x, new_states, aux).
 
     Block states are per-layer views of the stacked leaves and are updated
     in place, so ``new_states`` holds the same tensors as ``states``.
     Without states and with ``run.remat == "full"`` each repeat of the
-    pattern is one checkpoint (recomputed in the backward)."""
+    pattern is one checkpoint (recomputed in the backward, the
+    ``layer_override`` with it)."""
     aux = _zero_aux(x.device)
     decode = states is not None
     new_block_states = None
@@ -136,9 +153,9 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
         for pos, spec in enumerate(pattern):
             key = f"pos{pos}"
             st = layer_states[key] if decode else None
-            x, _, la = modules.apply_layer(
-                layer_params[key], cfg, run, spec, x, positions, state=st,
-                cache_index=cache_index, page_table=page_table)
+            x, _, la = _apply_layer(layer_params[key], cfg, run, spec, x,
+                                    positions, st, cache_index, page_table,
+                                    layer_override)
             a = _acc_aux(a, la)
         return x, a
 
@@ -159,9 +176,8 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     new_tail_states = []
     for i, (spec, tp) in enumerate(tails):
         st = tail_states[i] if tail_states else None
-        x, ns, a = modules.apply_layer(tp, cfg, run, spec, x, positions,
-                                       state=st, cache_index=cache_index,
-                                       page_table=page_table)
+        x, ns, a = _apply_layer(tp, cfg, run, spec, x, positions, st,
+                                cache_index, page_table, layer_override)
         aux = _acc_aux(aux, a)
         new_tail_states.append(ns)
 
@@ -173,13 +189,16 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
 
 def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
                 positions=None, *, decode_state=None, cache_index=None,
-                return_hidden: bool = False, page_table=None):
+                return_hidden: bool = False, page_table=None,
+                layer_override: Optional[Callable] = None):
     """Forward pass.
 
     tokens: [B, S] int. positions: [B, S] (default arange, or offset by
     cache_index: a scalar for chunked prefill, a [B] vector for per-slot
     decode). decode_state + page_table [B, max_pages]: paged-KV mode
     (state from init_paged_decode_state, pools updated in place).
+    layer_override(layer_params, spec, x, positions) -> (y, aux) replaces
+    every MoE layer when there is no decode state (zebra parallelism).
 
     Returns (logits [B, S, vocab] f32, new_decode_state, aux)."""
     B, S = tokens.shape
@@ -200,7 +219,8 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
     x, new_state, aux = _apply_stack(
         params.get("blocks"), tails, cfg, run, cfg.pattern, x, positions,
         states=decode_state, tail_states=tail_states,
-        cache_index=cache_index, page_table=page_table)
+        cache_index=cache_index, page_table=page_table,
+        layer_override=layer_override)
 
     x = modules.apply_norm(params["final_norm"], x, run.policy)
     if return_hidden:

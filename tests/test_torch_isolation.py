@@ -18,6 +18,7 @@ for m in mods:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
+assert "repro_torch.core.zebra_spmd" in mods, mods
 print(len(mods), bad)
 assert not bad, bad
 """
@@ -30,6 +31,19 @@ def test_repro_torch_imports_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
     assert int(n) >= 25 and bad.strip() == "[]"
+
+
+def test_core_package_imports_no_jax_and_no_repro():
+    """The zebra engine (``repro_torch.core``) alone, with the modules it
+    pulls in, leaves jax and the JAX package out."""
+    script = ("import sys, repro_torch.core.zebra_spmd\n"
+              "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'repro')]\n"
+              "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", script],
+                         env={"PYTHONPATH": str(SRC), "PATH": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_no_import_statement_names_jax_or_repro():

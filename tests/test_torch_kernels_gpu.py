@@ -1005,3 +1005,52 @@ def test_ssd_refusals(cuda):
         ssd.ssd_scan(x, dt, A, B.transpose(1, 2).contiguous().transpose(
             1, 2), C, chunk=64)
     assert kernels.launch_counts()["ssd"] == 0
+
+
+@pytest.mark.parametrize("mode", ["replicated", "alltoall"])
+def test_zebra_override_two_streams_match_one_stream(cuda, mode):
+    """The zebra layer override on the card (bf16, smoke widths, R 2,
+    capacity 1.25, the grouped kernels at block_m 8/16): the loss and
+    every gradient of two streams run twice are bitwise equal, and equal
+    to one stream within 1e-4 * max|one stream|."""
+    from repro_torch.core import zebra_spmd as zs
+    from repro_torch.models import registry, stack
+    from repro_torch.models.modules import RunConfig
+    cfg = registry.smoke_config(registry.get_config("mixtral-w1"))
+    run = RunConfig(attn_impl="chunked", remat="full")
+    zcfg = zs.ZebraConfig(mode=mode, num_microbatches=2,
+                          n_chunks=2 if mode == "alltoall" else 1)
+    gen = torch.Generator().manual_seed(0)
+    params = stack.init_model(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen)
+
+    def grads(dev, streams):
+        p = _tree_to(params, dev)
+        leaves = _leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        ov = zs.make_layer_override(cfg, run, zcfg, streams=streams)
+        logits, _, aux = stack.apply_model(p, cfg, run, tokens.to(dev),
+                                           layer_override=ov)
+        loss = logits.float().square().mean() + aux["moe_aux_loss"]
+        g = torch.autograd.grad(loss, leaves)
+        return [loss.detach()] + [t.float() for t in g]
+
+    two, again, one = (grads(cuda, True), grads(cuda, True),
+                       grads(cuda, False))
+    for a, b, c in zip(two, again, one):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=1e-4 * float(c.abs().max()))
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    out = []
+    for v in tree.values():
+        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    return out

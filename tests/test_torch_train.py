@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.zebra_spmd import ZebraConfig as JZebraConfig
 from repro.data import DataConfig as JDataConfig
 from repro.data import DataLoader as JDataLoader
 from repro.launch.mesh import make_mesh
@@ -42,6 +43,7 @@ from repro.models.modules import Policy as JPolicy
 from repro.models.modules import RunConfig as JRunConfig
 from repro.train import optimizer as jopt
 from repro.train.step import make_train_program as jmake_train_program
+from repro_torch.core.zebra_spmd import ZebraConfig
 from repro_torch.data import DataConfig, DataLoader, write_token_bin
 from repro_torch.launch import train as train_cli
 from repro_torch.models import registry
@@ -85,14 +87,17 @@ def token_file_mamba2(tmp_path_factory):
     return _token_file(tmp_path_factory, S_MAMBA2)
 
 
-def _jax_run(cfg, token_file, attn_impl="chunked", seq=S):
+def _jax_run(cfg, token_file, attn_impl="chunked", seq=S, zcfg=None):
     mesh = make_mesh((1, 1), ("data", "model"))
     run = JRunConfig(policy=JPolicy(compute_dtype=jnp.float32),
                      attn_impl=attn_impl, moe_impl="gather", remat="full",
-                     chunk_q=16, use_gmm_kernel=not cfg.is_moe)
+                     chunk_q=16,
+                     use_gmm_kernel=not cfg.is_moe or zcfg is not None)
     prog = jmake_train_program(cfg, mesh, run,
                                JShapeConfig("t", "train", seq, B),
-                               opt_cfg=_opt_cfg(jopt), zcfg=None)
+                               opt_cfg=_opt_cfg(jopt),
+                               zcfg=None if zcfg is None
+                               else JZebraConfig(**zcfg))
     loader = JDataLoader(JDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                      global_batch=B, path=token_file))
     with mesh:
@@ -108,22 +113,26 @@ def _jax_run(cfg, token_file, attn_impl="chunked", seq=S):
     return init, out, batches
 
 
-def _port_program(cfg, remat="full", attn_impl="chunked", seq=S):
+def _port_program(cfg, remat="full", attn_impl="chunked", seq=S,
+                  zcfg=None):
     run = RunConfig(policy=Policy(compute_dtype=torch.float32),
                     attn_impl=attn_impl, moe_impl="gather", remat=remat,
                     chunk_q=16)
     return make_train_program(cfg, run, ShapeConfig("t", "train", seq, B),
-                              opt_cfg=_opt_cfg(opt), device="cpu")
+                              opt_cfg=_opt_cfg(opt), device="cpu",
+                              zcfg=None if zcfg is None
+                              else ZebraConfig(**zcfg))
 
 
 def _check_train_steps_match_jax(token_file, attn_impl="chunked", seq=S,
-                                 arch="mixtral-w1", rel_grad_norm=2e-5):
+                                 arch="mixtral-w1", rel_grad_norm=2e-5,
+                                 zcfg=None):
     jcfg = jregistry.smoke_config(jregistry.get_config(arch))
-    init, want, jbatches = _jax_run(jcfg, token_file, attn_impl, seq)
+    init, want, jbatches = _jax_run(jcfg, token_file, attn_impl, seq, zcfg)
 
     cfg = registry.smoke_config(registry.get_config(arch))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    prog = _port_program(cfg, attn_impl=attn_impl, seq=seq)
+    prog = _port_program(cfg, attn_impl=attn_impl, seq=seq, zcfg=zcfg)
     params = params_from_jax(init)
     state = prog.init_opt(params)
     loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -145,6 +154,15 @@ def _check_train_steps_match_jax(token_file, attn_impl="chunked", seq=S,
 
 def test_train_steps_match_jax(token_file):
     _check_train_steps_match_jax(token_file)
+
+
+def test_zebra_train_steps_match_jax(token_file):
+    """Zebra, the JAX driver's default: replicated, 2 microbatches of 64
+    tokens, capacity 1.25 (C 24); the JAX package with
+    ``use_gmm_kernel=True`` (its capacity-packed Pallas route)."""
+    _check_train_steps_match_jax(
+        token_file, zcfg=dict(mode="replicated", num_microbatches=2,
+                              capacity_factor=1.25))
 
 
 def test_flash_train_steps_match_jax(token_file_flash):
@@ -170,8 +188,10 @@ def test_remat_full_gradients_equal_remat_none():
                                    atol=1e-9, msg=name)
 
 
-@pytest.mark.parametrize("arch,extra", [("mixtral-w1", ["--no-zebra"]),
-                                        ("mamba2-2.7b", [])])
+@pytest.mark.parametrize("arch,extra", [
+    ("mixtral-w1", ["--no-zebra"]), ("mamba2-2.7b", []), ("mixtral-w1", []),
+    ("mixtral-w1", ["--zebra-mode", "alltoall", "--n-chunks", "2",
+                    "--offload-experts", "1"])])
 def test_cli_trains_on_cpu_and_prints_done(capsys, arch, extra):
     rc = train_cli.main(["--arch", arch, "--device", "cpu", "--smoke",
                          "--steps", "2", "--batch", "2", "--seq", "64",
@@ -180,10 +200,15 @@ def test_cli_trains_on_cpu_and_prints_done(capsys, arch, extra):
     assert rc == 0
     assert f"[train] arch={arch}-smoke params=" in out
     assert out.count("loss=") == 2 and "[train] done: final loss" in out
+    zebra = arch == "mixtral-w1" and "--no-zebra" not in extra
+    mode = "alltoall" if "alltoall" in extra else "replicated"
+    assert (f"'mode': '{mode}'" in out) == zebra
+    assert ("'num_microbatches': 2" in out) == zebra
+    assert ("zebra=None" in out) == (not zebra)
 
 
 @pytest.mark.parametrize("argv,names", [
-    ([], ["--zebra"]),
+    (["--ckpt-dir", "x"], ["--ckpt-dir"]),  # zebra (the default) trains
     (["--no-zebra", "--mesh", "2x1", "--ckpt-dir", "x", "--resume",
       "--trace-out", "t.json"],
      ["--mesh 2x1", "--ckpt-dir", "--resume", "--trace-out"]),
@@ -196,3 +221,15 @@ def test_cli_rejects_unported_settings_in_one_line(capsys, argv, names):
     assert err[0].startswith("[train] invalid configuration:")
     for name in names:
         assert name in err[0]
+    assert "--zebra " not in err[0] and "--no-zebra" not in err[0]
+
+
+@pytest.mark.parametrize("argv", [["--zebra-mode", "pipeline"],
+                                  ["--microbatches", "0"]])
+def test_cli_rejects_bad_zebra_settings(capsys, argv):
+    rc = train_cli.main(["--arch", "mixtral-w1", "--smoke", "--device",
+                         "cpu", "--steps", "1", *argv])
+    err = capsys.readouterr().err.strip().splitlines()
+    assert rc == 1 and len(err) == 1
+    assert err[0].startswith("[train] invalid configuration:")
+    assert " ".join(argv) in err[0]

@@ -18,6 +18,7 @@ from repro.data import MemmapSource as JMemmapSource
 from repro.models import modules as jmodules
 from repro.train import loss as jloss
 from repro.train import optimizer as jopt
+from repro_torch.core.zebra_spmd import ZebraConfig
 from repro_torch.data import (DataConfig, DataLoader, MemmapSource,
                               SyntheticSource, write_token_bin)
 from repro_torch.models import modules
@@ -168,8 +169,42 @@ def test_unported_training_settings_raise():
         modules.RunConfig(remat="dots")
     cfg = registry.smoke_config(registry.get_config("mixtral-w1"))
     shape = ShapeConfig("t", "train", 32, 4)
-    for kw in (dict(accum_steps=2), dict(zcfg=object()),
-               dict(mesh=object()), dict(constrain_grads=True)):
+    for kw in (dict(accum_steps=2), dict(mesh=object()),
+               dict(constrain_grads=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
                                **kw)
+    # zebra is ported: the program takes a ZebraConfig, fitted to the batch
+    # (R 3 does not divide the batch of 4: lowered to 2)
+    prog = make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
+                              zcfg=ZebraConfig(num_microbatches=3))
+    assert prog.zcfg.num_microbatches == 2
+
+
+def test_profile_streams_report_counts_overlap():
+    """``launch/profile_train.streams_report``: per stream the union of its
+    kernels' intervals, and the time two or more streams run at once (the
+    zebra overlap), from the profiler's per-kernel stream ids."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import profile_train
+
+    def kernel(stream, a, b, name="gmm_glu_wgmma_kernel"):
+        return SimpleNamespace(
+            device_type=torch.autograd.DeviceType.CUDA, name=name,
+            device_resource_id=stream,
+            time_range=SimpleNamespace(start=a, end=b))
+
+    host = SimpleNamespace(device_type=torch.autograd.DeviceType.CPU,
+                           name="gradient", device_resource_id=0,
+                           time_range=SimpleNamespace(start=0, end=100))
+    prof = SimpleNamespace(events=lambda: [
+        host, kernel(7, 0, 10), kernel(7, 5, 20, "elementwise_kernel"),
+        kernel(7, 30, 40), kernel(13, 15, 35), kernel(13, 50, 60),
+        kernel(7, 60, 70)])
+    rep = profile_train.streams_report(prof)
+    assert rep["streams"]["7"]["busy_ms"] == pytest.approx(0.040)
+    assert rep["streams"]["7"]["kernels"] == 4
+    assert rep["streams"]["13"]["busy_ms"] == pytest.approx(0.030)
+    # [15, 20] and [30, 35] overlap; [60, 60] only touches
+    assert rep["overlap_ms"] == pytest.approx(0.010)
