@@ -34,7 +34,17 @@ full depth, with random weights from seed 0:
 * zebra_a2a: the same with ``--zebra-mode alltoall --n-chunks 2
   --offload-experts 2`` (chunked dispatch and combine, the two offloaded
   experts in chunk 0's grouped call; capacity 224 in chunks of 112 rows,
-  block_m 16), 3 steps.
+  block_m 16), 3 steps;
+* train_mpmd: ``repro_torch.launch.hetero_mpmd``'s default, the zebra
+  MPMD engine on ``mixtral-w1``: the port's planner on the paper's
+  A40 + V100 ZP group picks the Asym-EA offloads (1, 2, 1, 2), and the
+  engine walks Theorem 1's schedule with the attention group on one CUDA
+  stream and 4 expert lanes on four more (2 microbatches of 1024 tokens,
+  capacity 1.25: C 216, block_m 8); one untimed warm-up step, then 3
+  steps of batch 8 x seq 256 (forward and stage-recompute backward; the
+  engine applies no optimizer);
+* mpmd_chunks: the same with ``--n-chunks 2`` (C 224 in chunks of 112
+  rows: the lanes at block_m 16, the offloaded experts at 32).
 
 It fails unless:
 
@@ -70,6 +80,23 @@ It fails unless:
   at block_m 8, 2 x 224 + 10 x 112 at block_m 16) agrees with its plain
   version at its tier on the tensor-core design (``zebra_tiles:``, each
   timed beside the same rows at block_m 128);
+* the MPMD engine's issue order is Theorem 1's canonical schedule (a
+  topological order under ``schedule.dependencies`` keeping each
+  stream's list), the MPMD runs launched exactly gmm_glu
+  2, gmm 7, gmm_dw 3 per expert call (a lane's chunk or the offloaded
+  experts, per microbatch and layer), all on the tensor-core designs,
+  with the capacity and block_m above; one MPMD step at capacity 6 (C
+  1024, block_m 128), NLL only, against autograd through the port's
+  fused W1 and through the SPMD zebra override on the card, each routed
+  as the engine routed, with at most 32 of the 8192 token-layer routings
+  choosing otherwise in either: under the f32 policy the loss and every
+  gradient leaf within 1e-4 * max of both; under the bf16 one the loss
+  within 1e-2 of the fused W1's and every leaf within 2e-2 * max of it
+  (any two of the three bf16 computations differ by 1.07e-2 to 1.30e-2
+  of a leaf's max; ``mpmd_equal:``);
+  the MPMD step on its streams is bitwise equal to its
+  rerun and within the f32 tier of the same engine on one stream
+  (``mpmd_streams:``, with both timings);
 * each kernel agrees with its plain PyTorch version on the card, at the
   main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
   bf16 tier, scaled down where the outputs stay below 1; per decode slot
@@ -132,7 +159,8 @@ every case
 shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
 design replaced, timed on the same bf16 inputs), ssd_cases (with
 ``fma_ms`` on the tensor-core design), ssd_grad, train_zebra, zebra_a2a,
-zebra_equal, zebra_streams and zebra_tiles lines, and last
+zebra_equal, zebra_streams, zebra_tiles, train_mpmd, mpmd_chunks,
+mpmd_equal and mpmd_streams lines, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -184,6 +212,24 @@ ZEBRA_ENGINE = {"replicated": ([216], [8]),   # (capacities, block_m)
                 "alltoall": ([224], [16])}    # chunks of 112 rows
 ZEBRA_EQUAL_CF = 6.0        # = E / top_k: no drops, C 1024, block_m 128
 ZEBRA_GAP = 1e-2            # zebra (no drops) vs --no-zebra step 1
+# the zebra MPMD engine (launch/hetero_mpmd.py's default: mixtral-w1 at
+# full width, the planner's offloads (1, 2, 1, 2) clamped to E // 2, 4
+# expert lanes on the card, 2 microbatches of 1024 tokens, capacity 1.25)
+MPMD_STEPS = 3              # timed steps, after one untimed warm-up step
+# Launches per expert call: the forward (GLU, down gmm), and in the
+# backward the stage recompute (GLU, down gmm) and the MoE FFN backward
+# without row scales (gmm g, u, dh, dx twice; gmm_dw 3).
+MPMD_CALL = {"gmm_glu": 2, "gmm": 7, "gmm_dw": 3}
+# (C, C_chunk, block_m of a lane's chunk, block_m of the offloaded experts)
+MPMD_ENGINE = {1: (216, 216, 8, 8), 2: (224, 112, 16, 32)}
+MPMD_EQUAL_CF = 6.0         # = E / top_k: no drops, C 1024, block_m 128
+MPMD_GAP = 1e-2             # the bf16 loss vs the fused W1's
+# bf16 gradient leaves vs the fused W1's, of each leaf's max: any two bf16
+# computations of this step (the engine, the SPMD zebra override, the
+# fused W1) differ by 1.07e-2 to 1.30e-2 at their worst leaves on the
+# H100, the same comparisons in f32 by at most 9e-6 (PERF.md)
+MPMD_BF16_LEAF = 2e-2
+MPMD_FLIPS = 32             # of 8192 token-layer routings (1-8 measured)
 MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--mesh", "1x1", "--steps", "6",
                "--batch", "2", "--seq", "2048"]
 MAMBA2_WARMUP_ARGS = MAMBA2_ARGS + ["--steps", "1"]
@@ -1140,6 +1186,359 @@ def zebra_streams_phase(torch, train_mod):
             "ok": bitwise and ok and loss_ok}
 
 
+def mpmd_calls(s) -> int:
+    """Expert calls of one MPMD step: per microbatch and layer one per
+    lane holding experts and chunk, and one for the offloaded experts."""
+    eng = s.engine
+    return eng.R * sum(
+        eng.Q * eng.N * (eng.lane_experts(l) > 0)
+        + (eng.plan.n_attn_experts(l) > 0) for l in range(s.cfg.n_layers))
+
+
+def mpmd_phase(torch, smi: str, n_chunks: int):
+    """The zebra MPMD step at full width (``launch/hetero_mpmd.py``'s
+    default, ``--n-chunks``): one untimed warm-up step, then MPMD_STEPS
+    steps with the launch counters set to 0 just before and read just
+    after. Raises on a non-finite loss or gradient, a launch count other
+    than MPMD_CALL per expert call, a launch off the tensor-core design,
+    a capacity or block_m other than MPMD_ENGINE's, or an issue order
+    other than Theorem 1's (:func:`canonical_order`)."""
+    from repro_torch import kernels
+    from repro_torch.launch import hetero_mpmd as hm
+    s = hm.build(hm.build_parser().parse_args(["--n-chunks",
+                                                str(n_chunks)]))
+    batch, seq = s.tokens.shape
+    label = f"mpmd Q {n_chunks}"
+    if not hm.finite(*hm.step(s)):
+        raise RuntimeError(f"{label}: warm-up step not finite")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_s, losses, ok = [], [], True
+    for _ in range(MPMD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hm.step(s)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        ok = ok and hm.finite(*out)
+        losses.append(float(out[0]))
+        del out
+    launches = kernels.launch_counts()
+    counts = {**launches, **kernels.variant_launch_counts(),
+              **kernels.design_launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    if not ok:
+        raise RuntimeError(f"{label}: a loss or gradient is not finite")
+    check_designs(label, counts)
+    calls = mpmd_calls(s)
+    expected = {k: MPMD_CALL.get(k, 0) * calls * MPMD_STEPS
+                for k in launches}
+    if expected != launches:
+        raise RuntimeError(f"{label}: launches {launches}, expected "
+                           f"{expected}")
+    layout = hm.layout(s)
+    got = (layout["C"], layout["C_chunk"], layout["block_m_lane_chunk"],
+           layout["block_m_local"])
+    if got != MPMD_ENGINE[n_chunks]:
+        raise RuntimeError(f"{label}: (C, C_chunk, block_m lane, block_m "
+                           f"local) {got}, expected "
+                           f"{MPMD_ENGINE[n_chunks]}")
+    ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    canonical = canonical_order(s.engine)
+    line = {"arch": s.cfg.name, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "lanes": s.engine.N,
+            "microbatches": s.engine.R, "batch": batch, "seq": seq,
+            "steps": MPMD_STEPS,
+            "plan": {"R": s.plan.R, "offload": list(s.plan.offload),
+                     "n_chunks": s.plan.n_chunks},
+            "layout": layout, "ms_per_step": ms,
+            "tokens_per_s": batch * seq / (ms / 1e3),
+            "step_ms": [t * 1e3 for t in step_s], "loss": losses,
+            "max_memory_allocated": peak, "expert_calls_per_step": calls,
+            "launches_per_step": {k: launches[k] / MPMD_STEPS
+                                  for k in MPMD_CALL},
+            "design_launches": {k: v for k, v in counts.items()
+                                if k.endswith((":wgmma", ":fma"))},
+            "tasks": len(s.engine.order), "canonical_order": canonical}
+    if not canonical:
+        raise RuntimeError(f"{label}: the engine's issue order is not "
+                           f"Theorem 1's canonical schedule")
+    return line, counts
+
+
+def canonical_order(engine) -> bool:
+    """Whether the order ``train_step`` walks issues every task of
+    ``schedule.canonical_schedule`` once, after all of its
+    ``schedule.dependencies``, keeping each stream's canonical list."""
+    from repro_torch.core import schedule as S
+    sched, order = engine.schedule, engine.order
+    seen = set()
+    for t in order:
+        if t in seen or not all(d in seen for d in S.dependencies(
+                t, sched.L, sched.offload)):
+            return False
+        seen.add(t)
+    return (seen == set(sched.all_tasks()) and all(
+        [t for t in order if S.stream_of(t) == name] == tasks
+        for name, tasks in sched.streams.items()))
+
+
+def mpmd_named(grads_attn, grads_exp) -> dict:
+    """The engine's gradient leaves by name: ``layers/l/...`` per layer
+    of the attention side (its experts the offloaded [0, n_att)) and
+    ``lanes/l/i/key`` those of lane i at layer l."""
+    from repro_torch.pytree import flatten
+    out = flatten({k: v for k, v in grads_attn.items() if k != "layers"})
+    for l, layer in enumerate(grads_attn["layers"]):
+        out.update({f"layers/{l}/{k}": v for k, v in flatten(layer).items()})
+        for i, lane in enumerate(grads_exp[l]):
+            out.update({f"lanes/{l}/{i}/{k}": v for k, v in lane.items()})
+    return out
+
+
+def fused_named(s, names, ref: dict) -> dict:
+    """A fused tree's gradients (``ref``, by path) cut as the engine
+    places them, under the names of :func:`mpmd_named`."""
+    from repro_torch.core.zebra_mpmd import EXPERT_KEYS
+    out = {}
+    for name in names:
+        side, _, rest = name.partition("/")
+        if side == "layers":
+            l, k = rest.split("/", 1)
+            want = ref[f"blocks/pos0/{k}"][int(l)]
+            if k in [f"ffn/{e}" for e in EXPERT_KEYS]:
+                want = want[:s.engine.plan.n_attn_experts(int(l))]
+        elif side == "lanes":
+            l, i, k = (int(v) if v.isdigit() else v
+                       for v in rest.split("/", 2))
+            El = s.engine.lane_experts(l)
+            first = s.engine.plan.n_attn_experts(l) + i * El
+            want = ref[f"blocks/pos0/ffn/{k}"][l][first:first + El]
+        else:
+            want = ref[name]
+        out[name] = want
+    return out
+
+
+def rel_errors(got: dict, want: dict) -> dict:
+    """Per leaf max|got - want| / max|want|; None where shapes differ, 0
+    for a leaf of no experts."""
+    out = {}
+    for k, g in got.items():
+        w = want[k]
+        if g.shape != w.shape or not g.numel():
+            out[k] = None if g.shape != w.shape else 0.0
+            continue
+        err = float((g.float() - w.float()).abs().max())
+        out[k] = err / max(float(w.float().abs().max()), 1e-30)
+    return out
+
+
+def worst(rel: dict, n: int = 5) -> list:
+    return sorted(rel.items(), key=lambda kv: -float(
+        "inf" if kv[1] is None else kv[1]))[:n]
+
+
+def mpmd_equal_case(torch, run=None) -> dict:
+    """One MPMD step at capacity MPMD_EQUAL_CF (no drops: C 1024, block_m
+    128) under ``run`` (default: the entry point's bf16 policy), leaf by
+    leaf against two references on the card, the NLL only, each routed
+    as the engine's forward routed:
+
+    * ``fused``: autograd through the port's fused W1 (``stack.apply_model``
+      on the single-pack MoE route, which scales the combine's rows inside
+      the down GEMM);
+    * ``spmd``: autograd through the same model with the SPMD zebra
+      override (``zebra_spmd.make_layer_override``, replicated, the
+      engine's R microbatches), which packs, runs the experts and rounds
+      their outputs before the weighted combine as the engine does.
+
+    Both references sum the router's inputs in other orders than the
+    engine, so a token whose second and third expert nearly tie may pick
+    another expert there, and one such token moves the gradients it
+    touches by up to 0.28 of a leaf's max on the H100 (PERF.md). So each
+    reference takes the engine's two experts for every token (through
+    ``modules.moe_route``, which all of them call: the same softmax, its
+    values at the engine's experts renormalized, equal to its own top-k
+    where the choices agree) and counts the tokens whose own choice
+    differs (``routing_flips``, of ``routed_tokens``)."""
+    from repro_torch.core import zebra_spmd
+    from repro_torch.launch import hetero_mpmd as hm
+    from repro_torch.models import modules, stack
+    from repro_torch.pytree import flatten, tree_map
+    s = hm.build(hm.build_parser().parse_args([]),
+                 capacity_factor=MPMD_EQUAL_CF, run=run)
+    layout = hm.layout(s)
+    L, R = s.cfg.n_layers, s.engine.R
+    route, routes = modules.moe_route, []
+
+    def recording(*a, **kw):
+        out = route(*a, **kw)
+        routes.append(out[1])
+        return out
+
+    modules.moe_route = recording
+    try:
+        loss, ga, ge = hm.step(s)
+    finally:
+        modules.moe_route = route
+    got = mpmd_named(ga, ge)
+    a_tasks = [t for t in s.engine.order if t[0] == "A"]
+    fwd = {t[2:]: r for t, r in zip(a_tasks, routes) if t[1] == "F"}
+
+    def reference(wants, layer_override=None):
+        """(loss, named grads, flips): autograd through apply_model with
+        the routing of each moe_route call taken from ``wants`` in call
+        order."""
+        flips = []
+
+        def pinned(router_w, cfg, policy, x2d):
+            _w, idx, aux = route(router_w, cfg, policy, x2d)
+            want = wants[len(flips)]
+            flips.append(int((idx.sort(-1).values != want.sort(-1).values)
+                             .any(-1).sum()))
+            acc = policy.accum_dtype
+            probs = torch.softmax(x2d.to(acc) @ router_w.to(acc), dim=-1)
+            w = torch.gather(probs, -1, want.long())
+            return w / w.sum(-1, keepdim=True), want, aux
+
+        tree = tree_map(lambda t: t.detach().requires_grad_(), s.params)
+        leaves = flatten(tree)
+        modules.moe_route = pinned
+        try:
+            logits, _, _ = stack.apply_model(tree, s.cfg, s.run, s.tokens,
+                                             layer_override=layer_override)
+        finally:
+            modules.moe_route = route
+        logp = torch.log_softmax(logits, -1)
+        del logits
+        ref_loss = -torch.gather(logp, -1, s.targets[..., None])[..., 0] \
+            .mean()
+        grads = dict(zip(leaves, torch.autograd.grad(
+            ref_loss, list(leaves.values()))))
+        if len(flips) != len(wants):
+            raise RuntimeError(f"mpmd_equal: {len(flips)} routings, "
+                               f"expected {len(wants)}")
+        return float(ref_loss.detach()), fused_named(s, got, grads), \
+            sum(flips)
+
+    fused_loss, fused, fused_flips = reference(
+        [torch.cat([fwd[(l, j)] for j in range(R)]) for l in range(L)])
+    zcfg = zebra_spmd.ZebraConfig(mode="replicated", num_microbatches=R,
+                                  capacity_factor=MPMD_EQUAL_CF)
+    spmd_loss, spmd, spmd_flips = reference(
+        [fwd[(l, j)] for l in range(L) for j in range(R)],
+        zebra_spmd.make_layer_override(s.cfg, s.run, zcfg))
+    vs_fused, vs_spmd = rel_errors(got, fused), rel_errors(got, spmd)
+    spmd_vs_fused = rel_errors(spmd, fused)
+    loss = float(loss)
+    return {"compute_dtype": str(s.run.policy.compute_dtype),
+            "C": layout["C"], "block_m": [layout["block_m_lane_chunk"],
+                                          layout["block_m_local"]],
+            "leaves": len(got), "routed_tokens": L * s.tokens.numel(),
+            "loss": loss, "fused_loss": fused_loss, "spmd_loss": spmd_loss,
+            "loss_rel_err": abs(loss - fused_loss) / abs(fused_loss),
+            "routing_flips": {"fused": fused_flips, "spmd": spmd_flips},
+            "vs_fused": vs_fused, "vs_spmd": vs_spmd,
+            "spmd_vs_fused": spmd_vs_fused,
+            "worst": {"vs_fused": worst(vs_fused),
+                      "vs_spmd": worst(vs_spmd),
+                      "spmd_vs_fused": worst(spmd_vs_fused)},
+            "layout_ok": (layout["C"] == 1024 and layout[
+                "block_m_lane_chunk"] == layout["block_m_local"] == 128)}
+
+
+def worst_of(rel: dict) -> float:
+    return max(float("inf") if v is None else v for v in rel.values())
+
+
+def mpmd_equal_phase(torch) -> dict:
+    """:func:`mpmd_equal_case` under the f32 and the bf16 policy. Both:
+    at most MPMD_FLIPS of the routed tokens choose another expert in
+    either reference, C 1024 and block_m 128. f32: the loss and every
+    gradient leaf within the f32 tier (TOL_F32 * max) of both references.
+    bf16: the loss within MPMD_GAP of the fused one, and every leaf within
+    MPMD_BF16_LEAF * max of the fused W1; the engine's and the SPMD
+    override's distances from the fused W1 and from each other are
+    reported side by side."""
+    from repro_torch.models.modules import Policy, RunConfig
+    f32 = mpmd_equal_case(torch, RunConfig(
+        policy=Policy(compute_dtype=torch.float32), attn_impl="chunked",
+        moe_impl="gather"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = mpmd_equal_case(torch)
+    for case in (f32, bf16):
+        case["flips_ok"] = max(case["routing_flips"].values()) <= MPMD_FLIPS
+    f32["ok"] = (f32["flips_ok"] and f32["layout_ok"]
+                 and f32["loss_rel_err"] <= TOL_F32
+                 and worst_of(f32["vs_fused"]) <= TOL_F32
+                 and worst_of(f32["vs_spmd"]) <= TOL_F32)
+    bf16["ok"] = (bf16["flips_ok"] and bf16["layout_ok"]
+                  and bf16["loss_rel_err"] <= MPMD_GAP
+                  and worst_of(bf16["vs_fused"]) <= MPMD_BF16_LEAF)
+    summary = {}
+    for name, case in (("f32", f32), ("bf16", bf16)):
+        summary[name] = {k: v for k, v in case.items()
+                         if k not in ("vs_fused", "vs_spmd", "spmd_vs_fused")}
+        summary[name]["max"] = {k: worst_of(case[k]) for k in (
+            "vs_fused", "vs_spmd", "spmd_vs_fused")}
+    return {"capacity_factor": MPMD_EQUAL_CF, "max_flips": MPMD_FLIPS,
+            "tol": {"f32": TOL_F32, "bf16_loss": MPMD_GAP,
+                    "bf16_leaf": MPMD_BF16_LEAF}, **summary,
+            "ok": f32["ok"] and bf16["ok"]}
+
+
+def mpmd_streams_phase(torch):
+    """The MPMD step on its streams (the caller's and one per lane) twice
+    (bitwise equal) and on one stream (``streams=False``): the loss and
+    every gradient within the f32 tier (1e-4 * max|one-stream|); and each
+    step's host-clock ms (median of 3 after a warm-up)."""
+    from repro_torch.launch import hetero_mpmd as hm
+    args = hm.build_parser().parse_args([])
+    s = hm.build(args)
+    one = hm.make_engine(args, s.cfg, s.run, s.offload, streams=False)
+
+    def run(engine):
+        loss, ga, ge = engine.train_step(s.attn_side, s.exp_layers,
+                                         s.tokens, s.targets)
+        return {"loss": loss, **mpmd_named(ga, ge)}
+
+    def timed(engine):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.train_step(s.attn_side, s.exp_layers, s.tokens,
+                                    s.targets)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
+        return sorted(times[1:])[1] * 1e3
+
+    g1, g2 = run(s.engine), run(s.engine)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(g1[k], g2[k]) for k in g1)
+    del g2
+    g3 = run(one)
+    torch.cuda.synchronize()
+    worst, worst_rel, ok = None, 0.0, True
+    for k in g1:
+        err, tol, good = compare_f32(g1[k], g3[k])
+        rel = err / max(tol / TOL_F32, 1e-30)
+        ok = ok and good
+        if rel >= worst_rel:
+            worst, worst_rel = k, rel
+    same = all(torch.equal(g1[k], g3[k]) for k in g1)
+    del g1, g3
+    streams_ms, one_ms = timed(s.engine), timed(one)
+    return {"bitwise_rerun": bitwise, "one_stream_bitwise_equal": same,
+            "worst": worst, "worst_rel_err": worst_rel,
+            "step_ms_streams": streams_ms, "step_ms_one_stream": one_ms,
+            "ok": bitwise and ok}
+
+
 def zebra_plain(torch, name: str, lhs, tg, bm: int, spans, G: int, *, wg,
                 wu, wo, wo_t, dout):
     """The plain version of grouped kernel ``name`` on one packed layout,
@@ -1855,6 +2254,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- main paths 7, 8: the zebra MPMD engine, planned, at Q 1 and Q 2 ----
+    mpmd_line, mpmd_counts = mpmd_phase(torch, smi, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunks_line, chunks_counts = mpmd_phase(torch, smi, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpmd_equal = mpmd_equal_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpmd_streams = mpmd_streams_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
     batch, seq = train_line["batch"], train_line["seq"]
@@ -1887,7 +2300,9 @@ def main() -> int:
             "train_flash": flash_counts.get(c, 0),
             "train_mamba2": mamba2_counts.get(c, 0),
             "train_zebra": zebra_counts.get(c, 0),
-            "zebra_a2a": a2a_counts.get(c, 0)}
+            "zebra_a2a": a2a_counts.get(c, 0),
+            "train_mpmd": mpmd_counts.get(c, 0),
+            "mpmd_chunks": chunks_counts.get(c, 0)}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}"
@@ -1929,7 +2344,9 @@ def main() -> int:
         "paged_cases": [paged_entry] + paged_cases,
         "train_zebra": zebra_line, "zebra_a2a": a2a_line,
         "zebra_equal": zebra_equal, "zebra_streams": zebra_streams,
-        "zebra_tiles": zebra_tiles,
+        "zebra_tiles": zebra_tiles, "train_mpmd": mpmd_line,
+        "mpmd_chunks": chunks_line, "mpmd_equal": mpmd_equal,
+        "mpmd_streams": mpmd_streams,
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
@@ -1982,6 +2399,11 @@ def main() -> int:
                             "ms_block_m128", "bound_ms", "bound_by",
                             "launches", "shapes")}
          for e in zebra_tiles]), flush=True)
+    for label, line in (("train_mpmd", mpmd_line),
+                        ("mpmd_chunks", chunks_line),
+                        ("mpmd_equal", mpmd_equal),
+                        ("mpmd_streams", mpmd_streams)):
+        print(f"{label}: " + json.dumps(line), flush=True)
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions "
                            f"beyond their tolerance, or ran on the wrong "
@@ -2031,6 +2453,18 @@ def main() -> int:
         raise RuntimeError(f"the two-stream zebra step is not bitwise equal "
                            f"to its rerun or differs from the one-stream "
                            f"run beyond the f32 tier: {zebra_streams}")
+    if not mpmd_equal["ok"]:
+        raise RuntimeError(f"the MPMD step without drops routes more than "
+                           f"{MPMD_FLIPS} tokens otherwise than a "
+                           f"reference, differs from a reference beyond "
+                           f"the f32 tier (f32), from the fused W1 beyond "
+                           f"{MPMD_GAP} (bf16 loss) or {MPMD_BF16_LEAF} * "
+                           f"max (bf16 leaves), or chose another capacity "
+                           f"or block_m: {mpmd_equal}")
+    if not mpmd_streams["ok"]:
+        raise RuntimeError(f"the multi-stream MPMD step is not bitwise equal "
+                           f"to its rerun or differs from the one-stream "
+                           f"run beyond the f32 tier: {mpmd_streams}")
     bad_tiles = [f"{e['name']}@{e['layout']}" for e in zebra_tiles
                  if not e["ok"]]
     if bad_tiles:

@@ -73,13 +73,14 @@ def _merged(intervals) -> list:
     return out
 
 
-def streams_report(prof) -> dict:
+def streams_report(prof, phase_names=PHASES) -> dict:
     """Device time per CUDA stream and the time two or more streams run
-    kernels at once, from the profiler's per-kernel stream ids."""
+    kernels at once, from the profiler's per-kernel stream ids (the
+    device spans of the ``phase_names`` annotations left out)."""
     per = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA \
-                and e.name not in PHASES:
+                and e.name not in phase_names:
             per.setdefault(e.device_resource_id, []).append(e)
     streams, edges = {}, []
     for sid, evs in sorted(per.items()):

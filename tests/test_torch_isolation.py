@@ -5,6 +5,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 SCRIPT = r"""
@@ -18,7 +20,10 @@ for m in mods:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-assert "repro_torch.core.zebra_spmd" in mods, mods
+core = ("hardware", "schedule", "profiler", "asym_ea", "simulator",
+        "planner", "zebra_mpmd", "zebra_spmd")
+assert {"repro_torch.core." + m for m in core} <= set(mods), mods
+assert "repro_torch.launch.hetero_mpmd" in mods, mods
 print(len(mods), bad)
 assert not bad, bad
 """
@@ -37,6 +42,23 @@ def test_core_package_imports_no_jax_and_no_repro():
     """The zebra engine (``repro_torch.core``) alone, with the modules it
     pulls in, leaves jax and the JAX package out."""
     script = ("import sys, repro_torch.core.zebra_spmd\n"
+              "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'repro')]\n"
+              "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", script],
+                         env={"PYTHONPATH": str(SRC), "PATH": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "core.hardware", "core.schedule", "core.profiler", "core.asym_ea",
+    "core.simulator", "core.planner", "core.zebra_mpmd",
+    "launch.hetero_mpmd"])
+def test_planning_and_mpmd_modules_import_no_jax_and_no_repro(module):
+    """Each planning copy, the MPMD engine and its entry point alone, with
+    the modules it pulls in, leave jax and the JAX package out."""
+    script = (f"import sys, repro_torch.{module}\n"
               "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'repro')]\n"
               "assert not bad, bad\n")
