@@ -44,7 +44,25 @@ full depth, with random weights from seed 0:
   steps of batch 8 x seq 256 (forward and stage-recompute backward; the
   engine applies no optimizer);
 * mpmd_chunks: the same with ``--n-chunks 2`` (C 224 in chunks of 112
-  rows: the lanes at block_m 16, the offloaded experts at 32).
+  rows: the lanes at block_m 16, the offloaded experts at 32);
+* train_ckpt: the train driver's checkpoint and resume on ``mixtral-w1``
+  at full width cut to 1 layer (0.67 B params, 8.04 GB a save with the
+  two AdamW moments; full depth would write 27.4 GB a save): 4 steps
+  straight, then 2 steps with ``--ckpt-every 2 --ckpt-dir`` (a directory
+  under ``build/``, deleted after) and a new program resuming with
+  ``--resume`` for steps 3-4;
+* train_accum: ``mixtral-w1`` at full width and depth, zebra default,
+  batch 8 x 256 through ``make_train_program(accum_steps=2)`` (two
+  slices of 4 sequences, the f32 gradients summed): one untimed warm-up
+  step, then 3 steps;
+* remat_dots: one zebra W1 step under ``remat="dots"`` (the outputs of
+  the matrix products without batch dims saved) and one under
+  ``remat="full"`` from the same params and batch;
+* compress: the int8 error-feedback compression (``train/compression.py``)
+  of the W1 step-1 gradient tree, two rounds, on the card and on its CPU
+  copy;
+* train_trace: the train driver with ``--trace-out build/train_trace.json``
+  on zebra W1, 3 steps.
 
 It fails unless:
 
@@ -97,6 +115,26 @@ It fails unless:
   the MPMD step on its streams is bitwise equal to its
   rerun and within the f32 tier of the same engine on one stream
   (``mpmd_streams:``, with both timings);
+* the resumed steps 3-4 of ``train_ckpt`` give the straight run's losses
+  and grad norms, and its params and moments after step 4, bit for bit,
+  and launch exactly the zebra counts per layer and step, all wgmma (the
+  line: bytes written, each save's host snapshot and write seconds, the
+  write timed on its thread for an async save, the restore's seconds);
+* ``train_accum`` launches exactly twice the zebra counts per layer and
+  step (8 / 28 / 12), all wgmma, with finite losses and grad norms, and at
+  capacity 6 (no drops) its step-1 loss is within 1e-2 of the
+  ``accum_steps=1`` step 1 (the aux losses are averaged over the slices);
+* the ``remat_dots`` step equals the ``full`` step bit for bit in loss,
+  grad norm and every updated param and moment (both gradient-phase
+  times and peak memories on the line);
+* every int8 tensor, scale and residual of ``compress`` on the card
+  equals the CPU's bit for bit (IEEE division and round-half-even on
+  both), and ``compressed_psum`` without a process group returns the
+  dequantized tree (wire bytes against f32 bytes on the line);
+* ``train_trace`` ends ``ok`` with one ``[train] zebra-sim:`` line, the
+  ``[train] idle:`` lines and a trace of more than 0 events, its losses
+  and grad norms bitwise those of the untraced ``train_zebra`` run's
+  first 3 steps;
 * each kernel agrees with its plain PyTorch version on the card, at the
   main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
   bf16 tier, scaled down where the outputs stay below 1; per decode slot
@@ -144,7 +182,9 @@ timed windows. The serve model is released before the train phase.
 Printed in order: the device line (torch's name and nvidia-smi's name and
 power limit), the kernel build time with each library's HGMMA count, the
 warm-up and serve runs' lines,
-the train runs' lines, the kernel tolerances, the ``kernels`` JSON line
+the train runs' lines, the train_ckpt, train_accum, remat_dots, compress
+and train_trace lines (each as its phase ends), the kernel tolerances,
+the ``kernels`` JSON line
 (each entry also names its ``design``: ``"wgmma"`` or ``"fma"``; ``ms``,
 ``plain_ms`` and ``library_ms`` are device times per call, read with CUDA
 events behind a spin kernel that keeps the host's queueing out of them,
@@ -212,6 +252,11 @@ ZEBRA_ENGINE = {"replicated": ([216], [8]),   # (capacities, block_m)
                 "alltoall": ([224], [16])}    # chunks of 112 rows
 ZEBRA_EQUAL_CF = 6.0        # = E / top_k: no drops, C 1024, block_m 128
 ZEBRA_GAP = 1e-2            # zebra (no drops) vs --no-zebra step 1
+# the driver's checkpoint and resume (train_ckpt:) on W1 cut to this many
+# layers: 0.67 B params, 8.04 GB with the two AdamW moments per save
+CKPT_LAYERS = 1
+CKPT_ARGS = ZEBRA_ARGS
+ACCUM_STEPS = 3             # timed accum_steps=2 steps, after one warm-up
 # the zebra MPMD engine (launch/hetero_mpmd.py's default: mixtral-w1 at
 # full width, the planner's offloads (1, 2, 1, 2) clamped to E // 2, 4
 # expert lanes on the card, 2 microbatches of 1024 tokens, capacity 1.25)
@@ -2159,6 +2204,386 @@ def ssd_grad_phase(torch, cfg):
             "results": res, "ok": all(r["ok"] for r in res.values())}
 
 
+# -- the training driver's infrastructure and step options -------------------
+
+def driver_counts(kernels) -> dict:
+    """The launch, operand-type and design counters as one dict."""
+    return {**kernels.launch_counts(), **kernels.variant_launch_counts(),
+            **kernels.design_launch_counts()}
+
+
+def check_zebra_launches(label: str, counts: dict, per_step: dict,
+                         layers: int, steps: int):
+    """Exactly ``per_step`` launches per layer and step, no other kernel,
+    every one on the tensor-core design."""
+    from repro_torch import kernels
+    check_designs(label, counts)
+    names = kernels.launch_counts()
+    want = {k: per_step.get(k, 0) * layers * steps for k in names}
+    got = {k: counts[k] for k in names}
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want}")
+
+
+class _Tee:
+    """A stdout that also keeps what was written (the driver's lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def train_ckpt_phase(torch, train_mod, smi: str):
+    """The driver's checkpoint and resume on W1 at full width cut to 1
+    layer (CKPT_LAYERS): 4 steps straight; then 2 steps with
+    ``--ckpt-every 2`` into a directory under ``build/``, and a new
+    program that resumes (``--resume``) and trains steps 3-4, its launch
+    counters set to 0 just before and read just after. Steps 3-4's losses
+    and grad norms, and every param and moment after step 4, must equal
+    the straight run's bit for bit; steps 3-4 launch exactly the zebra
+    counts per layer and step, all wgmma. Reports the bytes written, each
+    save's host snapshot and write ms (the async write timed on its
+    thread) and the restore's ms; deletes the directory."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.models import registry
+    from repro_torch.pytree import flatten
+    cfg = dataclasses.replace(registry.get_config("mixtral-w1"),
+                              n_layers=CKPT_LAYERS)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    parse = train_mod.build_parser().parse_args
+    try:
+        straight = train_mod.train_arch(
+            "mixtral-w1", parse(CKPT_ARGS + ["--steps", "4"]), cfg=cfg,
+            return_state=True)
+        first = train_mod.train_arch(
+            "mixtral-w1", parse(CKPT_ARGS + ["--steps", "2", "--ckpt-every",
+                                             "2", "--ckpt-dir",
+                                             str(ckpt_dir)]), cfg=cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        resumed = train_mod.train_arch(
+            "mixtral-w1", parse(CKPT_ARGS + ["--steps", "4", "--resume",
+                                             "--ckpt-dir", str(ckpt_dir)]),
+            cfg=cfg, return_state=True)
+        torch.cuda.synchronize()
+        counts = driver_counts(kernels)
+        disk = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                   if f.is_file())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check_zebra_launches("train_ckpt (steps 3-4)", counts, ZEBRA_LAUNCHES,
+                         CKPT_LAYERS, 2)
+    want = {"loss": [m["loss"] for m in straight["history"][2:]],
+            "grad_norm": [m["grad_norm"] for m in straight["history"][2:]]}
+    got = {"loss": [m["loss"] for m in resumed["history"]],
+           "grad_norm": [m["grad_norm"] for m in resumed["history"]]}
+    a = flatten({"params": straight["final_params"],
+                 "opt": straight["final_opt_state"]})
+    b = flatten({"params": resumed["final_params"],
+                 "opt": resumed["final_opt_state"]})
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    saves = first["ckpt"]["saves"] + resumed["ckpt"]["saves"]
+    restore = resumed["ckpt"]["restore"]
+    line = {"arch": "mixtral-w1", "reduced": {"n_layers": [4, CKPT_LAYERS]},
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "params": resumed["params"],
+            "zebra": resumed["zebra"], "start_step": resumed["start_step"],
+            "steps_3_4": got, "straight_steps_3_4": want,
+            "bitwise_metrics": got == want, "leaves": len(a),
+            "leaves_differing": differ,
+            "saves": [{k: r[k] for k in ("step", "bytes", "snapshot_s",
+                                         "write_s", "blocking")}
+                      for r in saves],
+            "bytes_written": sum(r["bytes"] for r in saves),
+            "checkpoint_dir_bytes": disk,
+            "restore_s": restore["s"], "restore_bytes": restore["bytes"],
+            "launches_per_layer_step": {k: counts[k] / (CKPT_LAYERS * 2)
+                                        for k in ZEBRA_LAUNCHES},
+            "design_launches": {k: v for k, v in counts.items()
+                                if k.endswith((":wgmma", ":fma"))},
+            "ok": got == want and not differ
+            and resumed["start_step"] == 2 and resumed["ok"]}
+    del straight, resumed, a, b
+    return line, counts
+
+
+def program_steps(torch, program, loader, params, state, n: int):
+    """``n`` train steps of ``program``; (params, state, metrics per step,
+    host seconds per step around work that ends in a synchronize)."""
+    hist, step_s = [], []
+    for _ in range(n):
+        batch = next(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = program.train_step(params, state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        hist.append({k: float(v) for k, v in m.items()})
+    return params, state, hist, step_s
+
+
+def accum_program(torch, train_mod, accum_steps: int, zcfg=None):
+    """(cfg, program, loader) of the driver's zebra W1 with
+    ``make_train_program(accum_steps=)`` (the driver has no flag for it,
+    as the JAX driver has none) and ``zcfg`` (default: the command
+    line's)."""
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.step import make_train_program
+    args = train_mod.build_parser().parse_args(ZEBRA_ARGS)
+    cfg, program, loader = train_mod.build(args.arch, args, zcfg=zcfg)
+    program = make_train_program(
+        cfg, program.run, ShapeConfig("cli", "train", args.seq, args.batch),
+        opt_cfg=program.opt_cfg, device=args.device,
+        zcfg=zcfg or train_mod.zebra_config(args, cfg),
+        accum_steps=accum_steps)
+    return cfg, program, loader
+
+
+def train_accum_phase(torch, train_mod, smi: str):
+    """W1 at full width and depth, zebra default, batch 8 x 256 through
+    ``make_train_program(accum_steps=2)``: one untimed warm-up step, then
+    ACCUM_STEPS timed steps with the launch counters set to 0 just before
+    and read just after (exactly twice the zebra counts per layer and
+    step, all wgmma; finite losses and grad norms). Then, at capacity
+    ZEBRA_EQUAL_CF (no drops), step 1 under accum_steps 2 and 1 from the
+    same params: losses within ZEBRA_GAP (the aux losses are averaged
+    over the slices)."""
+    from repro_torch import kernels
+    from repro_torch.core.zebra_spmd import ZebraConfig
+    cfg, program, loader = accum_program(torch, train_mod, 2)
+    params = program.init_params(seed=0)
+    state = program.init_opt(params)
+    params, state, warm, _ = program_steps(torch, program, loader, params,
+                                           state, 1)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    params, state, hist, step_s = program_steps(torch, program, loader,
+                                                params, state, ACCUM_STEPS)
+    counts = driver_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, program
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_zebra_launches("train_accum", counts,
+                         {k: 2 * n for k, n in ZEBRA_LAUNCHES.items()},
+                         cfg.n_layers, ACCUM_STEPS)
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                 for m in warm + hist)
+    step1 = {}
+    for accum in (2, 1):
+        zcfg = ZebraConfig(mode="replicated", num_microbatches=2,
+                           capacity_factor=ZEBRA_EQUAL_CF)
+        _, prog, ld = accum_program(torch, train_mod, accum, zcfg)
+        p = prog.init_params(seed=0)
+        _, _, h, _ = program_steps(torch, prog, ld, p, prog.init_opt(p), 1)
+        step1[accum] = h[0]
+        del p, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    gap = abs(step1[2]["loss"] - step1[1]["loss"])
+    ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    args = train_mod.build_parser().parse_args(ZEBRA_ARGS)
+    return {"arch": cfg.name, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "accum_steps": 2, "batch": args.batch,
+            "seq": args.seq, "steps": ACCUM_STEPS, "ms_per_step": ms,
+            "tokens_per_s": args.batch * args.seq / (ms / 1e3),
+            "step_ms": [t * 1e3 for t in step_s],
+            "loss": [m["loss"] for m in hist],
+            "grad_norm": [m["grad_norm"] for m in hist],
+            "max_memory_allocated": peak,
+            "launches_per_layer_step": {
+                k: counts[k] / (cfg.n_layers * ACCUM_STEPS)
+                for k in ZEBRA_LAUNCHES},
+            "design_launches": {k: v for k, v in counts.items()
+                                if k.endswith((":wgmma", ":fma"))},
+            "capacity_factor_equal": ZEBRA_EQUAL_CF,
+            "step1_loss_accum2": step1[2]["loss"],
+            "step1_loss_accum1": step1[1]["loss"],
+            "step1_loss_abs_gap": gap, "tol": ZEBRA_GAP,
+            "ok": finite and gap <= ZEBRA_GAP}, counts
+
+
+def remat_dots_phase(torch, train_mod, smi: str):
+    """One W1 step (zebra default, batch 8 x 256) under remat="dots"
+    against one under remat="full" from the same params (seed 0) and
+    batch: loss, grad norm and every updated param and moment bitwise
+    equal (the "full" state is held on the host meanwhile). Each program's
+    gradient phase is timed (median of 3 after an untimed one) and its
+    step's peak memory read; the dots run's launches are counted."""
+    from repro_torch import kernels
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.pytree import flatten
+    args = train_mod.build_parser().parse_args(ZEBRA_ARGS)
+    out, host = {}, None
+    for remat in ("full", "dots"):
+        run = RunConfig(policy=Policy(), attn_impl="chunked",
+                        moe_impl="gather", remat=remat)
+        cfg, program, loader = train_mod.build(args.arch, args, run)
+        params = program.init_params(seed=0)
+        state = program.init_opt(params)
+        batch = next(loader)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, m = program.grad_fn(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del g, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if remat == "dots":
+            kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = program.train_step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        out[remat] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "step_ms": step_ms,
+                      "grad_ms": sorted(times[1:])[1] * 1e3,
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated()}
+        leaves = flatten({"params": params, "opt": state})
+        if remat == "full":
+            host = {k: v.cpu() for k, v in leaves.items()}
+        else:
+            counts = driver_counts(kernels)
+            differ = [k for k, v in leaves.items()
+                      if not torch.equal(v.cpu(), host[k])]
+        del params, state, m, leaves, program
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_zebra_launches("remat_dots", counts, ZEBRA_LAUNCHES,
+                         cfg.n_layers, 1)
+    same = all(out["dots"][k] == out["full"][k]
+               for k in ("loss", "grad_norm"))
+    return {"arch": cfg.name, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "batch": args.batch, "seq": args.seq,
+            "zebra": "replicated", "full": out["full"], "dots": out["dots"],
+            "leaves": len(host), "leaves_differing": differ,
+            "bitwise_metrics": same, "ok": same and not differ}, counts
+
+
+def compress_phase(torch, smi: str):
+    """``compress_tree`` / ``decompress`` with error feedback on the W1
+    step-1 gradient tree (zebra default, batch 8 x 256, seed 0), on the
+    card and on its CPU copy, two rounds (zero error state, then the first
+    round's residual): every int8 tensor, scale and residual bitwise
+    equal; ``compressed_psum`` without a process group returns the
+    dequantized tree. Reports the wire bytes (int8 + scales) against the
+    f32 bytes and the card's ms per round."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.pytree import flatten
+    from repro_torch.train import compression as comp
+    args = train_mod.build_parser().parse_args(ZEBRA_ARGS)
+    _, program, loader = train_mod.build(args.arch, args)
+    params = program.init_params(seed=0)
+    grads, _ = program.grad_fn(params, next(loader))
+    del params, program
+    gc.collect()
+    torch.cuda.empty_cache()
+    host = {k: v.cpu() for k, v in grads.items()}
+    ok, worst, ms = True, [], []
+    err_dev = comp.init_error_state(grads)
+    err_cpu = comp.init_error_state(host)
+    wire = f32 = 0
+    for rnd in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_dev, s_dev, fn_dev = comp.compress_tree(grads, err_dev)
+        hat_dev = {k: comp.decompress(q, s_dev[k]) for k, q in q_dev.items()}
+        new_dev = fn_dev(hat_dev)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        q_cpu, s_cpu, fn_cpu = comp.compress_tree(host, err_cpu)
+        new_cpu = fn_cpu({k: comp.decompress(q, s_cpu[k])
+                          for k, q in q_cpu.items()})
+        for k in q_cpu:
+            same = (torch.equal(q_dev[k].cpu(), q_cpu[k])
+                    and torch.equal(s_dev[k].cpu(), s_cpu[k])
+                    and torch.equal(new_dev[k].cpu(), new_cpu[k]))
+            if not same:
+                ok = False
+                worst.append(f"round {rnd}: {k}")
+        del hat_dev, fn_dev, q_cpu, s_cpu, fn_cpu
+        gc.collect()
+        if rnd == 0:
+            wire = sum(q.numel() + 4 for q in q_dev.values())
+            f32 = sum(4 * g.numel() for g in grads.values())
+            mean, _ = comp.compressed_psum(grads, err_dev)
+            psum_ok = all(torch.equal(mean[k],
+                                      comp.decompress(q_dev[k], s_dev[k]))
+                          for k in mean)
+            del mean
+        err_dev, err_cpu = new_dev, new_cpu
+        del q_dev, s_dev, new_dev, new_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    n = len(host)
+    del grads, host, err_dev, err_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": "mixtral-w1", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "tensors": n, "rounds": 2,
+            "wire_bytes": wire, "f32_bytes": f32,
+            "wire_ratio": wire / f32, "card_ms_per_round": ms,
+            "bitwise_vs_cpu": ok, "differing": worst[:8],
+            "psum_one_rank_is_dequantized": psum_ok,
+            "ok": ok and psum_ok}
+
+
+def train_trace_phase(torch, train_mod, smi: str, zebra_line: dict):
+    """The driver with ``--trace-out build/train_trace.json`` on W1 zebra
+    for 3 steps (the launch counters set to 0 just before and read just
+    after): ``ok``, the ``[train] zebra-sim:`` and ``[train] idle:`` lines,
+    more than 0 events, and losses and grad norms bitwise those of the
+    same steps without tracing (the train_zebra run's first 3 steps: the
+    same params, batches and, inside the warmup, learning rates)."""
+    import contextlib
+
+    from repro_torch import kernels
+    path = ROOT / "build" / "train_trace.json"
+    args = train_mod.build_parser().parse_args(
+        ZEBRA_ARGS + ["--steps", "3", "--trace-out", str(path)])
+    tee = _Tee(sys.stdout)
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(tee):
+        summary = train_mod.train_arch(args.arch, args)
+    torch.cuda.synchronize()
+    counts = driver_counts(kernels)
+    text = "".join(tee.lines)
+    check_zebra_launches("train_trace", counts, ZEBRA_LAUNCHES, 4, 3)
+    got = {"loss": [m["loss"] for m in summary["history"]],
+           "grad_norm": [m["grad_norm"] for m in summary["history"]]}
+    want = {k: zebra_line[k][:3] for k in ("loss", "grad_norm")}
+    sim = [ln for ln in text.splitlines() if ln.startswith(
+        "[train] zebra-sim:")]
+    idle = [ln for ln in text.splitlines() if ln.startswith("[train] idle:")]
+    events = (summary["trace"] or {}).get("events", 0)
+    return {"arch": summary["arch"], "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "steps": 3, "trace": str(path),
+            "events": events, "zebra_sim": sim, "idle": idle,
+            "loss": got["loss"], "grad_norm": got["grad_norm"],
+            "bitwise_vs_untraced": got == want,
+            "ms_per_step": summary["ms_per_step"],
+            "ok": (summary["ok"] and events > 0 and len(sim) == 1
+                   and bool(idle) and got == want)}, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2268,6 +2693,29 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- main paths 9-12: the training driver's infrastructure and options --
+    ckpt_line, ckpt_counts = train_ckpt_phase(torch, train_mod, smi)
+    print("train_ckpt: " + json.dumps(ckpt_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    accum_line, accum_counts = train_accum_phase(torch, train_mod, smi)
+    print("train_accum: " + json.dumps(accum_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dots_line, dots_counts = remat_dots_phase(torch, train_mod, smi)
+    print("remat_dots: " + json.dumps(dots_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    compress_line = compress_phase(torch, smi)
+    print("compress: " + json.dumps(compress_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace_line, trace_counts = train_trace_phase(torch, train_mod, smi,
+                                                 zebra_line)
+    print("train_trace: " + json.dumps(trace_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
     batch, seq = train_line["batch"], train_line["seq"]
@@ -2302,7 +2750,11 @@ def main() -> int:
             "train_zebra": zebra_counts.get(c, 0),
             "zebra_a2a": a2a_counts.get(c, 0),
             "train_mpmd": mpmd_counts.get(c, 0),
-            "mpmd_chunks": chunks_counts.get(c, 0)}
+            "mpmd_chunks": chunks_counts.get(c, 0),
+            "train_ckpt": ckpt_counts.get(c, 0),
+            "train_accum": accum_counts.get(c, 0),
+            "remat_dots": dots_counts.get(c, 0),
+            "train_trace": trace_counts.get(c, 0)}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}"
@@ -2346,7 +2798,9 @@ def main() -> int:
         "zebra_equal": zebra_equal, "zebra_streams": zebra_streams,
         "zebra_tiles": zebra_tiles, "train_mpmd": mpmd_line,
         "mpmd_chunks": chunks_line, "mpmd_equal": mpmd_equal,
-        "mpmd_streams": mpmd_streams,
+        "mpmd_streams": mpmd_streams, "train_ckpt": ckpt_line,
+        "train_accum": accum_line, "remat_dots": dots_line,
+        "compress": compress_line, "train_trace": trace_line,
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
 
@@ -2465,6 +2919,22 @@ def main() -> int:
         raise RuntimeError(f"the multi-stream MPMD step is not bitwise equal "
                            f"to its rerun or differs from the one-stream "
                            f"run beyond the f32 tier: {mpmd_streams}")
+    for label, line, what in (
+            ("train_ckpt", ckpt_line, "the resumed steps 3-4 or the state "
+             "after step 4 differ from the straight run's bits"),
+            ("train_accum", accum_line, "a loss or grad norm is not finite, "
+             f"or step 1 differs from accum_steps=1 by more than "
+             f"{ZEBRA_GAP}"),
+            ("remat_dots", dots_line, "the dots step differs from the full "
+             "step's bits"),
+            ("compress", compress_line, "an int8 tensor, scale or residual "
+             "differs from the CPU's bits, or the one-rank psum is not the "
+             "dequantized tree"),
+            ("train_trace", trace_line, "the traced run failed, printed no "
+             "zebra-sim or idle line, traced no event, or its losses differ "
+             "from the untraced run's bits")):
+        if not line["ok"]:
+            raise RuntimeError(f"{label}: {what}")
     bad_tiles = [f"{e['name']}@{e['layout']}" for e in zebra_tiles
                  if not e["ok"]]
     if bad_tiles:

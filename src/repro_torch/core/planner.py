@@ -6,7 +6,7 @@ geometry, it produces a `ZebraPlan` — microbatch count, per-layer Asym-EA
 offloads, and the predicted iteration time / utilizations — by running
 Algorithm 1 on profiler outputs and validating candidates in the simulator.
 Also provides the elastic replanning entry point of the fault-tolerance
-modules (``ft/``, not ported yet).
+modules (``ft/elastic.py``).
 
 A copy of the JAX package's ``core/planner.py`` with its imports rewritten
 to the port, less ``FleetPlan`` / ``plan_fleet``: they need the serving

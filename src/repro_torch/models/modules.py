@@ -34,7 +34,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -65,10 +66,12 @@ class RunConfig:
     structural masks). moe_impl: "gather" (default) is the single-pack
     ``ops.moe_ffn`` pipeline every serve and train path runs; "dense" is
     the every-token-through-every-expert einsum, kept only as the exact
-    test reference. remat: "none" or "full" (each layer recomputed in the
-    backward); "dots" has no counterpart in the port yet and raises. There
-    is no kernel switch: the kernel wrappers launch their CUDA kernels for
-    CUDA tensors and run their plain versions for CPU tensors."""
+    test reference. remat: "none", "full" (each layer recomputed in the
+    backward) or "dots" (each layer recomputed but for the outputs of its
+    matrix products without batch dims, which are saved:
+    :func:`dots_with_no_batch_dims_saveable`). There is no kernel switch:
+    the kernel wrappers launch their CUDA kernels for CUDA tensors and run
+    their plain versions for CPU tensors."""
 
     policy: Policy = Policy()
     attn_impl: str = "ref"
@@ -79,13 +82,46 @@ class RunConfig:
     def __post_init__(self):
         if self.attn_impl not in ("ref", "chunked", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
-        if self.remat == "dots":
-            raise NotImplementedError("remat='dots' (save the matmul "
-                                      "outputs) is not ported yet")
-        if self.remat not in ("none", "full"):
+        if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat {self.remat!r}")
         if self.moe_impl not in ("gather", "dense"):
             raise ValueError(f"unknown moe_impl {self.moe_impl!r}")
+
+
+def dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``, the counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` (the JAX
+    package's stack.py:158-163): the output of a matrix product without
+    batch dims is saved, every other op is recomputed in the backward.
+
+    It decides by the aten op and its batch extent, not by the op's name
+    alone: ``x @ w`` on a [B, S, d] activation reaches ``aten.mm`` after a
+    reshape, and ``torch.einsum`` lowers a contraction without batch dims
+    (``"td,edf->tef"``) to ``aten.bmm`` with batch 1; so ``mm``/``addmm``
+    and ``bmm``/``baddbmm`` of batch 1 are saved, and a ``bmm`` over a
+    real batch (the attention scores, the per-token combine) is not. The
+    hand-written kernels launch through ctypes inside ``ops._MoEFFN`` and
+    ``_FlashAttention`` and are no aten ops, so their products are
+    recomputed, as a ``pallas_call`` is under the JAX policy (on the CPU
+    their plain versions are batched ``bmm``s over m-tiles: recomputed
+    too). Remat changes what is stored, not what is computed: a step under
+    "dots" gives the bits of one under "full"."""
+    packet = getattr(op, "overloadpacket", None)
+    aten = torch.ops.aten
+    if packet in (aten.mm, aten.addmm):
+        return CheckpointPolicy.MUST_SAVE
+    if packet is aten.bmm and args[0].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    if packet is aten.baddbmm and args[1].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_context():
+    """``context_fn`` of a ``remat="dots"`` checkpoint (the policy is read
+    at each call)."""
+    return create_selective_checkpoint_contexts(
+        dots_with_no_batch_dims_saveable)
 
 
 # ---------------------------------------------------------------------------

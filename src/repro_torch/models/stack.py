@@ -15,7 +15,10 @@ matrices are cast to the compute dtype at their use in the graph, as in
 the JAX package (not through :func:`compute_params`, which would cut the
 gradient off the f32 params). With ``RunConfig(remat="full")`` each layer
 is checkpointed (the JAX package's ``jax.checkpoint`` of the scan body):
-its activations are recomputed in the backward. A ``layer_override``
+its activations are recomputed in the backward; ``remat="dots"`` saves
+the outputs of its matrix products without batch dims and recomputes the
+rest (``torch.utils.checkpoint``'s selective checkpoint under
+``modules.dots_with_no_batch_dims_saveable``). A ``layer_override``
 (zebra parallelism, ``core/zebra_spmd.py``) replaces every MoE layer
 without decode state, inside the checkpoint, so the recompute reruns it.
 """
@@ -141,9 +144,10 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
 
     Block states are per-layer views of the stacked leaves and are updated
     in place, so ``new_states`` holds the same tensors as ``states``.
-    Without states and with ``run.remat == "full"`` each repeat of the
-    pattern is one checkpoint (recomputed in the backward, the
-    ``layer_override`` with it)."""
+    Without states and with ``run.remat`` "full" or "dots" each repeat of
+    the pattern is one checkpoint (recomputed in the backward, the
+    ``layer_override`` with it; under "dots" but for the products that
+    ``modules.dots_with_no_batch_dims_saveable`` saves)."""
     aux = _zero_aux(x.device)
     decode = states is not None
     new_block_states = None
@@ -164,10 +168,13 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
         layer_params = _unbind_layers(blocks)
         layer_states = (_unbind_layers(block_states) if decode
                         else [None] * len(layer_params))
-        remat = run.remat == "full" and not decode
+        remat = "none" if decode else run.remat
         for lp, ls in zip(layer_params, layer_states):
-            if remat:
+            if remat == "full":
                 x, a = checkpoint(one_block, x, lp, ls, use_reentrant=False)
+            elif remat == "dots":
+                x, a = checkpoint(one_block, x, lp, ls, use_reentrant=False,
+                                  context_fn=modules.dots_context)
             else:
                 x, a = one_block(x, lp, ls)
             aux = _acc_aux(aux, a)

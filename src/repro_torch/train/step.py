@@ -4,10 +4,11 @@
 :class:`TrainProgram` is the object the launcher, ``chip_smoke.py`` and the
 tests share: the model config, the run policy, the optimizer config and
 the step functions. Zebra parallelism (``zcfg``) runs through the layer
-override of ``core/zebra_spmd.py``, on one process (one EP rank). The JAX
-package's meshes, shardings, gradient-sharding constraints and gradient
-accumulation are not ported yet; :func:`make_train_program` refuses them
-by name.
+override of ``core/zebra_spmd.py``, on one process (one EP rank).
+Gradient accumulation (``accum_steps``) sums the f32 gradients of batch
+slices before one AdamW update, as the JAX package's scan does. The JAX
+package's meshes, shardings and gradient-sharding constraints are not
+ported yet; :func:`make_train_program` refuses them by name.
 """
 
 from __future__ import annotations
@@ -100,17 +101,27 @@ def make_train_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
     ``zcfg``: zebra parallelism for MoE archs, the fitted config's layer
     override (``zebra_spmd.make_layer_override``) in place of every MoE
     layer. ``zebra_streams=False`` runs the override's two halves on one
-    CUDA stream (a test's reference for the two-stream schedule)."""
+    CUDA stream (a test's reference for the two-stream schedule).
+
+    ``accum_steps > 1`` (the JAX package's step.py:161-186): the batch is
+    cut along dim 0 into ``accum_steps`` slices, ``grad_fn`` runs on each
+    in turn, the f32 gradients are summed and divided by ``accum_steps``,
+    the loss and every metric averaged over the slices; then one AdamW
+    update. The zebra config is fitted on the global batch, as the JAX
+    package fits it; the override fits its microbatch count to each
+    slice, as it does there. The global batch must divide by
+    ``accum_steps``."""
     unported = []
     if mesh is not None:
         unported.append("mesh (one device only)")
     if constrain_grads:
         unported.append("constrain_grads")
-    if accum_steps > 1:
-        unported.append(f"accum_steps={accum_steps} (gradient accumulation)")
     if unported:
         raise NotImplementedError("not ported to repro_torch yet: "
                                   + ", ".join(unported))
+    if accum_steps > 1 and shape.global_batch % accum_steps:
+        raise ValueError(f"global batch {shape.global_batch} does not "
+                         f"divide into accum_steps={accum_steps} slices")
     opt_cfg = opt_cfg or opt.OptimizerConfig()
     device = torch.device(device)
     cd = run.policy.compute_dtype
@@ -147,8 +158,31 @@ def make_train_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
         return (dict(zip(leaves, grads)),
                 {k: v.detach() for k, v in metrics.items()})
 
+    def accum_grad_fn(params, batch):
+        g_sum, ms = None, []
+        for i in range(accum_steps):
+            g, m = grad_fn(params, {
+                k: v[i * (v.shape[0] // accum_steps):
+                     (i + 1) * (v.shape[0] // accum_steps)]
+                for k, v in batch.items()})
+            if g_sum is None:
+                g_sum = {k: v.float() for k, v in g.items()}
+            else:
+                for k, v in g.items():
+                    g_sum[k].add_(v)
+            del g
+            ms.append(m)
+        div = torch.tensor(float(accum_steps), device=device)
+        grads = {k: v.div_(div) for k, v in g_sum.items()}
+        metrics = {k: torch.stack([m[k] for m in ms]).mean(0)
+                   for k in ms[0]}
+        return grads, metrics
+
     def train_step(params, opt_state, batch):
-        grads, metrics = grad_fn(params, batch)
+        if accum_steps > 1:
+            grads, metrics = accum_grad_fn(params, batch)
+        else:
+            grads, metrics = grad_fn(params, batch)
         params, opt_state, om = opt.adamw_update(opt_cfg, params, grads,
                                                  opt_state)
         metrics.update(om)

@@ -24,6 +24,10 @@ core = ("hardware", "schedule", "profiler", "asym_ea", "simulator",
         "planner", "zebra_mpmd", "zebra_spmd")
 assert {"repro_torch.core." + m for m in core} <= set(mods), mods
 assert "repro_torch.launch.hetero_mpmd" in mods, mods
+infra = ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+         "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.ft",
+         "repro_torch.ft.elastic", "repro_torch.train.compression")
+assert set(infra) <= set(mods) and set(infra) <= set(sys.modules), mods
 print(len(mods), bad)
 assert not bad, bad
 """
@@ -54,10 +58,13 @@ def test_core_package_imports_no_jax_and_no_repro():
 @pytest.mark.parametrize("module", [
     "core.hardware", "core.schedule", "core.profiler", "core.asym_ea",
     "core.simulator", "core.planner", "core.zebra_mpmd",
-    "launch.hetero_mpmd"])
+    "launch.hetero_mpmd", "checkpoint", "obs", "ft",
+    "train.compression"])
 def test_planning_and_mpmd_modules_import_no_jax_and_no_repro(module):
-    """Each planning copy, the MPMD engine and its entry point alone, with
-    the modules it pulls in, leave jax and the JAX package out."""
+    """Each planning copy, the MPMD engine and its entry point, and each
+    piece of training infrastructure (checkpointing, observability, fault
+    tolerance, gradient compression) alone, with the modules it pulls in,
+    leave jax and the JAX package out."""
     script = (f"import sys, repro_torch.{module}\n"
               "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'repro')]\n"

@@ -163,14 +163,17 @@ def test_memmap_source_matches_jax_and_synthetic_is_deterministic(tmp_path):
 
 
 def test_unported_training_settings_raise():
-    # attn_impl="flash" is ported: it constructs; remat="dots" still raises
+    # attn_impl="flash", remat="dots" and accum_steps are ported: they
+    # construct; an unknown remat, a mesh and constrain_grads raise
     assert modules.RunConfig(attn_impl="flash").attn_impl == "flash"
-    with pytest.raises(NotImplementedError, match="dots"):
-        modules.RunConfig(remat="dots")
+    assert modules.RunConfig(remat="dots").remat == "dots"
+    with pytest.raises(ValueError, match="remat"):
+        modules.RunConfig(remat="offload")
     cfg = registry.smoke_config(registry.get_config("mixtral-w1"))
     shape = ShapeConfig("t", "train", 32, 4)
-    for kw in (dict(accum_steps=2), dict(mesh=object()),
-               dict(constrain_grads=True)):
+    make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
+                       accum_steps=2)
+    for kw in (dict(mesh=object()), dict(constrain_grads=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
                                **kw)

@@ -93,3 +93,29 @@ def ep_rank_worker(rank: int, world: int, init_file: str, in_path: str,
                  **{f"aux_{k}": to_np(v) for k, v in aux.items()},
                  **{f"d_{k}": to_np(t.grad) for k, t in p.items()})
     dist.destroy_process_group()
+
+
+def compress_rank_worker(rank: int, world: int, init_file: str, in_path: str,
+                         out_dir: str):
+    """One rank of the two-rank ``compressed_psum`` test
+    (``torch.multiprocessing`` target; imports no jax): its share of the
+    rows of ``grads`` and ``err`` in ``in_path`` through
+    ``train.compression.compressed_psum`` over a gloo group joined through
+    ``init_file``; writes the mean and its new error state to
+    ``out_dir/psum_<rank>.npz``."""
+    import torch.distributed as dist
+
+    from repro_torch.train import compression as comp
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    data = np.load(in_path)
+    n = data["grads"].shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    grads = {"w": torch.from_numpy(data["grads"][rows].copy())}
+    err = {"w": torch.from_numpy(data["err"][rows].copy())}
+    mean, new_err = comp.compressed_psum(grads, err, group=dist.group.WORLD)
+    np.savez(f"{out_dir}/psum_{rank}.npz", mean=to_np(mean["w"]),
+             err=to_np(new_err["w"]))
+    dist.destroy_process_group()
