@@ -62,7 +62,24 @@ full depth, with random weights from seed 0:
   of the W1 step-1 gradient tree, two rounds, on the card and on its CPU
   copy;
 * train_trace: the train driver with ``--trace-out build/train_trace.json``
-  on zebra W1, 3 steps.
+  on zebra W1, 3 steps;
+* serve_prefix: the serve driver on ``mixtral-w2`` with ``--prefix-cache
+  --fair --tenants 2 --requests 8`` (a 192-token, 12-page shared prefix
+  per tenant) and one exact repeat of request 0's prompt arriving 64
+  ticks after the last request (request 0 has finished: its registered
+  tail page is COW-forked); the same trace without the cache; and the
+  cached run again under an f32 ``Policy`` with first-token logits
+  recorded;
+* serve_disagg: ``--disagg --pool-pages 34`` on the serve trace (a decode
+  pool of 1.3 max-length sequences of 26 pages: 40 pages, about 1.5, did
+  not preempt on this trace), both allocators checked at every tick, the
+  transfer's gather, checksum and scatter timed; beside it the unified
+  ``--paged`` engine on the same trace, first-token logits recorded;
+* serve_disagg_prefix: ``--disagg --prefix-cache --fair --tenants 2`` on
+  the serve_prefix trace with its repeat, a decode pool of 160 pages (the
+  default 104 evicts request 0's pinned pages before the repeat comes);
+* serve_trace: the serve run of the serve trace with ``--trace-out
+  build/serve_trace.json``, twice.
 
 It fails unless:
 
@@ -171,7 +188,27 @@ It fails unless:
   the ulp of a chunk's cum, 2.4e-4 at |cum| ~ 3000);
 * under the f32 policy, the paged engine's first-token logits of the
   trace's first request whose prompt spans several prefill chunks match
-  the cache-free forward's within 1e-3 * max|logit|.
+  the cache-free forward's within 1e-3 * max|logit|;
+* serve_prefix: every request of both bf16 runs finishes (``ok``), with
+  at least 1 prefix hit, 192 skipped tokens and 1 COW fork in the cached
+  run, the allocator and the index clean and an empty pool after the
+  index's ``flush()``; under the f32 policy the first-token logits of
+  every prefix-hit request and of the repeat within 1e-3 * max|logit| of
+  the cache-free forward (the share of bf16 greedy tokens equal to the
+  uncached run's is reported, not gated: a shorter prefill chunk may
+  route the MoE otherwise);
+* serve_disagg: every request finishes, both allocators clean at every
+  tick and after the run, at least 1 preemption, transfers = requests +
+  re-prefills, every shipped leaf page-granular ([4, 4, 16, 4, 128] for K
+  and V, [4, 4, 16] for the positions), and every request's first-token
+  logits within 1e-3 * max of the unified engine's (bitwise equality
+  reported);
+* serve_disagg_prefix: at least 1 full hit, transfers = requests - full
+  hits + re-prefills, the decode index and both allocators clean and an
+  empty decode pool after ``flush()``;
+* serve_trace: both traced runs ``ok`` with more than 0 events and the
+  ``[serve] idle:`` lines, greedy tokens bitwise the unified engine's
+  untraced run's (serve_disagg), and the same tick-clock signature.
 
 One untimed warm-up request (its own engine) and one untimed warm-up train
 step (its own model; the zebra run has its own too) run before the timed
@@ -182,8 +219,10 @@ timed windows. The serve model is released before the train phase.
 Printed in order: the device line (torch's name and nvidia-smi's name and
 power limit), the kernel build time with each library's HGMMA count, the
 warm-up and serve runs' lines,
-the train runs' lines, the train_ckpt, train_accum, remat_dots, compress
-and train_trace lines (each as its phase ends), the kernel tolerances,
+the serve_prefix, serve_disagg, serve_disagg_prefix and serve_trace
+lines (each as its phase ends), the train runs' lines, the train_ckpt,
+train_accum, remat_dots, compress and train_trace lines (each as its
+phase ends), the kernel tolerances,
 the ``kernels`` JSON line
 (each entry also names its ``design``: ``"wgmma"`` or ``"fma"``; ``ms``,
 ``plain_ms`` and ``library_ms`` are device times per call, read with CUDA
@@ -226,6 +265,19 @@ TRAIN_ARGS = ["--arch", "mixtral-w1", "--no-zebra", "--mesh", "1x1",
               "--steps", "6", "--batch", "8", "--seq", "256"]
 TRAIN_WARMUP_ARGS = TRAIN_ARGS + ["--steps", "1"]
 SERVE_KERNELS = ("gmm_glu", "gmm", "paged_decode")
+# the serving deployments of the prefix cache and disaggregation on W2
+PREFIX_ARGS = SERVE_ARGS + ["--prefix-cache", "--fair", "--tenants", "2",
+                            "--requests", "8", "--shared-prefix-len", "192"]
+REPEAT_AFTER = 64           # ticks after the last arrival: a drained system
+UNPAGED_ARGS = [a for a in SERVE_ARGS if a != "--paged"]
+# 34 decode pages: 2 preemptions on this trace (40, ~1.5 sequences of 26
+# pages, preempts none: admission waits for pages instead)
+DISAGG_ARGS = UNPAGED_ARGS + ["--disagg", "--pool-pages", "34"]
+DISAGG_PREFIX_ARGS = [a for a in PREFIX_ARGS if a != "--paged"] + [
+    "--disagg", "--pool-pages", "160"]
+# page-granular payload leaves: [layers, chunk pages, lines, KV heads, hd]
+# for K and V, [layers, chunk pages, lines] for the positions
+DISAGG_SHAPES = {(4, 4, 16, 4, 128), (4, 4, 16)}
 # Launches per layer and train step: the forward and its remat recompute
 # (one GLU and one down GEMM each), and the MoE FFN backward (gmm: g, u,
 # y, dh, dx twice; gmm_dw: dwo, dwg, dwu).
@@ -2584,6 +2636,289 @@ def train_trace_phase(torch, train_mod, smi: str, zebra_line: dict):
                    and bool(idle) and got == want)}, counts
 
 
+# -- the serving deployments: prefix cache, disaggregation, tracing ----------
+
+def serve_run(torch, serve_mod, argv, *, params, trace=None, run=None,
+              hook=None, tracer=None):
+    """One serve-driver run of ``argv`` on W2 (``serve_arch``) on the
+    given params, the launch counters set to 0 just before and read just
+    after. ``hook(engine)`` runs on the built deployment; ``tracer`` (an
+    ``obs.trace.Tracer``) is installed around the run. Returns (summary,
+    counts, engine, printed text)."""
+    import contextlib
+
+    from repro_torch import kernels
+    from repro_torch.obs import trace as obs_trace
+    args = serve_mod.build_parser().parse_args(argv)
+    box = {}
+
+    def keep(engine):
+        box["engine"] = engine
+        if hook is not None:
+            hook(engine)
+    tee = _Tee(sys.stdout)
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(tee), (
+            obs_trace.use(tracer) if tracer is not None
+            else contextlib.nullcontext()):
+        s = serve_mod.serve_arch("mixtral-w2", args, trace=trace,
+                                 params=params, run=run, engine_hook=keep)
+    torch.cuda.synchronize()
+    return s, driver_counts(kernels), box["engine"], "".join(tee.lines)
+
+
+def serve_numbers(s: dict, counts: dict) -> dict:
+    """The numbers a serve line reports for one run."""
+    from repro_torch import kernels
+    return {"ok": s["ok"], "requests": s["n_requests"],
+            "tokens": s["n_generated_tokens"],
+            "tokens_per_s": s["tokens_per_s"],
+            "ttft_p50_s": s["ttft_s"]["p50"], "itl_p50_s": s["itl_s"]["p50"],
+            "launches": {k: counts[k] for k in SERVE_KERNELS},
+            "design_launches": {k: counts[k]
+                                for k in kernels.design_launch_counts()}}
+
+
+def check_serve_launches(label: str, counts: dict):
+    """Each serve kernel launched, every GLU and gmm on the tensor-core
+    design (the paged decode kernel has one design, ``split``)."""
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"{label}: kernels never launched: {missing}")
+    check_designs(label, counts)
+
+
+def prefix_trace(serve_mod, cfg, argv):
+    """The driver's multi-tenant trace of ``argv`` plus one exact repeat of
+    request 0's prompt, REPEAT_AFTER ticks after the last arrival."""
+    from repro_torch.serve import Request, ServeConfig
+    args = serve_mod.build_parser().parse_args(argv)
+    trace = serve_mod.build_tenant_trace(args, cfg.vocab_size,
+                                         ServeConfig.from_args(args).sampling)
+    r0 = trace[0]
+    trace.append(Request(
+        rid=len(trace), prompt=list(r0.prompt),
+        max_new_tokens=r0.max_new_tokens, sampling=r0.sampling,
+        arrival=max(r.arrival for r in trace) + REPEAT_AFTER,
+        tenant=r0.tenant))
+    return trace
+
+
+def first_logits_vs_forward(torch, params, cfg, run, engine, rids, trace):
+    """Each request's recorded first-token logits against the cache-free
+    forward on its prompt: (worst max|diff| / max|logit|, per rid)."""
+    from repro_torch.models import stack
+    by_rid = {r.rid: r for r in trace}
+    out = {}
+    for rid in rids:
+        got = torch.from_numpy(engine.logits[rid][0]).cuda()
+        with torch.inference_mode():
+            ref, _, _ = stack.apply_model(
+                params, cfg, run, torch.tensor([by_rid[rid].prompt],
+                                               dtype=torch.int64,
+                                               device="cuda"))
+        ref = ref[0, -1].float()
+        out[rid] = float((got - ref).abs().max()) / float(ref.abs().max())
+    return max(out.values()), out
+
+
+def serve_prefix_phase(torch, serve_mod, params, smi: str):
+    """``--prefix-cache --fair --tenants 2`` on W2 with the repeat (the
+    main-path run, counted), the same trace without the cache, and the
+    cached run under the f32 policy against the cache-free forward."""
+    from repro_torch.models import registry
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.obs import trace as obs_trace
+    cfg = registry.get_config("mixtral-w2")
+    trace = prefix_trace(serve_mod, cfg, PREFIX_ARGS)
+    repeat = trace[-1]
+    s, counts, eng, _ = serve_run(torch, serve_mod, PREFIX_ARGS,
+                                  params=params, trace=trace)
+    check_serve_launches("serve_prefix", counts)
+    r0_finish = eng.metrics.requests[0].finish_tick
+    index, alloc = eng.sched.prefix_index, eng.sched.allocator
+    index.check()
+    alloc.check()
+    flushed = index.flush()
+    alloc.check()
+    empty = alloc.pages_in_use == 0
+    cached = dict(eng.results)
+    del eng, index, alloc
+    s_off, off_counts, e_off, _ = serve_run(
+        torch, serve_mod, [a for a in PREFIX_ARGS if a != "--prefix-cache"],
+        params=params, trace=trace)
+    check_serve_launches("serve_prefix (uncached)", off_counts)
+    uncached = dict(e_off.results)
+    del e_off
+    same = sum(a == b for r in trace
+               for a, b in zip(cached[r.rid], uncached[r.rid]))
+    total = sum(len(cached[r.rid]) for r in trace)
+    # f32: the first-token logits of every prefix hit and of the repeat
+    run32 = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    tracer = obs_trace.Tracer()
+    s32, _, e32, _ = serve_run(
+        torch, serve_mod, PREFIX_ARGS, params=params, trace=trace,
+        run=run32, tracer=tracer,
+        hook=lambda e: setattr(e, "record_logits", True))
+    hits = sorted({ev.args["rid"] for ev in tracer.events
+                   if ev.name == "prefix-skip"})
+    worst, per_rid = first_logits_vs_forward(
+        torch, params, cfg, run32, e32, sorted(set(hits) | {repeat.rid}),
+        trace)
+    forks32 = e32.sched.allocator.n_cow_forks
+    del e32
+    pre = s["prefix"]
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "requests": len(trace),
+            "shared_prefix": 192, "repeat_rid": repeat.rid,
+            "repeat_arrival": repeat.arrival, "r0_finish_tick": r0_finish,
+            "cached": serve_numbers(s, counts), "prefix": pre,
+            "uncached": serve_numbers(s_off, off_counts),
+            "flushed_pages": flushed, "pool_empty_after_flush": empty,
+            "greedy_equal_share": same / total,
+            "f32": {"ok": s32["ok"], "hit_rids": hits,
+                    "n_cow_forks": forks32, "worst_rel": worst,
+                    "rel_by_rid": per_rid, "limit_rel": PARITY_REL}}
+    line["ok"] = bool(
+        s["ok"] and s_off["ok"] and s32["ok"]
+        and pre["admissions_hit"] >= 1 and pre["tokens_skipped"] >= 192
+        and pre["n_cow_forks"] >= 1 and r0_finish < repeat.arrival
+        and empty and repeat.rid in hits and worst <= PARITY_REL)
+    return line, counts
+
+
+def checked_every_tick(ctl) -> None:
+    """Run both allocators' (and the decode index's) ``check()`` after
+    every tick of a disagg controller."""
+    tick = ctl.tick
+
+    def checked():
+        tick()
+        ctl.prefill.allocator.check()
+        ctl.decode.allocator.check()
+        if ctl.decode.sched.prefix_index is not None:
+            ctl.decode.sched.prefix_index.check()
+    ctl.tick = checked
+
+
+def serve_disagg_phase(torch, serve_mod, params, smi: str):
+    """``--disagg --pool-pages 34`` on the serve trace (the main-path run,
+    counted; allocators checked every tick, the transfer's phases timed),
+    beside the unified engine on the same trace. Returns the line, the
+    counts and the unified run's tokens (serve_trace's untraced
+    reference)."""
+    def disagg_hook(ctl):
+        checked_every_tick(ctl)
+        ctl.transfer.phase_s = {}
+        ctl.decode.record_logits = True
+    s, counts, ctl, _ = serve_run(torch, serve_mod, DISAGG_ARGS,
+                                  params=params, hook=disagg_hook)
+    check_serve_launches("serve_disagg", counts)
+    st = ctl.transfer.stats
+    d = s["disagg"]
+    phase = {k: sum(v) * 1e3 / st.n_chunks
+             for k, v in ctl.transfer.phase_s.items()}
+    shapes = {tuple(x) for x in st.shipped_shapes}
+    clean = (ctl.prefill.allocator.pages_in_use == 0
+             and ctl.decode.allocator.pages_in_use == 0)
+    d_logits, d_results = ctl.logits, dict(ctl.results)
+    del ctl
+    s_u, u_counts, eng, _ = serve_run(
+        torch, serve_mod, SERVE_ARGS, params=params,
+        hook=lambda e: setattr(e, "record_logits", True))
+    check_serve_launches("serve_disagg (unified)", u_counts)
+    rel, bitwise = {}, True
+    for rid, rows in eng.logits.items():
+        a, b = d_logits[rid][0], rows[0]
+        rel[rid] = float(abs(a - b).max()) / float(abs(b).max())
+        bitwise = bitwise and bool((a == b).all())
+    unified = dict(eng.results)
+    del eng
+    same = sum(x == y for rid in unified
+               for x, y in zip(unified[rid], d_results[rid]))
+    total = sum(len(v) for v in unified.values())
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "disagg": serve_numbers(s, counts),
+            "unified": serve_numbers(s_u, u_counts), "sections": d,
+            "transfer": {"chunks": st.n_chunks, "pages": st.n_pages,
+                         "bytes": st.bytes,
+                         "page_bytes": st.bytes // max(st.n_pages, 1),
+                         "ms_per_chunk": phase,
+                         "shipped_shapes": sorted(shapes)},
+            "allocators_clean": clean, "first_logits_rel": rel,
+            "first_logits_worst_rel": max(rel.values()),
+            "first_logits_bitwise": bitwise,
+            "greedy_equal_share": same / total}
+    line["ok"] = bool(
+        s["ok"] and s_u["ok"] and clean and d["n_preempted"] >= 1
+        and d["kv_transfers"] == s["n_requests"] + d["n_preempted"]
+        and shapes == DISAGG_SHAPES
+        and max(rel.values()) <= PARITY_REL)
+    return line, counts, unified
+
+
+def serve_disagg_prefix_phase(torch, serve_mod, params, smi: str):
+    """``--disagg --prefix-cache --fair --tenants 2`` on the serve_prefix
+    trace with its repeat (the main-path run, counted), every tick
+    checked."""
+    from repro_torch.models import registry
+    trace = prefix_trace(serve_mod, registry.get_config("mixtral-w2"),
+                         DISAGG_PREFIX_ARGS)
+    s, counts, ctl, _ = serve_run(torch, serve_mod, DISAGG_PREFIX_ARGS,
+                                  params=params, trace=trace,
+                                  hook=checked_every_tick)
+    check_serve_launches("serve_disagg_prefix", counts)
+    d = s["disagg"]
+    index = ctl.decode.sched.prefix_index
+    index.check()
+    ctl.prefill.allocator.check()
+    ctl.decode.allocator.check()
+    flushed = index.flush()
+    ctl.decode.allocator.check()
+    empty = ctl.decode.allocator.pages_in_use == 0 \
+        and ctl.prefill.allocator.pages_in_use == 0
+    del ctl, index
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "run": serve_numbers(s, counts),
+            "sections": d, "prefix": s["prefix"], "flushed_pages": flushed,
+            "pools_empty_after_flush": empty}
+    line["ok"] = bool(
+        s["ok"] and d["prefix_full_hits"] >= 1 and empty
+        and d["kv_transfers"] == s["n_requests"] - d["prefix_full_hits"]
+        + d["n_preempted"])
+    return line, counts
+
+
+def serve_trace_phase(torch, serve_mod, params, smi: str, untraced: dict):
+    """The serve trace with ``--trace-out build/serve_trace.json``, twice
+    (the first run counted): ``ok``, events, the idle lines, tokens
+    bitwise the untraced unified run's, one tick-clock signature."""
+    from repro_torch.obs import trace as obs_trace
+    path = ROOT / "build" / "serve_trace.json"
+    argv = SERVE_ARGS + ["--trace-out", str(path)]
+    runs = []
+    for _ in range(2):
+        box = {}
+        s, counts, eng, text = serve_run(
+            torch, serve_mod, argv, params=params,
+            hook=lambda e: box.update(tracer=obs_trace.TRACER))
+        runs.append((s, counts, dict(eng.results), box["tracer"], text))
+        del eng
+    path.unlink(missing_ok=True)
+    (s, counts, results, _, text), second = runs
+    idle = [ln for ln in text.splitlines() if ln.startswith("[serve] idle:")]
+    sigs = [r[3].signature() for r in runs]
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "run": serve_numbers(s, counts),
+            "events": s["trace"]["n_events"], "idle": idle,
+            "signature": sigs[0], "signature_rerun_equal": sigs[0] == sigs[1],
+            "tokens_equal_untraced": results == untraced}
+    line["ok"] = bool(s["ok"] and second[0]["ok"] and line["events"] > 0
+                      and idle and sigs[0] == sigs[1]
+                      and results == untraced)
+    return line, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2648,6 +2983,32 @@ def main() -> int:
     parity = parity_f32(torch, serve_mod)
     gc.collect()
     torch.cuda.empty_cache()  # the serve models are released here
+
+    # -- main paths 1b-1e: the prefix cache, disaggregation, serve traces --
+    from repro_torch.models import stack
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w2_params = stack.init_model(gen, cfg, device="cuda")
+    prefix_line, prefix_counts = serve_prefix_phase(torch, serve_mod,
+                                                    w2_params, smi)
+    print("serve_prefix: " + json.dumps(prefix_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg_line, disagg_counts, unified_tokens = serve_disagg_phase(
+        torch, serve_mod, w2_params, smi)
+    print("serve_disagg: " + json.dumps(disagg_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dprefix_line, dprefix_counts = serve_disagg_prefix_phase(
+        torch, serve_mod, w2_params, smi)
+    print("serve_disagg_prefix: " + json.dumps(dprefix_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    strace_line, strace_counts = serve_trace_phase(
+        torch, serve_mod, w2_params, smi, unified_tokens)
+    print("serve_trace: " + json.dumps(strace_line), flush=True)
+    del w2_params, unified_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- main path 2: the port's train driver at full width -----------------
     train_line, train_counts = train_phase(torch, train_mod, smi)
@@ -2744,6 +3105,10 @@ def main() -> int:
         c = e.get("counter", e["name"])
         e["launches_by_path"] = {
             "serve": serve_counts.get(c, 0),
+            "serve_prefix": prefix_counts.get(c, 0),
+            "serve_disagg": disagg_counts.get(c, 0),
+            "serve_disagg_prefix": dprefix_counts.get(c, 0),
+            "serve_trace": strace_counts.get(c, 0),
             "train": train_counts.get(c, 0),
             "train_flash": flash_counts.get(c, 0),
             "train_mamba2": mamba2_counts.get(c, 0),
@@ -2789,7 +3154,10 @@ def main() -> int:
         "device": name, "nvidia_smi": smi, "build_s": build_s,
         "sass_hgmma": hgmma, "nvcc_reports": _build.build_logs(),
         "kernels": entries,
-        "serve": serve_line, "parity": parity, "train": train_line,
+        "serve": serve_line, "parity": parity,
+        "serve_prefix": prefix_line, "serve_disagg": disagg_line,
+        "serve_disagg_prefix": dprefix_line, "serve_trace": strace_line,
+        "train": train_line,
         "train_flash": flash_line, "train_mamba2": mamba2_line,
         "grad": grad, "grad_bf16": grad_bf16, "flash_grad": flash_grad,
         "flash_grad_bf16": flash_grad_bf16, "c1_tiles": c1_tiles,
@@ -2920,6 +3288,22 @@ def main() -> int:
                            f"to its rerun or differs from the one-stream "
                            f"run beyond the f32 tier: {mpmd_streams}")
     for label, line, what in (
+            ("serve_prefix", prefix_line, "a request did not finish, the "
+             "cache did not hit, skip 192 tokens or fork a page, a pool or "
+             "index was not clean, or an f32 prefix-hit's first-token "
+             "logits differ from the cache-free forward beyond "
+             f"{PARITY_REL} * max"),
+            ("serve_disagg", disagg_line, "a request did not finish, an "
+             "allocator was not clean, nothing was preempted, the transfer "
+             "count is not requests + re-prefills, a shipped leaf is not "
+             "page-granular, or a first-token logit differs from the "
+             f"unified engine's beyond {PARITY_REL} * max"),
+            ("serve_disagg_prefix", dprefix_line, "no full hit, a transfer "
+             "count other than requests - full hits + re-prefills, or a "
+             "pool not empty after the flush"),
+            ("serve_trace", strace_line, "a traced run failed, traced no "
+             "event, printed no idle line, changed the greedy tokens, or "
+             "its signature differs from its rerun's"),
             ("train_ckpt", ckpt_line, "the resumed steps 3-4 or the state "
              "after step 4 differ from the straight run's bits"),
             ("train_accum", accum_line, "a loss or grad norm is not finite, "

@@ -16,11 +16,27 @@ CUDA device and without ``--device cpu`` it exits non-zero.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-w2 \\
         --smoke --paged --device cpu
 
-Flags for deployment shapes the port does not serve yet (``--disagg``,
-``--fleet``, ``--ep-size``, ``--prefix-cache``, ``--tenants``,
-``--trace-out``, running without ``--paged``, ...) and archs with
-recurrent mixers (``--arch mamba2-2.7b``: the engines' recurrent decode
-state is not ported yet) are rejected by name in one ``[serve] invalid
+    # prefix-cached copy-on-write paged KV over a shared-prefix
+    # multi-tenant trace (DESIGN.md §14); --fair switches admission to
+    # per-tenant deficit round-robin:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-w2 \\
+        --smoke --paged --prefix-cache --tenants 2 --fair --requests 8 \\
+        --device cpu
+
+    # disaggregated prefill/decode (role-split workers, page-id KV
+    # handoff, DESIGN.md §10); a tight decode pool exercises the
+    # preempt -> re-prefill path; --trace-out writes a Perfetto trace:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-w2 \\
+        --smoke --disagg --page-size 16 --pool-pages 12 \\
+        --trace-out build/serve_trace.json --device cpu
+
+Flags for deployment shapes the port does not serve yet (``--fleet``,
+``--fleet-elastic``, ``--prefill-groups``, ``--decode-groups``,
+``--kill-group``, ``--chaos``, ``--chaos-seed``, ``--slo-ttft``,
+``--ep-size``, ``--ep-placement``, a ``--mesh`` other than 1x1, running
+with neither ``--paged`` nor ``--disagg``) and archs with recurrent mixers
+(``--arch mamba2-2.7b``: the engines' recurrent decode state is not
+ported yet) are rejected by name in one ``[serve] invalid
 configuration:`` line, exit 1.
 
 Exit status: non-zero when any request is rejected or left unfinished,
@@ -38,6 +54,8 @@ import torch
 
 from repro_torch.models import registry
 from repro_torch.models.modules import Policy, RunConfig
+from repro_torch.obs import format_report, write_chrome_trace
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import (Request, SamplingParams, ServeConfig,
                                ServeConfigError, ServeMetrics,
                                build_deployment)
@@ -64,14 +82,72 @@ def build_trace(seed: int, n: int, rate: float, prompt_len: int, gen: int,
     return reqs
 
 
-def serve_arch(arch: str, args, serve_cfg: ServeConfig = None) -> dict:
+def build_tenant_trace(args, vocab: int, sampling: SamplingParams) -> list:
+    """Shared-prefix multi-tenant trace (--tenants N, DESIGN.md §14):
+    same-tenant requests share a seeded system prefix, which is what the
+    prefix cache and the fairness admission are exercised against. The
+    JAX driver's generator (``core.simulator.multi_tenant_trace``)."""
+    from repro_torch.core.simulator import multi_tenant_trace
+    recs = multi_tenant_trace(
+        args.seed, args.requests, n_tenants=args.tenants, rate=args.rate,
+        prompt_len=args.prompt_len, gen=args.gen, vocab=vocab,
+        shared_len=args.shared_prefix_len)
+    return [Request(rid=i, prompt=list(r.prompt), max_new_tokens=r.gen,
+                    sampling=sampling, arrival=r.arrival, tenant=r.tenant)
+            for i, r in enumerate(recs)]
+
+
+def _prefix_summary(index, alloc, n_prefix_hits: int,
+                    tokens_skipped: int) -> dict:
+    """The summary's ``prefix`` section: index + allocator accounting."""
+    return {
+        "lookups_hit": index.hits,
+        "lookups_miss": index.misses,
+        "tokens_served": index.tokens_served,
+        "admissions_hit": n_prefix_hits,
+        "tokens_skipped": tokens_skipped,
+        "pages_pinned": index.n_pages,
+        "pages_evicted": index.n_evicted,
+        "pages_allocated": alloc.n_fresh_allocs,
+        "pages_shared": alloc.n_shared_allocs,
+        "n_cow_forks": alloc.n_cow_forks,
+    }
+
+
+def _disagg_summary(engine, page_size: int) -> dict:
+    """The summary's ``disagg`` section: pools, transfers, preemptions."""
+    st = engine.transfer.stats
+    return {
+        "page_size": page_size,
+        "decode_pages": engine.decode.allocator.n_pages,
+        "prefill_pages": engine.prefill.allocator.n_pages,
+        "decode_page_peak": engine.decode.page_peak,
+        "n_preempted": engine.decode.sched.n_preempted,
+        "kv_transfers": st.n_transfers,
+        "kv_pages_shipped": st.n_pages,
+        "kv_bytes_shipped": st.bytes,
+        "prefix_full_hits": engine.n_full_hits,
+    }
+
+
+def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
+               trace=None, params=None, run=None,
+               engine_hook=None) -> dict:
     """Serve the trace of ``args`` on ``arch``; returns the metrics summary
     with ``ok`` (every request finished with its full budget, nothing
-    rejected, the allocator's page accounting clean)."""
+    rejected, the allocators' page accounting clean) and the deployment's
+    sections (``paged``, ``prefix``, ``disagg``, ``trace``).
+
+    The keywords are for callers that drive the deployment themselves (the
+    chip smoke test): ``trace`` replaces the trace built from ``args``,
+    ``params`` and ``run`` the seed-0 init and the bf16 policy, and
+    ``engine_hook(engine)`` is handed the built deployment before the
+    trace runs."""
     cfg = registry.get_config(arch)
     if args.smoke:
         cfg = registry.smoke_config(cfg)
-    run = RunConfig(policy=Policy(), moe_impl="gather")
+    if run is None:
+        run = RunConfig(policy=Policy(), moe_impl="gather")
     if serve_cfg is None:
         serve_cfg = ServeConfig.from_args(args)
     try:
@@ -80,8 +156,14 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None) -> dict:
         print(f"[serve] FAIL arch={cfg.name}: invalid serve config: {e}",
               file=sys.stderr)
         return {"ok": False, "n_requests": 0, "config_error": str(e)}
-    trace = build_trace(args.seed, args.requests, args.rate, args.prompt_len,
-                        args.gen, cfg.vocab_size, serve_cfg.sampling)
+    sampling = serve_cfg.sampling
+    if trace is None:
+        if args.tenants:
+            trace = build_tenant_trace(args, cfg.vocab_size, sampling)
+        else:
+            trace = build_trace(args.seed, args.requests, args.rate,
+                                args.prompt_len, args.gen, cfg.vocab_size,
+                                sampling)
     metrics = ServeMetrics()
     stream = None
     if args.stream:
@@ -89,8 +171,32 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None) -> dict:
             print(f"[{cfg.name}] rid={rid} tok={tok}"
                   + (" <done>" if fin else ""))
 
-    engine = build_deployment(cfg, run, serve_cfg, device=args.device,
-                              metrics=metrics, on_token=stream)
+    trace_out = args.trace_out
+    tracer = None
+    if trace_out:
+        # Tick-clock tracing (DESIGN.md §15): installed process-wide so
+        # every instrumented hot path emits; off by default (NullTracer).
+        tracer = obs_trace.Tracer(wall=bool(args.trace_wall))
+        obs_trace.install(tracer)
+    try:
+        engine = build_deployment(cfg, run, serve_cfg, params=params,
+                                  device=args.device, metrics=metrics,
+                                  on_token=stream)
+    except ValueError as e:
+        # Anything validate() could not see statically still fails the
+        # run, never half-serves.
+        print(f"[serve] FAIL arch={cfg.name}: bad deployment: {e}",
+              file=sys.stderr)
+        obs_trace.install(None)
+        return {"ok": False, "n_requests": 0, "config_error": str(e)}
+    if tracer is not None:
+        # Unified counters registry: the exporter snapshots these into the
+        # trace artifact's reproCounters section.
+        tracer.registry.register("serve", metrics.summary)
+        tracer.registry.register("robust", metrics.robust.as_dict)
+    if engine_hook is not None:
+        engine_hook(engine)
+
     t0 = time.perf_counter()
     results = engine.run(trace)
     dt = time.perf_counter() - t0
@@ -102,7 +208,9 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None) -> dict:
                   f"REJECTED")
             continue
         toks = results[req.rid]
-        print(f"[{cfg.name}] rid={req.rid} prompt={len(req.prompt)} "
+        tenant = f" tenant={req.tenant}" if args.tenants else ""
+        print(f"[{cfg.name}] rid={req.rid}{tenant} "
+              f"prompt={len(req.prompt)} "
               f"gen={len(toks)}/{req.max_new_tokens} "
               f"first_tick={tr.first_token_tick} "
               f"finish_tick={tr.finish_tick} out={toks[:8]}...")
@@ -114,18 +222,58 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None) -> dict:
           f"itl p50 {s['itl_s']['p50']:.4f}s, "
           f"queue depth max {s['queue_depth']['max']}, "
           f"max concurrent {s['max_concurrent_active']})")
-    s["paged"] = occ = engine.page_occupancy()
-    print(f"[serve] arch={cfg.name} paged: "
-          f"page_size={serve_cfg.paged.page_size} "
-          f"pool={engine.p.n_pages} peak={occ['page_peak']} "
-          f"preempted={occ['n_preempted']}")
-    engine.sched.allocator.check()
+    if serve_cfg.disagg.enabled:
+        st = engine.transfer.stats
+        s["disagg"] = _disagg_summary(engine, serve_cfg.paged.page_size)
+        print(f"[serve] arch={cfg.name} disagg: "
+              f"page_size={serve_cfg.paged.page_size} "
+              f"transfers={st.n_transfers} pages={st.n_pages} "
+              f"preempted={engine.decode.sched.n_preempted} "
+              f"full_hits={engine.n_full_hits}")
+        index = engine.decode.sched.prefix_index
+        if index is not None:
+            s["prefix"] = _prefix_summary(
+                index, engine.decode.allocator,
+                engine.prefill.sched.n_prefix_hits,
+                engine.prefill.sched.n_tokens_skipped)
+            s["prefix"]["full_hits"] = engine.n_full_hits
+            index.check()
+        engine.prefill.allocator.check()
+        engine.decode.allocator.check()
+    else:
+        s["paged"] = occ = engine.page_occupancy()
+        print(f"[serve] arch={cfg.name} paged: "
+              f"page_size={serve_cfg.paged.page_size} "
+              f"pool={engine.p.n_pages} peak={occ['page_peak']} "
+              f"preempted={occ['n_preempted']}")
+        index = engine.sched.prefix_index
+        if index is not None:
+            s["prefix"] = _prefix_summary(
+                index, engine.sched.allocator,
+                engine.sched.prefill.n_prefix_hits,
+                engine.sched.prefill.n_tokens_skipped)
+            print(f"[serve] arch={cfg.name} prefix: "
+                  f"hits={index.hits} tokens_served={index.tokens_served} "
+                  f"skipped={engine.sched.prefill.n_tokens_skipped} "
+                  f"cow_forks={engine.sched.allocator.n_cow_forks} "
+                  f"pinned={index.n_pages}")
+            index.check()
+        engine.sched.allocator.check()
     # Gate: every traced request must finish with its full token budget
     # (traces carry no EOS) and nothing may be rejected.
     unfinished = [r.rid for r in trace
                   if metrics.requests.get(r.rid) is None
                   or metrics.requests[r.rid].finish_tick is None
                   or len(results.get(r.rid, [])) != r.max_new_tokens]
+    if tracer is not None:
+        obj = write_chrome_trace(tracer, trace_out, ticks=engine.tick_count)
+        obs_trace.install(None)
+        print(f"[serve] arch={cfg.name} trace: "
+              f"{len(obj['traceEvents'])} events -> {trace_out}")
+        for line in format_report(obj["reproIdle"]).splitlines():
+            print(f"[serve] idle: {line}")
+        s["trace"] = {"path": trace_out,
+                      "n_events": len(obj["traceEvents"])}
     s["ok"] = not engine.rejected and not unfinished \
         and s["n_requests"] == len(trace)
     if not s["ok"]:
@@ -136,18 +284,13 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None) -> dict:
 
 
 # The JAX driver's flags for deployment shapes the port does not serve yet
-# (prefix cache, tenants, disaggregation, fleet, chaos, expert-parallel
-# decode, tracing, device meshes): accepted, so that a command line written
-# for the JAX driver is rejected by name instead of by argparse.
-_UNPORTED_SWITCHES = ("--prefix-cache", "--fair", "--disagg", "--fleet",
-                      "--fleet-elastic", "--trace-wall")
-_UNPORTED_VALUES = (("--prefix-capacity", int), ("--tenants", int),
-                    ("--shared-prefix-len", int),
-                    ("--prefill-pool-pages", int), ("--prefill-groups", str),
-                    ("--decode-groups", str), ("--kill-group", str),
-                    ("--chaos", str), ("--chaos-seed", int),
-                    ("--slo-ttft", float), ("--ep-size", int),
-                    ("--ep-placement", str), ("--trace-out", str))
+# (fleet, chaos, expert-parallel decode): accepted, so that a command line
+# written for the JAX driver is rejected by name instead of by argparse.
+_UNPORTED_SWITCHES = ("--fleet", "--fleet-elastic")
+_UNPORTED_VALUES = (("--prefill-groups", str), ("--decode-groups", str),
+                    ("--kill-group", str), ("--chaos", str),
+                    ("--chaos-seed", int), ("--slo-ttft", float),
+                    ("--ep-size", int), ("--ep-placement", str))
 
 
 def _unported_flags(args) -> list:
@@ -200,13 +343,52 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print tokens as they are generated")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache (block allocator + page-table "
-                         "decode, DESIGN.md §9); required by the port")
+                         "decode, DESIGN.md §9); the port needs it or "
+                         "--disagg")
     ap.add_argument("--page-size", type=int, default=16,
                     help="cache lines per page (paged mode)")
     ap.add_argument("--pool-pages", type=int, default=None,
                     help="physical pool size in pages (default: full "
                          "reservation capacity; smaller values overcommit "
                          "and exercise preemption)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="prefix-cached copy-on-write paged KV (DESIGN.md "
+                         "§14): cached prompt prefixes mount as shared "
+                         "pages and skip prefill; needs --paged or "
+                         "--disagg")
+    ap.add_argument("--prefix-capacity", type=int, default=None,
+                    metavar="PAGES",
+                    help="LRU bound on pages the prefix index may pin "
+                         "(default: unbounded — allocator pressure is "
+                         "the only bound)")
+    ap.add_argument("--fair", action="store_true",
+                    help="per-tenant deficit round-robin admission "
+                         "(DESIGN.md §14): a flooding tenant cannot "
+                         "starve the rest")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="build a shared-prefix multi-tenant trace with "
+                         "this many tenants (0: classic mixed-length "
+                         "Poisson trace)")
+    ap.add_argument("--shared-prefix-len", type=int, default=None,
+                    help="tenant shared-prefix length in tokens "
+                         "(default: half of --prompt-len)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated prefill/decode deployment "
+                         "(DESIGN.md §10): role-split workers over "
+                         "separate paged pools, KV handed off as pages; "
+                         "--pool-pages sizes the decode pool")
+    ap.add_argument("--prefill-pool-pages", type=int, default=None,
+                    help="prefill-side pool size in pages (disagg mode; "
+                         "default: two max-length sequences)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto/Chrome trace-event JSON of the "
+                         "run (tick-clock spans, request flows, counters, "
+                         "idle-time attribution — DESIGN.md §15); tracing "
+                         "is fully off without this flag")
+    ap.add_argument("--trace-wall", action="store_true",
+                    help="annotate trace spans with wall-clock readings "
+                         "(opt-in; excluded from the deterministic trace "
+                         "signature)")
     ap.add_argument("--mesh", default="1x1", help="1x1 only")
     for flag in _UNPORTED_SWITCHES:
         ap.add_argument(flag, action="store_true", help="not ported yet")
@@ -222,7 +404,8 @@ def main(argv=None) -> int:
     if unported:
         errs.append("not ported to repro_torch yet: " + ", ".join(unported))
     try:
-        ServeConfig.from_args(args).validate()
+        ServeConfig.from_args(args).validate(
+            model_cfg=registry.get_config(args.arch) if args.arch else None)
     except ServeConfigError as e:
         errs.append(str(e))
     if errs:
@@ -236,7 +419,16 @@ def main(argv=None) -> int:
         return 2
     archs = [args.arch] if args.arch else \
         (list(SMOKE_ARCHS) if args.smoke else ["llama3.2-3b"])
-    failed = [arch for arch in archs if not serve_arch(arch, args)["ok"]]
+    failed = []
+    trace_out = args.trace_out
+    for arch in archs:
+        if trace_out and len(archs) > 1:
+            # One artifact per arch (the smoke pair would overwrite).
+            stem, dot, ext = trace_out.rpartition(".")
+            args.trace_out = f"{stem}.{arch}.{ext}" if dot \
+                else f"{trace_out}.{arch}"
+        if not serve_arch(arch, args)["ok"]:
+            failed.append(arch)
     if failed:
         print(f"[serve] FAILED archs: {failed}", file=sys.stderr)
         return 1

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -306,3 +307,92 @@ def merge_kv_state(kv_tree, rec_tree):
         out["blocks"] = {k: {**kv_tree["blocks"][k], **rec_tree["blocks"][k]}
                          for k in kv_tree["blocks"]}
     return out
+
+
+# -- page-granular pool surgery (disaggregated handoff, DESIGN.md §10) ------
+#
+# The KV handoff between device groups ships a request's ALLOCATED physical
+# pages and nothing else: gather pulls exactly the page ids named by the
+# source page table out of every layer's pool (a page-dim index_select: the
+# payload keeps the [n, page_size, ...] page layout, never a contiguous
+# [tokens, ...] cache), and scatter lands them at the destination pool's
+# imported page ids. Block leaves carry the stacked layer dim in front of
+# the page dim, so the page axis is 1 there and 0 on tails.
+
+def _host_ids(page_ids) -> np.ndarray:
+    if isinstance(page_ids, torch.Tensor):
+        page_ids = page_ids.cpu()
+    return np.asarray(page_ids, np.int64).reshape(-1)
+
+
+def gather_kv_pages(state, page_ids):
+    """Pull physical pages ``page_ids`` of every attention layer's pool out
+    of a PAGED decode-state tree. Returns the kv skeleton with the page dim
+    replaced by ``len(page_ids)`` (new tensors): the transfer payload."""
+    kv, _ = split_kv_state(state)
+    ids = _host_ids(page_ids)
+
+    def take(axis):
+        return lambda v: v.index_select(
+            axis, torch.as_tensor(ids, device=v.device))
+
+    out = {"blocks": None,
+           "tails": [tree_map(take(0), d) for d in kv["tails"]]}
+    if kv["blocks"] is not None:
+        out["blocks"] = {k: tree_map(take(1), v)
+                         for k, v in kv["blocks"].items()}
+    return out
+
+
+def scatter_kv_pages(state, payload, page_ids):
+    """Write a :func:`gather_kv_pages` payload into the pool pages
+    ``page_ids`` of a PAGED decode-state tree, IN PLACE (the import half of
+    the handoff). Out-of-range ids (the transfer engine's chunk-padding
+    sentinel) are dropped: their rows are masked out on the host before
+    the write, as the JAX package's ``mode="drop"`` drops them (an
+    out-of-range index write on a CUDA tensor is a device-side assert);
+    ids in [-n, 0) count from the end, as there. Returns ``state``."""
+    kv, _ = split_kv_state(state)
+    ids = _host_ids(page_ids)
+
+    def put(axis):
+        def f(dst, src):
+            n = dst.shape[axis]
+            ids_n = np.where(ids < 0, ids + n, ids)
+            keep = np.nonzero((ids_n >= 0) & (ids_n < n))[0]
+            if len(keep) == 0:
+                return
+            if len(keep) < len(ids):
+                src = src.index_select(
+                    axis, torch.as_tensor(keep, device=src.device))
+            dst.index_copy_(axis, torch.as_tensor(ids_n[keep],
+                                                  device=dst.device),
+                            src.to(dst.dtype))
+        return f
+
+    for d, p in zip(kv["tails"], payload["tails"]):
+        _tree_zip(put(0), d, p)
+    if kv["blocks"] is not None:
+        for k in kv["blocks"]:
+            _tree_zip(put(1), kv["blocks"][k], payload["blocks"][k])
+    return state
+
+
+def _tree_zip(fn, dst, src) -> None:
+    """``fn(dst_leaf, src_leaf)`` over two dict trees of one structure."""
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _tree_zip(fn, d, src[k])
+        else:
+            fn(d, src[k])
+
+
+def init_paged_prefill_state(cfg: ModelConfig, n_pages: int, page_size: int,
+                             dtype, device="cpu"):
+    """A PAGED prefill state that DETACHES from any serving engine
+    (DESIGN.md §10): the per-layer pools plus a batch-1 recurrent carry,
+    sized independently of decode-side slot counts. This is what a
+    disaggregated PrefillWorker owns: its pool geometry is the prefill
+    group's memory budget, not the decode engine's."""
+    return init_paged_decode_state(cfg, 1, n_pages, page_size, dtype,
+                                   device)

@@ -6,8 +6,10 @@ default; ``trace.install(Tracer())`` turns it on and costs nothing when
 off (no-op stubs).
 
 Jax-free copies of the JAX package's modules, imports rewritten. The
-port's train driver traces with them (``--trace-out``); the serving
-engines' and the MPMD engine's hooks are not in the port yet."""
+port's train and serve drivers trace with them (``--trace-out``); the
+serving engines, the scheduler, the KV transfer engine and the disagg
+workers carry the JAX package's hooks. The MPMD engine's spans are not
+in the port yet."""
 
 from repro_torch.obs.export import to_chrome, write_chrome_trace
 from repro_torch.obs.registry import Registry

@@ -3,12 +3,19 @@ DESIGN.md §14).
 
 :class:`ServeConfig` is the one declarative description of a deployment
 and :func:`build_deployment` the one construction path. ``validate``
-reports EVERY violation in one :class:`ServeConfigError`. The port builds
-the unified paged deployment (``ContinuousBatchingEngine`` over a
-``BlockAllocator``); the JAX package's other deployment shapes (prefix
-cache, disaggregation, expert-parallel decode, fleet, chaos) add their
-sub-configs here when they are ported. Until then the driver rejects
-their flags by name (``launch/serve.py``).
+reports EVERY violation in one :class:`ServeConfigError`. Config ->
+engine mapping, as in the JAX package::
+
+    disagg.enabled                -> DisaggController     (make_disagg)
+    otherwise                     -> ContinuousBatchingEngine
+    paged.enabled                 -> + BlockAllocator (paged KV, §9)
+    prefix.enabled                -> + PrefixIndex (COW prefix cache, §14)
+
+The JAX package's other deployment shapes (the dense continuous mode and
+the lockstep fallback, expert-parallel decode, the fleet, chaos) add their
+sub-configs here when they are ported. Until then ``validate`` refuses a
+deployment that is neither paged nor disaggregated, and the driver
+rejects their flags by name (``launch/serve.py``).
 """
 
 from __future__ import annotations
@@ -33,11 +40,35 @@ class ServeConfigError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class PagedCfg:
-    """Paged-KV geometry (DESIGN.md §9)."""
+    """Paged-KV geometry (DESIGN.md §9). ``enabled`` switches the unified
+    engine to paged mode; the disagg deployment is paged inherently and
+    reads only the geometry fields."""
 
     enabled: bool = False
     page_size: int = 16
-    pool_pages: Optional[int] = None  # default: full reservation capacity
+    pool_pages: Optional[int] = None          # decode/unified pool
+    prefill_pool_pages: Optional[int] = None  # disagg prefill pool
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixCacheCfg:
+    """Prefix-cached COW paged KV (DESIGN.md §14). Requires a paged
+    deployment (unified ``paged`` or ``disagg``). ``fair`` switches
+    admission to per-tenant deficit round-robin."""
+
+    enabled: bool = False
+    capacity_pages: Optional[int] = None  # LRU bound on pinned pages
+    fair: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DisaggCfg:
+    """Disaggregated prefill/decode deployment (DESIGN.md §10)."""
+
+    enabled: bool = False
+    transfer_chunk_pages: int = 4
+    link_bw: Optional[float] = None
+    latency_s: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +84,19 @@ class ServeConfig:
     top_k: int = 0
     top_p: float = 1.0
     paged: PagedCfg = PagedCfg()
+    prefix: PrefixCacheCfg = PrefixCacheCfg()
+    disagg: DisaggCfg = DisaggCfg()
 
     @property
     def sampling(self) -> SamplingParams:
         return SamplingParams(temperature=self.temperature,
                               top_k=self.top_k, top_p=self.top_p)
+
+    @property
+    def any_paged(self) -> bool:
+        """Whether any page machinery exists (unified paged or disagg,
+        which is paged inherently)."""
+        return self.paged.enabled or self.disagg.enabled
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
@@ -73,12 +112,18 @@ class ServeConfig:
             top_p=args.top_p,
             paged=PagedCfg(enabled=bool(args.paged),
                            page_size=args.page_size,
-                           pool_pages=args.pool_pages))
+                           pool_pages=args.pool_pages,
+                           prefill_pool_pages=args.prefill_pool_pages),
+            prefix=PrefixCacheCfg(enabled=bool(args.prefix_cache),
+                                  capacity_pages=args.prefix_capacity,
+                                  fair=bool(args.fair)),
+            disagg=DisaggCfg(enabled=bool(args.disagg)))
 
     def validate(self, model_cfg=None) -> None:
         """Reject-don't-truncate validation of the WHOLE config: every
         violation in one :class:`ServeConfigError`. ``model_cfg`` adds the
-        arch-dependent checks (layer kinds the port does not run yet)."""
+        arch-dependent checks (recurrent-arch prefix rejection, layer kinds
+        the port does not run yet)."""
         errs: List[str] = []
         if self.slots < 1:
             errs.append(f"slots must be >= 1, got {self.slots}")
@@ -90,15 +135,35 @@ class ServeConfig:
         if self.token_budget is not None and self.token_budget < 1:
             errs.append(
                 f"token_budget must be >= 1, got {self.token_budget}")
-        if self.paged.page_size < 1:
-            errs.append(f"page_size must be >= 1, got {self.paged.page_size}")
-        if self.paged.pool_pages is not None and self.paged.pool_pages < 1:
-            errs.append(f"pool_pages must be >= 1, "
-                        f"got {self.paged.pool_pages}")
-        if not self.paged.enabled:
+        if self.any_paged:
+            if self.paged.page_size < 1:
+                errs.append(f"page_size must be >= 1, "
+                            f"got {self.paged.page_size}")
+            for name, v in (("pool_pages", self.paged.pool_pages),
+                            ("prefill_pool_pages",
+                             self.paged.prefill_pool_pages)):
+                if v is not None and v < 1:
+                    errs.append(f"{name} must be >= 1, got {v}")
+        else:
             errs.append("not ported to repro_torch yet: running without "
                         "--paged (dense per-slot KV caches)")
+        if self.prefix.enabled and not self.any_paged:
+            errs.append("--prefix-cache needs a paged deployment "
+                        "(--paged or --disagg)")
+        if self.prefix.capacity_pages is not None \
+                and self.prefix.capacity_pages < 1:
+            errs.append(f"prefix capacity_pages must be >= 1, "
+                        f"got {self.prefix.capacity_pages}")
         if model_cfg is not None:
+            if self.prefix.enabled:
+                rec = sorted({s.mixer for s in model_cfg.layer_layout()
+                              if s.mixer in ("rglru", "ssd")})
+                if rec:
+                    errs.append(
+                        f"--prefix-cache needs per-position KV only; "
+                        f"{model_cfg.name} carries recurrent mixers {rec} "
+                        f"whose state depends on every earlier token, so "
+                        f"skipping a cached prefix would corrupt it")
             if model_cfg.is_encdec or model_cfg.vision_seq > 0:
                 errs.append(f"{model_cfg.name}: encoder-decoder and vision "
                             f"archs are not ported yet")
@@ -117,20 +182,40 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
                      record_logits: bool = False):
     """THE construction path from a :class:`ServeConfig` to a live engine:
     validate first (so an invalid config never half-constructs), then the
-    unified paged deployment — ``ContinuousBatchingEngine`` over a
-    ``BlockAllocator`` and a ``Scheduler``. ``params`` defaults to a fresh
-    init from seed 0 on ``device`` (the JAX package's ``PRNGKey(0)``
-    init)."""
+    deployment the config describes (see the module docstring).
+    ``params`` defaults to a fresh init from seed 0 on ``device`` (the JAX
+    package's ``PRNGKey(0)`` init). Every engine exposes ``run(trace)``
+    and ``rejected``."""
     serve_cfg.validate(model_cfg=cfg)
     sc = serve_cfg
-    program = make_continuous_program(cfg, run, sc, device=device)
-    allocator = BlockAllocator(program.n_pages, program.page_size,
-                               program.max_pages)
-    sched = Scheduler(sc.slots, sc.max_len, prefill_chunk=sc.prefill_chunk,
-                      token_budget=sc.token_budget, allocator=allocator)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
         params = stack.init_model(gen, cfg, device=device)
+
+    if sc.disagg.enabled:
+        from repro_torch.serve.disagg import make_disagg
+        return make_disagg(
+            cfg, run, params, decode_slots=sc.slots, max_len=sc.max_len,
+            page_size=sc.paged.page_size, decode_pages=sc.paged.pool_pages,
+            prefill_pages=sc.paged.prefill_pool_pages,
+            prefill_chunk=sc.prefill_chunk, token_budget=sc.token_budget,
+            seed=sc.seed,
+            transfer_chunk_pages=sc.disagg.transfer_chunk_pages,
+            link_bw=sc.disagg.link_bw, latency_s=sc.disagg.latency_s,
+            metrics=metrics, on_token=on_token,
+            record_logits=record_logits, prefix=sc.prefix, device=device)
+
+    program = make_continuous_program(cfg, run, sc, device=device)
+    allocator = BlockAllocator(program.n_pages, program.page_size,
+                               program.max_pages)
+    prefix_index = None
+    if sc.prefix.enabled:
+        from repro_torch.serve.prefix_index import PrefixIndex
+        prefix_index = PrefixIndex(allocator,
+                                   capacity_pages=sc.prefix.capacity_pages)
+    sched = Scheduler(sc.slots, sc.max_len, prefill_chunk=sc.prefill_chunk,
+                      token_budget=sc.token_budget, allocator=allocator,
+                      prefix_index=prefix_index, fair=sc.prefix.fair)
     return ContinuousBatchingEngine(program, params, sched, metrics=metrics,
                                     on_token=on_token,
                                     record_logits=record_logits)

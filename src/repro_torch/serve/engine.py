@@ -5,15 +5,18 @@ paged mode of ``repro/serve/engine.py``, DESIGN.md §7 / §9).
 ``ContinuousBatchingEngine`` drives them from host-side scheduling state:
 chunked prefill at batch 1 writing straight into the request's pool pages,
 per-slot sampled decode over all live slots through per-slot page tables,
-page growth on demand and preempt-newest on pool exhaustion.
+page growth on demand and preempt-newest on pool exhaustion; with a prefix
+index on the scheduler, copy-on-write forks of shared pages before any
+write lands in them (DESIGN.md §14); trace spans, flows, counters and idle
+marks on the tick clock (§15).
 
 Differences from the JAX engine, all about execution and none about
 results: the steps run eagerly (no jit) under ``torch.inference_mode``;
-the KV pools are updated in place where JAX returns a new state; the
-engine keeps one compute-dtype copy of each weight matrix made at load
-(``stack.compute_params``) instead of casting every call. Only the paged
-build is ported; dense per-slot caches, expert-parallel decode, prefix
-caching and tracing are later slices.
+the KV pools are updated in place where JAX returns a new state (the COW
+fork too); the engine keeps one compute-dtype copy of each weight matrix
+made at load (``stack.compute_params``) instead of casting every call.
+Only the paged build is ported; dense per-slot caches and expert-parallel
+decode are later slices.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from repro_torch.models import stack
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import RunConfig, apply_unembedding
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import sampling
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import PrefillChunk, Request, Scheduler
@@ -43,6 +47,7 @@ class ContinuousProgram:
                   rids[B], ngen[B], temp[B], topk[B], topp[B])
           -> (state, next[B], last_logits [B,V] f32)
       sample_step(logits[N,V], rids, ngen, temp, topk, topp) -> [N]
+      fork_step(state, src_ids, dst_ids) -> state   (COW page copy)
 
     Step inputs may be numpy arrays; outputs are tensors on ``device``.
     """
@@ -58,6 +63,7 @@ class ContinuousProgram:
     sample_step: Callable
     init_state: Callable     # () -> paged decode state (B = n_slots)
     init_prec: Callable      # () -> batch-1 prefill recurrent carry
+    fork_step: Callable = None
     page_size: int = 0
     n_pages: int = 0
     max_pages: int = 0       # page-table slots per request
@@ -148,10 +154,20 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         nxt = torch.where(dev(active, torch.bool), nxt, 0)
         return state, nxt, last
 
+    @torch.inference_mode()
+    def fork(state, src, dst):
+        """Copy-on-write page copy (DESIGN.md §14): duplicate physical
+        page ``src`` into ``dst`` across every layer's K/V/pos pool, in
+        place, before a writer diverges from a shared prefix. One page of
+        device traffic, the only KV copy of the unified paged engine; it
+        runs on the stream of the writes it precedes."""
+        return stack.scatter_kv_pages(
+            state, stack.gather_kv_pages(state, src), dst)
+
     return ContinuousProgram(
         cfg=cfg, run=run, device=device, n_slots=B, max_len=max_len,
         prefill_step=prefill, insert_step=insert, decode_step=decode,
-        sample_step=torch.inference_mode()(sample),
+        sample_step=torch.inference_mode()(sample), fork_step=fork,
         init_state=lambda: stack.init_paged_decode_state(
             cfg, B, n_pages, page_size, dtype, device),
         init_prec=lambda: stack.split_kv_state(
@@ -180,7 +196,9 @@ class ContinuousBatchingEngine:
     ``BlockAllocator``; the engine mirrors each slot's page table, claims a
     page whenever a slot's next write position crosses a page boundary, and
     relieves pool OOM by preempting the newest running request before the
-    decode step runs. Generated tokens land in ``results[rid]``.
+    decode step runs. With the scheduler's prefix index, a shared page is
+    COW-forked before the prefill chunk or decode step that writes into it.
+    Generated tokens land in ``results[rid]``.
     """
 
     def __init__(self, program: ContinuousProgram, params,
@@ -197,6 +215,9 @@ class ContinuousBatchingEngine:
         self.logits: Dict[int, List[np.ndarray]] = {}  # rid -> [V] rows
         self.rejected: List[int] = []  # rids refused admission
         self.tick_count = 0
+        self.track = "serve"  # tracer track (disagg overrides per role)
+        self.owns_clock = True  # standalone: this engine advances the tracer
+        scheduler.set_track(self.track)
         self.n_prefill_chunks = 0  # prefill_step calls
         self.n_decode_steps = 0    # decode_step calls
         B = program.n_slots
@@ -226,23 +247,51 @@ class ContinuousBatchingEngine:
     def results(self) -> Dict[int, List[int]]:
         return self.sched.results
 
+    def set_track(self, track: str) -> None:
+        """Point this engine's trace events at ``track``. Controllers that
+        call this own the tick clock, so the engine stops advancing it."""
+        self.track = track
+        self.owns_clock = False
+        self.sched.set_track(track)
+
     def submit(self, req: Request) -> None:
         self.sched.submit(req)
         self.metrics.on_submit(req.rid, len(req.prompt))
+        obs_trace.TRACER.flow(self.track, "queued", req.rid,
+                              prompt=len(req.prompt))
 
     # -- one engine tick ----------------------------------------------------
 
     def tick(self) -> None:
+        tr = obs_trace.TRACER
+        if self.owns_clock:
+            tr.advance(self.tick_count)
+        worked = False
         budget = self.sched.token_budget
         while budget > 0:
             chunk = self.sched.plan_prefill(budget)
             if chunk is None:
                 break
-            self._run_prefill_chunk(chunk)
+            with tr.span(self.track, "prefill", rid=chunk.request.rid,
+                         start=chunk.start, length=chunk.length):
+                if chunk.first:
+                    tr.flow(self.track, "prefill", chunk.request.rid)
+                self._run_prefill_chunk(chunk)
+            worked = True
             budget -= chunk.length
         self._ensure_pages()
         if self._active.any():
-            self._decode_once()
+            with tr.span(self.track, "decode",
+                         n_active=int(self._active.sum())):
+                self._decode_once()
+            worked = True
+        if tr.enabled:
+            tr.count(self.track, "queue_depth", self.sched.queue_depth)
+            if not worked:
+                bucket = "pool-OOM" \
+                    if self.sched.prefill.wait_reason == "pages" \
+                    else "queue-starved"
+                tr.mark_idle(self.track, bucket)
         self.metrics.on_tick(self.sched.queue_depth, self.sched.n_active)
         in_use = self.sched.allocator.pages_in_use
         self.page_peak = max(self.page_peak, in_use)
@@ -254,8 +303,14 @@ class ContinuousBatchingEngine:
         toks = np.asarray(
             chunk.tokens[chunk.start:chunk.start + chunk.length],
             np.int32)[None, :]
-        if chunk.first:  # fresh (or resumed) request -> fresh rec carry
+        if chunk.first:  # fresh (or resumed) request -> fresh rec carry;
+            # a prefix hit starts at chunk.skipped, not 0 (§14)
             self.prec = self.p.init_prec()
+        # Fork-on-divergence: this chunk writes lines [start, start+length)
+        # and any SHARED page in that range is COW-forked before the
+        # scatter lands (a resumed mid-page prefill into a cached partial
+        # tail is the canonical case).
+        self._cow_guard(req.rid, chunk.start, chunk.length)
         ptrow = self.sched.allocator.table(req.rid, self.p.max_pages)[None, :]
         self.state, self.prec, logits = self.p.prefill_step(
             self.params, self.state, self.prec, toks, chunk.start, ptrow)
@@ -305,12 +360,48 @@ class ContinuousBatchingEngine:
         self._topk[slot] = sp.top_k
         self._topp[slot] = sp.top_p
 
+    def _cow_guard(self, rid: int, line_start: int, n_lines: int,
+                   slot: int = None) -> None:
+        """COW-fork every SHARED page of ``rid`` that the upcoming write
+        to lines [line_start, line_start + n_lines) would touch
+        (DESIGN.md §14): a fresh page replaces the shared one in the table
+        and ``fork_step`` copies its device lines, so no writer ever
+        mutates a page with refcount > 1. On pool exhaustion the newest
+        running request is preempted for the copy target."""
+        alloc = self.sched.allocator
+        ps = alloc.page_size
+        table = alloc.tables.get(rid)
+        if not table or n_lines <= 0:
+            return
+        lo = line_start // ps
+        hi = min((line_start + n_lines - 1) // ps, len(table) - 1)
+        for pslot in range(lo, hi + 1):
+            if not alloc.is_shared(table[pslot]):
+                continue
+            while True:
+                try:
+                    old, new = alloc.cow_fork(rid, pslot)
+                    break
+                except MemoryError:
+                    victim = self.sched.preempt_newest()
+                    if victim is None:
+                        raise RuntimeError("COW OOM with nothing to "
+                                           "preempt") from None
+                    self._clear_slot(victim)
+                    if slot is not None and victim == slot:
+                        return  # the writer itself was evicted; it resumes
+            self.state = self.p.fork_step(self.state, [old], [new])
+            if slot is not None:
+                self._ptab[slot] = alloc.table(rid, self.p.max_pages)
+
     def _ensure_pages(self) -> None:
         """Claim a pool page for every live slot whose next write position
         has crossed its allocated frontier; on pool OOM, preempt the newest
         running request (oldest slots are served first, so the loop always
         converges — down to one live request, which submit() guaranteed
-        fits the pool)."""
+        fits the pool). With a prefix cache, a slot about to write into a
+        still-shared page COW-forks it first (the decode half of
+        fork-on-divergence, §14)."""
         alloc = self.sched.allocator
         order = sorted((int(s) for s in np.nonzero(self._active)[0]),
                        key=lambda s: self.sched.running[s].seq)
@@ -328,6 +419,8 @@ class ContinuousBatchingEngine:
                 self._clear_slot(victim)
                 if victim == slot:
                     break  # this slot itself was evicted; it will resume
+            if self._active[slot]:
+                self._cow_guard(rid, int(self._pos[slot]), 1, slot=slot)
 
     def _decode_once(self) -> None:
         self.state, nxt, logits = self.p.decode_step(
@@ -367,8 +460,9 @@ class ContinuousBatchingEngine:
         self._ptab[slot] = -1
 
     def page_occupancy(self) -> dict:
-        """Pool occupancy over the run: peak pages in use and the
-        time-averaged cache lines held per active slot."""
+        """Pool occupancy over the run: peak pages in use, the
+        time-averaged cache lines held per active slot, the prefix cache's
+        accounting (zeros when caching is off) and the step counts."""
         ticks = [t for t in self._page_ticks if t[1] > 0]
         lines = [p * self.p.page_size / a for p, a in ticks]
         alloc = self.sched.allocator
@@ -380,6 +474,10 @@ class ContinuousBatchingEngine:
                 round(sum(lines) / len(lines), 2) if lines else 0.0,
             "n_preempted": self.sched.n_preempted,
             "pages_allocated": alloc.n_fresh_allocs,
+            "pages_shared": alloc.n_shared_allocs,
+            "n_cow_forks": alloc.n_cow_forks,
+            "prefix_hits": self.sched.prefill.n_prefix_hits,
+            "tokens_skipped": self.sched.prefill.n_tokens_skipped,
             "prefill_chunks": self.n_prefill_chunks,
             "decode_steps": self.n_decode_steps,
         }

@@ -1,9 +1,9 @@
-"""Continuous-batching request scheduling (DESIGN.md §7.1/§7.3, §9.4, §10).
+"""Continuous-batching request scheduling (DESIGN.md §7.1/§7.3, §9.4, §10;
+a copy of the JAX package's ``serve/scheduler.py``).
 
-A copy of ``repro/serve/scheduler.py`` without its trace-event calls
-(tracing is a later slice). Host-side bookkeeping only — no torch.
-Scheduling is split into two policies so the unified engine and the
-disaggregated prefill/decode deployment share one implementation:
+Host-side bookkeeping only — no torch. Scheduling is split into two policies
+so the unified engine and the disaggregated prefill/decode deployment
+share one implementation:
 
 * :class:`PrefillScheduler` — the prefill-side policy: FIFO queue, submit
   validation, chunk planning under a per-tick token budget, and
@@ -45,8 +45,19 @@ re-queues at the queue FRONT with its generated tokens as resume state.
 Re-prefilling prompt+generated reproduces its remaining tokens exactly
 because sampling keys are ``key(rid, n)`` — schedule-independent (§7.4).
 
-The JAX scheduler's prefix-cache admission and per-tenant fairness
-(DESIGN.md §14) come with the slice that ports the prefix cache.
+Prefix caching (``prefix_index`` set, DESIGN.md §14) changes admission
+from ``allocate`` to ``share_pages``: the longest cached prefix of the
+token list mounts as shared leading table slots and prefill SKIPS those
+lines entirely — the chunk stream starts at ``skipped`` (capped at
+``len(tokens) - 1`` so at least one line always prefills and the first
+sampled token keeps coming from prefill logits, schedule-independent as
+ever). The decode side registers finished KV runs back into the index.
+
+Fairness (``fair=True``, DESIGN.md §14): admission picks the next
+request by per-tenant deficit round-robin (the tenant with the fewest
+admissions so far goes first) instead of global FIFO, so one tenant's
+burst cannot starve the pool; within a tenant order stays FIFO, and a
+preempted request's front-requeue still resumes before anything else.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import collections
 import dataclasses
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.kv_blocks import BlockAllocator
 from repro_torch.serve.sampling import GREEDY, SamplingParams
 
@@ -69,6 +81,7 @@ class Request:
     sampling: SamplingParams = GREEDY
     eos_token: Optional[int] = None
     arrival: float = 0.0  # trace time (engine ticks in the simulated clock)
+    tenant: int = 0  # fairness domain (multi-tenant admission, §14)
 
 
 @dataclasses.dataclass
@@ -94,6 +107,7 @@ class PrefillChunk:
     length: int
     tokens: List[int] = None  # full prompt (+ resumed generations)
     n_done: int = 0           # tokens already generated before this prefill
+    skipped: int = 0          # leading lines served by the prefix cache
 
     def __post_init__(self):
         if self.tokens is None:
@@ -105,8 +119,9 @@ class PrefillChunk:
 
     @property
     def first(self) -> bool:
-        """Whether this is the request's first chunk this prefill pass."""
-        return self.start == 0
+        """Whether this is the request's first chunk this prefill pass
+        (``start`` sits at the cache-skip point, not at 0 — §14)."""
+        return self.start == self.skipped
 
 
 @dataclasses.dataclass
@@ -121,15 +136,28 @@ class PrefillScheduler:
 
     def __init__(self, max_len: int, *, prefill_chunk: int = 64,
                  token_budget: Optional[int] = None,
-                 allocator: Optional[BlockAllocator] = None):
+                 allocator: Optional[BlockAllocator] = None,
+                 prefix_index=None, fair: bool = False):
         assert prefill_chunk >= 1
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
         self.token_budget = token_budget or prefill_chunk
         self.allocator = allocator
+        self.prefix_index = prefix_index
+        self.fair = fair
         self.queue: Deque[_QueueEntry] = collections.deque()
-        self._prefilling = None  # (entry, slot, next_start) | None
+        self._prefilling = None  # (entry, slot, next_start, skipped) | None
         self.n_rejected = 0
+        self.n_prefix_hits = 0
+        self.n_tokens_skipped = 0
+        self._admitted: Dict[int, int] = {}  # tenant -> admissions (fair)
+        self.track = "serve"  # tracer track (§15); factories override
+        # Why the last plan() returned None: "empty" (no queued work),
+        # "no-slot" (landing site busy), "pages" (pool cannot back the
+        # head), or None after a successful plan. Engines read this to
+        # bucket idle ticks (pool-OOM vs queue-starved) without the
+        # tracer ever influencing scheduling.
+        self.wait_reason: Optional[str] = None
 
     # -- submission ---------------------------------------------------------
 
@@ -173,30 +201,76 @@ class PrefillScheduler:
         if budget <= 0:
             return None
         if self._prefilling is None:
-            if not self.queue or not has_slot():
+            if not self.queue:
+                self.wait_reason = "empty"
                 return None
-            entry = self.queue[0]
-            if self.allocator is not None and not self.allocator.allocate(
-                    entry.request.rid, len(entry.tokens)):
-                return None  # wait for pages (freed on finish/preemption)
-            self.queue.popleft()
-            self._prefilling = (entry, claim_slot(), 0)
-        entry, slot, start = self._prefilling
+            if not has_slot():
+                self.wait_reason = "no-slot"
+                return None
+            idx = self._select()
+            entry = self.queue[idx]
+            skipped, shared = 0, ()
+            if self.allocator is not None:
+                if self.prefix_index is not None:
+                    shared, n_cached = self.prefix_index.lookup(entry.tokens)
+                    # >= 1 line always prefills so the first sampled token
+                    # keeps coming from prefill logits (§14).
+                    n_cached = min(n_cached, len(entry.tokens) - 1)
+                    if n_cached > 0:
+                        skipped = n_cached
+                    else:
+                        shared = ()
+                if not self.allocator.share_pages(
+                        entry.request.rid, len(entry.tokens), shared):
+                    self.wait_reason = "pages"
+                    return None  # wait for pages (freed on finish/migration)
+            del self.queue[idx]
+            if skipped:
+                self.n_prefix_hits += 1
+                self.n_tokens_skipped += skipped
+                obs_trace.TRACER.instant(
+                    self.track, "prefix-skip", rid=entry.request.rid,
+                    skipped=skipped)
+            tenant = entry.request.tenant
+            self._admitted[tenant] = self._admitted.get(tenant, 0) + 1
+            self._prefilling = (entry, claim_slot(), skipped, skipped)
+            obs_trace.TRACER.flow(
+                self.track, "admitted", entry.request.rid,
+                tokens=len(entry.tokens), skipped=skipped)
+        self.wait_reason = None
+        entry, slot, start, skipped = self._prefilling
         length = min(self.prefill_chunk, len(entry.tokens) - start, budget)
         if length <= 0:
             return None
         return PrefillChunk(request=entry.request, slot=slot, start=start,
                             length=length, tokens=entry.tokens,
-                            n_done=len(entry.resume))
+                            n_done=len(entry.resume), skipped=skipped)
+
+    def _select(self) -> int:
+        """Queue index to admit next. FIFO by default; with ``fair`` the
+        tenant with the fewest admissions so far goes first (deficit
+        round-robin — a flooding tenant cannot starve the rest). A
+        preempted request requeued at the front always resumes first."""
+        if not self.fair or self.queue[0].resume:
+            return 0
+        tenants: List[int] = []
+        for e in self.queue:
+            if e.request.tenant not in tenants:
+                tenants.append(e.request.tenant)
+        pick = min(tenants, key=lambda t: self._admitted.get(t, 0))
+        for i, e in enumerate(self.queue):
+            if e.request.tenant == pick:
+                return i
+        raise AssertionError("unreachable: tenant vanished from queue")
 
     def finish_chunk(self, chunk: PrefillChunk) -> bool:
         """Record a completed chunk; True when the whole prompt is cached."""
-        entry, slot, start = self._prefilling
+        entry, slot, start, skipped = self._prefilling
         assert entry.request is chunk.request and start == chunk.start
         if chunk.final:
             self._prefilling = None
             return True
-        self._prefilling = (entry, slot, start + chunk.length)
+        self._prefilling = (entry, slot, start + chunk.length, skipped)
         return False
 
     # -- introspection ------------------------------------------------------
@@ -213,15 +287,18 @@ class DecodeScheduler:
     """Decode-side policy: slot lifecycle, results, preemption."""
 
     def __init__(self, n_slots: int, *,
-                 allocator: Optional[BlockAllocator] = None):
+                 allocator: Optional[BlockAllocator] = None,
+                 prefix_index=None):
         assert n_slots >= 1
         self.n_slots = n_slots
         self.allocator = allocator
+        self.prefix_index = prefix_index
         self.free: List[int] = list(range(n_slots - 1, -1, -1))  # pop -> 0
         self.running: Dict[int, _Running] = {}  # slot -> live request
         self.results: Dict[int, List[int]] = {}  # rid -> generated tokens
         self.n_preempted = 0
         self._admit_seq = 0
+        self.track = "serve"  # tracer track (§15); factories override
 
     # -- slots --------------------------------------------------------------
 
@@ -230,6 +307,12 @@ class DecodeScheduler:
 
     def claim_slot(self) -> int:
         return self.free.pop()
+
+    def release_slot(self, slot: int) -> None:
+        """Return an UNUSED claimed slot (admission rolled back before
+        ``activate`` — e.g. the KV transfer aborted, DESIGN.md §13)."""
+        assert slot not in self.running, f"slot {slot} is live"
+        self.free.append(slot)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -247,9 +330,20 @@ class DecodeScheduler:
             assert self.results[request.rid] == list(tokens[
                 len(request.prompt):]), "resume tokens diverged from results"
             self.results[request.rid].append(first_token)
+        if self.prefix_index is not None and self.allocator is not None:
+            # Prompt KV is resident NOW: register the FULL pages so
+            # concurrent same-prefix arrivals hit immediately. Full pages
+            # are never written again (decode only appends past them);
+            # the partial tail waits for finish-time registration.
+            ps = self.allocator.page_size
+            self.prefix_index.insert(
+                tokens, self.allocator.tables.get(request.rid, []),
+                n_valid=(len(tokens) // ps) * ps)
         self._admit_seq += 1
         self.running[slot] = _Running(
             request=request, n_generated=n_done + 1, seq=self._admit_seq)
+        obs_trace.TRACER.flow(self.track, "decode", request.rid, slot=slot,
+                              n_done=n_done)
         return self._maybe_finish(slot, first_token)
 
     def note_token(self, slot: int, token: int) -> bool:
@@ -268,7 +362,18 @@ class DecodeScheduler:
             del self.running[slot]
             self.free.append(slot)
             if self.allocator is not None:
+                if self.prefix_index is not None:
+                    # The last sampled token was never fed back, so lines
+                    # [0, prompt + generated - 1) hold valid KV — register
+                    # the whole run incl. the partial tail (multi-turn
+                    # replays hit it), THEN free: pinned pages survive the
+                    # page-table reset, unpinned ones recycle as before.
+                    seq = list(req.prompt) + self.results[req.rid][:-1]
+                    self.prefix_index.insert(
+                        seq, self.allocator.tables.get(req.rid, []))
                 self.allocator.free(req.rid)  # page-table reset = recycle
+            obs_trace.TRACER.flow(self.track, "finished", req.rid,
+                                  generated=run.n_generated)
         return done
 
     def pop_newest(self) -> Optional[Tuple[int, Request, List[int]]]:
@@ -285,6 +390,8 @@ class DecodeScheduler:
         if self.allocator is not None:
             self.allocator.free(rid)
         self.n_preempted += 1
+        obs_trace.TRACER.instant(self.track, "preempt", rid=rid, slot=slot,
+                                 generated=run.n_generated)
         return slot, run.request, list(self.results[rid])
 
     # -- introspection ------------------------------------------------------
@@ -312,14 +419,23 @@ class Scheduler:
 
     def __init__(self, n_slots: int, max_len: int, *,
                  prefill_chunk: int = 64, token_budget: Optional[int] = None,
-                 allocator: Optional[BlockAllocator] = None):
+                 allocator: Optional[BlockAllocator] = None,
+                 prefix_index=None, fair: bool = False):
         self.n_slots = n_slots
         self.max_len = max_len
         self.allocator = allocator
+        self.prefix_index = prefix_index
         self.prefill = PrefillScheduler(max_len, prefill_chunk=prefill_chunk,
                                         token_budget=token_budget,
-                                        allocator=allocator)
-        self.decode = DecodeScheduler(n_slots, allocator=allocator)
+                                        allocator=allocator,
+                                        prefix_index=prefix_index, fair=fair)
+        self.decode = DecodeScheduler(n_slots, allocator=allocator,
+                                      prefix_index=prefix_index)
+
+    def set_track(self, track: str) -> None:
+        """Route both policies' trace events to ``track`` (§15)."""
+        self.prefill.track = track
+        self.decode.track = track
 
     # -- delegated state (public surface unchanged by the policy split) -----
 

@@ -26,7 +26,11 @@ assert {"repro_torch.core." + m for m in core} <= set(mods), mods
 assert "repro_torch.launch.hetero_mpmd" in mods, mods
 infra = ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
          "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.ft",
-         "repro_torch.ft.elastic", "repro_torch.train.compression")
+         "repro_torch.ft.elastic", "repro_torch.train.compression",
+         "repro_torch.ft.chaos", "repro_torch.serve.prefix_index",
+         "repro_torch.serve.kv_transfer", "repro_torch.serve.disagg",
+         "repro_torch.serve.disagg.workers",
+         "repro_torch.serve.disagg.controller")
 assert set(infra) <= set(mods) and set(infra) <= set(sys.modules), mods
 print(len(mods), bad)
 assert not bad, bad
@@ -59,12 +63,15 @@ def test_core_package_imports_no_jax_and_no_repro():
     "core.hardware", "core.schedule", "core.profiler", "core.asym_ea",
     "core.simulator", "core.planner", "core.zebra_mpmd",
     "launch.hetero_mpmd", "checkpoint", "obs", "ft",
-    "train.compression"])
+    "train.compression", "ft.chaos", "serve.prefix_index",
+    "serve.kv_transfer", "serve.disagg", "serve.disagg.workers",
+    "serve.disagg.controller"])
 def test_planning_and_mpmd_modules_import_no_jax_and_no_repro(module):
-    """Each planning copy, the MPMD engine and its entry point, and each
-    piece of training infrastructure (checkpointing, observability, fault
-    tolerance, gradient compression) alone, with the modules it pulls in,
-    leave jax and the JAX package out."""
+    """Each planning copy, the MPMD engine and its entry point, each piece
+    of training infrastructure (checkpointing, observability, fault
+    tolerance, gradient compression) and each serving module of the prefix
+    cache and the disaggregated deployment alone, with the modules it
+    pulls in, leave jax and the JAX package out."""
     script = (f"import sys, repro_torch.{module}\n"
               "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'repro')]\n"

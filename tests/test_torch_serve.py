@@ -6,8 +6,9 @@ Greedy tokens of the port's engine equal the JAX paged
 large enough for the packed MoE route (>= 74 tokens at E = 8), and again
 on an overcommitted pool that forces preemption. Sampled decoding is
 deterministic across schedules. The driver serves on the CPU with
-``--device cpu``, rejects unported flags by name with exit 1, and refuses
-to run without a CUDA device otherwise.
+``--device cpu`` (also ``--disagg`` without ``--paged``, as the JAX driver
+does), rejects unported flags by name with exit 1, and refuses to run
+without a CUDA device otherwise.
 """
 
 import jax
@@ -127,10 +128,11 @@ def test_driver_serves_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["--disagg"], "--disagg"), (["--ep-size", "2"], "--ep-size"),
-    (["--prefix-cache"], "--prefix-cache"), (["--fleet"], "--fleet"),
-    (["--tenants", "2"], "--tenants"), (["--trace-out", "t.json"],
-                                        "--trace-out"),
+    (["--fleet-elastic"], "--fleet-elastic"), (["--ep-size", "2"],
+                                               "--ep-size"),
+    (["--kill-group", "1@2"], "--kill-group"), (["--fleet"], "--fleet"),
+    (["--slo-ttft", "1.0"], "--slo-ttft"), (["--ep-placement", "planned"],
+                                            "--ep-placement"),
     (["--arch", "mamba2-2.7b"], "--arch mamba2-2.7b (recurrent ssd")])
 def test_driver_rejects_unported_flags(capsys, extra, named):
     assert serve_mod.main(SMOKE_ARGS + ["--device", "cpu"] + extra) == 1
@@ -142,10 +144,20 @@ def test_driver_rejects_unported_flags(capsys, extra, named):
 
 def test_driver_rejects_running_without_paged(capsys):
     args = [a for a in SMOKE_ARGS if a != "--paged"] + ["--device", "cpu",
-                                                       "--disagg"]
+                                                       "--fleet"]
     assert serve_mod.main(args) == 1
     err = capsys.readouterr().err
-    assert "running without --paged" in err and "--disagg" in err
+    assert "running without --paged" in err and "--fleet" in err
+
+
+def test_driver_accepts_disagg_without_paged(capsys):
+    """``--disagg`` is paged by itself, as in the JAX driver."""
+    args = [a for a in SMOKE_ARGS if a != "--paged"] + ["--device", "cpu",
+                                                       "--disagg"]
+    assert serve_mod.main(args) == 0
+    captured = capsys.readouterr()
+    assert "invalid configuration" not in captured.err
+    assert "[serve] arch=mixtral-w2-smoke disagg: " in captured.out
 
 
 def test_driver_needs_a_device_without_device_cpu(capsys):
