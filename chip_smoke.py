@@ -80,6 +80,16 @@ full depth, with random weights from seed 0:
   default 104 evicts request 0's pinned pages before the repeat comes);
 * serve_trace: the serve run of the serve trace with ``--trace-out
   build/serve_trace.json``, twice.
+* serve_dense: the serve trace without ``--paged`` (the driver's default:
+  dense per-slot KV caches, decode through the materialised attention),
+  beside the paged serve run; then under the f32 policy through the dense
+  and the paged engines, first-token logits recorded.
+* serve_fleet: the serve trace on the elastic fleet, ``--fleet
+  --prefill-groups a40,a40 --decode-groups v100,v100 --fleet-elastic
+  --kill-group 2@10`` with the chaos matrix's ``standard`` schedule (seed
+  909): the classes set the router's priors, every group computes on the
+  one card; then the same under the f32 policy, beside the unified paged
+  engine under f32.
 
 It fails unless:
 
@@ -208,7 +218,21 @@ It fails unless:
   empty decode pool after ``flush()``;
 * serve_trace: both traced runs ``ok`` with more than 0 events and the
   ``[serve] idle:`` lines, greedy tokens bitwise the unified engine's
-  untraced run's (serve_disagg), and the same tick-clock signature.
+  untraced run's (serve_disagg), and the same tick-clock signature;
+* serve_dense: every request finishes, the GLU and ``gmm`` kernels
+  launched (every launch on the tensor-core design) and the paged decode
+  kernel not; every f32 first-token logit within 1e-5 * max of the paged
+  engine's;
+* serve_fleet: every request finishes, every group's allocator clean at
+  every tick, zero pages in use after the drain and no group leaking, at
+  least one flip and one death, the GLU, ``gmm`` and paged decode kernels
+  launched (tensor-core GLU and ``gmm``); ``torch.cuda.memory_allocated``
+  after the run exceeds the one before by the compute-dtype params and
+  the live groups' pools and less than half a pool more (a pool dropped
+  at a flip or rejoin is released), and is back where it was once the
+  fleet is dropped; the f32 fleet's greedy tokens equal the unified paged
+  engine's, or the first divergence is a near-tie: the cache-free
+  forward's top-2 margin there within 1e-4 * max|logit|.
 
 One untimed warm-up request (its own engine) and one untimed warm-up train
 step (its own model; the zebra run has its own too) run before the timed
@@ -219,10 +243,10 @@ timed windows. The serve model is released before the train phase.
 Printed in order: the device line (torch's name and nvidia-smi's name and
 power limit), the kernel build time with each library's HGMMA count, the
 warm-up and serve runs' lines,
-the serve_prefix, serve_disagg, serve_disagg_prefix and serve_trace
-lines (each as its phase ends), the train runs' lines, the train_ckpt,
-train_accum, remat_dots, compress and train_trace lines (each as its
-phase ends), the kernel tolerances,
+the serve_prefix, serve_disagg, serve_disagg_prefix, serve_trace,
+serve_dense and serve_fleet lines (each as its phase ends), the train
+runs' lines, the train_ckpt, train_accum, remat_dots, compress and
+train_trace lines (each as its phase ends), the kernel tolerances,
 the ``kernels`` JSON line
 (each entry also names its ``design``: ``"wgmma"`` or ``"fma"``; ``ms``,
 ``plain_ms`` and ``library_ms`` are device times per call, read with CUDA
@@ -255,6 +279,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import weakref
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SERVE_ARGS = ["--arch", "mixtral-w2", "--paged", "--page-size", "16",
@@ -278,6 +303,21 @@ DISAGG_PREFIX_ARGS = [a for a in PREFIX_ARGS if a != "--paged"] + [
 # page-granular payload leaves: [layers, chunk pages, lines, KV heads, hd]
 # for K and V, [layers, chunk pages, lines] for the positions
 DISAGG_SHAPES = {(4, 4, 16, 4, 128), (4, 4, 16)}
+# The dense continuous mode (the driver's default: no --paged) and the
+# fleet on the serve trace: 2 prefill + 2 decode groups, role flips on,
+# group 2 (the first decode group, two requests in flight then) killed at
+# tick 10, and the chaos matrix's "standard" schedule (drops, a corrupt
+# chunk, a stall, a heartbeat flap that zombifies group 3 from tick 6):
+# with g2 dead and g3 fenced no decode group is left, so a prefill group
+# is flipped to decode; the zombie rejoins at generation 1.
+DENSE_ARGS = UNPAGED_ARGS
+FLEET_CHAOS = ("drop%0.5*2;corrupt*1;stall*1;hb_loss@6:g3~8", "909")
+FLEET_ARGS = UNPAGED_ARGS + [
+    "--fleet", "--prefill-groups", "a40,a40", "--decode-groups",
+    "v100,v100", "--fleet-elastic", "--kill-group", "2@10", "--chaos",
+    FLEET_CHAOS[0], "--chaos-seed", FLEET_CHAOS[1]]
+DENSE_REL = 1e-5            # f32 dense vs paged first-token logits
+F32_TIER = 1e-4             # an f32 divergence's top-2 margin / max|logit|
 # Launches per layer and train step: the forward and its remat recompute
 # (one GLU and one down GEMM each), and the MoE FFN backward (gmm: g, u,
 # y, dh, dx twice; gmm_dw: dwo, dwg, dwu).
@@ -2919,6 +2959,220 @@ def serve_trace_phase(torch, serve_mod, params, smi: str, untraced: dict):
     return line, counts
 
 
+def serve_dense_phase(torch, serve_mod, params, smi: str, paged: dict,
+                      unified: dict):
+    """The serve trace without ``--paged`` (dense per-slot caches, the
+    driver's default; the main-path run, counted), then the paged engine
+    on the same params right after it (one run a side, reported beside
+    the ``serve:`` run's numbers), the dense run's greedy tokens against
+    the unified paged engine's (``unified``, bf16, reported); then the
+    trace under the f32 policy through the dense and the paged engines:
+    first-token logits of every request within DENSE_REL * max of the
+    paged engine's."""
+    from repro_torch.models.modules import Policy, RunConfig
+    s, counts, eng, _ = serve_run(torch, serve_mod, DENSE_ARGS,
+                                  params=params)
+    check_designs("serve_dense", counts)
+    steps = {"prefill_chunks": eng.n_prefill_chunks,
+             "decode_steps": eng.n_decode_steps}
+    dense = dict(eng.results)
+    del eng
+    s_p, p_counts, _, _ = serve_run(torch, serve_mod, SERVE_ARGS,
+                                    params=params)
+    run32 = RunConfig(policy=Policy(compute_dtype=torch.float32))
+
+    def record(e):
+        e.record_logits = True
+    s32, _, d32, _ = serve_run(torch, serve_mod, DENSE_ARGS, params=params,
+                               run=run32, hook=record)
+    d_logits, d_res = d32.logits, dict(d32.results)
+    del d32
+    p32, _, e32, _ = serve_run(torch, serve_mod, SERVE_ARGS, params=params,
+                               run=run32, hook=record)
+    rel = {rid: float(abs(d_logits[rid][0] - rows[0]).max())
+           / float(abs(rows[0]).max()) for rid, rows in e32.logits.items()}
+    p_res = dict(e32.results)
+    del e32
+    same = sum(a == b for rid in unified
+               for a, b in zip(dense[rid], unified[rid]))
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "dense": serve_numbers(s, counts),
+            "dense_steps": steps, "paged_serve_run": paged,
+            "paged_beside": serve_numbers(s_p, p_counts),
+            "greedy_equal_share_vs_paged": same / sum(
+                len(v) for v in unified.values()),
+            "f32": {"ok": s32["ok"] and p32["ok"], "first_logits_rel": rel,
+                    "worst_rel": max(rel.values()), "limit_rel": DENSE_REL,
+                    "greedy_equal": d_res == p_res}}
+    line["ok"] = bool(
+        s["ok"] and s_p["ok"] and line["f32"]["ok"]
+        and max(rel.values()) <= DENSE_REL
+        and counts["gmm_glu"] > 0 and counts["gmm"] > 0
+        and counts["paged_decode"] == 0)
+    return line, counts
+
+
+def fleet_checked(ctl, built=None) -> None:
+    """Check every group's allocator after every tick of a fleet. With a
+    list ``built``, keep a weak reference to every worker the fleet holds
+    or builds (at a flip or a rejoin) in it."""
+    tick = ctl.tick
+
+    def checked():
+        tick()
+        for g in ctl.groups:
+            g.worker.allocator.check()
+    ctl.tick = checked
+    if built is None:
+        return
+    built += [weakref.ref(g.worker) for g in ctl.groups]
+
+    def tracked(make):
+        def build(*args):
+            worker = make(*args)
+            built.append(weakref.ref(worker))
+            return worker
+        return build
+    ctl._make_prefill = tracked(ctl._make_prefill)
+    ctl._make_decode = tracked(ctl._make_decode)
+
+
+def tree_bytes(tree, dtype=None) -> int:
+    """Bytes of the tensors (of ``dtype``, if given) in a nested dict /
+    list tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v, dtype) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v, dtype) for v in tree)
+    if tree is None or (dtype is not None and tree.dtype != dtype):
+        return 0
+    return tree.numel() * tree.element_size()
+
+
+def first_divergence(torch, params, cfg, run, trace, got: dict,
+                     want: dict):
+    """The first token where ``got`` differs from ``want`` (request order
+    of the trace), with the cache-free forward's top-2 logit margin at
+    that position (relative to max|logit|); None when all are equal."""
+    from repro_torch.models import stack
+    device = params["embed"]["table"].device
+    for r in trace:
+        a, b = got[r.rid], want[r.rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        with torch.inference_mode():
+            logits, _, _ = stack.apply_model(
+                params, cfg, run, torch.tensor([r.prompt + b[:j]],
+                                               dtype=torch.int64,
+                                               device=device))
+        last = logits[0, -1].float()
+        top = last.topk(2).values
+        margin = float(top[0] - top[1])
+        return {"rid": r.rid, "pos": j, "fleet": a[j], "unified": b[j],
+                "margin": margin,
+                "margin_rel": margin / float(last.abs().max())}
+    return None
+
+
+def serve_fleet_phase(torch, serve_mod, params, smi: str, unified: dict):
+    """The fleet on the serve trace (FLEET_ARGS; the main-path run,
+    counted): every allocator checked every tick, every request finished,
+    zero pages in use after the drain, every worker the fleet dropped (a
+    killed group's, a flipped group's old role's, a rejoined zombie's)
+    freed with its pool by the run's end, device memory before, after the
+    run (with the compute-dtype params, the live groups' pools and the
+    caching allocator's rounding of their blocks, the residual) and after
+    release; then the trace under the f32 policy through the fleet and the
+    unified paged engine: greedy tokens equal, or the first divergence a
+    near-tie (top-2 margin within F32_TIER * max|logit|)."""
+    from repro_torch.models import registry, stack
+    from repro_torch.models.modules import Policy, RunConfig
+    cfg = registry.get_config("mixtral-w2")
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    built = []
+    s, counts, ctl, _ = serve_run(
+        torch, serve_mod, FLEET_ARGS, params=params,
+        hook=lambda c: fleet_checked(c, built))
+    check_serve_launches("serve_fleet", counts)
+    gc.collect()
+    mem_run = torch.cuda.memory_allocated()
+    workers = [g.worker for g in ctl.groups + ctl.zombies]
+    dropped_alive = sum(1 for ref in built if ref() is not None
+                        and all(ref() is not w for w in workers))
+    pools = sum(tree_bytes(w.state) for w in workers)
+    # the compute-dtype copies (the f32 leaves are the caller's params)
+    compute = tree_bytes(workers[0].params, torch.bfloat16)
+    empty = all(g.worker.allocator.pages_in_use == 0 for g in ctl.groups)
+    events = [(e.tick, e.kind, e.gid, e.detail) for e in ctl.events]
+    recovered = sum(int(e.detail.split()[0]) for e in ctl.events
+                    if e.kind == "recover")
+    robust = ctl.metrics.robust.as_dict()
+    st = ctl.transfer.stats
+    pool_bytes = {g.name: tree_bytes(g.worker.state) for g in ctl.groups}
+    bf16 = dict(ctl.results)
+    del ctl, workers
+    gc.collect()
+    mem_end = torch.cuda.memory_allocated()
+    run32 = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    s32, _, c32, _ = serve_run(torch, serve_mod, FLEET_ARGS, params=params,
+                               run=run32, hook=fleet_checked)
+    f32_fleet = dict(c32.results)
+    f32_events = [(e.tick, e.kind, e.gid, e.detail) for e in c32.events]
+    del c32
+    u32, _, e32, _ = serve_run(torch, serve_mod, SERVE_ARGS, params=params,
+                               run=run32)
+    f32_unified = dict(e32.results)
+    del e32
+    args = serve_mod.build_parser().parse_args(SERVE_ARGS)
+    from repro_torch.serve import GREEDY
+    trace = serve_mod.build_trace(args.seed, args.requests, args.rate,
+                                  args.prompt_len, args.gen, cfg.vocab_size,
+                                  GREEDY)
+    div = first_divergence(torch, params, cfg, run32, trace, f32_fleet,
+                           f32_unified)
+    same = sum(a == b for rid in unified
+               for a, b in zip(bf16[rid], unified[rid]))
+    kinds = [e[1] for e in events]
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "run": serve_numbers(s, counts),
+            "fleet": {k: s["fleet"][k] for k in ("ticks", "groups",
+                                                 "n_flips", "n_killed",
+                                                 "kv_transfers",
+                                                 "kv_pages_shipped")},
+            "events": events, "flips": kinds.count("flip"),
+            "deaths": kinds.count("dead"), "rejoins": kinds.count("rejoin"),
+            "re_prefills": recovered + robust["transfer_aborts"],
+            "fenced_completions": robust["fenced_stale_completions"],
+            "shed": s["chaos"]["n_shed"], "transfers": st.n_transfers,
+            "chaos": {k: s["chaos"][k] for k in ("spec", "seed", "events",
+                                                 "signature", "counters",
+                                                 "leaked_groups")},
+            "pages_in_use_after_drain": 0 if empty else "nonzero",
+            "pool_bytes": pool_bytes,
+            "workers_built": len(built),
+            "dropped_workers_alive": dropped_alive,
+            "memory_allocated": {"before": mem0, "after_run": mem_run,
+                                 "after_release": mem_end,
+                                 "compute_params": compute,
+                                 "live_pools": pools,
+                                 "residual": mem_run - mem0 - compute
+                                 - pools},
+            "greedy_equal_share_vs_unified_bf16": same / sum(
+                len(v) for v in unified.values()),
+            "f32": {"ok": s32["ok"] and u32["ok"], "events": f32_events,
+                    "greedy_equal": f32_fleet == f32_unified,
+                    "first_divergence": div, "limit_rel": F32_TIER}}
+    line["ok"] = bool(
+        s["ok"] and empty and line["f32"]["ok"] and not
+        s["chaos"]["leaked_groups"] and line["flips"] >= 1
+        and line["deaths"] >= 1 and dropped_alive == 0
+        and len(built) > len(pool_bytes) and mem_end <= mem0
+        and (div is None or div["margin_rel"] <= F32_TIER))
+    return line, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3006,6 +3260,19 @@ def main() -> int:
     strace_line, strace_counts = serve_trace_phase(
         torch, serve_mod, w2_params, smi, unified_tokens)
     print("serve_trace: " + json.dumps(strace_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_line, dense_counts = serve_dense_phase(
+        torch, serve_mod, w2_params, smi, {
+            k: summary[k] for k in ("tokens_per_s", "n_generated_tokens")}
+        | {"ttft_p50_s": summary["ttft_s"]["p50"],
+           "itl_p50_s": summary["itl_s"]["p50"]}, unified_tokens)
+    print("serve_dense: " + json.dumps(dense_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_line, fleet_counts = serve_fleet_phase(
+        torch, serve_mod, w2_params, smi, unified_tokens)
+    print("serve_fleet: " + json.dumps(fleet_line), flush=True)
     del w2_params, unified_tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -3109,6 +3376,8 @@ def main() -> int:
             "serve_disagg": disagg_counts.get(c, 0),
             "serve_disagg_prefix": dprefix_counts.get(c, 0),
             "serve_trace": strace_counts.get(c, 0),
+            "serve_dense": dense_counts.get(c, 0),
+            "serve_fleet": fleet_counts.get(c, 0),
             "train": train_counts.get(c, 0),
             "train_flash": flash_counts.get(c, 0),
             "train_mamba2": mamba2_counts.get(c, 0),
@@ -3157,6 +3426,7 @@ def main() -> int:
         "serve": serve_line, "parity": parity,
         "serve_prefix": prefix_line, "serve_disagg": disagg_line,
         "serve_disagg_prefix": dprefix_line, "serve_trace": strace_line,
+        "serve_dense": dense_line, "serve_fleet": fleet_line,
         "train": train_line,
         "train_flash": flash_line, "train_mamba2": mamba2_line,
         "grad": grad, "grad_bf16": grad_bf16, "flash_grad": flash_grad,
@@ -3304,6 +3574,16 @@ def main() -> int:
             ("serve_trace", strace_line, "a traced run failed, traced no "
              "event, printed no idle line, changed the greedy tokens, or "
              "its signature differs from its rerun's"),
+            ("serve_dense", dense_line, "a request did not finish, a GLU or "
+             "gmm launch missed (or a paged decode launch happened), or an "
+             "f32 first-token logit differs from the paged engine's beyond "
+             f"{DENSE_REL} * max"),
+            ("serve_fleet", fleet_line, "a request did not finish, a pool "
+             "leaked or held pages after the drain, no flip or death "
+             "happened, a dropped worker (and its pool) outlived the run "
+             "or device memory the fleet, or the f32 tokens diverge from "
+             "the unified engine's at a top-2 margin above "
+             f"{F32_TIER} * max|logit|"),
             ("train_ckpt", ckpt_line, "the resumed steps 3-4 or the state "
              "after step 4 differ from the straight run's bits"),
             ("train_accum", accum_line, "a loss or grad norm is not finite, "

@@ -9,9 +9,7 @@ Also provides the elastic replanning entry point of the fault-tolerance
 modules (``ft/elastic.py``).
 
 A copy of the JAX package's ``core/planner.py`` with its imports rewritten
-to the port, less ``FleetPlan`` / ``plan_fleet``: they need the serving
-fleet's simulator (``serve/fleet/sim.py``), which the port does not have
-yet.
+to the port.
 """
 
 from __future__ import annotations
@@ -336,6 +334,92 @@ def plan_ep_decode_group(cfg: ModelConfig, shard_classes: Sequence,
         predicted=replay(t_planned), predicted_uniform=replay(t_uniform),
         expert_bytes_total=total,
         expert_bytes_per_device=-(-total // ep_size))
+
+
+# ---------------------------------------------------------------------------
+# Fleet planning (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FleetPlan:
+    """Static role split for a heterogeneous serving fleet plus the
+    simulated evidence that elastic reassignment beats it."""
+
+    classes: tuple            # device class per group (by gid)
+    roles: tuple              # best static role per group ('prefill'|'decode')
+    predicted_static: object       # FleetSimResult of the best static split
+    predicted_elastic: object      # same trace, elastic flips enabled
+    slo_ttft: float
+    slo_itl: float
+
+    @property
+    def n_prefill(self) -> int:
+        return sum(r == "prefill" for r in self.roles)
+
+    @property
+    def n_decode(self) -> int:
+        return sum(r == "decode" for r in self.roles)
+
+    @property
+    def goodput_ratio_sim(self) -> float:
+        """Elastic / best-static goodput-under-SLO (>1: elastic won)."""
+        s = self.predicted_static.goodput_under_slo
+        e = self.predicted_elastic.goodput_under_slo
+        return e / s if s > 0 else float("inf")
+
+
+def plan_fleet(cfg: ModelConfig, group_classes: Sequence[DeviceClass],
+               trace, *, prefill_chunk: int = 256, ctx: int = 2048,
+               decode_slots: int = 8, page_size: int = 16,
+               slo_ttft: float, slo_itl: float,
+               control_dt: float = 1.0, flip_delay: float = 0.5,
+               link_bw: Optional[float] = None) -> FleetPlan:
+    """Sweep every static prefill:decode role assignment of
+    ``group_classes`` (≥1 group per role) through the fleet simulator,
+    keep the split with the best goodput-under-SLO, then replay the same
+    trace with elastic role flips enabled from that split — the fleet
+    analogue of Asym-EA's offload sweep, with ``goodput_ratio_sim`` as
+    the evidence that reassignment beats any static answer on a
+    diurnal trace whose bottleneck role shifts over time."""
+    from repro_torch.serve.fleet.sim import SimGroup, simulate_fleet_trace
+    if len(group_classes) < 2:
+        raise ValueError("a fleet needs at least 2 groups (1 per role)")
+    bw = link_bw or min(c.link_bw for c in group_classes)
+    avg_prompt = sum(r.prompt for r in trace) / max(len(trace), 1)
+    t_handoff = -(-avg_prompt // page_size) * \
+        (P.kv_page_bytes(cfg, page_size) / bw)
+    t_pre = {c.name: P.prefill_chunk_time(cfg, prefill_chunk, ctx, c)
+             for c in group_classes}
+    t_dec = {c.name: P.decode_step_time(cfg, decode_slots, ctx, c)
+             for c in group_classes}
+
+    def make_groups(roles):
+        return [SimGroup(gid=i, cls=c.name, role=roles[i],
+                         t_prefill_chunk=t_pre[c.name],
+                         t_decode_step=t_dec[c.name],
+                         decode_slots=decode_slots)
+                for i, c in enumerate(group_classes)]
+
+    def run(roles, elastic):
+        return simulate_fleet_trace(
+            trace, make_groups(roles), prefill_chunk=prefill_chunk,
+            t_handoff=t_handoff, elastic=elastic, control_dt=control_dt,
+            flip_delay=flip_delay, slo_ttft=slo_ttft, slo_itl=slo_itl)
+
+    n = len(group_classes)
+    best_roles, best = None, None
+    for mask in range(1, 2 ** n - 1):  # ≥1 prefill AND ≥1 decode
+        roles = tuple("prefill" if mask >> i & 1 else "decode"
+                      for i in range(n))
+        res = run(roles, elastic=False)
+        key = (res.goodput_under_slo, res.goodput, -res.ttft_p99)
+        if best is None or key > best[0]:
+            best_roles, best = roles, (key, res)
+    elastic = run(best_roles, elastic=True)
+    return FleetPlan(classes=tuple(c.name for c in group_classes),
+                     roles=best_roles, predicted_static=best[1],
+                     predicted_elastic=elastic,
+                     slo_ttft=slo_ttft, slo_itl=slo_itl)
 
 
 def replan(cfg: ModelConfig, plan: ZebraPlan, global_batch: int,

@@ -1,6 +1,7 @@
 """Deterministic fault injection for the serving fleet (DESIGN.md §13; a
-copy of the JAX package's ``ft/chaos.py``: in the port the KV transfer
-engine consults it, the fleet that arms it from ``--chaos`` comes later).
+copy of the JAX package's ``ft/chaos.py``: the fleet controller and the
+KV transfer engine consult it, the serve driver arms it from
+``--chaos``).
 
 A chaos run is fully determined by ``(seed, spec)``: the spec names WHICH
 faults can fire (site, target, arming tick, probability, budget) and the

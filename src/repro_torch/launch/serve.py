@@ -1,6 +1,6 @@
 """Continuous-batching serving driver of the port: Poisson arrivals, chunked
-prefill into a paged KV pool, per-slot sampled decode, streaming
-per-request output (mirror of ``repro/launch/serve.py``).
+prefill, per-slot sampled decode, streaming per-request output (mirror of
+``repro/launch/serve.py``).
 
 It takes the JAX driver's flags and builds the same Poisson trace
 (``build_trace``, numpy only), so both packages serve identical requests.
@@ -12,7 +12,8 @@ CUDA device and without ``--device cpu`` it exits non-zero.
         --paged --page-size 16 --prefill-chunk 256 --prompt-len 384 \\
         --gen 32 --slots 4 --requests 6
 
-    # smoke size on the CPU (plain versions of the kernels):
+    # smoke size on the CPU (plain versions of the kernels); without
+    # --paged the dense per-slot KV caches, the JAX driver's default:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-w2 \\
         --smoke --paged --device cpu
 
@@ -30,17 +31,26 @@ CUDA device and without ``--device cpu`` it exits non-zero.
         --smoke --disagg --page-size 16 --pool-pages 12 \\
         --trace-out build/serve_trace.json --device cpu
 
-Flags for deployment shapes the port does not serve yet (``--fleet``,
-``--fleet-elastic``, ``--prefill-groups``, ``--decode-groups``,
-``--kill-group``, ``--chaos``, ``--chaos-seed``, ``--slo-ttft``,
-``--ep-size``, ``--ep-placement``, a ``--mesh`` other than 1x1, running
-with neither ``--paged`` nor ``--disagg``) and archs with recurrent mixers
-(``--arch mamba2-2.7b``: the engines' recurrent decode state is not
-ported yet) are rejected by name in one ``[serve] invalid
-configuration:`` line, exit 1.
+    # the elastic fleet (DESIGN.md §12): 2 prefill + 2 decode groups (the
+    # classes set the router's speed priors; every group computes on the
+    # one device), role flips, a crash of group 2 at tick 10 recovered by
+    # token-exact re-prefill, and a seeded chaos schedule (§13):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-w2 \\
+        --smoke --fleet --prefill-groups a40,a40 --decode-groups v100,v100 \\
+        --fleet-elastic --kill-group 2@10 --chaos 'drop%0.5*2;stall*1' \\
+        --chaos-seed 7 --device cpu
 
-Exit status: non-zero when any request is rejected or left unfinished,
-when the configuration is invalid, or when the device is missing.
+Flags for deployment shapes the port does not serve yet (``--ep-size``,
+``--ep-placement``, a ``--mesh`` other than 1x1) and archs with recurrent
+mixers (``--arch mamba2-2.7b``: the engines' recurrent decode state is not
+ported yet) are rejected by name in one ``[serve] invalid
+configuration:`` line, exit 1, as are the JAX driver's own invalid
+combinations (``--fleet`` with ``--disagg``, ``--chaos`` without
+``--fleet``, ...), with its messages.
+
+Exit status: non-zero when any request is rejected, dropped or left
+unfinished, when a fleet stalls or a surviving pool leaks pages under
+chaos, when the configuration is invalid, or when the device is missing.
 """
 
 from __future__ import annotations
@@ -130,13 +140,47 @@ def _disagg_summary(engine, page_size: int) -> dict:
     }
 
 
+def _fleet_summary(engine, serve_cfg: ServeConfig) -> dict:
+    """The summary's ``fleet`` section: groups, events, flips, transfers."""
+    st = engine.transfer.stats
+    return {
+        "elastic": serve_cfg.fleet.elastic,
+        "ticks": engine.tick_count,
+        "groups": [{"gid": g.gid, "cls": g.cls, "role": g.role,
+                    "flips": g.flips} for g in engine.groups],
+        "events": [{"tick": e.tick, "kind": e.kind, "gid": e.gid,
+                    "detail": e.detail} for e in engine.events],
+        "n_flips": engine.n_flips,
+        "n_killed": len([e for e in engine.events if e.kind == "dead"]),
+        "kv_transfers": st.n_transfers,
+        "kv_pages_shipped": st.n_pages,
+    }
+
+
+def _chaos_summary(engine, serve_cfg: ServeConfig, shed: set,
+                   leaked: list) -> dict:
+    """The summary's ``chaos`` section: the replayable fault log, its
+    signature, the robustness counters, shed requests, leaking groups."""
+    chaos = engine.chaos
+    return {
+        "spec": serve_cfg.chaos.spec,
+        "seed": serve_cfg.chaos.seed,
+        "events": chaos.log(),
+        "signature": chaos.log_signature(),
+        "counters": engine.metrics.robust.as_dict(),
+        "n_shed": len(shed),
+        "leaked_groups": leaked,
+    }
+
+
 def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
                trace=None, params=None, run=None,
                engine_hook=None) -> dict:
     """Serve the trace of ``args`` on ``arch``; returns the metrics summary
-    with ``ok`` (every request finished with its full budget, nothing
-    rejected, the allocators' page accounting clean) and the deployment's
-    sections (``paged``, ``prefix``, ``disagg``, ``trace``).
+    with ``ok`` (every request finished with its full budget or was shed,
+    nothing rejected, the allocators' page accounting clean, no surviving
+    fleet pool holding pages under chaos) and the deployment's sections
+    (``paged``, ``prefix``, ``disagg``, ``fleet``, ``chaos``, ``trace``).
 
     The keywords are for callers that drive the deployment themselves (the
     chip smoke test): ``trace`` replaces the trace built from ``args``,
@@ -197,11 +241,29 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     if engine_hook is not None:
         engine_hook(engine)
 
+    shed: set = set()
+    leaked: list = []
     t0 = time.perf_counter()
-    results = engine.run(trace)
+    if serve_cfg.fleet.enabled:
+        try:
+            results = engine.run(trace, kills=list(serve_cfg.fleet.kills))
+        except RuntimeError as e:
+            # A wedged fleet (the only decode group killed without
+            # --fleet-elastic) would drop requests: fail the run.
+            print(f"[serve] FAIL arch={cfg.name}: fleet stalled: {e}",
+                  file=sys.stderr)
+            obs_trace.install(None)
+            return {"ok": False, "n_requests": 0, "fleet_error": str(e)}
+        shed = set(engine.shed)
+    else:
+        results = engine.run(trace)
     dt = time.perf_counter() - t0
 
     for req in trace:
+        if req.rid in shed:  # an explicit SLO-shed outcome
+            print(f"[{cfg.name}] rid={req.rid} prompt={len(req.prompt)} "
+                  f"SHED")
+            continue
         tr = metrics.requests.get(req.rid)
         if tr is None:  # rejected at submit — never entered the engine
             print(f"[{cfg.name}] rid={req.rid} prompt={len(req.prompt)} "
@@ -222,7 +284,35 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
           f"itl p50 {s['itl_s']['p50']:.4f}s, "
           f"queue depth max {s['queue_depth']['max']}, "
           f"max concurrent {s['max_concurrent_active']})")
-    if serve_cfg.disagg.enabled:
+    if serve_cfg.fleet.enabled:
+        # Surviving pools hold the exactly-once page invariant after
+        # kills, recoveries and flips; under chaos a drained fleet holds
+        # ZERO pages on every surviving pool (a leftover page is a leak
+        # the fault path failed to roll back).
+        for g in engine.groups:
+            g.worker.allocator.check()
+        if engine.chaos is not None:
+            leaked = [g.gid for g in engine.groups
+                      if g.worker.allocator.pages_in_use != 0]
+        st = engine.transfer.stats
+        s["fleet"] = _fleet_summary(engine, serve_cfg)
+        if engine.chaos is not None:
+            s["chaos"] = _chaos_summary(engine, serve_cfg, shed, leaked)
+            print(f"[serve] arch={cfg.name} chaos: "
+                  f"spec={serve_cfg.chaos.spec!r} "
+                  f"seed={serve_cfg.chaos.seed} "
+                  f"faults={len(engine.chaos.log())} "
+                  f"sig={engine.chaos.log_signature()} shed={len(shed)} "
+                  f"retries={st.n_retries} aborts={st.n_aborts} "
+                  f"fenced={metrics.robust.fenced_stale_completions}")
+        roles = ",".join(f"g{g.gid}={g.cls}:{g.role}"
+                         for g in engine.groups)
+        print(f"[serve] arch={cfg.name} fleet: {roles} "
+              f"flips={engine.n_flips} "
+              f"events={len(engine.events)} transfers={st.n_transfers} "
+              f"ttft_p99={s['ttft_s']['p99']:.3f}s "
+              f"itl_p99={s['itl_s']['p99']:.4f}s")
+    elif serve_cfg.disagg.enabled:
         st = engine.transfer.stats
         s["disagg"] = _disagg_summary(engine, serve_cfg.paged.page_size)
         print(f"[serve] arch={cfg.name} disagg: "
@@ -240,7 +330,7 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
             index.check()
         engine.prefill.allocator.check()
         engine.decode.allocator.check()
-    else:
+    elif serve_cfg.paged.enabled:
         s["paged"] = occ = engine.page_occupancy()
         print(f"[serve] arch={cfg.name} paged: "
               f"page_size={serve_cfg.paged.page_size} "
@@ -260,11 +350,14 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
             index.check()
         engine.sched.allocator.check()
     # Gate: every traced request must finish with its full token budget
-    # (traces carry no EOS) and nothing may be rejected.
+    # (traces carry no EOS) and nothing may be rejected. Shed requests
+    # (SLO admission) are an explicit outcome, excluded from the finish
+    # requirement.
     unfinished = [r.rid for r in trace
-                  if metrics.requests.get(r.rid) is None
-                  or metrics.requests[r.rid].finish_tick is None
-                  or len(results.get(r.rid, [])) != r.max_new_tokens]
+                  if r.rid not in shed
+                  and (metrics.requests.get(r.rid) is None
+                       or metrics.requests[r.rid].finish_tick is None
+                       or len(results.get(r.rid, [])) != r.max_new_tokens)]
     if tracer is not None:
         obj = write_chrome_trace(tracer, trace_out, ticks=engine.tick_count)
         obs_trace.install(None)
@@ -274,23 +367,20 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
             print(f"[serve] idle: {line}")
         s["trace"] = {"path": trace_out,
                       "n_events": len(obj["traceEvents"])}
-    s["ok"] = not engine.rejected and not unfinished \
-        and s["n_requests"] == len(trace)
+    s["ok"] = not engine.rejected and not unfinished and not leaked \
+        and s["n_requests"] == len(trace) - len(shed)
     if not s["ok"]:
         print(f"[serve] FAIL arch={cfg.name}: rejected={engine.rejected} "
-              f"unfinished={unfinished} finished={s['n_requests']}"
-              f"/{len(trace)}", file=sys.stderr)
+              f"unfinished={unfinished} leaked={leaked} "
+              f"finished={s['n_requests']}/{len(trace) - len(shed)}",
+              file=sys.stderr)
     return s
 
 
-# The JAX driver's flags for deployment shapes the port does not serve yet
-# (fleet, chaos, expert-parallel decode): accepted, so that a command line
-# written for the JAX driver is rejected by name instead of by argparse.
-_UNPORTED_SWITCHES = ("--fleet", "--fleet-elastic")
-_UNPORTED_VALUES = (("--prefill-groups", str), ("--decode-groups", str),
-                    ("--kill-group", str), ("--chaos", str),
-                    ("--chaos-seed", int), ("--slo-ttft", float),
-                    ("--ep-size", int), ("--ep-placement", str))
+# The JAX driver's flags for expert-parallel decode, which the port does
+# not serve yet: accepted, so that a command line written for the JAX
+# driver is rejected by name instead of by argparse.
+_UNPORTED_VALUES = (("--ep-size", int), ("--ep-placement", str))
 
 
 def _unported_flags(args) -> list:
@@ -298,9 +388,8 @@ def _unported_flags(args) -> list:
     the JAX driver also reads as "off", pass), a mesh other than one
     device, and an arch with recurrent mixers (the engines hold attention
     caches only)."""
-    flags = list(_UNPORTED_SWITCHES) + [f for f, _ in _UNPORTED_VALUES]
-    out = [f for f in flags
-           if getattr(args, f[2:].replace("-", "_")) not in (None, False, 0)]
+    out = [f for f, _ in _UNPORTED_VALUES
+           if getattr(args, f[2:].replace("-", "_")) not in (None, 0)]
     if args.mesh != "1x1":
         out.append(f"--mesh {args.mesh} (one device only)")
     if args.arch is not None:
@@ -343,8 +432,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print tokens as they are generated")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache (block allocator + page-table "
-                         "decode, DESIGN.md §9); the port needs it or "
-                         "--disagg")
+                         "decode, DESIGN.md §9); without it, dense "
+                         "per-slot KV caches")
     ap.add_argument("--page-size", type=int, default=16,
                     help="cache lines per page (paged mode)")
     ap.add_argument("--pool-pages", type=int, default=None,
@@ -378,8 +467,44 @@ def build_parser() -> argparse.ArgumentParser:
                          "separate paged pools, KV handed off as pages; "
                          "--pool-pages sizes the decode pool")
     ap.add_argument("--prefill-pool-pages", type=int, default=None,
-                    help="prefill-side pool size in pages (disagg mode; "
-                         "default: two max-length sequences)")
+                    help="prefill-side pool size in pages (disagg and "
+                         "fleet modes; default: two max-length sequences)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="elastic multi-group fleet (DESIGN.md §12): "
+                         "N prefill + M decode groups of mixed device "
+                         "classes behind a router, heartbeat failure "
+                         "recovery; see --prefill-groups/--decode-groups")
+    ap.add_argument("--prefill-groups", default="a40",
+                    help="fleet prefill groups: an integer count or a "
+                         "comma-separated device-class list, e.g. "
+                         "'a40,a40' or '2' (default one a40 group); the "
+                         "class sets the router's speed prior")
+    ap.add_argument("--decode-groups", default="v100",
+                    help="fleet decode groups: an integer count or a "
+                         "comma-separated device-class list, e.g. "
+                         "'v100,v100' (default one v100 group)")
+    ap.add_argument("--fleet-elastic", action="store_true",
+                    help="enable elastic role reassignment: idle groups "
+                         "flip prefill<->decode when the bottleneck "
+                         "role shifts or a role dies out")
+    ap.add_argument("--kill-group", action="append", metavar="GID@TICK",
+                    help="fault injection (repeatable): crash fleet group "
+                         "GID at the start of tick TICK — sugar for a "
+                         "crash_start@TICK:gGID entry of the ft.chaos "
+                         "grammar (the full entry form is also accepted)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="seeded fault schedule (fleet mode, DESIGN.md "
+                         "§13): ';'-joined ft.chaos entries "
+                         "SITE[@TICK][:TARGET][%%PROB][*COUNT][~DURATION] "
+                         "— e.g. 'drop%%0.6*4;hb_loss@6:g3~8'; malformed "
+                         "specs exit non-zero")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for the chaos injector: the same "
+                         "(seed, spec) replays the identical fault log")
+    ap.add_argument("--slo-ttft", type=float, default=None,
+                    help="SLO-aware admission (fleet mode): shed arrivals "
+                         "whose best prefill ETA exceeds this many "
+                         "seconds of estimated work")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Perfetto/Chrome trace-event JSON of the "
                          "run (tick-clock spans, request flows, counters, "
@@ -390,8 +515,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "(opt-in; excluded from the deterministic trace "
                          "signature)")
     ap.add_argument("--mesh", default="1x1", help="1x1 only")
-    for flag in _UNPORTED_SWITCHES:
-        ap.add_argument(flag, action="store_true", help="not ported yet")
     for flag, typ in _UNPORTED_VALUES:
         ap.add_argument(flag, type=typ, default=None, help="not ported yet")
     return ap

@@ -1,7 +1,7 @@
 """Neural-net modules of the serving and training main paths (mirror of
 ``repro/models/modules.py``): norms, RoPE, embeddings, GQA attention
-(cache-free reference, chunked and flash, and paged), the dense and MoE
-FFNs, and the layer glue.
+(cache-free reference, chunked and flash; dense per-slot and ring caches;
+paged), the dense and MoE FFNs, and the layer glue.
 
 Each module is an (init, apply) pair. ``init_*`` returns a tree of
 :class:`repro_torch.pytree.ParamSpec` (shape + initializer) that
@@ -21,16 +21,16 @@ an SSD layer trains, and ``init_layer_state`` refuses it.
 
 Training runs these functions under autograd. The in-place writes on the
 cache-free path are autograd-safe: ``apply_moe``'s combine ``index_add_``
-writes into a fresh zero tensor that no backward reads, and the paged KV
-update, which writes into the serving pool in place, runs only with a
-cache, never in training.
+writes into a fresh zero tensor that no backward reads, and the dense and
+paged KV updates, which write into the serving caches in place, run only
+with a cache, never in training.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -407,21 +407,77 @@ def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
     return y, cache
 
 
+def _write_dense_cache(cache, k, v, positions, cache_index, window: int):
+    """Write this step's K/V/positions into a dense cache, IN PLACE (the
+    JAX package's four write cases of ``apply_attention``).
+
+    cache: k/v [B, C, KH, hd], pos [B, C]; a ring (``window`` > 0) holds
+    position p at line p % C. A vector ``cache_index`` [B] (decode, one
+    token) writes line cache_index[b] of row b; a row with a negative
+    index (or a linear line past C) writes nothing: JAX sends it to the
+    out-of-bounds sentinel C and drops it, here it rewrites line 0 with
+    what line 0 holds (an in-bounds write, no host sync). A scalar writes
+    lines [offset, offset + S): a block larger than the ring keeps its
+    last C keys, rolled to their ring lines; a chunk into a ring scatters
+    per position modulo C (it may cross the ring's edge); otherwise one
+    slice, its start clamped as ``dynamic_update_slice`` clamps it."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    B, C = cpos.shape
+    S = k.shape[1]
+    pos = positions.to(cpos.dtype)
+    if getattr(cache_index, "ndim", 0) == 1:
+        if S != 1:
+            raise ValueError("a per-slot cache_index implies single-token "
+                             "decode")
+        ci = torch.as_tensor(cache_index, device=k.device).long()
+        line = ci % C if window > 0 else ci
+        keep = (ci >= 0) & (line < C)
+        line = torch.where(keep, line, 0)
+        b = torch.arange(B, device=ci.device)
+        for dst, new in ((ck, k[:, 0]), (cv, v[:, 0]), (cpos, pos[:, 0])):
+            old = dst[b, line]
+            mask = keep.view(-1, *([1] * (old.dim() - 1)))
+            dst[b, line] = torch.where(mask, new.to(dst.dtype), old)
+        return
+    ci = int(cache_index)
+    if window > 0 and S >= C:
+        shift = (ci + S - C) % C
+        for dst, new in ((ck, k), (cv, v), (cpos, pos)):
+            dst.copy_(torch.roll(new[:, -C:], shift, dims=1))
+    elif window > 0 and S > 1:
+        idx = (ci + torch.arange(S, device=k.device)) % C
+        for dst, new in ((ck, k), (cv, v), (cpos, pos)):
+            dst[:, idx] = new.to(dst.dtype)
+    else:
+        start = min(max(ci % C if window > 0 else ci, 0), C - S)
+        for dst, new in ((ck, k), (cv, v), (cpos, pos)):
+            dst[:, start:start + S] = new.to(dst.dtype)
+
+
 def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
                     *, causal: bool, window: int = 0, cache=None,
-                    cache_index=None, rope: bool = True, page_table=None):
-    """Full / sliding-window self-attention, cache-free or paged.
+                    cache_index=None, rope: bool = True,
+                    attend_to_cache: bool = False, page_table=None):
+    """Full / sliding-window self-attention: cache-free, dense or paged.
 
     x: [B, S, d]; positions: [B, S]. Without a cache, attention runs over
     the fresh K/V with the structural mask. With ``page_table`` [B, MP],
     ``cache`` holds the shared physical pool and row b's cache line p
     lives at line p % ps of page page_table[b, p // ps] (see
-    :func:`_apply_attention_paged`). Dense per-slot caches are not ported.
+    :func:`_apply_attention_paged`). Otherwise ``cache`` is the dense
+    per-slot cache (k/v [B, C, KH, hd], pos [B, C]; a ring on a
+    sliding-window layer), written in place by :func:`_write_dense_cache`
+    and returned (the same dict). ``cache_index`` is a scalar (lockstep
+    decode, prefill offset) or a per-slot [B] vector (continuous decode;
+    negative rows write nothing). ``attend_to_cache``: an S > 1 chunk
+    attends over the cache (chunked prefill) instead of assuming it
+    empty. Decode and chunked prefill attend through the materialised
+    plain path (lines with pos == -1 masked out), a ring's chunk over the
+    PRE-write ring plus its own keys, since its tail may evict lines its
+    earlier queries still see; whole-sequence prefill attends
+    structurally over the fresh K/V, the cache write a side effect.
     """
-    if cache is not None:
-        if page_table is None:
-            raise NotImplementedError("dense KV caches are not ported; "
-                                      "serve with the paged cache")
+    if cache is not None and page_table is not None:
         return _apply_attention_paged(
             params, cfg, run, x, positions, causal=causal, window=window,
             cache=cache, cache_index=cache_index, rope=rope,
@@ -429,11 +485,22 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
     B, S, _ = x.shape
     cd = run.policy.compute_dtype
     q, k, v, kv_pos = _project_qkv(params, cfg, run, x, positions, rope)
+    structural = cache is None or not (S == 1 or attend_to_cache)
+    if cache is not None:
+        ring_chunk = window > 0 and S > 1 and not structural
+        if ring_chunk:  # attend before the write lands (cat copies)
+            seen = [torch.cat([cache[n], t.to(cache[n].dtype)], dim=1)
+                    for n, t in (("k", k), ("v", v), ("pos", positions))]
+        _write_dense_cache(cache, k, v, positions, cache_index, window)
+        if ring_chunk:
+            k, v, kv_pos = seen
+        elif not structural:
+            k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
     out = _attention_inner(q, k, v, cfg, run, positions=positions,
                            kv_pos=kv_pos, causal=causal, window=window,
-                           structural=True)
+                           structural=structural)
     y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"].to(cd)
-    return y, None
+    return y, cache
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -718,7 +785,8 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec):
 
 def apply_mixer_part(params, cfg: ModelConfig, run: RunConfig,
                      spec: LayerSpec, x, positions, state=None,
-                     cache_index=None, page_table=None):
+                     cache_index=None, attend_to_cache: bool = False,
+                     page_table=None):
     """Pre-norm mixer (attention or SSD) + residual. Returns (h,
     new_state)."""
     _check_spec(spec)
@@ -736,31 +804,38 @@ def apply_mixer_part(params, cfg: ModelConfig, run: RunConfig,
     att, new_kv = apply_attention(
         params["mixer"], cfg, run, u, positions, causal=causal,
         window=window, cache=cache, cache_index=cache_index,
-        page_table=page_table)
+        attend_to_cache=attend_to_cache, page_table=page_table)
     if new_state is not None:
         new_state["kv"] = new_kv
     return x + att, new_state
 
 
 def apply_ffn_part(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
-                   h):
-    """Pre-norm FFN + residual. Returns (y, aux)."""
+                   h, moe_override: Optional[Callable] = None):
+    """Pre-norm FFN + residual. Returns (y, aux). ``moe_override(ffn_params,
+    u)`` -> (f, aux) replaces ``apply_moe`` on a MoE layer (the lockstep
+    server's expert-parallel MoE)."""
     if spec.ffn == "none":
         return h, {}
     u = apply_norm(params["norm2"], h, run.policy)
     if spec.ffn == "moe":
-        f, aux = apply_moe(params["ffn"], cfg, run, u)
+        f, aux = (moe_override(params["ffn"], u) if moe_override is not None
+                  else apply_moe(params["ffn"], cfg, run, u))
     else:
         f, aux = apply_mlp(params["ffn"], cfg, run, u), {}
     return h + f, aux
 
 
 def apply_layer(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
-                x, positions, state=None, cache_index=None, page_table=None):
+                x, positions, state=None, cache_index=None,
+                moe_override: Optional[Callable] = None,
+                attend_to_cache: bool = False, page_table=None):
     h, new_state = apply_mixer_part(params, cfg, run, spec, x, positions,
                                     state=state, cache_index=cache_index,
+                                    attend_to_cache=attend_to_cache,
                                     page_table=page_table)
-    y, aux = apply_ffn_part(params, cfg, run, spec, h)
+    y, aux = apply_ffn_part(params, cfg, run, spec, h,
+                            moe_override=moe_override)
     return y, new_state, aux
 
 

@@ -6,9 +6,9 @@ Params keep the JAX package's stacked layout: the layer ``pattern`` repeated
 (``blocks/pos{i}/...``) whose leaves carry a leading layer axis, plus
 unrolled ``tail{i}`` layers. ``_apply_stack`` is a Python loop over that
 axis (the JAX package's ``lax.scan``). Decode states use the same stacked
-layout, so one layer's KV pool ``[P, ps, KH, hd]`` is a contiguous view of
-the ``[L, P, ps, KH, hd]`` leaf that the kernels read and that the paged
-attention updates in place.
+layout, so one layer's KV pool ``[P, ps, KH, hd]`` (or dense cache ``[B,
+C, KH, hd]``) is a contiguous view of the stacked leaf that the kernels
+read and that the attention updates in place.
 
 Training runs the same forward under autograd on the f32 params, whose
 matrices are cast to the compute dtype at their use in the graph, as in
@@ -127,20 +127,26 @@ def _unbind_layers(tree):
 
 
 def _apply_layer(p, cfg, run, spec, x, positions, state, cache_index,
-                 page_table, layer_override):
+                 page_table, layer_override, moe_override=None,
+                 attend_to_cache=False):
     """One layer: ``layer_override`` (zebra) for a MoE layer without decode
     state, else ``modules.apply_layer``. Returns (x, new_state, aux)."""
     if layer_override is not None and spec.ffn == "moe" and state is None:
         y, aux = layer_override(p, spec, x, positions)
         return y, None, aux
     return modules.apply_layer(p, cfg, run, spec, x, positions, state=state,
-                               cache_index=cache_index, page_table=page_table)
+                               cache_index=cache_index,
+                               moe_override=moe_override,
+                               attend_to_cache=attend_to_cache,
+                               page_table=page_table)
 
 
 def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                  x, positions, states=None, tail_states=None,
                  cache_index=None, page_table=None,
-                 layer_override: Optional[Callable] = None):
+                 layer_override: Optional[Callable] = None,
+                 moe_override: Optional[Callable] = None,
+                 attend_to_cache: bool = False):
     """Run the stacked pattern layers + tail. Returns (x, new_states, aux).
 
     Block states are per-layer views of the stacked leaves and are updated
@@ -160,7 +166,8 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
             st = layer_states[key] if decode else None
             x, _, la = _apply_layer(layer_params[key], cfg, run, spec, x,
                                     positions, st, cache_index, page_table,
-                                    layer_override)
+                                    layer_override, moe_override,
+                                    attend_to_cache)
             a = _acc_aux(a, la)
         return x, a
 
@@ -185,7 +192,8 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     for i, (spec, tp) in enumerate(tails):
         st = tail_states[i] if tail_states else None
         x, ns, a = _apply_layer(tp, cfg, run, spec, x, positions, st,
-                                cache_index, page_table, layer_override)
+                                cache_index, page_table, layer_override,
+                                moe_override, attend_to_cache)
         aux = _acc_aux(aux, a)
         new_tail_states.append(ns)
 
@@ -198,15 +206,22 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
 def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
                 positions=None, *, decode_state=None, cache_index=None,
                 return_hidden: bool = False, page_table=None,
-                layer_override: Optional[Callable] = None):
+                layer_override: Optional[Callable] = None,
+                moe_override: Optional[Callable] = None,
+                attend_to_cache: bool = False):
     """Forward pass.
 
     tokens: [B, S] int. positions: [B, S] (default arange, or offset by
-    cache_index: a scalar for chunked prefill, a [B] vector for per-slot
-    decode). decode_state + page_table [B, max_pages]: paged-KV mode
-    (state from init_paged_decode_state, pools updated in place).
+    cache_index: a scalar for lockstep decode and chunked prefill, a [B]
+    vector for per-slot decode). decode_state: the dense per-slot caches
+    (init_decode_state), or with page_table [B, max_pages] the paged pools
+    (init_paged_decode_state); either is updated in place.
+    attend_to_cache: an S > 1 prefill attends over the existing cache
+    instead of assuming it empty (chunked prefill, dense mode).
     layer_override(layer_params, spec, x, positions) -> (y, aux) replaces
-    every MoE layer when there is no decode state (zebra parallelism).
+    every MoE layer when there is no decode state (zebra parallelism);
+    moe_override(ffn_params, u) -> (f, aux) replaces the MoE FFN of every
+    MoE layer (the lockstep server's expert-parallel MoE).
 
     Returns (logits [B, S, vocab] f32, new_decode_state, aux)."""
     B, S = tokens.shape
@@ -228,7 +243,8 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
         params.get("blocks"), tails, cfg, run, cfg.pattern, x, positions,
         states=decode_state, tail_states=tail_states,
         cache_index=cache_index, page_table=page_table,
-        layer_override=layer_override)
+        layer_override=layer_override, moe_override=moe_override,
+        attend_to_cache=attend_to_cache)
 
     x = modules.apply_norm(params["final_norm"], x, run.policy)
     if return_hidden:

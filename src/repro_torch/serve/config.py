@@ -6,22 +6,22 @@ and :func:`build_deployment` the one construction path. ``validate``
 reports EVERY violation in one :class:`ServeConfigError`. Config ->
 engine mapping, as in the JAX package::
 
+    fleet.enabled                 -> FleetController      (make_fleet)
     disagg.enabled                -> DisaggController     (make_disagg)
-    otherwise                     -> ContinuousBatchingEngine
+    otherwise                     -> ContinuousBatchingEngine (dense)
     paged.enabled                 -> + BlockAllocator (paged KV, §9)
     prefix.enabled                -> + PrefixIndex (COW prefix cache, §14)
 
-The JAX package's other deployment shapes (the dense continuous mode and
-the lockstep fallback, expert-parallel decode, the fleet, chaos) add their
-sub-configs here when they are ported. Until then ``validate`` refuses a
-deployment that is neither paged nor disaggregated, and the driver
-rejects their flags by name (``launch/serve.py``).
+The JAX package's expert-parallel decode (``EPCfg``) and its lockstep
+fallback for encoder-decoder and vision archs are not ported: the driver
+rejects ``--ep-size`` and ``--ep-placement`` by name
+(``launch/serve.py``), and ``validate`` refuses those archs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -38,16 +38,56 @@ class ServeConfigError(ValueError):
     (semicolon-joined), so one failed launch reports the whole set."""
 
 
+def parse_group_spec(spec: str, default_cls: str) -> list:
+    """``--prefill-groups``/``--decode-groups`` value: either an integer
+    count (that many groups of the role's default class) or a
+    comma-separated device-class list (one group per entry)."""
+    items = [x.strip() for x in (spec or "").split(",") if x.strip()]
+    if len(items) == 1 and items[0].isdigit():
+        return [default_cls] * int(items[0])
+    return items
+
+
+def parse_kills(specs) -> list:
+    """``--kill-group`` occurrences -> [(tick, gid)], parsed by the ONE
+    fault-spec grammar (``ft.chaos.FaultPlan``): the ``GID@TICK``
+    shorthand is sugar for a ``crash_start@TICK:gGID`` chaos entry, and
+    the full entry form is accepted verbatim."""
+    from repro_torch.ft.chaos import FaultPlan
+    kills = []
+    for spec in specs or ():
+        raw = spec.strip()
+        head = raw.split("@", 1)[0]
+        if "@" in raw and head.isdigit():
+            gid, tick = raw.split("@", 1)
+            raw = f"crash_start@{tick}:g{gid}"
+        try:
+            plan = FaultPlan.parse(raw)
+        except ValueError:
+            raise ValueError(
+                f"--kill-group wants GID@TICK (or a chaos-grammar "
+                f"crash_start@TICK:gGID entry), got {spec!r}") from None
+        (entry,) = plan.specs
+        tgt = entry.target or ""
+        if entry.site != "crash_start" or entry.tick is None \
+                or not (tgt.startswith("g") and tgt[1:].isdigit()):
+            raise ValueError(
+                f"--kill-group wants GID@TICK (or a chaos-grammar "
+                f"crash_start@TICK:gGID entry), got {spec!r}")
+        kills.append((entry.tick, int(tgt[1:])))
+    return kills
+
+
 @dataclasses.dataclass(frozen=True)
 class PagedCfg:
     """Paged-KV geometry (DESIGN.md §9). ``enabled`` switches the unified
-    engine to paged mode; the disagg deployment is paged inherently and
-    reads only the geometry fields."""
+    engine to paged mode; disagg/fleet deployments are paged inherently
+    and read only the geometry fields."""
 
     enabled: bool = False
     page_size: int = 16
     pool_pages: Optional[int] = None          # decode/unified pool
-    prefill_pool_pages: Optional[int] = None  # disagg prefill pool
+    prefill_pool_pages: Optional[int] = None  # disagg/fleet prefill pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +112,27 @@ class DisaggCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class FleetCfg:
+    """Elastic multi-group fleet (DESIGN.md §12). ``kills`` are
+    (tick, gid) crash injections — see :func:`parse_kills`."""
+
+    enabled: bool = False
+    prefill_groups: Tuple[str, ...] = ("a40",)
+    decode_groups: Tuple[str, ...] = ("v100",)
+    elastic: bool = False
+    kills: Tuple[Tuple[int, int], ...] = ()
+    slo_ttft: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosCfg:
+    """Seeded fault schedule (DESIGN.md §13, fleet mode only)."""
+
+    spec: Optional[str] = None
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """One declarative description of a serving deployment."""
 
@@ -86,6 +147,8 @@ class ServeConfig:
     paged: PagedCfg = PagedCfg()
     prefix: PrefixCacheCfg = PrefixCacheCfg()
     disagg: DisaggCfg = DisaggCfg()
+    fleet: FleetCfg = FleetCfg()
+    chaos: ChaosCfg = ChaosCfg()
 
     @property
     def sampling(self) -> SamplingParams:
@@ -94,13 +157,21 @@ class ServeConfig:
 
     @property
     def any_paged(self) -> bool:
-        """Whether any page machinery exists (unified paged or disagg,
-        which is paged inherently)."""
-        return self.paged.enabled or self.disagg.enabled
+        """Whether any page machinery exists (unified paged, disagg or
+        fleet — the latter two are paged inherently)."""
+        return self.paged.enabled or self.disagg.enabled or self.fleet.enabled
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
-        """Build from the launch driver's argparse namespace."""
+        """Build from the launch driver's argparse namespace. Parse-level
+        problems (malformed kill specs) surface as
+        :class:`ServeConfigError`, so the driver has ONE error path."""
+        try:
+            pre = tuple(parse_group_spec(args.prefill_groups, "a40"))
+            dec = tuple(parse_group_spec(args.decode_groups, "v100"))
+            kills = tuple(parse_kills(args.kill_group))
+        except ValueError as e:
+            raise ServeConfigError(str(e)) from None
         return cls(
             slots=args.slots,
             max_len=args.prompt_len + args.gen,
@@ -117,7 +188,12 @@ class ServeConfig:
             prefix=PrefixCacheCfg(enabled=bool(args.prefix_cache),
                                   capacity_pages=args.prefix_capacity,
                                   fair=bool(args.fair)),
-            disagg=DisaggCfg(enabled=bool(args.disagg)))
+            disagg=DisaggCfg(enabled=bool(args.disagg)),
+            fleet=FleetCfg(enabled=bool(args.fleet), prefill_groups=pre,
+                           decode_groups=dec,
+                           elastic=bool(args.fleet_elastic), kills=kills,
+                           slo_ttft=args.slo_ttft),
+            chaos=ChaosCfg(spec=args.chaos, seed=args.chaos_seed))
 
     def validate(self, model_cfg=None) -> None:
         """Reject-don't-truncate validation of the WHOLE config: every
@@ -144,16 +220,43 @@ class ServeConfig:
                              self.paged.prefill_pool_pages)):
                 if v is not None and v < 1:
                     errs.append(f"{name} must be >= 1, got {v}")
-        else:
-            errs.append("not ported to repro_torch yet: running without "
-                        "--paged (dense per-slot KV caches)")
-        if self.prefix.enabled and not self.any_paged:
+        if self.fleet.enabled and self.disagg.enabled:
+            errs.append("--fleet and --disagg are mutually exclusive "
+                        "deployment shapes")
+        if self.prefix.enabled and not (self.paged.enabled
+                                        or self.disagg.enabled):
             errs.append("--prefix-cache needs a paged deployment "
                         "(--paged or --disagg)")
+        if self.prefix.enabled and self.fleet.enabled:
+            errs.append("--prefix-cache is not supported with --fleet "
+                        "(per-group pools do not share a prefix index)")
         if self.prefix.capacity_pages is not None \
                 and self.prefix.capacity_pages < 1:
             errs.append(f"prefix capacity_pages must be >= 1, "
                         f"got {self.prefix.capacity_pages}")
+        if self.chaos.spec and not self.fleet.enabled:
+            errs.append("--chaos requires --fleet (the chaos hook points "
+                        "live in the fleet controller)")
+        if self.fleet.kills and not self.fleet.enabled:
+            errs.append("--kill-group requires --fleet")
+        if self.fleet.slo_ttft is not None and not self.fleet.enabled:
+            errs.append("--slo-ttft requires --fleet")
+        if self.fleet.enabled:
+            if not self.fleet.prefill_groups or not self.fleet.decode_groups:
+                errs.append("fleet needs >= 1 prefill and >= 1 decode group")
+            from repro_torch.core.hardware import CLASSES
+            unknown = [c for c in (*self.fleet.prefill_groups,
+                                   *self.fleet.decode_groups)
+                       if c not in CLASSES]
+            if unknown:
+                errs.append(f"unknown device class(es) {unknown}; "
+                            f"known: {sorted(CLASSES)}")
+        if self.chaos.spec:
+            from repro_torch.ft.chaos import FaultPlan
+            try:
+                FaultPlan.parse(self.chaos.spec)
+            except ValueError as e:
+                errs.append(f"bad --chaos spec: {e}")
         if model_cfg is not None:
             if self.prefix.enabled:
                 rec = sorted({s.mixer for s in model_cfg.layer_layout()
@@ -192,6 +295,25 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
         gen = torch.Generator(device=device).manual_seed(0)
         params = stack.init_model(gen, cfg, device=device)
 
+    if sc.fleet.enabled:
+        from repro_torch.serve.fleet import make_fleet
+        chaos = None
+        if sc.chaos.spec:
+            from repro_torch.ft.chaos import FaultInjector, FaultPlan
+            chaos = FaultInjector(FaultPlan.parse(sc.chaos.spec),
+                                  seed=sc.chaos.seed)
+        return make_fleet(
+            cfg, run, params,
+            prefill_classes=list(sc.fleet.prefill_groups),
+            decode_classes=list(sc.fleet.decode_groups),
+            decode_slots=sc.slots, max_len=sc.max_len,
+            page_size=sc.paged.page_size, decode_pages=sc.paged.pool_pages,
+            prefill_pages=sc.paged.prefill_pool_pages,
+            prefill_chunk=sc.prefill_chunk, token_budget=sc.token_budget,
+            seed=sc.seed, metrics=metrics, on_token=on_token,
+            elastic=sc.fleet.elastic, chaos=chaos,
+            slo_ttft=sc.fleet.slo_ttft, device=device)
+
     if sc.disagg.enabled:
         from repro_torch.serve.disagg import make_disagg
         return make_disagg(
@@ -206,13 +328,14 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
             record_logits=record_logits, prefix=sc.prefix, device=device)
 
     program = make_continuous_program(cfg, run, sc, device=device)
-    allocator = BlockAllocator(program.n_pages, program.page_size,
-                               program.max_pages)
-    prefix_index = None
-    if sc.prefix.enabled:
-        from repro_torch.serve.prefix_index import PrefixIndex
-        prefix_index = PrefixIndex(allocator,
-                                   capacity_pages=sc.prefix.capacity_pages)
+    allocator = prefix_index = None
+    if sc.paged.enabled:
+        allocator = BlockAllocator(program.n_pages, program.page_size,
+                                   program.max_pages)
+        if sc.prefix.enabled:
+            from repro_torch.serve.prefix_index import PrefixIndex
+            prefix_index = PrefixIndex(
+                allocator, capacity_pages=sc.prefix.capacity_pages)
     sched = Scheduler(sc.slots, sc.max_len, prefill_chunk=sc.prefill_chunk,
                       token_budget=sc.token_budget, allocator=allocator,
                       prefix_index=prefix_index, fair=sc.prefix.fair)

@@ -1,22 +1,32 @@
-"""Continuous-batching serving engine over a paged KV pool (mirror of the
-paged mode of ``repro/serve/engine.py``, DESIGN.md §7 / §9).
+"""Serving engines over KV decode states (mirror of
+``repro/serve/engine.py``, DESIGN.md §7 / §9).
 
-``make_continuous_program`` builds the steps of the engine; the
-``ContinuousBatchingEngine`` drives them from host-side scheduling state:
-chunked prefill at batch 1 writing straight into the request's pool pages,
-per-slot sampled decode over all live slots through per-slot page tables,
-page growth on demand and preempt-newest on pool exhaustion; with a prefix
-index on the scheduler, copy-on-write forks of shared pages before any
-write lands in them (DESIGN.md §14); trace spans, flows, counters and idle
-marks on the tick clock (§15).
+Two entry points:
 
-Differences from the JAX engine, all about execution and none about
+* ``make_continuous_program`` / ``ContinuousBatchingEngine``, the serving
+  path: chunked prefill at batch 1, per-slot sampled decode over all live
+  slots, slot recycling; trace spans, flows, counters and idle marks on
+  the tick clock (§15). Two builds: the dense one (the JAX driver's
+  default) keeps a contiguous per-slot KV reservation, prefills into a
+  batch-1 cache and inserts it wholesale into the freed slot; the paged
+  one (§9) writes prefill straight into the request's pool pages, decodes
+  through per-slot page tables, grows pages on demand and preempts the
+  newest request on pool exhaustion, and with a prefix index on the
+  scheduler copy-on-write forks shared pages before any write lands in
+  them (§14).
+* ``make_serve_program`` / ``BatchedServer``, the lockstep path: one
+  scalar ``cache_index`` for the whole batch, whole-batch prefill, greedy
+  decode. The JAX driver takes it only for encoder-decoder and vision
+  archs, which the port does not run yet; here it is the dense engine's
+  parity reference.
+
+Differences from the JAX engines, all about execution and none about
 results: the steps run eagerly (no jit) under ``torch.inference_mode``;
-the KV pools are updated in place where JAX returns a new state (the COW
-fork too); the engine keeps one compute-dtype copy of each weight matrix
-made at load (``stack.compute_params``) instead of casting every call.
-Only the paged build is ported; dense per-slot caches and expert-parallel
-decode are later slices.
+the KV caches and pools are updated in place where JAX returns a new
+state (the insert and the COW fork too); the engines keep one
+compute-dtype copy of each weight matrix made at load
+(``stack.compute_params``) instead of casting every call. Expert-parallel
+decode is a later slice.
 """
 
 from __future__ import annotations
@@ -37,18 +47,125 @@ from repro_torch.serve.scheduler import PrefillChunk, Request, Scheduler
 
 
 @dataclasses.dataclass
-class ContinuousProgram:
-    """The steps of the paged continuous-batching engine.
+class ServeProgram:
+    """The steps of the lockstep server.
 
+      prefill_step(params, state, tokens[B,S]) -> (state, last_logits [B,V])
+      decode_step(params, state, tok[B,1], cache_index) -> (state, next[B,1])
+    """
+
+    cfg: ModelConfig
+    run: RunConfig
+    device: torch.device
+    prefill_step: Callable
+    decode_step: Callable
+    init_state: Callable     # (batch, max_len) -> dense decode state
+
+
+def make_serve_program(cfg: ModelConfig, run: RunConfig, *,
+                       device="cuda") -> ServeProgram:
+    """Build the lockstep server's steps (``repro/serve/engine.py``'s
+    ``make_serve_program``): whole-batch prefill into a dense cache from
+    line 0, then greedy decode with one scalar ``cache_index``. MoE FFNs
+    go through zebra's expert-parallel MoE (``zebra_spmd.make_ep_moe``,
+    replicated, at twice the model's capacity factor), as in the JAX
+    package; on one device that is the whole expert set. The JAX
+    function's ``shape`` and ``max_len`` size its sharded state; here the
+    server's ``batch`` and ``max_len`` size the state it allocates
+    (``init_state``)."""
+    device = torch.device(device)
+    moe_override = None
+    if cfg.is_moe:
+        from repro_torch.core.zebra_spmd import ZebraConfig, make_ep_moe
+        moe_fn = make_ep_moe(cfg, run, ZebraConfig(
+            mode="replicated", capacity_factor=cfg.capacity_factor * 2))
+
+        def moe_override(ffn_params, u):
+            y2, aux = moe_fn(ffn_params, u.reshape(-1, u.shape[-1]))
+            return y2.reshape(u.shape).to(u.dtype), aux
+
+    @torch.inference_mode()
+    def prefill(params, state, tokens):
+        """Full-sequence prefill writing the caches; only the final
+        position is unembedded."""
+        hidden, state, _ = stack.apply_model(
+            params, cfg, run, tokens, decode_state=state, cache_index=0,
+            moe_override=moe_override, return_hidden=True)
+        return state, apply_unembedding(params["embed"], params.get(
+            "lm_head"), cfg, run.policy, hidden[:, -1])
+
+    @torch.inference_mode()
+    def decode(params, state, tok, cache_index):
+        """One decode step: tok [B,1] -> greedy next token [B,1]."""
+        logits, state, _ = stack.apply_model(
+            params, cfg, run, tok, decode_state=state,
+            cache_index=cache_index, moe_override=moe_override)
+        return state, logits[:, -1].argmax(-1)[:, None]
+
+    return ServeProgram(
+        cfg=cfg, run=run, device=device, prefill_step=prefill,
+        decode_step=decode,
+        init_state=lambda batch, max_len: stack.init_decode_state(
+            cfg, batch, max_len, run.policy.compute_dtype, device))
+
+
+class BatchedServer:
+    """Minimal lockstep loop over fixed slots (the dense engine's parity
+    reference; the JAX driver's fallback for encoder-decoder and vision
+    archs, which the port does not run yet)."""
+
+    def __init__(self, program: ServeProgram, params, batch: int,
+                 max_len: int):
+        self.p = program
+        self.params = stack.compute_params(params, program.run.policy)
+        self.batch = batch
+        self.max_len = max_len
+        self.state = program.init_state(batch, max_len)
+        self.cache_index = 0
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int64,
+                                  device=program.device)
+
+    def submit_prefill(self, tokens):
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                 device=self.p.device)
+        self.state, last = self.p.prefill_step(self.params, self.state,
+                                               tokens)
+        self.cache_index = tokens.shape[1]
+        self.tokens = last.argmax(-1)[:, None]
+        return self.tokens
+
+    def step(self):
+        self.state, self.tokens = self.p.decode_step(
+            self.params, self.state, self.tokens, self.cache_index)
+        self.cache_index += 1
+        return self.tokens
+
+
+@dataclasses.dataclass
+class ContinuousProgram:
+    """The steps of the continuous-batching engine, in one of two builds.
+
+    Dense (``paged=False``): per-slot contiguous KV reservations; prefill
+    runs on a separate batch-1 state inserted wholesale on admission.
+      prefill_step(params, pstate, tokens[1,c], offset)
+          -> (pstate, last_logits [1,V] f32)
+      insert_step(state, pstate, slot) -> state
+      decode_step(params, state, tok[B,1], pos[B], active[B], rids[B],
+                  ngen[B], temp[B], topk[B], topp[B])
+          -> (state, next[B], last_logits [B,V] f32)
+
+    Paged (``paged=True``): KV in shared pools addressed through per-slot
+    page tables; prefill writes the request's pages directly, the insert
+    copies only the batch-1 recurrent carry.
       prefill_step(params, state, prec, tokens[1,c], offset, ptrow[1,MP])
           -> (state, prec, last_logits [1,V] f32)
       insert_step(state, prec, slot) -> state
       decode_step(params, state, tok[B,1], pos[B], ptabs[B,MP], active[B],
                   rids[B], ngen[B], temp[B], topk[B], topp[B])
           -> (state, next[B], last_logits [B,V] f32)
-      sample_step(logits[N,V], rids, ngen, temp, topk, topp) -> [N]
       fork_step(state, src_ids, dst_ids) -> state   (COW page copy)
 
+    Both: sample_step(logits[N,V], rids, ngen, temp, topk, topp) -> [N].
     Step inputs may be numpy arrays; outputs are tensors on ``device``.
     """
 
@@ -61,9 +178,11 @@ class ContinuousProgram:
     insert_step: Callable
     decode_step: Callable
     sample_step: Callable
-    init_state: Callable     # () -> paged decode state (B = n_slots)
-    init_prec: Callable      # () -> batch-1 prefill recurrent carry
+    init_state: Callable     # () -> decode state (B = n_slots)
+    init_pstate: Callable = None  # dense: () -> batch-1 prefill state
+    init_prec: Callable = None    # paged: () -> batch-1 recurrent carry
     fork_step: Callable = None
+    paged: bool = False
     page_size: int = 0
     n_pages: int = 0
     max_pages: int = 0       # page-table slots per request
@@ -71,16 +190,108 @@ class ContinuousProgram:
 
 def make_continuous_program(cfg: ModelConfig, run: RunConfig, serve_cfg, *,
                             device="cuda") -> ContinuousProgram:
-    """Build the paged engine's steps. ``serve_cfg`` (a
-    :class:`repro_torch.serve.config.ServeConfig`) supplies slots, max_len,
-    seed and the page geometry; ``paged.pool_pages`` defaults to full
-    reservation capacity (slots x pages per sequence)."""
+    """Build the engine's steps. ``serve_cfg`` (a
+    :class:`repro_torch.serve.config.ServeConfig`) supplies slots, max_len
+    and seed; with ``paged.enabled`` the paged build, whose page geometry
+    it also supplies (``paged.pool_pages`` defaults to full reservation
+    capacity, slots x pages per sequence), else the dense build."""
     if cfg.is_encdec or cfg.vision_seq > 0:
         raise ValueError("continuous batching supports decoder-only LMs")
-    return _make_paged_program(
-        cfg, run, n_slots=serve_cfg.slots, max_len=serve_cfg.max_len,
-        seed=serve_cfg.seed, page_size=serve_cfg.paged.page_size,
-        n_pages=serve_cfg.paged.pool_pages, device=torch.device(device))
+    device = torch.device(device)
+    if serve_cfg.paged.enabled:
+        return _make_paged_program(
+            cfg, run, n_slots=serve_cfg.slots, max_len=serve_cfg.max_len,
+            seed=serve_cfg.seed, page_size=serve_cfg.paged.page_size,
+            n_pages=serve_cfg.paged.pool_pages, device=device)
+    return _make_dense_program(cfg, run, n_slots=serve_cfg.slots,
+                               max_len=serve_cfg.max_len,
+                               seed=serve_cfg.seed, device=device)
+
+
+def _sampler(seed: int, device: torch.device) -> Callable:
+    """sample(logits[N,V], rids, ngen, temp, topk, topp) -> [N]: the
+    per-request (seed, rid, n) noise, so a request samples the same token
+    whatever its slot, neighbours or schedule."""
+    def dev(x, dt):
+        return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
+
+    @torch.inference_mode()
+    def sample(logits, rids, ngen, temp, topk, topp):
+        temp = np.asarray(temp, np.float32)
+        noise = sampling.request_noise(seed, rids, ngen, temp > 0,
+                                       logits.shape[-1], device)
+        return sampling.sample_tokens(logits.float(), noise,
+                                      dev(temp, None),
+                                      dev(topk, torch.int64),
+                                      dev(topp, torch.float32))
+    return sample
+
+
+def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
+                        max_len: int, seed: int,
+                        device: torch.device) -> ContinuousProgram:
+    """Dense program (the JAX engine's default build): each slot owns a
+    contiguous [max_len] KV reservation (a ring on sliding-window layers).
+    A prompt prefills chunk by chunk into a batch-1 state that attends
+    over its own cache; the finished state is inserted wholesale into the
+    freed slot, so live slots are never touched. Decode carries the
+    per-slot position vector ``pos [B]`` (the next cache line; -1 for a
+    dead slot, which writes no line and whose queries mask every key) and
+    attends over the whole [B, C] cache through the materialised plain
+    path, as the reference does."""
+    B = n_slots
+    dtype = run.policy.compute_dtype
+    sample = _sampler(seed, device)
+
+    def dev(x, dt=None):
+        return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
+
+    @torch.inference_mode()
+    def prefill(params, pstate, tokens, offset):
+        """One prompt chunk at batch 1: writes cache lines [offset,
+        offset + c), attends over the whole cache (earlier chunks
+        included), returns the f32 logits of the chunk's last position."""
+        hidden, pstate, _ = stack.apply_model(
+            params, cfg, run, dev(tokens, torch.int64), decode_state=pstate,
+            cache_index=int(offset), attend_to_cache=True,
+            return_hidden=True)
+        return pstate, apply_unembedding(
+            params["embed"], params.get("lm_head"), cfg, run.policy,
+            hidden[:, -1]).float()
+
+    @torch.inference_mode()
+    def insert(state, pstate, slot):
+        """Overwrite row ``slot`` of every decode-state leaf with the
+        batch-1 prefilled state (batch axis 1 on stacked block leaves, 0
+        on tails): KV and cache positions alike, so a recycled slot cannot
+        leak. In place: returns the same state."""
+        for dst, src in zip(state["tails"], pstate["tails"]):
+            _copy_into_slot(dst, src, int(slot), axis=0)
+        if state["blocks"] is not None:
+            for k, dst in state["blocks"].items():
+                _copy_into_slot(dst, pstate["blocks"][k], int(slot), axis=1)
+        return state
+
+    @torch.inference_mode()
+    def decode(params, state, tok, pos, active, rids, ngen, temp, topk,
+               topp):
+        """One decode step for every slot; dead slots (pos < 0) write no
+        cache lines and emit token 0."""
+        logits, state, _ = stack.apply_model(
+            params, cfg, run, dev(tok, torch.int64), decode_state=state,
+            cache_index=dev(pos, torch.int32))
+        last = logits[:, -1].float()
+        nxt = sample(last, rids, ngen, temp, topk, topp)
+        return state, torch.where(dev(active, torch.bool), nxt, 0), last
+
+    return ContinuousProgram(
+        cfg=cfg, run=run, device=device, n_slots=B, max_len=max_len,
+        prefill_step=prefill, insert_step=insert, decode_step=decode,
+        sample_step=sample,
+        init_state=lambda: stack.init_decode_state(cfg, B, max_len, dtype,
+                                                   device),
+        init_pstate=lambda: stack.init_decode_state(cfg, 1, max_len, dtype,
+                                                    device))
 
 
 def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
@@ -97,6 +308,7 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
     if n_pages < max_pages:
         raise ValueError("pool smaller than one sequence")
     dtype = run.policy.compute_dtype
+    sample = _sampler(seed, device)
 
     def dev(x, dt=None):
         return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
@@ -132,14 +344,6 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
                 _copy_into_slot(dst, prec["blocks"][k], int(slot), axis=1)
         return state
 
-    def sample(logits, rids, ngen, temp, topk, topp):
-        temp = np.asarray(temp, np.float32)
-        noise = sampling.request_noise(seed, rids, ngen, temp > 0,
-                                       logits.shape[-1], device)
-        return sampling.sample_tokens(logits.float(), noise, dev(temp),
-                                      dev(topk, torch.int64),
-                                      dev(topp, torch.float32))
-
     @torch.inference_mode()
     def decode(params, state, tok, pos, ptabs, active, rids, ngen, temp,
                topk, topp):
@@ -167,12 +371,12 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
     return ContinuousProgram(
         cfg=cfg, run=run, device=device, n_slots=B, max_len=max_len,
         prefill_step=prefill, insert_step=insert, decode_step=decode,
-        sample_step=torch.inference_mode()(sample), fork_step=fork,
+        sample_step=sample, fork_step=fork,
         init_state=lambda: stack.init_paged_decode_state(
             cfg, B, n_pages, page_size, dtype, device),
         init_prec=lambda: stack.split_kv_state(
             stack.init_decode_state(cfg, 1, 1, dtype, device))[1],
-        page_size=page_size, n_pages=n_pages,
+        paged=True, page_size=page_size, n_pages=n_pages,
         max_pages=max_pages)
 
 
@@ -187,18 +391,20 @@ def _copy_into_slot(dst, src, slot: int, axis: int):
 
 
 class ContinuousBatchingEngine:
-    """Continuous-batching serving loop over a paged pool (DESIGN.md §7,
-    §9.4).
+    """Continuous-batching serving loop (DESIGN.md §7).
 
     One ``tick`` = up to ``scheduler.token_budget`` chunked-prefill tokens
     (admitting at most one request at a time into a freed slot) followed by
-    ONE batched decode step over all live slots. The scheduler carries a
-    ``BlockAllocator``; the engine mirrors each slot's page table, claims a
-    page whenever a slot's next write position crosses a page boundary, and
-    relieves pool OOM by preempting the newest running request before the
-    decode step runs. With the scheduler's prefix index, a shared page is
-    COW-forked before the prefill chunk or decode step that writes into it.
-    Generated tokens land in ``results[rid]``.
+    ONE batched decode step over all live slots. Requests finish and free
+    their slot on EOS or length limit while other slots keep decoding;
+    generated tokens land in ``results[rid]``.
+
+    With a paged program (§9.4) the scheduler carries a ``BlockAllocator``;
+    the engine mirrors each slot's page table, claims a page whenever a
+    slot's next write position crosses a page boundary, and relieves pool
+    OOM by preempting the newest running request before the decode step
+    runs. With the scheduler's prefix index, a shared page is COW-forked
+    before the prefill chunk or decode step that writes into it.
     """
 
     def __init__(self, program: ContinuousProgram, params,
@@ -222,7 +428,8 @@ class ContinuousBatchingEngine:
         self.n_decode_steps = 0    # decode_step calls
         B = program.n_slots
         self.state = program.init_state()
-        self.prec = None  # batch-1 prefill recurrent carry
+        self.pstate = None  # dense: batch-1 prefill state
+        self.prec = None    # paged: batch-1 prefill recurrent carry
         # Host mirrors of the per-slot decode inputs.
         self._tok = np.zeros((B,), np.int32)
         self._pos = np.full((B,), -1, np.int32)
@@ -232,16 +439,18 @@ class ContinuousBatchingEngine:
         self._temp = np.zeros((B,), np.float32)
         self._topk = np.zeros((B,), np.int32)
         self._topp = np.ones((B,), np.float32)
-        alloc = scheduler.allocator
-        if alloc is None:
-            raise ValueError("the paged program needs an allocator")
-        if alloc.page_size != program.page_size \
-                or alloc.n_pages != program.n_pages \
-                or alloc.max_pages_per_seq < program.max_pages:
-            raise ValueError("allocator geometry disagrees with the program")
-        self._ptab = np.full((B, program.max_pages), -1, np.int32)
-        self.page_peak = 0
-        self._page_ticks: List[tuple] = []  # (pages_in_use, n_active)
+        if program.paged:
+            alloc = scheduler.allocator
+            if alloc is None:
+                raise ValueError("the paged program needs an allocator")
+            if alloc.page_size != program.page_size \
+                    or alloc.n_pages != program.n_pages \
+                    or alloc.max_pages_per_seq < program.max_pages:
+                raise ValueError("allocator geometry disagrees with the "
+                                 "program")
+            self._ptab = np.full((B, program.max_pages), -1, np.int32)
+            self.page_peak = 0
+            self._page_ticks: List[tuple] = []  # (pages_in_use, n_active)
 
     @property
     def results(self) -> Dict[int, List[int]]:
@@ -279,7 +488,8 @@ class ContinuousBatchingEngine:
                 self._run_prefill_chunk(chunk)
             worked = True
             budget -= chunk.length
-        self._ensure_pages()
+        if self.p.paged:
+            self._ensure_pages()
         if self._active.any():
             with tr.span(self.track, "decode",
                          n_active=int(self._active.sum())):
@@ -293,9 +503,10 @@ class ContinuousBatchingEngine:
                     else "queue-starved"
                 tr.mark_idle(self.track, bucket)
         self.metrics.on_tick(self.sched.queue_depth, self.sched.n_active)
-        in_use = self.sched.allocator.pages_in_use
-        self.page_peak = max(self.page_peak, in_use)
-        self._page_ticks.append((in_use, self.sched.n_active))
+        if self.p.paged:
+            in_use = self.sched.allocator.pages_in_use
+            self.page_peak = max(self.page_peak, in_use)
+            self._page_ticks.append((in_use, self.sched.n_active))
         self.tick_count += 1
 
     def _run_prefill_chunk(self, chunk: PrefillChunk) -> None:
@@ -303,17 +514,24 @@ class ContinuousBatchingEngine:
         toks = np.asarray(
             chunk.tokens[chunk.start:chunk.start + chunk.length],
             np.int32)[None, :]
-        if chunk.first:  # fresh (or resumed) request -> fresh rec carry;
-            # a prefix hit starts at chunk.skipped, not 0 (§14)
-            self.prec = self.p.init_prec()
-        # Fork-on-divergence: this chunk writes lines [start, start+length)
-        # and any SHARED page in that range is COW-forked before the
-        # scatter lands (a resumed mid-page prefill into a cached partial
-        # tail is the canonical case).
-        self._cow_guard(req.rid, chunk.start, chunk.length)
-        ptrow = self.sched.allocator.table(req.rid, self.p.max_pages)[None, :]
-        self.state, self.prec, logits = self.p.prefill_step(
-            self.params, self.state, self.prec, toks, chunk.start, ptrow)
+        if not self.p.paged:
+            if chunk.start == 0:  # fresh request -> fresh prefill cache
+                self.pstate = self.p.init_pstate()
+            self.pstate, logits = self.p.prefill_step(
+                self.params, self.pstate, toks, chunk.start)
+        else:
+            if chunk.first:  # fresh (or resumed) request -> fresh carry;
+                # a prefix hit starts at chunk.skipped, not 0 (§14)
+                self.prec = self.p.init_prec()
+            # Fork-on-divergence: this chunk writes lines [start,
+            # start+length) and any SHARED page in that range is
+            # COW-forked before the scatter lands (a resumed mid-page
+            # prefill into a cached partial tail is the canonical case).
+            self._cow_guard(req.rid, chunk.start, chunk.length)
+            ptrow = self.sched.allocator.table(req.rid,
+                                               self.p.max_pages)[None, :]
+            self.state, self.prec, logits = self.p.prefill_step(
+                self.params, self.state, self.prec, toks, chunk.start, ptrow)
         self.n_prefill_chunks += 1
         if self.sched.finish_prefill_chunk(chunk):
             self._admit(chunk, logits)
@@ -332,10 +550,14 @@ class ContinuousBatchingEngine:
             np.asarray([sp.temperature], np.float32),
             np.asarray([sp.top_k], np.int32),
             np.asarray([sp.top_p], np.float32))
-        self.state = self.p.insert_step(self.state, self.prec, slot)
-        self.prec = None
-        self._ptab[slot] = self.sched.allocator.table(req.rid,
-                                                      self.p.max_pages)
+        if self.p.paged:
+            self.state = self.p.insert_step(self.state, self.prec, slot)
+            self.prec = None
+            self._ptab[slot] = self.sched.allocator.table(req.rid,
+                                                          self.p.max_pages)
+        else:
+            self.state = self.p.insert_step(self.state, self.pstate, slot)
+            self.pstate = None
         first = int(first[0])
         if self.record_logits:
             row = last_logits[0].cpu().numpy()
@@ -349,7 +571,8 @@ class ContinuousBatchingEngine:
             self.on_token(req.rid, first, finished)
         if finished:
             self.metrics.on_finish(req.rid, self.tick_count)
-            self._ptab[slot] = -1
+            if self.p.paged:
+                self._ptab[slot] = -1
             return
         self._tok[slot] = first
         self._pos[slot] = len(chunk.tokens)
@@ -423,10 +646,11 @@ class ContinuousBatchingEngine:
                 self._cow_guard(rid, int(self._pos[slot]), 1, slot=slot)
 
     def _decode_once(self) -> None:
+        ptab = (self._ptab,) if self.p.paged else ()
         self.state, nxt, logits = self.p.decode_step(
-            self.params, self.state, self._tok[:, None], self._pos,
-            self._ptab, self._active, self._rid, self._ngen, self._temp,
-            self._topk, self._topp)
+            self.params, self.state, self._tok[:, None], self._pos, *ptab,
+            self._active, self._rid, self._ngen, self._temp, self._topk,
+            self._topp)
         self.n_decode_steps += 1
         nxt = nxt.cpu().numpy()
         if self.record_logits:
@@ -457,12 +681,16 @@ class ContinuousBatchingEngine:
         self._temp[slot] = 0.0
         self._topk[slot] = 0
         self._topp[slot] = 1.0
-        self._ptab[slot] = -1
+        if self.p.paged:
+            self._ptab[slot] = -1
 
     def page_occupancy(self) -> dict:
-        """Pool occupancy over the run: peak pages in use, the
-        time-averaged cache lines held per active slot, the prefix cache's
-        accounting (zeros when caching is off) and the step counts."""
+        """Pool occupancy over the run (paged mode): peak pages in use,
+        the time-averaged cache lines held per active slot, the prefix
+        cache's accounting (zeros when caching is off) and the step
+        counts."""
+        if not self.p.paged:
+            raise ValueError("page occupancy needs a paged program")
         ticks = [t for t in self._page_ticks if t[1] > 0]
         lines = [p * self.p.page_size / a for p, a in ticks]
         alloc = self.sched.allocator

@@ -30,7 +30,9 @@ infra = ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
          "repro_torch.ft.chaos", "repro_torch.serve.prefix_index",
          "repro_torch.serve.kv_transfer", "repro_torch.serve.disagg",
          "repro_torch.serve.disagg.workers",
-         "repro_torch.serve.disagg.controller")
+         "repro_torch.serve.disagg.controller", "repro_torch.serve.fleet",
+         "repro_torch.serve.fleet.controller",
+         "repro_torch.serve.fleet.router", "repro_torch.serve.fleet.sim")
 assert set(infra) <= set(mods) and set(infra) <= set(sys.modules), mods
 print(len(mods), bad)
 assert not bad, bad

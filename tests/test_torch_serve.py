@@ -7,8 +7,8 @@ large enough for the packed MoE route (>= 74 tokens at E = 8), and again
 on an overcommitted pool that forces preemption. Sampled decoding is
 deterministic across schedules. The driver serves on the CPU with
 ``--device cpu`` (also ``--disagg`` without ``--paged``, as the JAX driver
-does), rejects unported flags by name with exit 1, and refuses to run
-without a CUDA device otherwise.
+does), rejects unported flags and invalid combinations by name with exit
+1, and refuses to run without a CUDA device otherwise.
 """
 
 import jax
@@ -128,13 +128,18 @@ def test_driver_serves_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["--fleet-elastic"], "--fleet-elastic"), (["--ep-size", "2"],
-                                               "--ep-size"),
-    (["--kill-group", "1@2"], "--kill-group"), (["--fleet"], "--fleet"),
-    (["--slo-ttft", "1.0"], "--slo-ttft"), (["--ep-placement", "planned"],
-                                            "--ep-placement"),
+    (["--fleet", "--disagg"], "--fleet and --disagg are mutually exclusive"),
+    (["--ep-size", "2"], "--ep-size"),
+    (["--kill-group", "1@2"], "--kill-group requires --fleet"),
+    (["--fleet", "--prefix-cache"],
+     "--prefix-cache is not supported with --fleet"),
+    (["--slo-ttft", "1.0"], "--slo-ttft requires --fleet"),
+    (["--ep-placement", "planned"], "--ep-placement"),
     (["--arch", "mamba2-2.7b"], "--arch mamba2-2.7b (recurrent ssd")])
 def test_driver_rejects_unported_flags(capsys, extra, named):
+    """Unported flags (expert-parallel decode, recurrent archs) and the
+    JAX driver's invalid combinations, with its messages: one ``[serve]
+    invalid configuration:`` line that names them, exit 1."""
     assert serve_mod.main(SMOKE_ARGS + ["--device", "cpu"] + extra) == 1
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and err[0].startswith("[serve] invalid "
@@ -143,11 +148,13 @@ def test_driver_rejects_unported_flags(capsys, extra, named):
 
 
 def test_driver_rejects_running_without_paged(capsys):
+    """Without ``--paged`` the driver serves dense caches, so the prefix
+    cache is refused there with the JAX driver's message."""
     args = [a for a in SMOKE_ARGS if a != "--paged"] + ["--device", "cpu",
-                                                       "--fleet"]
+                                                       "--prefix-cache"]
     assert serve_mod.main(args) == 1
     err = capsys.readouterr().err
-    assert "running without --paged" in err and "--fleet" in err
+    assert "--prefix-cache needs a paged deployment" in err
 
 
 def test_driver_accepts_disagg_without_paged(capsys):
