@@ -90,6 +90,16 @@ full depth, with random weights from seed 0:
   909): the classes set the router's priors, every group computes on the
   one card; then the same under the f32 policy, beside the unified paged
   engine under f32.
+* serve_ep: expert-parallel decode at one EP rank on the serve trace
+  (``--ep-size 1``: every MoE FFN through the EP hop, 2 all-to-all
+  chunks, the identity at one rank): (a) ``--paged --ep-placement
+  planned`` in bf16, the GLU's block_m tallied per call; (b) the same in
+  f32 beside the unified ``--paged`` engine in f32, first-token logits
+  recorded; (c) f32 with uniform placement and an explicit
+  ``engine.rebalance`` to the reversed slot order after tick 5; (d)
+  dense (no ``--paged``); (e) ``--disagg`` with the 34-page decode pool;
+  then ``ep_tiles``: the GLU and bf16 ``gmm`` at the EP decode chunk (24
+  x 8 rows, block_m 8) and prefill chunk (24 x 128 rows) layouts.
 
 It fails unless:
 
@@ -232,7 +242,22 @@ It fails unless:
   at a flip or rejoin is released), and is back where it was once the
   fleet is dropped; the f32 fleet's greedy tokens equal the unified paged
   engine's, or the first divergence is a near-tie: the cache-free
-  forward's top-2 margin there within 1e-4 * max|logit|.
+  forward's top-2 margin there within 1e-4 * max|logit|;
+* serve_ep: (a) every request finishes, GLU and ``gmm`` launched exactly
+  2 (chunks) x 4 (layers) per prefill chunk and decode step, paged
+  decode 4 per decode step, every GLU and ``gmm`` launch on the
+  tensor-core design, the decode steps' GLU calls at block_m 8, one EMA
+  update a decode step; (b) every f32 first-token logit within 1e-3 *
+  max of the replicated engine's, and the greedy tokens equal or the
+  first divergence a near-tie (top-2 margin within 1e-4 * max|logit|);
+  (c) exactly one re-balance, with live slots, every token bitwise (b)'s
+  EP run's, the allocator clean at every tick and empty after; (d) every
+  request finishes, no paged decode launch; (e) every request finishes,
+  the decode worker's EMA updated; ``ep_tiles``: each kernel within its
+  tier of its plain version on the tensor-core design;
+* train_mpmd: one step traced (``obs.trace.Tracer`` installed) is bitwise
+  the untraced step, loss and every gradient leaf, with the reference's
+  spans (R embed, head and embed^B, R * L F and B).
 
 One untimed warm-up request (its own engine) and one untimed warm-up train
 step (its own model; the zebra run has its own too) run before the timed
@@ -244,7 +269,8 @@ Printed in order: the device line (torch's name and nvidia-smi's name and
 power limit), the kernel build time with each library's HGMMA count, the
 warm-up and serve runs' lines,
 the serve_prefix, serve_disagg, serve_disagg_prefix, serve_trace,
-serve_dense and serve_fleet lines (each as its phase ends), the train
+serve_dense, serve_fleet, serve_ep and ep_tiles lines (each as its
+phase ends), the train
 runs' lines, the train_ckpt, train_accum, remat_dots, compress and
 train_trace lines (each as its phase ends), the kernel tolerances,
 the ``kernels`` JSON line
@@ -318,6 +344,23 @@ FLEET_ARGS = UNPAGED_ARGS + [
     FLEET_CHAOS[0], "--chaos-seed", FLEET_CHAOS[1]]
 DENSE_REL = 1e-5            # f32 dense vs paged first-token logits
 F32_TIER = 1e-4             # an f32 divergence's top-2 margin / max|logit|
+# Expert-parallel decode at one EP rank on the serve trace: (a) paged,
+# planned placement (the routing EMA's drift checked every 8 decode
+# steps), bf16; (b) the same in f32; (c) f32, uniform placement, an
+# explicit re-balance to the reversed slot order after tick 5; (d) dense;
+# (e) disaggregated (the 34-page decode pool).
+EP_FLAGS = ["--ep-size", "1", "--ep-placement", "planned"]
+EP_ARGS = SERVE_ARGS + EP_FLAGS
+EP_UNIFORM_ARGS = SERVE_ARGS + ["--ep-size", "1"]
+EP_DENSE_ARGS = UNPAGED_ARGS + EP_FLAGS
+EP_DISAGG_ARGS = DISAGG_ARGS + ["--ep-size", "1"]
+EP_REBALANCE_TICK = 5
+EP_CHUNKS = 2               # the driver's all-to-all chunks (EPCfg)
+# the grouped kernels at W2's EP layouts (24 experts): one all-to-all
+# chunk of a decode step (4 slots: C 16 in 2 chunks of 8 rows) and of a
+# 256-token prefill chunk (C 256 in 2 chunks of 128)
+EP_TILES = (("ep decode chunk", [8] * 24, 8),
+            ("ep prefill chunk", [128] * 24, 128))
 # Launches per layer and train step: the forward and its remat recompute
 # (one GLU and one down GEMM each), and the MoE FFN backward (gmm: g, u,
 # y, dh, dx twice; gmm_dw: dwo, dwg, dwu).
@@ -1383,6 +1426,7 @@ def mpmd_phase(torch, smi: str, n_chunks: int):
                            f"{MPMD_ENGINE[n_chunks]}")
     ms = sorted(step_s)[len(step_s) // 2] * 1e3
     canonical = canonical_order(s.engine)
+    traced = mpmd_traced(torch, s) if n_chunks == 1 else None
     line = {"arch": s.cfg.name, "device": torch.cuda.get_device_name(0),
             "nvidia_smi": smi, "lanes": s.engine.N,
             "microbatches": s.engine.R, "batch": batch, "seq": seq,
@@ -1398,10 +1442,47 @@ def mpmd_phase(torch, smi: str, n_chunks: int):
             "design_launches": {k: v for k, v in counts.items()
                                 if k.endswith((":wgmma", ":fma"))},
             "tasks": len(s.engine.order), "canonical_order": canonical}
+    if traced is not None:
+        line["traced_step"] = traced
     if not canonical:
         raise RuntimeError(f"{label}: the engine's issue order is not "
                            f"Theorem 1's canonical schedule")
+    if traced is not None and not traced["ok"]:
+        raise RuntimeError(f"{label}: the traced step is not bitwise the "
+                           f"untraced one, or its spans are not the "
+                           f"reference's set: {traced}")
     return line, counts
+
+
+def mpmd_traced(torch, s) -> dict:
+    """One MPMD step untraced and one under an ``obs.trace.Tracer``
+    (outside the counted window): loss and every gradient leaf bitwise
+    equal, and the spans the reference's (``embed``, ``F``, ``head``,
+    ``B``, ``embed^B``: R * (3 + 2 L) on the ``zebra-mpmd`` track)."""
+    from repro_torch.launch import hetero_mpmd as hm
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.pytree import flatten
+
+    def leaves(out):
+        _, ga, ge = out
+        trees = [{k: v for k, v in ga.items() if k != "layers"},
+                 *ga["layers"], *(lane for layer in ge for lane in layer)]
+        return [out[0]] + [t for tree in trees
+                           for t in flatten(tree).values()]
+    plain = leaves(hm.step(s))
+    tracer = obs_trace.Tracer()
+    with obs_trace.use(tracer):
+        traced = leaves(hm.step(s))
+    torch.cuda.synchronize()
+    equal = len(plain) == len(traced) and all(
+        torch.equal(a, b) for a, b in zip(plain, traced))
+    names = sorted(ev.name.split(" ")[0] for ev in tracer.events
+                   if ev.track == "zebra-mpmd" and ev.ph == "B")
+    R, L = s.engine.R, s.cfg.n_layers
+    kinds = {k: names.count(k) for k in sorted(set(names))}
+    want = {"B": R * L, "F": R * L, "embed": R, "embed^B": R, "head": R}
+    return {"bitwise": equal, "leaves": len(plain), "spans": len(names),
+            "span_kinds": kinds, "ok": equal and kinds == want}
 
 
 def canonical_order(engine) -> bool:
@@ -1702,7 +1783,8 @@ def zebra_plain(torch, name: str, lhs, tg, bm: int, spans, G: int, *, wg,
     return lambda: torch.cat([part(r0, r1) for r0, r1 in spans])
 
 
-def zebra_tiles_phase(torch, cfg, launches_by_path: dict):
+def zebra_tiles_phase(torch, cfg, launches_by_path: dict,
+                      tiles=ZEBRA_TILES, names=None):
     """The grouped kernels at the zebra runs' packed layouts (W1 widths, 12
     experts, ZEBRA_TILES: 12 x 216 rows at block_m 8 and alltoall chunk
     0's 2 x 224 + 10 x 112 rows at block_m 16), each against its plain
@@ -1710,14 +1792,16 @@ def zebra_tiles_phase(torch, cfg, launches_by_path: dict):
     same rows packed at block_m 128 (each expert padded to a multiple of
     128 rows). Operand types as in the zebra backward: bf16 x and
     weights, f32 h and cotangents. ``launches``: each path's count of the
-    kernel (the GLU's, or the gmm / gmm_dw operand type's)."""
+    kernel (the GLU's, or the gmm / gmm_dw operand type's). ``tiles`` and
+    ``names`` (a subset of the kernels) serve other layouts: EP decode's
+    (EP_TILES, forward kernels only, W2 widths)."""
     from repro_torch.kernels import gmm
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(15)
     d, f = cfg.d_model, cfg.d_ff_expert
     bf, f32 = torch.bfloat16, torch.float32
     out = []
-    for label, caps, bm in ZEBRA_TILES:
+    for label, caps, bm in tiles:
         G, M = len(caps), sum(caps)
 
         def layout(block):  # (tile_group, row of each real row)
@@ -1782,6 +1866,8 @@ def zebra_tiles_phase(torch, cfg, launches_by_path: dict):
               dw_bf16 * 2 * M * d * f)))
         spans = [(sum(caps[:g]), sum(caps[:g + 1])) for g in range(G)]
         for name, fn, (lhs, lhs128), (moved, flops) in cases:
+            if names is not None and name not in names:
+                continue
             plain = zebra_plain(torch, name, lhs, tg, bm, spans, G,
                                 wg=wg, wu=wu, wo=wo, wo_t=wo_t,
                                 dout=do_p if "f32.f32" in name else dg_p)
@@ -3173,6 +3259,196 @@ def serve_fleet_phase(torch, serve_mod, params, smi: str, unified: dict):
     return line, counts
 
 
+def glu_block_m_recorder():
+    """(install, remove, histogram): while installed, every fused GLU call
+    of the grouped-GEMM wrapper is tallied by its block_m in the
+    histogram {block_m: calls}; the wrapper itself (and its launch
+    count) is untouched."""
+    from repro_torch.kernels import gmm
+    real = gmm.gmm_glu_tiled_pair
+    hist: dict = {}
+
+    def recording(lhs, rhs_gate, rhs_up, tile_group, *, block_m=128):
+        hist[block_m] = hist.get(block_m, 0) + 1
+        return real(lhs, rhs_gate, rhs_up, tile_group, block_m=block_m)
+
+    def install():
+        gmm.gmm_glu_tiled_pair = recording
+
+    def remove():
+        gmm.gmm_glu_tiled_pair = real
+    return install, remove, hist
+
+
+def ep_numbers(s: dict, counts: dict, eng=None) -> dict:
+    """A serve line's numbers for an EP run, with its ``ep`` section and,
+    for a unified engine, its step counts."""
+    out = {**serve_numbers(s, counts), "ep": s.get("ep")}
+    if eng is not None and hasattr(eng, "n_decode_steps"):
+        out["prefill_chunks"] = eng.n_prefill_chunks
+        out["decode_steps"] = eng.n_decode_steps
+    return out
+
+
+def serve_ep_phase(torch, serve_mod, params, smi: str):
+    """Expert-parallel decode at one EP rank through the serve driver on
+    the serve trace (every MoE FFN through the EP hop: pack in placement
+    slot order, two all-to-all chunks, the grouped kernels on the rank's
+    24 experts, combine; every collective the identity at one rank):
+
+    (a) ``--paged --ep-size 1 --ep-placement planned`` in bf16 (the
+        main-path run, counted; the GLU's block_m tallied per call):
+        every request finishes, GLU and ``gmm`` launched 2 (chunks) x 4
+        (layers) per prefill chunk and decode step, paged decode 4 per
+        decode step, all GLU and ``gmm`` launches on the tensor-core
+        design, the decode steps' GLU calls at block_m 8;
+    (b) the same in f32 beside the unified ``--paged`` engine without EP
+        in f32: first-token logits within PARITY_REL * max of the
+        replicated engine's; greedy tokens equal, or the first divergence
+        a near-tie (top-2 margin within F32_TIER * max|logit|);
+    (c) f32, uniform placement, ``engine.rebalance`` to the reversed slot
+        order after tick EP_REBALANCE_TICK (slots live, pages allocated):
+        one re-balance, every token bitwise (b)'s EP run's, the allocator
+        clean at every tick and empty after the run;
+    (d) dense (no ``--paged``) in bf16: every request finishes, no paged
+        decode launch;
+    (e) ``--disagg --ep-size 1`` (34-page decode pool) in bf16: every
+        request finishes, the decode worker's EMA updated.
+
+    Returns (line, counts of (a), of (d), of (e))."""
+    from repro_torch.models import registry
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.serve import GREEDY
+    from repro_torch.serve import ep_decode as epd
+    cfg = registry.get_config("mixtral-w2")
+    L = cfg.n_layers
+    install, remove, glu_bm = glu_block_m_recorder()
+    install()
+    try:
+        s, counts, eng, _ = serve_run(torch, serve_mod, EP_ARGS,
+                                      params=params)
+    finally:
+        remove()
+    check_serve_launches("serve_ep", counts)
+    a = ep_numbers(s, counts, eng)
+    a["glu_block_m_calls"] = {str(k): v for k, v in sorted(glu_bm.items())}
+    hops = EP_CHUNKS * L * (eng.n_prefill_chunks + eng.n_decode_steps)
+    a_ok = bool(s["ok"] and counts["gmm_glu"] == counts["gmm"] == hops
+                and counts["paged_decode"] == L * eng.n_decode_steps
+                and glu_bm.get(8, 0) >= EP_CHUNKS * L * eng.n_decode_steps
+                and s["ep"]["ema_updates"] == eng.n_decode_steps)
+    a["placement"] = [list(p) for p in eng.placement]
+    del eng
+    gc.collect()
+
+    run32 = RunConfig(policy=Policy(compute_dtype=torch.float32))
+
+    def record(e):
+        e.record_logits = True
+    s32, b_counts, e32, _ = serve_run(torch, serve_mod, EP_ARGS,
+                                      params=params, run=run32, hook=record)
+    ep_logits, ep_tokens = e32.logits, dict(e32.results)
+    b_rebalances = e32.n_rebalances
+    del e32
+    gc.collect()
+    u32, u_counts, r32, _ = serve_run(torch, serve_mod, SERVE_ARGS,
+                                      params=params, run=run32, hook=record)
+    rel = {rid: float(abs(ep_logits[rid][0] - rows[0]).max())
+           / float(abs(rows[0]).max()) for rid, rows in r32.logits.items()}
+    rep_tokens = dict(r32.results)
+    del r32
+    gc.collect()
+    args = serve_mod.build_parser().parse_args(SERVE_ARGS)
+    trace = serve_mod.build_trace(args.seed, args.requests, args.rate,
+                                  args.prompt_len, args.gen, cfg.vocab_size,
+                                  GREEDY)
+    div = first_divergence(torch, params, cfg, run32, trace, ep_tokens,
+                           rep_tokens)
+    b = {"ok": s32["ok"] and u32["ok"], "ep": ep_numbers(s32, b_counts),
+         "replicated": ep_numbers(u32, u_counts), "first_logits_rel": rel,
+         "worst_rel": max(rel.values()), "limit_rel": PARITY_REL,
+         "greedy_equal": ep_tokens == rep_tokens, "first_divergence": div,
+         "limit_margin_rel": F32_TIER, "n_rebalances": b_rebalances}
+    for k in ("ep", "replicated"):
+        b[k].pop("design_launches")
+    b_ok = bool(b["ok"] and b["worst_rel"] <= PARITY_REL
+                and (div is None or div["margin_rel"] <= F32_TIER))
+
+    moved = {}
+
+    def rebalancing(e):
+        checked_every_tick_unified(e)
+        tick = e.tick
+
+        def ticked():
+            tick()
+            if e.tick_count == EP_REBALANCE_TICK:
+                moved["live"] = int(e._active.sum())
+                moved["pages"] = e.sched.allocator.pages_in_use
+                moved["done"] = e.rebalance(
+                    tuple(tuple(reversed(p)) for p in e.placement))
+        e.tick = ticked
+    c32, c_counts, c_eng, _ = serve_run(torch, serve_mod, EP_UNIFORM_ARGS,
+                                        params=params, run=run32,
+                                        hook=rebalancing)
+    c_tokens = dict(c_eng.results)
+    c = {"ok": c32["ok"], "run": ep_numbers(c32, c_counts),
+         "n_rebalances": c_eng.n_rebalances, "at_tick": EP_REBALANCE_TICK,
+         "at_rebalance": moved,
+         "placement": [list(p) for p in c_eng.placement],
+         "tokens_bitwise_b": c_tokens == ep_tokens,
+         "pages_in_use_after": c_eng.sched.allocator.pages_in_use}
+    c["run"].pop("design_launches")
+    c_ok = bool(c["ok"] and c["n_rebalances"] == 1 and moved.get("done")
+                and moved.get("live", 0) > 0 and c["tokens_bitwise_b"]
+                and c["pages_in_use_after"] == 0)
+    del c_eng
+    gc.collect()
+
+    s_d, d_counts, d_eng, _ = serve_run(torch, serve_mod, EP_DENSE_ARGS,
+                                        params=params)
+    check_designs("serve_ep dense", d_counts)
+    d = ep_numbers(s_d, d_counts, d_eng)
+    d_ok = bool(s_d["ok"] and d_counts["paged_decode"] == 0
+                and d_counts["gmm_glu"] > 0 and d_counts["gmm"] > 0)
+    del d_eng
+    gc.collect()
+
+    s_e, e_counts, ctl, _ = serve_run(torch, serve_mod, EP_DISAGG_ARGS,
+                                      params=params, hook=checked_every_tick)
+    check_serve_launches("serve_ep disagg", e_counts)
+    e = ep_numbers(s_e, e_counts)
+    e["disagg"] = s_e["disagg"]
+    e_ok = bool(s_e["ok"] and ctl.decode.routing_ema.n_updates > 0
+                and ctl.prefill.p.ep is not None)
+    del ctl
+    gc.collect()
+
+    budget = epd.ep_hbm_budget(
+        cfg, hbm_bytes=torch.cuda.get_device_properties(0).total_memory,
+        ep_size=1, page_size=16)
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "a_paged_planned_bf16": a,
+            "b_f32_vs_replicated": b, "c_f32_rebalance": c,
+            "d_dense_bf16": d, "e_disagg_bf16": e,
+            "ep_hbm_budget": budget,
+            "expert_bytes_per_device": budget["expert_bytes_per_device"],
+            "gates": {"a": a_ok, "b": b_ok, "c": c_ok, "d": d_ok,
+                      "e": e_ok}}
+    line["ok"] = a_ok and b_ok and c_ok and d_ok and e_ok
+    return line, counts, d_counts, e_counts
+
+
+def checked_every_tick_unified(engine) -> None:
+    """Check a unified paged engine's allocator after every tick."""
+    tick = engine.tick
+
+    def checked():
+        tick()
+        engine.sched.allocator.check()
+    engine.tick = checked
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3273,8 +3549,25 @@ def main() -> int:
     fleet_line, fleet_counts = serve_fleet_phase(
         torch, serve_mod, w2_params, smi, unified_tokens)
     print("serve_fleet: " + json.dumps(fleet_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_line, ep_counts, ep_dense_counts, ep_disagg_counts = serve_ep_phase(
+        torch, serve_mod, w2_params, smi)
+    print("serve_ep: " + json.dumps(ep_line), flush=True)
     del w2_params, unified_tokens
     gc.collect()
+    torch.cuda.empty_cache()
+    ep_tiles = zebra_tiles_phase(
+        torch, cfg, {"serve_ep": ep_counts,
+                     "serve_ep_dense": ep_dense_counts,
+                     "serve_ep_disagg": ep_disagg_counts},
+        tiles=EP_TILES, names=("gmm_glu", "gmm:bf16.bf16->bf16"))
+    print("ep_tiles: " + json.dumps(
+        [{k: t[k] for k in ("name", "layout", "design", "block_m",
+                            "max_abs_err", "tol", "ok", "ms", "host_ms",
+                            "ms_block_m128", "bound_ms", "bound_by",
+                            "launches", "shapes")} for t in ep_tiles]),
+          flush=True)
     torch.cuda.empty_cache()
 
     # -- main path 2: the port's train driver at full width -----------------
@@ -3378,6 +3671,9 @@ def main() -> int:
             "serve_trace": strace_counts.get(c, 0),
             "serve_dense": dense_counts.get(c, 0),
             "serve_fleet": fleet_counts.get(c, 0),
+            "serve_ep": ep_counts.get(c, 0),
+            "serve_ep_dense": ep_dense_counts.get(c, 0),
+            "serve_ep_disagg": ep_disagg_counts.get(c, 0),
             "train": train_counts.get(c, 0),
             "train_flash": flash_counts.get(c, 0),
             "train_mamba2": mamba2_counts.get(c, 0),
@@ -3427,7 +3723,7 @@ def main() -> int:
         "serve_prefix": prefix_line, "serve_disagg": disagg_line,
         "serve_disagg_prefix": dprefix_line, "serve_trace": strace_line,
         "serve_dense": dense_line, "serve_fleet": fleet_line,
-        "train": train_line,
+        "serve_ep": ep_line, "ep_tiles": ep_tiles, "train": train_line,
         "train_flash": flash_line, "train_mamba2": mamba2_line,
         "grad": grad, "grad_bf16": grad_bf16, "flash_grad": flash_grad,
         "flash_grad_bf16": flash_grad_bf16, "c1_tiles": c1_tiles,
@@ -3584,6 +3880,15 @@ def main() -> int:
              "or device memory the fleet, or the f32 tokens diverge from "
              "the unified engine's at a top-2 margin above "
              f"{F32_TIER} * max|logit|"),
+            ("serve_ep", ep_line, "(a) a request did not finish, a GLU, "
+             "gmm or paged decode count other than the EP hop's, a launch "
+             "off the tensor-core design or a decode GLU off block_m 8; "
+             "(b) an f32 first-token logit beyond "
+             f"{PARITY_REL} * max of the replicated engine's or a "
+             f"divergence at a top-2 margin above {F32_TIER} * max; (c) not "
+             "one re-balance, a token other than (b)'s, or pages left; (d) "
+             "a request did not finish or a paged decode launch; (e) a "
+             "request did not finish or no EMA update"),
             ("train_ckpt", ckpt_line, "the resumed steps 3-4 or the state "
              "after step 4 differ from the straight run's bits"),
             ("train_accum", accum_line, "a loss or grad norm is not finite, "
@@ -3599,12 +3904,12 @@ def main() -> int:
              "from the untraced run's bits")):
         if not line["ok"]:
             raise RuntimeError(f"{label}: {what}")
-    bad_tiles = [f"{e['name']}@{e['layout']}" for e in zebra_tiles
+    bad_tiles = [f"{e['name']}@{e['layout']}" for e in zebra_tiles + ep_tiles
                  if not e["ok"]]
     if bad_tiles:
-        raise RuntimeError(f"grouped kernels at the zebra row tiles disagree "
-                           f"with their plain versions or missed the "
-                           f"tensor-core design: {bad_tiles}")
+        raise RuntimeError(f"grouped kernels at the zebra or EP row tiles "
+                           f"disagree with their plain versions or missed "
+                           f"the tensor-core design: {bad_tiles}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -56,6 +56,17 @@ a microbatch split over several attention devices need the mesh, which is
 not ported (ROADMAP A9); the engine raises for both. The attention
 group's size M still enters the planner.
 
+With ``obs.trace.TRACER`` enabled, a step emits the reference's spans on
+the ``zebra-mpmd`` track (pid ``train``): ``embed mb{j}``, ``F l{l}
+mb{j}``, ``head mb{j}``, ``B l{l} mb{j}``, ``embed^B mb{j}``, with the
+reference's args. The issue order interleaves the (layer, microbatch)
+units, so their spans overlap and would mis-nest on the tracer's begin /
+end stack: each is a complete span (``span_at``) over the positions of
+its tasks in the issue order, from its first task to the one that
+completes it (its combine: the next layer's A task or the head), one
+microsecond a task from the step's tick. Tracing reads no tensor, so a
+traced step computes what an untraced one does, bit for bit.
+
 Backward uses stage-granular recompute (the paper's §6.1 setting): each
 stage's backward re-runs its forward under ``torch.enable_grad`` and
 calls ``torch.autograd.grad`` with the given cotangents. The gate-score
@@ -81,9 +92,11 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import modules
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import RunConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.pytree import flatten, tree_map
 
 EXPERT_KEYS = ("wi_gate", "wi_up", "wo")
+TRACK = "zebra-mpmd"
 
 
 def _round_up(x, m):
@@ -129,6 +142,39 @@ def issue_order(sched: S.ZebraSchedule) -> List[S.Task]:
             stuck = [q[h] for q, h in zip(queues, heads) if h < len(q)]
             raise ValueError(f"schedule deadlocks at {stuck}")
     return order
+
+
+def trace_spans(order: List[S.Task], L: int, Q: int) -> Dict[int, list]:
+    """The reference's spans (``repro/core/zebra_mpmd.py:282-383``) over
+    an issue order: {index of the task that closes a span: [(name, index
+    of its first task, args)]}. A forward unit (l, j) runs from its first
+    task to its combine (A(F, l+1, j), or the head at the last layer), a
+    backward unit from its first task to A(B, l, j); the embedding, the
+    head and the embedding's backward are one task each."""
+    at = {t: i for i, t in enumerate(order)}
+    first: Dict[tuple, int] = {}
+    for i, (kind, phase, l, j) in enumerate(order):
+        if kind != "H":
+            first.setdefault((phase, l, j), i)
+    head = {t[3]: i for i, t in enumerate(order) if t[0] == "H"}
+    spans = []
+    for j in sorted(head):
+        a0, b0 = at[("A", "F", 0, j)], at[("A", "B", 0, j)]
+        spans.append((f"embed mb{j}", a0, a0, {"microbatch": j}))
+        for l in range(L):
+            end = at[("A", "F", l + 1, j)] if l + 1 < L else head[j]
+            spans.append((f"F l{l} mb{j}", first[("F", l, j)], end,
+                          {"layer": l, "microbatch": j, "chunks": Q}))
+        spans.append((f"head mb{j}", head[j], head[j], {"microbatch": j}))
+        for l in range(L):
+            spans.append((f"B l{l} mb{j}", first[("B", l, j)],
+                          at[("A", "B", l, j)],
+                          {"layer": l, "microbatch": j, "chunks": Q}))
+        spans.append((f"embed^B mb{j}", b0, b0, {"microbatch": j}))
+    closing: Dict[int, list] = collections.defaultdict(list)
+    for name, i0, i1, args in sorted(spans, key=lambda s: (s[2], s[1])):
+        closing[i1].append((name, i0, args))
+    return dict(closing)
 
 
 def _device(d) -> torch.device:
@@ -228,6 +274,7 @@ class ZebraMPMD:
         self.schedule = S.canonical_schedule(cfg.n_layers, self.R, offload,
                                              self.Q)
         self.order = issue_order(self.schedule)  # what train_step walks
+        self.spans = trace_spans(self.order, cfg.n_layers, self.Q)
         self._lane_streams = None
 
     def lane_experts(self, layer: int) -> int:
@@ -440,10 +487,18 @@ class ZebraMPMD:
                 for p in exp_layers:
                     for t in p[i].values():
                         t.record_stream(lane)
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            tr.declare_track(TRACK, pid="train")
+            base = tr.now * obs_trace.TICK_US  # one microsecond a task
         with torch.no_grad():  # the backward stages re-enable it
-            for task in self.order:
+            for i, task in enumerate(self.order):
                 self._TASKS[task[:2]](self, task[2], task[3], st, attn_side,
                                       exp_layers)
+                if tr.enabled:
+                    for name, i0, args in self.spans.get(i, ()):
+                        tr.span_at(TRACK, name, (base + i0) / 1e6,
+                                   (base + i + 1) / 1e6, **args)
             return self._finish(st, attn_side, exp_layers)
 
     def _finish(self, st, attn_side, exp_layers):

@@ -213,6 +213,15 @@ class EPGroup:
         return dnn.all_to_all_single(torch.empty_like(t), t,
                                      group=self.group)
 
+    def all_gather(self, t):
+        """Every rank's t concatenated along dim 0 in rank order
+        (``lax.all_gather`` tiled=True); its gradient is each rank's slice
+        of the summed cotangents."""
+        if self.size == 1:
+            return t
+        from torch.distributed.nn import functional as dnn
+        return torch.cat(dnn.all_gather(t.contiguous(), group=self.group))
+
 
 def ep_ffn_params(ffn, n_loc: int, E_loc: int, ep: EPGroup) -> dict:
     """The EP placement of a MoE FFN's params (the JAX package's

@@ -40,13 +40,24 @@ CUDA device and without ``--device cpu`` it exits non-zero.
         --fleet-elastic --kill-group 2@10 --chaos 'drop%0.5*2;stall*1' \\
         --chaos-seed 7 --device cpu
 
-Flags for deployment shapes the port does not serve yet (``--ep-size``,
-``--ep-placement``, a ``--mesh`` other than 1x1) and archs with recurrent
-mixers (``--arch mamba2-2.7b``: the engines' recurrent decode state is not
-ported yet) are rejected by name in one ``[serve] invalid
-configuration:`` line, exit 1, as are the JAX driver's own invalid
-combinations (``--fleet`` with ``--disagg``, ``--chaos`` without
-``--fleet``, ...), with its messages.
+    # expert-parallel decode (DESIGN.md §11) at one EP rank: the experts
+    # stored in placement order with an expert -> slot map, every MoE FFN
+    # through the chunked all-to-all hop (the identity at one rank), the
+    # routing EMA fed every decode step; planned re-places experts online
+    # when it drifts. Also without --paged, and with --disagg:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-w2 \\
+        --smoke --paged --ep-size 1 --ep-placement planned --device cpu
+
+``--ep-size`` N needs N EP ranks: the driver runs one (the JAX driver's
+1x1 mesh), so N > 1 fails the JAX validation message ("bad EP config:
+ep_size N != mesh axis 'model' size 1"), exit 1; two or more ranks run
+through ``build_deployment(ep_group=)`` on a ``torch.distributed`` group.
+A ``--mesh`` other than 1x1 and archs with recurrent mixers (``--arch
+mamba2-2.7b``: the engines' recurrent decode state is not ported yet) are
+rejected by name in one ``[serve] invalid configuration:`` line, exit 1,
+as are the JAX driver's own invalid combinations (``--fleet`` with
+``--disagg`` or ``--ep-size``, ``--chaos`` without ``--fleet``, ...), with
+its messages.
 
 Exit status: non-zero when any request is rejected, dropped or left
 unfinished, when a fleet stalls or a surviving pool leaks pages under
@@ -62,6 +73,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.zebra_spmd import EPGroup
 from repro_torch.models import registry
 from repro_torch.models.modules import Policy, RunConfig
 from repro_torch.obs import format_report, write_chrome_trace
@@ -157,6 +169,21 @@ def _fleet_summary(engine, serve_cfg: ServeConfig) -> dict:
     }
 
 
+def _ep_summary(engine, serve_cfg: ServeConfig) -> dict:
+    """The summary's ``ep`` section, the JAX driver's keys. The JAX
+    driver prints it for the unified engines; the disaggregated one, which
+    places its experts once and never re-balances, reports its decode
+    worker's routing EMA here too."""
+    if serve_cfg.disagg.enabled:
+        n_rebalances, ema = 0, engine.decode.routing_ema
+    else:
+        n_rebalances, ema = engine.n_rebalances, engine.ema
+    return {"ep_size": serve_cfg.ep.ep_size,
+            "placement_mode": serve_cfg.ep.placement,
+            "n_rebalances": n_rebalances,
+            "ema_updates": ema.n_updates}
+
+
 def _chaos_summary(engine, serve_cfg: ServeConfig, shed: set,
                    leaked: list) -> dict:
     """The summary's ``chaos`` section: the replayable fault log, its
@@ -195,7 +222,8 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     if serve_cfg is None:
         serve_cfg = ServeConfig.from_args(args)
     try:
-        serve_cfg.validate(model_cfg=cfg)
+        # the EP ranks of this driver: one (the JAX driver's 1x1 mesh)
+        serve_cfg.validate(model_cfg=cfg, ep_group=EPGroup())
     except ServeConfigError as e:
         print(f"[serve] FAIL arch={cfg.name}: invalid serve config: {e}",
               file=sys.stderr)
@@ -349,6 +377,13 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
                   f"pinned={index.n_pages}")
             index.check()
         engine.sched.allocator.check()
+    if serve_cfg.ep.ep_size and not serve_cfg.fleet.enabled:
+        s["ep"] = _ep_summary(engine, serve_cfg)
+        print(f"[serve] arch={cfg.name} ep: "
+              f"ep_size={serve_cfg.ep.ep_size} "
+              f"placement={serve_cfg.ep.placement} "
+              f"rebalances={s['ep']['n_rebalances']} "
+              f"ema_updates={s['ep']['ema_updates']}")
     # Gate: every traced request must finish with its full token budget
     # (traces carry no EOS) and nothing may be rejected. Shed requests
     # (SLO admission) are an explicit outcome, excluded from the finish
@@ -377,19 +412,11 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     return s
 
 
-# The JAX driver's flags for expert-parallel decode, which the port does
-# not serve yet: accepted, so that a command line written for the JAX
-# driver is rejected by name instead of by argparse.
-_UNPORTED_VALUES = (("--ep-size", int), ("--ep-placement", str))
-
-
 def _unported_flags(args) -> list:
-    """The unported flags set on this command line (0 / off values, which
-    the JAX driver also reads as "off", pass), a mesh other than one
-    device, and an arch with recurrent mixers (the engines hold attention
-    caches only)."""
-    out = [f for f, _ in _UNPORTED_VALUES
-           if getattr(args, f[2:].replace("-", "_")) not in (None, 0)]
+    """What this command line asks that the port does not serve yet: a
+    mesh other than one device, and an arch with recurrent mixers (the
+    engines hold attention caches only)."""
+    out = []
     if args.mesh != "1x1":
         out.append(f"--mesh {args.mesh} (one device only)")
     if args.arch is not None:
@@ -514,9 +541,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="annotate trace spans with wall-clock readings "
                          "(opt-in; excluded from the deterministic trace "
                          "signature)")
+    ap.add_argument("--ep-size", type=int, default=0,
+                    help="shard MoE expert weights across this many EP "
+                         "ranks for decode (DESIGN.md §11); must divide the "
+                         "expert count, needs a MoE --arch and equals the "
+                         "driver's one rank (a mesh 'model' axis of 1): "
+                         "rejected otherwise, never truncated; 0 = off")
+    ap.add_argument("--ep-placement", choices=("uniform", "planned"),
+                    default="uniform",
+                    help="uniform: static round-robin expert placement; "
+                         "planned: online heterogeneity-aware re-placement "
+                         "from the observed routing EMA")
     ap.add_argument("--mesh", default="1x1", help="1x1 only")
-    for flag, typ in _UNPORTED_VALUES:
-        ap.add_argument(flag, type=typ, default=None, help="not ported yet")
     return ap
 
 
@@ -528,7 +564,8 @@ def main(argv=None) -> int:
         errs.append("not ported to repro_torch yet: " + ", ".join(unported))
     try:
         ServeConfig.from_args(args).validate(
-            model_cfg=registry.get_config(args.arch) if args.arch else None)
+            model_cfg=registry.get_config(args.arch) if args.arch else None,
+            ep_group=EPGroup())
     except ServeConfigError as e:
         errs.append(str(e))
     if errs:

@@ -47,12 +47,19 @@ _COMPUTE_LEAVES = ("table", "lm_head", "wq", "wk", "wv", "wo", "wi_gate",
                    "wi_up", "wi", "in_proj", "out_proj", "conv_w", "conv_b")
 
 
-def _zero_aux(device):
-    return {k: torch.zeros((), dtype=torch.float32, device=device)
-            for k in AUX_KEYS}
+def _zero_aux(device, extras=()):
+    """Zero aux accumulator. ``extras`` adds fixed-shape keys (``(key,
+    shape)`` pairs), e.g. the EP decode step's per-expert routing counts."""
+    z = {k: torch.zeros((), dtype=torch.float32, device=device)
+         for k in AUX_KEYS}
+    for k, shape in extras:
+        z[k] = torch.zeros(shape, dtype=torch.float32, device=device)
+    return z
 
 
 def _acc_aux(acc, aux):
+    # the ACCUMULATOR's keys: a layer's other aux entries are dropped
+    # unless the caller registered them as extras
     return {k: acc[k] + aux[k].float() if k in aux else acc[k] for k in acc}
 
 
@@ -146,8 +153,16 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                  cache_index=None, page_table=None,
                  layer_override: Optional[Callable] = None,
                  moe_override: Optional[Callable] = None,
-                 attend_to_cache: bool = False):
+                 attend_to_cache: bool = False, aux_extras=(),
+                 layer_aux: bool = False):
     """Run the stacked pattern layers + tail. Returns (x, new_states, aux).
+
+    ``aux_extras`` registers extra fixed-shape aux keys (``(key, shape)``
+    pairs) summed over the layers beside the aux losses. With
+    ``layer_aux`` the aux dict also carries ``aux["per_layer"]``: each key
+    stacked one row per layer, the stacked layers first (pattern positions
+    within a repeat summed), then one row per tail, the reference's row
+    order. The EP decode step returns its routing histograms through them.
 
     Block states are per-layer views of the stacked leaves and are updated
     in place, so ``new_states`` holds the same tensors as ``states``.
@@ -155,12 +170,13 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     the pattern is one checkpoint (recomputed in the backward, the
     ``layer_override`` with it; under "dots" but for the products that
     ``modules.dots_with_no_batch_dims_saveable`` saves)."""
-    aux = _zero_aux(x.device)
+    aux = _zero_aux(x.device, aux_extras)
     decode = states is not None
     new_block_states = None
+    rows = []  # per-layer aux (layer_aux)
 
     def one_block(x, layer_params, layer_states):
-        a = _zero_aux(x.device)
+        a = _zero_aux(x.device, aux_extras)
         for pos, spec in enumerate(pattern):
             key = f"pos{pos}"
             st = layer_states[key] if decode else None
@@ -186,6 +202,7 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
             else:
                 x, a = one_block(x, lp, ls)
             aux = _acc_aux(aux, a)
+            rows.append(a)
         new_block_states = block_states
 
     new_tail_states = []
@@ -195,11 +212,15 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                                 cache_index, page_table, layer_override,
                                 moe_override, attend_to_cache)
         aux = _acc_aux(aux, a)
+        rows.append(_acc_aux(_zero_aux(x.device, aux_extras), a))
         new_tail_states.append(ns)
 
     new_states = None
     if decode:
         new_states = {"blocks": new_block_states, "tails": new_tail_states}
+    if layer_aux and rows:
+        aux = dict(aux, per_layer={k: torch.stack([r[k] for r in rows])
+                                   for k in aux})
     return x, new_states, aux
 
 
@@ -208,7 +229,8 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
                 return_hidden: bool = False, page_table=None,
                 layer_override: Optional[Callable] = None,
                 moe_override: Optional[Callable] = None,
-                attend_to_cache: bool = False):
+                attend_to_cache: bool = False, aux_extras=(),
+                layer_aux: bool = False):
     """Forward pass.
 
     tokens: [B, S] int. positions: [B, S] (default arange, or offset by
@@ -221,7 +243,10 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
     layer_override(layer_params, spec, x, positions) -> (y, aux) replaces
     every MoE layer when there is no decode state (zebra parallelism);
     moe_override(ffn_params, u) -> (f, aux) replaces the MoE FFN of every
-    MoE layer (the lockstep server's expert-parallel MoE).
+    MoE layer (the lockstep server's and EP decode's expert-parallel MoE).
+    aux_extras / layer_aux: extra fixed-shape aux keys summed over the
+    layers, and with layer_aux also stacked per layer under
+    ``aux["per_layer"]`` (see ``_apply_stack``; EP decode's histograms).
 
     Returns (logits [B, S, vocab] f32, new_decode_state, aux)."""
     B, S = tokens.shape
@@ -244,7 +269,8 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
         states=decode_state, tail_states=tail_states,
         cache_index=cache_index, page_table=page_table,
         layer_override=layer_override, moe_override=moe_override,
-        attend_to_cache=attend_to_cache)
+        attend_to_cache=attend_to_cache, aux_extras=aux_extras,
+        layer_aux=layer_aux)
 
     x = modules.apply_norm(params["final_norm"], x, run.policy)
     if return_hidden:

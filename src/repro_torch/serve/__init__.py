@@ -1,8 +1,8 @@
 """Continuous-batching serving (dense and paged), the lockstep server, the
-prefix cache, the disaggregated deployment and the fleet (mirror of
-``repro/serve``; expert-parallel decode is not ported)."""
+prefix cache, the disaggregated deployment, expert-parallel decode and the
+fleet (mirror of ``repro/serve``)."""
 
-from repro_torch.serve.config import (ChaosCfg, DisaggCfg, FleetCfg,
+from repro_torch.serve.config import (ChaosCfg, DisaggCfg, EPCfg, FleetCfg,
                                       PagedCfg, PrefixCacheCfg, ServeConfig,
                                       ServeConfigError, build_deployment)
 from repro_torch.serve.engine import (BatchedServer,
@@ -10,6 +10,8 @@ from repro_torch.serve.engine import (BatchedServer,
                                       ContinuousProgram, ServeProgram,
                                       make_continuous_program,
                                       make_serve_program)
+from repro_torch.serve.ep_decode import (EPContinuousBatchingEngine,
+                                         EPDecodeConfig)
 from repro_torch.serve.kv_blocks import BlockAllocator, pages_for
 from repro_torch.serve.kv_transfer import KVTransferEngine, TransferStats
 from repro_torch.serve.metrics import RoutingEMA, ServeMetrics
@@ -23,7 +25,8 @@ __all__ = ["BatchedServer", "ServeProgram", "make_serve_program",
            "make_continuous_program", "ServeMetrics", "SamplingParams",
            "GREEDY", "Request", "Scheduler", "PrefillScheduler",
            "DecodeScheduler", "BlockAllocator", "pages_for",
-           "KVTransferEngine", "TransferStats", "RoutingEMA", "PrefixIndex",
+           "KVTransferEngine", "TransferStats", "EPDecodeConfig",
+           "EPContinuousBatchingEngine", "RoutingEMA", "PrefixIndex",
            "ServeConfig", "ServeConfigError", "build_deployment",
-           "PagedCfg", "PrefixCacheCfg", "DisaggCfg", "FleetCfg",
+           "PagedCfg", "PrefixCacheCfg", "DisaggCfg", "EPCfg", "FleetCfg",
            "ChaosCfg"]

@@ -8,14 +8,19 @@ engine mapping, as in the JAX package::
 
     fleet.enabled                 -> FleetController      (make_fleet)
     disagg.enabled                -> DisaggController     (make_disagg)
+    ep.ep_size > 0 (MoE arch)     -> EPContinuousBatchingEngine
     otherwise                     -> ContinuousBatchingEngine (dense)
     paged.enabled                 -> + BlockAllocator (paged KV, §9)
     prefix.enabled                -> + PrefixIndex (COW prefix cache, §14)
 
-The JAX package's expert-parallel decode (``EPCfg``) and its lockstep
-fallback for encoder-decoder and vision archs are not ported: the driver
-rejects ``--ep-size`` and ``--ep-placement`` by name
-(``launch/serve.py``), and ``validate`` refuses those archs.
+Expert-parallel decode (``EPCfg``, DESIGN.md §11) runs over an
+``core.zebra_spmd.EPGroup`` where the JAX package takes the mesh's
+"model" axis: ``validate(ep_group=)`` and ``build_deployment(ep_group=)``
+take it (the driver's is one rank, so ``--ep-size`` above 1 fails
+validation with the JAX message, as on a 1x1 mesh), and the disaggregated
+deployment takes EP as the JAX one does. The fleet refuses it, as in the
+JAX package. The JAX package's lockstep fallback for encoder-decoder and
+vision archs is not ported: ``validate`` refuses those archs.
 """
 
 from __future__ import annotations
@@ -112,6 +117,16 @@ class DisaggCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class EPCfg:
+    """Expert-parallel decode (DESIGN.md §11). ``ep_size`` == 0 is off;
+    ``placement`` is ``uniform`` (static round-robin) or ``planned``
+    (online heterogeneity-aware re-placement from the routing EMA)."""
+
+    ep_size: int = 0
+    placement: str = "uniform"
+
+
+@dataclasses.dataclass(frozen=True)
 class FleetCfg:
     """Elastic multi-group fleet (DESIGN.md §12). ``kills`` are
     (tick, gid) crash injections — see :func:`parse_kills`."""
@@ -147,6 +162,7 @@ class ServeConfig:
     paged: PagedCfg = PagedCfg()
     prefix: PrefixCacheCfg = PrefixCacheCfg()
     disagg: DisaggCfg = DisaggCfg()
+    ep: EPCfg = EPCfg()
     fleet: FleetCfg = FleetCfg()
     chaos: ChaosCfg = ChaosCfg()
 
@@ -160,6 +176,17 @@ class ServeConfig:
         """Whether any page machinery exists (unified paged, disagg or
         fleet — the latter two are paged inherently)."""
         return self.paged.enabled or self.disagg.enabled or self.fleet.enabled
+
+    def ep_decode_config(self):
+        """The runtime ``EPDecodeConfig`` this config describes (None when
+        EP is off)."""
+        if not self.ep.ep_size:
+            return None
+        from repro_torch.serve.ep_decode import EPDecodeConfig
+        planned = self.ep.placement == "planned"
+        return EPDecodeConfig(ep_size=self.ep.ep_size, n_chunks=2,
+                              rebalance_every=8 if planned else 0,
+                              drift_threshold=0.05)
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
@@ -189,17 +216,21 @@ class ServeConfig:
                                   capacity_pages=args.prefix_capacity,
                                   fair=bool(args.fair)),
             disagg=DisaggCfg(enabled=bool(args.disagg)),
+            ep=EPCfg(ep_size=getattr(args, "ep_size", 0) or 0,
+                     placement=getattr(args, "ep_placement", "uniform")),
             fleet=FleetCfg(enabled=bool(args.fleet), prefill_groups=pre,
                            decode_groups=dec,
                            elastic=bool(args.fleet_elastic), kills=kills,
                            slo_ttft=args.slo_ttft),
             chaos=ChaosCfg(spec=args.chaos, seed=args.chaos_seed))
 
-    def validate(self, model_cfg=None) -> None:
+    def validate(self, model_cfg=None, ep_group=None) -> None:
         """Reject-don't-truncate validation of the WHOLE config: every
         violation in one :class:`ServeConfigError`. ``model_cfg`` adds the
         arch-dependent checks (recurrent-arch prefix rejection, layer kinds
-        the port does not run yet)."""
+        the port does not run yet, EP on a dense arch); with it,
+        ``ep_group`` (the EP ranks, a ``core.zebra_spmd.EPGroup``: the JAX
+        package's mesh) adds EP's divisibility and rank-count checks."""
         errs: List[str] = []
         if self.slots < 1:
             errs.append(f"slots must be >= 1, got {self.slots}")
@@ -257,6 +288,24 @@ class ServeConfig:
                 FaultPlan.parse(self.chaos.spec)
             except ValueError as e:
                 errs.append(f"bad --chaos spec: {e}")
+        if self.ep.ep_size:
+            if self.fleet.enabled:
+                errs.append("--ep-size is not supported with --fleet")
+            if self.ep.placement not in ("uniform", "planned"):
+                errs.append(f"ep placement must be 'uniform' or 'planned', "
+                            f"got {self.ep.placement!r}")
+            if model_cfg is not None:
+                if not model_cfg.is_moe:
+                    errs.append(f"--ep-size needs a MoE arch; "
+                                f"{model_cfg.name} is dense")
+                elif ep_group is not None:
+                    from repro_torch.serve.ep_decode import \
+                        validate_ep_config
+                    try:
+                        validate_ep_config(model_cfg, ep_group,
+                                           self.ep_decode_config())
+                    except ValueError as e:
+                        errs.append(f"bad EP config: {e}")
         if model_cfg is not None:
             if self.prefix.enabled:
                 rec = sorted({s.mixer for s in model_cfg.layer_layout()
@@ -282,14 +331,19 @@ class ServeConfig:
 
 def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
                      device="cuda", metrics=None, on_token=None,
-                     record_logits: bool = False):
+                     record_logits: bool = False, ep_group=None):
     """THE construction path from a :class:`ServeConfig` to a live engine:
     validate first (so an invalid config never half-constructs), then the
     deployment the config describes (see the module docstring).
     ``params`` defaults to a fresh init from seed 0 on ``device`` (the JAX
-    package's ``PRNGKey(0)`` init). Every engine exposes ``run(trace)``
-    and ``rejected``."""
-    serve_cfg.validate(model_cfg=cfg)
+    package's ``PRNGKey(0)`` init). ``ep_group``: the EP ranks (a
+    ``core.zebra_spmd.EPGroup``; None: one rank). Every engine exposes
+    ``run(trace)`` and ``rejected``; the EP engines place (permute and
+    shard) the replicated params themselves."""
+    if serve_cfg.ep.ep_size and ep_group is None:
+        from repro_torch.core.zebra_spmd import EPGroup
+        ep_group = EPGroup()
+    serve_cfg.validate(model_cfg=cfg, ep_group=ep_group)
     sc = serve_cfg
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
@@ -325,9 +379,12 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
             transfer_chunk_pages=sc.disagg.transfer_chunk_pages,
             link_bw=sc.disagg.link_bw, latency_s=sc.disagg.latency_s,
             metrics=metrics, on_token=on_token,
-            record_logits=record_logits, prefix=sc.prefix, device=device)
+            record_logits=record_logits, ep=sc.ep_decode_config(),
+            prefix=sc.prefix, ep_group=ep_group, device=device)
 
-    program = make_continuous_program(cfg, run, sc, device=device)
+    program = make_continuous_program(cfg, run, sc, device=device,
+                                      ep=sc.ep_decode_config(),
+                                      ep_group=ep_group)
     allocator = prefix_index = None
     if sc.paged.enabled:
         allocator = BlockAllocator(program.n_pages, program.page_size,
@@ -339,6 +396,11 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
     sched = Scheduler(sc.slots, sc.max_len, prefill_chunk=sc.prefill_chunk,
                       token_budget=sc.token_budget, allocator=allocator,
                       prefix_index=prefix_index, fair=sc.prefix.fair)
+    if program.ep is not None:
+        from repro_torch.serve.ep_decode import EPContinuousBatchingEngine
+        return EPContinuousBatchingEngine(
+            program, params, sched, metrics=metrics, on_token=on_token,
+            record_logits=record_logits)
     return ContinuousBatchingEngine(program, params, sched, metrics=metrics,
                                     on_token=on_token,
                                     record_logits=record_logits)

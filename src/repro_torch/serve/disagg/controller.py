@@ -224,7 +224,7 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
                 metrics: Optional[ServeMetrics] = None,
                 on_token: Optional[Callable] = None,
                 record_logits: bool = False, ep=None,
-                ep_placement=None, prefix=None,
+                ep_placement=None, prefix=None, ep_group=None,
                 device="cuda") -> DisaggController:
     """Wire up the full disaggregated deployment on one device.
 
@@ -236,8 +236,14 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
     per group). The role split is logical; the inter-group link lives in
     the transfer engine's cost model.
 
-    ``ep`` / ``ep_placement`` (expert-parallel decode) are refused by name:
-    ``serve/ep_decode.py`` is not ported yet.
+    ``ep`` (a ``serve.ep_decode.EPDecodeConfig``) shards the expert
+    weights over the EP ranks of ``ep_group`` (a ``core.zebra_spmd.
+    EPGroup``; None: one rank; DESIGN.md §11): BOTH programs are built with
+    EP (the prefill worker shares the ranks, so its expert hop uses the
+    placed weights too), the params are placed once under
+    ``ep_placement`` (default ``ep.placement``, else round-robin), and the
+    decode worker's routed-copy histograms feed a RoutingEMA exposed at
+    ``controller.decode.routing_ema``.
 
     ``prefix`` (a ``serve.config.PrefixCacheCfg``) attaches a
     :class:`~repro_torch.serve.prefix_index.PrefixIndex` to the DECODE
@@ -247,10 +253,6 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
     switches the prefill queue to per-tenant deficit round-robin. The
     prefill pool never shares pages — its exports require refcount 1.
     """
-    if ep is not None or ep_placement is not None:
-        raise ValueError("not ported to repro_torch yet: expert-parallel "
-                         "decode (ep, ep_placement) in the disaggregated "
-                         "deployment")
     if cfg.is_encdec or cfg.vision_seq > 0:
         raise ValueError("disaggregated serving supports decoder-only LMs")
     device = torch.device(device)
@@ -260,11 +262,19 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
     pre_prog = _make_paged_program(
         cfg, run, n_slots=1, max_len=max_len, seed=seed,
         page_size=page_size, n_pages=max(prefill_pages, max_pages),
-        device=device)
+        device=device, ep=ep, ep_group=ep_group)
     dec_prog = _make_paged_program(
         cfg, run, n_slots=decode_slots, max_len=max_len, seed=seed,
-        page_size=page_size, n_pages=decode_pages, device=device)
+        page_size=page_size, n_pages=decode_pages, device=device, ep=ep,
+        ep_group=ep_group)
     params = stack.compute_params(params, run.policy)
+    if ep is not None:
+        from repro_torch.core.asym_ea import round_robin_placement
+        from repro_torch.serve.ep_decode import place_params
+        pl = ep_placement if ep_placement is not None else ep.placement
+        if pl is None:
+            pl = round_robin_placement(cfg.n_experts, ep.ep_size)
+        params = place_params(params, cfg, pl, dec_prog.ep_group)
     caching = prefix is not None and getattr(prefix, "enabled", False)
     pre_sched = PrefillScheduler(
         max_len, prefill_chunk=prefill_chunk, token_budget=token_budget,
@@ -283,6 +293,9 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
     prefill = PrefillWorker(pre_prog, params, pre_sched)
     decode = DecodeWorker(dec_prog, params, dec_sched, metrics=metrics,
                           on_token=on_token, record_logits=record_logits)
+    if ep is not None:
+        from repro_torch.serve.metrics import RoutingEMA
+        decode.routing_ema = RoutingEMA(cfg.n_experts, decay=ep.ema_decay)
     transfer = KVTransferEngine(chunk_pages=transfer_chunk_pages,
                                 link_bw=link_bw, latency_s=latency_s)
     return DisaggController(prefill, decode, transfer, metrics=metrics)

@@ -180,6 +180,8 @@ class DecodeWorker:
         self._topp = np.ones((B,), np.float32)
         self._ptab = np.full((B, program.max_pages), -1, np.int32)
         self.page_peak = 0
+        # EP decode: the controller attaches a RoutingEMA here (§11)
+        self.routing_ema = None
 
     @property
     def allocator(self):
@@ -373,10 +375,15 @@ class DecodeWorker:
         """One batched decode step over all live slots."""
         with obs_trace.TRACER.span(self.track, "decode",
                                    n_active=int(self._active.sum())):
-            self.state, nxt, logits = self.p.decode_step(
+            out = self.p.decode_step(
                 self.params, self.state, self._tok[:, None], self._pos,
                 self._ptab, self._active, self._rid, self._ngen,
                 self._temp, self._topk, self._topp)
+        if self.p.ep is not None:
+            self.state, nxt, logits, counts = out
+            self._on_ep_counts(counts.cpu().numpy())
+        else:
+            self.state, nxt, logits = out
         nxt = nxt.cpu().numpy()
         if self.record_logits:
             logits = logits.cpu().numpy()
@@ -398,6 +405,12 @@ class DecodeWorker:
                 self._pos[slot] += 1
                 self._ngen[slot] += 1
         self.page_peak = max(self.page_peak, self.allocator.pages_in_use)
+
+    def _on_ep_counts(self, counts) -> None:
+        """Routing-histogram hook (EP decode program, DESIGN.md §11):
+        the controller attaches a RoutingEMA here when EP is enabled."""
+        if self.routing_ema is not None:
+            self.routing_ema.update(counts)
 
     def _clear_slot(self, slot: int) -> None:
         self._active[slot] = False

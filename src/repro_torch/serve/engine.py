@@ -26,7 +26,8 @@ the KV caches and pools are updated in place where JAX returns a new
 state (the insert and the COW fork too); the engines keep one
 compute-dtype copy of each weight matrix made at load
 (``stack.compute_params``) instead of casting every call. Expert-parallel
-decode is a later slice.
+decode (``ep``, DESIGN.md §11) runs both builds' MoE FFNs through
+``serve.ep_decode``'s EP hop over an ``EPGroup`` instead of a mesh.
 """
 
 from __future__ import annotations
@@ -167,6 +168,11 @@ class ContinuousProgram:
 
     Both: sample_step(logits[N,V], rids, ngen, temp, topk, topp) -> [N].
     Step inputs may be numpy arrays; outputs are tensors on ``device``.
+
+    EP decode (DESIGN.md §11): with ``ep`` set, params must be placed
+    (``serve.ep_decode.place_params`` under ``ep_group``) and decode_step
+    returns a 4th output, the per-layer routed-copy histogram [n_rows,
+    n_experts] (f32, on ``device``) that feeds the placement EMA.
     """
 
     cfg: ModelConfig
@@ -186,15 +192,25 @@ class ContinuousProgram:
     page_size: int = 0
     n_pages: int = 0
     max_pages: int = 0       # page-table slots per request
+    ep: object = None        # serve.ep_decode.EPDecodeConfig
+    ep_group: object = None  # its core.zebra_spmd.EPGroup
 
 
 def make_continuous_program(cfg: ModelConfig, run: RunConfig, serve_cfg, *,
-                            device="cuda") -> ContinuousProgram:
+                            device="cuda", ep=None,
+                            ep_group=None) -> ContinuousProgram:
     """Build the engine's steps. ``serve_cfg`` (a
     :class:`repro_torch.serve.config.ServeConfig`) supplies slots, max_len
     and seed; with ``paged.enabled`` the paged build, whose page geometry
     it also supplies (``paged.pool_pages`` defaults to full reservation
-    capacity, slots x pages per sequence), else the dense build."""
+    capacity, slots x pages per sequence), else the dense build.
+
+    MoE FFNs take the dropless gather path (``apply_moe``). With ``ep`` (a
+    ``serve.ep_decode.EPDecodeConfig``) over ``ep_group`` (a
+    ``core.zebra_spmd.EPGroup``; None: one rank) expert weights are
+    instead sharded over the EP ranks and the MoE hop runs the chunked
+    all-to-all dispatch (DESIGN.md §11); ``decode_step`` then returns a
+    4th output, the per-layer routed-copy histogram."""
     if cfg.is_encdec or cfg.vision_seq > 0:
         raise ValueError("continuous batching supports decoder-only LMs")
     device = torch.device(device)
@@ -202,10 +218,41 @@ def make_continuous_program(cfg: ModelConfig, run: RunConfig, serve_cfg, *,
         return _make_paged_program(
             cfg, run, n_slots=serve_cfg.slots, max_len=serve_cfg.max_len,
             seed=serve_cfg.seed, page_size=serve_cfg.paged.page_size,
-            n_pages=serve_cfg.paged.pool_pages, device=device)
+            n_pages=serve_cfg.paged.pool_pages, device=device, ep=ep,
+            ep_group=ep_group)
     return _make_dense_program(cfg, run, n_slots=serve_cfg.slots,
                                max_len=serve_cfg.max_len,
-                               seed=serve_cfg.seed, device=device)
+                               seed=serve_cfg.seed, device=device, ep=ep,
+                               ep_group=ep_group)
+
+
+class _EPHooks:
+    """A program build's EP lines (``repro/serve/engine.py:348-356``):
+    the prefill override, the decode override over the live-slot mask, and
+    the decode step's extra aux key. Without ``ep`` every hook is off."""
+
+    def __init__(self, cfg: ModelConfig, run: RunConfig, ep, ep_group):
+        self.ep = ep
+        self.group = None
+        if ep is None:
+            return
+        from repro_torch.core.zebra_spmd import EPGroup
+        from repro_torch.serve import ep_decode as epd
+        self.group = ep_group if ep_group is not None else EPGroup()
+        epd.validate_ep_config(cfg, self.group, ep)
+        self.moe = epd.make_ep_moe_decode(cfg, run, ep, self.group)
+        self.extras = (("ep_counts", (cfg.n_experts,)),)
+        self.prefill = epd.moe_override_for(self.moe)
+        self._override = epd.moe_override_for
+
+    def prefill_kw(self) -> dict:
+        return {} if self.ep is None else {"moe_override": self.prefill}
+
+    def decode_kw(self, active) -> dict:
+        if self.ep is None:
+            return {}
+        return {"moe_override": self._override(self.moe, active),
+                "aux_extras": self.extras, "layer_aux": True}
 
 
 def _sampler(seed: int, device: torch.device) -> Callable:
@@ -228,8 +275,8 @@ def _sampler(seed: int, device: torch.device) -> Callable:
 
 
 def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
-                        max_len: int, seed: int,
-                        device: torch.device) -> ContinuousProgram:
+                        max_len: int, seed: int, device: torch.device,
+                        ep=None, ep_group=None) -> ContinuousProgram:
     """Dense program (the JAX engine's default build): each slot owns a
     contiguous [max_len] KV reservation (a ring on sliding-window layers).
     A prompt prefills chunk by chunk into a batch-1 state that attends
@@ -242,6 +289,7 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
     B = n_slots
     dtype = run.policy.compute_dtype
     sample = _sampler(seed, device)
+    eph = _EPHooks(cfg, run, ep, ep_group)
 
     def dev(x, dt=None):
         return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
@@ -254,7 +302,7 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         hidden, pstate, _ = stack.apply_model(
             params, cfg, run, dev(tokens, torch.int64), decode_state=pstate,
             cache_index=int(offset), attend_to_cache=True,
-            return_hidden=True)
+            return_hidden=True, **eph.prefill_kw())
         return pstate, apply_unembedding(
             params["embed"], params.get("lm_head"), cfg, run.policy,
             hidden[:, -1]).float()
@@ -276,13 +324,16 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
     def decode(params, state, tok, pos, active, rids, ngen, temp, topk,
                topp):
         """One decode step for every slot; dead slots (pos < 0) write no
-        cache lines and emit token 0."""
-        logits, state, _ = stack.apply_model(
+        cache lines and emit token 0. Under EP the per-layer routed-copy
+        histogram rides along as a 4th output."""
+        live = dev(active, torch.bool)
+        logits, state, aux = stack.apply_model(
             params, cfg, run, dev(tok, torch.int64), decode_state=state,
-            cache_index=dev(pos, torch.int32))
+            cache_index=dev(pos, torch.int32), **eph.decode_kw(live))
         last = logits[:, -1].float()
         nxt = sample(last, rids, ngen, temp, topk, topp)
-        return state, torch.where(dev(active, torch.bool), nxt, 0), last
+        out = (state, torch.where(live, nxt, 0), last)
+        return out + (aux["per_layer"]["ep_counts"],) if ep else out
 
     return ContinuousProgram(
         cfg=cfg, run=run, device=device, n_slots=B, max_len=max_len,
@@ -291,13 +342,14 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         init_state=lambda: stack.init_decode_state(cfg, B, max_len, dtype,
                                                    device),
         init_pstate=lambda: stack.init_decode_state(cfg, 1, max_len, dtype,
-                                                    device))
+                                                    device),
+        ep=ep, ep_group=eph.group)
 
 
 def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
                         max_len: int, seed: int, page_size: int,
-                        n_pages: int | None,
-                        device: torch.device) -> ContinuousProgram:
+                        n_pages: int | None, device: torch.device,
+                        ep=None, ep_group=None) -> ContinuousProgram:
     """Paged-KV program (DESIGN.md §9.4): KV never moves at admission or
     recycling — prefill scatters straight into the request's pool pages,
     the insert step copies only the batch-1 recurrent carry, and freeing is
@@ -309,6 +361,7 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         raise ValueError("pool smaller than one sequence")
     dtype = run.policy.compute_dtype
     sample = _sampler(seed, device)
+    eph = _EPHooks(cfg, run, ep, ep_group)
 
     def dev(x, dt=None):
         return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
@@ -326,7 +379,7 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         hidden, new_merged, _ = stack.apply_model(
             params, cfg, run, dev(tokens, torch.int64), decode_state=merged,
             cache_index=int(offset), return_hidden=True,
-            page_table=dev(ptrow, torch.int32))
+            page_table=dev(ptrow, torch.int32), **eph.prefill_kw())
         kv_n, prec_n = stack.split_kv_state(new_merged)
         return (stack.merge_kv_state(kv_n, rec_s), prec_n,
                 unembed(params, hidden[:, -1]))
@@ -348,15 +401,17 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
     def decode(params, state, tok, pos, ptabs, active, rids, ngen, temp,
                topk, topp):
         """One decode step for every slot; dead slots (pos < 0) write no
-        cache lines and emit token 0."""
-        logits, state, _ = stack.apply_model(
+        cache lines and emit token 0. Under EP the per-layer routed-copy
+        histogram rides along as a 4th output."""
+        live = dev(active, torch.bool)
+        logits, state, aux = stack.apply_model(
             params, cfg, run, dev(tok, torch.int64), decode_state=state,
             cache_index=dev(pos, torch.int32),
-            page_table=dev(ptabs, torch.int32))
+            page_table=dev(ptabs, torch.int32), **eph.decode_kw(live))
         last = logits[:, -1].float()
         nxt = sample(last, rids, ngen, temp, topk, topp)
-        nxt = torch.where(dev(active, torch.bool), nxt, 0)
-        return state, nxt, last
+        out = (state, torch.where(live, nxt, 0), last)
+        return out + (aux["per_layer"]["ep_counts"],) if ep else out
 
     @torch.inference_mode()
     def fork(state, src, dst):
@@ -377,7 +432,7 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         init_prec=lambda: stack.split_kv_state(
             stack.init_decode_state(cfg, 1, 1, dtype, device))[1],
         paged=True, page_size=page_size, n_pages=n_pages,
-        max_pages=max_pages)
+        max_pages=max_pages, ep=ep, ep_group=eph.group)
 
 
 def _copy_into_slot(dst, src, slot: int, axis: int):
@@ -647,10 +702,15 @@ class ContinuousBatchingEngine:
 
     def _decode_once(self) -> None:
         ptab = (self._ptab,) if self.p.paged else ()
-        self.state, nxt, logits = self.p.decode_step(
+        out = self.p.decode_step(
             self.params, self.state, self._tok[:, None], self._pos, *ptab,
             self._active, self._rid, self._ngen, self._temp, self._topk,
             self._topp)
+        if self.p.ep is not None:
+            self.state, nxt, logits, counts = out
+            self._on_ep_counts(counts.cpu().numpy())
+        else:
+            self.state, nxt, logits = out
         self.n_decode_steps += 1
         nxt = nxt.cpu().numpy()
         if self.record_logits:
@@ -672,6 +732,11 @@ class ContinuousBatchingEngine:
                 self._tok[slot] = tok
                 self._pos[slot] += 1
                 self._ngen[slot] += 1
+
+    def _on_ep_counts(self, counts) -> None:
+        """Routing-histogram hook (EP decode): overridden by
+        ``serve.ep_decode.EPContinuousBatchingEngine`` to feed the
+        placement EMA; a plain engine driving an EP program drops them."""
 
     def _clear_slot(self, slot: int) -> None:
         self._active[slot] = False

@@ -32,7 +32,8 @@ infra = ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
          "repro_torch.serve.disagg.workers",
          "repro_torch.serve.disagg.controller", "repro_torch.serve.fleet",
          "repro_torch.serve.fleet.controller",
-         "repro_torch.serve.fleet.router", "repro_torch.serve.fleet.sim")
+         "repro_torch.serve.fleet.router", "repro_torch.serve.fleet.sim",
+         "repro_torch.serve.ep_decode")
 assert set(infra) <= set(mods) and set(infra) <= set(sys.modules), mods
 print(len(mods), bad)
 assert not bad, bad
@@ -67,12 +68,12 @@ def test_core_package_imports_no_jax_and_no_repro():
     "launch.hetero_mpmd", "checkpoint", "obs", "ft",
     "train.compression", "ft.chaos", "serve.prefix_index",
     "serve.kv_transfer", "serve.disagg", "serve.disagg.workers",
-    "serve.disagg.controller"])
+    "serve.disagg.controller", "serve.ep_decode"])
 def test_planning_and_mpmd_modules_import_no_jax_and_no_repro(module):
     """Each planning copy, the MPMD engine and its entry point, each piece
     of training infrastructure (checkpointing, observability, fault
     tolerance, gradient compression) and each serving module of the prefix
-    cache and the disaggregated deployment alone, with the modules it
+    cache, the disaggregated deployment and expert-parallel decode alone, with the modules it
     pulls in, leave jax and the JAX package out."""
     script = (f"import sys, repro_torch.{module}\n"
               "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -129,16 +129,19 @@ def test_driver_serves_on_cpu(capsys):
 
 @pytest.mark.parametrize("extra,named", [
     (["--fleet", "--disagg"], "--fleet and --disagg are mutually exclusive"),
-    (["--ep-size", "2"], "--ep-size"),
+    (["--ep-size", "2"],
+     "bad EP config: ep_size 2 != mesh axis 'model' size 1"),
     (["--kill-group", "1@2"], "--kill-group requires --fleet"),
     (["--fleet", "--prefix-cache"],
      "--prefix-cache is not supported with --fleet"),
     (["--slo-ttft", "1.0"], "--slo-ttft requires --fleet"),
-    (["--ep-placement", "planned"], "--ep-placement"),
+    (["--ep-size", "1", "--fleet"],
+     "--ep-size is not supported with --fleet"),
     (["--arch", "mamba2-2.7b"], "--arch mamba2-2.7b (recurrent ssd")])
 def test_driver_rejects_unported_flags(capsys, extra, named):
-    """Unported flags (expert-parallel decode, recurrent archs) and the
-    JAX driver's invalid combinations, with its messages: one ``[serve]
+    """Unported flags (recurrent archs) and the JAX driver's invalid
+    combinations (expert-parallel decode over more ranks than the driver's
+    one, or with the fleet, among them), with its messages: one ``[serve]
     invalid configuration:`` line that names them, exit 1."""
     assert serve_mod.main(SMOKE_ARGS + ["--device", "cpu"] + extra) == 1
     err = capsys.readouterr().err.strip().splitlines()

@@ -271,8 +271,13 @@ def test_sampled_disagg_equals_sampled_unified(setup):
 
 
 def test_make_disagg_refuses_expert_parallel_decode(setup):
-    with pytest.raises(ValueError, match="expert-parallel decode"):
-        _port_disagg(setup, ep=object())
+    """EP decode over more ranks than the deployment has (two on one) is
+    refused with the JAX package's message; EP itself is served
+    (``tests/test_torch_serve_ep.py``)."""
+    from repro_torch.serve.ep_decode import EPDecodeConfig
+    with pytest.raises(ValueError, match="ep_size 2 != mesh axis 'model' "
+                                         "size 1"):
+        _port_disagg(setup, ep=EPDecodeConfig(ep_size=2))
 
 
 def test_driver_serves_disagg_with_the_jax_sections(capsys):

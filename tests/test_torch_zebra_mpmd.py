@@ -320,3 +320,58 @@ def test_profile_finds_the_attention_stream_by_its_marker():
     with pytest.raises(RuntimeError, match="marker"):
         profile_mpmd.attn_expert_overlap_ms(
             SimpleNamespace(events=lambda: events[:-1]))
+
+
+def _span_set(tracer, track="zebra-mpmd"):
+    """The (name, args) of every span opened on ``track``, sorted."""
+    return sorted((ev.name, tuple(sorted(ev.args.items())))
+                  for ev in tracer.events
+                  if ev.track == track and ev.ph == "B")
+
+
+@pytest.mark.parametrize("offload,n_chunks", [(None, 1), ((1, 0), 2)])
+def test_traced_step_emits_jax_spans_and_the_same_bits(jax_inputs, offload,
+                                                       n_chunks):
+    """With the tracer on, a step opens the JAX engine's spans (the same
+    (name, args) multiset on the ``zebra-mpmd`` track, pid ``train``),
+    each complete (the issue order overlaps them), and computes the
+    untraced step's loss and gradients bit for bit."""
+    from repro.obs import trace as jtrace
+
+    from repro_torch.obs import trace as obs_trace
+    jcfg, jparams, tokens, targets = jax_inputs
+    devs = jax.devices()
+    jeng = JZebraMPMD(jcfg, JRUN, attn_devices=devs[:2],
+                      exp_devices=devs[2:6], num_microbatches=2,
+                      offload=offload, n_chunks=n_chunks)
+    ja, je = jeng.shard_params(jparams)
+    with jtrace.use(jtrace.Tracer()) as jtr:
+        jeng.train_step(ja, je, tokens, targets)
+
+    eng = zm.ZebraMPMD(w1(), RUN, ["cpu"], LANES, num_microbatches=2,
+                       offload=offload, n_chunks=n_chunks)
+    attn_side, exp_layers = eng.shard_params(
+        params_from_jax(jax_values_np(jparams)))
+    args = (attn_side, exp_layers, *torch_batch(tokens, targets))
+    plain = eng.train_step(*args)
+    with obs_trace.use(obs_trace.Tracer()) as tr:
+        traced = eng.train_step(*args)
+    assert _span_set(tr) == _span_set(jtr)
+    assert len(_span_set(tr)) == 2 * (2 + 2 * jcfg.n_layers + 1)
+    assert tr.tracks["zebra-mpmd"]["pid"] == "train"
+    ends = [ev for ev in tr.events if ev.ph == "E"]
+    assert len(ends) == len(_span_set(tr))
+    assert all(ev.ts > tr.events[ev.parent].ts for ev in ends)
+    assert torch.equal(plain[0], traced[0])
+    for g0, g1 in zip(_grad_leaves(plain), _grad_leaves(traced)):
+        assert torch.equal(g0, g1)
+
+
+def _grad_leaves(result):
+    """Every gradient tensor of a train_step result, in a fixed order."""
+    _, ga, ge = result
+    out = list(flatten(nonlayer(ga)).values())
+    for l, layer in enumerate(ga["layers"]):
+        out += list(flatten(layer).values())
+        out += [lane[k] for lane in ge[l] for k in zm.EXPERT_KEYS]
+    return out

@@ -119,3 +119,95 @@ def compress_rank_worker(rank: int, world: int, init_file: str, in_path: str,
     np.savez(f"{out_dir}/psum_{rank}.npz", mean=to_np(mean["w"]),
              err=to_np(new_err["w"]))
     dist.destroy_process_group()
+
+
+def ep_decode_rank_worker(rank: int, world: int, init_file: str,
+                          in_path: str, out_dir: str):
+    """One EP rank of the two-rank EP decode test (``torch.multiprocessing``
+    target; imports no jax). Reads the JAX package's smoke
+    qwen3-moe-30b-a3b params (flat, ``p/<path>``), the hop cases and the
+    trace of ``in_path``, joins a gloo group through ``init_file`` and
+    writes to ``out_dir/ep_<rank>.npz``:
+
+    * each hop case's y, ep_counts and aux losses from
+      ``ep_decode.make_ep_moe_decode`` on layer 0 of the params placed for
+      this rank (it holds E / world experts);
+    * the greedy tokens (JSON) of ``EPContinuousBatchingEngine`` at
+      ep_size = world over the group: dense, paged, and paged with a
+      re-balance to the reversed shard order at tick 5, with the EMA's
+      update count and merged distribution."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.core.zebra_mpmd import _unflatten
+    from repro_torch.core.zebra_spmd import EPGroup
+    from repro_torch.models import registry
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.pytree import params_from_jax
+    from repro_torch.serve import (BlockAllocator, PagedCfg, Request,
+                                   Scheduler, ServeConfig,
+                                   make_continuous_program)
+    from repro_torch.serve import ep_decode as epd
+    from repro_torch.serve.sampling import GREEDY
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    group = EPGroup(dist.group.WORLD)
+    cfg = registry.smoke_config(registry.get_config("qwen3-moe-30b-a3b"))
+    run = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    data = np.load(in_path)
+    params = params_from_jax(_unflatten(
+        {k[2:]: data[k] for k in data.files if k.startswith("p/")}))
+    placement = json.loads(str(data["placement"]))
+    out = {}
+    placed = epd.place_params(params, cfg, placement, group)
+    ffn = {k: v[0] for k, v in placed["blocks"]["pos0"]["ffn"].items()}
+    out["experts_held"] = np.asarray(ffn["wi_gate"].shape[0])
+    for case in json.loads(str(data["hop_cases"])):
+        moe_fn = epd.make_ep_moe_decode(
+            cfg, run, epd.EPDecodeConfig(ep_size=world,
+                                         n_chunks=case["Q"]), group)
+        x = torch.from_numpy(data[f"x_{case['name']}"].copy())
+        m = torch.from_numpy(data[f"m_{case['name']}"].copy())
+        with torch.inference_mode():
+            y, aux = moe_fn(ffn, x, m)
+        out[f"y_{case['name']}"] = to_np(y)
+        for k, v in aux.items():
+            out[f"{k}_{case['name']}"] = to_np(v)
+    tokens = {}
+    trace = json.loads(str(data["trace"]))
+    for name, paged, rebalance_at in (("dense", False, None),
+                                      ("paged", True, None),
+                                      ("rebalance", True, 5)):
+        sc = ServeConfig(slots=3, max_len=24, prefill_chunk=4,
+                         paged=PagedCfg(enabled=paged, page_size=4))
+        prog = make_continuous_program(
+            cfg, run, sc, device="cpu", ep_group=group,
+            ep=epd.EPDecodeConfig(ep_size=world, n_chunks=2))
+        alloc = BlockAllocator(prog.n_pages, prog.page_size,
+                               prog.max_pages) if paged else None
+        eng = epd.EPContinuousBatchingEngine(
+            prog, params, Scheduler(3, 24, prefill_chunk=4,
+                                    allocator=alloc))
+        pending = [Request(rid=r["rid"], prompt=r["prompt"],
+                           max_new_tokens=r["gen"], sampling=GREEDY,
+                           arrival=r["arrival"]) for r in trace]
+        n = 0
+        while pending or eng.sched.has_work() or eng._active.any():
+            while pending and pending[0].arrival <= eng.tick_count:
+                eng.submit(pending.pop(0))
+            eng.tick()
+            n += 1
+            if n == rebalance_at:
+                assert eng.rebalance(tuple(reversed(eng.placement)))
+        tokens[name] = {"results": {str(k): v for k, v in
+                                    eng.results.items()},
+                        "n_rebalances": eng.n_rebalances,
+                        "ema_updates": eng.ema.n_updates,
+                        "ema_merged": eng.ema.merged().tolist(),
+                        "experts_held": int(eng.params["blocks"]["pos0"][
+                            "ffn"]["wi_gate"].shape[1])}
+    np.savez(f"{out_dir}/ep_{rank}.npz", tokens=json.dumps(tokens), **out)
+    dist.destroy_process_group()
