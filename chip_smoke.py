@@ -100,6 +100,30 @@ full depth, with random weights from seed 0:
   dense (no ``--paged``); (e) ``--disagg`` with the 34-page decode pool;
   then ``ep_tiles``: the GLU and bf16 ``gmm`` at the EP decode chunk (24
   x 8 rows, block_m 8) and prefill chunk (24 x 128 rows) layouts.
+* serve_rgemma: ``recurrentgemma-9b`` (38 layers: 12 x (RG-LRU, RG-LRU,
+  local attention with a 2048-line window) + 2 RG-LRU; d_model 4096,
+  lru_width 4096, MQA 16 x 256, a tied 256000 vocab; 9.40 B params) on
+  the serve trace plus one request with a 2304-token prompt (the dense
+  ring wraps, paged decode masks by the window): (a) dense (the driver's
+  default), (b) ``--paged``, (d) ``--disagg``, each in bf16; then (c)
+  dense and paged under the f32 policy, first-token logits recorded.
+* serve_mamba2: ``mamba2-2.7b`` on the serve trace: (a) dense, (b)
+  ``--paged``, (d) ``--disagg`` (every chunk checksum recorded), in
+  bf16; (c) ``--paged`` under the f32 policy, first-token logits
+  recorded. The engines' SSD prefill and decode run
+  ``ref.ssd_decode_step`` (the reference's route; no kernel), the
+  cache-free forward they are held against the SSD scan kernel.
+* train_rgemma: the train driver on ``recurrentgemma-9b`` at full width
+  cut to 5 layers (one repeat of the pattern and the 2-layer RG-LRU
+  tail: 2.17 B params, ~35 GB of params, gradients and AdamW moments;
+  the 38 layers would need ~150 GB), one untimed warm-up step, then 3
+  steps of batch 2 x seq 4096 (the window bites).
+* rglru_scan: the port's RG-LRU scan (``modules._lru_scan``, a doubling
+  scan in plain torch) at [2, 4096, 4096] f32 with an h0 against a
+  sequential loop, timed forward and backward beside its byte bounds.
+* paged_rgemma: paged decode at recurrentgemma's heads (KH 1, G 16, hd
+  256) and window on 4 slots of 146 table slots, three past the window,
+  in bf16 and f32.
 
 It fails unless:
 
@@ -257,7 +281,23 @@ It fails unless:
   tier of its plain version on the tensor-core design;
 * train_mpmd: one step traced (``obs.trace.Tracer`` installed) is bitwise
   the untraced step, loss and every gradient leaf, with the reference's
-  spans (R embed, head and embed^B, R * L F and B).
+  spans (R embed, head and embed^B, R * L F and B);
+* serve_rgemma: every request of every run finishes, the allocators
+  clean (both checked every tick under disagg), paged decode launched
+  exactly 12 times (the local-attention layers) a decode step in the
+  paged and disagg runs and never in the dense one, transfers =
+  requests + re-prefills; under f32 every request's first-token logits
+  within 1e-3 * max|logit| of the cache-free forward, the dense
+  engine's within 1e-5 * max of the paged engine's, and the dense and
+  paged tokens equal or diverging at a top-2 margin within 1e-4 *
+  max|logit|;
+* serve_mamba2: every request finishes, the allocators clean, the
+  disagg transfers = requests + re-prefills with 0 KV bytes and every
+  chunk's checksum 0 (the CRC of an empty payload); under f32 every
+  first-token logit within 1e-3 * max|logit| of the cache-free forward;
+* train_rgemma: every loss and grad norm finite;
+* rglru_scan: the scan within 1e-5 * max|loop| of the loop; paged_rgemma
+  at the paged decode tiers above.
 
 One untimed warm-up request (its own engine) and one untimed warm-up train
 step (its own model; the zebra run has its own too) run before the timed
@@ -289,7 +329,9 @@ shape, with ``fma_ms``: the FMA dq or dk/dv kernel that the tensor-core
 design replaced, timed on the same bf16 inputs), ssd_cases (with
 ``fma_ms`` on the tensor-core design), ssd_grad, train_zebra, zebra_a2a,
 zebra_equal, zebra_streams, zebra_tiles, train_mpmd, mpmd_chunks,
-mpmd_equal and mpmd_streams lines, and last
+mpmd_equal and mpmd_streams lines (the serve_rgemma, serve_mamba2,
+train_rgemma, rglru_scan and paged_rgemma lines print as their phases
+end, before the kernels line), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -441,6 +483,29 @@ FP32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 TOL_BF16 = 2e-2             # the bf16 tier of tests/test_kernels.py:40
 TOL_F32 = 1e-4              # f32 outputs: sum order only
 PARITY_REL = 1e-3
+# The recurrent archs (RG-LRU and SSD mixers), served at full width and
+# depth on the serve trace. recurrentgemma-9b's trace gains one request
+# whose prompt passes its 2048-line window (the dense ring wraps, paged
+# decode masks by the window): max_len = 2304 + 32.
+RGEMMA = "recurrentgemma-9b"
+MAMBA2 = "mamba2-2.7b"
+LONG_PROMPT = 2304
+RGEMMA_PAGED_ARGS = SERVE_ARGS + ["--arch", RGEMMA, "--prompt-len",
+                                  str(LONG_PROMPT)]
+RGEMMA_DENSE_ARGS = [a for a in RGEMMA_PAGED_ARGS if a != "--paged"]
+RGEMMA_DISAGG_ARGS = RGEMMA_DENSE_ARGS + ["--disagg"]
+RGEMMA_ATTN_LAYERS = 12     # local_attn layers: paged decode launches a step
+MAMBA2_PAGED_ARGS = SERVE_ARGS + ["--arch", MAMBA2]
+MAMBA2_DENSE_ARGS = [a for a in MAMBA2_PAGED_ARGS if a != "--paged"]
+MAMBA2_DISAGG_ARGS = MAMBA2_DENSE_ARGS + ["--disagg"]
+# recurrentgemma-9b trained at full width cut to 5 layers: one repeat of
+# (rglru, rglru, local_attn) and the 2-layer rglru tail (2.17 B params,
+# ~35 GB of f32 params, gradients and AdamW moments; the 38 layers' 9.40 B
+# would need ~150 GB), batch 2 x seq 4096 so that the window bites
+RGEMMA_TRAIN_LAYERS = 5
+RGEMMA_TRAIN_ARGS = ["--arch", RGEMMA, "--mesh", "1x1", "--steps", "3",
+                     "--batch", "2", "--seq", "4096"]
+RGLRU_SCAN_SHAPE = (2, 4096, 4096)   # the train run's [B, S, lru_width]
 
 
 _SPIN_CYCLES_PER_MS = []
@@ -714,13 +779,14 @@ def check_gmm_kernels(torch, cfg):
 
 
 def paged_case(torch, cfg, label: str, B: int, MP: int, q_pos, dtype,
-               seed: int):
+               seed: int, window: int = 0):
     """Paged decode (the split kernel) against its plain version at
     ``cfg``'s heads on B slots of MP table slots of 16 lines (a pool of B *
     MP pages, shuffled), table slots past each slot's frontier ``q_pos``
-    -1: bf16 per slot at the bf16 tier, f32 at 1e-4 * max|plain|; its
-    time, host time, split count, the plain version's time and the byte
-    bound of the live lines."""
+    -1, keys more than ``window`` positions back masked (0: none): bf16
+    per slot at the bf16 tier, f32 at 1e-4 * max|plain|; its time, host
+    time, split count, the plain version's time and the byte bound of the
+    live lines (those inside the window)."""
     from repro_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -734,7 +800,7 @@ def paged_case(torch, cfg, label: str, B: int, MP: int, q_pos, dtype,
     q_pos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
     for b, p in enumerate(q_pos.tolist()):  # pages past the frontier: -1
         table[b, p // ps + 1:] = -1
-    kw = dict(scale=hd ** -0.5)
+    kw = dict(scale=hd ** -0.5, window=window)
     got = pa.paged_decode_forward(q, kp, vp, table, q_pos, **kw)
     want = pa.paged_decode_plain(q, kp, vp, table, q_pos, **kw)
     torch.cuda.synchronize()
@@ -744,7 +810,7 @@ def paged_case(torch, cfg, label: str, B: int, MP: int, q_pos, dtype,
     ok = ok and torch.equal(
         pa.paged_decode_forward(q, kp, vp, table, q_pos, **kw), got)
     del got, want
-    lines = sum(p + 1 for p in q_pos.tolist())
+    lines = sum(min(p + 1, window or p + 1) for p in q_pos.tolist())
     es = q.element_size()
     # no tensor cores: the FMA pipe's peak (the bytes bound it anyway)
     t_bound, by = bound(es * (2 * q.numel() + 2 * lines * KH * hd),
@@ -766,6 +832,7 @@ def paged_case(torch, cfg, label: str, B: int, MP: int, q_pos, dtype,
         "shapes": {"case": label, "q": list(q.shape),
                    "pools": list(kp.shape), "table": list(table.shape),
                    "dtype": str(dtype).replace("torch.", ""),
+                   "window": window, "q_pos": q_pos.tolist(),
                    "live_lines": lines, "splits": plan["splits"],
                    "pages_per_split": plan["pages_per_split"],
                    "bytes_needed": es * (2 * q.numel()
@@ -2765,10 +2832,11 @@ def train_trace_phase(torch, train_mod, smi: str, zebra_line: dict):
 # -- the serving deployments: prefix cache, disaggregation, tracing ----------
 
 def serve_run(torch, serve_mod, argv, *, params, trace=None, run=None,
-              hook=None, tracer=None):
-    """One serve-driver run of ``argv`` on W2 (``serve_arch``) on the
-    given params, the launch counters set to 0 just before and read just
-    after. ``hook(engine)`` runs on the built deployment; ``tracer`` (an
+              hook=None, tracer=None, arch="mixtral-w2"):
+    """One serve-driver run of ``argv`` on ``arch`` (default W2; through
+    ``serve_arch``, at the arch's full depth) on the given params, the
+    launch counters set to 0 just before and read just after.
+    ``hook(engine)`` runs on the built deployment; ``tracer`` (an
     ``obs.trace.Tracer``) is installed around the run. Returns (summary,
     counts, engine, printed text)."""
     import contextlib
@@ -2787,8 +2855,8 @@ def serve_run(torch, serve_mod, argv, *, params, trace=None, run=None,
     with contextlib.redirect_stdout(tee), (
             obs_trace.use(tracer) if tracer is not None
             else contextlib.nullcontext()):
-        s = serve_mod.serve_arch("mixtral-w2", args, trace=trace,
-                                 params=params, run=run, engine_hook=keep)
+        s = serve_mod.serve_arch(arch, args, trace=trace, params=params,
+                                 run=run, engine_hook=keep)
     torch.cuda.synchronize()
     return s, driver_counts(kernels), box["engine"], "".join(tee.lines)
 
@@ -3439,6 +3507,358 @@ def serve_ep_phase(torch, serve_mod, params, smi: str):
     return line, counts, d_counts, e_counts
 
 
+# -- the recurrent archs: RG-LRU and SSD mixers (ROADMAP A8) ----------------
+
+def recurrent_trace(serve_mod, cfg, long_prompt: int = 0):
+    """The serve trace (SERVE_ARGS' 6 requests) on ``cfg``'s vocabulary,
+    plus, with ``long_prompt``, one request of that many seeded tokens
+    arriving with the last one."""
+    import torch
+
+    from repro_torch.serve import Request, ServeConfig
+    args = serve_mod.build_parser().parse_args(SERVE_ARGS)
+    sampling = ServeConfig.from_args(args).sampling
+    trace = serve_mod.build_trace(args.seed, args.requests, args.rate,
+                                  args.prompt_len, args.gen, cfg.vocab_size,
+                                  sampling)
+    if long_prompt:
+        gen = torch.Generator().manual_seed(7)
+        trace.append(Request(
+            rid=len(trace), prompt=torch.randint(
+                0, cfg.vocab_size, (long_prompt,), generator=gen).tolist(),
+            max_new_tokens=args.gen, sampling=sampling,
+            arrival=trace[-1].arrival))
+    return trace
+
+
+def decode_bytes(params) -> int:
+    """Bytes of the tree a decode step reads once: the compute-dtype
+    matrices (``stack._COMPUTE_LEAVES``) in bf16, every other leaf
+    (norms, the RG-LRU gates w_i / w_a cast to f32 at use, the SSD's
+    A_log, D, dt_bias) in f32."""
+    from repro_torch.models import stack
+
+    def walk(tree):
+        return sum(walk(v) if isinstance(v, dict)
+                   else v.numel() * (2 if k in stack._COMPUTE_LEAVES else 4)
+                   for k, v in tree.items())
+    return walk(params)
+
+
+def count_decode_steps(worker, box: dict) -> None:
+    """Count the decode steps of ``worker``'s program in ``box["steps"]``
+    (a disaggregated decode worker keeps no count of its own)."""
+    step = worker.p.decode_step
+
+    def counted(*a, **kw):
+        box["steps"] += 1
+        return step(*a, **kw)
+    worker.p.decode_step = counted
+
+
+def recording_crcs(crcs: list):
+    """Record every chunk checksum the KV transfer computes in ``crcs``;
+    returns the function that removes the recorder."""
+    from repro_torch.serve import kv_transfer
+    crc = kv_transfer._tree_crc
+
+    def recorded(payload):
+        crcs.append(crc(payload))
+        return crcs[-1]
+    kv_transfer._tree_crc = recorded
+    return lambda: setattr(kv_transfer, "_tree_crc", crc)
+
+
+def recurrent_f32_runs(torch, serve_mod, params, cfg, arch, runs, trace):
+    """The f32 runs of ``runs`` ({label: argv}) with first-token logits
+    recorded, each request's against the cache-free forward on its prompt
+    (computed once a request): (per label: summary ok, first rows,
+    results), {label: {rid: rel}}."""
+    from repro_torch.models import stack
+    from repro_torch.models.modules import (Policy, RunConfig,
+                                            apply_unembedding)
+    run32 = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    out = {}
+    for label, argv in runs.items():
+        s, _, eng, _ = serve_run(
+            torch, serve_mod, argv, params=params, trace=trace(), run=run32,
+            hook=lambda e: setattr(e, "record_logits", True), arch=arch)
+        out[label] = (s["ok"], {rid: rows[0]
+                                for rid, rows in eng.logits.items()},
+                      dict(eng.results))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = {label: {} for label in runs}
+    for r in trace():
+        with torch.inference_mode():
+            ref, _, _ = stack.apply_model(
+                params, cfg, run32, torch.tensor([r.prompt], device="cuda"),
+                return_hidden=True)
+            ref = apply_unembedding(params["embed"], params.get("lm_head"),
+                                    cfg, run32.policy, ref[:, -1])[0].float()
+        for label in runs:
+            got = torch.from_numpy(out[label][1][r.rid]).cuda()
+            rel[label][r.rid] = float((got - ref).abs().max()) \
+                / float(ref.abs().max())
+    return out, rel, run32
+
+
+def serve_rgemma_phase(torch, serve_mod, smi: str):
+    """recurrentgemma-9b at full width and depth (38 layers: 24 RG-LRU,
+    12 local attention with a 2048-line window; 9.40 B params, seed 0) on
+    the serve trace plus a 2304-token prompt: (a) dense, the driver's
+    default, (b) ``--paged``, (d) ``--disagg``, each in bf16, the
+    main-path runs (counted); then (c) dense and paged under the f32
+    policy, first-token logits recorded. Paged decode launches 12 a decode
+    step in (b) and (d), none in (a)."""
+    from repro_torch.models import registry, stack
+    from repro_torch.pytree import flatten
+    cfg = registry.get_config(RGEMMA)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = stack.init_model(gen, cfg, device="cuda")
+    n_params = sum(v.numel() for v in flatten(params).values())
+
+    def trace():
+        return recurrent_trace(serve_mod, cfg, LONG_PROMPT)
+    counts, steps, lines = {}, {}, {}
+    for label, argv in (("dense", RGEMMA_DENSE_ARGS),
+                        ("paged", RGEMMA_PAGED_ARGS)):
+        s, c, eng, _ = serve_run(torch, serve_mod, argv, params=params,
+                                 trace=trace(), arch=RGEMMA)
+        counts[label], steps[label] = c, eng.n_decode_steps
+        lines[label] = dict(serve_numbers(s, c),
+                            decode_steps=eng.n_decode_steps,
+                            prefill_chunks=eng.n_prefill_chunks)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    box = {"steps": 0}
+
+    def disagg_hook(ctl):
+        checked_every_tick(ctl)
+        count_decode_steps(ctl.decode, box)
+    s_g, counts["disagg"], ctl, _ = serve_run(
+        torch, serve_mod, RGEMMA_DISAGG_ARGS, params=params, trace=trace(),
+        hook=disagg_hook, arch=RGEMMA)
+    st, d = ctl.transfer.stats, s_g["disagg"]
+    steps["disagg"] = box["steps"]
+    lines["disagg"] = dict(serve_numbers(s_g, counts["disagg"]),
+                           decode_steps=box["steps"], sections=d,
+                           transfer={"pages": st.n_pages, "bytes": st.bytes})
+    del ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32, rel, run32 = recurrent_f32_runs(
+        torch, serve_mod, params, cfg, RGEMMA,
+        {"dense": RGEMMA_DENSE_ARGS, "paged": RGEMMA_PAGED_ARGS}, trace)
+    dp = {rid: float(abs(f32["dense"][1][rid] - row).max())
+          / float(abs(row).max()) for rid, row in f32["paged"][1].items()}
+    div = first_divergence(torch, params, cfg, run32, trace(),
+                           f32["dense"][2], f32["paged"][2])
+    bound_ms = decode_bytes(params) / HBM_BYTES_PER_S * 1e3
+    del params
+    launches = {k: c["paged_decode"] for k, c in counts.items()}
+    want = {"dense": 0, "paged": RGEMMA_ATTN_LAYERS * steps["paged"],
+            "disagg": RGEMMA_ATTN_LAYERS * steps["disagg"]}
+    line = {"arch": RGEMMA, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "params": n_params,
+            "long_prompt": LONG_PROMPT, "window": cfg.window, **lines,
+            "paged_decode_launches": launches,
+            "paged_decode_expected": want,
+            "itl_bound_ms": bound_ms,
+            "f32": {"ok": f32["dense"][0] and f32["paged"][0],
+                    "first_logits_vs_forward": rel,
+                    "worst_vs_forward": max(max(v.values())
+                                            for v in rel.values()),
+                    "limit_vs_forward": PARITY_REL,
+                    "dense_vs_paged": dp, "worst_dense_vs_paged": max(
+                        dp.values()), "limit_dense_vs_paged": DENSE_REL,
+                    "greedy_equal": f32["dense"][2] == f32["paged"][2],
+                    "first_divergence": div}}
+    line["ok"] = bool(
+        all(v["ok"] for v in lines.values()) and line["f32"]["ok"]
+        and launches == want and steps["paged"] > 0
+        and d["kv_transfers"] == s_g["n_requests"] + d["n_preempted"]
+        and line["f32"]["worst_vs_forward"] <= PARITY_REL
+        and line["f32"]["worst_dense_vs_paged"] <= DENSE_REL
+        and (div is None or div["margin_rel"] <= F32_TIER))
+    return line, counts
+
+
+def serve_mamba2_phase(torch, serve_mod, smi: str):
+    """mamba2-2.7b at full width and depth (64 SSD layers, seed 0) on the
+    serve trace: (a) dense, (b) ``--paged`` and (d) ``--disagg`` in bf16,
+    the main-path runs (counted; the engines' SSD prefill and decode run
+    ``ref.ssd_decode_step``, the reference's route, no kernel), (d) with
+    every chunk checksum recorded; then (c) ``--paged`` under the f32
+    policy, first-token logits against the cache-free forward (through the
+    SSD scan kernel)."""
+    from repro_torch.models import registry, stack
+    cfg = registry.get_config(MAMBA2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = stack.init_model(gen, cfg, device="cuda")
+
+    def trace():
+        return recurrent_trace(serve_mod, cfg)
+    counts, lines = {}, {}
+    for label, argv in (("dense", MAMBA2_DENSE_ARGS),
+                        ("paged", MAMBA2_PAGED_ARGS)):
+        s, c, eng, _ = serve_run(torch, serve_mod, argv, params=params,
+                                 trace=trace(), arch=MAMBA2)
+        counts[label] = c
+        lines[label] = dict(serve_numbers(s, c),
+                            decode_steps=eng.n_decode_steps,
+                            prefill_chunks=eng.n_prefill_chunks)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    crcs = []
+    undo = recording_crcs(crcs)
+    try:
+        s_g, counts["disagg"], ctl, _ = serve_run(
+            torch, serve_mod, MAMBA2_DISAGG_ARGS, params=params,
+            trace=trace(), hook=checked_every_tick, arch=MAMBA2)
+    finally:
+        undo()
+    st, d = ctl.transfer.stats, s_g["disagg"]
+    lines["disagg"] = dict(serve_numbers(s_g, counts["disagg"]),
+                           sections=d, transfer={
+                               "transfers": st.n_transfers,
+                               "chunks": st.n_chunks, "pages": st.n_pages,
+                               "bytes": st.bytes, "crcs": len(crcs),
+                               "crc_values": sorted(set(crcs))})
+    del ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32, rel, _ = recurrent_f32_runs(torch, serve_mod, params, cfg, MAMBA2,
+                                     {"paged": MAMBA2_PAGED_ARGS}, trace)
+    ssm = 2 * cfg.n_layers * 4 * cfg.ssm_expand * cfg.d_model \
+        * cfg.ssm_state * 4  # 4 slots' f32 SSD states read and written
+    w_bytes = decode_bytes(params)
+    del params
+    line = {"arch": MAMBA2, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, **lines,
+            "itl_bound_ms": (w_bytes + ssm) / HBM_BYTES_PER_S * 1e3,
+            "decode_bytes": {"weights": w_bytes, "ssd_states": ssm},
+            "f32": {"ok": f32["paged"][0],
+                    "first_logits_vs_forward": rel["paged"],
+                    "worst_vs_forward": max(rel["paged"].values()),
+                    "limit_vs_forward": PARITY_REL}}
+    line["ok"] = bool(
+        all(v["ok"] for v in lines.values()) and line["f32"]["ok"]
+        and line["f32"]["worst_vs_forward"] <= PARITY_REL
+        and st.bytes == 0 and st.n_transfers >= s_g["n_requests"] > 0
+        and d["kv_transfers"] == s_g["n_requests"] + d["n_preempted"]
+        and len(crcs) > 0 and set(crcs) == {0})
+    return line, counts
+
+
+def train_rgemma_phase(torch, train_mod, smi: str):
+    """The train driver on recurrentgemma-9b at full width cut to 5 layers
+    (RGEMMA_TRAIN_LAYERS: one repeat of the pattern and the rglru tail),
+    batch 2 x seq 4096: one untimed warm-up step on a model of its own,
+    then 3 steps, the launch counters set to 0 just before and read just
+    after (no kernel is on this path: the RG-LRU scan is plain torch, the
+    driver's attention chunked). Gate: finite losses and grad norms."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.models import registry
+    full = registry.get_config(RGEMMA)
+    cfg = dataclasses.replace(full, n_layers=RGEMMA_TRAIN_LAYERS)
+    parse = train_mod.build_parser().parse_args
+    warm = train_mod.train_arch(RGEMMA, parse(RGEMMA_TRAIN_ARGS
+                                              + ["--steps", "1"]), cfg=cfg)
+    if not warm["ok"]:
+        raise RuntimeError("recurrentgemma warm-up train step failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    args = parse(RGEMMA_TRAIN_ARGS)
+    s = train_mod.train_arch(RGEMMA, args, cfg=cfg)
+    torch.cuda.synchronize()
+    counts = driver_counts(kernels)
+    line = {"arch": RGEMMA, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "params": s["params"],
+            "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+            "steps": args.steps, "batch": args.batch, "seq": args.seq,
+            "ms_per_step": s["ms_per_step"],
+            "tokens_per_s": s["tokens_per_s"],
+            "step_ms": [t * 1e3 for t in s["step_s"]],
+            "loss": [m["loss"] for m in s["history"]],
+            "grad_norm": [m["grad_norm"] for m in s["history"]],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {k: v for k, v in counts.items() if v},
+            "ok": bool(s["ok"])}
+    return line, counts
+
+
+def rglru_scan_phase(torch, smi: str):
+    """The port's ``modules._lru_scan`` (the doubling scan) at the train
+    run's full width, [2, 4096, 4096] f32 with an h0, against a sequential
+    loop on the card (max|diff| within 1e-5 * max|loop|); its forward and
+    forward + backward device times (CUDA events), the loop's, and the
+    byte bounds: the forward reads a, gx, h0 and writes h; the backward
+    reads a, h and dh and writes da, dgx, dh0."""
+    from repro_torch.models import modules
+    B, S, W = RGLRU_SCAN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.rand((B, S, W), generator=gen, device="cuda")
+    a.mul_(0.999 - 0.5).add_(0.5)
+    gx = torch.randn((B, S, W), generator=gen, device="cuda")
+    h0 = torch.randn((B, W), generator=gen, device="cuda")
+
+    def loop():
+        out = torch.empty_like(gx)
+        h = h0
+        for t in range(S):
+            h = a[:, t] * h + gx[:, t]
+            out[:, t] = h
+        return out
+    with torch.no_grad():
+        got, want = modules._lru_scan(a, gx, h0), loop()
+        err = float((got - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        del got, want
+        fwd_ms, fwd_host = cuda_times(lambda: modules._lru_scan(a, gx, h0),
+                                      5)
+        loop_ms = cuda_ms(loop, 1, warmup=1)
+    leaves = [t.clone().requires_grad_(True) for t in (a, gx, h0)]
+    dh = torch.randn_like(gx)
+
+    def fwd_bwd():
+        return torch.autograd.grad(modules._lru_scan(*leaves), leaves, dh)
+    fb_ms = cuda_ms(fwd_bwd, 3)
+    n = 4 * B * S * W
+    f_bound, f_by = bound(3 * n + 4 * B * W, 2 * B * S * W, FP32_FLOPS)
+    b_bound, b_by = bound(5 * n + 8 * B * W, 4 * B * S * W, FP32_FLOPS)
+    del leaves, dh, a, gx, h0
+    torch.cuda.empty_cache()
+    return {"shape": [B, S, W], "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "passes": math.ceil(math.log2(S)),
+            "max_abs_err": err, "tol": tol, "ms": fwd_ms,
+            "host_ms": fwd_host, "fwd_bwd_ms": fb_ms,
+            "bwd_ms": fb_ms - fwd_ms, "loop_ms": loop_ms,
+            "bound_ms": f_bound, "bound_by": f_by, "bwd_bound_ms": b_bound,
+            "bwd_bound_by": b_by, "ok": err <= tol}
+
+
+def paged_rgemma_phase(torch):
+    """Paged decode at recurrentgemma's heads (KH 1, G 16, hd 256, page
+    16) and window (2048) on 4 slots of the serve run's 146 table slots,
+    three of them past the window, in bf16 and f32 (:func:`paged_case`)."""
+    from repro_torch.models import registry
+    cfg = registry.get_config(RGEMMA)
+    MP = -(-(LONG_PROMPT + 32) // 16)
+    q_pos = [MP * 16 - 1, LONG_PROMPT - 1, 2100, 700]
+    return [paged_case(torch, cfg, f"rgemma{tag}", 4, MP, q_pos, dtype, 21,
+                       window=cfg.window)
+            for tag, dtype in (("", torch.bfloat16),
+                               ("-f32", torch.float32))]
+
+
 def checked_every_tick_unified(engine) -> None:
     """Check a unified paged engine's allocator after every tick."""
     tick = engine.tick
@@ -3661,6 +4081,37 @@ def main() -> int:
                                             mamba2_line["seq"])
     entries.append(ssd_entry)
     ssd_grad = ssd_grad_phase(torch, mamba2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- main paths 13-15: the recurrent archs (RG-LRU and SSD mixers) ------
+    rgemma_line, rgemma_counts = serve_rgemma_phase(torch, serve_mod, smi)
+    print("serve_rgemma: " + json.dumps(rgemma_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m2_serve_line, m2_serve_counts = serve_mamba2_phase(torch, serve_mod,
+                                                        smi)
+    print("serve_mamba2: " + json.dumps(m2_serve_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rg_train_line, rg_train_counts = train_rgemma_phase(torch, train_mod,
+                                                        smi)
+    print("train_rgemma: " + json.dumps(rg_train_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan_line = rglru_scan_phase(torch, smi)
+    print("rglru_scan: " + json.dumps(scan_line), flush=True)
+    paged_rgemma = paged_rgemma_phase(torch)
+    print("paged_rgemma: " + json.dumps(
+        [{k: e.get(k) for k in ("name", "design", "shapes", "max_abs_err",
+                                "tol", "ok", "ms", "host_ms", "plain_ms",
+                                "bound_ms", "bound_by")}
+         for e in paged_rgemma]), flush=True)
+    paged_cases += paged_rgemma
+    recurrent_counts = {
+        **{f"serve_rgemma_{k}": c for k, c in rgemma_counts.items()},
+        **{f"serve_mamba2_{k}": c for k, c in m2_serve_counts.items()},
+        "train_rgemma": rg_train_counts}
     for e in entries:  # launches: the sum over the main-path runs
         c = e.get("counter", e["name"])
         e["launches_by_path"] = {
@@ -3684,7 +4135,8 @@ def main() -> int:
             "train_ckpt": ckpt_counts.get(c, 0),
             "train_accum": accum_counts.get(c, 0),
             "remat_dots": dots_counts.get(c, 0),
-            "train_trace": trace_counts.get(c, 0)}
+            "train_trace": trace_counts.get(c, 0),
+            **{k: n.get(c, 0) for k, n in recurrent_counts.items()}}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
         f"{e['name']}@{e['shapes']['case']}"
@@ -3736,7 +4188,9 @@ def main() -> int:
         "train_accum": accum_line, "remat_dots": dots_line,
         "compress": compress_line, "train_trace": trace_line,
         "flash_cases": flash_entries + flash_cases,
-        "ssd_cases": ssd_cases, "ssd_grad": ssd_grad}, indent=1))
+        "ssd_cases": ssd_cases, "ssd_grad": ssd_grad,
+        "serve_rgemma": rgemma_line, "serve_mamba2": m2_serve_line,
+        "train_rgemma": rg_train_line, "rglru_scan": scan_line}, indent=1))
 
     contract = ("name", "route", "design", "source", "replaces", "launches",
                 "max_abs_err", "ms", "host_ms", "fma_ms", "plain_ms",
@@ -3901,7 +4355,25 @@ def main() -> int:
              "dequantized tree"),
             ("train_trace", trace_line, "the traced run failed, printed no "
              "zebra-sim or idle line, traced no event, or its losses differ "
-             "from the untraced run's bits")):
+             "from the untraced run's bits"),
+            ("serve_rgemma", rgemma_line, "a request did not finish, an "
+             "allocator was not clean, the paged decode launches are not 12 "
+             "a decode step in the paged and disagg runs and 0 in the dense "
+             "one, the transfers are not requests + re-prefills, an f32 "
+             f"first-token logit is beyond {PARITY_REL} * max of the "
+             f"cache-free forward or the dense one beyond {DENSE_REL} * max "
+             "of the paged one, or the f32 dense and paged tokens diverge "
+             f"at a top-2 margin above {F32_TIER} * max|logit|"),
+            ("serve_mamba2", m2_serve_line, "a request did not finish, an "
+             "allocator was not clean, a transfer shipped KV bytes or a "
+             "checksum other than 0 (the CRC of an empty payload), the "
+             "transfers are not requests + re-prefills, or an f32 "
+             f"first-token logit is beyond {PARITY_REL} * max of the "
+             "cache-free forward"),
+            ("train_rgemma", rg_train_line, "a loss or grad norm is not "
+             "finite"),
+            ("rglru_scan", scan_line, "the doubling scan differs from the "
+             "sequential loop beyond 1e-5 * max|loop|")):
         if not line["ok"]:
             raise RuntimeError(f"{label}: {what}")
     bad_tiles = [f"{e['name']}@{e['layout']}" for e in zebra_tiles + ep_tiles

@@ -52,12 +52,14 @@ CUDA device and without ``--device cpu`` it exits non-zero.
 1x1 mesh), so N > 1 fails the JAX validation message ("bad EP config:
 ep_size N != mesh axis 'model' size 1"), exit 1; two or more ranks run
 through ``build_deployment(ep_group=)`` on a ``torch.distributed`` group.
-A ``--mesh`` other than 1x1 and archs with recurrent mixers (``--arch
-mamba2-2.7b``: the engines' recurrent decode state is not ported yet) are
-rejected by name in one ``[serve] invalid configuration:`` line, exit 1,
-as are the JAX driver's own invalid combinations (``--fleet`` with
-``--disagg`` or ``--ep-size``, ``--chaos`` without ``--fleet``, ...), with
-its messages.
+Archs with recurrent mixers (``--arch recurrentgemma-9b``, ``--arch
+mamba2-2.7b``) serve in every mode but the prefix cache, as in the JAX
+driver: each slot carries its RG-LRU or SSD state beside the attention
+caches. A ``--mesh`` other than 1x1 is rejected by name in one ``[serve]
+invalid configuration:`` line, exit 1, as are the JAX driver's own invalid
+combinations (``--fleet`` with ``--disagg`` or ``--ep-size``, ``--chaos``
+without ``--fleet``, ``--prefix-cache`` on a recurrent arch, ...), with its
+messages.
 
 Exit status: non-zero when any request is rejected, dropped or left
 unfinished, when a fleet stalls or a surviving pool leaks pages under
@@ -414,19 +416,11 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
 
 def _unported_flags(args) -> list:
     """What this command line asks that the port does not serve yet: a
-    mesh other than one device, and an arch with recurrent mixers (the
-    engines hold attention caches only)."""
-    out = []
+    mesh other than one device. (Archs the port cannot build, cross-
+    attention among them, fail ``ServeConfig.validate``.)"""
     if args.mesh != "1x1":
-        out.append(f"--mesh {args.mesh} (one device only)")
-    if args.arch is not None:
-        cfg = registry.get_config(args.arch)
-        rec = sorted({s.mixer for s in (*cfg.pattern, *cfg.tail_specs)
-                      if s.mixer in ("ssd", "rglru")})
-        if rec:
-            out.append(f"--arch {args.arch} (recurrent {'/'.join(rec)} "
-                       f"mixers: their decode state is not ported yet)")
-    return out
+        return [f"--mesh {args.mesh} (one device only)"]
+    return []
 
 
 def build_parser() -> argparse.ArgumentParser:

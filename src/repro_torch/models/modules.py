@@ -14,10 +14,13 @@ values.
 
 Ported: attention mixers (full and sliding-window; reference, chunked and
 flash attention), the mamba2 SSD mixer (its cache-free path through the SSD
-scan kernel, its cached path through ``ref.ssd_decode_step``) and dense /
-MoE FFNs. The RG-LRU mixer and cross-attention are later slices; their init
-raises. The engines' decode states hold attention caches only: a model with
-an SSD layer trains, and ``init_layer_state`` refuses it.
+scan kernel, its cached path through ``ref.ssd_decode_step``), the
+recurrentgemma RG-LRU mixer (its linear recurrence a doubling scan in plain
+torch, as the JAX package's ``associative_scan`` is plain ``jnp``) and dense
+/ MoE FFNs. Cross-attention (whisper, llama-3.2-vision) is a later slice;
+its init raises. The engines' decode states hold an attention cache (dense
+or paged) per attention layer and a per-slot recurrent state ({"conv",
+"lru"} or {"conv", "ssm"}) per RG-LRU or SSD layer, in both layouts.
 
 Training runs these functions under autograd. The in-place writes on the
 cache-free path are autograd-safe: ``apply_moe``'s combine ``index_add_``
@@ -757,25 +760,103 @@ def init_ssd_state(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma / Griffin)
+# ---------------------------------------------------------------------------
+
+def init_rglru(cfg: ModelConfig):
+    d, w, cw = cfg.d_model, cfg.lru_width, cfg.conv_width
+    return {
+        "proj_gate": ParamSpec((d, w), fan_in=d),
+        "proj_rec": ParamSpec((d, w), fan_in=d),
+        "conv_w": ParamSpec((cw, w), fan_in=cw),
+        "conv_b": ParamSpec((w,), "zeros"),
+        "w_i": ParamSpec((w, w), fan_in=w),
+        "b_i": ParamSpec((w,), "zeros"),
+        "w_a": ParamSpec((w, w), fan_in=w),
+        "b_a": ParamSpec((w,), "zeros"),
+        "lam": ParamSpec((w,), "lam"),  # sigmoid(lam)^8 in (0.9, 0.999)
+        "out": ParamSpec((w, d), fan_in=w),
+    }
+
+
+def _lru_scan(a, gx, h0=None):
+    """Linear recurrence h_t = a_t * h_{t-1} + gx_t along axis 1 (f32).
+
+    ``h0`` is folded into the first step, as the reference folds it. The
+    reference's ``jax.lax.associative_scan`` becomes a doubling
+    (Hillis-Steele) scan: log2(S) out-of-place elementwise passes over
+    [B, S, w], each combining every element with the one ``d`` steps back
+    ((a1, b1), (a2, b2)) -> (a1 a2, a2 b1 + b2), so autograd differentiates
+    it as it stands and no Python loop runs over time."""
+    if h0 is not None:
+        gx = torch.cat([gx[:, :1] + a[:, :1] * h0[:, None], gx[:, 1:]], 1)
+    S = gx.shape[1]
+    d = 1
+    while d < S:
+        gx = torch.cat([gx[:, :d], a[:, d:] * gx[:, :-d] + gx[:, d:]], 1)
+        if 2 * d < S:  # the last pass needs no products of a
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        d *= 2
+    return gx
+
+
+def apply_rglru(params, cfg: ModelConfig, run: RunConfig, x, state=None):
+    """Griffin recurrent block. x: [B, S, d] -> (y, new_state).
+
+    The gates are f32 (``w_i`` and ``w_a`` are cast to f32 at use, so
+    ``stack.compute_params`` leaves them f32), the recurrence is
+    :func:`_lru_scan` in f32. With a state ({"conv", "lru"},
+    :func:`init_rglru_state`) the conv starts from its last taps and the
+    scan from ``lru``, and the new state is returned in the state's
+    dtypes."""
+    cd = run.policy.compute_dtype
+    gate = F.gelu(x @ params["proj_gate"].to(cd), approximate="tanh")
+    h = x @ params["proj_rec"].to(cd)
+    conv_state = state["conv"] if state is not None else None
+    h, new_conv = causal_conv1d(h, params["conv_w"], params["conv_b"],
+                                conv_state)
+    hf = h.float()
+    i_gate = torch.sigmoid(hf @ params["w_i"].float() + params["b_i"])
+    r_gate = torch.sigmoid(hf @ params["w_a"].float() + params["b_a"])
+    log_a = -8.0 * r_gate * _softplus(params["lam"])  # [B, S, w]
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a.square(), min=1e-6)) \
+        * (i_gate * hf)
+    h0 = state["lru"].float() if state is not None else None
+    hs = _lru_scan(a, gated, h0)
+    y = (hs.to(cd) * gate) @ params["out"].to(cd)
+    new_state = None
+    if state is not None:
+        new_state = {"conv": new_conv.to(state["conv"].dtype),
+                     "lru": hs[:, -1].to(state["lru"].dtype)}
+    return y, new_state
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device="cpu"):
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.lru_width),
+                            dtype=dtype, device=device),
+        "lru": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                           device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
 # Transformer layer = mixer + ffn
 # ---------------------------------------------------------------------------
 
 def _check_spec(spec: LayerSpec):
-    if spec.mixer not in ("attn", "local_attn", "ssd") or spec.cross_attn:
+    if spec.mixer not in ("attn", "local_attn", "rglru", "ssd") \
+            or spec.cross_attn:
         raise NotImplementedError(f"layer kind {spec.tag()!r} is not ported "
-                                  f"yet (attention and SSD mixers only)")
-
-
-def _check_decode_spec(spec: LayerSpec):
-    _check_spec(spec)
-    if spec.mixer == "ssd":
-        raise NotImplementedError("the serving engines' recurrent (SSD) "
-                                  "decode state is not ported yet")
+                                  f"yet (attention, RG-LRU and SSD mixers "
+                                  f"only)")
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec):
     _check_spec(spec)
-    mixer = init_ssd(cfg) if spec.mixer == "ssd" else init_attention(cfg)
+    mixer = {"rglru": init_rglru, "ssd": init_ssd}.get(
+        spec.mixer, init_attention)(cfg)
     params = {"norm1": init_norm(cfg), "mixer": mixer}
     if spec.ffn != "none":
         params["norm2"] = init_norm(cfg)
@@ -787,16 +868,17 @@ def apply_mixer_part(params, cfg: ModelConfig, run: RunConfig,
                      spec: LayerSpec, x, positions, state=None,
                      cache_index=None, attend_to_cache: bool = False,
                      page_table=None):
-    """Pre-norm mixer (attention or SSD) + residual. Returns (h,
+    """Pre-norm mixer (attention, RG-LRU or SSD) + residual. Returns (h,
     new_state)."""
     _check_spec(spec)
     new_state = dict(state) if state is not None else None
     u = apply_norm(params["norm1"], x, run.policy)
-    if spec.mixer == "ssd":
-        mixed, ns = apply_ssd(params["mixer"], cfg, run, u,
-                              state.get("ssd") if state else None)
+    if spec.mixer in ("rglru", "ssd"):
+        apply = apply_rglru if spec.mixer == "rglru" else apply_ssd
+        mixed, ns = apply(params["mixer"], cfg, run, u,
+                          state.get(spec.mixer) if state else None)
         if new_state is not None:
-            new_state["ssd"] = ns
+            new_state[spec.mixer] = ns
         return x + mixed, new_state
     window = cfg.window if spec.mixer == "local_attn" else 0
     causal = cfg.causal if spec.causal is None else spec.causal
@@ -841,8 +923,14 @@ def apply_layer(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
 
 def init_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device="cpu"):
-    """Decode-state tree for one layer (dense per-slot cache layout)."""
-    _check_decode_spec(spec)
+    """Decode-state tree for one layer (dense per-slot cache layout): the
+    attention cache (a ring of ``window`` lines on sliding-window layers)
+    or the per-slot recurrent state."""
+    _check_spec(spec)
+    if spec.mixer == "rglru":
+        return {"rglru": init_rglru_state(cfg, batch, dtype, device)}
+    if spec.mixer == "ssd":
+        return {"ssd": init_ssd_state(cfg, batch, dtype, device)}
     window = cfg.window if spec.mixer == "local_attn" else 0
     return {"kv": init_attention_cache(cfg, batch, max_len, window, dtype,
                                        device)}
@@ -852,8 +940,10 @@ def init_paged_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                            n_pages: int, page_size: int, dtype,
                            device="cpu"):
     """Paged decode-state tree for one layer (DESIGN.md §9): attention KV
-    is the SHARED pool (no batch dim)."""
-    del batch  # per-slot recurrent states belong to unported mixers
-    _check_decode_spec(spec)
+    is the SHARED pool (no batch dim); recurrent states stay per-slot
+    (they are O(d) per slot: paging buys nothing there)."""
+    _check_spec(spec)
+    if spec.mixer in ("rglru", "ssd"):
+        return init_layer_state(cfg, spec, batch, 0, dtype, device)
     return {"kv": init_paged_attention_cache(cfg, n_pages, page_size, dtype,
                                              device)}

@@ -39,12 +39,15 @@ from repro_torch.pytree import ParamSpec, flatten, materialize, tree_map
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss")
 
 # Leaves cast to the compute dtype at their use in the JAX package
-# (``.astype(cd)``; the SSD conv taps and bias are cast to x's dtype, the
-# compute dtype, inside ``causal_conv1d``). Norm scales and the router stay
-# f32: they are used in the accum dtype; so do the SSD's dt_bias, A_log and
-# norm, and its D, which is cast at its use from f32.
+# (``.astype(cd)``; the SSD and RG-LRU conv taps and bias are cast to x's
+# dtype, the compute dtype, inside ``causal_conv1d``). Norm scales and the
+# router stay f32: they are used in the accum dtype; so do the SSD's
+# dt_bias, A_log and norm, and its D, which is cast at its use from f32, and
+# the RG-LRU's gate matrices w_i / w_a (cast to f32 at use), their biases
+# and lam.
 _COMPUTE_LEAVES = ("table", "lm_head", "wq", "wk", "wv", "wo", "wi_gate",
-                   "wi_up", "wi", "in_proj", "out_proj", "conv_w", "conv_b")
+                   "wi_up", "wi", "in_proj", "out_proj", "conv_w", "conv_b",
+                   "proj_gate", "proj_rec", "out")
 
 
 def _zero_aux(device, extras=()):
@@ -148,6 +151,17 @@ def _apply_layer(p, cfg, run, spec, x, positions, state, cache_index,
                                page_table=page_table)
 
 
+def _write_recurrent(state, new_state) -> None:
+    """Copy a layer's new recurrent state ("rglru" / "ssd") into its decode
+    state's tensors, in place (the attention cache under "kv" is already
+    written in place). The new tensors are fresh (a ``torch.cat`` slice,
+    the scan's last row), so the copy never reads what it overwrites."""
+    for kind, leaves in state.items():
+        if kind != "kv":
+            for k, dst in leaves.items():
+                dst.copy_(new_state[kind][k])
+
+
 def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                  x, positions, states=None, tail_states=None,
                  cache_index=None, page_table=None,
@@ -165,7 +179,10 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     order. The EP decode step returns its routing histograms through them.
 
     Block states are per-layer views of the stacked leaves and are updated
-    in place, so ``new_states`` holds the same tensors as ``states``.
+    in place, tail states too, so ``new_states`` holds the same tensors as
+    ``states``: attention writes its caches in place, and the new
+    recurrent states that the RG-LRU and SSD mixers return as fresh
+    tensors are copied into the views (:func:`_write_recurrent`).
     Without states and with ``run.remat`` "full" or "dots" each repeat of
     the pattern is one checkpoint (recomputed in the backward, the
     ``layer_override`` with it; under "dots" but for the products that
@@ -180,10 +197,12 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
         for pos, spec in enumerate(pattern):
             key = f"pos{pos}"
             st = layer_states[key] if decode else None
-            x, _, la = _apply_layer(layer_params[key], cfg, run, spec, x,
-                                    positions, st, cache_index, page_table,
-                                    layer_override, moe_override,
-                                    attend_to_cache)
+            x, ns, la = _apply_layer(layer_params[key], cfg, run, spec, x,
+                                     positions, st, cache_index, page_table,
+                                     layer_override, moe_override,
+                                     attend_to_cache)
+            if decode:
+                _write_recurrent(st, ns)
             a = _acc_aux(a, la)
         return x, a
 
@@ -213,6 +232,9 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                                 moe_override, attend_to_cache)
         aux = _acc_aux(aux, a)
         rows.append(_acc_aux(_zero_aux(x.device, aux_extras), a))
+        if st is not None:
+            _write_recurrent(st, ns)
+            ns = st
         new_tail_states.append(ns)
 
     new_states = None
@@ -319,8 +341,7 @@ def init_paged_decode_state(cfg: ModelConfig, batch: int, n_pages: int,
 # (shared pages, written by prefill AND decode) and its per-slot recurrent
 # part. Layer dicts are keyed "kv" / "rglru" / "ssd", so the split is a key
 # partition applied layer-wise. (Attention-only models carry an empty
-# recurrent part; the split keeps the engine's structure for the recurrent
-# mixers of a later slice.)
+# recurrent part, mamba2 an empty KV part.)
 
 def map_layer_states(state, fn):
     """Apply ``fn`` to every per-layer state dict of a decode-state tree."""

@@ -24,7 +24,7 @@ class ParamSpec:
     """One parameter leaf before materialization."""
 
     shape: tuple
-    init: str = "fan_in"  # fan_in | ones | zeros | a_log
+    init: str = "fan_in"  # fan_in | ones | zeros | a_log | lam
     fan_in: int = 0       # fan_in init: stddev = 1 / sqrt(fan_in)
 
     def stacked(self, n: int) -> "ParamSpec":
@@ -90,6 +90,16 @@ def a_log_init(shape, device) -> torch.Tensor:
     return row.to(torch.float32).expand(shape).contiguous().to(device)
 
 
+def lam_init(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """The RG-LRU's Lambda (Griffin; the JAX package's ``init_rglru``):
+    u ~ U(0.9, 0.999) drawn from ``generator``, then Lambda =
+    log(u^(1/8) / (1 - u^(1/8))), so that a = sigmoid(Lambda)^8 lies in
+    (0.9, 0.999). In f32, in place."""
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    r = u.uniform_(0.9, 0.999, generator=generator).pow_(1.0 / 8.0)
+    return r.div_(1.0 - r).log_()
+
+
 def materialize(specs, generator: torch.Generator, device):
     """Tree of ParamSpec -> tree of f32 tensors on ``device``, drawn in the
     tree's insertion order from ``generator``."""
@@ -100,6 +110,8 @@ def materialize(specs, generator: torch.Generator, device):
             return torch.zeros(spec.shape, dtype=torch.float32, device=device)
         if spec.init == "a_log":
             return a_log_init(spec.shape, device)
+        if spec.init == "lam":
+            return lam_init(spec.shape, generator, device)
         return fan_in_init(spec.shape, spec.fan_in, generator, device)
     return tree_map(one, specs)
 

@@ -227,8 +227,9 @@ class ServeConfig:
     def validate(self, model_cfg=None, ep_group=None) -> None:
         """Reject-don't-truncate validation of the WHOLE config: every
         violation in one :class:`ServeConfigError`. ``model_cfg`` adds the
-        arch-dependent checks (recurrent-arch prefix rejection, layer kinds
-        the port does not run yet, EP on a dense arch); with it,
+        arch-dependent checks (recurrent-arch prefix rejection, EP on a
+        dense arch, and the layer kinds the port does not run yet:
+        cross-attention, encoder-decoder and vision); with it,
         ``ep_group`` (the EP ranks, a ``core.zebra_spmd.EPGroup``: the JAX
         package's mesh) adds EP's divisibility and rank-count checks."""
         errs: List[str] = []
@@ -320,8 +321,8 @@ class ServeConfig:
                 errs.append(f"{model_cfg.name}: encoder-decoder and vision "
                             f"archs are not ported yet")
             kinds = sorted({s.tag() for s in model_cfg.layer_layout()
-                            if s.mixer not in ("attn", "local_attn")
-                            or s.cross_attn})
+                            if s.mixer not in ("attn", "local_attn", "rglru",
+                                               "ssd") or s.cross_attn})
             if kinds:
                 errs.append(f"{model_cfg.name}: layer kinds {kinds} are not "
                             f"ported yet")

@@ -82,9 +82,13 @@ def _leaves(tree) -> list:
 def _tree_crc(payload) -> int:
     """Host-side CRC32 over every leaf of a payload tree — the per-chunk
     checksum both ends of the link compute. Each leaf is viewed as its
-    bytes where it lies, and all of them cross to the host in one copy."""
+    bytes where it lies, and all of them cross to the host in one copy. A
+    payload without leaves (an SSD-only model ships no KV) checksums to 0,
+    the CRC of no bytes, as in the JAX package."""
     leaves = [v.contiguous().view(torch.uint8).reshape(-1)
               for v in _leaves(payload)]
+    if not leaves:
+        return 0
     blob = torch.cat(leaves) if len(leaves) > 1 else leaves[0]
     return zlib.crc32(blob.cpu().numpy().tobytes())
 

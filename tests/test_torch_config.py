@@ -24,11 +24,12 @@ from torch_parity import jax_values_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
 NAMES = sorted(jreg.names())
-# Decoder-only archs whose layers are all attention or SSD mixers: the ones
-# whose init the port has.
+# Decoder-only archs whose layers are all attention, RG-LRU or SSD mixers:
+# the ones whose init the port has.
 PORTED = ["dbrx-132b", "llama3.2-3b", "mamba2-2.7b", "mixtral-d1",
           "mixtral-d2", "mixtral-d3", "mixtral-w1", "mixtral-w2", "qwen3-32b",
-          "qwen3-moe-30b-a3b", "starcoder2-15b", "yi-34b"]
+          "qwen3-moe-30b-a3b", "recurrentgemma-9b", "starcoder2-15b",
+          "yi-34b"]
 
 
 def test_registry_names_match():
@@ -55,16 +56,20 @@ def test_exact_param_count_matches_jax(name):
 
 
 def test_unported_layer_kinds_raise():
-    for name in ("recurrentgemma-9b", "whisper-tiny", "llama-3.2-vision-90b"):
+    """Cross-attention archs (whisper, llama-3.2-vision) are not ported:
+    their init raises. The recurrent archs build their decode states in
+    both layouts: a per-slot recurrent state per RG-LRU or SSD layer."""
+    for name in ("whisper-tiny", "llama-3.2-vision-90b"):
         with pytest.raises(NotImplementedError):
             stack.param_specs(registry.get_config(name))
-    # mamba2 trains; the serving engines' SSD decode state is not ported
-    cfg = registry.smoke_config(registry.get_config("mamba2-2.7b"))
-    for init in (lambda: stack.init_decode_state(cfg, 1, 8, torch.float32),
-                 lambda: stack.init_paged_decode_state(cfg, 1, 4, 8,
-                                                       torch.float32)):
-        with pytest.raises(NotImplementedError, match="decode state"):
-            init()
+    for name, kind in (("mamba2-2.7b", "ssd"), ("recurrentgemma-9b",
+                                                "rglru")):
+        cfg = registry.smoke_config(registry.get_config(name))
+        for st in (stack.init_decode_state(cfg, 3, 8, torch.float32),
+                   stack.init_paged_decode_state(cfg, 3, 4, 8,
+                                                 torch.float32)):
+            rec = st["blocks"]["pos0"][kind]
+            assert rec["conv"].shape[:2] == (cfg.n_pattern_repeats, 3)
 
 
 def test_params_from_jax_keeps_paths_layout_and_values():

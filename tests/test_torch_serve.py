@@ -7,8 +7,8 @@ large enough for the packed MoE route (>= 74 tokens at E = 8), and again
 on an overcommitted pool that forces preemption. Sampled decoding is
 deterministic across schedules. The driver serves on the CPU with
 ``--device cpu`` (also ``--disagg`` without ``--paged``, as the JAX driver
-does), rejects unported flags and invalid combinations by name with exit
-1, and refuses to run without a CUDA device otherwise.
+does), rejects invalid combinations by name with exit 1, and refuses to
+run without a CUDA device otherwise.
 """
 
 import jax
@@ -137,12 +137,13 @@ def test_driver_serves_on_cpu(capsys):
     (["--slo-ttft", "1.0"], "--slo-ttft requires --fleet"),
     (["--ep-size", "1", "--fleet"],
      "--ep-size is not supported with --fleet"),
-    (["--arch", "mamba2-2.7b"], "--arch mamba2-2.7b (recurrent ssd")])
+    (["--arch", "mamba2-2.7b", "--prefix-cache"],
+     "--prefix-cache needs per-position KV only")])
 def test_driver_rejects_unported_flags(capsys, extra, named):
-    """Unported flags (recurrent archs) and the JAX driver's invalid
-    combinations (expert-parallel decode over more ranks than the driver's
-    one, or with the fleet, among them), with its messages: one ``[serve]
-    invalid configuration:`` line that names them, exit 1."""
+    """The JAX driver's invalid combinations (expert-parallel decode over
+    more ranks than the driver's one, or with the fleet, and the prefix
+    cache on a recurrent arch among them), with its messages: one
+    ``[serve] invalid configuration:`` line that names them, exit 1."""
     assert serve_mod.main(SMOKE_ARGS + ["--device", "cpu"] + extra) == 1
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and err[0].startswith("[serve] invalid "
