@@ -124,6 +124,29 @@ full depth, with random weights from seed 0:
 * paged_rgemma: paged decode at recurrentgemma's heads (KH 1, G 16, hd
   256) and window on 4 slots of 146 table slots, three past the window,
   in bf16 and f32.
+* train_whisper: the train driver on ``whisper-tiny`` at its full config
+  (4 encoder layers over 1500 frames, 4 decoder layers with
+  cross-attention, d_model 384, 6 heads of 64; 69.0 M params) with the
+  driver's zero fronts, one untimed warm-up step, then 3 steps of batch
+  8 x seq 256 with the driver's chunked attention;
+  train_whisper_flash: the same 3 steps with ``attn_impl="flash"``: the
+  decoder's causal self-attention, its cross-attention over the 1500
+  encoder frames and the encoder's bidirectional attention through the
+  flash kernels, launches counted by shape;
+* the flash kernels in cross-attention's regime (not causal, key lengths
+  1500 and 1601, not multiples of the 64-row k-tile): the whisper
+  encoder (8 x 6 heads, 1500 x 1500), whisper's cross-attention (256 x
+  1500) and llama-3.2-vision's (2 x 64 heads over 8 KV heads, 256 x
+  1601, hd 128), on the ``flash_cases:`` line;
+* serve_whisper / serve_vision: ``whisper-tiny`` (full) and
+  ``llama-3.2-vision-90b`` at full width cut to one repeat of its pattern
+  (4 self-attention layers and 1 cross-attention layer: 6.39 B params;
+  the 100 layers do not fit) served through the driver's lockstep
+  fallback (4 slots, 64-token prompts, 16 tokens), every cross-attention
+  gate at 0.8 (the reference initialises it to 0, which would hide the
+  cross-attention) and random fronts: bf16 timed, with the device ms of
+  rebuilding the memory that every decode step pays; then under the f32
+  policy against the cache-free forward.
 
 It fails unless:
 
@@ -297,7 +320,20 @@ It fails unless:
   first-token logit within 1e-3 * max|logit| of the cache-free forward;
 * train_rgemma: every loss and grad norm finite;
 * rglru_scan: the scan within 1e-5 * max|loop| of the loop; paged_rgemma
-  at the paged decode tiers above.
+  at the paged decode tiers above;
+* train_whisper: finite losses and grad norms, no hand-written kernel
+  launched; train_whisper_flash: finite, exactly flash_fwd 2, flash_dq 1
+  and flash_dkv 1 per attention call and step at each of its three
+  shapes, all on the tensor-core design, step 1 within 1e-2 of the
+  chunked run's in loss and grad norm; the flash kernels at the three
+  cross-attention shapes within the bf16 tier of their plain versions on
+  the tensor-core design;
+* serve_whisper, serve_vision: the lockstep run generates every token;
+  under f32 the first-token logits within 1e-3 * max|logit| of the
+  cache-free forward, the greedy tokens equal to greedy decoding by the
+  forward or diverging at a top-2 margin within 1e-4 * max|logit|, and
+  the forward's logits at gate 0 more than 1e-3 * max away (the check is
+  not vacuous).
 
 One untimed warm-up request (its own engine) and one untimed warm-up train
 step (its own model; the zebra run has its own too) run before the timed
@@ -330,8 +366,9 @@ design replaced, timed on the same bf16 inputs), ssd_cases (with
 ``fma_ms`` on the tensor-core design), ssd_grad, train_zebra, zebra_a2a,
 zebra_equal, zebra_streams, zebra_tiles, train_mpmd, mpmd_chunks,
 mpmd_equal and mpmd_streams lines (the serve_rgemma, serve_mamba2,
-train_rgemma, rglru_scan and paged_rgemma lines print as their phases
-end, before the kernels line), and last
+train_rgemma, rglru_scan, paged_rgemma, train_whisper,
+train_whisper_flash, serve_whisper and serve_vision lines print as their
+phases end, before the kernels line), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -506,6 +543,36 @@ RGEMMA_TRAIN_LAYERS = 5
 RGEMMA_TRAIN_ARGS = ["--arch", RGEMMA, "--mesh", "1x1", "--steps", "3",
                      "--batch", "2", "--seq", "4096"]
 RGLRU_SCAN_SHAPE = (2, 4096, 4096)   # the train run's [B, S, lru_width]
+# The cross-attention archs. whisper-tiny at its full config (4 encoder
+# layers over 1500 frames, 4 decoder layers with cross-attention, d 384, 6
+# heads of 64: 69.0 M params) trained by the driver and served lockstep;
+# llama-3.2-vision-90b at full width cut to one repeat of its pattern (4
+# self-attention layers and 1 cross-attention layer over 1601 patches:
+# 6.39 B params; the 100 layers are ~180 GB in bf16) served lockstep. Its
+# training (f32 weights, gradients and two AdamW moments: ~102 GB at 5
+# layers) does not fit the card and is held on the CPU against the JAX
+# trainer (tests/test_torch_xattn_train.py).
+WHISPER = "whisper-tiny"
+VISION = "llama-3.2-vision-90b"
+VISION_LAYERS = 5
+WHISPER_TRAIN_ARGS = ["--arch", WHISPER, "--mesh", "1x1", "--steps", "3",
+                      "--batch", "8", "--seq", "256"]
+# attention calls of a whisper train step: 4 decoder layers x (causal self
+# + cross over the 1500 frames) and 4 bidirectional encoder layers; each
+# launches flash_fwd 2 (forward + remat recompute), dq 1, dk/dv 1
+WHISPER_ATTN = {(256, 256, True): 4, (256, 1500, False): 4,
+                (1500, 1500, False): 4}
+XATTN_SERVE_ARGS = ["--slots", "4", "--prompt-len", "64", "--gen", "16"]
+# the reference initialises every cross-attention gate to 0 (tanh(0) = 0:
+# the cross-attention adds nothing) and its drivers feed zero fronts; the
+# serve phases set the gates here and draw random fronts, so that the
+# cross-attention moves the logits they hold
+XATTN_GATE = 0.8
+# the flash kernels in cross-attention's regime (not causal, T not a
+# multiple of the 64-row k-tile, T > S): (label, B, S, T, H, KH, hd)
+XATTN_FLASH_CASES = (("whisper encoder", 8, 1500, 1500, 6, 6, 64),
+                     ("whisper cross", 8, 256, 1500, 6, 6, 64),
+                     ("vision cross", 2, 256, 1601, 64, 8, 128))
 
 
 _SPIN_CYCLES_PER_MS = []
@@ -1967,16 +2034,17 @@ def zebra_tiles_phase(torch, cfg, launches_by_path: dict,
     return out
 
 
-def sdpa_ms(torch, q, k, v, do, scale: float):
-    """(forward ms, backward ms, note) of PyTorch's causal GQA
-    scaled_dot_product_attention on the kernels' inputs ([B, heads, rows,
-    hd]): the yardstick of the flash kernels, never called by the port.
-    The backward is forward + backward minus forward (dq, dk, dv as one
-    figure); (None, None, the reason) where this torch refuses."""
+def sdpa_ms(torch, q, k, v, do, scale: float, causal: bool = True):
+    """(forward ms, backward ms, note) of PyTorch's GQA
+    scaled_dot_product_attention (causal, or not) on the kernels' inputs
+    ([B, heads, rows, hd]): the yardstick of the flash kernels, never
+    called by the port. The backward is forward + backward minus forward
+    (dq, dk, dv as one figure); (None, None, the reason) where this torch
+    refuses."""
     F = torch.nn.functional
 
     def fwd(q_, k_, v_):
-        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True,
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=causal,
                                               scale=scale, enable_gqa=True)
 
     ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -1985,41 +2053,44 @@ def sdpa_ms(torch, q, k, v, do, scale: float):
         fb_ms = cuda_ms(lambda: torch.autograd.grad(fwd(*ins), ins, do), 10)
     except (RuntimeError, TypeError) as e:  # optional yardstick
         return None, None, f"SDPA refused: {str(e)[:160]}"
-    return f_ms, fb_ms - f_ms, "torch SDPA (is_causal, enable_gqa)"
+    return f_ms, fb_ms - f_ms, f"torch SDPA (is_causal={causal}, enable_gqa)"
 
 
 def flash_case(torch, label, B, S, H, KH, hd, dtype, window=0, softcap=0.0,
-               seed=5):
-    """The flash kernels against their plain versions on causal random
-    inputs of one shape: the forward (o in q's dtype, lse in f32) and,
-    without softcap, the dq and dk/dv kernels (fed the plain forward's o
-    and lse, as the backward of the Function is). Inputs are scaled so the
-    bf16 outputs stay below 4, where one bf16 ulp is below 2e-2; a softcap
-    case scales q up so the tanh bends the logits. Returns one entry per
-    kernel, with its time, the plain version's, its bound and the SDPA
-    yardstick (causal cases without window or softcap)."""
+               seed=5, T=None, causal=True):
+    """The flash kernels against their plain versions on random inputs of
+    one shape, S queries over T keys (default S), causal or not: the
+    forward (o in q's dtype, lse in f32) and, without softcap, the dq and
+    dk/dv kernels (fed the plain forward's o and lse, as the backward of
+    the Function is). Inputs are scaled so the bf16 outputs stay below 4,
+    where one bf16 ulp is below 2e-2; a softcap case scales q up so the
+    tanh bends the logits. Returns one entry per kernel, with its time, the
+    plain version's, its bound and the SDPA yardstick (cases without
+    window or softcap)."""
     from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
+    T = S if T is None else T
 
-    def rnd(heads, scale):
-        x = torch.randn((B, heads, S, hd), generator=gen, device=dev)
+    def rnd(heads, scale, rows):
+        x = torch.randn((B, heads, rows, hd), generator=gen, device=dev)
         return (scale * x).to(dtype)
 
-    q, k, v, do = rnd(H, 4.0 if softcap else 1.0), rnd(KH, 1.0), \
-        rnd(KH, 0.5), rnd(H, 0.25)
-    kw = dict(scale=hd ** -0.5, causal=True, window=window)
+    q, k, v, do = rnd(H, 4.0 if softcap else 1.0, S), rnd(KH, 1.0, T), \
+        rnd(KH, 0.5, T), rnd(H, 0.25, S)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window)
     bf16 = dtype == torch.bfloat16
     check = compare if bf16 else compare_f32
     es, peak = q.element_size(), BF16_FLOPS if bf16 else FP32_FLOPS
-    pairs = int(fa._mask(S, S, S, S, True, window, dev).sum()) * B * H
+    pairs = int(fa._mask(S, T, S, T, causal, window, dev).sum()) * B * H
     nq, nkv, rows = q.numel(), k.numel(), B * H * S
     lib_f = lib_b = None
     lib_note = "none: SDPA has no window / softcap of this form"
     if not window and not softcap:
-        lib_f, lib_b, lib_note = sdpa_ms(torch, q, k, v, do, kw["scale"])
+        lib_f, lib_b, lib_note = sdpa_ms(torch, q, k, v, do, kw["scale"],
+                                         causal)
     shapes = {"case": label, "q": list(q.shape), "kv": list(k.shape),
-              "dtype": str(dtype).replace("torch.", ""), "causal": True,
+              "dtype": str(dtype).replace("torch.", ""), "causal": causal,
               "window": window, "softcap": softcap, "live_pairs": pairs}
 
     def entry(name, errs, ms, plain_ms, bytes_moved, flops, lib_ms,
@@ -3859,6 +3930,237 @@ def paged_rgemma_phase(torch):
                                ("-f32", torch.float32))]
 
 
+def flash_shape_recorder():
+    """Count the flash launches by (kernel, S, T, causal) in the returned
+    Counter until the returned remover runs: a wrapper around the
+    launching functions (the launch counters stay the wrappers')."""
+    import collections
+
+    from repro_torch.kernels import flash_attention as fa
+    counts = collections.Counter()
+    fwd, bwd = fa.flash_forward, fa._launch_backward
+
+    def forward(q, k, v, **kw):
+        out = fwd(q, k, v, **kw)
+        if q.is_cuda:
+            counts[("flash_fwd", q.shape[2], k.shape[2],
+                    bool(kw["causal"]))] += 1
+        return out
+
+    def backward(name, q, k, v, *a, **kw):
+        out = bwd(name, q, k, v, *a, **kw)
+        counts[(f"flash_{name}", q.shape[2], k.shape[2],
+                bool(kw["causal"]))] += 1
+        return out
+    fa.flash_forward, fa._launch_backward = forward, backward
+
+    def remove():
+        fa.flash_forward, fa._launch_backward = fwd, bwd
+    return counts, remove
+
+
+def train_whisper_phase(torch, train_mod, smi: str):
+    """whisper-tiny at its full config through the train driver, batch 8 x
+    seq 256 with the driver's zero fronts: one untimed warm-up step on a
+    model of its own, then 3 steps with the driver's chunked attention
+    (no hand-written kernel on that path) and 3 with
+    ``attn_impl="flash"``: every self-, cross- and encoder attention
+    through the flash kernels, launches counted by shape. Returns the two
+    lines and counts and the launches by (kernel, S, T, causal)."""
+    from repro_torch.models.modules import Policy, RunConfig
+    parse = train_mod.build_parser().parse_args
+    warm = train_mod.train_arch(WHISPER, parse(WHISPER_TRAIN_ARGS
+                                               + ["--steps", "1"]))
+    if not warm["ok"]:
+        raise RuntimeError("whisper warm-up train step failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    line, counts = timed_train(torch, train_mod, smi, WHISPER_TRAIN_ARGS,
+                               {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = RunConfig(policy=Policy(), attn_impl="flash", moe_impl="gather",
+                    remat="full")
+    shapes, remove = flash_shape_recorder()
+    try:
+        fline, fcounts = timed_train(torch, train_mod, smi,
+                                     WHISPER_TRAIN_ARGS, {}, run)
+    finally:
+        remove()
+    steps = fline["steps"]
+    want_shapes = {(k, *shape): n * steps * (2 if k == "flash_fwd" else 1)
+                   for shape, n in WHISPER_ATTN.items()
+                   for k in FLASH_LAUNCHES}
+    calls = sum(WHISPER_ATTN.values()) * steps
+    fline["launches_expected"] = {
+        k: FLASH_LAUNCHES.get(k, 0) * calls for k in fline["launches"]}
+    fline["launches_by_shape"] = {f"{k}:{S}x{T}:{'causal' if c else 'full'}":
+                                  n for (k, S, T, c), n in
+                                  sorted(shapes.items())}
+    fline["step1_rel_gap_vs_chunked"] = {
+        k: abs(fline[k][0] - line[k][0]) / abs(line[k][0])
+        for k in ("loss", "grad_norm")}
+    line["ok"] = all(v == 0 for v in line["launches"].values())
+    fline["ok"] = bool(
+        fline["launches_expected"] == fline["launches"]
+        and dict(shapes) == want_shapes
+        and max(fline["step1_rel_gap_vs_chunked"].values()) <= FLASH_GAP)
+    return line, counts, fline, fcounts, dict(shapes)
+
+
+def with_gate(params, gate: float) -> None:
+    """Set every cross-attention gate ``xgate`` of a param tree to
+    ``gate``, in place."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            with_gate(v, gate)
+        elif k == "xgate":
+            v.fill_(gate)
+
+
+def random_fronts(torch, cfg, batch: int, seed: int) -> dict:
+    """Front embeddings of ``cfg`` drawn N(0, 1) in f32 on the card."""
+    from repro_torch.models import stack
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=gen, device="cuda")
+            for k, v in stack.zero_fronts(cfg, batch, torch.float32,
+                                          "cuda").items()}
+
+
+def serve_xattn_phase(torch, serve_mod, smi: str, arch: str,
+                      layers=None):
+    """``arch`` (cut to ``layers`` where given) served lockstep through
+    the serve driver, seed-0 weights with every gate at XATTN_GATE and
+    random fronts: (a) bf16, the main-path run (counted): tok/s, TTFT
+    (the prefill), ITL per decode step, and the device ms of rebuilding
+    the cross-attention memory (whisper's encoder, the vision projection)
+    that every decode step pays; (b) under the f32 policy the lockstep
+    server's first-token logits against the cache-free forward's, and its
+    greedy tokens against greedy decoding by the cache-free forward
+    (equal, or diverging where the forward's top-2 margin is within
+    F32_TIER of max|logit|); the gate at 0 moves the forward's logits by
+    more than 1e-3 of max|logit| (the check is not vacuous)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import registry, stack
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.pytree import flatten
+    from repro_torch.serve import ServeConfig, build_deployment
+    full = registry.get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = stack.init_model(gen, cfg, device="cuda")
+    with_gate(params, XATTN_GATE)
+    n_params = sum(v.numel() for v in flatten(params).values())
+    args = serve_mod.build_parser().parse_args(["--arch", arch]
+                                               + XATTN_SERVE_ARGS)
+    slots, gen_n = args.slots, args.gen
+    fronts = random_fronts(torch, cfg, slots, 1)
+    bf = {k: v.to(torch.bfloat16) for k, v in fronts.items()}
+    kernels.reset_launch_counts()
+    s = serve_mod.serve_arch(arch, args, params=params, fronts=bf, cfg=cfg)
+    torch.cuda.synchronize()
+    counts = driver_counts(kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = RunConfig(policy=Policy())
+    pc = stack.compute_params(params, run.policy)
+    with torch.inference_mode():
+        memory_ms = cuda_ms(lambda: stack.cross_memory(
+            pc, cfg, run, slots, bf.get("encoder_embeds"),
+            bf.get("vision_embeds")), 5)
+    del pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    itl = sorted(s["itl_s"])[len(s["itl_s"]) // 2]
+
+    run32 = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    sc = ServeConfig.from_args(args)
+    prompts = np.random.RandomState(sc.seed).randint(
+        0, cfg.vocab_size, (slots, args.prompt_len))
+    server = build_deployment(cfg, run32, sc, params=params, device="cuda")
+    out = [server.submit_prefill(prompts, fronts)]
+    first = server.logits.float()
+    out += [server.step(fronts) for _ in range(gen_n - 1)]
+    got = torch.cat(out, dim=1).tolist()
+    del server
+    seq = torch.as_tensor(prompts, device="cuda")
+    want, margins = [], []
+    with torch.inference_mode():
+        for i in range(gen_n):
+            lg, _, _ = stack.apply_model(params, cfg, run32, seq, **fronts)
+            last = lg[:, -1].float()
+            if i == 0:
+                ref_first = last
+            top = last.topk(2).values
+            margins.append(((top[:, 0] - top[:, 1])
+                            / last.abs().amax(-1)).tolist())
+            want.append(last.argmax(-1))
+            seq = torch.cat([seq, want[-1][:, None]], dim=1)
+        with_gate(params, 0.0)
+        ungated, _, _ = stack.apply_model(params, cfg, run32,
+                                          seq[:, :args.prompt_len], **fronts)
+    want = torch.stack(want, dim=1).tolist()
+    scale = float(ref_first.abs().max())
+    rel = float((first - ref_first).abs().max()) / scale
+    gate_moves = float((ungated[:, -1].float() - ref_first).abs().max())         / scale
+    divergences = []
+    for b in range(slots):
+        j = next((i for i, (x, y) in enumerate(zip(got[b], want[b]))
+                  if x != y), None)
+        if j is not None:
+            divergences.append({"slot": b, "pos": j,
+                                "margin_rel": margins[j][b]})
+    bf16_equal = sum(x == y for a, b in zip(s["tokens"], want)
+                     for x, y in zip(a, b)) / (slots * gen_n)
+    bound_ms = decode_bytes(params) / HBM_BYTES_PER_S * 1e3
+    del params, fronts, bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"arch": arch, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "params": n_params,
+            "reduced": (None if layers is None else
+                        {"n_layers": [full.n_layers, cfg.n_layers]}),
+            "slots": slots, "prompt_len": args.prompt_len, "gen": gen_n,
+            "memory_len": cfg.encoder_seq or cfg.vision_seq,
+            "gate": XATTN_GATE, "lockstep": s["lockstep"],
+            "tokens_per_s": s["tokens_per_s"], "ttft_s": s["ttft_s"],
+            "itl_p50_s": itl, "itl_s": s["itl_s"],
+            "memory_rebuild_ms": memory_ms,
+            "memory_rebuild_share_of_itl": memory_ms / (itl * 1e3),
+            "itl_bound_ms": bound_ms,
+            "launches": {k: v for k, v in counts.items() if v},
+            "bf16_tokens_equal_f32_forward": bf16_equal,
+            "f32": {"first_logits_vs_forward": rel,
+                    "limit_vs_forward": PARITY_REL,
+                    "greedy_equal": got == want,
+                    "divergences": divergences,
+                    "gate0_moves_logits": gate_moves}}
+    line["ok"] = bool(
+        s["ok"] and rel <= PARITY_REL and gate_moves > 1e-3
+        and all(d["margin_rel"] <= F32_TIER for d in divergences))
+    return line, counts
+
+
+def check_xattn_flash(torch, by_shape: dict):
+    """The flash kernels against their plain versions in bf16 at
+    XATTN_FLASH_CASES, each entry with its launches at that shape in the
+    whisper flash train run (``by_shape``; the vision cross shape is
+    served through the reference attention: a kernel case only)."""
+    out = []
+    for label, B, S, T, H, KH, hd in XATTN_FLASH_CASES:
+        for e in flash_case(torch, label, B, S, H, KH, hd, torch.bfloat16,
+                            T=T, causal=False):
+            e["launches"] = by_shape.get((e["name"], S, T, False), 0)
+            out.append(e)
+        torch.cuda.empty_cache()
+    return out
+
+
 def checked_every_tick_unified(engine) -> None:
     """Check a unified paged engine's allocator after every tick."""
     tick = engine.tick
@@ -4108,10 +4410,35 @@ def main() -> int:
                                 "bound_ms", "bound_by")}
          for e in paged_rgemma]), flush=True)
     paged_cases += paged_rgemma
+
+    # -- main paths 16-18: cross-attention (whisper-tiny, llama-3.2-vision) -
+    (whisper_line, whisper_counts, whisper_flash_line, whisper_flash_counts,
+     whisper_shapes) = train_whisper_phase(torch, train_mod, smi)
+    print("train_whisper: " + json.dumps(whisper_line), flush=True)
+    print("train_whisper_flash: " + json.dumps(whisper_flash_line),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xattn_cases = check_xattn_flash(torch, whisper_shapes)
+    flash_cases += xattn_cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    sw_line, sw_counts = serve_xattn_phase(torch, serve_mod, smi, WHISPER)
+    print("serve_whisper: " + json.dumps(sw_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sv_line, sv_counts = serve_xattn_phase(torch, serve_mod, smi, VISION,
+                                           VISION_LAYERS)
+    print("serve_vision: " + json.dumps(sv_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     recurrent_counts = {
         **{f"serve_rgemma_{k}": c for k, c in rgemma_counts.items()},
         **{f"serve_mamba2_{k}": c for k, c in m2_serve_counts.items()},
-        "train_rgemma": rg_train_counts}
+        "train_rgemma": rg_train_counts,
+        "train_whisper": whisper_counts,
+        "train_whisper_flash": whisper_flash_counts,
+        "serve_whisper": sw_counts, "serve_vision": sv_counts}
     for e in entries:  # launches: the sum over the main-path runs
         c = e.get("counter", e["name"])
         e["launches_by_path"] = {
@@ -4190,7 +4517,10 @@ def main() -> int:
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad,
         "serve_rgemma": rgemma_line, "serve_mamba2": m2_serve_line,
-        "train_rgemma": rg_train_line, "rglru_scan": scan_line}, indent=1))
+        "train_rgemma": rg_train_line, "rglru_scan": scan_line,
+        "train_whisper": whisper_line,
+        "train_whisper_flash": whisper_flash_line,
+        "serve_whisper": sw_line, "serve_vision": sv_line}, indent=1))
 
     contract = ("name", "route", "design", "source", "replaces", "launches",
                 "max_abs_err", "ms", "host_ms", "fma_ms", "plain_ms",
@@ -4217,7 +4547,8 @@ def main() -> int:
     print("flash_cases: " + json.dumps(
         [{k: e.get(k) for k in ("name", "design", "shapes", "errors", "ok",
                                 "ms", "host_ms", "fma_ms", "plain_ms",
-                                "bound_ms", "bound_by", "library_ms")}
+                                "bound_ms", "bound_by", "library_ms",
+                                "launches")}
          for e in flash_entries + flash_cases]),
           flush=True)
     print("ssd_cases: " + json.dumps(
@@ -4372,6 +4703,22 @@ def main() -> int:
              "cache-free forward"),
             ("train_rgemma", rg_train_line, "a loss or grad norm is not "
              "finite"),
+            ("train_whisper", whisper_line, "a hand-written kernel launched "
+             "on the chunked path"),
+            ("train_whisper_flash", whisper_flash_line, "the flash launches "
+             "are not exactly fwd 2, dq 1, dk/dv 1 per attention call and "
+             "step at each shape, or step 1 differs from the chunked run's "
+             f"by more than {FLASH_GAP}"),
+            ("serve_whisper", sw_line, "the lockstep run failed, the f32 "
+             f"first-token logits are beyond {PARITY_REL} * max of the "
+             "cache-free forward, the gate does not move them, or the f32 "
+             "tokens diverge from the forward's at a top-2 margin above "
+             f"{F32_TIER} * max|logit|"),
+            ("serve_vision", sv_line, "the lockstep run failed, the f32 "
+             f"first-token logits are beyond {PARITY_REL} * max of the "
+             "cache-free forward, the gate does not move them, or the f32 "
+             "tokens diverge from the forward's at a top-2 margin above "
+             f"{F32_TIER} * max|logit|"),
             ("rglru_scan", scan_line, "the doubling scan differs from the "
              "sequential loop beyond 1e-5 * max|loop|")):
         if not line["ok"]:

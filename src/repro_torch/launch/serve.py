@@ -55,7 +55,16 @@ through ``build_deployment(ep_group=)`` on a ``torch.distributed`` group.
 Archs with recurrent mixers (``--arch recurrentgemma-9b``, ``--arch
 mamba2-2.7b``) serve in every mode but the prefix cache, as in the JAX
 driver: each slot carries its RG-LRU or SSD state beside the attention
-caches. A ``--mesh`` other than 1x1 is rejected by name in one ``[serve]
+caches. The encoder-decoder and vision archs (``--arch whisper-tiny``,
+``--arch llama-3.2-vision-90b``) take the JAX driver's lockstep fallback
+(:func:`serve_arch_lockstep`: ``--slots`` prompts of ``--prompt-len``
+tokens, ``--gen`` greedy tokens each, zero front embeddings), whatever
+``--paged``, ``--disagg`` or ``--fleet`` ask:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+        --smoke --device cpu
+
+A ``--mesh`` other than 1x1 is rejected by name in one ``[serve]
 invalid configuration:`` line, exit 1, as are the JAX driver's own invalid
 combinations (``--fleet`` with ``--disagg`` or ``--ep-size``, ``--chaos``
 without ``--fleet``, ``--prefix-cache`` on a recurrent arch, ...), with its
@@ -76,7 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.zebra_spmd import EPGroup
-from repro_torch.models import registry
+from repro_torch.models import registry, stack
 from repro_torch.models.modules import Policy, RunConfig
 from repro_torch.obs import format_report, write_chrome_trace
 from repro_torch.obs import trace as obs_trace
@@ -202,9 +211,58 @@ def _chaos_summary(engine, serve_cfg: ServeConfig, shed: set,
     }
 
 
+def serve_arch_lockstep(cfg, run, serve_cfg: ServeConfig, args, *,
+                        params=None, fronts=None) -> dict:
+    """Whole-batch lockstep fallback for encoder-decoder and vision archs
+    (the JAX driver's ``serve_arch_lockstep``: they need per-request front
+    embeddings that the continuous engines do not carry): ``--slots``
+    prompts of ``--prompt-len`` tokens drawn from
+    ``numpy.random.RandomState(--seed)``, prefill, then ``--gen`` - 1
+    greedy decode steps, each rebuilding the cross-attention memory from
+    the fronts. ``fronts`` defaults to the driver's zero fronts
+    (``stack.zero_fronts``). Returns the JAX driver's keys
+    (``tokens_per_s``, ``lockstep``, ``ok``) and the tokens generated, the
+    prefill's wall time (``ttft_s``) and each decode step's (``itl_s``),
+    each read after a device synchronize."""
+    server = build_deployment(cfg, run, serve_cfg, params=params,
+                              device=args.device)
+    slots, gen = serve_cfg.slots, args.gen
+    dev = server.p.device
+    prompts = np.random.RandomState(serve_cfg.seed).randint(
+        0, cfg.vocab_size, (slots, args.prompt_len))
+    if fronts is None:
+        fronts = stack.zero_fronts(cfg, slots, run.policy.compute_dtype,
+                                   dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    out = [server.submit_prefill(prompts, fronts)]
+    sync()
+    ttft = time.perf_counter() - t0
+    itl = []
+    for _ in range(gen - 1):
+        ts = time.perf_counter()
+        out.append(server.step(fronts))
+        sync()
+        itl.append(time.perf_counter() - ts)
+    toks = torch.cat(out, dim=1)
+    dt = time.perf_counter() - t0
+    tps = round(slots * gen / dt, 2)
+    print(f"[serve] arch={cfg.name} lockstep fallback generated "
+          f"{tuple(toks.shape)} in {dt:.2f}s ({tps} tok/s)")
+    return {"tokens_per_s": tps, "lockstep": True,
+            "ok": tuple(toks.shape) == (slots, gen),
+            "n_generated_tokens": slots * gen, "tokens": toks.tolist(),
+            "ttft_s": ttft, "itl_s": itl}
+
+
 def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
                trace=None, params=None, run=None,
-               engine_hook=None) -> dict:
+               engine_hook=None, fronts=None, cfg=None) -> dict:
     """Serve the trace of ``args`` on ``arch``; returns the metrics summary
     with ``ok`` (every request finished with its full budget or was shed,
     nothing rejected, the allocators' page accounting clean, no surviving
@@ -215,10 +273,14 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     chip smoke test): ``trace`` replaces the trace built from ``args``,
     ``params`` and ``run`` the seed-0 init and the bf16 policy, and
     ``engine_hook(engine)`` is handed the built deployment before the
-    trace runs."""
-    cfg = registry.get_config(arch)
-    if args.smoke:
-        cfg = registry.smoke_config(cfg)
+    trace runs; ``cfg`` replaces the registry's config of ``arch`` (a
+    caller's cut of its depth). The encoder-decoder and vision archs serve
+    lockstep (:func:`serve_arch_lockstep`, which takes ``params`` and
+    ``fronts``, their front embeddings)."""
+    if cfg is None:
+        cfg = registry.get_config(arch)
+        if args.smoke:
+            cfg = registry.smoke_config(cfg)
     if run is None:
         run = RunConfig(policy=Policy(), moe_impl="gather")
     if serve_cfg is None:
@@ -230,6 +292,9 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
         print(f"[serve] FAIL arch={cfg.name}: invalid serve config: {e}",
               file=sys.stderr)
         return {"ok": False, "n_requests": 0, "config_error": str(e)}
+    if cfg.is_encdec or cfg.vision_seq > 0:
+        return serve_arch_lockstep(cfg, run, serve_cfg, args, params=params,
+                                   fronts=fronts)
     sampling = serve_cfg.sampling
     if trace is None:
         if args.tenants:
@@ -416,8 +481,7 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
 
 def _unported_flags(args) -> list:
     """What this command line asks that the port does not serve yet: a
-    mesh other than one device. (Archs the port cannot build, cross-
-    attention among them, fail ``ServeConfig.validate``.)"""
+    mesh other than one device."""
     if args.mesh != "1x1":
         return [f"--mesh {args.mesh} (one device only)"]
     return []

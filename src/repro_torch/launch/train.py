@@ -12,7 +12,10 @@ stream beside the capacity-packed experts of microbatch k-1 on another;
 A mamba2 arch (``--arch mamba2-2.7b``) runs each SSD mixer's scan through
 the SSD scan kernel (forward and its remat recompute) with the backward
 by autograd of the chunked oracle; zebra applies to MoE archs only, so it
-needs no ``--no-zebra``.
+needs no ``--no-zebra``. An encoder-decoder or vision arch (``--arch
+whisper-tiny``, ``--arch llama-3.2-vision-90b``) gets the JAX driver's
+zero front embeddings at every step (``stack.zero_fronts``); whisper's
+encoder runs under the same remat and attention path as the decoder.
 A caller may hand :func:`build` / :func:`train_arch` another
 ``RunConfig`` (``attn_impl="flash"`` trains through the flash attention
 kernels; ``remat="dots"``) or another ``ModelConfig`` (e.g. a cut
@@ -43,6 +46,11 @@ a zebra run, and the idle report printed).
     # without zebra (the dropless single-pack MoE path):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
         --no-zebra --mesh 1x1 --steps 6 --batch 8 --seq 256
+
+    # whisper-tiny at full width and depth on the card (4 encoder layers
+    # over 1500 frames, 4 decoder layers with cross-attention):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --steps 6 --batch 8 --seq 256
 
     # mamba2-2.7b at full width and depth on the card (8 chunks of 256):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
@@ -78,7 +86,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.zebra_spmd import MODES, ZebraConfig
 from repro_torch.data import DataConfig, DataLoader
-from repro_torch.models import registry
+from repro_torch.models import registry, stack
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.modules import Policy, RunConfig
 from repro_torch.obs import format_report, write_chrome_trace
@@ -187,12 +195,15 @@ def train_arch(arch: str, args, run: RunConfig | None = None,
         tracer.declare_track("train", pid="train")
         tracer.registry.register("train", lambda: dict(last_logged))
 
+    # modality-front stubs: the JAX driver's zero fronts at every step
+    fronts = stack.zero_fronts(cfg, args.batch, program.run.policy
+                               .compute_dtype, device)
     history, step_s = [], []
     t0 = time.perf_counter()
     for step in range(start_step, args.steps):
         if tracer is not None:
             tracer.advance(step)
-        batch = next(loader)
+        batch = {**next(loader), **fronts}
         ts = time.perf_counter()
         with obs_trace.TRACER.span("train", f"step {step}", step=step):
             params, opt_state, metrics = program.train_step(

@@ -16,11 +16,14 @@ Ported: attention mixers (full and sliding-window; reference, chunked and
 flash attention), the mamba2 SSD mixer (its cache-free path through the SSD
 scan kernel, its cached path through ``ref.ssd_decode_step``), the
 recurrentgemma RG-LRU mixer (its linear recurrence a doubling scan in plain
-torch, as the JAX package's ``associative_scan`` is plain ``jnp``) and dense
-/ MoE FFNs. Cross-attention (whisper, llama-3.2-vision) is a later slice;
-its init raises. The engines' decode states hold an attention cache (dense
+torch, as the JAX package's ``associative_scan`` is plain ``jnp``), layers
+without a mixer (mixer ``"none"``), cross-attention over an encoder or
+vision memory (whisper, llama-3.2-vision: no RoPE, not causal, no cache,
+added through ``tanh(xgate)``), learned absolute positions (whisper) and
+dense / MoE FFNs. The engines' decode states hold an attention cache (dense
 or paged) per attention layer and a per-slot recurrent state ({"conv",
-"lru"} or {"conv", "ssm"}) per RG-LRU or SSD layer, in both layouts.
+"lru"} or {"conv", "ssm"}) per RG-LRU or SSD layer, in both layouts; a
+layer without a mixer holds none (``{}``).
 
 Training runs these functions under autograd. The in-place writes on the
 cache-free path are autograd-safe: ``apply_moe``'s combine ``index_add_``
@@ -187,19 +190,26 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def init_embedding(cfg: ModelConfig):
-    if cfg.learned_pos:
-        raise NotImplementedError("learned positions (whisper) are not "
-                                  "ported yet")
-    return {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
-                               fan_in=cfg.d_model)}
+    params = {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
+                                 fan_in=cfg.d_model)}
+    if cfg.learned_pos:  # learned absolute positions (whisper)
+        params["pos"] = ParamSpec((cfg.max_seq_len, cfg.d_model),
+                                  fan_in=cfg.d_model)
+    return params
 
 
-def apply_embedding(params, cfg: ModelConfig, policy: Policy, tokens):
+def apply_embedding(params, cfg: ModelConfig, policy: Policy, tokens,
+                    positions=None):
+    """Token embedding (scaled by sqrt(d) under ``emb_scale``), plus the
+    learned position rows ``pos[positions]`` in the compute dtype where
+    the tree has them and ``positions`` [B, S] is given."""
     cd = policy.compute_dtype
     x = params["table"][tokens.long()].to(cd)
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd,
                              device=x.device)
+    if "pos" in params and positions is not None:
+        x = x + params["pos"][positions.long()].to(cd)
     return x
 
 
@@ -219,7 +229,9 @@ def apply_unembedding(params, head, cfg: ModelConfig, policy: Policy, x):
 # Attention
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg: ModelConfig):
+def init_attention(cfg: ModelConfig, cross: bool = False):
+    """Attention projections; a cross-attention (``cross``) has no q/k
+    norm, as the reference's."""
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     params = {
         "wq": ParamSpec((d, h * hd), fan_in=d),
@@ -227,7 +239,7 @@ def init_attention(cfg: ModelConfig):
         "wv": ParamSpec((d, kh * hd), fan_in=d),
         "wo": ParamSpec((h * hd, d), fan_in=h * hd),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         params["q_norm"] = ParamSpec((hd,), "ones")
         params["k_norm"] = ParamSpec((hd,), "ones")
     return params
@@ -313,8 +325,9 @@ def _attention_inner(q, k, v, cfg: ModelConfig, run: RunConfig, *,
                      structural: bool):
     """Dispatch to the flash kernels / chunked / materialized reference
     attention. Flash and chunked apply to structural masks only (the
-    cache-free path, positions 0..S-1); flash masks from those positions
-    itself and is not handed them."""
+    cache-free path: queries at 0..S-1, keys at 0..T-1, T the memory's
+    length under cross-attention); flash masks from those positions itself
+    and is not handed them."""
     scale = cfg.head_dim ** -0.5
     softcap = cfg.attn_logit_softcap
     if structural and run.attn_impl == "flash":
@@ -329,22 +342,26 @@ def _attention_inner(q, k, v, cfg: ModelConfig, run: RunConfig, *,
 
 
 def _project_qkv(params, cfg: ModelConfig, run: RunConfig, x, positions,
-                 rope: bool = True):
-    """q/k/v projection + qk-norm + rope. Returns (q, k, v, kv_pos)."""
+                 kv=None, kv_positions=None, rope: bool = True):
+    """q/k/v projection + qk-norm + rope. K and V come from the memory
+    ``kv`` [B, T, d] where it is given (cross-attention: no RoPE), else
+    from x. Returns (q, k, v, kv_pos)."""
     B, S, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pol = run.policy
     cd = pol.compute_dtype
+    kv_src = kv if kv is not None else x
+    kv_pos = kv_positions if kv_positions is not None else positions
     q = (x @ params["wq"].to(cd)).reshape(B, S, h, hd)
-    k = (x @ params["wk"].to(cd)).reshape(B, S, kh, hd)
-    v = (x @ params["wv"].to(cd)).reshape(B, S, kh, hd)
+    k = (kv_src @ params["wk"].to(cd)).reshape(B, -1, kh, hd)
+    v = (kv_src @ params["wv"].to(cd)).reshape(B, -1, kh, hd)
     if "q_norm" in params:
         q = rms_norm_headwise(params["q_norm"], q, pol)
         k = rms_norm_headwise(params["k_norm"], k, pol)
-    if rope and cfg.rope_theta > 0:
+    if rope and cfg.rope_theta > 0 and kv is None:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v, positions
+        k = apply_rope(k, kv_pos, cfg.rope_theta)
+    return q, k, v, kv_pos
 
 
 def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
@@ -458,12 +475,18 @@ def _write_dense_cache(cache, k, v, positions, cache_index, window: int):
 
 
 def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
-                    *, causal: bool, window: int = 0, cache=None,
-                    cache_index=None, rope: bool = True,
-                    attend_to_cache: bool = False, page_table=None):
-    """Full / sliding-window self-attention: cache-free, dense or paged.
+                    *, causal: bool, window: int = 0, kv=None,
+                    kv_positions=None, cache=None, cache_index=None,
+                    rope: bool = True, attend_to_cache: bool = False,
+                    page_table=None):
+    """Full / sliding-window self-attention, cache-free, dense or paged,
+    and cross-attention.
 
-    x: [B, S, d]; positions: [B, S]. Without a cache, attention runs over
+    x: [B, S, d]; positions: [B, S]. ``kv`` [B, T, d] is a cross-attention
+    memory (``kv_positions`` [B, T]): K and V are projected from it, with
+    no RoPE, and every query attends over all of it, not causally and
+    without a cache, through the path ``run.attn_impl`` picks, at decode
+    too (the reference's). Without a cache, attention runs over
     the fresh K/V with the structural mask. With ``page_table`` [B, MP],
     ``cache`` holds the shared physical pool and row b's cache line p
     lives at line p % ps of page page_table[b, p // ps] (see
@@ -487,7 +510,8 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
             page_table=page_table)
     B, S, _ = x.shape
     cd = run.policy.compute_dtype
-    q, k, v, kv_pos = _project_qkv(params, cfg, run, x, positions, rope)
+    q, k, v, kv_pos = _project_qkv(params, cfg, run, x, positions, kv,
+                                   kv_positions, rope)
     structural = cache is None or not (S == 1 or attend_to_cache)
     if cache is not None:
         ring_chunk = window > 0 and S > 1 and not structural
@@ -500,8 +524,8 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
         elif not structural:
             k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
     out = _attention_inner(q, k, v, cfg, run, positions=positions,
-                           kv_pos=kv_pos, causal=causal, window=window,
-                           structural=structural)
+                           kv_pos=kv_pos, causal=causal and kv is None,
+                           window=window, structural=structural)
     y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"].to(cd)
     return y, cache
 
@@ -842,22 +866,25 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 
 
 # ---------------------------------------------------------------------------
-# Transformer layer = mixer + ffn
+# Transformer layer = mixer + (optional cross-attention) + ffn
 # ---------------------------------------------------------------------------
 
-def _check_spec(spec: LayerSpec):
-    if spec.mixer not in ("attn", "local_attn", "rglru", "ssd") \
-            or spec.cross_attn:
-        raise NotImplementedError(f"layer kind {spec.tag()!r} is not ported "
-                                  f"yet (attention, RG-LRU and SSD mixers "
-                                  f"only)")
+_MIXERS = {"attn": init_attention, "local_attn": init_attention,
+           "rglru": init_rglru, "ssd": init_ssd}
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec):
-    _check_spec(spec)
-    mixer = {"rglru": init_rglru, "ssd": init_ssd}.get(
-        spec.mixer, init_attention)(cfg)
-    params = {"norm1": init_norm(cfg), "mixer": mixer}
+    """One layer's tree in the reference's order: ``norm1`` (kept on a
+    layer without a mixer, as the reference keeps it), the mixer, the
+    cross-attention's ``xnorm``, ``xattn`` and its 0-dim f32 gate
+    ``xgate`` (zero at init), then ``norm2`` and the FFN."""
+    params = {"norm1": init_norm(cfg)}
+    if spec.mixer != "none":
+        params["mixer"] = _MIXERS[spec.mixer](cfg)
+    if spec.cross_attn:
+        params["xnorm"] = init_norm(cfg)
+        params["xattn"] = init_attention(cfg, cross=True)
+        params["xgate"] = ParamSpec((), "zeros")
     if spec.ffn != "none":
         params["norm2"] = init_norm(cfg)
         params["ffn"] = init_moe(cfg) if spec.ffn == "moe" else init_mlp(cfg)
@@ -866,30 +893,41 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec):
 
 def apply_mixer_part(params, cfg: ModelConfig, run: RunConfig,
                      spec: LayerSpec, x, positions, state=None,
+                     encoder_out=None, encoder_positions=None,
                      cache_index=None, attend_to_cache: bool = False,
                      page_table=None):
-    """Pre-norm mixer (attention, RG-LRU or SSD) + residual. Returns (h,
-    new_state)."""
-    _check_spec(spec)
+    """Pre-norm mixer (attention, RG-LRU, SSD or none) + residual, then on
+    a cross-attention layer ``tanh(xgate)`` times the cross-attention of
+    ``xnorm(h)`` over ``encoder_out`` (the gate's tanh taken in f32, then
+    cast to h's dtype, as the reference). Returns (h, new_state)."""
     new_state = dict(state) if state is not None else None
-    u = apply_norm(params["norm1"], x, run.policy)
-    if spec.mixer in ("rglru", "ssd"):
-        apply = apply_rglru if spec.mixer == "rglru" else apply_ssd
-        mixed, ns = apply(params["mixer"], cfg, run, u,
-                          state.get(spec.mixer) if state else None)
-        if new_state is not None:
-            new_state[spec.mixer] = ns
-        return x + mixed, new_state
-    window = cfg.window if spec.mixer == "local_attn" else 0
-    causal = cfg.causal if spec.causal is None else spec.causal
-    cache = state.get("kv") if state is not None else None
-    att, new_kv = apply_attention(
-        params["mixer"], cfg, run, u, positions, causal=causal,
-        window=window, cache=cache, cache_index=cache_index,
-        attend_to_cache=attend_to_cache, page_table=page_table)
-    if new_state is not None:
-        new_state["kv"] = new_kv
-    return x + att, new_state
+    h = x
+    if spec.mixer != "none":
+        u = apply_norm(params["norm1"], x, run.policy)
+        if spec.mixer in ("rglru", "ssd"):
+            apply = apply_rglru if spec.mixer == "rglru" else apply_ssd
+            mixed, ns = apply(params["mixer"], cfg, run, u,
+                              state.get(spec.mixer) if state else None)
+            if new_state is not None:
+                new_state[spec.mixer] = ns
+        else:
+            window = cfg.window if spec.mixer == "local_attn" else 0
+            causal = cfg.causal if spec.causal is None else spec.causal
+            cache = state.get("kv") if state is not None else None
+            mixed, new_kv = apply_attention(
+                params["mixer"], cfg, run, u, positions, causal=causal,
+                window=window, cache=cache, cache_index=cache_index,
+                attend_to_cache=attend_to_cache, page_table=page_table)
+            if new_state is not None:
+                new_state["kv"] = new_kv
+        h = x + mixed
+    if spec.cross_attn:
+        u = apply_norm(params["xnorm"], h, run.policy)
+        xa, _ = apply_attention(params["xattn"], cfg, run, u, positions,
+                                causal=False, kv=encoder_out,
+                                kv_positions=encoder_positions)
+        h = h + torch.tanh(params["xgate"]).to(h.dtype) * xa
+    return h, new_state
 
 
 def apply_ffn_part(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
@@ -909,13 +947,15 @@ def apply_ffn_part(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
 
 
 def apply_layer(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
-                x, positions, state=None, cache_index=None,
+                x, positions, state=None, encoder_out=None,
+                encoder_positions=None, cache_index=None,
                 moe_override: Optional[Callable] = None,
                 attend_to_cache: bool = False, page_table=None):
-    h, new_state = apply_mixer_part(params, cfg, run, spec, x, positions,
-                                    state=state, cache_index=cache_index,
-                                    attend_to_cache=attend_to_cache,
-                                    page_table=page_table)
+    h, new_state = apply_mixer_part(
+        params, cfg, run, spec, x, positions, state=state,
+        encoder_out=encoder_out, encoder_positions=encoder_positions,
+        cache_index=cache_index, attend_to_cache=attend_to_cache,
+        page_table=page_table)
     y, aux = apply_ffn_part(params, cfg, run, spec, h,
                             moe_override=moe_override)
     return y, new_state, aux
@@ -924,9 +964,11 @@ def apply_layer(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
 def init_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device="cpu"):
     """Decode-state tree for one layer (dense per-slot cache layout): the
-    attention cache (a ring of ``window`` lines on sliding-window layers)
-    or the per-slot recurrent state."""
-    _check_spec(spec)
+    attention cache (a ring of ``window`` lines on sliding-window layers),
+    the per-slot recurrent state, or nothing (``{}``) for a layer without
+    a mixer (the cross-attention keeps no cache)."""
+    if spec.mixer == "none":
+        return {}
     if spec.mixer == "rglru":
         return {"rglru": init_rglru_state(cfg, batch, dtype, device)}
     if spec.mixer == "ssd":
@@ -941,9 +983,9 @@ def init_paged_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                            device="cpu"):
     """Paged decode-state tree for one layer (DESIGN.md §9): attention KV
     is the SHARED pool (no batch dim); recurrent states stay per-slot
-    (they are O(d) per slot: paging buys nothing there)."""
-    _check_spec(spec)
-    if spec.mixer in ("rglru", "ssd"):
+    (they are O(d) per slot: paging buys nothing there); a layer without
+    a mixer holds nothing."""
+    if spec.mixer in ("rglru", "ssd", "none"):
         return init_layer_state(cfg, spec, batch, 0, dtype, device)
     return {"kv": init_paged_attention_cache(cfg, n_pages, page_size, dtype,
                                              device)}

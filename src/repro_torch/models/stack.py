@@ -21,6 +21,14 @@ rest (``torch.utils.checkpoint``'s selective checkpoint under
 ``modules.dots_with_no_batch_dims_saveable``). A ``layer_override``
 (zebra parallelism, ``core/zebra_spmd.py``) replaces every MoE layer
 without decode state, inside the checkpoint, so the recompute reruns it.
+
+The cross-attention archs carry a memory beside the token stream
+(:func:`cross_memory`): whisper's ``encoder`` (a stack of bidirectional
+layers over the front embeddings plus the decoder's learned position
+rows) or the vision archs' ``vision_proj`` of the patch embeddings. It is
+built at every ``apply_model`` call, decode steps included, as the
+reference builds it, and handed to each checkpointed block as an
+argument.
 """
 
 from __future__ import annotations
@@ -32,11 +40,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import modules
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.modules import Policy, RunConfig
 from repro_torch.pytree import ParamSpec, flatten, materialize, tree_map
 
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss")
+# whisper's encoder layer: bidirectional self-attention and a dense FFN
+ENCODER_SPEC = LayerSpec(mixer="attn", ffn="dense", causal=False)
 
 # Leaves cast to the compute dtype at their use in the JAX package
 # (``.astype(cd)``; the SSD and RG-LRU conv taps and bias are cast to x's
@@ -47,7 +57,7 @@ AUX_KEYS = ("moe_aux_loss", "moe_z_loss")
 # and lam.
 _COMPUTE_LEAVES = ("table", "lm_head", "wq", "wk", "wv", "wo", "wi_gate",
                    "wi_up", "wi", "in_proj", "out_proj", "conv_w", "conv_b",
-                   "proj_gate", "proj_rec", "out")
+                   "proj_gate", "proj_rec", "out", "vision_proj")
 
 
 def _zero_aux(device, extras=()):
@@ -70,25 +80,37 @@ def _acc_aux(acc, aux):
 # Init
 # ---------------------------------------------------------------------------
 
+def _block_specs(cfg: ModelConfig, pattern, n: int):
+    """One stacked tree per pattern position, leading layer axis ``n``."""
+    return {f"pos{p}": tree_map(lambda s: s.stacked(n),
+                                modules.init_layer(cfg, spec))
+            for p, spec in enumerate(pattern)}
+
+
 def param_specs(cfg: ModelConfig):
     """The parameter tree as ParamSpecs (shape + initializer), in the JAX
-    package's ``split_params`` layout."""
-    if cfg.is_encdec or cfg.vision_seq > 0:
-        raise NotImplementedError("encoder-decoder and vision models are "
-                                  "not ported yet")
+    package's ``split_params`` layout: the decoder, then whisper's
+    ``encoder`` (``blocks`` of ``ENCODER_SPEC`` stacked
+    ``n_encoder_layers`` times, ``final_norm``) and the vision archs'
+    ``vision_proj`` [vision_dim, d]."""
     specs = {"embed": modules.init_embedding(cfg)}
     n = cfg.n_pattern_repeats
     if n > 0:
-        specs["blocks"] = {
-            f"pos{p}": tree_map(lambda s: s.stacked(n),
-                                modules.init_layer(cfg, spec))
-            for p, spec in enumerate(cfg.pattern)}
+        specs["blocks"] = _block_specs(cfg, cfg.pattern, n)
     for i, spec in enumerate(cfg.tail_specs):
         specs[f"tail{i}"] = modules.init_layer(cfg, spec)
     specs["final_norm"] = modules.init_norm(cfg)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.vocab_size, cfg.d_model),
                                      fan_in=cfg.d_model)
+    if cfg.is_encdec:
+        specs["encoder"] = {
+            "blocks": _block_specs(cfg, (ENCODER_SPEC,),
+                                   cfg.n_encoder_layers),
+            "final_norm": modules.init_norm(cfg)}
+    if cfg.vision_seq > 0:
+        vdim = cfg.vision_dim or cfg.d_model
+        specs["vision_proj"] = ParamSpec((vdim, cfg.d_model), fan_in=vdim)
     return specs
 
 
@@ -123,28 +145,32 @@ def compute_params(params, policy: Policy):
 # Apply
 # ---------------------------------------------------------------------------
 
-def _unbind_layers(tree):
-    """Per-layer views of a stacked tree: a list over the leading layer
-    axis of trees of the same structure. ``unbind`` (not ``v[i]`` per
-    layer) gives autograd one node per stacked leaf, whose backward stacks
-    the layer gradients once instead of summing one full-size zero-padded
-    gradient per layer."""
+def _unbind_layers(tree, n: int):
+    """Per-layer views of a stacked tree of ``n`` layers: a list over the
+    leading layer axis of trees of the same structure (an empty dict, the
+    state of a layer without a mixer, gives ``n`` empty dicts). ``unbind``
+    (not ``v[i]`` per layer) gives autograd one node per stacked leaf,
+    whose backward stacks the layer gradients once instead of summing one
+    full-size zero-padded gradient per layer."""
     if isinstance(tree, dict):
-        subs = {k: _unbind_layers(v) for k, v in tree.items()}
-        n = len(next(iter(subs.values())))
+        subs = {k: _unbind_layers(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in subs.items()} for i in range(n)]
     return tree.unbind(0)
 
 
 def _apply_layer(p, cfg, run, spec, x, positions, state, cache_index,
                  page_table, layer_override, moe_override=None,
-                 attend_to_cache=False):
+                 attend_to_cache=False, memory=None):
     """One layer: ``layer_override`` (zebra) for a MoE layer without decode
-    state, else ``modules.apply_layer``. Returns (x, new_state, aux)."""
+    state, else ``modules.apply_layer``; ``memory`` is the cross-attention
+    memory (encoder_out, encoder_positions) or None. Returns (x,
+    new_state, aux)."""
     if layer_override is not None and spec.ffn == "moe" and state is None:
         y, aux = layer_override(p, spec, x, positions)
         return y, None, aux
+    enc, enc_pos = memory if memory is not None else (None, None)
     return modules.apply_layer(p, cfg, run, spec, x, positions, state=state,
+                               encoder_out=enc, encoder_positions=enc_pos,
                                cache_index=cache_index,
                                moe_override=moe_override,
                                attend_to_cache=attend_to_cache,
@@ -168,8 +194,14 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                  layer_override: Optional[Callable] = None,
                  moe_override: Optional[Callable] = None,
                  attend_to_cache: bool = False, aux_extras=(),
-                 layer_aux: bool = False):
+                 layer_aux: bool = False, memory=None):
     """Run the stacked pattern layers + tail. Returns (x, new_states, aux).
+
+    ``memory`` (encoder_out [B, T, d], encoder_positions [B, T]; see
+    :func:`cross_memory`) is what every cross-attention layer attends
+    over. Under remat it is an argument of each checkpointed block, so its
+    gradient (to whisper's encoder, to ``vision_proj``) flows through the
+    recompute.
 
     ``aux_extras`` registers extra fixed-shape aux keys (``(key, shape)``
     pairs) summed over the layers beside the aux losses. With
@@ -192,7 +224,7 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     new_block_states = None
     rows = []  # per-layer aux (layer_aux)
 
-    def one_block(x, layer_params, layer_states):
+    def one_block(x, layer_params, layer_states, memory):
         a = _zero_aux(x.device, aux_extras)
         for pos, spec in enumerate(pattern):
             key = f"pos{pos}"
@@ -200,7 +232,7 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
             x, ns, la = _apply_layer(layer_params[key], cfg, run, spec, x,
                                      positions, st, cache_index, page_table,
                                      layer_override, moe_override,
-                                     attend_to_cache)
+                                     attend_to_cache, memory)
             if decode:
                 _write_recurrent(st, ns)
             a = _acc_aux(a, la)
@@ -208,18 +240,21 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
 
     if blocks is not None:
         block_states = states["blocks"] if decode else None
-        layer_params = _unbind_layers(blocks)
-        layer_states = (_unbind_layers(block_states) if decode
-                        else [None] * len(layer_params))
+        n = next(iter(flatten(blocks).values())).shape[0]
+        layer_params = _unbind_layers(blocks, n)
+        layer_states = (_unbind_layers(block_states, n) if decode
+                        else [None] * n)
         remat = "none" if decode else run.remat
         for lp, ls in zip(layer_params, layer_states):
             if remat == "full":
-                x, a = checkpoint(one_block, x, lp, ls, use_reentrant=False)
+                x, a = checkpoint(one_block, x, lp, ls, memory,
+                                  use_reentrant=False)
             elif remat == "dots":
-                x, a = checkpoint(one_block, x, lp, ls, use_reentrant=False,
+                x, a = checkpoint(one_block, x, lp, ls, memory,
+                                  use_reentrant=False,
                                   context_fn=modules.dots_context)
             else:
-                x, a = one_block(x, lp, ls)
+                x, a = one_block(x, lp, ls, memory)
             aux = _acc_aux(aux, a)
             rows.append(a)
         new_block_states = block_states
@@ -229,7 +264,7 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
         st = tail_states[i] if tail_states else None
         x, ns, a = _apply_layer(tp, cfg, run, spec, x, positions, st,
                                 cache_index, page_table, layer_override,
-                                moe_override, attend_to_cache)
+                                moe_override, attend_to_cache, memory)
         aux = _acc_aux(aux, a)
         rows.append(_acc_aux(_zero_aux(x.device, aux_extras), a))
         if st is not None:
@@ -246,8 +281,61 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     return x, new_states, aux
 
 
+def zero_fronts(cfg: ModelConfig, batch: int, dtype, device="cpu") -> dict:
+    """The drivers' stub front embeddings, zeros in ``dtype`` (the JAX
+    drivers' launch/train.py:127-136 and launch/serve.py:141-148):
+    ``encoder_embeds`` [batch, encoder_seq, d] for an encoder-decoder
+    arch, ``vision_embeds`` [batch, vision_seq, vision_dim] for a vision
+    arch, nothing for a decoder-only one."""
+    fronts = {}
+    if cfg.is_encdec:
+        fronts["encoder_embeds"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+            device=device)
+    if cfg.vision_seq > 0:
+        fronts["vision_embeds"] = torch.zeros(
+            (batch, cfg.vision_seq, cfg.vision_dim or cfg.d_model),
+            dtype=dtype, device=device)
+    return fronts
+
+
+def cross_memory(params, cfg: ModelConfig, run: RunConfig, B: int,
+                 encoder_embeds, vision_embeds):
+    """The cross-attention memory (encoder_out [B, T, d], positions
+    [B, T]) of the JAX package's stack.py:277-302, or None for a
+    decoder-only arch.
+    whisper: the front embeddings plus the decoder's own learned position
+    rows 0..T-1, the encoder stack (bidirectional, under the run's remat),
+    ``final_norm``; vision: the patch embeddings times ``vision_proj`` in
+    the compute dtype, at positions 0..T-1."""
+    pol = run.policy
+    cd = pol.compute_dtype
+    if cfg.is_encdec:
+        if encoder_embeds is None:
+            raise ValueError(f"{cfg.name} needs encoder_embeds")
+        T = encoder_embeds.shape[1]
+        enc_pos = torch.arange(T, dtype=torch.int32,
+                               device=encoder_embeds.device).expand(B, T)
+        enc_x = encoder_embeds.to(cd)
+        if "pos" in params["embed"]:
+            enc_x = enc_x + params["embed"]["pos"][:T].to(cd)[None]
+        enc = params["encoder"]
+        enc_x, _, _ = _apply_stack(enc["blocks"], [], cfg, run,
+                                   (ENCODER_SPEC,), enc_x, enc_pos)
+        return modules.apply_norm(enc["final_norm"], enc_x, pol), enc_pos
+    if cfg.vision_seq > 0:
+        if vision_embeds is None:
+            raise ValueError(f"{cfg.name} needs vision_embeds")
+        mem = vision_embeds.to(cd) @ params["vision_proj"].to(cd)
+        T = mem.shape[1]
+        return mem, torch.arange(T, dtype=torch.int32,
+                                 device=mem.device).expand(B, T)
+    return None
+
+
 def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
                 positions=None, *, decode_state=None, cache_index=None,
+                encoder_embeds=None, vision_embeds=None,
                 return_hidden: bool = False, page_table=None,
                 layer_override: Optional[Callable] = None,
                 moe_override: Optional[Callable] = None,
@@ -262,6 +350,10 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
     (init_paged_decode_state); either is updated in place.
     attend_to_cache: an S > 1 prefill attends over the existing cache
     instead of assuming it empty (chunked prefill, dense mode).
+    encoder_embeds [B, T_enc, d] (whisper's stub audio front) or
+    vision_embeds [B, vision_seq, vision_dim] (the stub patch embeddings):
+    the cross-attention memory is built from them at every call, prefill
+    and each decode step alike, as the reference builds it.
     layer_override(layer_params, spec, x, positions) -> (y, aux) replaces
     every MoE layer when there is no decode state (zebra parallelism);
     moe_override(ffn_params, u) -> (f, aux) replaces the MoE FFN of every
@@ -282,7 +374,10 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
         else:
             positions = steps.expand(B, S)
 
-    x = modules.apply_embedding(params["embed"], cfg, run.policy, tokens)
+    memory = cross_memory(params, cfg, run, B, encoder_embeds,
+                          vision_embeds)
+    x = modules.apply_embedding(params["embed"], cfg, run.policy, tokens,
+                                positions)
     tails = [(spec, params[f"tail{i}"])
              for i, spec in enumerate(cfg.tail_specs)]
     tail_states = decode_state["tails"] if decode_state is not None else None
@@ -292,7 +387,7 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
         cache_index=cache_index, page_table=page_table,
         layer_override=layer_override, moe_override=moe_override,
         attend_to_cache=attend_to_cache, aux_extras=aux_extras,
-        layer_aux=layer_aux)
+        layer_aux=layer_aux, memory=memory)
 
     x = modules.apply_norm(params["final_norm"], x, run.policy)
     if return_hidden:

@@ -6,6 +6,7 @@ and :func:`build_deployment` the one construction path. ``validate``
 reports EVERY violation in one :class:`ServeConfigError`. Config ->
 engine mapping, as in the JAX package::
 
+    encoder-decoder / vision arch -> BatchedServer        (lockstep)
     fleet.enabled                 -> FleetController      (make_fleet)
     disagg.enabled                -> DisaggController     (make_disagg)
     ep.ep_size > 0 (MoE arch)     -> EPContinuousBatchingEngine
@@ -19,8 +20,10 @@ Expert-parallel decode (``EPCfg``, DESIGN.md §11) runs over an
 take it (the driver's is one rank, so ``--ep-size`` above 1 fails
 validation with the JAX message, as on a 1x1 mesh), and the disaggregated
 deployment takes EP as the JAX one does. The fleet refuses it, as in the
-JAX package. The JAX package's lockstep fallback for encoder-decoder and
-vision archs is not ported: ``validate`` refuses those archs.
+JAX package. Encoder-decoder and vision archs take the lockstep
+``BatchedServer`` before any other branch, as in the JAX package: their
+steps need per-request front embeddings that the continuous engines do
+not carry, so ``--paged``, ``--disagg`` and ``--fleet`` fall through to it.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.models import stack
-from repro_torch.serve.engine import (ContinuousBatchingEngine,
-                                      make_continuous_program)
+from repro_torch.serve.engine import (BatchedServer,
+                                      ContinuousBatchingEngine,
+                                      make_continuous_program,
+                                      make_serve_program)
 from repro_torch.serve.kv_blocks import BlockAllocator
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Scheduler
@@ -228,8 +233,7 @@ class ServeConfig:
         """Reject-don't-truncate validation of the WHOLE config: every
         violation in one :class:`ServeConfigError`. ``model_cfg`` adds the
         arch-dependent checks (recurrent-arch prefix rejection, EP on a
-        dense arch, and the layer kinds the port does not run yet:
-        cross-attention, encoder-decoder and vision); with it,
+        dense arch); with it,
         ``ep_group`` (the EP ranks, a ``core.zebra_spmd.EPGroup``: the JAX
         package's mesh) adds EP's divisibility and rank-count checks."""
         errs: List[str] = []
@@ -317,15 +321,6 @@ class ServeConfig:
                         f"{model_cfg.name} carries recurrent mixers {rec} "
                         f"whose state depends on every earlier token, so "
                         f"skipping a cached prefix would corrupt it")
-            if model_cfg.is_encdec or model_cfg.vision_seq > 0:
-                errs.append(f"{model_cfg.name}: encoder-decoder and vision "
-                            f"archs are not ported yet")
-            kinds = sorted({s.tag() for s in model_cfg.layer_layout()
-                            if s.mixer not in ("attn", "local_attn", "rglru",
-                                               "ssd") or s.cross_attn})
-            if kinds:
-                errs.append(f"{model_cfg.name}: layer kinds {kinds} are not "
-                            f"ported yet")
         if errs:
             raise ServeConfigError("; ".join(errs))
 
@@ -338,7 +333,8 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
     deployment the config describes (see the module docstring).
     ``params`` defaults to a fresh init from seed 0 on ``device`` (the JAX
     package's ``PRNGKey(0)`` init). ``ep_group``: the EP ranks (a
-    ``core.zebra_spmd.EPGroup``; None: one rank). Every engine exposes
+    ``core.zebra_spmd.EPGroup``; None: one rank). Every engine but the
+    lockstep server of the encoder-decoder and vision archs exposes
     ``run(trace)`` and ``rejected``; the EP engines place (permute and
     shard) the replicated params themselves."""
     if serve_cfg.ep.ep_size and ep_group is None:
@@ -349,6 +345,12 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
         params = stack.init_model(gen, cfg, device=device)
+
+    if cfg.is_encdec or cfg.vision_seq > 0:
+        # Lockstep fallback: enc-dec / vision archs need per-request front
+        # embeddings the continuous engines do not carry.
+        program = make_serve_program(cfg, run, device=device)
+        return BatchedServer(program, params, sc.slots, sc.max_len)
 
     if sc.fleet.enabled:
         from repro_torch.serve.fleet import make_fleet

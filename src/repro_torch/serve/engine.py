@@ -16,9 +16,11 @@ Two entry points:
   them (§14).
 * ``make_serve_program`` / ``BatchedServer``, the lockstep path: one
   scalar ``cache_index`` for the whole batch, whole-batch prefill, greedy
-  decode. The JAX driver takes it only for encoder-decoder and vision
-  archs, which the port does not run yet; here it is the dense engine's
-  parity reference.
+  decode, with the front embeddings (``fronts``: whisper's
+  ``encoder_embeds``, the vision archs' ``vision_embeds``) handed to every
+  step. The drivers serve the encoder-decoder and vision archs through
+  it (the continuous engines carry no fronts); it is also the dense
+  engine's parity reference.
 
 Differences from the JAX engines, all about execution and none about
 results: the steps run eagerly (no jit) under ``torch.inference_mode``;
@@ -51,8 +53,14 @@ from repro_torch.serve.scheduler import PrefillChunk, Request, Scheduler
 class ServeProgram:
     """The steps of the lockstep server.
 
-      prefill_step(params, state, tokens[B,S]) -> (state, last_logits [B,V])
-      decode_step(params, state, tok[B,1], cache_index) -> (state, next[B,1])
+      prefill_step(params, state, tokens[B,S], fronts)
+          -> (state, last_logits [B,V])
+      decode_step(params, state, tok[B,1], cache_index, fronts)
+          -> (state, next[B,1])
+
+    ``fronts`` is a dict of ``stack.apply_model``'s front keywords
+    (``encoder_embeds`` / ``vision_embeds``), empty for a decoder-only
+    arch.
     """
 
     cfg: ModelConfig
@@ -73,7 +81,10 @@ def make_serve_program(cfg: ModelConfig, run: RunConfig, *,
     package; on one device that is the whole expert set. The JAX
     function's ``shape`` and ``max_len`` size its sharded state; here the
     server's ``batch`` and ``max_len`` size the state it allocates
-    (``init_state``)."""
+    (``init_state``). Each step takes the fronts and rebuilds the
+    cross-attention memory from them (whisper's encoder stack, the vision
+    projection) as the reference's steps do: a decode step pays the
+    encoder again, which the port does not cache either."""
     device = torch.device(device)
     moe_override = None
     if cfg.is_moe:
@@ -86,21 +97,21 @@ def make_serve_program(cfg: ModelConfig, run: RunConfig, *,
             return y2.reshape(u.shape).to(u.dtype), aux
 
     @torch.inference_mode()
-    def prefill(params, state, tokens):
+    def prefill(params, state, tokens, fronts):
         """Full-sequence prefill writing the caches; only the final
         position is unembedded."""
         hidden, state, _ = stack.apply_model(
             params, cfg, run, tokens, decode_state=state, cache_index=0,
-            moe_override=moe_override, return_hidden=True)
+            moe_override=moe_override, return_hidden=True, **fronts)
         return state, apply_unembedding(params["embed"], params.get(
             "lm_head"), cfg, run.policy, hidden[:, -1])
 
     @torch.inference_mode()
-    def decode(params, state, tok, cache_index):
+    def decode(params, state, tok, cache_index, fronts):
         """One decode step: tok [B,1] -> greedy next token [B,1]."""
         logits, state, _ = stack.apply_model(
             params, cfg, run, tok, decode_state=state,
-            cache_index=cache_index, moe_override=moe_override)
+            cache_index=cache_index, moe_override=moe_override, **fronts)
         return state, logits[:, -1].argmax(-1)[:, None]
 
     return ServeProgram(
@@ -111,9 +122,9 @@ def make_serve_program(cfg: ModelConfig, run: RunConfig, *,
 
 
 class BatchedServer:
-    """Minimal lockstep loop over fixed slots (the dense engine's parity
-    reference; the JAX driver's fallback for encoder-decoder and vision
-    archs, which the port does not run yet)."""
+    """Minimal lockstep loop over fixed slots: the drivers' server for
+    encoder-decoder and vision archs (``fronts``: their front embeddings,
+    given to every call), and the dense engine's parity reference."""
 
     def __init__(self, program: ServeProgram, params, batch: int,
                  max_len: int):
@@ -125,19 +136,28 @@ class BatchedServer:
         self.cache_index = 0
         self.tokens = torch.zeros((batch, 1), dtype=torch.int64,
                                   device=program.device)
+        self.logits = None  # the last prefill's last-position logits
 
-    def submit_prefill(self, tokens):
+    def _fronts(self, fronts) -> dict:
+        return {k: torch.as_tensor(v, device=self.p.device)
+                for k, v in (fronts or {}).items()}
+
+    def submit_prefill(self, tokens, fronts=None):
+        """Prefill every slot from line 0; the first tokens (greedy) are
+        returned and the prefill's last-position logits kept in
+        ``logits`` [B, V]."""
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                  device=self.p.device)
-        self.state, last = self.p.prefill_step(self.params, self.state,
-                                               tokens)
+        self.state, self.logits = self.p.prefill_step(
+            self.params, self.state, tokens, self._fronts(fronts))
         self.cache_index = tokens.shape[1]
-        self.tokens = last.argmax(-1)[:, None]
+        self.tokens = self.logits.argmax(-1)[:, None]
         return self.tokens
 
-    def step(self):
+    def step(self, fronts=None):
         self.state, self.tokens = self.p.decode_step(
-            self.params, self.state, self.tokens, self.cache_index)
+            self.params, self.state, self.tokens, self.cache_index,
+            self._fronts(fronts))
         self.cache_index += 1
         return self.tokens
 

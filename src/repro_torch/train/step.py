@@ -94,7 +94,9 @@ def make_train_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
     them with the JAX package's metrics (``loss``, ``nll``, ``z_loss``,
     ``moe_aux_loss``, ``moe_z_loss``, ``grad_norm``, ``lr``) as 0-dim
     tensors on the device. ``batch`` holds ``tokens`` and ``targets``
-    [B, S] on any device; they are moved to the program's device.
+    [B, S] on any device, and the front embeddings of an encoder-decoder
+    (``encoder_embeds``) or vision (``vision_embeds``) arch; they are
+    moved to the program's device.
     ``shape``'s global batch fits the zebra config (:func:`fit_zebra`); the
     step itself reads its batch's own shape.
 
@@ -133,9 +135,11 @@ def make_train_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
                 cfg, run, zcfg, streams=zebra_streams)
 
     def loss_fn(params, batch):
-        hidden, _, aux = stack.apply_model(params, cfg, run, batch["tokens"],
-                                           return_hidden=True,
-                                           layer_override=override)
+        hidden, _, aux = stack.apply_model(
+            params, cfg, run, batch["tokens"],
+            encoder_embeds=batch.get("encoder_embeds"),
+            vision_embeds=batch.get("vision_embeds"), return_hidden=True,
+            layer_override=override)
         table = params.get("lm_head", params["embed"]["table"])
         loss, metrics = chunked_xent_from_hidden(hidden, table.to(cd),
                                                  batch["targets"])
@@ -151,7 +155,11 @@ def make_train_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
             p.requires_grad_(True)
         try:
             loss, metrics = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            # a leaf the forward never reads (the vision cross layer's
+            # norm1) gets a zero gradient, as under jax.grad
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         finally:
             for p in leaves.values():
                 p.requires_grad_(False)

@@ -24,12 +24,12 @@ from torch_parity import jax_values_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
 NAMES = sorted(jreg.names())
-# Decoder-only archs whose layers are all attention, RG-LRU or SSD mixers:
-# the ones whose init the port has.
-PORTED = ["dbrx-132b", "llama3.2-3b", "mamba2-2.7b", "mixtral-d1",
-          "mixtral-d2", "mixtral-d3", "mixtral-w1", "mixtral-w2", "qwen3-32b",
-          "qwen3-moe-30b-a3b", "recurrentgemma-9b", "starcoder2-15b",
-          "yi-34b"]
+# The archs whose init the port has: every registered one (attention,
+# RG-LRU and SSD mixers, cross-attention, whisper's encoder).
+PORTED = ["dbrx-132b", "llama-3.2-vision-90b", "llama3.2-3b", "mamba2-2.7b",
+          "mixtral-d1", "mixtral-d2", "mixtral-d3", "mixtral-w1",
+          "mixtral-w2", "qwen3-32b", "qwen3-moe-30b-a3b",
+          "recurrentgemma-9b", "starcoder2-15b", "whisper-tiny", "yi-34b"]
 
 
 def test_registry_names_match():
@@ -56,12 +56,23 @@ def test_exact_param_count_matches_jax(name):
 
 
 def test_unported_layer_kinds_raise():
-    """Cross-attention archs (whisper, llama-3.2-vision) are not ported:
-    their init raises. The recurrent archs build their decode states in
-    both layouts: a per-slot recurrent state per RG-LRU or SSD layer."""
+    """No layer kind is refused any more. The cross-attention archs'
+    ``param_specs`` (whisper's encoder, learned positions, the vision
+    projection, a layer without a mixer) equal JAX's ``split_params`` tree
+    key by key and shape by shape, at full size (``jax.eval_shape``, no
+    allocation) and at smoke size. The recurrent archs build their decode
+    states in both layouts: a per-slot recurrent state per RG-LRU or SSD
+    layer."""
     for name in ("whisper-tiny", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError):
-            stack.param_specs(registry.get_config(name))
+        for cfg, jcfg in ((registry.get_config(name), jreg.get_config(name)),
+                          (registry.smoke_config(registry.get_config(name)),
+                           jreg.smoke_config(jreg.get_config(name)))):
+            want = flatten(jax.eval_shape(lambda c=jcfg: split_params(
+                jstack.init_model(jax.random.PRNGKey(0), c))[0]))
+            got = stack.flat_param_specs(cfg)
+            assert sorted(got) == sorted(want), name
+            for k, spec in got.items():
+                assert tuple(spec.shape) == tuple(want[k].shape), (name, k)
     for name, kind in (("mamba2-2.7b", "ssd"), ("recurrentgemma-9b",
                                                 "rglru")):
         cfg = registry.smoke_config(registry.get_config(name))

@@ -35,6 +35,45 @@ def jax_values_np(tree):
     return np.asarray(tree)
 
 
+# The cross-attention archs. The reference initialises each cross-attention
+# gate ``xgate`` to 0 and its drivers feed zero fronts, so at init a
+# cross-attention adds exactly 0 and nothing reaches its weights, the
+# encoder or ``vision_proj``: their parity tests set every gate to
+# XATTN_GATE in both trees and draw the fronts from a numpy seed.
+XATTN_ARCHS = ("whisper-tiny", "llama-3.2-vision-90b")
+XATTN_GATE = 0.8
+
+
+def with_gate(tree, gate):
+    """The tree with every ``xgate`` leaf set to ``gate`` (new leaves; the
+    others shared): a JAX value tree or the port's."""
+    def walk(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k == "xgate":
+                out[k] = v * 0 + gate  # a tensor or array of v's kind
+            else:
+                out[k] = v
+        return out
+    return walk(tree)
+
+
+def fronts_np(cfg, batch, seed):
+    """Random front embeddings of an arch, numpy f32 from ``seed``."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    if cfg.is_encdec:
+        out["encoder_embeds"] = rng.randn(
+            batch, cfg.encoder_seq, cfg.d_model).astype(np.float32)
+    if cfg.vision_seq > 0:
+        out["vision_embeds"] = rng.randn(
+            batch, cfg.vision_seq, cfg.vision_dim or cfg.d_model).astype(
+                np.float32)
+    return out
+
+
 def split3(x):
     """The tensor-core kernels' split of f32 x (csrc/sm90.cuh split3):
     hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded
