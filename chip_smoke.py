@@ -63,6 +63,10 @@ full depth, with random weights from seed 0:
   copy;
 * train_trace: the train driver with ``--trace-out build/train_trace.json``
   on zebra W1, 3 steps;
+* train_mesh: the training mesh, the driver's zebra default on W1 at full
+  width and depth, 3 steps, through the one-process program and through
+  ``--mesh 1x1`` (the mesh program on one rank of an NCCL group); with
+  n >= 2 cards also ``--mesh 1xn`` and ``nx1``, one process per card;
 * serve_prefix: the serve driver on ``mixtral-w2`` with ``--prefix-cache
   --fair --tenants 2 --requests 8`` (a 192-token, 12-page shared prefix
   per tenant) and one exact repeat of request 0's prompt arriving 64
@@ -219,6 +223,13 @@ It fails unless:
   ``[train] idle:`` lines and a trace of more than 0 events, its losses
   and grad norms bitwise those of the untraced ``train_zebra`` run's
   first 3 steps;
+* ``train_mesh``: the ``--mesh 1x1`` losses and every param leaf after
+  step 3 within 1e-6 (of the loss, of max|leaf|) of the one-process
+  program's, exactly the zebra launches per layer and step (all wgmma),
+  no collective launched, this rank's param and optimizer bytes equal
+  to the sharding rules' block shapes; a 1xn / nx1 run's losses within
+  1e-2 of the world-1 run's (the step ms of both programs, the
+  collective count and the bytes printed);
 * each kernel agrees with its plain PyTorch version on the card, at the
   main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
   bf16 tier, scaled down where the outputs stay below 1; per decode slot
@@ -347,8 +358,9 @@ warm-up and serve runs' lines,
 the serve_prefix, serve_disagg, serve_disagg_prefix, serve_trace,
 serve_dense, serve_fleet, serve_ep and ep_tiles lines (each as its
 phase ends), the train
-runs' lines, the train_ckpt, train_accum, remat_dots, compress and
-train_trace lines (each as its phase ends), the kernel tolerances,
+runs' lines, the train_ckpt, train_accum, remat_dots, compress,
+train_trace and train_mesh lines (each as its phase ends), the kernel
+tolerances,
 the ``kernels`` JSON line
 (each entry also names its ``design``: ``"wgmma"`` or ``"fma"``; ``ms``,
 ``plain_ms`` and ``library_ms`` are device times per call, read with CUDA
@@ -464,6 +476,13 @@ ZEBRA_LAUNCHES = {"gmm_glu": 4, "gmm": 14, "gmm_dw": 6}
 ZEBRA_A2A_LAUNCHES = {"gmm_glu": 8, "gmm": 28, "gmm_dw": 12}
 ZEBRA_ENGINE = {"replicated": ([216], [8]),   # (capacities, block_m)
                 "alltoall": ([224], [16])}    # chunks of 112 rows
+# the training mesh (train_mesh:): the driver's zebra default through
+# --mesh 1x1, the mesh program on one NCCL rank, against the one-process
+# program; where the machine has n >= 2 cards, also 1xn and nx1
+MESH_ARGS = ["--arch", "mixtral-w1", "--mesh", "1x1", "--steps", "3",
+             "--batch", "8", "--seq", "256"]
+MESH_TIER = 1e-6            # world 1 vs one process: loss, leaf / max|leaf|
+MESH_BF16_TIER = 1e-2       # world n vs world 1 (bf16, per-shard capacity)
 ZEBRA_EQUAL_CF = 6.0        # = E / top_k: no drops, C 1024, block_m 128
 ZEBRA_GAP = 1e-2            # zebra (no drops) vs --no-zebra step 1
 # the driver's checkpoint and resume (train_ckpt:) on W1 cut to this many
@@ -1745,8 +1764,8 @@ def mpmd_equal_case(torch, run=None) -> dict:
         order."""
         flips = []
 
-        def pinned(router_w, cfg, policy, x2d):
-            _w, idx, aux = route(router_w, cfg, policy, x2d)
+        def pinned(router_w, cfg, policy, x2d, **kw):
+            _w, idx, aux = route(router_w, cfg, policy, x2d, **kw)
             want = wants[len(flips)]
             flips.append(int((idx.sort(-1).values != want.sort(-1).values)
                              .any(-1).sum()))
@@ -2631,6 +2650,147 @@ def train_ckpt_phase(torch, train_mod, smi: str):
             "ok": got == want and not differ
             and resumed["start_step"] == 2 and resumed["ok"]}
     del straight, resumed, a, b
+    return line, counts
+
+
+def tree_nbytes(tree) -> int:
+    from repro_torch.pytree import flatten
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
+def layout_nbytes(layout, params, opt_state) -> dict:
+    """This rank's param and optimizer bytes as held, and as the sharding
+    rules' block shapes (``local_shape`` of the fitted specs) give them."""
+    from repro_torch.pytree import flatten
+    from repro_torch.sharding.rules import local_shape
+    mesh = layout.mesh
+    p, o = flatten(params), flatten(opt_state)
+    want_p = sum(math.prod(local_shape(layout.param_specs[k],
+                                       layout.shapes[k], mesh))
+                 * p[k].element_size() for k in p)
+    want_o = 4 * sum(math.prod(local_shape(s, layout.shapes[k], mesh))
+                     for key in ("mu", "nu", "master")
+                     for k, s in layout.opt_specs.get(key, {}).items())
+    return {"param_bytes": tree_nbytes(params), "param_bytes_rules": want_p,
+            "opt_bytes": tree_nbytes(opt_state),
+            "opt_bytes_rules": want_o + 4}  # + the int32 step
+
+
+def mesh_rank_worker(rank: int, argv, out_path: str):
+    """One rank of the driver's ``--mesh`` at world n (``launch_ranks``
+    target): rank 0 writes the losses and grad norms to ``out_path``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = train_mod.build_parser().parse_args(argv)
+    mesh = make_mesh(parse_mesh(args.mesh), ("data", "model"), "cuda")
+    s = train_mod.train_arch(args.arch, args, mesh=mesh)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps({
+            "ok": s["ok"], "ms_per_step": s["ms_per_step"],
+            "loss": [m["loss"] for m in s["history"]],
+            "grad_norm": [m["grad_norm"] for m in s["history"]]}))
+
+
+def train_mesh_phase(torch, train_mod, smi: str):
+    """The training mesh: the driver's zebra default on mixtral-w1 at full
+    width and depth, 3 steps, first through the one-process program, then
+    through ``--mesh 1x1``: the mesh program on one rank of an NCCL group
+    (``launch_ranks``), its launch and collective counters set to 0 just
+    before and read just after. Gate: its losses and every param leaf
+    after step 3 equal the one-process program's within MESH_TIER (of the
+    loss, of max|leaf|), and it launches exactly the zebra counts per
+    layer and step, all wgmma. Reported: both programs' step ms, the
+    collectives launched (none at one rank), this rank's param and
+    optimizer bytes against the rules' block shapes. With n >= 2 cards,
+    ``--mesh 1xn`` and ``nx1`` run too (one process per card), their
+    losses held to the world-1 run's at MESH_BF16_TIER."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import launch_ranks, make_mesh
+    from repro_torch.models import registry
+    from repro_torch.pytree import flatten
+    from repro_torch.sharding import collectives as C
+    args = train_mod.build_parser().parse_args(MESH_ARGS)
+    layers = registry.get_config(args.arch).n_layers
+    one = train_mod.train_arch(args.arch, args, return_state=True)
+    ref = {k: v.detach().clone() for k, v in
+           flatten(one["final_params"]).items()}
+    one.pop("final_params"), one.pop("final_opt_state")
+    gc.collect()
+    torch.cuda.empty_cache()
+    box = {}
+
+    def rank0(rank):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        kernels.reset_launch_counts()
+        C.reset_counts()
+        s = train_mod.train_arch(args.arch, args, return_state=True,
+                                 mesh=mesh)
+        torch.cuda.synchronize()
+        box["counts"] = driver_counts(kernels)
+        box["collectives"] = dict(C.COUNTS)
+        got = flatten(s["final_params"])
+        box["leaf_err"] = max(
+            float((got[k].float() - v.float()).abs().max())
+            / max(float(v.float().abs().max()), 1e-30)
+            for k, v in ref.items())
+        box["bytes"] = layout_nbytes(s.pop("layout"),
+                                     s.pop("final_params"),
+                                     s.pop("final_opt_state"))
+        box["summary"] = s
+
+    launch_ranks(rank0, 1, "cuda")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    s, counts = box["summary"], box["counts"]
+    check_zebra_launches("train_mesh (1x1)", counts, ZEBRA_LAUNCHES,
+                         layers, args.steps)
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(s["history"], one["history"]))
+    worlds = {"1x1": [m["loss"] for m in s["history"]]}
+    n = torch.cuda.device_count()
+    wide_ok = True
+    if n >= 2:
+        for mesh_arg in (f"1x{n}", f"{n}x1"):
+            with tempfile.TemporaryDirectory() as tmp:
+                out = pathlib.Path(tmp) / "losses.json"
+                argv = [a if a != "1x1" else mesh_arg for a in MESH_ARGS]
+                launch_ranks(mesh_rank_worker, n, "cuda", argv, str(out))
+                res = json.loads(out.read_text())
+            worlds[mesh_arg] = res["loss"]
+            wide_ok &= res["ok"] and all(
+                abs(a - b) <= MESH_BF16_TIER * abs(b)
+                for a, b in zip(res["loss"], worlds["1x1"]))
+    line = {"arch": args.arch, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "mesh": "1x1", "zebra": s["zebra"],
+            "params": s["params"], "steps": args.steps,
+            "batch": args.batch, "seq": args.seq,
+            "loss": worlds["1x1"],
+            "one_process_loss": [m["loss"] for m in one["history"]],
+            "loss_rel_err": loss_err, "leaf_rel_err": box["leaf_err"],
+            "ms_per_step": s["ms_per_step"],
+            "one_process_ms_per_step": one["ms_per_step"],
+            "step_ms": [t * 1e3 for t in s["step_s"]],
+            "one_process_step_ms": [t * 1e3 for t in one["step_s"]],
+            "collectives": box["collectives"],
+            "collectives_launched": sum(box["collectives"].values()),
+            **box["bytes"], "worlds_ran": list(worlds),
+            "world_losses": worlds,
+            "launches_per_layer_step": {
+                k: counts[k] / (layers * args.steps)
+                for k in ZEBRA_LAUNCHES},
+            "ok": s["ok"] and one["ok"] and loss_err <= MESH_TIER
+            and box["leaf_err"] <= MESH_TIER
+            and not box["collectives"] and wide_ok
+            and box["bytes"]["param_bytes"]
+            == box["bytes"]["param_bytes_rules"]
+            and box["bytes"]["opt_bytes"] == box["bytes"]["opt_bytes_rules"]}
     return line, counts
 
 
@@ -4359,6 +4519,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- main path 12b: the training mesh, --mesh 1x1 (and 1xn, nx1) -------
+    mesh_line, mesh_counts = train_mesh_phase(torch, train_mod, smi)
+    print("train_mesh: " + json.dumps(mesh_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
     batch, seq = train_line["batch"], train_line["seq"]
@@ -4463,6 +4629,7 @@ def main() -> int:
             "train_accum": accum_counts.get(c, 0),
             "remat_dots": dots_counts.get(c, 0),
             "train_trace": trace_counts.get(c, 0),
+            "train_mesh": mesh_counts.get(c, 0),
             **{k: n.get(c, 0) for k, n in recurrent_counts.items()}}
         e["launches"] = sum(e["launches_by_path"].values())
     bad = [e["name"] for e in entries if not e["ok"]] + [
@@ -4514,7 +4681,7 @@ def main() -> int:
         "mpmd_streams": mpmd_streams, "train_ckpt": ckpt_line,
         "train_accum": accum_line, "remat_dots": dots_line,
         "compress": compress_line, "train_trace": trace_line,
-        "flash_cases": flash_entries + flash_cases,
+        "train_mesh": mesh_line, "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad,
         "serve_rgemma": rgemma_line, "serve_mamba2": m2_serve_line,
         "train_rgemma": rg_train_line, "rglru_scan": scan_line,
@@ -4687,6 +4854,12 @@ def main() -> int:
             ("train_trace", trace_line, "the traced run failed, printed no "
              "zebra-sim or idle line, traced no event, or its losses differ "
              "from the untraced run's bits"),
+            ("train_mesh", mesh_line, "the --mesh 1x1 mesh program's losses "
+             f"or a param leaf after step 3 differ from the one-process "
+             f"program's beyond {MESH_TIER} (of the loss, of max|leaf|), it "
+             "launched a collective, its bytes differ from the rules' "
+             "block shapes, or a 1xn / nx1 run's losses differ from it "
+             f"beyond {MESH_BF16_TIER}"),
             ("serve_rgemma", rgemma_line, "a request did not finish, an "
              "allocator was not clean, the paged decode launches are not 12 "
              "a decode step in the paged and disagg runs and 0 in the dense "

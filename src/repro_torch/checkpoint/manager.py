@@ -1,5 +1,5 @@
 """Resumable checkpointing with atomic publish and async save (mirror of
-``repro/checkpoint/manager.py``, on one device).
+``repro/checkpoint/manager.py``), on one device or a mesh.
 
 Layout per step, the JAX package's own, so one checkpoint feeds both
 packages:
@@ -31,8 +31,17 @@ untouched previous one.
 ``save(..., blocking=False)`` copies every leaf to host memory before it
 returns (the port's AdamW updates params and moments in place, and on the
 CPU ``Tensor.numpy()`` would share their memory) and hashes and writes the
-copy on a thread. Re-sharding onto a mesh on restore is not ported: the
-port trains on one device.
+copy on a thread.
+
+On a mesh (``CheckpointManager(mesh=)``, every rank calling ``save`` /
+``wait`` / ``restore`` in the same order), ``save(shardings=,
+opt_shardings=)`` gathers each leaf's full array from the ranks' blocks
+(one collective step over every leaf) and rank 0 alone hashes and
+writes it, in the same format; a barrier follows the publish (in
+``wait`` for an async save). ``restore(shardings=, opt_shardings=)``
+reads the full arrays and keeps this rank's block under the specs given,
+for whatever mesh the restarted run has (the JAX package's elastic
+re-shard).
 """
 
 from __future__ import annotations
@@ -48,6 +57,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import local_slice
 
 MANIFEST = "MANIFEST.json"
 
@@ -138,24 +150,49 @@ class CheckpointManager:
     caller's thread) and the write's (hash, npz, fsyncs, publish; on the
     writer thread for an async save, filled in when it ends)."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False  # an async save not yet waited for
         self.saves: list = []
 
     # -- save ---------------------------------------------------------------
+    def _full(self, flat: dict, specs: dict) -> dict:
+        """The full arrays of this rank's blocks (a mesh's gather)."""
+        mesh, out = self.mesh, {}
+        for k, v in flat.items():
+            for d, e in enumerate(specs[k]):
+                if e is not None:
+                    v = C.gather_nograd(v, d, mesh.group(e))
+            out[k] = v
+        return out
+
     def save(self, step: int, params, opt_state=None, extra: dict = None,
-             blocking: bool = True):
+             blocking: bool = True, shardings=None, opt_shardings=None):
         """Snapshot to host memory synchronously, write asynchronously
-        unless ``blocking``."""
+        unless ``blocking``. On a mesh ``shardings`` ({path: spec}) and
+        ``opt_shardings`` (the optimizer state's tree of specs) say how
+        the blocks given make up each full array."""
         t0, wall = time.perf_counter(), time.time()
         tree = {"params": params}
+        specs = {"params": shardings or {}}
         if opt_state is not None:
             tree["opt"] = opt_state
+            specs["opt"] = opt_shardings or {}
         flat = _flatten_with_names(tree)
+        if self.mesh is not None:
+            flat = self._full(flat, _flatten_with_names(specs))
+            if not self.writer:
+                self.wait()
+                if blocking:
+                    C.barrier(self.mesh.group(self.mesh.axis_names))
+                self._pending = not blocking
+                return
         host, dtypes = {}, {}
         for k, v in flat.items():
             host[k] = _host_copy(v)
@@ -168,11 +205,14 @@ class CheckpointManager:
         self.saves.append(rec)
         if blocking:
             self._write(step, host, dtypes, extra, rec)
+            if self.mesh is not None:
+                C.barrier(self.mesh.group(self.mesh.axis_names))
         else:
             self._thread = threading.Thread(
                 target=self._write_async,
                 args=(step, host, dtypes, extra, rec), daemon=True)
             self._thread.start()
+            self._pending = True
 
     def _write_async(self, *args):
         try:
@@ -210,10 +250,14 @@ class CheckpointManager:
         rec["write_s"] = time.perf_counter() - t0
 
     def wait(self):
-        """Join the writer thread; re-raise what it raised."""
+        """Join the writer thread; re-raise what it raised. On a mesh, a
+        barrier after an async save's publish."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None and self._pending:
+            C.barrier(self.mesh.group(self.mesh.axis_names))
+        self._pending = False
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -238,11 +282,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like_params, like_opt=None, step: Optional[int] = None,
-                device=None, verify: bool = True):
+                device=None, verify: bool = True, shardings=None,
+                opt_shardings=None):
         """Returns (step, params, opt_state, extra). ``like_*`` give the
         tree structure; each leaf is placed on ``device``, or on the device
         of the like tree's first leaf. Leaves are read, verified and moved
-        one at a time, so host memory holds one array at a time."""
+        one at a time, so host memory holds one array at a time. On a
+        mesh, ``shardings`` / ``opt_shardings`` (as in :meth:`save`, for
+        the restarted run's mesh) cut each to this rank's block."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -251,8 +298,9 @@ class CheckpointManager:
             meta = json.load(f)
         arrays = meta["arrays"]
 
-        def place(prefix, like):
+        def place(prefix, like, specs):
             names = _flatten_with_names(like)
+            specs = _flatten_with_names(specs) if specs else {}
             dev = device if device is not None else \
                 next(iter(names.values())).device
             flat = {}
@@ -262,12 +310,15 @@ class CheckpointManager:
                     a = npz[k.replace("/", "\x1f")]
                     if verify and _sha256(a) != arrays[k]["sha256"]:
                         raise IOError(f"checkpoint corruption at {k}")
+                    if n in specs and self.mesh is not None:
+                        a = local_slice(specs[n], self.mesh, self.mesh.rank,
+                                        a)
                     flat[n] = _to_tensor(a, arrays[k]["dtype"], dev)
                     del a
             return _unflatten_like(like, flat)
 
-        params = place("params", like_params)
+        params = place("params", like_params, shardings)
         opt_state = None
         if like_opt is not None and any(k.startswith("opt/") for k in arrays):
-            opt_state = place("opt", like_opt)
+            opt_state = place("opt", like_opt, opt_shardings)
         return step, params, opt_state, meta.get("extra", {})

@@ -47,14 +47,15 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import modules
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.modules import RunConfig
+from repro_torch.sharding import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
 class ZebraConfig:
     """The JAX package's ``ZebraConfig``, field for field (the driver
-    prints them all). ``ep_axis`` and ``batch_axes`` name mesh axes; the
-    port has no mesh yet (one process, or the :class:`EPGroup` a caller
-    builds), so nothing reads them until the mesh is ported."""
+    prints them all). ``ep_axis`` and ``batch_axes`` name mesh axes, read
+    on a mesh (``make_ep_moe(mesh=)``); without one the EP ranks are the
+    :class:`EPGroup` a caller builds."""
     num_microbatches: int = 4
     mode: str = "replicated"  # replicated | alltoall
     ep_axis: str = "model"
@@ -197,10 +198,7 @@ class EPGroup:
 
     def all_reduce(self, t):
         """Sum over the ranks; its gradient sums the cotangents."""
-        if self.size == 1:
-            return t
-        from torch.distributed.nn import functional as dnn
-        return dnn.all_reduce(t, group=self.group)
+        return C.all_reduce(t, self.group)
 
     def all_to_all(self, t):
         """t: [n, ...]; slice j goes to rank j, slice j of the result came
@@ -210,6 +208,7 @@ class EPGroup:
             return t
         from torch.distributed.nn import functional as dnn
         t = t.contiguous()
+        C.launched("all_to_all")
         return dnn.all_to_all_single(torch.empty_like(t), t,
                                      group=self.group)
 
@@ -217,18 +216,20 @@ class EPGroup:
         """Every rank's t concatenated along dim 0 in rank order
         (``lax.all_gather`` tiled=True); its gradient is each rank's slice
         of the summed cotangents."""
-        if self.size == 1:
-            return t
-        from torch.distributed.nn import functional as dnn
-        return torch.cat(dnn.all_gather(t.contiguous(), group=self.group))
+        return C.all_gather(t, 0, self.group)
 
 
-def ep_ffn_params(ffn, n_loc: int, E_loc: int, ep: EPGroup) -> dict:
+def ep_ffn_params(ffn, n_loc: int, E_loc: int, ep: EPGroup,
+                  local: bool = False) -> dict:
     """The EP placement of a MoE FFN's params (the JAX package's
     ``sharding.rules.ep_ffn_specs``) taken from the whole param dict:
     the router replicated; rank r's remote experts [n_loc + r E_loc,
     n_loc + (r + 1) E_loc); with an offload, experts [0, n_loc) under the
-    ``*_loc`` keys, replicated on every rank."""
+    ``*_loc`` keys, replicated on every rank. ``local``: the stacks hold
+    this rank's experts already (the mesh program's shards over "model"),
+    and are used as they are."""
+    if local:
+        return ffn
     fp = {"router": ffn["router"]}
     lo = n_loc + ep.rank * E_loc
     for key in ("wi_gate", "wi_up", "wo"):
@@ -246,16 +247,24 @@ def ep_ffn_params(ffn, n_loc: int, E_loc: int, ep: EPGroup) -> dict:
 # ---------------------------------------------------------------------------
 
 def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
-                group=None) -> Callable:
+                group=None, mesh=None) -> Callable:
     """Returns moe_fn(ffn_params, x2d [T, d]) -> (y2d, aux) on this rank.
 
     ``ffn_params`` is the layer's whole MoE param dict (every expert); the
     rank takes its placement (:func:`ep_ffn_params`). ``group``: the EP
     process group (None: one rank). In replicated mode every rank passes
-    the same x2d; in alltoall mode each rank its own tokens."""
+    the same x2d; in alltoall mode each rank its own tokens.
+
+    ``mesh`` (``launch.mesh.Mesh``; the JAX package's ``shard_map`` over
+    it): the EP ranks are the ``zcfg.ep_axis`` group, and x2d is this
+    rank's rows of the microbatch over ``zcfg.batch_axes``. The aux
+    losses are averaged over the batch shards (the JAX package's
+    ``pmean``), and without an offload the expert stacks given are this
+    rank's own. In alltoall mode a batch not split over the EP axis is
+    split there by token blocks, and the outputs gathered back."""
     if zcfg.mode not in MODES:
         raise ValueError(f"unknown zebra mode {zcfg.mode!r}")
-    ep = EPGroup(group)
+    ep = EPGroup(mesh.group(zcfg.ep_axis) if mesh is not None else group)
     E, k, n_ep = cfg.n_experts, cfg.top_k, ep.size
     n_loc = zcfg.offload_experts if zcfg.mode == "alltoall" else 0
     E_rem = E - n_loc
@@ -273,6 +282,20 @@ def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
         raise ValueError(f"n_chunks_combine {Qc} must be a multiple of "
                          f"n_chunks {Q}")
     cd = run.policy.compute_dtype
+    # the batch shards the aux losses are averaged over, and whether this
+    # rank must cut its own token block for the EP axis (a mesh's only)
+    ba, split = (), False
+    if mesh is not None:
+        ba = tuple(zcfg.batch_axes)
+        if zcfg.mode == "alltoall" and zcfg.ep_axis not in ba:
+            ba, split = ba + (zcfg.ep_axis,), n_ep > 1
+        batch = EPGroup(mesh.group(ba))
+
+    def batch_mean(aux):
+        if mesh is None or batch.size == 1:
+            return aux
+        return {key: batch.all_reduce(v) / batch.size
+                for key, v in aux.items()}
 
     def replicated(ffn, x):  # x: [T, d], the same on every rank
         T, d = x.shape
@@ -291,7 +314,8 @@ def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
                              buf[:E_loc], cd)
         out = torch.cat([out, out.new_zeros((1, C, d))])
         y = _unpack(out, meta, weights, T)
-        return ep.all_reduce(y), aux  # sum the partial expert outputs
+        # sum the partial expert outputs
+        return ep.all_reduce(y), batch_mean(aux)
 
     def ffn_packed(ffn, bufs, keys):
         ws = [[ffn[w + s].to(cd) for s in keys]
@@ -303,7 +327,8 @@ def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
         weights, idx, aux = modules.moe_route(ffn["router"], cfg,
                                               run.policy, x)
         # aux losses are means over the token dim: average over the ranks
-        aux = {key: ep.all_reduce(v) / n_ep for key, v in aux.items()}
+        aux = batch_mean(aux) if mesh is not None else \
+            {key: ep.all_reduce(v) / n_ep for key, v in aux.items()}
         # Capacity padded so it splits into Qc combine sub-chunks of a
         # multiple of 8 rows; each dispatch chunk covers Qc / Q of them.
         C, Cqc = kops.chunk_capacity(capacity(T, cfg, zcfg), Qc)
@@ -337,9 +362,15 @@ def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
         return _unpack(out_full, meta, weights, T), aux
 
     fn = replicated if zcfg.mode == "replicated" else alltoall
+    local = mesh is not None and n_loc == 0
 
     def moe_fn(ffn_params, x2d):
-        return fn(ep_ffn_params(ffn_params, n_loc, E_loc, ep), x2d)
+        ffn = ep_ffn_params(ffn_params, n_loc, E_loc, ep, local=local)
+        if not split:
+            return fn(ffn, x2d)
+        n = x2d.shape[0] // n_ep
+        y, aux = fn(ffn, x2d[ep.rank * n:(ep.rank + 1) * n])
+        return ep.all_gather(y), aux
 
     return moe_fn
 
@@ -368,7 +399,8 @@ class _Streams:
 
 
 def make_layer_override(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig,
-                        *, group=None, streams: bool = True) -> Callable:
+                        *, mesh=None, group=None,
+                        streams: bool = True) -> Callable:
     """The stack-level layer override implementing zebra parallelism:
     override(layer_params, spec, x [B, S, d], positions) -> (y, aux).
 
@@ -378,8 +410,10 @@ def make_layer_override(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig,
     tensors the expert halves run on a second stream that waits on the
     attention stream after attn(mb k-1), and the attention stream waits
     on it before the microbatches are concatenated. ``streams=False``
-    runs the same order on one stream (a test's reference)."""
-    moe_fn = make_ep_moe(cfg, run, zcfg, group=group)
+    runs the same order on one stream (a test's reference). ``mesh``:
+    the mesh program's (see :func:`make_ep_moe`); x is this rank's rows,
+    microbatch k its k-th block of rows."""
+    moe_fn = make_ep_moe(cfg, run, zcfg, group=group, mesh=mesh)
     two = _Streams()
 
     def override(layer_params, spec: LayerSpec, x, positions):

@@ -14,7 +14,10 @@ Two sources behind one interface:
 
 Batches are {"tokens": [B, S], "targets": [B, S]} int32 CPU tensors with
 targets = next-token shift; the caller moves them to its device. Each host
-materializes only its batch shard (host_index / host_count).
+materializes only its batch shard (host_index / host_count). The train
+driver's mesh ranks each build the whole global batch (host_count 1, as
+the JAX driver's one process does) and keep the rows the JAX layout gives
+them (``train/step.py``); ``host_index=rank`` would change the data.
 """
 
 from __future__ import annotations

@@ -65,7 +65,9 @@ tokens, ``--gen`` greedy tokens each, zero front embeddings), whatever
         --smoke --device cpu
 
 A ``--mesh`` other than 1x1 is rejected by name in one ``[serve]
-invalid configuration:`` line, exit 1, as are the JAX driver's own invalid
+invalid configuration:`` line, exit 1 (the serving mesh, the ``serve``
+sharding rules over ``launch.mesh``, is not ported yet; the training
+mesh is, ``launch/train.py --mesh``), as are the JAX driver's own invalid
 combinations (``--fleet`` with ``--disagg`` or ``--ep-size``, ``--chaos``
 without ``--fleet``, ``--prefix-cache`` on a recurrent arch, ...), with its
 messages.
@@ -481,9 +483,10 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
 
 def _unported_flags(args) -> list:
     """What this command line asks that the port does not serve yet: a
-    mesh other than one device."""
+    mesh other than one device (the serving mesh)."""
     if args.mesh != "1x1":
-        return [f"--mesh {args.mesh} (one device only)"]
+        return [f"--mesh {args.mesh} (the serving mesh is not ported; "
+                f"one device only)"]
     return []
 
 
@@ -610,7 +613,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="uniform: static round-robin expert placement; "
                          "planned: online heterogeneity-aware re-placement "
                          "from the observed routing EMA")
-    ap.add_argument("--mesh", default="1x1", help="1x1 only")
+    ap.add_argument("--mesh", default="1x1",
+                    help="1x1 only (the serving mesh is not ported)")
     return ap
 
 

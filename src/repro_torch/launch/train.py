@@ -67,9 +67,23 @@ a zebra run, and the idle report printed).
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-w1 \\
         --smoke --device cpu --steps 6 --ckpt-dir build/ckpt --resume
 
-A mesh other than 1x1 (the port trains on one device, one EP rank), an
-unknown ``--zebra-mode`` and fewer than one microbatch are rejected by
-name in one ``[train] invalid configuration:`` line, exit 1.
+``--mesh DxM`` trains on a D x M mesh of ranks as the JAX driver does
+(``train/step.py``'s mesh program: 2D FSDP weights, experts over "model",
+tensor-parallel attention under zebra replicated, ZeRO-1 moments),
+through ``launch.mesh.launch_ranks``: one process per card (``cuda:r``,
+NCCL), or per CPU rank with ``--device cpu`` (gloo). Every rank reads the
+same global batch and keeps its rows; rank 0 alone prints, traces and
+writes checkpoints (gathered from every rank's blocks, in the same
+format), and a resumed run re-shards the checkpoint onto its own mesh.
+``--mesh 1x1`` runs the same mesh program on one rank.
+
+    # 2x2 on four CPU ranks (gloo):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-d2 \\
+        --smoke --device cpu --mesh 2x2 --steps 4 --batch 8 --seq 64
+
+A malformed ``--mesh``, an unknown ``--zebra-mode`` and fewer than one
+microbatch are rejected by name in one ``[train] invalid configuration:``
+line, exit 1; so is a CUDA mesh with more ranks than cards.
 """
 
 from __future__ import annotations
@@ -77,6 +91,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import resource
 import sys
 import time
@@ -86,6 +101,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.zebra_spmd import MODES, ZebraConfig
 from repro_torch.data import DataConfig, DataLoader
+from repro_torch.launch.mesh import launch_ranks, make_mesh, parse_mesh
 from repro_torch.models import registry, stack
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.modules import Policy, RunConfig
@@ -109,14 +125,17 @@ def zebra_config(args, cfg) -> ZebraConfig | None:
 
 
 def build(arch: str, args, run: RunConfig | None = None,
-          zcfg: ZebraConfig | None = None, cfg: ModelConfig | None = None):
+          zcfg: ZebraConfig | None = None, cfg: ModelConfig | None = None,
+          mesh=None):
     """(cfg, program, loader) of the driver's command line: ``run``, by
     default the JAX driver's run policy (chunked attention, gather MoE,
     full remat, bf16 compute), the JAX driver's optimizer schedule, and
     ``zcfg``, by default the command line's (:func:`zebra_config`; a
     caller may hand another, e.g. with another capacity factor). ``cfg``,
     by default the registry's ``arch`` (``--smoke``: its smoke config), may
-    be another config of the arch (a caller's cut of its depth)."""
+    be another config of the arch (a caller's cut of its depth). ``mesh``
+    (``launch.mesh.Mesh``): the mesh program on its ranks; the loader
+    yields the global batch on every rank."""
     if cfg is None:
         cfg = registry.get_config(arch)
         if args.smoke:
@@ -129,8 +148,10 @@ def build(arch: str, args, run: RunConfig | None = None,
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
     opt_cfg = opt.OptimizerConfig(peak_lr=args.lr, warmup_steps=20,
                                   total_steps=args.steps)
-    program = make_train_program(cfg, run, shape, opt_cfg=opt_cfg,
-                                 device=args.device, zcfg=zcfg)
+    program = make_train_program(
+        cfg, run, shape, opt_cfg=opt_cfg,
+        device=args.device if mesh is None else mesh.device, zcfg=zcfg,
+        mesh=mesh)
     loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=args.seq, global_batch=args.batch,
                                    path=args.data))
@@ -140,7 +161,7 @@ def build(arch: str, args, run: RunConfig | None = None,
 def train_arch(arch: str, args, run: RunConfig | None = None,
                zcfg: ZebraConfig | None = None,
                cfg: ModelConfig | None = None,
-               return_state: bool = False) -> dict:
+               return_state: bool = False, mesh=None) -> dict:
     """Train ``arch`` for ``args.steps`` steps under ``run``, ``zcfg`` and
     ``cfg`` (default: the driver's, see :func:`build`), with the
     command line's checkpoint and trace flags (the JAX driver's loop,
@@ -153,15 +174,22 @@ def train_arch(arch: str, args, run: RunConfig | None = None,
     write seconds; the restore's seconds and bytes) and the trace's
     (``trace``: event count, path). ``return_state``: the summary also
     holds the final params and optimizer state (``final_params``,
-    ``final_opt_state``)."""
-    cfg, program, loader = build(arch, args, run, zcfg, cfg)
+    ``final_opt_state``; on a mesh, this rank's blocks) and the program's
+    ``layout``. ``mesh``: the mesh program (see :func:`build`);
+    checkpoints are gathered to rank 0 and restored onto this mesh, and
+    rank 0 alone traces."""
+    cfg, program, loader = build(arch, args, run, zcfg, cfg, mesh)
     device = program.device
+    layout = program.layout
+    shard = {"shardings": layout.param_specs,
+             "opt_shardings": layout.opt_specs}
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt = CheckpointManager(args.ckpt_dir, mesh=mesh) \
+        if args.ckpt_dir else None
     start_step, restore = 0, None
     params = program.init_params(seed=0)
     opt_state = program.init_opt(params)
@@ -169,7 +197,7 @@ def train_arch(arch: str, args, run: RunConfig | None = None,
         sync()
         t0 = time.perf_counter()
         start_step, params, opt_state, extra = ckpt.restore(
-            params, opt_state, device=device)
+            params, opt_state, device=device, **shard)
         sync()
         restore = {"step": start_step, "s": time.perf_counter() - t0,
                    "bytes": sum(t.nbytes for t in
@@ -181,15 +209,15 @@ def train_arch(arch: str, args, run: RunConfig | None = None,
               f"{restore['s'] * 1e3:.1f} ms", flush=True)
     loader.step = max(loader.step, start_step)
 
-    n_params = sum(p.numel() for p in flatten(params).values())
+    n_params = sum(math.prod(s) for s in layout.shapes.values())
     zebra = dataclasses.asdict(program.zcfg) if program.zcfg else None
+    shape = dict(mesh.shape) if mesh is not None else {"data": 1, "model": 1}
     print(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"mesh={{'data': 1, 'model': 1}} zebra={zebra} device={device}",
-          flush=True)
+          f"mesh={shape} zebra={zebra} device={device}", flush=True)
 
     tracer = None
     last_logged: dict = {}
-    if args.trace_out:
+    if args.trace_out and (mesh is None or mesh.rank == 0):
         tracer = obs_trace.Tracer(wall=bool(args.trace_wall))
         obs_trace.install(tracer)
         tracer.declare_track("train", pid="train")
@@ -224,10 +252,11 @@ def train_arch(arch: str, args, run: RunConfig | None = None,
                 tracer.count("train", "loss", m["loss"])
         if ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, params, opt_state,
-                      extra={"loader": loader.state_dict()}, blocking=False)
+                      extra={"loader": loader.state_dict()}, blocking=False,
+                      **shard)
     if ckpt:
         ckpt.save(args.steps, params, opt_state,
-                  extra={"loader": loader.state_dict()})
+                  extra={"loader": loader.state_dict()}, **shard)
         ckpt.wait()
         for rec in ckpt.saves:
             print(f"[train] ckpt: step {rec['step']} {rec['bytes']} bytes, "
@@ -263,7 +292,8 @@ def train_arch(arch: str, args, run: RunConfig | None = None,
                                                "restore": restore},
            "trace": trace}
     if return_state:
-        out.update(final_params=params, final_opt_state=opt_state)
+        out.update(final_params=params, final_opt_state=opt_state,
+                   layout=layout)
     return out
 
 
@@ -294,16 +324,30 @@ def _lay_zebra_sim(tracer, cfg, args) -> None:
           flush=True)
 
 
-def _unported(args, is_moe: bool) -> list:
+def _invalid(args, is_moe: bool) -> list:
     out = []
     if args.zebra and is_moe and args.zebra_mode not in MODES:
         out.append(f"--zebra-mode {args.zebra_mode} (replicated or "
                    f"alltoall)")
     if args.zebra and is_moe and args.microbatches < 1:
         out.append(f"--microbatches {args.microbatches} (at least 1)")
-    if args.mesh != "1x1":
-        out.append(f"--mesh {args.mesh} (one device only)")
+    try:
+        parse_mesh(args.mesh)
+    except ValueError:
+        out.append(f"--mesh {args.mesh} (DxM, each at least 1)")
     return out
+
+
+def _rank_main(rank: int, argv) -> None:
+    """One rank of ``--mesh DxM`` (``launch_ranks`` target): rank 0
+    prints, the others write nothing to stdout."""
+    args = build_parser().parse_args(argv)
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    mesh = make_mesh(parse_mesh(args.mesh), ("data", "model"), args.device)
+    summary = train_arch(args.arch, args, mesh=mesh)
+    if not summary["ok"]:
+        raise RuntimeError("a loss or grad norm is not finite")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -312,7 +356,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--mesh", default="1x1", help="1x1 only")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL ranks (one per card, or per CPU "
+                         "rank with --device cpu)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; fails without a CUDA device) or "
@@ -347,20 +393,29 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = registry.get_config(args.arch)
-    unported = _unported(args, cfg.is_moe)
-    if unported:
-        print("[train] invalid configuration: not ported to repro_torch "
-              "yet: " + ", ".join(unported), file=sys.stderr)
+    invalid = _invalid(args, cfg.is_moe)
+    if invalid:
+        print("[train] invalid configuration: " + ", ".join(invalid),
+              file=sys.stderr)
         return 1
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("[train] no CUDA device: the port trains on the card; pass "
-              "--device cpu to run the plain versions on the CPU",
-              file=sys.stderr)
-        return 2
-    summary = train_arch(args.arch, args)
-    if not summary["ok"]:
-        print("[train] FAIL: a loss or grad norm is not finite",
-              file=sys.stderr)
+    d, m = parse_mesh(args.mesh)
+    if args.device == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if d * m > 1 and d * m > have:
+            print(f"[train] invalid configuration: --mesh {args.mesh} "
+                  f"needs {d * m} CUDA devices; {have} present",
+                  file=sys.stderr)
+            return 1
+        if not have:
+            print("[train] no CUDA device: the port trains on the card; "
+                  "pass --device cpu to run the plain versions on the CPU",
+                  file=sys.stderr)
+            return 2
+    try:
+        launch_ranks(_rank_main, d * m, args.device,
+                     list(sys.argv[1:] if argv is None else argv))
+    except Exception as e:  # a rank failed (spawned ranks: re-raised here)
+        print(f"[train] FAIL: {e}", file=sys.stderr)
         return 1
     return 0
 

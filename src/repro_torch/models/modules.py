@@ -84,6 +84,11 @@ class RunConfig:
     moe_impl: str = "gather"
     remat: str = "none"
     chunk_q: int = 512  # query-chunk size of the chunked attention path
+    # the mesh program's collectives (``train.step.ShardContext``): None on
+    # one device. It reduces tensor-parallel attention outputs over
+    # "model" and takes the MoE router's load statistics over the batch
+    # shards; the serve engines never set it.
+    shard: Any = None
 
     def __post_init__(self):
         if self.attn_impl not in ("ref", "chunked", "flash"):
@@ -137,9 +142,9 @@ def dots_context():
 def init_norm(cfg: ModelConfig, dim: int | None = None):
     dim = dim or cfg.d_model
     if cfg.norm == "layernorm":
-        return {"scale": ParamSpec((dim,), "ones"),
-                "bias": ParamSpec((dim,), "zeros")}
-    return {"scale": ParamSpec((dim,), "ones")}
+        return {"scale": ParamSpec((dim,), "ones", axes=("embed",)),
+                "bias": ParamSpec((dim,), "zeros", axes=("embed",))}
+    return {"scale": ParamSpec((dim,), "ones", axes=("embed",))}
 
 
 def apply_norm(params, x, policy: Policy, eps: float = 1e-6):
@@ -191,10 +196,10 @@ def apply_rope(x, positions, theta: float):
 
 def init_embedding(cfg: ModelConfig):
     params = {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                 fan_in=cfg.d_model)}
+                                 fan_in=cfg.d_model, axes=("vocab", "embed"))}
     if cfg.learned_pos:  # learned absolute positions (whisper)
         params["pos"] = ParamSpec((cfg.max_seq_len, cfg.d_model),
-                                  fan_in=cfg.d_model)
+                                  fan_in=cfg.d_model, axes=(None, "embed"))
     return params
 
 
@@ -234,14 +239,15 @@ def init_attention(cfg: ModelConfig, cross: bool = False):
     norm, as the reference's."""
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     params = {
-        "wq": ParamSpec((d, h * hd), fan_in=d),
-        "wk": ParamSpec((d, kh * hd), fan_in=d),
-        "wv": ParamSpec((d, kh * hd), fan_in=d),
-        "wo": ParamSpec((h * hd, d), fan_in=h * hd),
+        "wq": ParamSpec((d, h * hd), fan_in=d, axes=("embed", "q_heads")),
+        "wk": ParamSpec((d, kh * hd), fan_in=d, axes=("embed", "kv_heads")),
+        "wv": ParamSpec((d, kh * hd), fan_in=d, axes=("embed", "kv_heads")),
+        "wo": ParamSpec((h * hd, d), fan_in=h * hd,
+                        axes=("q_heads", "embed")),
     }
     if cfg.qk_norm and not cross:
-        params["q_norm"] = ParamSpec((hd,), "ones")
-        params["k_norm"] = ParamSpec((hd,), "ones")
+        params["q_norm"] = ParamSpec((hd,), "ones", axes=(None,))
+        params["k_norm"] = ParamSpec((hd,), "ones", axes=(None,))
     return params
 
 
@@ -347,7 +353,10 @@ def _project_qkv(params, cfg: ModelConfig, run: RunConfig, x, positions,
     ``kv`` [B, T, d] where it is given (cross-attention: no RoPE), else
     from x. Returns (q, k, v, kv_pos)."""
     B, S, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # the head counts of the weights given: a tensor-parallel rank holds
+    # its own heads' columns (and the matching kv heads)
+    hd = cfg.head_dim
+    h, kh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     pol = run.policy
     cd = pol.compute_dtype
     kv_src = kv if kv is not None else x
@@ -526,7 +535,7 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
     out = _attention_inner(q, k, v, cfg, run, positions=positions,
                            kv_pos=kv_pos, causal=causal and kv is None,
                            window=window, structural=structural)
-    y = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"].to(cd)
+    y = out.reshape(B, S, -1) @ params["wo"].to(cd)
     return y, cache
 
 
@@ -562,13 +571,13 @@ def init_paged_attention_cache(cfg: ModelConfig, n_pages: int,
 def init_mlp(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_act == "swiglu":
-        return {"wi_gate": ParamSpec((d, f), fan_in=d),
-                "wi_up": ParamSpec((d, f), fan_in=d),
-                "wo": ParamSpec((f, d), fan_in=f)}
-    return {"wi": ParamSpec((d, f), fan_in=d),  # gelu (whisper)
-            "bi": ParamSpec((f,), "zeros"),
-            "wo": ParamSpec((f, d), fan_in=f),
-            "bo": ParamSpec((d,), "zeros")}
+        return {"wi_gate": ParamSpec((d, f), fan_in=d, axes=("embed", "mlp")),
+                "wi_up": ParamSpec((d, f), fan_in=d, axes=("embed", "mlp")),
+                "wo": ParamSpec((f, d), fan_in=f, axes=("mlp", "embed"))}
+    return {"wi": ParamSpec((d, f), fan_in=d, axes=("embed", "mlp")),  # gelu
+            "bi": ParamSpec((f,), "zeros", axes=("mlp",)),
+            "wo": ParamSpec((f, d), fan_in=f, axes=("mlp", "embed")),
+            "bo": ParamSpec((d,), "zeros", axes=("embed",))}
 
 
 def apply_mlp(params, cfg: ModelConfig, run: RunConfig, x):
@@ -589,10 +598,12 @@ def apply_mlp(params, cfg: ModelConfig, run: RunConfig, x):
 def init_moe(cfg: ModelConfig):
     d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     return {
-        "router": ParamSpec((d, e), fan_in=d),
-        "wi_gate": ParamSpec((e, d, f), fan_in=d),
-        "wi_up": ParamSpec((e, d, f), fan_in=d),
-        "wo": ParamSpec((e, f, d), fan_in=f),
+        "router": ParamSpec((d, e), fan_in=d, axes=("embed", None)),
+        "wi_gate": ParamSpec((e, d, f), fan_in=d,
+                             axes=("expert", "embed", "mlp")),
+        "wi_up": ParamSpec((e, d, f), fan_in=d,
+                           axes=("expert", "embed", "mlp")),
+        "wo": ParamSpec((e, f, d), fan_in=f, axes=("expert", "mlp", "embed")),
     }
 
 
@@ -604,8 +615,12 @@ def _bincount(x, length: int):
         .index_add_(0, x.long(), torch.ones_like(x, dtype=torch.int64))
 
 
-def moe_route(router_w, cfg: ModelConfig, policy: Policy, x2d):
-    """Router in f32: returns (weights [T,k], idx [T,k] int32, aux dict)."""
+def moe_route(router_w, cfg: ModelConfig, policy: Policy, x2d,
+              stats_mean=None):
+    """Router in f32: returns (weights [T,k], idx [T,k] int32, aux dict).
+    ``stats_mean`` (the mesh program's mean over the batch shards) makes
+    the load-balance statistics and the z-loss those of the global token
+    batch, as the JAX package computes them outside a ``shard_map``."""
     acc = policy.accum_dtype
     logits = x2d.to(acc) @ router_w.to(acc)
     probs = torch.softmax(logits, dim=-1)
@@ -617,10 +632,12 @@ def moe_route(router_w, cfg: ModelConfig, policy: Policy, x2d):
     counts = _bincount(idx.reshape(-1), cfg.n_experts)
     f = counts.to(acc) / (T * cfg.top_k)
     p = probs.mean(0)
+    z = torch.logsumexp(logits, -1).square().mean()
+    if stats_mean is not None:
+        f, p, z = stats_mean(f), stats_mean(p), stats_mean(z)
     aux = {
         "moe_aux_loss": cfg.n_experts * (f * p).sum() * cfg.router_aux_coef,
-        "moe_z_loss": torch.logsumexp(logits, -1).square().mean()
-        * cfg.router_z_coef,
+        "moe_z_loss": z * cfg.router_z_coef,
     }
     return weights, idx.to(torch.int32), aux
 
@@ -640,7 +657,9 @@ def apply_moe(params, cfg: ModelConfig, run: RunConfig, x):
     B, S, d = x.shape
     cd = run.policy.compute_dtype
     x2d = x.reshape(-1, d)
-    weights, idx, aux = moe_route(params["router"], cfg, run.policy, x2d)
+    weights, idx, aux = moe_route(
+        params["router"], cfg, run.policy, x2d,
+        stats_mean=run.shard.batch_mean if run.shard is not None else None)
     T, k = idx.shape
 
     if run.moe_impl == "dense":
@@ -703,14 +722,14 @@ def init_ssd(cfg: ModelConfig):
     nh, s, cw = cfg.ssm_heads, cfg.ssm_state, cfg.conv_width
     proj_out = 2 * din + 2 * s + nh  # z, x, B, C, dt
     return {
-        "in_proj": ParamSpec((d, proj_out), fan_in=d),
-        "conv_w": ParamSpec((cw, din + 2 * s), fan_in=cw),
-        "conv_b": ParamSpec((din + 2 * s,), "zeros"),
-        "dt_bias": ParamSpec((nh,), "zeros"),
-        "A_log": ParamSpec((nh,), "a_log"),  # A in [-16, -1]
-        "D": ParamSpec((nh,), "ones"),
-        "norm": ParamSpec((din,), "ones"),
-        "out_proj": ParamSpec((din, d), fan_in=din),
+        "in_proj": ParamSpec((d, proj_out), fan_in=d, axes=("embed", "mlp")),
+        "conv_w": ParamSpec((cw, din + 2 * s), fan_in=cw, axes=(None, "mlp")),
+        "conv_b": ParamSpec((din + 2 * s,), "zeros", axes=("mlp",)),
+        "dt_bias": ParamSpec((nh,), "zeros", axes=(None,)),
+        "A_log": ParamSpec((nh,), "a_log", axes=(None,)),  # A in [-16, -1]
+        "D": ParamSpec((nh,), "ones", axes=(None,)),
+        "norm": ParamSpec((din,), "ones", axes=("mlp",)),
+        "out_proj": ParamSpec((din, d), fan_in=din, axes=("mlp", "embed")),
     }
 
 
@@ -790,16 +809,17 @@ def init_ssd_state(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 def init_rglru(cfg: ModelConfig):
     d, w, cw = cfg.d_model, cfg.lru_width, cfg.conv_width
     return {
-        "proj_gate": ParamSpec((d, w), fan_in=d),
-        "proj_rec": ParamSpec((d, w), fan_in=d),
-        "conv_w": ParamSpec((cw, w), fan_in=cw),
-        "conv_b": ParamSpec((w,), "zeros"),
-        "w_i": ParamSpec((w, w), fan_in=w),
-        "b_i": ParamSpec((w,), "zeros"),
-        "w_a": ParamSpec((w, w), fan_in=w),
-        "b_a": ParamSpec((w,), "zeros"),
-        "lam": ParamSpec((w,), "lam"),  # sigmoid(lam)^8 in (0.9, 0.999)
-        "out": ParamSpec((w, d), fan_in=w),
+        "proj_gate": ParamSpec((d, w), fan_in=d, axes=("embed", "mlp")),
+        "proj_rec": ParamSpec((d, w), fan_in=d, axes=("embed", "mlp")),
+        "conv_w": ParamSpec((cw, w), fan_in=cw, axes=(None, "mlp")),
+        "conv_b": ParamSpec((w,), "zeros", axes=("mlp",)),
+        "w_i": ParamSpec((w, w), fan_in=w, axes=("mlp", "mlp_out")),
+        "b_i": ParamSpec((w,), "zeros", axes=("mlp",)),
+        "w_a": ParamSpec((w, w), fan_in=w, axes=("mlp", "mlp_out")),
+        "b_a": ParamSpec((w,), "zeros", axes=("mlp",)),
+        # sigmoid(lam)^8 in (0.9, 0.999)
+        "lam": ParamSpec((w,), "lam", axes=("mlp",)),
+        "out": ParamSpec((w, d), fan_in=w, axes=("mlp", "embed")),
     }
 
 
@@ -884,7 +904,7 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec):
     if spec.cross_attn:
         params["xnorm"] = init_norm(cfg)
         params["xattn"] = init_attention(cfg, cross=True)
-        params["xgate"] = ParamSpec((), "zeros")
+        params["xgate"] = ParamSpec((), "zeros", axes=())
     if spec.ffn != "none":
         params["norm2"] = init_norm(cfg)
         params["ffn"] = init_moe(cfg) if spec.ffn == "moe" else init_mlp(cfg)
@@ -920,12 +940,16 @@ def apply_mixer_part(params, cfg: ModelConfig, run: RunConfig,
                 attend_to_cache=attend_to_cache, page_table=page_table)
             if new_state is not None:
                 new_state["kv"] = new_kv
+            if run.shard is not None:  # tensor-parallel partial sums
+                mixed = run.shard.attn_reduce(mixed)
         h = x + mixed
     if spec.cross_attn:
         u = apply_norm(params["xnorm"], h, run.policy)
         xa, _ = apply_attention(params["xattn"], cfg, run, u, positions,
                                 causal=False, kv=encoder_out,
                                 kv_positions=encoder_positions)
+        if run.shard is not None:
+            xa = run.shard.attn_reduce(xa)
         h = h + torch.tanh(params["xgate"]).to(h.dtype) * xa
     return h, new_state
 

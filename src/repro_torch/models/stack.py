@@ -102,7 +102,8 @@ def param_specs(cfg: ModelConfig):
     specs["final_norm"] = modules.init_norm(cfg)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.vocab_size, cfg.d_model),
-                                     fan_in=cfg.d_model)
+                                     fan_in=cfg.d_model,
+                                     axes=("vocab", "embed"))
     if cfg.is_encdec:
         specs["encoder"] = {
             "blocks": _block_specs(cfg, (ENCODER_SPEC,),
@@ -110,13 +111,21 @@ def param_specs(cfg: ModelConfig):
             "final_norm": modules.init_norm(cfg)}
     if cfg.vision_seq > 0:
         vdim = cfg.vision_dim or cfg.d_model
-        specs["vision_proj"] = ParamSpec((vdim, cfg.d_model), fan_in=vdim)
+        specs["vision_proj"] = ParamSpec((vdim, cfg.d_model), fan_in=vdim,
+                                         axes=(None, "embed"))
     return specs
 
 
 def flat_param_specs(cfg: ModelConfig) -> dict:
     """{'blocks/pos0/mixer/wq': ParamSpec, ...}"""
     return flatten(param_specs(cfg))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """{path: logical axes} of every leaf (the JAX package's
+    ``abstract_params(cfg)[1]``, flattened): one name or None per dim,
+    ``"layers"`` first on a stacked leaf."""
+    return {k: s.axes for k, s in flat_param_specs(cfg).items()}
 
 
 def init_model(generator: torch.Generator, cfg: ModelConfig, *,
@@ -194,7 +203,8 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                  layer_override: Optional[Callable] = None,
                  moe_override: Optional[Callable] = None,
                  attend_to_cache: bool = False, aux_extras=(),
-                 layer_aux: bool = False, memory=None):
+                 layer_aux: bool = False, memory=None,
+                 prefix: str = "blocks"):
     """Run the stacked pattern layers + tail. Returns (x, new_states, aux).
 
     ``memory`` (encoder_out [B, T, d], encoder_positions [B, T]; see
@@ -218,13 +228,20 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     Without states and with ``run.remat`` "full" or "dots" each repeat of
     the pattern is one checkpoint (recomputed in the backward, the
     ``layer_override`` with it; under "dots" but for the products that
-    ``modules.dots_with_no_batch_dims_saveable`` saves)."""
+    ``modules.dots_with_no_batch_dims_saveable`` saves).
+
+    On a mesh (``run.shard``) each layer's weights are all-gathered at the
+    block's start, inside its checkpoint, so the backward gathers them
+    again (FSDP); ``prefix`` is the stacked tree's path ("blocks",
+    "encoder/blocks") that names their shardings."""
     aux = _zero_aux(x.device, aux_extras)
     decode = states is not None
     new_block_states = None
     rows = []  # per-layer aux (layer_aux)
 
     def one_block(x, layer_params, layer_states, memory):
+        if run.shard is not None:
+            layer_params = run.shard.gather_layer(layer_params, prefix)
         a = _zero_aux(x.device, aux_extras)
         for pos, spec in enumerate(pattern):
             key = f"pos{pos}"
@@ -321,7 +338,8 @@ def cross_memory(params, cfg: ModelConfig, run: RunConfig, B: int,
             enc_x = enc_x + params["embed"]["pos"][:T].to(cd)[None]
         enc = params["encoder"]
         enc_x, _, _ = _apply_stack(enc["blocks"], [], cfg, run,
-                                   (ENCODER_SPEC,), enc_x, enc_pos)
+                                   (ENCODER_SPEC,), enc_x, enc_pos,
+                                   prefix="encoder/blocks")
         return modules.apply_norm(enc["final_norm"], enc_x, pol), enc_pos
     if cfg.vision_seq > 0:
         if vision_embeds is None:

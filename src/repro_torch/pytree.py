@@ -6,7 +6,8 @@ package's ``split_params`` value tree (``embed/table``,
 functions of :mod:`repro_torch.models.modules` return trees of
 :class:`ParamSpec` (shape + initializer) instead of values, so the
 parameter count (``registry.exact_param_count``) and the seeded init
-(``stack.init_model``) read one shape table.
+(``stack.init_model``) read one shape table; each spec also carries its
+logical sharding axes (``stack.param_axes``).
 """
 
 from __future__ import annotations
@@ -26,10 +27,15 @@ class ParamSpec:
     shape: tuple
     init: str = "fan_in"  # fan_in | ones | zeros | a_log | lam
     fan_in: int = 0       # fan_in init: stddev = 1 / sqrt(fan_in)
+    # logical sharding axes, one name (or None) per dim: the JAX package's
+    # ``Param(value, axes)`` at the same site (sharding/rules.py maps them)
+    axes: tuple = ()
 
     def stacked(self, n: int) -> "ParamSpec":
-        """The same leaf with a leading layer axis of size ``n``."""
-        return dataclasses.replace(self, shape=(n,) + tuple(self.shape))
+        """The same leaf with a leading layer axis of size ``n``
+        (logical axis ``"layers"``)."""
+        return dataclasses.replace(self, shape=(n,) + tuple(self.shape),
+                                   axes=("layers",) + tuple(self.axes))
 
 
 def tree_map(fn: Callable, tree):

@@ -33,7 +33,9 @@ infra = ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
          "repro_torch.serve.disagg.controller", "repro_torch.serve.fleet",
          "repro_torch.serve.fleet.controller",
          "repro_torch.serve.fleet.router", "repro_torch.serve.fleet.sim",
-         "repro_torch.serve.ep_decode")
+         "repro_torch.serve.ep_decode", "repro_torch.sharding",
+         "repro_torch.sharding.rules", "repro_torch.sharding.collectives",
+         "repro_torch.launch.mesh")
 assert set(infra) <= set(mods) and set(infra) <= set(sys.modules), mods
 print(len(mods), bad)
 assert not bad, bad

@@ -208,15 +208,15 @@ def test_cli_trains_on_cpu_and_prints_done(capsys, arch, extra):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--mesh", "1x2"], ["--mesh 1x2"]),  # zebra (the default) trains
-    (["--no-zebra", "--mesh", "2x1", "--ckpt-dir", "x", "--resume",
+    (["--mesh", "1x0"], ["--mesh 1x0"]),  # zebra (the default) trains
+    (["--no-zebra", "--mesh", "2by1", "--ckpt-dir", "x", "--resume",
       "--trace-out", "t.json", "--zebra-mode", "pipeline"],
-     ["--mesh 2x1"]),
+     ["--mesh 2by1"]),
 ])
 def test_cli_rejects_unported_settings_in_one_line(capsys, argv, names):
-    """Only a mesh other than 1x1 is unported (with --no-zebra an unknown
-    --zebra-mode is not read); the checkpoint and trace flags are ported
-    and never named."""
+    """Every mesh DxM is ported; a malformed one is rejected by name (with
+    --no-zebra an unknown --zebra-mode is not read); the checkpoint and
+    trace flags are never named."""
     rc = train_cli.main(["--arch", "mixtral-w1", "--smoke", "--device", "cpu",
                          "--steps", "1", *argv])
     err = capsys.readouterr().err.strip().splitlines()

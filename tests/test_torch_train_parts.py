@@ -163,8 +163,9 @@ def test_memmap_source_matches_jax_and_synthetic_is_deterministic(tmp_path):
 
 
 def test_unported_training_settings_raise():
-    # attn_impl="flash", remat="dots" and accum_steps are ported: they
-    # construct; an unknown remat, a mesh and constrain_grads raise
+    # attn_impl="flash", remat="dots", accum_steps and constrain_grads are
+    # ported: they construct; an unknown remat and a mesh that is not a
+    # launch.mesh.Mesh raise
     assert modules.RunConfig(attn_impl="flash").attn_impl == "flash"
     assert modules.RunConfig(remat="dots").remat == "dots"
     with pytest.raises(ValueError, match="remat"):
@@ -173,10 +174,11 @@ def test_unported_training_settings_raise():
     shape = ShapeConfig("t", "train", 32, 4)
     make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
                        accum_steps=2)
-    for kw in (dict(mesh=object()), dict(constrain_grads=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
-                               **kw)
+    make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
+                       constrain_grads=True)
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+        make_train_program(cfg, modules.RunConfig(), shape, device="cpu",
+                           mesh=object())
     # zebra is ported: the program takes a ZebraConfig, fitted to the batch
     # (R 3 does not divide the batch of 4: lowered to 2)
     prog = make_train_program(cfg, modules.RunConfig(), shape, device="cpu",

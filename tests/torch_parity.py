@@ -250,3 +250,120 @@ def ep_decode_rank_worker(rank: int, world: int, init_file: str,
                             "ffn"]["wi_gate"].shape[1])}
     np.savez(f"{out_dir}/ep_{rank}.npz", tokens=json.dumps(tokens), **out)
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The mesh program's ranks (tests/test_torch_mesh_train.py, _mesh_ckpt.py)
+# ---------------------------------------------------------------------------
+
+MESH_B, MESH_S, MESH_STEPS = 8, 32, 5
+
+
+def mesh_opt_cfg(mod):
+    return mod.OptimizerConfig(peak_lr=3e-3, warmup_steps=2,
+                               total_steps=MESH_STEPS)
+
+
+def skewed_token_file(path):
+    """A token .bin drawn from a geometric law (a few tokens dominate), so
+    routing is skewed and capacity 1.25 drops token copies."""
+    rng = np.random.default_rng(5)
+    n = MESH_STEPS * MESH_B * MESH_S + 1
+    (rng.geometric(0.08, size=n) % 256).astype(np.uint16).tofile(path)
+    return str(path)
+
+
+def mesh_program(case, mesh):
+    """The port's mesh program of a test case (f32 policy, chunked
+    attention in two query chunks, full remat)."""
+    from repro_torch.core.zebra_spmd import ZebraConfig
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_program
+
+    cfg = registry.smoke_config(registry.get_config(case["arch"]))
+    run = RunConfig(policy=Policy(compute_dtype=torch.float32),
+                    attn_impl="chunked", moe_impl="gather", remat="full",
+                    chunk_q=16)
+    z = case.get("zcfg")
+    return cfg, make_train_program(
+        cfg, run, ShapeConfig("t", "train", MESH_S, MESH_B),
+        opt_cfg=mesh_opt_cfg(opt), device="cpu", mesh=mesh,
+        zcfg=None if z is None else ZebraConfig(capacity_factor=1.25, **z),
+        accum_steps=case.get("accum", 1))
+
+
+def mesh_train_worker(rank: int, in_path: str, out_dir: str):
+    """One rank of a mesh-program test (``launch.mesh.launch_ranks``
+    target; imports no jax). ``in_path``: an npz of the cases (JSON), the
+    token file's path and the JAX init of each arch (``<arch>|<path>``).
+    For each case: the mesh, this rank's blocks of the init, five steps on
+    the global batches, then ``out_dir/<case>_<rank>.npz`` with the
+    metrics, the final blocks (``p|<path>``), the param and moment block
+    shapes, the params' specs and the zebra engine's dropped share. A
+    case with ``save`` also checkpoints after that step (``ckpt`` dir,
+    blocking) and a case with ``restore`` starts from that step of its
+    ``ckpt`` dir (the restored blocks saved as ``r|params/<path>``,
+    ``r|opt/...``)."""
+    import json
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import zebra_spmd
+    from repro_torch.data import DataConfig, DataLoader
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.pytree import flatten
+
+    torch.set_num_threads(1)
+    data = np.load(in_path)
+    for case in json.loads(str(data["cases"])):
+        mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
+        cfg, prog = mesh_program(case, mesh)
+        lay = prog.layout
+        params = {}
+        for path in lay.shapes:
+            full = torch.from_numpy(data[f"{case['arch']}|{path}"].copy())
+            node = params
+            *parents, leaf = path.split("/")
+            for q in parents:
+                node = node.setdefault(q, {})
+            node[leaf] = lay.local(path, full).clone()
+        state = prog.init_opt(params)
+        loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=MESH_S, global_batch=MESH_B,
+                                       path=str(data["tokens"])))
+        start, restored = 0, {}
+        ckpt = CheckpointManager(case["ckpt"], mesh=mesh) \
+            if "ckpt" in case else None
+        if case.get("restore"):
+            start, params, state, extra = ckpt.restore(
+                params, state, step=case["restore"],
+                shardings=lay.param_specs, opt_shardings=lay.opt_specs)
+            loader.load_state_dict(extra["loader"])
+            restored = {f"r|{k}": to_np(v).copy() for k, v in
+                        flatten({"params": params, "opt": state}).items()}
+        zebra_spmd.reset_stats(True)
+        hist = []
+        for step in range(start, MESH_STEPS):
+            params, state, m = prog.train_step(params, state, next(loader))
+            hist.append({k: float(v) for k, v in m.items()})
+            if case.get("save") == step + 1:
+                ckpt.save(step + 1, params, state,
+                          extra={"loader": loader.state_dict()},
+                          shardings=lay.param_specs,
+                          opt_shardings=lay.opt_specs)
+        if ckpt is not None:
+            ckpt.wait()
+        stats = zebra_spmd.read_stats()
+        zebra_spmd.reset_stats(False)
+        flat = flatten(params)
+        np.savez(f"{out_dir}/{case['name']}_{rank}.npz",
+                 hist=json.dumps(hist),
+                 dropped=stats.get("dropped_share", 0.0),
+                 shapes=json.dumps({k: list(v.shape)
+                                    for k, v in flat.items()}),
+                 mu_shapes=json.dumps({k: list(v.shape)
+                                       for k, v in state["mu"].items()}),
+                 specs=json.dumps(lay.param_specs), **restored,
+                 **{f"p|{k}": to_np(v) for k, v in flat.items()})
