@@ -104,6 +104,16 @@ full depth, with random weights from seed 0:
   dense (no ``--paged``); (e) ``--disagg`` with the 34-page decode pool;
   then ``ep_tiles``: the GLU and bf16 ``gmm`` at the EP decode chunk (24
   x 8 rows, block_m 8) and prefill chunk (24 x 128 rows) layouts.
+* serve_mesh: the serving mesh at ``--mesh 1x1``: the serve trace on
+  W2, dense (no ``--paged``) and ``--paged``, through the engine built
+  without a mesh, twice through ``launch_ranks`` at world 1 (one rank of
+  an NCCL group, the mesh program: ``serve.mesh``) and without a mesh
+  again, first-token and decode logits recorded; then ``paged_lse``: the paged decode
+  kernel's log-sum-exp output against its plain version at the serve
+  shape and at recurrentgemma's heads and window, in bf16 and f32, and
+  the pool split in two halves, each through the kernel on a rank-local
+  table, merged by log-sum-exp (``modules.merge_partials``), against the
+  whole pool's kernel, with the kernel's time with and without the lse.
 * serve_rgemma: ``recurrentgemma-9b`` (38 layers: 12 x (RG-LRU, RG-LRU,
   local attention with a 2048-line window) + 2 RG-LRU; d_model 4096,
   lru_width 4096, MQA 16 x 256, a tied 256000 vocab; 9.40 B params) on
@@ -313,6 +323,14 @@ It fails unless:
   request finishes, no paged decode launch; (e) every request finishes,
   the decode worker's EMA updated; ``ep_tiles``: each kernel within its
   tier of its plain version on the tensor-core design;
+* serve_mesh: every request finishes in all four runs; each run's
+  tokens and every recorded f32 logit row bitwise the first one-device
+  run's, 0 collectives launched, each serve kernel launched (no
+  paged decode launch dense); ``paged_lse``: each output within its tier
+  of the plain version and bitwise the call without lse, each lse within
+  1e-5 * max(1, max|lse|) of the plain one with -inf where it is; the
+  two-half merge within 1e-5 * max|whole| (f32) or 2e-2 * min(1,
+  max|whole|) (bf16, the values scaled by GRAD_BF16_CT);
 * train_mpmd: one step traced (``obs.trace.Tracer`` installed) is bitwise
   the untraced step, loss and every gradient leaf, with the reference's
   spans (R embed, head and embed^B, R * L F and B);
@@ -529,6 +547,10 @@ WGMMA_LIBS = ("gmm_wgmma", "gmm_f32_wgmma", "gmm_dw_wgmma",
 WGMMA_GMM = ("gmm:bf16.bf16->bf16", "gmm:bf16.bf16->f32",
              "gmm:f32.bf16->f32", "gmm:f32.bf16T->f32")
 GRAD_BF16_CT = 0.05         # cotangent scale: every bf16 gradient below 2
+# the serving mesh (serve_mesh:): the serve trace dense and paged at 1x1
+MESH_SERVE = ("dense", "paged")
+LSE_TIER = 1e-5             # lse, kernel vs plain: of max(1, max|lse|)
+MERGE_F32_TIER = 1e-5       # two-half merge vs the whole pool (f32)
 C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
 # the zebra runs' packed layouts: (label, rows of each expert, block_m)
 ZEBRA_TILES = (("replicated", [216] * 12, 8),
@@ -3063,13 +3085,14 @@ def train_trace_phase(torch, train_mod, smi: str, zebra_line: dict):
 # -- the serving deployments: prefix cache, disaggregation, tracing ----------
 
 def serve_run(torch, serve_mod, argv, *, params, trace=None, run=None,
-              hook=None, tracer=None, arch="mixtral-w2"):
+              hook=None, tracer=None, arch="mixtral-w2", mesh=None):
     """One serve-driver run of ``argv`` on ``arch`` (default W2; through
     ``serve_arch``, at the arch's full depth) on the given params, the
     launch counters set to 0 just before and read just after.
     ``hook(engine)`` runs on the built deployment; ``tracer`` (an
-    ``obs.trace.Tracer``) is installed around the run. Returns (summary,
-    counts, engine, printed text)."""
+    ``obs.trace.Tracer``) is installed around the run; ``mesh``: the rank
+    of the serving mesh it runs on. Returns (summary, counts, engine,
+    printed text)."""
     import contextlib
 
     from repro_torch import kernels
@@ -3087,7 +3110,7 @@ def serve_run(torch, serve_mod, argv, *, params, trace=None, run=None,
             obs_trace.use(tracer) if tracer is not None
             else contextlib.nullcontext()):
         s = serve_mod.serve_arch(arch, args, trace=trace, params=params,
-                                 run=run, engine_hook=keep)
+                                 run=run, engine_hook=keep, mesh=mesh)
     torch.cuda.synchronize()
     return s, driver_counts(kernels), box["engine"], "".join(tee.lines)
 
@@ -3739,6 +3762,186 @@ def serve_ep_phase(torch, serve_mod, params, smi: str):
 
 
 # -- the recurrent archs: RG-LRU and SSD mixers (ROADMAP A8) ----------------
+
+def serve_mesh_phase(torch, serve_mod, params, smi: str):
+    """The serving mesh at ``--mesh 1x1`` (world 1): the serve trace on W2
+    at full width and depth, dense and ``--paged``, through the engine
+    built without a mesh, then twice through ``launch_ranks`` at world 1
+    (NCCL; the mesh program of ``serve.mesh`` on its one rank), then the
+    engine without a mesh again (the order one, mesh, mesh, one, so each
+    build's two runs bracket the other's), the launch and collective
+    counters set to 0 just before each mesh run and read just after.
+    Gate: every request finishes; tokens and every recorded f32 logit row
+    (the engine's, prefill and decode) of every run bitwise the first
+    one-device run's; no collective; each serve kernel launched (paged
+    decode only paged). Reported: ITL p50 and tok/s of each run (host
+    clock, this card). Returns (line, {mode: launch counts of the first
+    mesh run})."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import launch_ranks, make_mesh
+    from repro_torch.sharding import collectives as C
+
+    def record(engine):
+        engine.record_logits = True
+
+    def outputs(eng):
+        return ({int(k): list(v) for k, v in eng.results.items()},
+                {int(k): np.stack(v) for k, v in eng.logits.items()})
+
+    def same(a, b):
+        return a[0] == b[0] and a[1].keys() == b[1].keys() \
+            and all(np.array_equal(a[1][r], b[1][r]) for r in b[1])
+
+    def one_device(argv):
+        s, _, eng, _ = serve_run(torch, serve_mod, argv, params=params,
+                                 hook=record)
+        out = outputs(eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return s, out
+
+    keys = ("requests", "tokens", "tokens_per_s", "ttft_p50_s", "itl_p50_s")
+    line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "mesh": "1x1",
+            "order": ["one_device", "mesh", "mesh", "one_device"],
+            "modes": {}}
+    counts_by, ok = {}, True
+    for mode in MESH_SERVE:
+        argv = SERVE_ARGS if mode == "paged" else UNPAGED_ARGS
+        s0, out0 = one_device(argv)
+        runs = []
+
+        def rank0(rank, argv=argv):
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            for _ in range(2):
+                C.reset_counts()
+                s, counts, e, _ = serve_run(torch, serve_mod, argv,
+                                            params=params, hook=record,
+                                            mesh=mesh)
+                runs.append((s, counts, dict(C.COUNTS), outputs(e)))
+                del e
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        launch_ranks(rank0, 1, "cuda")
+        s3, out3 = one_device(argv)
+        counts = runs[0][1]
+        bitwise = all(same(r[3], out0) for r in runs) and same(out3, out0)
+        collectives = [r[2] for r in runs]
+        launched = all(counts[k] > 0 for k in SERVE_KERNELS
+                       if k != "paged_decode") \
+            and (counts["paged_decode"] > 0) == (mode == "paged")
+        mode_ok = s0["ok"] and s3["ok"] and all(r[0]["ok"] for r in runs) \
+            and bitwise and not any(collectives) and launched
+        ok &= mode_ok
+        counts_by[mode] = counts
+        line["modes"][mode] = {
+            "ok": mode_ok, "tokens_bitwise": all(
+                r[3][0] == out0[0] for r in runs) and out3[0] == out0[0],
+            "logits_bitwise": bitwise,
+            "logit_rows": int(sum(len(v) for v in out0[1].values())),
+            "collectives": collectives,
+            "mesh": serve_numbers(runs[0][0], counts),
+            "mesh_runs": [{k: serve_numbers(r[0], r[1])[k] for k in keys}
+                          for r in runs],
+            "one_device_runs": [{k: serve_numbers(s, counts)[k]
+                                 for k in keys} for s in (s0, s3)]}
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    line["ok"] = ok
+    return line, counts_by
+
+
+def paged_lse_case(torch, cfg, label: str, B: int, MP: int, q_pos, dtype,
+                   seed: int, window: int = 0):
+    """The paged decode kernel's lse output (:func:`paged_case`'s inputs,
+    the values scaled by GRAD_BF16_CT) against its plain version, and the
+    pool cut in two halves of pages, each half through the kernel on a
+    rank-local table (its pages renumbered from 0, the others -1), the two
+    partials merged by ``modules.merge_partials``, against the whole
+    pool's kernel; the kernel's time with and without the lse output."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.modules import merge_partials
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    KH, hd, ps = cfg.n_kv_heads, cfg.head_dim, 16
+    G, P = cfg.n_heads // KH, B * MP
+    q = torch.randn((B, KH, G, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((P, ps, KH, hd), generator=gen, device=dev).to(dtype)
+    vp = (torch.randn((P, ps, KH, hd), generator=gen, device=dev)
+          * GRAD_BF16_CT).to(dtype)
+    table = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
+    table = table.reshape(B, MP).contiguous()
+    q_pos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    for b, p in enumerate(q_pos.tolist()):
+        table[b, p // ps + 1:] = -1
+    kw = dict(scale=hd ** -0.5, window=window)
+    out, lse = pa.paged_decode_forward(q, kp, vp, table, q_pos, **kw,
+                                       return_lse=True)
+    want, lse_p = pa.paged_decode_plain(q, kp, vp, table, q_pos, **kw,
+                                        return_lse=True)
+    plain_out = pa.paged_decode_forward(q, kp, vp, table, q_pos, **kw)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    err, tol, out_ok = (compare(out, want, per_row=True) if bf16
+                        else compare_f32(out, want))
+    live = torch.isfinite(lse_p)
+    lse_err = float((lse - lse_p)[live].abs().max()) if live.any() else 0.0
+    lse_tol = LSE_TIER * max(1.0, float(lse_p[live].abs().max()))
+    lse_ok = torch.equal(torch.isfinite(lse), live) and lse_err <= lse_tol
+    h = P // 2
+    parts = []
+    for lo in (0, h):
+        own = (table >= lo) & (table < lo + h)
+        loc = torch.where(own, table - lo, -1).to(torch.int32).contiguous()
+        parts.append(pa.paged_decode_forward(
+            q, kp[lo:lo + h], vp[lo:lo + h], loc, q_pos, **kw,
+            return_lse=True))
+    merged = merge_partials(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]))
+    if bf16:
+        m_err, m_tol, m_ok = compare(merged, plain_out)
+    else:
+        m_err = float((merged - plain_out).abs().max())
+        m_tol = MERGE_F32_TIER * float(plain_out.abs().max())
+        m_ok = m_err <= m_tol
+    t_lse = kernel_times(lambda: pa.paged_decode_forward(
+        q, kp, vp, table, q_pos, **kw, return_lse=True), 50)
+    t_out = kernel_times(lambda: pa.paged_decode_forward(
+        q, kp, vp, table, q_pos, **kw), 50)
+    return {"case": label, "dtype": str(dtype).replace("torch.", ""),
+            "q": list(q.shape), "pools": list(kp.shape),
+            "table": list(table.shape), "window": window,
+            "q_pos": q_pos.tolist(), "out_err": err, "out_tol": tol,
+            "out_bitwise_without_lse": torch.equal(out, plain_out),
+            "lse_err": lse_err, "lse_tol": lse_tol,
+            "lse_neg_inf": int((~live).sum()),
+            "merge_err": m_err, "merge_tol": m_tol,
+            "ms_lse": t_lse["ms"], "ms": t_out["ms"],
+            "host_ms_lse": t_lse["host_ms"], "host_ms": t_out["host_ms"],
+            "ok": bool(out_ok and lse_ok and m_ok
+                       and torch.equal(out, plain_out))}
+
+
+def paged_lse_phase(torch):
+    """:func:`paged_lse_case` at the serve shape (W2's heads, 4 slots, 26
+    table slots) and at recurrentgemma's heads (KH 1, G 16, hd 256) and
+    2048-line window, in bf16 and f32."""
+    from repro_torch.models import registry
+    w2, rg = registry.get_config("mixtral-w2"), registry.get_config(RGEMMA)
+    MP = -(-(LONG_PROMPT + 32) // 16)
+    out = []
+    for tag, dtype in (("", torch.bfloat16), ("-f32", torch.float32)):
+        out.append(paged_lse_case(torch, w2, f"serve{tag}", 4, 26,
+                                  [415, 300, 131, 17], dtype, 31))
+        out.append(paged_lse_case(torch, rg, f"rgemma{tag}", 4, MP,
+                                  [MP * 16 - 1, LONG_PROMPT - 1, 2100, 700],
+                                  dtype, 32, window=rg.window))
+    return out
+
 
 def recurrent_trace(serve_mod, cfg, long_prompt: int = 0):
     """The serve trace (SERVE_ARGS' 6 requests) on ``cfg``'s vocabulary,
@@ -4436,8 +4639,16 @@ def main() -> int:
     ep_line, ep_counts, ep_dense_counts, ep_disagg_counts = serve_ep_phase(
         torch, serve_mod, w2_params, smi)
     print("serve_ep: " + json.dumps(ep_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smesh_line, smesh_counts = serve_mesh_phase(torch, serve_mod, w2_params,
+                                                smi)
+    print("serve_mesh: " + json.dumps(smesh_line), flush=True)
     del w2_params, unified_tokens
     gc.collect()
+    torch.cuda.empty_cache()
+    paged_lse = paged_lse_phase(torch)
+    print("paged_lse: " + json.dumps(paged_lse), flush=True)
     torch.cuda.empty_cache()
     ep_tiles = zebra_tiles_phase(
         torch, cfg, {"serve_ep": ep_counts,
@@ -4618,6 +4829,8 @@ def main() -> int:
             "serve_ep": ep_counts.get(c, 0),
             "serve_ep_dense": ep_dense_counts.get(c, 0),
             "serve_ep_disagg": ep_disagg_counts.get(c, 0),
+            **{f"serve_mesh_{m}": n.get(c, 0)
+               for m, n in smesh_counts.items()},
             "train": train_counts.get(c, 0),
             "train_flash": flash_counts.get(c, 0),
             "train_mamba2": mamba2_counts.get(c, 0),
@@ -4669,7 +4882,9 @@ def main() -> int:
         "serve_prefix": prefix_line, "serve_disagg": disagg_line,
         "serve_disagg_prefix": dprefix_line, "serve_trace": strace_line,
         "serve_dense": dense_line, "serve_fleet": fleet_line,
-        "serve_ep": ep_line, "ep_tiles": ep_tiles, "train": train_line,
+        "serve_ep": ep_line, "ep_tiles": ep_tiles,
+        "serve_mesh": smesh_line, "paged_lse": paged_lse,
+        "train": train_line,
         "train_flash": flash_line, "train_mamba2": mamba2_line,
         "grad": grad, "grad_bf16": grad_bf16, "flash_grad": flash_grad,
         "flash_grad_bf16": flash_grad_bf16, "c1_tiles": c1_tiles,
@@ -4744,6 +4959,11 @@ def main() -> int:
                         ("mpmd_equal", mpmd_equal),
                         ("mpmd_streams", mpmd_streams)):
         print(f"{label}: " + json.dumps(line), flush=True)
+    bad += [f"paged_lse@{c['case']}" for c in paged_lse if not c["ok"]]
+    if not smesh_line["ok"]:
+        bad.append("serve_mesh: the 1x1 mesh run is not bitwise the "
+                   "one-device engine's, launched a collective or missed "
+                   "a kernel")
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions "
                            f"beyond their tolerance, or ran on the wrong "

@@ -345,13 +345,16 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
 // out[b, h] = (sum_s e^(m_s - M) acc_s) / (sum_s e^(m_s - M) l_s) over the
 // splits s in order, M = max_s m_s; splits with m_s = -inf are skipped;
-// 0 where no split had a live line or q_pos < 0.
+// 0 where no split had a live line or q_pos < 0. With lse (may be null):
+// lse[b, h] = M + log(sum_s e^(m_s - M) l_s), the log of the softmax's
+// denominator in the scaled-score domain, and -inf where out is 0 for
+// want of a live line (the weight a log-sum-exp merge gives it is 0).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_combine_kernel(const float* __restrict__ part,
                             const int* __restrict__ q_pos,
-                            T* __restrict__ out, int KH, int G, int hd,
-                            int S) {
+                            T* __restrict__ out, float* __restrict__ lse,
+                            int KH, int G, int hd, int S) {
   const int bh = blockIdx.x;
   const bool dead = q_pos[bh / KH] < 0;
   const size_t rows = (size_t)gridDim.x * S * G;
@@ -365,8 +368,8 @@ paged_decode_combine_kernel(const float* __restrict__ part,
     float M = -INFINITY;
     if (!dead)
       for (int s = 0; s < S; ++s) M = fmaxf(M, ml[(s * G + g) * 2]);
+    float L = 0.f;
     if (M != -INFINITY) {
-      float L = 0.f;
       for (int s = 0; s < S; ++s) {
         const float ms = ml[(s * G + g) * 2];
         if (ms == -INFINITY) continue;
@@ -382,6 +385,8 @@ paged_decode_combine_kernel(const float* __restrict__ part,
       const float denom = L == 0.f ? 1.f : L;
       r = make_float4(r.x / denom, r.y / denom, r.z / denom, r.w / denom);
     }
+    if (lse != nullptr && d0 == 0)
+      lse[(size_t)bh * G + g] = M == -INFINITY ? -INFINITY : M + logf(L);
     o[g * hd + d0] = from_f32<T>(r.x);
     o[g * hd + d0 + 1] = from_f32<T>(r.y);
     o[g * hd + d0 + 2] = from_f32<T>(r.z);
@@ -392,9 +397,9 @@ paged_decode_combine_kernel(const float* __restrict__ part,
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* q_pos, void* part, void* out,
-           int B, int KH, int G, int hd, int ps, int MP, int splits, int pps,
-           int smem_bytes, float scale, float softcap, int window,
-           void* stream) {
+           void* lse, int B, int KH, int G, int hd, int ps, int MP,
+           int splits, int pps, int smem_bytes, float scale, float softcap,
+           int window, void* stream) {
   if (B <= 0 || KH <= 0 || G <= 0 || G > MAX_G || hd <= 0 || hd % 32 ||
       hd > MAX_HD || ps <= 0 || ps > 128 || MP < 0 || pps <= 0 ||
       splits != (MP > 0 ? (MP + pps - 1) / pps : 1) ||
@@ -417,7 +422,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       MP, pps, scale, softcap, window);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   paged_decode_combine_kernel<T><<<B * KH, THREADS, 0, st>>>(
-      (const float*)part, (const int*)q_pos, (T*)out, KH, G, hd, splits);
+      (const float*)part, (const int*)q_pos, (T*)out, (float*)lse, KH, G,
+      hd, splits);
   return (int)cudaGetLastError();
 }
 
@@ -426,28 +432,30 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 extern "C" {
 
 // out [B, KH, G, hd] = decode attention of q over the paged pools (see the
-// note above); part: f32 scratch of B * KH * splits * G * (hd + 2) values.
-// splits = ceil(MP / pps) (1 when MP = 0) and smem_bytes come from the
-// wrapper's plan (paged_decode_plan); returns cudaErrorInvalidValue for
-// shapes the kernel does not take (hd % 32, hd > 256, page_size > 128,
-// G > 32) or pools that are not 16-byte aligned (the wrapper checks first).
+// note above); part: f32 scratch of B * KH * splits * G * (hd + 2) values;
+// lse: null, or f32 [B, KH, G] receiving each row's log-sum-exp (the
+// combine kernel's note). splits = ceil(MP / pps) (1 when MP = 0) and
+// smem_bytes come from the wrapper's plan (paged_decode_plan); returns
+// cudaErrorInvalidValue for shapes the kernel does not take (hd % 32,
+// hd > 256, page_size > 128, G > 32) or pools that are not 16-byte
+// aligned (the wrapper checks first).
 int paged_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
                       const void* page_table, const void* q_pos, void* part,
-                      void* out, int B, int KH, int G, int hd, int ps,
-                      int MP, int splits, int pps, int smem_bytes,
+                      void* out, void* lse, int B, int KH, int G, int hd,
+                      int ps, int MP, int splits, int pps, int smem_bytes,
                       float scale, float softcap, int window, void* stream) {
   return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, q_pos, part,
-                               out, B, KH, G, hd, ps, MP, splits, pps,
+                               out, lse, B, KH, G, hd, ps, MP, splits, pps,
                                smem_bytes, scale, softcap, window, stream);
 }
 
 int paged_decode_f32(const void* q, const void* k_pool, const void* v_pool,
                      const void* page_table, const void* q_pos, void* part,
-                     void* out, int B, int KH, int G, int hd, int ps, int MP,
-                     int splits, int pps, int smem_bytes, float scale,
-                     float softcap, int window, void* stream) {
-  return launch<float>(q, k_pool, v_pool, page_table, q_pos, part, out, B,
-                       KH, G, hd, ps, MP, splits, pps, smem_bytes, scale,
+                     void* out, void* lse, int B, int KH, int G, int hd,
+                     int ps, int MP, int splits, int pps, int smem_bytes,
+                     float scale, float softcap, int window, void* stream) {
+  return launch<float>(q, k_pool, v_pool, page_table, q_pos, part, out, lse,
+                       B, KH, G, hd, ps, MP, splits, pps, smem_bytes, scale,
                        softcap, window, stream);
 }
 

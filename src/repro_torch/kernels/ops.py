@@ -122,19 +122,24 @@ def paged_gather_kv(k_pool, v_pool, page_table):
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
                            scale: float | None = None, softcap: float = 0.0,
-                           window: int = 0):
+                           window: int = 0, return_lse: bool = False):
     """Single-token decode attention over the paged KV pool.
 
     q: [B, H, hd] (one query per slot); k_pool/v_pool: [P, ps, KH, hd];
     page_table: [B, MP] int32; q_pos: [B] int32 (current write position of
-    each slot; < 0 = dead slot, output row is zeros). Returns [B, H, hd].
-    The GQA group rides the kernel's warp axis: no padding of G or hd."""
+    each slot; < 0 = dead slot, output row is zeros). Returns [B, H, hd];
+    with ``return_lse`` also each row's f32 log-sum-exp [B, H] (-inf for a
+    row without a live key). The GQA group rides the kernel's warp axis:
+    no padding of G or hd."""
     B, H, hd = q.shape
     KH = k_pool.shape[2]
     scale = hd ** -0.5 if scale is None else scale
     out = pa.paged_decode_forward(
         q.reshape(B, KH, H // KH, hd).contiguous(), k_pool, v_pool,
-        page_table, q_pos, scale=scale, softcap=softcap, window=window)
+        page_table, q_pos, scale=scale, softcap=softcap, window=window,
+        return_lse=return_lse)
+    if return_lse:
+        return out[0].reshape(B, H, hd), out[1].reshape(B, H)
     return out.reshape(B, H, hd)
 
 

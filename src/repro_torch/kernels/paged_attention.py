@@ -48,7 +48,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for dt in _DTYPES.values():
         fn = getattr(lib, f"paged_decode_{dt}")
-        fn.argtypes = [p] * 7 + [i] * 9 + [f, f, i, p]
+        fn.argtypes = [p] * 8 + [i] * 9 + [f, f, i, p]
         fn.restype = i
     return lib
 
@@ -77,10 +77,12 @@ def _sm_count(index: int) -> int:
 
 
 def paged_decode_plain(q, k_pool, v_pool, page_table, q_pos, *, scale,
-                       softcap=0.0, window=0):
+                       softcap=0.0, window=0, return_lse=False):
     """Plain version of the kernel, same semantics: f32 softmax over the
     live lines only (masked lines contribute exactly 0), a slot with no
-    live key divides by 1, a dead slot (q_pos < 0) returns 0."""
+    live key divides by 1, a dead slot (q_pos < 0) returns 0. With
+    ``return_lse`` also the f32 log-sum-exp [B, KH, G] of each row's
+    scaled scores (-inf where no line is live or the slot is dead)."""
     B, KH, G, hd = q.shape
     ps = k_pool.shape[1]
     MP = page_table.shape[1]
@@ -100,20 +102,30 @@ def paged_decode_plain(q, k_pool, v_pool, page_table, q_pos, *, scale,
     p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     l = p.sum(-1, keepdim=True)
     out = torch.einsum("bkgt,btkh->bkgh", p, v) / torch.where(l == 0, 1.0, l)
-    out = torch.where((q_pos >= 0)[:, None, None, None], out, 0.0)
-    return out.to(q.dtype)
+    live = (q_pos >= 0)[:, None, None, None]
+    out = torch.where(live, out, 0.0).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where((l > 0) & live, s.amax(-1, keepdim=True) + torch.log(l),
+                      -torch.inf)
+    return out, lse[..., 0]
 
 
 def paged_decode_forward(q, k_pool, v_pool, page_table, q_pos, *, scale,
-                         softcap=0.0, window=0):
+                         softcap=0.0, window=0, return_lse=False):
     """q: [B, KH, G, hd]; pools: [P, page_size, KH, hd]; page_table:
     [B, MP] int32 (-1 = unallocated slot); q_pos: [B] int32 (< 0 = dead).
 
-    Returns [B, KH, G, hd] in q's dtype (zeros for dead slots)."""
+    Returns [B, KH, G, hd] in q's dtype (zeros for dead slots); with
+    ``return_lse`` the pair (out, lse), lse the f32 [B, KH, G] log-sum-exp
+    of each row's scaled scores written by the combine kernel (-inf for a
+    row without a live line or a dead slot): what a log-sum-exp merge of
+    partial results over disjoint pages weighs the row by."""
     tensors = (q, k_pool, v_pool, page_table, q_pos)
     if _build.on_cpu(*tensors):
         return paged_decode_plain(q, k_pool, v_pool, page_table, q_pos,
-                                  scale=scale, softcap=softcap, window=window)
+                                  scale=scale, softcap=softcap, window=window,
+                                  return_lse=return_lse)
     B, KH, G, hd = q.shape
     P, ps = k_pool.shape[0], k_pool.shape[1]
     MP = page_table.shape[1]
@@ -142,14 +154,17 @@ def paged_decode_forward(q, k_pool, v_pool, page_table, q_pos, *, scale,
     part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
                        device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, KH, G), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     fn = getattr(_lib(), f"paged_decode_{_DTYPES[q.dtype]}")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              page_table.data_ptr(), q_pos.data_ptr(), part.data_ptr(),
-             out.data_ptr(), B, KH, G, hd, ps, MP, plan["splits"],
+             out.data_ptr(), None if lse is None else lse.data_ptr(),
+             B, KH, G, hd, ps, MP, plan["splits"],
              plan["pages_per_split"], plan["smem_bytes"], float(scale),
              float(softcap), int(window),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
     LAUNCHES["paged_decode"] += 1
-    return out
+    return (out, lse) if return_lse else out

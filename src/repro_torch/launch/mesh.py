@@ -128,6 +128,8 @@ def _rank_entry(rank: int, fn: Callable, world: int, device: str,
     _init_rank(rank, world, device, init_method)
     try:
         fn(rank, *args)
+        if world > 1:  # no rank tears its links down under another's
+            dist.barrier()
     finally:
         dist.destroy_process_group()
 

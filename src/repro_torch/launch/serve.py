@@ -48,10 +48,9 @@ CUDA device and without ``--device cpu`` it exits non-zero.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-w2 \\
         --smoke --paged --ep-size 1 --ep-placement planned --device cpu
 
-``--ep-size`` N needs N EP ranks: the driver runs one (the JAX driver's
-1x1 mesh), so N > 1 fails the JAX validation message ("bad EP config:
-ep_size N != mesh axis 'model' size 1"), exit 1; two or more ranks run
-through ``build_deployment(ep_group=)`` on a ``torch.distributed`` group.
+``--ep-size`` N needs N EP ranks, the mesh's "model" axis: any other N
+fails the JAX validation message ("bad EP config: ep_size N != mesh axis
+'model' size M"), exit 1.
 Archs with recurrent mixers (``--arch recurrentgemma-9b``, ``--arch
 mamba2-2.7b``) serve in every mode but the prefix cache, as in the JAX
 driver: each slot carries its RG-LRU or SSD state beside the attention
@@ -64,13 +63,29 @@ tokens, ``--gen`` greedy tokens each, zero front embeddings), whatever
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
         --smoke --device cpu
 
-A ``--mesh`` other than 1x1 is rejected by name in one ``[serve]
-invalid configuration:`` line, exit 1 (the serving mesh, the ``serve``
-sharding rules over ``launch.mesh``, is not ported yet; the training
-mesh is, ``launch/train.py --mesh``), as are the JAX driver's own invalid
-combinations (``--fleet`` with ``--disagg`` or ``--ep-size``, ``--chaos``
-without ``--fleet``, ``--prefix-cache`` on a recurrent arch, ...), with its
-messages.
+``--mesh DxM`` serves on a DATA x MODEL mesh of D*M ranks, one process
+each (``launch.mesh.launch_ranks``: NCCL on the cards, rank r on
+``cuda:r``; gloo ranks with ``--device cpu``; under ``torchrun`` the
+process joins the group), every mode above but the lockstep server: each
+rank holds its blocks of the weights (the "serve" rules, gathered per
+layer at use), of the KV caches (sequence split over "model") or pools
+(pages over "model") and of the slots (over "data"), the attention's
+partial results merged by log-sum-exp over "model" (``serve.mesh``);
+``--ep-size`` is the "model" axis's extent. Rank 0 prints; the run fails
+if any rank's does. ``--mesh 1x1`` (the default) is the same program on
+one rank::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --mesh 1x2 --paged
+
+A mesh other than 1x1 with a recurrent arch (RG-LRU, SSD or a hybrid:
+their states split over "model" by channel) or an encoder-decoder or
+vision arch (the lockstep server on a mesh), and a CUDA mesh with more
+ranks than cards, are rejected by name in one ``[serve] invalid
+configuration:`` line, exit 1, before any device work, as are the JAX
+driver's own invalid combinations (``--fleet`` with ``--disagg`` or
+``--ep-size``, ``--chaos`` without ``--fleet``, ``--prefix-cache`` on a
+recurrent arch, ...), with its messages.
 
 Exit status: non-zero when any request is rejected, dropped or left
 unfinished, when a fleet stalls or a surviving pool leaks pages under
@@ -80,13 +95,14 @@ chaos, when the configuration is invalid, or when the device is missing.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.zebra_spmd import EPGroup
+from repro_torch.launch.mesh import launch_ranks, make_mesh, parse_mesh
 from repro_torch.models import registry, stack
 from repro_torch.models.modules import Policy, RunConfig
 from repro_torch.obs import format_report, write_chrome_trace
@@ -94,6 +110,8 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import (Request, SamplingParams, ServeConfig,
                                ServeConfigError, ServeMetrics,
                                build_deployment)
+from repro_torch.serve.mesh import unported_on_mesh
+from repro_torch.sharding.rules import MeshShape
 
 SMOKE_ARCHS = ("qwen3-moe-30b-a3b", "llama3.2-3b")  # MoE + dense
 
@@ -264,7 +282,7 @@ def serve_arch_lockstep(cfg, run, serve_cfg: ServeConfig, args, *,
 
 def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
                trace=None, params=None, run=None,
-               engine_hook=None, fronts=None, cfg=None) -> dict:
+               engine_hook=None, fronts=None, cfg=None, mesh=None) -> dict:
     """Serve the trace of ``args`` on ``arch``; returns the metrics summary
     with ``ok`` (every request finished with its full budget or was shed,
     nothing rejected, the allocators' page accounting clean, no surviving
@@ -278,7 +296,8 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     trace runs; ``cfg`` replaces the registry's config of ``arch`` (a
     caller's cut of its depth). The encoder-decoder and vision archs serve
     lockstep (:func:`serve_arch_lockstep`, which takes ``params`` and
-    ``fronts``, their front embeddings)."""
+    ``fronts``, their front embeddings). ``mesh`` (a ``launch.mesh.Mesh``;
+    None: one device): this rank of the serving mesh."""
     if cfg is None:
         cfg = registry.get_config(arch)
         if args.smoke:
@@ -288,8 +307,9 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     if serve_cfg is None:
         serve_cfg = ServeConfig.from_args(args)
     try:
-        # the EP ranks of this driver: one (the JAX driver's 1x1 mesh)
-        serve_cfg.validate(model_cfg=cfg, ep_group=EPGroup())
+        # the EP ranks: the mesh's "model" axis
+        serve_cfg.validate(model_cfg=cfg, mesh=mesh if mesh is not None
+                           else MeshShape((1, 1), ("data", "model")))
     except ServeConfigError as e:
         print(f"[serve] FAIL arch={cfg.name}: invalid serve config: {e}",
               file=sys.stderr)
@@ -322,7 +342,7 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     try:
         engine = build_deployment(cfg, run, serve_cfg, params=params,
                                   device=args.device, metrics=metrics,
-                                  on_token=stream)
+                                  on_token=stream, mesh=mesh)
     except ValueError as e:
         # Anything validate() could not see statically still fails the
         # run, never half-serves.
@@ -481,13 +501,57 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
     return s
 
 
+def _archs(args) -> list:
+    return [args.arch] if args.arch else \
+        (list(SMOKE_ARCHS) if args.smoke else ["llama3.2-3b"])
+
+
 def _unported_flags(args) -> list:
     """What this command line asks that the port does not serve yet: a
-    mesh other than one device (the serving mesh)."""
-    if args.mesh != "1x1":
-        return [f"--mesh {args.mesh} (the serving mesh is not ported; "
-                f"one device only)"]
-    return []
+    mesh other than 1x1 for an arch whose serving mesh is not ported (a
+    recurrent arch's states split by channel, the lockstep server)."""
+    try:
+        d, m = parse_mesh(args.mesh)
+    except ValueError:
+        return []
+    if d * m == 1:
+        return []
+    out = []
+    for arch in _archs(args):
+        why = unported_on_mesh(registry.get_config(arch))
+        if why:
+            out.append(f"--mesh {args.mesh} for {why}")
+    return out
+
+
+class _Failed(RuntimeError):
+    """A rank's run failed (its reasons are printed already)."""
+
+
+def _rank_main(rank: int, argv) -> None:
+    """One rank of ``--mesh DxM`` (``launch_ranks`` target): serves every
+    arch of the command line on its rank of the mesh; rank 0 prints, the
+    others write nothing to stdout and no trace. Raises if any arch's run
+    on this rank is not ok."""
+    args = build_parser().parse_args(argv)
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+        args.trace_out = None
+    mesh = make_mesh(parse_mesh(args.mesh), ("data", "model"), args.device)
+    archs = _archs(args)
+    failed = []
+    trace_out = args.trace_out
+    for arch in archs:
+        if trace_out and len(archs) > 1:
+            # One artifact per arch (the smoke pair would overwrite).
+            stem, dot, ext = trace_out.rpartition(".")
+            args.trace_out = f"{stem}.{arch}.{ext}" if dot \
+                else f"{trace_out}.{arch}"
+        if not serve_arch(arch, args, mesh=mesh)["ok"]:
+            failed.append(arch)
+    if failed:
+        print(f"[serve] FAILED archs: {failed}", file=sys.stderr)
+        raise _Failed(f"rank {rank}: {failed}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -614,45 +678,49 @@ def build_parser() -> argparse.ArgumentParser:
                          "planned: online heterogeneity-aware re-placement "
                          "from the observed routing EMA")
     ap.add_argument("--mesh", default="1x1",
-                    help="1x1 only (the serving mesh is not ported)")
+                    help="DATAxMODEL ranks of the serving mesh (one per "
+                         "card, or per CPU rank with --device cpu)")
     return ap
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     errs = []
+    try:
+        d, m = parse_mesh(args.mesh)
+    except ValueError as e:
+        errs.append(str(e))
+        d = m = 1
     unported = _unported_flags(args)
     if unported:
         errs.append("not ported to repro_torch yet: " + ", ".join(unported))
     try:
         ServeConfig.from_args(args).validate(
             model_cfg=registry.get_config(args.arch) if args.arch else None,
-            ep_group=EPGroup())
+            mesh=MeshShape((d, m), ("data", "model")))
     except ServeConfigError as e:
         errs.append(str(e))
+    have = torch.cuda.device_count() if args.device == "cuda" \
+        and torch.cuda.is_available() else 0
+    if args.device == "cuda" and d * m > 1 and d * m > have:
+        errs.append(f"--mesh {args.mesh} needs {d * m} CUDA devices; "
+                    f"{have} present")
     if errs:
         print(f"[serve] invalid configuration: {'; '.join(errs)}",
               file=sys.stderr)
         return 1
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if args.device == "cuda" and not have:
         print("[serve] no CUDA device: the port serves on the card; pass "
               "--device cpu to run the plain versions on the CPU",
               file=sys.stderr)
         return 2
-    archs = [args.arch] if args.arch else \
-        (list(SMOKE_ARCHS) if args.smoke else ["llama3.2-3b"])
-    failed = []
-    trace_out = args.trace_out
-    for arch in archs:
-        if trace_out and len(archs) > 1:
-            # One artifact per arch (the smoke pair would overwrite).
-            stem, dot, ext = trace_out.rpartition(".")
-            args.trace_out = f"{stem}.{arch}.{ext}" if dot \
-                else f"{trace_out}.{arch}"
-        if not serve_arch(arch, args)["ok"]:
-            failed.append(arch)
-    if failed:
-        print(f"[serve] FAILED archs: {failed}", file=sys.stderr)
+    try:
+        launch_ranks(_rank_main, d * m, args.device, argv)
+    except _Failed:
+        return 1
+    except Exception as e:  # a spawned rank failed: re-raised here
+        print(f"[serve] FAIL: {e}", file=sys.stderr)
         return 1
     return 0
 

@@ -47,6 +47,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.pytree import ParamSpec
+from repro_torch.sharding import collectives as C
 
 _BIG_NEG = -0.7 * torch.finfo(torch.float32).max
 
@@ -85,9 +86,10 @@ class RunConfig:
     remat: str = "none"
     chunk_q: int = 512  # query-chunk size of the chunked attention path
     # the mesh program's collectives (``train.step.ShardContext``): None on
-    # one device. It reduces tensor-parallel attention outputs over
-    # "model" and takes the MoE router's load statistics over the batch
-    # shards; the serve engines never set it.
+    # one device. In training it reduces tensor-parallel attention outputs
+    # over "model" and takes the MoE router's load statistics over the
+    # batch shards; the serving mesh (``serve.mesh``) sets its KV split
+    # and the per-layer weight gathers.
     shard: Any = None
 
     def __post_init__(self):
@@ -327,24 +329,75 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
 
 
 def _attention_inner(q, k, v, cfg: ModelConfig, run: RunConfig, *,
-                     positions, kv_pos, causal: bool, window: int,
-                     structural: bool):
-    """Dispatch to the flash kernels / chunked / materialized reference
-    attention. Flash and chunked apply to structural masks only (the
-    cache-free path: queries at 0..S-1, keys at 0..T-1, T the memory's
-    length under cross-attention); flash masks from those positions itself
-    and is not handed them."""
+                     positions, kv_pos, causal: bool, window: int):
+    """Attention over the fresh K/V with the structural mask (queries at
+    0..S-1, keys at 0..T-1, T the memory's length under cross-attention),
+    through the flash kernels, the chunked or the materialized reference
+    path (``run.attn_impl``); flash masks from those positions itself and
+    is not handed them."""
     scale = cfg.head_dim ** -0.5
     softcap = cfg.attn_logit_softcap
-    if structural and run.attn_impl == "flash":
+    if run.attn_impl == "flash":
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     scale=scale, softcap=softcap)
-    if structural and run.attn_impl == "chunked":
+    if run.attn_impl == "chunked":
         return chunked_attention(q, k, v, positions, kv_pos, causal=causal,
                                  window=window, scale=scale, softcap=softcap,
                                  policy=run.policy, chunk_q=run.chunk_q)
     mask = attention_mask(positions, kv_pos, causal=causal, window=window)
     return ref_attention(q, k, v, mask, scale, softcap, run.policy)
+
+
+def partial_attention(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
+                      scale: float, softcap: float, policy: Policy):
+    """Attention of q over one block of the keys (a rank's lines of a
+    split cache): the output normalised over the block's live keys and
+    each row's f32 log-sum-exp of its scaled scores, (out [B, S, H, hd] in
+    the compute dtype, lse [B, S, H]). A row without a live key in the
+    block gets out 0 and lse -inf, the weight 0 in :func:`merge_attention`
+    (:func:`ref_attention` would average every line of such a row). Logits
+    and softmax in f32, probabilities cast to the compute dtype for the
+    value product, as :func:`ref_attention`."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    qf = q.reshape(B, S, KH, H // KH, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qf.float(), k.float()) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = attention_mask(q_pos, kv_pos, causal, window)[:, None, None]
+    m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    den = p.sum(-1, keepdim=True)
+    probs = p / torch.where(den > 0, den, 1.0)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(policy.compute_dtype), v)
+    lse = torch.where(den > 0, m + torch.log(den), -torch.inf)[..., 0]
+    return out.reshape(B, S, H, hd), lse.permute(0, 3, 1, 2).reshape(B, S, H)
+
+
+def merge_partials(outs, lses):
+    """Log-sum-exp merge of R partial attentions over disjoint keys, outs
+    [R, ..., hd] and their f32 lses [R, ...]: sum_r w_r out_r / sum_r w_r
+    with w_r = exp(lse_r - max_r lse_r), in f32 and in order over r, cast
+    to the outs' dtype. A partial of lse -inf weighs 0; a row no partial
+    has a live key for is 0."""
+    m = lses.amax(0)
+    w = torch.exp(lses - torch.where(torch.isfinite(m), m, 0.0))
+    den = w.sum(0)
+    num = (w[..., None] * outs.float()).sum(0)
+    return (num / torch.where(den > 0, den, 1.0)[..., None]).to(outs.dtype)
+
+
+def merge_attention(out, lse, group):
+    """Merge the partial attentions of the ranks of ``group`` (each over
+    its own keys; out [..., hd], lse [...] f32): both are all-gathered and
+    every rank merges them in rank order (:func:`merge_partials`), so
+    every rank holds the same bits. On one rank: ``out`` itself, with no
+    collective."""
+    if C.group_size(group) == 1:
+        return out
+    return merge_partials(C.gather_nograd(out[None].contiguous(), 0, group),
+                          C.gather_nograd(lse[None].contiguous(), 0, group))
 
 
 def _project_qkv(params, cfg: ModelConfig, run: RunConfig, x, positions,
@@ -386,7 +439,11 @@ def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
     [offset, offset + S). Dead slots (index < 0) and unallocated table
     slots write nothing: their rows are masked out of the scatter (the JAX
     package routes them to an out-of-bounds sentinel and drops them). Key
-    positions are structural, never read back from the pool.
+    positions are structural, never read back from the pool. On a pool
+    split by page over "model" (``ShardContext.pool_lo``) the rank writes
+    and attends over its own pages through a table renumbered to them;
+    every rank's partial result is merged by :func:`merge_attention`, the
+    identity on one rank.
     """
     B, S, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
@@ -396,62 +453,101 @@ def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     ps = ck.shape[1]
     MP = page_table.shape[1]
+    sh = run.shard
+    lo = sh.pool_lo() if sh is not None else None
+    group = sh.kv_group if lo is not None else None
     ci = torch.as_tensor(cache_index, device=x.device)
     if ci.dim() == 1:
         # Per-slot decode: row b writes line cache_index[b] of its own run.
         p = ci.long()
         pslot = (p.clamp(min=0) // ps).clamp(max=MP - 1)
         page = page_table.long().gather(1, pslot[:, None])[:, 0]
-        keep = (p >= 0) & (page >= 0)
-        page, line = page[keep], (p % ps)[keep]
-        ck[page, line] = k[:, 0][keep].to(ck.dtype)
-        cv[page, line] = v[:, 0][keep].to(cv.dtype)
-        cpos[page, line] = positions[:, 0][keep].to(cpos.dtype)
+        page = torch.where((p >= 0) & (page >= 0), page, -1)
+        line, kn, vn, pn = p % ps, k[:, 0], v[:, 0], positions[:, 0]
+        if sh is not None and sh.slot_group is not None:
+            # the pools are replicated over "data": every data rank's
+            # slots write into each copy
+            page, line, kn, vn, pn = (C.gather_nograd(t, 0, sh.slot_group)
+                                      for t in (page, line, kn, vn, pn))
     else:
         # Chunked prefill at batch 1: per-position scatter through the
         # single request's table (pages need not be contiguous).
         lines = ci.long() + torch.arange(S, device=x.device)
         pslot = (lines // ps).clamp(max=MP - 1)
         page = page_table[0].long()[pslot]
-        keep = page >= 0
-        page, line = page[keep], (lines % ps)[keep]
-        ck[page, line] = k[0][keep].to(ck.dtype)
-        cv[page, line] = v[0][keep].to(cv.dtype)
-        cpos[page, line] = positions[0][keep].to(cpos.dtype)
+        line, kn, vn, pn = lines % ps, k[0], v[0], positions[0]
+    keep = page >= 0
+    table = page_table
+    if lo is not None:  # the rank's pages, renumbered from 0; others -1
+        keep &= (page >= lo) & (page < lo + ck.shape[0])
+        page = page - lo
+        own = (table >= lo) & (table < lo + ck.shape[0])
+        table = torch.where(own, table - lo, -1).to(torch.int32)
+    page, line = page[keep], line[keep]
+    ck[page, line] = kn[keep].to(ck.dtype)
+    cv[page, line] = vn[keep].to(cv.dtype)
+    cpos[page, line] = pn[keep].to(cpos.dtype)
 
     scale = hd ** -0.5
     softcap = cfg.attn_logit_softcap
     if S == 1 and causal:
         # Block-gathered flash decode over the pool: the CUDA kernel on the
-        # card, its plain version on the CPU.
-        out = kops.paged_decode_attention(
-            q[:, 0], ck, cv, page_table, positions[:, 0].to(torch.int32),
-            scale=scale, softcap=softcap, window=window)[:, None]
+        # card, its plain version on the CPU, with its log-sum-exp.
+        out, lse = kops.paged_decode_attention(
+            q[:, 0], ck, cv, table, positions[:, 0].to(torch.int32),
+            scale=scale, softcap=softcap, window=window, return_lse=True)
+        out = merge_attention(out, lse, group)[:, None]
     else:
-        kg, vg, kv_pos = kops.paged_gather_kv(ck, cv, page_table)
-        out = _attention_inner(q, kg, vg, cfg, run, positions=positions,
-                               kv_pos=kv_pos, causal=causal, window=window,
-                               structural=False)
+        kg, vg, kv_pos = kops.paged_gather_kv(ck, cv, table)
+        out = merge_attention(*partial_attention(
+            q, kg, vg, positions, kv_pos, causal=causal, window=window,
+            scale=scale, softcap=softcap, policy=run.policy), group)
     y = out.reshape(B, S, h * hd) @ params["wo"].to(cd)
     return y, cache
 
 
-def _write_dense_cache(cache, k, v, positions, cache_index, window: int):
-    """Write this step's K/V/positions into a dense cache, IN PLACE (the
-    JAX package's four write cases of ``apply_attention``).
+def _dense_runs(ci: int, S: int, C: int, window: int, lo: int, Cl: int):
+    """Where a write of positions [ci, ci + S) into a dense cache of C
+    lines lands within the lines [lo, lo + Cl) a rank holds, as contiguous
+    runs (first source position, first local line, length). A ring
+    (``window`` > 0) keeps the last min(S, C) positions, position p at
+    line p % C, so it wraps once at most; a linear cache writes one slice,
+    its start clamped as ``dynamic_update_slice`` clamps it."""
+    if window > 0:
+        n = min(S, C)
+        s0, l0 = S - n, (ci + S - n) % C
+        runs = [(s0, l0, min(n, C - l0))]
+        if n > C - l0:
+            runs.append((s0 + C - l0, 0, n - (C - l0)))
+    else:
+        runs = [(0, min(max(ci, 0), C - S), S)]
+    out = []
+    for s, ln, m in runs:
+        a, b = max(ln, lo), min(ln + m, lo + Cl)
+        if a < b:
+            out.append((s + a - ln, a - lo, b - a))
+    return out
 
-    cache: k/v [B, C, KH, hd], pos [B, C]; a ring (``window`` > 0) holds
-    position p at line p % C. A vector ``cache_index`` [B] (decode, one
-    token) writes line cache_index[b] of row b; a row with a negative
-    index (or a linear line past C) writes nothing: JAX sends it to the
-    out-of-bounds sentinel C and drops it, here it rewrites line 0 with
-    what line 0 holds (an in-bounds write, no host sync). A scalar writes
-    lines [offset, offset + S): a block larger than the ring keeps its
-    last C keys, rolled to their ring lines; a chunk into a ring scatters
-    per position modulo C (it may cross the ring's edge); otherwise one
-    slice, its start clamped as ``dynamic_update_slice`` clamps it."""
+
+def _write_dense_cache(cache, k, v, positions, cache_index, window: int,
+                       lo: int = 0, C: int | None = None):
+    """Write this step's K/V/positions into a rank's lines [lo, lo + C_loc)
+    of a dense cache of C lines, IN PLACE (the JAX package's four write
+    cases of ``apply_attention``, restricted to the rank's lines; by
+    default the cache is whole: lo 0, C = C_loc).
+
+    cache: k/v [B, C_loc, KH, hd], pos [B, C_loc]; a ring (``window`` > 0)
+    holds position p at line p % C. A vector ``cache_index`` [B] (decode,
+    one token) writes line cache_index[b] of row b; a row with a negative
+    index, a linear line past C or a line of another rank writes nothing:
+    JAX sends it to the out-of-bounds sentinel C and drops it, here it
+    rewrites local line 0 with what it holds (an in-bounds write, no host
+    sync). A scalar writes positions [offset, offset + S) in contiguous
+    runs (:func:`_dense_runs`): a block larger than the ring keeps its
+    last C keys; a chunk into a ring may cross the ring's edge."""
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    B, C = cpos.shape
+    B, Cl = cpos.shape
+    C = Cl if C is None else C
     S = k.shape[1]
     pos = positions.to(cpos.dtype)
     if getattr(cache_index, "ndim", 0) == 1:
@@ -460,27 +556,17 @@ def _write_dense_cache(cache, k, v, positions, cache_index, window: int):
                              "decode")
         ci = torch.as_tensor(cache_index, device=k.device).long()
         line = ci % C if window > 0 else ci
-        keep = (ci >= 0) & (line < C)
-        line = torch.where(keep, line, 0)
+        keep = (ci >= 0) & (line >= lo) & (line < lo + Cl)
+        line = torch.where(keep, line - lo, 0)
         b = torch.arange(B, device=ci.device)
         for dst, new in ((ck, k[:, 0]), (cv, v[:, 0]), (cpos, pos[:, 0])):
             old = dst[b, line]
             mask = keep.view(-1, *([1] * (old.dim() - 1)))
             dst[b, line] = torch.where(mask, new.to(dst.dtype), old)
         return
-    ci = int(cache_index)
-    if window > 0 and S >= C:
-        shift = (ci + S - C) % C
+    for s, ln, m in _dense_runs(int(cache_index), S, C, window, lo, Cl):
         for dst, new in ((ck, k), (cv, v), (cpos, pos)):
-            dst.copy_(torch.roll(new[:, -C:], shift, dims=1))
-    elif window > 0 and S > 1:
-        idx = (ci + torch.arange(S, device=k.device)) % C
-        for dst, new in ((ck, k), (cv, v), (cpos, pos)):
-            dst[:, idx] = new.to(dst.dtype)
-    else:
-        start = min(max(ci % C if window > 0 else ci, 0), C - S)
-        for dst, new in ((ck, k), (cv, v), (cpos, pos)):
-            dst[:, start:start + S] = new.to(dst.dtype)
+            dst[:, ln:ln + m] = new[:, s:s + m].to(dst.dtype)
 
 
 def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
@@ -506,11 +592,20 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
     decode, prefill offset) or a per-slot [B] vector (continuous decode;
     negative rows write nothing). ``attend_to_cache``: an S > 1 chunk
     attends over the cache (chunked prefill) instead of assuming it
-    empty. Decode and chunked prefill attend through the materialised
-    plain path (lines with pos == -1 masked out), a ring's chunk over the
-    PRE-write ring plus its own keys, since its tail may evict lines its
-    earlier queries still see; whole-sequence prefill attends
-    structurally over the fresh K/V, the cache write a side effect.
+    empty. Decode and chunked prefill attend over the cache through
+    :func:`partial_attention` (lines with pos == -1 masked out), a ring's
+    chunk over the PRE-write ring plus its own keys, since its tail may
+    evict lines its earlier queries still see; whole-sequence prefill
+    attends structurally over the fresh K/V, the cache write a side
+    effect.
+
+    On the serving mesh a dense cache may be split by line over "model"
+    (``ShardContext.dense_lo``): a rank holds, writes and attends over its
+    own lines, and the partial results are merged over "model"
+    (:func:`merge_attention`); a ring chunk's own keys are counted by
+    model rank 0 alone, so the merge counts them once. One rank, or a
+    cache that is not split, is the case lo = 0 of the same code, whose
+    merge is the identity.
     """
     if cache is not None and page_table is not None:
         return _apply_attention_paged(
@@ -523,18 +618,30 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
                                    kv_positions, rope)
     structural = cache is None or not (S == 1 or attend_to_cache)
     if cache is not None:
+        sh = run.shard
+        lo = sh.dense_lo(window) if sh is not None else None
+        Cl = cache["pos"].shape[1]
+        C, group = (Cl, None) if lo is None else \
+            (Cl * sh.kv_size, sh.kv_group)
         ring_chunk = window > 0 and S > 1 and not structural
-        if ring_chunk:  # attend before the write lands (cat copies)
+        if ring_chunk:  # attend before the write lands (cat / clone copy)
+            fresh = lo is None or sh.kv_rank == 0
             seen = [torch.cat([cache[n], t.to(cache[n].dtype)], dim=1)
+                    if fresh else cache[n].clone()
                     for n, t in (("k", k), ("v", v), ("pos", positions))]
-        _write_dense_cache(cache, k, v, positions, cache_index, window)
-        if ring_chunk:
-            k, v, kv_pos = seen
-        elif not structural:
-            k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
-    out = _attention_inner(q, k, v, cfg, run, positions=positions,
-                           kv_pos=kv_pos, causal=causal and kv is None,
-                           window=window, structural=structural)
+        _write_dense_cache(cache, k, v, positions, cache_index, window,
+                           lo or 0, C)
+        if not structural:
+            k, v, kv_pos = seen if ring_chunk else \
+                (cache["k"], cache["v"], cache["pos"])
+            out = merge_attention(*partial_attention(
+                q, k, v, positions, kv_pos, causal=causal, window=window,
+                scale=cfg.head_dim ** -0.5, softcap=cfg.attn_logit_softcap,
+                policy=run.policy), group)
+    if structural:
+        out = _attention_inner(q, k, v, cfg, run, positions=positions,
+                               kv_pos=kv_pos, causal=causal and kv is None,
+                               window=window)
     y = out.reshape(B, S, -1) @ params["wo"].to(cd)
     return y, cache
 

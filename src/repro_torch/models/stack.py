@@ -43,6 +43,7 @@ from repro_torch.models import modules
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.modules import Policy, RunConfig
 from repro_torch.pytree import ParamSpec, flatten, materialize, tree_map
+from repro_torch.sharding import collectives as C
 
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss")
 # whisper's encoder layer: bidirectional self-attention and a dense FFN
@@ -432,20 +433,62 @@ def _stacked_state(cfg: ModelConfig, one_layer):
     return state
 
 
+def state_leaves(tree, prefix: str = "") -> dict:
+    """{name: leaf} of a decode-state tree, named as the JAX package's
+    ``tree_map_with_path_names`` names them ("blocks/pos0/kv/k",
+    "tails/0/kv/pos"; a None subtree has no leaves)."""
+    if tree is None:
+        return {}
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(state_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def _blocks(tree, block, device, name: str = ""):
+    """A decode-state tree (on the meta device) allocated as blocks:
+    each leaf of shape ``block(name, shape)`` on ``device``, filled as the
+    init fills it (-1 for the cache positions, 0 elsewhere)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _blocks(v, block, device, f"{name}/{k}" if name else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_blocks(v, block, device, f"{name}/{i}")
+                for i, v in enumerate(tree)]
+    fill = -1 if name.rsplit("/", 1)[-1] == "pos" else 0
+    return torch.full(block(name, tuple(tree.shape)), fill, dtype=tree.dtype,
+                      device=device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                      device="cpu"):
-    """Stacked per-layer decode state (dense per-slot cache layout)."""
-    return _stacked_state(cfg, lambda spec: modules.init_layer_state(
-        cfg, spec, batch, max_len, dtype, device))
+                      device="cpu", block=None):
+    """Stacked per-layer decode state (dense per-slot cache layout).
+    ``block(name, shape) -> shape`` (a rank of the serving mesh:
+    ``sharding.rules.local_shape`` of the leaf's spec) allocates only that
+    block of each leaf."""
+    def make(dev):
+        return _stacked_state(cfg, lambda spec: modules.init_layer_state(
+            cfg, spec, batch, max_len, dtype, dev))
+    return make(device) if block is None else \
+        _blocks(make("meta"), block, device)
 
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int, n_pages: int,
-                            page_size: int, dtype, device="cpu"):
+                            page_size: int, dtype, device="cpu", block=None):
     """Paged decode state (DESIGN.md §9): per-layer KV pools of ``n_pages``
     shared physical pages (no batch dim), stacked as ``[L, P, ps, KH, hd]``
-    so each layer's pool is one contiguous view."""
-    return _stacked_state(cfg, lambda spec: modules.init_paged_layer_state(
-        cfg, spec, batch, n_pages, page_size, dtype, device))
+    so each layer's pool is one contiguous view. ``block``: as in
+    :func:`init_decode_state`."""
+    def make(dev):
+        return _stacked_state(cfg, lambda spec: modules.init_paged_layer_state(
+            cfg, spec, batch, n_pages, page_size, dtype, dev))
+    return make(device) if block is None else \
+        _blocks(make("meta"), block, device)
 
 
 # -- paged-state tree surgery (engine helpers, DESIGN.md §9.4) --------------
@@ -501,14 +544,22 @@ def _host_ids(page_ids) -> np.ndarray:
     return np.asarray(page_ids, np.int64).reshape(-1)
 
 
-def gather_kv_pages(state, page_ids):
+def gather_kv_pages(state, page_ids, pool=None):
     """Pull physical pages ``page_ids`` of every attention layer's pool out
     of a PAGED decode-state tree. Returns the kv skeleton with the page dim
-    replaced by ``len(page_ids)`` (new tensors): the transfer payload."""
+    replaced by ``len(page_ids)`` (new tensors): the transfer payload.
+
+    ``pool`` (``serve.mesh.PoolShard``: this rank's block of a pool split
+    by page over the ranks of ``pool.group``): each rank takes the pages
+    it owns, and the blocks are all-gathered and each page taken from its
+    owner, so every rank holds the same payload (the JAX package's
+    replicated ``transfer_payload_spec``)."""
     kv, _ = split_kv_state(state)
     ids = _host_ids(page_ids)
 
     def take(axis):
+        if pool is not None:
+            return _take_owned(axis, ids, pool)
         return lambda v: v.index_select(
             axis, torch.as_tensor(ids, device=v.device))
 
@@ -520,28 +571,50 @@ def gather_kv_pages(state, page_ids):
     return out
 
 
-def scatter_kv_pages(state, payload, page_ids):
+def _take_owned(axis: int, ids, pool):
+    """``take`` of :func:`gather_kv_pages` on a pool split by page."""
+    per = pool.pages // pool.size
+    owner = np.clip(ids // per, 0, pool.size - 1)
+    local = np.where(owner == pool.rank, ids - owner * per, 0)
+
+    def f(v):
+        part = v.index_select(axis, torch.as_tensor(local, device=v.device))
+        g = C.gather_nograd(part[None].contiguous(), 0, pool.group)
+        g = g.movedim(axis + 1, 1)   # [ranks, n, ...]
+        sel = g[torch.as_tensor(owner, device=v.device),
+                torch.arange(len(ids), device=v.device)]
+        return sel.movedim(0, axis).contiguous()
+    return f
+
+
+def scatter_kv_pages(state, payload, page_ids, pool=None):
     """Write a :func:`gather_kv_pages` payload into the pool pages
     ``page_ids`` of a PAGED decode-state tree, IN PLACE (the import half of
     the handoff). Out-of-range ids (the transfer engine's chunk-padding
     sentinel) are dropped: their rows are masked out on the host before
     the write, as the JAX package's ``mode="drop"`` drops them (an
     out-of-range index write on a CUDA tensor is a device-side assert);
-    ids in [-n, 0) count from the end, as there. Returns ``state``."""
+    ids in [-n, 0) count from the end, as there. With ``pool`` (see
+    :func:`gather_kv_pages`) each rank writes the pages it owns. Returns
+    ``state``."""
     kv, _ = split_kv_state(state)
     ids = _host_ids(page_ids)
 
     def put(axis):
         def f(dst, src):
             n = dst.shape[axis]
+            lo = 0
+            if pool is not None:
+                n, lo = pool.pages, pool.rank * (pool.pages // pool.size)
             ids_n = np.where(ids < 0, ids + n, ids)
-            keep = np.nonzero((ids_n >= 0) & (ids_n < n))[0]
+            keep = np.nonzero((ids_n >= lo)
+                              & (ids_n < lo + dst.shape[axis]))[0]
             if len(keep) == 0:
                 return
             if len(keep) < len(ids):
                 src = src.index_select(
                     axis, torch.as_tensor(keep, device=src.device))
-            dst.index_copy_(axis, torch.as_tensor(ids_n[keep],
+            dst.index_copy_(axis, torch.as_tensor(ids_n[keep] - lo,
                                                   device=dst.device),
                             src.to(dst.dtype))
         return f
@@ -561,14 +634,3 @@ def _tree_zip(fn, dst, src) -> None:
             _tree_zip(fn, d, src[k])
         else:
             fn(d, src[k])
-
-
-def init_paged_prefill_state(cfg: ModelConfig, n_pages: int, page_size: int,
-                             dtype, device="cpu"):
-    """A PAGED prefill state that DETACHES from any serving engine
-    (DESIGN.md §10): the per-layer pools plus a batch-1 recurrent carry,
-    sized independently of decode-side slot counts. This is what a
-    disaggregated PrefillWorker owns: its pool geometry is the prefill
-    group's memory budget, not the decode engine's."""
-    return init_paged_decode_state(cfg, 1, n_pages, page_size, dtype,
-                                   device)

@@ -14,13 +14,13 @@ engine mapping, as in the JAX package::
     paged.enabled                 -> + BlockAllocator (paged KV, §9)
     prefix.enabled                -> + PrefixIndex (COW prefix cache, §14)
 
-Expert-parallel decode (``EPCfg``, DESIGN.md §11) runs over an
-``core.zebra_spmd.EPGroup`` where the JAX package takes the mesh's
-"model" axis: ``validate(ep_group=)`` and ``build_deployment(ep_group=)``
-take it (the driver's is one rank, so ``--ep-size`` above 1 fails
-validation with the JAX message, as on a 1x1 mesh), and the disaggregated
-deployment takes EP as the JAX one does. The fleet refuses it, as in the
-JAX package. Encoder-decoder and vision archs take the lockstep
+Every engine runs on a serving mesh (``build_deployment(mesh=)``, a
+``launch.mesh.Mesh``; None: the 1x1 mesh of one device; ``serve.mesh``).
+Expert-parallel decode (``EPCfg``, DESIGN.md §11) runs over the mesh's
+"model" axis: ``validate(mesh=)`` refuses an ``ep_size`` other than its
+extent with the JAX message, and the
+disaggregated deployment takes EP as the JAX one does. The fleet refuses
+it, as in the JAX package. Encoder-decoder and vision archs take the lockstep
 ``BatchedServer`` before any other branch, as in the JAX package: their
 steps need per-request front embeddings that the continuous engines do
 not carry, so ``--paged``, ``--disagg`` and ``--fleet`` fall through to it.
@@ -229,13 +229,13 @@ class ServeConfig:
                            slo_ttft=args.slo_ttft),
             chaos=ChaosCfg(spec=args.chaos, seed=args.chaos_seed))
 
-    def validate(self, model_cfg=None, ep_group=None) -> None:
+    def validate(self, model_cfg=None, mesh=None) -> None:
         """Reject-don't-truncate validation of the WHOLE config: every
         violation in one :class:`ServeConfigError`. ``model_cfg`` adds the
         arch-dependent checks (recurrent-arch prefix rejection, EP on a
-        dense arch); with it,
-        ``ep_group`` (the EP ranks, a ``core.zebra_spmd.EPGroup``: the JAX
-        package's mesh) adds EP's divisibility and rank-count checks."""
+        dense arch); with it, ``mesh`` (its "model" axis: the EP ranks, as
+        in the JAX package) adds EP's divisibility and rank-count
+        checks."""
         errs: List[str] = []
         if self.slots < 1:
             errs.append(f"slots must be >= 1, got {self.slots}")
@@ -303,11 +303,11 @@ class ServeConfig:
                 if not model_cfg.is_moe:
                     errs.append(f"--ep-size needs a MoE arch; "
                                 f"{model_cfg.name} is dense")
-                elif ep_group is not None:
+                elif mesh is not None:
                     from repro_torch.serve.ep_decode import \
                         validate_ep_config
                     try:
-                        validate_ep_config(model_cfg, ep_group,
+                        validate_ep_config(model_cfg, mesh,
                                            self.ep_decode_config())
                     except ValueError as e:
                         errs.append(f"bad EP config: {e}")
@@ -327,24 +327,37 @@ class ServeConfig:
 
 def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
                      device="cuda", metrics=None, on_token=None,
-                     record_logits: bool = False, ep_group=None):
+                     record_logits: bool = False, mesh=None):
     """THE construction path from a :class:`ServeConfig` to a live engine:
     validate first (so an invalid config never half-constructs), then the
     deployment the config describes (see the module docstring).
     ``params`` defaults to a fresh init from seed 0 on ``device`` (the JAX
-    package's ``PRNGKey(0)`` init). ``ep_group``: the EP ranks (a
-    ``core.zebra_spmd.EPGroup``; None: one rank). Every engine but the
-    lockstep server of the encoder-decoder and vision archs exposes
-    ``run(trace)`` and ``rejected``; the EP engines place (permute and
-    shard) the replicated params themselves."""
-    if serve_cfg.ep.ep_size and ep_group is None:
-        from repro_torch.core.zebra_spmd import EPGroup
-        ep_group = EPGroup()
-    serve_cfg.validate(model_cfg=cfg, ep_group=ep_group)
+    package's ``PRNGKey(0)`` init). Every engine but the lockstep server of the encoder-decoder and vision archs
+    exposes ``run(trace)`` and ``rejected``; the EP engines place (permute
+    and shard) the replicated params themselves.
+
+    ``mesh`` (a ``launch.mesh.Mesh``; None: one device): every engine is
+    built on this rank of the serving mesh (``serve.mesh``); ``params``
+    may be whole or this rank's blocks, and the seed-0 init draws each
+    leaf and keeps the rank's block. Expert-parallel decode runs over the
+    mesh's "model" axis."""
+    from repro_torch.serve.mesh import ServeLayout, unported_on_mesh
+    from repro_torch.train.step import OneDevice
+    if mesh is not None and mesh.size > 1 and unported_on_mesh(cfg):
+        raise ServeConfigError("not ported to repro_torch yet: a mesh "
+                               "other than 1x1 for "
+                               + unported_on_mesh(cfg))
+    serve_cfg.validate(model_cfg=cfg,
+                       mesh=mesh if mesh is not None else OneDevice())
     sc = serve_cfg
     if params is None:
-        gen = torch.Generator(device=device).manual_seed(0)
-        params = stack.init_model(gen, cfg, device=device)
+        if mesh is not None and mesh.size > 1 and not sc.ep.ep_size:
+            params = ServeLayout(cfg, mesh, n_slots=sc.slots,
+                                 max_len=sc.max_len, dtype=None,
+                                 device=device).init_params(0)
+        else:
+            gen = torch.Generator(device=device).manual_seed(0)
+            params = stack.init_model(gen, cfg, device=device)
 
     if cfg.is_encdec or cfg.vision_seq > 0:
         # Lockstep fallback: enc-dec / vision archs need per-request front
@@ -369,7 +382,7 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
             prefill_chunk=sc.prefill_chunk, token_budget=sc.token_budget,
             seed=sc.seed, metrics=metrics, on_token=on_token,
             elastic=sc.fleet.elastic, chaos=chaos,
-            slo_ttft=sc.fleet.slo_ttft, device=device)
+            slo_ttft=sc.fleet.slo_ttft, device=device, mesh=mesh)
 
     if sc.disagg.enabled:
         from repro_torch.serve.disagg import make_disagg
@@ -383,11 +396,10 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
             link_bw=sc.disagg.link_bw, latency_s=sc.disagg.latency_s,
             metrics=metrics, on_token=on_token,
             record_logits=record_logits, ep=sc.ep_decode_config(),
-            prefix=sc.prefix, ep_group=ep_group, device=device)
+            prefix=sc.prefix, device=device, mesh=mesh)
 
     program = make_continuous_program(cfg, run, sc, device=device,
-                                      ep=sc.ep_decode_config(),
-                                      ep_group=ep_group)
+                                      ep=sc.ep_decode_config(), mesh=mesh)
     allocator = prefix_index = None
     if sc.paged.enabled:
         allocator = BlockAllocator(program.n_pages, program.page_size,

@@ -224,9 +224,12 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
                 metrics: Optional[ServeMetrics] = None,
                 on_token: Optional[Callable] = None,
                 record_logits: bool = False, ep=None,
-                ep_placement=None, prefix=None, ep_group=None,
-                device="cuda") -> DisaggController:
-    """Wire up the full disaggregated deployment on one device.
+                ep_placement=None, prefix=None,
+                device="cuda", mesh=None) -> DisaggController:
+    """Wire up the full disaggregated deployment on one device, or on this
+    rank of the serving mesh ``mesh`` (both workers on the one mesh, as in
+    the JAX package; each rank holds its blocks of both pools and of the
+    one parameter tree).
 
     Both workers get their own paged program + pool + allocator (the
     prefill pool defaults to TWO max-length sequences — the mid-flight
@@ -237,8 +240,8 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
     the transfer engine's cost model.
 
     ``ep`` (a ``serve.ep_decode.EPDecodeConfig``) shards the expert
-    weights over the EP ranks of ``ep_group`` (a ``core.zebra_spmd.
-    EPGroup``; None: one rank; DESIGN.md §11): BOTH programs are built with
+    weights over the EP ranks, the mesh's "model" axis (DESIGN.md §11):
+    BOTH programs are built with
     EP (the prefill worker shares the ranks, so its expert hop uses the
     placed weights too), the params are placed once under
     ``ep_placement`` (default ``ep.placement``, else round-robin), and the
@@ -262,11 +265,11 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
     pre_prog = _make_paged_program(
         cfg, run, n_slots=1, max_len=max_len, seed=seed,
         page_size=page_size, n_pages=max(prefill_pages, max_pages),
-        device=device, ep=ep, ep_group=ep_group)
+        device=device, ep=ep, mesh=mesh)
     dec_prog = _make_paged_program(
         cfg, run, n_slots=decode_slots, max_len=max_len, seed=seed,
         page_size=page_size, n_pages=decode_pages, device=device, ep=ep,
-        ep_group=ep_group)
+        mesh=mesh)
     params = stack.compute_params(params, run.policy)
     if ep is not None:
         from repro_torch.core.asym_ea import round_robin_placement
@@ -275,6 +278,7 @@ def make_disagg(cfg: ModelConfig, run: RunConfig, params, *,
         if pl is None:
             pl = round_robin_placement(cfg.n_experts, ep.ep_size)
         params = place_params(params, cfg, pl, dec_prog.ep_group)
+    params = dec_prog.prepare(params)  # this rank's blocks
     caching = prefix is not None and getattr(prefix, "enabled", False)
     pre_sched = PrefillScheduler(
         max_len, prefill_chunk=prefill_chunk, token_budget=token_budget,

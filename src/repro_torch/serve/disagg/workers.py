@@ -26,10 +26,10 @@ pages (serve/kv_transfer.py), when its prefill finishes.
   sampling makes the resume token-exact, §7.4).
 
 Both workers are driven by :class:`~repro_torch.serve.disagg.controller.
-DisaggController`. In the port the two "groups" share one process, one
-device and ONE parameter tree (the JAX package places a copy per group);
-each worker still owns its own pool and allocator, and the link cost is
-simulated in the transfer engine.
+DisaggController`. In the port the two "groups" share one process (one
+rank of the serving mesh), its device and ONE parameter tree (the JAX
+package places a copy per group); each worker still owns its own pool and
+allocator, and the link cost is simulated in the transfer engine.
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import stack
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.engine import ContinuousProgram
 from repro_torch.serve.kv_transfer import KVTransferEngine
@@ -87,12 +86,11 @@ class PrefillWorker:
         self.sched = sched
         self.track = "prefill"  # tracer track (§15)
         sched.track = self.track
-        # The detached prefill state (stack.init_paged_prefill_state):
-        # pools sized by the PREFILL group's memory budget, batch-1
-        # recurrent skeleton — no decode-engine slot geometry anywhere.
-        self.state = stack.init_paged_prefill_state(
-            program.cfg, program.n_pages, program.page_size,
-            program.run.policy.compute_dtype, program.device)
+        # The detached prefill state (the batch-1 program's; this rank's
+        # blocks on a mesh): pools sized by the PREFILL group's memory
+        # budget, batch-1 recurrent skeleton — no decode-engine slot
+        # geometry anywhere.
+        self.state = program.init_state()
         self.prec = None  # batch-1 recurrent carry of the mid-flight prompt
 
     @property
@@ -215,7 +213,8 @@ class DecodeWorker:
                 self.state = transfer.transfer(
                     src_worker.state, self.state, ticket.src_pages, dst,
                     dst_n_pages=self.p.n_pages,
-                    src_name=src_name, dst_name=dst_name, rid=req.rid)
+                    src_name=src_name, dst_name=dst_name, rid=req.rid,
+                    src_pool=src_worker.p.pool, dst_pool=self.p.pool)
         except Exception as e:
             # The exception carries the destination tree (the JAX
             # package's donated scatter makes it the only live one; here

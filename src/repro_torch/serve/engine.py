@@ -29,7 +29,12 @@ state (the insert and the COW fork too); the engines keep one
 compute-dtype copy of each weight matrix made at load
 (``stack.compute_params``) instead of casting every call. Expert-parallel
 decode (``ep``, DESIGN.md §11) runs both builds' MoE FFNs through
-``serve.ep_decode``'s EP hop over an ``EPGroup`` instead of a mesh.
+``serve.ep_decode``'s EP hop over an ``EPGroup`` (the mesh's "model"
+axis). Both continuous builds run on a rank of the serving mesh
+(``mesh=``, ``serve.mesh``; one device is its 1x1 mesh) where the JAX
+package hands GSPMD its shardings: weights gathered per layer, KV split
+over "model" with the attention merged by log-sum-exp, slots over
+"data".
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import RunConfig, apply_unembedding
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import sampling
+from repro_torch.serve.mesh import (ServeLayout, decode_state_specs,  # noqa: F401
+                                    paged_state_specs)
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import PrefillChunk, Request, Scheduler
 
@@ -190,9 +197,18 @@ class ContinuousProgram:
     Step inputs may be numpy arrays; outputs are tensors on ``device``.
 
     EP decode (DESIGN.md §11): with ``ep`` set, params must be placed
-    (``serve.ep_decode.place_params`` under ``ep_group``) and decode_step
+    (``serve.ep_decode.place_params`` under ``ep_group``, the EP ranks of
+    the mesh's "model" axis) and decode_step
     returns a 4th output, the per-layer routed-copy histogram [n_rows,
     n_experts] (f32, on ``device``) that feeds the placement EMA.
+
+    On a mesh (``layout``, a ``serve.mesh.ServeLayout``; the 1x1 mesh of
+    one device otherwise) the steps take this rank's param blocks
+    (:meth:`prepare`) and state blocks and return what every rank
+    returns alike: the logits and tokens of every slot, the histogram
+    summed over the slots of every data rank. ``pool``: this rank's block
+    of the paged pool (None when it is not split), which the KV transfer
+    and the COW fork read and write through.
     """
 
     cfg: ModelConfig
@@ -214,11 +230,20 @@ class ContinuousProgram:
     max_pages: int = 0       # page-table slots per request
     ep: object = None        # serve.ep_decode.EPDecodeConfig
     ep_group: object = None  # its core.zebra_spmd.EPGroup
+    layout: ServeLayout = None
+    pool: object = None      # serve.mesh.PoolShard of a split pool
+
+    def prepare(self, params):
+        """The tree the steps run on: this rank's blocks of ``params``
+        (whole or cut already), every matrix cast once to the compute
+        dtype (``stack.compute_params``)."""
+        return stack.compute_params(self.layout.local_params(params),
+                                    self.run.policy)
 
 
 def make_continuous_program(cfg: ModelConfig, run: RunConfig, serve_cfg, *,
                             device="cuda", ep=None,
-                            ep_group=None) -> ContinuousProgram:
+                            mesh=None) -> ContinuousProgram:
     """Build the engine's steps. ``serve_cfg`` (a
     :class:`repro_torch.serve.config.ServeConfig`) supplies slots, max_len
     and seed; with ``paged.enabled`` the paged build, whose page geometry
@@ -226,11 +251,13 @@ def make_continuous_program(cfg: ModelConfig, run: RunConfig, serve_cfg, *,
     capacity, slots x pages per sequence), else the dense build.
 
     MoE FFNs take the dropless gather path (``apply_moe``). With ``ep`` (a
-    ``serve.ep_decode.EPDecodeConfig``) over ``ep_group`` (a
-    ``core.zebra_spmd.EPGroup``; None: one rank) expert weights are
-    instead sharded over the EP ranks and the MoE hop runs the chunked
-    all-to-all dispatch (DESIGN.md §11); ``decode_step`` then returns a
-    4th output, the per-layer routed-copy histogram."""
+    ``serve.ep_decode.EPDecodeConfig``) expert weights are instead
+    sharded over the EP ranks, the mesh's "model" axis, and the MoE hop
+    runs the chunked all-to-all dispatch (DESIGN.md §11); ``decode_step``
+    then returns a 4th output, the per-layer routed-copy histogram.
+
+    ``mesh`` (a ``launch.mesh.Mesh``; None: the 1x1 mesh of ``device``):
+    the program of this rank of the serving mesh (``serve.mesh``)."""
     if cfg.is_encdec or cfg.vision_seq > 0:
         raise ValueError("continuous batching supports decoder-only LMs")
     device = torch.device(device)
@@ -239,27 +266,29 @@ def make_continuous_program(cfg: ModelConfig, run: RunConfig, serve_cfg, *,
             cfg, run, n_slots=serve_cfg.slots, max_len=serve_cfg.max_len,
             seed=serve_cfg.seed, page_size=serve_cfg.paged.page_size,
             n_pages=serve_cfg.paged.pool_pages, device=device, ep=ep,
-            ep_group=ep_group)
+            mesh=mesh)
     return _make_dense_program(cfg, run, n_slots=serve_cfg.slots,
                                max_len=serve_cfg.max_len,
                                seed=serve_cfg.seed, device=device, ep=ep,
-                               ep_group=ep_group)
+                               mesh=mesh)
 
 
 class _EPHooks:
     """A program build's EP lines (``repro/serve/engine.py:348-356``):
     the prefill override, the decode override over the live-slot mask, and
-    the decode step's extra aux key. Without ``ep`` every hook is off."""
+    the decode step's extra aux key. Without ``ep`` every hook is off. The
+    EP ranks: the "model" axis of ``layout``'s mesh."""
 
-    def __init__(self, cfg: ModelConfig, run: RunConfig, ep, ep_group):
+    def __init__(self, cfg: ModelConfig, run: RunConfig, ep,
+                 layout: ServeLayout):
         self.ep = ep
         self.group = None
         if ep is None:
             return
         from repro_torch.core.zebra_spmd import EPGroup
         from repro_torch.serve import ep_decode as epd
-        self.group = ep_group if ep_group is not None else EPGroup()
-        epd.validate_ep_config(cfg, self.group, ep)
+        self.group = EPGroup(layout.model_group)
+        epd.validate_ep_config(cfg, layout.mesh, ep)
         self.moe = epd.make_ep_moe_decode(cfg, run, ep, self.group)
         self.extras = (("ep_counts", (cfg.n_experts,)),)
         self.prefill = epd.moe_override_for(self.moe)
@@ -296,7 +325,7 @@ def _sampler(seed: int, device: torch.device) -> Callable:
 
 def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
                         max_len: int, seed: int, device: torch.device,
-                        ep=None, ep_group=None) -> ContinuousProgram:
+                        ep=None, mesh=None) -> ContinuousProgram:
     """Dense program (the JAX engine's default build): each slot owns a
     contiguous [max_len] KV reservation (a ring on sliding-window layers).
     A prompt prefills chunk by chunk into a batch-1 state that attends
@@ -305,11 +334,20 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
     per-slot position vector ``pos [B]`` (the next cache line; -1 for a
     dead slot, which writes no line and whose queries mask every key) and
     attends over the whole [B, C] cache through the materialised plain
-    path, as the reference does."""
+    path, as the reference does (``modules.partial_attention``).
+
+    On a mesh a rank holds lines of every row of its data rank's slots
+    (the prefill state: of its one row) and decodes those slots, its
+    partial attention merged over "model"; the insert lands in the data
+    rank that owns the slot."""
     B = n_slots
     dtype = run.policy.compute_dtype
     sample = _sampler(seed, device)
-    eph = _EPHooks(cfg, run, ep, ep_group)
+    lay = ServeLayout(cfg, mesh, n_slots=B, max_len=max_len, dtype=dtype,
+                      device=device, ep=ep is not None)
+    run_b = dataclasses.replace(run, shard=lay.context(decode=True))
+    run_p = dataclasses.replace(run, shard=lay.context(decode=False))
+    eph = _EPHooks(cfg, run, ep, lay)
 
     def dev(x, dt=None):
         return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
@@ -319,10 +357,11 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         """One prompt chunk at batch 1: writes cache lines [offset,
         offset + c), attends over the whole cache (earlier chunks
         included), returns the f32 logits of the chunk's last position."""
+        params = lay.gather_params(params)
         hidden, pstate, _ = stack.apply_model(
-            params, cfg, run, dev(tokens, torch.int64), decode_state=pstate,
-            cache_index=int(offset), attend_to_cache=True,
-            return_hidden=True, **eph.prefill_kw())
+            params, cfg, run_p, dev(tokens, torch.int64),
+            decode_state=pstate, cache_index=int(offset),
+            attend_to_cache=True, return_hidden=True, **eph.prefill_kw())
         return pstate, apply_unembedding(
             params["embed"], params.get("lm_head"), cfg, run.policy,
             hidden[:, -1]).float()
@@ -333,11 +372,15 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         batch-1 prefilled state (batch axis 1 on stacked block leaves, 0
         on tails): KV and cache positions alike, so a recycled slot cannot
         leak. In place: returns the same state."""
+        slot = int(slot)
+        if not lay.owns_slot(slot):
+            return state
+        slot -= lay.rows.start
         for dst, src in zip(state["tails"], pstate["tails"]):
-            _copy_into_slot(dst, src, int(slot), axis=0)
+            _copy_into_slot(dst, src, slot, axis=0)
         if state["blocks"] is not None:
             for k, dst in state["blocks"].items():
-                _copy_into_slot(dst, pstate["blocks"][k], int(slot), axis=1)
+                _copy_into_slot(dst, pstate["blocks"][k], slot, axis=1)
         return state
 
     @torch.inference_mode()
@@ -347,33 +390,39 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         cache lines and emit token 0. Under EP the per-layer routed-copy
         histogram rides along as a 4th output."""
         live = dev(active, torch.bool)
+        rows = lay.rows
         logits, state, aux = stack.apply_model(
-            params, cfg, run, dev(tok, torch.int64), decode_state=state,
-            cache_index=dev(pos, torch.int32), **eph.decode_kw(live))
-        last = logits[:, -1].float()
+            lay.gather_params(params), cfg, run_b,
+            dev(lay.local_rows(tok), torch.int64), decode_state=state,
+            cache_index=dev(lay.local_rows(pos), torch.int32),
+            **eph.decode_kw(live[rows]))
+        last = lay.gather_slots(logits[:, -1].float())
         nxt = sample(last, rids, ngen, temp, topk, topp)
         out = (state, torch.where(live, nxt, 0), last)
-        return out + (aux["per_layer"]["ep_counts"],) if ep else out
+        if not ep:
+            return out
+        return out + (lay.sum_slots(aux["per_layer"]["ep_counts"]),)
 
     return ContinuousProgram(
         cfg=cfg, run=run, device=device, n_slots=B, max_len=max_len,
         prefill_step=prefill, insert_step=insert, decode_step=decode,
-        sample_step=sample,
-        init_state=lambda: stack.init_decode_state(cfg, B, max_len, dtype,
-                                                   device),
-        init_pstate=lambda: stack.init_decode_state(cfg, 1, max_len, dtype,
-                                                    device),
-        ep=ep, ep_group=eph.group)
+        sample_step=sample, init_state=lambda: lay.dense_state(B),
+        init_pstate=lambda: lay.dense_state(1), ep=ep, ep_group=eph.group,
+        layout=lay)
 
 
 def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
                         max_len: int, seed: int, page_size: int,
                         n_pages: int | None, device: torch.device,
-                        ep=None, ep_group=None) -> ContinuousProgram:
+                        ep=None, mesh=None) -> ContinuousProgram:
     """Paged-KV program (DESIGN.md §9.4): KV never moves at admission or
     recycling — prefill scatters straight into the request's pool pages,
     the insert step copies only the batch-1 recurrent carry, and freeing is
-    the allocator's page-table reset."""
+    the allocator's page-table reset.
+
+    On a mesh a rank holds the pages of its block of every pool (split
+    over "model", the same on every data rank: each data rank's decode
+    writes reach every copy) and decodes its data rank's slots."""
     B = n_slots
     max_pages = -(-max_len // page_size)
     n_pages = n_pages if n_pages is not None else B * max_pages
@@ -381,7 +430,14 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         raise ValueError("pool smaller than one sequence")
     dtype = run.policy.compute_dtype
     sample = _sampler(seed, device)
-    eph = _EPHooks(cfg, run, ep, ep_group)
+    lay = ServeLayout(cfg, mesh, n_slots=B, max_len=max_len, dtype=dtype,
+                      device=device, ep=ep is not None)
+    run_b = dataclasses.replace(run, shard=lay.context(decode=True,
+                                                       n_pages=n_pages))
+    run_p = dataclasses.replace(run, shard=lay.context(decode=False,
+                                                       n_pages=n_pages))
+    pool = lay.pool(n_pages)
+    eph = _EPHooks(cfg, run, ep, lay)
 
     def dev(x, dt=None):
         return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
@@ -396,9 +452,10 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         page table straight into the shared pools."""
         kv_s, rec_s = stack.split_kv_state(state)
         merged = stack.merge_kv_state(kv_s, prec)
+        params = lay.gather_params(params)
         hidden, new_merged, _ = stack.apply_model(
-            params, cfg, run, dev(tokens, torch.int64), decode_state=merged,
-            cache_index=int(offset), return_hidden=True,
+            params, cfg, run_p, dev(tokens, torch.int64),
+            decode_state=merged, cache_index=int(offset), return_hidden=True,
             page_table=dev(ptrow, torch.int32), **eph.prefill_kw())
         kv_n, prec_n = stack.split_kv_state(new_merged)
         return (stack.merge_kv_state(kv_n, rec_s), prec_n,
@@ -409,12 +466,16 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         """Admission copies ONLY the recurrent carry into the slot row; the
         KV pages are already in the pool (written by prefill). In place:
         returns the same state."""
+        slot = int(slot)
+        if not lay.owns_slot(slot):
+            return state
+        slot -= lay.rows.start
         _, rec_s = stack.split_kv_state(state)
         for dst, src in zip(rec_s["tails"], prec["tails"]):
-            _copy_into_slot(dst, src, int(slot), axis=0)
+            _copy_into_slot(dst, src, slot, axis=0)
         if rec_s["blocks"] is not None:
             for k, dst in rec_s["blocks"].items():
-                _copy_into_slot(dst, prec["blocks"][k], int(slot), axis=1)
+                _copy_into_slot(dst, prec["blocks"][k], slot, axis=1)
         return state
 
     @torch.inference_mode()
@@ -424,14 +485,19 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         cache lines and emit token 0. Under EP the per-layer routed-copy
         histogram rides along as a 4th output."""
         live = dev(active, torch.bool)
+        rows = lay.rows
         logits, state, aux = stack.apply_model(
-            params, cfg, run, dev(tok, torch.int64), decode_state=state,
-            cache_index=dev(pos, torch.int32),
-            page_table=dev(ptabs, torch.int32), **eph.decode_kw(live))
-        last = logits[:, -1].float()
+            lay.gather_params(params), cfg, run_b,
+            dev(lay.local_rows(tok), torch.int64), decode_state=state,
+            cache_index=dev(lay.local_rows(pos), torch.int32),
+            page_table=dev(lay.local_rows(ptabs), torch.int32),
+            **eph.decode_kw(live[rows]))
+        last = lay.gather_slots(logits[:, -1].float())
         nxt = sample(last, rids, ngen, temp, topk, topp)
         out = (state, torch.where(live, nxt, 0), last)
-        return out + (aux["per_layer"]["ep_counts"],) if ep else out
+        if not ep:
+            return out
+        return out + (lay.sum_slots(aux["per_layer"]["ep_counts"]),)
 
     @torch.inference_mode()
     def fork(state, src, dst):
@@ -439,20 +505,20 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         page ``src`` into ``dst`` across every layer's K/V/pos pool, in
         place, before a writer diverges from a shared prefix. One page of
         device traffic, the only KV copy of the unified paged engine; it
-        runs on the stream of the writes it precedes."""
+        runs on the stream of the writes it precedes. On a split pool the
+        page goes from its owner to the owner of ``dst``."""
         return stack.scatter_kv_pages(
-            state, stack.gather_kv_pages(state, src), dst)
+            state, stack.gather_kv_pages(state, src, pool), dst, pool)
 
     return ContinuousProgram(
         cfg=cfg, run=run, device=device, n_slots=B, max_len=max_len,
         prefill_step=prefill, insert_step=insert, decode_step=decode,
         sample_step=sample, fork_step=fork,
-        init_state=lambda: stack.init_paged_decode_state(
-            cfg, B, n_pages, page_size, dtype, device),
-        init_prec=lambda: stack.split_kv_state(
-            stack.init_decode_state(cfg, 1, 1, dtype, device))[1],
+        init_state=lambda: lay.paged_state(B, n_pages, page_size),
+        init_prec=lay.prefill_carry,
         paged=True, page_size=page_size, n_pages=n_pages,
-        max_pages=max_pages, ep=ep, ep_group=eph.group)
+        max_pages=max_pages, ep=ep, ep_group=eph.group, layout=lay,
+        pool=pool)
 
 
 def _copy_into_slot(dst, src, slot: int, axis: int):
@@ -486,9 +552,10 @@ class ContinuousBatchingEngine:
                  scheduler: Scheduler, *, metrics: ServeMetrics = None,
                  on_token: Callable = None, record_logits: bool = False):
         self.p = program
-        # One compute-dtype copy of each weight matrix, made at load; the
-        # caller's f32 params are not modified.
-        self.params = stack.compute_params(params, program.run.policy)
+        # One compute-dtype copy of each weight matrix (of this rank's
+        # blocks on a mesh), made at load; the caller's f32 params are not
+        # modified.
+        self.params = program.prepare(params)
         self.sched = scheduler
         self.metrics = metrics or ServeMetrics()
         self.on_token = on_token  # callable(rid, token, finished)

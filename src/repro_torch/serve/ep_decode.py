@@ -22,12 +22,14 @@ the stack returns them per layer through ``aux_extras`` / ``layer_aux``;
 the engine feeds them to :class:`~repro_torch.serve.metrics.RoutingEMA`
 and re-balances when the distribution drifts.
 
-The port has no mesh: the EP ranks are a ``core.zebra_spmd.EPGroup`` (no
-process group: one rank, every collective the identity and no
-``torch.distributed`` call; a gloo or NCCL group: ``torch.distributed``
-collectives). Where the JAX package pins the expert stacks to the mesh's
-EP axis (``ep_param_shardings``), :func:`place_params` given the group
-keeps only the rank's own slots, so the residency drop is real per rank.
+The EP ranks are a ``core.zebra_spmd.EPGroup`` (no process group: one
+rank, every collective the identity and no ``torch.distributed`` call; a
+gloo or NCCL group: ``torch.distributed`` collectives): on the serving
+mesh (``serve.mesh``) the group of its "model" axis. Where the JAX package
+pins the expert stacks to the mesh's EP axis (``ep_param_shardings``),
+:func:`place_params` given the group keeps only the rank's own slots, so
+the residency drop is real per rank; the program's layout cuts the other
+leaves to the rank's blocks.
 """
 
 from __future__ import annotations
@@ -73,12 +75,11 @@ class EPDecodeConfig:
     ema_decay: float = 0.9
 
 
-def validate_ep_config(cfg: ModelConfig, group: Optional[EPGroup],
-                       ep: EPDecodeConfig) -> None:
+def validate_ep_config(cfg: ModelConfig, mesh, ep: EPDecodeConfig) -> None:
     """Reject-don't-truncate validation, with the JAX package's messages.
-    ``group`` (an :class:`EPGroup`; None: one rank) takes the place of the
-    JAX mesh: its size is the EP axis's extent."""
-    group = group if group is not None else EPGroup()
+    ``mesh`` (a ``launch.mesh.Mesh`` or any ``sharding.rules.MeshShape``;
+    None: one rank): its ``ep.ep_axis`` is the EP axis, as in the JAX
+    package."""
     if not cfg.is_moe:
         raise ValueError("EP decode needs a MoE model (n_experts == 0)")
     if ep.ep_size < 1:
@@ -87,10 +88,13 @@ def validate_ep_config(cfg: ModelConfig, group: Optional[EPGroup],
         raise ValueError(
             f"ep_size {ep.ep_size} does not divide n_experts "
             f"{cfg.n_experts}; refusing to truncate the expert shard")
-    if group.size != ep.ep_size:
+    if mesh is not None and ep.ep_axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no axis {ep.ep_axis!r}")
+    size = 1 if mesh is None else mesh.shape[ep.ep_axis]
+    if size != ep.ep_size:
         raise ValueError(
             f"ep_size {ep.ep_size} != mesh axis {ep.ep_axis!r} size "
-            f"{group.size}")
+            f"{size}")
     if ep.n_chunks < 1:
         raise ValueError(f"n_chunks must be >= 1, got {ep.n_chunks}")
     if ep.placement is not None:
@@ -340,7 +344,8 @@ class EPContinuousBatchingEngine(ContinuousBatchingEngine):
     Takes UNPLACED (replicated-layout) params and places them here: the
     compute-dtype copy (``stack.compute_params``) permuted, with ``eslot``
     injected, this rank's slots kept (:func:`place_params` under the
-    program's EP group). Every decode step returns the routed-copy
+    program's EP group) and, on a mesh, the other leaves cut to the rank's
+    blocks (``ContinuousProgram.prepare``). Every decode step returns the routed-copy
     histogram, which feeds a :class:`RoutingEMA`; with ``rebalance_every``
     set, when the EMA drifts past ``drift_threshold`` (total variation
     against the histogram the current placement was computed from),
@@ -373,8 +378,10 @@ class EPContinuousBatchingEngine(ContinuousBatchingEngine):
         super().__init__(program, placed, scheduler, **kw)
 
     def _place(self, placement):
-        return place_params(self._base_params, self._program.cfg, placement,
-                            self._program.ep_group)
+        """The rank's blocks of the params placed under ``placement``."""
+        return self._program.prepare(place_params(
+            self._base_params, self._program.cfg, placement,
+            self._program.ep_group))
 
     def _on_ep_counts(self, counts) -> None:
         self.ema.update(counts)

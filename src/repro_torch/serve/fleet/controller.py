@@ -185,8 +185,12 @@ class FleetController:
                  wait_hi_ticks: int = 4, backlog_hi_chunks: int = 8,
                  on_token: Optional[Callable] = None,
                  chaos: Optional[FaultInjector] = None,
-                 slo_ttft: Optional[float] = None):
+                 slo_ttft: Optional[float] = None,
+                 agree: Optional[Callable[[float], float]] = None):
         self.groups: List[FleetGroup] = list(groups)
+        # On a mesh every rank routes by rank 0's step times, so the
+        # replicated control plane takes the same decisions everywhere.
+        self.agree = agree or (lambda t: t)
         self.router = router
         self.transfer = transfer
         self.metrics = metrics or ServeMetrics()
@@ -560,7 +564,8 @@ class FleetController:
             for ticket in g.worker.step():
                 self.pending.append(_Pending(self.tick_count, g.gid,
                                              g.generation, ticket))
-            self.detector.record(g.name, time.perf_counter() - t0)
+            self.detector.record(
+                g.name, self.agree(time.perf_counter() - t0))
             if chaos is not None \
                     and chaos.fire("crash_post_prefill", g.name):
                 self.kill_group(g.gid)
@@ -622,7 +627,8 @@ class FleetController:
             if g.worker.any_active():
                 t0 = time.perf_counter()
                 g.worker.decode_once(self.tick_count)
-                self.detector.record(g.name, time.perf_counter() - t0)
+                self.detector.record(
+                g.name, self.agree(time.perf_counter() - t0))
         # Zombies keep computing against their private quarantine state —
         # that is exactly the race the fence exists to win. Their output
         # lands in the fenced callback and is counted, never recorded.
@@ -727,8 +733,12 @@ def make_fleet(cfg: ModelConfig, run: RunConfig, params, *,
                chaos: Optional[FaultInjector] = None,
                slo_ttft: Optional[float] = None,
                transfer_max_retries: int = 3,
-               device="cuda") -> FleetController:
-    """Wire up a full fleet on one device (the multi-group analogue of
+               device="cuda", mesh=None) -> FleetController:
+    """Wire up a full fleet on one device, or on this rank of the serving
+    mesh ``mesh`` (every group on the one mesh, as in the JAX package;
+    the kill and chaos schedules are host-side and seeded, and the
+    straggler detector records rank 0's step times on every rank, so each
+    rank replays the same fleet) (the multi-group analogue of
     ``make_disagg``). ``prefill_classes`` / ``decode_classes`` name the
     device class of each initial group (keys of ``hardware.CLASSES``) —
     one group per entry; the class sets the router's speed priors via the
@@ -740,7 +750,6 @@ def make_fleet(cfg: ModelConfig, run: RunConfig, params, *,
     """
     from repro_torch.core import profiler as P
     from repro_torch.core.hardware import CLASSES
-    from repro_torch.models import stack
     from repro_torch.serve.engine import _make_paged_program
     from repro_torch.serve.kv_blocks import BlockAllocator
     from repro_torch.serve.scheduler import DecodeScheduler, PrefillScheduler
@@ -761,11 +770,18 @@ def make_fleet(cfg: ModelConfig, run: RunConfig, params, *,
     pre_prog = _make_paged_program(
         cfg, run, n_slots=1, max_len=max_len, seed=seed,
         page_size=page_size, n_pages=max(prefill_pages, max_pages),
-        device=device)
+        device=device, mesh=mesh)
     dec_prog = _make_paged_program(
         cfg, run, n_slots=decode_slots, max_len=max_len, seed=seed,
-        page_size=page_size, n_pages=decode_pages, device=device)
-    params = stack.compute_params(params, run.policy)
+        page_size=page_size, n_pages=decode_pages, device=device, mesh=mesh)
+    params = dec_prog.prepare(params)
+    agree = None
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.sharding import collectives as C
+        group = mesh.group(mesh.axis_names)
+
+        def agree(t):
+            return C.broadcast_host(t, group, mesh.device)
 
     def make_prefill_worker() -> PrefillWorker:
         sched = PrefillScheduler(
@@ -809,4 +825,4 @@ def make_fleet(cfg: ModelConfig, run: RunConfig, params, *,
         make_decode_worker=make_decode_worker, metrics=shared,
         elastic=elastic, grace_ticks=grace_ticks,
         wait_hi_ticks=wait_hi_ticks, backlog_hi_chunks=backlog_hi_chunks,
-        on_token=on_token, chaos=chaos, slo_ttft=slo_ttft)
+        on_token=on_token, chaos=chaos, slo_ttft=slo_ttft, agree=agree)

@@ -189,12 +189,19 @@ class KVTransferEngine:
     def transfer(self, src_state, dst_state, src_ids: List[int],
                  dst_ids: List[int], *, dst_n_pages: int,
                  src_name: str = "*", dst_name: str = "*",
-                 rid: Optional[int] = None):
+                 rid: Optional[int] = None, src_pool=None, dst_pool=None):
         """Move pages ``src_ids`` of ``src_state``'s pools into pages
         ``dst_ids`` of ``dst_state``'s pools, chunk by chunk. Returns the
         destination state (written in place); the source state is
         read-only (its pages recycle via the exporting allocator, not
         here).
+
+        On the serving mesh ``src_pool`` / ``dst_pool`` (the programs'
+        ``serve.mesh.PoolShard``; None: a pool that is not split) name this
+        rank's pages: a chunk is gathered from the pages each rank owns and
+        all-gathered over "model" into the replicated payload, whose
+        checksum is then the same on every rank, and each rank scatters it
+        into the destination pages it owns.
 
         Raises :class:`TransferAbortedError` when a chunk exhausts its
         retry budget, and :class:`~repro_torch.ft.chaos.GroupCrashed` when
@@ -248,7 +255,7 @@ class KVTransferEngine:
                     tr.instant(track, "retry", idx=lo // cp,
                                attempt=attempt)
                 payload = self._timed("gather", self._gather, src_state,
-                                      src_chunk)
+                                      src_chunk, src_pool)
                 if chaos is not None and chaos.fire("drop", dst_name):
                     # Chunk lost on the wire: the receiver times out.
                     self.stats.n_timeouts += 1
@@ -266,7 +273,7 @@ class KVTransferEngine:
                     tr.instant(track, "corrupt", idx=lo // cp)
                     continue
                 dst_state = self._timed("scatter", self._scatter, dst_state,
-                                        payload, dst_chunk)
+                                        payload, dst_chunk, dst_pool)
                 if chaos is not None and chaos.fire("stall", dst_name):
                     # Delivered but the ack is lost: the sender replays
                     # the chunk. The scatter writes the same pages to the

@@ -1,0 +1,332 @@
+"""The serving mesh: what a rank of a DATA x MODEL mesh holds and gathers
+when it serves (the JAX package's serving programs on a mesh,
+``repro/serve/engine.py:38-86``, ``:263-283`` and the "serve" variant of
+``repro/sharding/rules.py``), without jax.
+
+* Weights: each rank stores its block of every param under the fitted
+  "serve" rules (2D FSDP; the experts over "model", and under
+  expert-parallel decode the placed expert stacks over "model" only, as
+  ``ep_param_shardings`` pins them). A stacked layer's weights are
+  all-gathered at the layer's start (``ShardContext.layer_plans``), the
+  others once a step (:meth:`ServeLayout.gather_params`); the compute is
+  then the one-device compute on every rank, the experts of an EP rank
+  excepted.
+* Decode state (:func:`decode_state_specs`, :func:`paged_state_specs`,
+  leaf by leaf the JAX package's specs): dense KV caches split their
+  sequence dim over "model" and their slots over "data"; paged pools
+  split their page dim over "model" and are replicated over "data". A
+  rank allocates only its blocks; its attention runs over its own lines
+  or pages and the partial results are merged by log-sum-exp over
+  "model" (``models.modules.merge_attention``).
+* Slots: each data rank decodes the slots that ``slot_vector_spec`` gives
+  its block (all of them where the slot count does not divide); the
+  sampled logits are all-gathered over "data" before sampling, so every
+  rank samples every slot alike and the host-side scheduler, allocator
+  and prefix index, replicated, take the same decisions. Prefill runs at
+  batch 1 on every rank (the JAX package's ``batch_axes=()``).
+
+A one-device program is the 1x1 mesh (``train.step.OneDevice``): no
+block is cut, no group exists, nothing is gathered.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import stack
+from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import (ShardingRules, block_index, fit_spec,
+                                        fitted_specs, local_shape,
+                                        local_slice, paged_pool_spec,
+                                        rules_for, slot_vector_spec)
+from repro_torch.train.step import (OneDevice, ShardContext, _gather_plan,
+                                    fit_batch_axes)
+
+EXPERT_KEYS = ("wi_gate", "wi_up", "wo")
+
+
+# ---------------------------------------------------------------------------
+# Decode-state specs (repro/serve/engine.py:38-86, :263-283)
+# ---------------------------------------------------------------------------
+
+def _state_spec_for(cfg: ModelConfig, mesh, b, kv_bodies):
+    """The JAX package's shared decode-state leaf-spec mapper: recurrent
+    leaves split their batch over "data" and channels over "model", the
+    attention-cache leaves take ``kv_bodies(tail, ndim)``. A leaf counts as
+    stacked when its first dim equals ``n_pattern_repeats`` (> 1), as
+    there. Returns ``spec_for(name, shape)``."""
+    mdl = "model"
+
+    def spec_for(name: str, shape) -> tuple:
+        n = cfg.n_pattern_repeats
+        stacked = len(shape) and shape[0] == n and n > 1
+        lead = (None,) if stacked else ()
+        tail = name.rsplit("/", 1)[-1]
+        if tail in ("k", "v", "pos"):
+            body = (*lead, *kv_bodies(tail, len(shape) - len(lead)))
+        else:
+            body = {
+                "conv": (*lead, b, None, mdl),
+                "lru": (*lead, b, mdl),
+                "ssm": (*lead, b, mdl, None, None),
+            }.get(tail, (*lead, *([None] * (len(shape) - len(lead)))))
+        return fit_spec(shape, mesh, body)
+
+    return spec_for
+
+
+def _shapes(state) -> dict:
+    return {k: tuple(v.shape) for k, v in stack.state_leaves(state).items()}
+
+
+def decode_state_specs(cfg: ModelConfig, mesh, rules: ShardingRules,
+                       batch: int, max_len: int,
+                       dtype=torch.bfloat16) -> dict:
+    """{leaf name: spec} of the dense decode state: KV caches split their
+    sequence dim over "model" (flash-decoding style) and their batch over
+    the fitted batch axes; recurrent states their channels over "model"."""
+    baxes = fit_batch_axes(batch, mesh, rules.batch_axes)
+    b = baxes if baxes else None
+    kv = {"k": (b, "model", None, None), "v": (b, "model", None, None),
+          "pos": (b, "model")}
+    spec_for = _state_spec_for(cfg, mesh, b, lambda tail, nd: kv[tail])
+    shapes = _shapes(stack.init_decode_state(cfg, batch, max_len, dtype,
+                                             "meta"))
+    return {k: spec_for(k, s) for k, s in shapes.items()}
+
+
+def paged_state_specs(cfg: ModelConfig, mesh, rules: ShardingRules,
+                      batch: int, n_pages: int, page_size: int,
+                      dtype=torch.bfloat16) -> dict:
+    """{leaf name: spec} of the paged decode state: the KV pools split
+    their page dim over "model" (``paged_pool_spec``); per-slot recurrent
+    states as in :func:`decode_state_specs`."""
+    baxes = fit_batch_axes(batch, mesh, rules.batch_axes)
+    b = baxes if baxes else None
+    spec_for = _state_spec_for(
+        cfg, mesh, b,
+        lambda tail, nd: paged_pool_spec(n_pages, mesh, rules, ndim=nd))
+    shapes = _shapes(stack.init_paged_decode_state(cfg, batch, n_pages,
+                                                   page_size, dtype, "meta"))
+    return {k: spec_for(k, s) for k, s in shapes.items()}
+
+
+# ---------------------------------------------------------------------------
+# A rank's layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PoolShard:
+    """This rank's block of a paged pool split by page over ``group``:
+    pages [rank * pages / size, (rank + 1) * pages / size)."""
+
+    rank: int
+    size: int
+    pages: int
+    group: Any
+
+
+def is_expert_path(path: str) -> bool:
+    parts = path.split("/")
+    return len(parts) >= 2 and parts[-2] == "ffn" and parts[-1] in EXPERT_KEYS
+
+
+class ServeLayout:
+    """What one rank of ``mesh`` holds and gathers for a serving program
+    of ``n_slots`` slots and ``max_len`` lines (see the module docstring).
+    ``ep``: expert-parallel decode, whose placed expert stacks stay split
+    over "model" (each EP rank computes with its own)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, *, n_slots: int,
+                 max_len: int, dtype, device, ep: bool = False):
+        self.cfg, self.mesh = cfg, mesh if mesh is not None else OneDevice()
+        mesh = self.mesh
+        self.n_slots, self.max_len = n_slots, max_len
+        self.dtype, self.device, self.ep = dtype, torch.device(device), ep
+        self.rules = rules_for(cfg, mesh, variant="serve")
+        flat = stack.flat_param_specs(cfg)
+        self.shapes = {k: tuple(s.shape) for k, s in flat.items()}
+        axes = {k: s.axes for k, s in flat.items()}
+        self.param_specs = fitted_specs(self.shapes, axes, self.rules, mesh)
+        use = {k: (None,) * len(s) for k, s in self.param_specs.items()}
+        if ep:
+            for k, shp in self.shapes.items():
+                if is_expert_path(k):
+                    spec = (None,) * (len(shp) - 3) + ("model", None, None)
+                    self.param_specs[k] = use[k] = spec
+        self.plans = {k: _gather_plan(self.param_specs[k], use[k])
+                      for k in self.shapes}
+        self.stacked = {k for k in self.plans if k.startswith("blocks/")}
+        baxes = fit_batch_axes(n_slots, mesh, self.rules.batch_axes)
+        self.slot_spec = slot_vector_spec(n_slots, mesh, self.rules)
+        idx, n = block_index(self.slot_spec[0], mesh, mesh.rank)
+        per = n_slots // n
+        self.rows = slice(idx * per, (idx + 1) * per)
+        self.slot_group = mesh.group(baxes) if n > 1 else None
+        self.model_group = mesh.group("model")
+        self.split = mesh.size > 1
+
+    # -- params --------------------------------------------------------
+
+    def local_params(self, params):
+        """This rank's blocks of a param tree, whole or cut already (an EP
+        placement's expert stacks are the rank's own; the ``eslot`` maps
+        are replicated)."""
+        if not self.split:
+            return params
+
+        def walk(tree, prefix):
+            out = {}
+            for k, v in tree.items():
+                path = f"{prefix}/{k}" if prefix else k
+                if isinstance(v, dict):
+                    out[k] = walk(v, path)
+                elif path not in self.param_specs:
+                    out[k] = v
+                else:
+                    out[k] = self._cut(path, v)
+            return out
+        return walk(params, "")
+
+    def init_params(self, seed: int = 0):
+        """The one-device seed-``seed`` init (same generator, same order),
+        each leaf cut to this rank's block as it is drawn."""
+        from repro_torch.pytree import materialize
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        def walk(specs, prefix):
+            out = {}
+            for k, v in specs.items():
+                path = f"{prefix}/{k}" if prefix else k
+                if isinstance(v, dict):
+                    out[k] = walk(v, path)
+                    continue
+                full = materialize(v, gen, self.device)
+                out[k] = self._cut(path, full) if self.split else full
+            return out
+        return walk(stack.param_specs(self.cfg), "")
+
+    def _cut(self, path, v):
+        """This rank's block of leaf ``path``: ``v`` as it is when it is
+        the block already (a placed expert stack, a tree cut before)."""
+        spec, full = self.param_specs[path], self.shapes[path]
+        if tuple(v.shape) != full:
+            if tuple(v.shape) != local_shape(spec, full, self.mesh):
+                raise ValueError(f"{path}: {tuple(v.shape)} is neither the "
+                                 f"leaf {full} nor this rank's block")
+            return v
+        t = local_slice(spec, self.mesh, self.mesh.rank, v)
+        return v if t.shape == v.shape else \
+            t.clone(memory_format=torch.contiguous_format)
+
+    def gather_params(self, params):
+        """The tree a step runs on: every non-stacked leaf all-gathered
+        over the axes its block is cut on (the stacked layers gather per
+        layer, ``ShardContext.gather_layer``)."""
+        if not self.split:
+            return params
+
+        def walk(tree, prefix):
+            out = {}
+            for k, v in tree.items():
+                path = f"{prefix}/{k}" if prefix else k
+                if isinstance(v, dict):
+                    out[k] = walk(v, path)
+                    continue
+                if path not in self.stacked:
+                    for d, a in self.plans.get(path, ()):
+                        v = C.gather_nograd(v, d, self.mesh.group(a))
+                out[k] = v
+            return out
+        return walk(params, "")
+
+    def context(self, *, decode: bool, n_pages: int = 0) -> ShardContext:
+        """``RunConfig.shard`` of the decode step (``decode``: its slots
+        split over "data") or of the batch-1 prefill."""
+        mesh = self.mesh
+        plans = {k: [(d - 1, mesh.group(a)) for d, a in self.plans[k]]
+                 for k in self.stacked if self.plans[k]}
+        return ShardContext(
+            layer_plans=plans, kv_group=self.model_group,
+            kv_rank=mesh.coords["model"], kv_size=mesh.shape["model"],
+            kv_lines=self.max_len, kv_pages=n_pages,
+            slot_group=self.slot_group if decode else None)
+
+    # -- state ---------------------------------------------------------
+
+    def _block(self, specs):
+        return lambda name, shape: local_shape(specs[name], shape, self.mesh)
+
+    def dense_state(self, batch: int):
+        """This rank's blocks of the dense decode state of ``batch`` slots
+        (the program's slots, or 1 for the prefill state)."""
+        block = None if not self.split else self._block(decode_state_specs(
+            self.cfg, self.mesh, self.rules, batch, self.max_len,
+            self.dtype))
+        return stack.init_decode_state(self.cfg, batch, self.max_len,
+                                       self.dtype, self.device, block=block)
+
+    def paged_state(self, batch: int, n_pages: int, page_size: int):
+        block = None if not self.split else self._block(paged_state_specs(
+            self.cfg, self.mesh, self.rules, batch, n_pages, page_size,
+            self.dtype))
+        return stack.init_paged_decode_state(self.cfg, batch, n_pages,
+                                             page_size, self.dtype,
+                                             self.device, block=block)
+
+    def prefill_carry(self):
+        """The batch-1 recurrent carry of the paged prefill."""
+        block = None if not self.split else self._block(decode_state_specs(
+            self.cfg, self.mesh, self.rules, 1, 1, self.dtype))
+        return stack.split_kv_state(stack.init_decode_state(
+            self.cfg, 1, 1, self.dtype, self.device, block=block))[1]
+
+    def pool(self, n_pages: int) -> Optional[PoolShard]:
+        """This rank's block of a pool of ``n_pages`` pages, None when the
+        pool is not split."""
+        M = self.mesh.shape["model"]
+        if M == 1 or paged_pool_spec(n_pages, self.mesh,
+                                     self.rules)[0] is None:
+            return None
+        return PoolShard(self.mesh.coords["model"], M, n_pages,
+                         self.model_group)
+
+    # -- slots ---------------------------------------------------------
+
+    def owns_slot(self, slot: int) -> bool:
+        return self.rows.start <= slot < self.rows.stop
+
+    def gather_slots(self, t):
+        """A per-slot tensor of this rank's slots -> every slot's."""
+        return C.gather_nograd(t, 0, self.slot_group)
+
+    def sum_slots(self, t):
+        """A sum over this rank's slots -> the sum over every slot."""
+        return C.all_reduce(t, self.slot_group)
+
+    def local_rows(self, x):
+        """This rank's rows of a host per-slot array."""
+        return np.asarray(x)[self.rows]
+
+
+def unported_on_mesh(cfg: ModelConfig) -> Optional[str]:
+    """What a mesh larger than 1x1 cannot serve of ``cfg`` yet, by name;
+    None when it serves it."""
+    rec = sorted({s.mixer for s in cfg.layer_layout()
+                  if s.mixer in ("rglru", "ssd")})
+    if rec:
+        return (f"{cfg.name} carries recurrent mixers {rec} (their states "
+                f"split over 'model' by channel)")
+    if cfg.is_encdec or cfg.vision_seq > 0:
+        return (f"{cfg.name} serves through the lockstep server "
+                f"(make_serve_program on a mesh)")
+    if cfg.n_pattern_repeats == 1:
+        return (f"{cfg.name} repeats its layer pattern once (its cache "
+                f"leaves are not stacked, so the JAX specs split their "
+                f"slots over 'model', not their lines)")
+    return None

@@ -117,6 +117,18 @@ def gather_nograd(t, dim: int, group):
     return _gather(t, dim, group)
 
 
+@torch.no_grad()
+def broadcast_host(value: float, group, device) -> float:
+    """Global rank 0's host number on every rank of ``group`` (a group
+    that holds rank 0), through a tensor on ``device``."""
+    if group_size(group) == 1:
+        return value
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.broadcast(t, src=0, group=group)
+    launched("broadcast")
+    return float(t.item())
+
+
 def barrier(group) -> None:
     if group_size(group) > 1:
         dist.barrier(group=group)

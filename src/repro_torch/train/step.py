@@ -214,6 +214,20 @@ class ShardContext:
     batch_group: Any = None
     n_batch: int = 1
     layer_plans: dict = dataclasses.field(default_factory=dict)
+    # The serving mesh (``serve/mesh.py``): KV caches split over "model",
+    # each rank attending over its own lines and the partial results
+    # merged by log-sum-exp over ``kv_group`` (None: one rank, nothing
+    # split). A dense cache of C lines (``kv_lines`` = max_len, or the
+    # window of a ring) is split by line when C divides over the ranks, a
+    # paged pool of ``kv_pages`` pages by page; ``slot_group``: the "data"
+    # group when the decode slots are split over it (the paged pools,
+    # replicated over "data", then take every data rank's writes).
+    kv_group: Any = None
+    kv_rank: int = 0
+    kv_size: int = 1
+    kv_lines: int = 0
+    kv_pages: int = 0
+    slot_group: Any = None
 
     def attn_reduce(self, t):
         """Sum a tensor-parallel attention output over the heads' ranks."""
@@ -224,6 +238,21 @@ class ShardContext:
         if self.n_batch == 1:
             return t
         return C.all_reduce(t, self.batch_group) / self.n_batch
+
+    def dense_lo(self, window: int):
+        """First line of this rank's block of a dense cache (a ring of
+        ``window`` lines when window > 0), or None when it is not split."""
+        C = min(window, self.kv_lines) if window > 0 else self.kv_lines
+        if self.kv_size == 1 or C % self.kv_size:
+            return None
+        return self.kv_rank * (C // self.kv_size)
+
+    def pool_lo(self):
+        """First page of this rank's block of a paged pool, or None when
+        the pool is not split."""
+        if self.kv_size == 1 or self.kv_pages % self.kv_size:
+            return None
+        return self.kv_rank * (self.kv_pages // self.kv_size)
 
     def gather_layer(self, tree, prefix: str):
         """One layer of the stacked tree at ``prefix``, each weight

@@ -61,6 +61,7 @@ from repro_torch.serve import (GREEDY, BlockAllocator,
                                make_continuous_program)
 from repro_torch.serve import ep_decode as epd
 from repro_torch.serve.disagg import make_disagg
+from repro_torch.sharding.rules import MeshShape
 from torch_parity import jax_values_np, to_np
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
@@ -127,8 +128,7 @@ def test_placement_to_perm_equals_jax(placement, ep_size):
 @pytest.mark.parametrize("case", ["dense", "truncate", "ranks", "chunks",
                                   "placement", "ok"])
 def test_validate_ep_config_equals_jax(models, case):
-    """The same rejections, word for word; the port's EP ranks (their
-    count) stand where the JAX mesh's "model" axis stands."""
+    """The same rejections, word for word, on the same mesh shape."""
     jcfg, cfg, _, _ = models
     ep, ranks = epd.EPDecodeConfig(ep_size=2), 2
     if case == "dense":
@@ -145,7 +145,8 @@ def test_validate_ep_config_equals_jax(models, case):
                                 placement=((0, 1, 2, 3), (3, 4, 5, 6)))
     jep = jepd.EPDecodeConfig(**ep.__dict__)
     mesh = make_mesh((1, ranks), ("data", "model"))
-    got = _message(epd.validate_ep_config, cfg, _ranks(ranks), ep)
+    got = _message(epd.validate_ep_config, cfg,
+                   MeshShape((1, ranks), ("data", "model")), ep)
     assert got == _message(jepd.validate_ep_config, jcfg, mesh, jep)
     assert (got[0] == "returned") == (case == "ok")
 

@@ -533,6 +533,6 @@ def test_fleet_driver_serves_and_fails_like_jax(monkeypatch, capsys):
                       (jserve, ["--smoke", "--fleet"])):
         for ok, rc in ((False, 1), (True, 0)):
             monkeypatch.setattr(mod, "serve_arch",
-                                lambda arch, args, serve_cfg=None, ok=ok:
-                                {"ok": ok})
+                                lambda arch, args, serve_cfg=None,
+                                mesh=None, ok=ok: {"ok": ok})
             assert mod.main(argv) == rc

@@ -165,7 +165,8 @@ def ep_decode_rank_worker(rank: int, world: int, init_file: str,
     """One EP rank of the two-rank EP decode test (``torch.multiprocessing``
     target; imports no jax). Reads the JAX package's smoke
     qwen3-moe-30b-a3b params (flat, ``p/<path>``), the hop cases and the
-    trace of ``in_path``, joins a gloo group through ``init_file`` and
+    trace of ``in_path``, joins a gloo group through ``init_file``, takes
+    the 1 x world serving mesh (its "model" axis: the EP ranks) and
     writes to ``out_dir/ep_<rank>.npz``:
 
     * each hop case's y, ep_counts and aux losses from
@@ -181,6 +182,7 @@ def ep_decode_rank_worker(rank: int, world: int, init_file: str,
 
     from repro_torch.core.zebra_mpmd import _unflatten
     from repro_torch.core.zebra_spmd import EPGroup
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import registry
     from repro_torch.models.modules import Policy, RunConfig
     from repro_torch.pytree import params_from_jax
@@ -193,7 +195,8 @@ def ep_decode_rank_worker(rank: int, world: int, init_file: str,
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
-    group = EPGroup(dist.group.WORLD)
+    mesh = make_mesh((1, world), ("data", "model"), "cpu")
+    group = EPGroup(mesh.group("model"))
     cfg = registry.smoke_config(registry.get_config("qwen3-moe-30b-a3b"))
     run = RunConfig(policy=Policy(compute_dtype=torch.float32))
     data = np.load(in_path)
@@ -223,7 +226,7 @@ def ep_decode_rank_worker(rank: int, world: int, init_file: str,
         sc = ServeConfig(slots=3, max_len=24, prefill_chunk=4,
                          paged=PagedCfg(enabled=paged, page_size=4))
         prog = make_continuous_program(
-            cfg, run, sc, device="cpu", ep_group=group,
+            cfg, run, sc, device="cpu", mesh=mesh,
             ep=epd.EPDecodeConfig(ep_size=world, n_chunks=2))
         alloc = BlockAllocator(prog.n_pages, prog.page_size,
                                prog.max_pages) if paged else None
@@ -367,3 +370,308 @@ def mesh_train_worker(rank: int, in_path: str, out_dir: str):
                                        for k, v in state["mu"].items()}),
                  specs=json.dumps(lay.param_specs), **restored,
                  **{f"p|{k}": to_np(v) for k, v in flat.items()})
+
+
+# ---------------------------------------------------------------------------
+# The serving mesh's ranks (tests/test_torch_serve_mesh*.py)
+# ---------------------------------------------------------------------------
+
+SERVE_STEP_S = 1e-3  # the step time a mesh fleet's straggler detector records
+
+
+def serve_config(mod, d: dict):
+    """A ``ServeConfig`` of either package (``mod``: its ``serve.config``
+    module) from a case's JSON dict of sections."""
+    sub = {"paged": mod.PagedCfg, "prefix": mod.PrefixCacheCfg,
+           "disagg": mod.DisaggCfg, "ep": mod.EPCfg, "fleet": mod.FleetCfg}
+    kw = {}
+    for k, v in d.items():
+        if k in sub:
+            v = dict(v)
+            for t in ("prefill_groups", "decode_groups", "kills"):
+                if t in v:
+                    v[t] = tuple(tuple(x) if isinstance(x, list) else x
+                                 for x in v[t])
+            kw[k] = sub[k](**v)
+        else:
+            kw[k] = v
+    return mod.ServeConfig(**kw)
+
+
+def serve_requests(Request, sampling, trace):
+    """A trace of JSON request dicts as ``Request`` objects of a package."""
+    return [Request(rid=r["rid"], prompt=list(r["prompt"]),
+                    max_new_tokens=r["gen"], sampling=sampling,
+                    arrival=r["arrival"], tenant=r.get("tenant", 0))
+            for r in trace]
+
+
+def serve_engine_states(eng) -> dict:
+    """{part: state tree} of a deployment: the unified engine's state, the
+    disaggregated workers', or every fleet group's."""
+    if hasattr(eng, "groups"):
+        return {f"g{g.gid}": g.worker.state for g in eng.groups}
+    if hasattr(eng, "prefill") and hasattr(eng, "decode"):
+        return {"prefill": eng.prefill.state, "decode": eng.decode.state}
+    return {"state": eng.state}
+
+
+def serve_engine_params(eng):
+    if hasattr(eng, "groups"):
+        return eng.groups[0].worker.params
+    if hasattr(eng, "decode"):
+        return eng.decode.params
+    return eng.params
+
+
+def serve_engine_logits(eng) -> dict:
+    if hasattr(eng, "groups"):
+        return {}
+    src = eng.decode if hasattr(eng, "decode") else eng
+    return {rid: rows[0] for rid, rows in src.logits.items()}
+
+
+def serve_case_config(registry, case: dict):
+    """The smoke config of a serving-mesh case in either package
+    (``registry``: its ``models.registry``). A case with ``window`` W
+    serves its arch with the pattern (local_attn, attn), twice over as
+    the smoke configs repeat theirs, and a W-line sliding window, so
+    every other layer's dense cache is a ring."""
+    import dataclasses
+    cfg = registry.smoke_config(registry.get_config(case["arch"]))
+    if case.get("window"):
+        spec = type(cfg.pattern[0])
+        cfg = dataclasses.replace(
+            cfg, window=case["window"], n_layers=4,
+            pattern=(spec(mixer="local_attn"), spec()))
+    return cfg
+
+
+def serve_case_model(case: dict) -> str:
+    """The key of a case's model config (its arch, and its window)."""
+    w = case.get("window")
+    return f"{case['arch']}@w{w}" if w else case["arch"]
+
+
+def serve_mesh_worker(rank: int, in_path: str, out_dir: str):
+    """One rank of a serving-mesh test (``launch.mesh.launch_ranks``
+    target; imports no jax). ``in_path``: an npz of the cases (JSON: name,
+    arch, mesh, serve config sections, trace) and the JAX init of each
+    arch (``<arch>|<path>``). For each case: the deployment on this rank
+    of the mesh (f32, greedy), the trace served, then
+    ``out_dir/<case>_<rank>.npz`` with the results (JSON), the first-token
+    logits by rid, the param block shapes (JSON) and every state block
+    (``s|<part>|<leaf>``)."""
+    import json
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry, stack
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.pytree import flatten, params_from_jax
+    from repro_torch.serve import GREEDY, Request, build_deployment
+    from repro_torch.serve import config as serve_config_mod
+    from repro_torch.core.zebra_mpmd import _unflatten
+
+    torch.set_num_threads(1)
+    data = np.load(in_path)
+    run = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    for case in json.loads(str(data["cases"])):
+        mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
+        cfg = serve_case_config(registry, case)
+        pre = f"{serve_case_model(case)}|"
+        params = params_from_jax(_unflatten(
+            {k[len(pre):]: data[k] for k in data.files
+             if k.startswith(pre)}))
+        sc = serve_config(serve_config_mod, case["sc"])
+        eng = build_deployment(cfg, run, sc, params=params, device="cpu",
+                               record_logits=not sc.fleet.enabled,
+                               mesh=mesh)
+        reqs = serve_requests(Request, GREEDY, case["trace"])
+        if sc.fleet.enabled:
+            record = eng.detector.record
+            eng.detector.record = lambda g, _t: record(g, SERVE_STEP_S)
+            results = eng.run(reqs, kills=list(sc.fleet.kills))
+        else:
+            results = eng.run(reqs)
+        out = {"results": json.dumps({str(k): v
+                                      for k, v in results.items()}),
+               "params": json.dumps({k: list(v.shape) for k, v in
+                                     flatten(serve_engine_params(eng))
+                                     .items()})}
+        for rid, row in serve_engine_logits(eng).items():
+            out[f"l|{rid}"] = np.asarray(row)
+        for part, st in serve_engine_states(eng).items():
+            for k, v in stack.state_leaves(st).items():
+                out[f"s|{part}|{k}"] = to_np(v)
+        np.savez(f"{out_dir}/{case['name']}_{rank}.npz", **out)
+
+
+def serve_trace(arch: str, n: int, *, seed=3, rate=0.8, prompt_len=20,
+                gen=8, tenants=0):
+    """A serve trace as JSON request dicts, drawn by the port driver's
+    numpy generators (the JAX driver's, draw for draw)."""
+    import types
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import registry
+    from repro_torch.serve import GREEDY
+    vocab = registry.smoke_config(registry.get_config(arch)).vocab_size
+    if tenants:
+        args = types.SimpleNamespace(
+            seed=seed, requests=n, tenants=tenants, rate=rate,
+            prompt_len=prompt_len, gen=gen, shared_prefix_len=None)
+        reqs = serve_mod.build_tenant_trace(args, vocab, GREEDY)
+    else:
+        reqs = serve_mod.build_trace(seed, n, rate, prompt_len, gen, vocab,
+                                     GREEDY)
+    return [{"rid": r.rid, "prompt": list(r.prompt),
+             "gen": r.max_new_tokens, "arrival": r.arrival,
+             "tenant": r.tenant} for r in reqs]
+
+
+def jax_serve_params(case: dict) -> dict:
+    """The JAX package's seed-0 init of a case's smoke config, numpy by
+    path."""
+    import jax
+
+    from repro.models import registry as jreg
+    from repro.models import stack as jstack
+    from repro.pytree import split_params, tree_map_with_path_names
+    jcfg = serve_case_config(jreg, case)
+    tree = split_params(jstack.init_model(jax.random.PRNGKey(0), jcfg))[0]
+    out = {}
+    tree_map_with_path_names(
+        lambda n, v: out.__setitem__(n, np.asarray(v)), tree)
+    return out
+
+
+def jax_serve_run(case: dict, mesh, flat_params: dict) -> dict:
+    """The JAX deployment of ``case`` on ``mesh`` (f32, greedy, the same
+    trace): results, first-token logits by rid, {path: param shard shape}
+    and {part|leaf: {mesh coords: shard}} of every state leaf."""
+    import jax.numpy as jnp
+
+    from repro_torch.core.zebra_mpmd import _unflatten as junflatten
+    from repro.models import registry as jreg
+    from repro.models.modules import Policy as JPolicy
+    from repro.models.modules import RunConfig as JRun
+    from repro.pytree import tree_map_with_path_names
+    from repro.serve import config as jconfig
+    from repro.serve.sampling import GREEDY as JGREEDY
+    from repro.serve.scheduler import Request as JRequest
+
+    jcfg = serve_case_config(jreg, case)
+    run = JRun(policy=JPolicy(compute_dtype=jnp.float32), attn_impl="ref",
+               moe_impl="gather")
+    sc = serve_config(jconfig, case["sc"])
+    params = junflatten({k: jnp.asarray(v) for k, v in flat_params.items()})
+    eng = jconfig.build_deployment(jcfg, mesh, run, sc, params=params,
+                                   record_logits=not sc.fleet.enabled)
+    reqs = serve_requests(JRequest, JGREEDY, case["trace"])
+    if sc.fleet.enabled:
+        record = eng.detector.record
+        eng.detector.record = lambda g, _t: record(g, SERVE_STEP_S)
+        results = eng.run(reqs, kills=list(sc.fleet.kills))
+    else:
+        results = eng.run(reqs)
+    coord = {d.id: tuple(int(i) for i in np.argwhere(mesh.devices == d)[0])
+             for d in mesh.devices.flat}
+    if hasattr(eng, "ema"):       # the EP engine holds its placed params
+        shapes = {}
+        tree_map_with_path_names(lambda n, v: shapes.__setitem__(
+            n, tuple(v.sharding.shard_shape(v.shape))),
+            serve_engine_params(eng))
+    else:
+        prog = (eng.groups[0].worker.p if hasattr(eng, "groups") else
+                eng.decode.p if hasattr(eng, "decode") else eng.p)
+        shapes = {}
+        tree_map_with_path_names(
+            lambda n, s, v: shapes.__setitem__(
+                n, tuple(s.shard_shape(np.shape(v)))),
+            prog.param_shardings, params)
+    state = {}
+    for part, st in serve_engine_states(eng).items():
+        tree_map_with_path_names(lambda n, v: state.__setitem__(
+            f"{part}|{n}", {coord[s.device.id]: np.asarray(s.data)
+                            for s in v.addressable_shards}), st)
+    return {"results": {int(k): list(v) for k, v in results.items()},
+            "logits": {rid: np.asarray(r) for rid, r in
+                       serve_engine_logits(eng).items()},
+            "shapes": shapes, "state": state}
+
+
+def run_serve_mesh(tmp, mesh, world: int, cases: list) -> tuple:
+    """The port's ranks (``launch_ranks`` of ``serve_mesh_worker``,
+    spawned from a thread) beside the JAX deployments on ``mesh`` (in
+    this thread): ({case: JAX run}, {case: [rank outputs]})."""
+    import json
+    import threading
+
+    from repro_torch.launch.mesh import launch_ranks
+    inits = {}
+    for c in cases:
+        if serve_case_model(c) not in inits:
+            inits[serve_case_model(c)] = jax_serve_params(c)
+    np.savez(tmp / "in.npz", cases=json.dumps(cases),
+             **{f"{a}|{k}": v for a, p in inits.items()
+                for k, v in p.items()})
+    box = {}
+
+    def ranks():
+        try:
+            launch_ranks(serve_mesh_worker, world, "cpu",
+                         str(tmp / "in.npz"), str(tmp))
+        except BaseException as e:  # re-raised in the test's thread
+            box["error"] = e
+
+    t = threading.Thread(target=ranks)
+    t.start()
+    try:
+        ref = {c["name"]: jax_serve_run(c, mesh,
+                                        inits[serve_case_model(c)])
+               for c in cases}
+    finally:
+        t.join()
+    if "error" in box:
+        raise box["error"]
+    return ref, {c["name"]: [dict(np.load(tmp / f"{c['name']}_{r}.npz"))
+                             for r in range(world)] for c in cases}
+
+
+LOGIT_TIER = 2e-5   # first-token logits, relative to max |logit|
+KV_TIER = 1e-5      # KV blocks on live lines, relative to the leaf's max
+
+
+def check_serve_mesh(case: dict, ref: dict, per: list) -> None:
+    """Hold each rank's outputs of ``case`` against the JAX run: tokens
+    equal; first-token logits within LOGIT_TIER * max|logit|; param block
+    shapes and state block shapes equal the JAX shards at the rank's mesh
+    coordinate; KV blocks within KV_TIER * max on the lines whose
+    position is >= 0 (positions equal)."""
+    import json
+    d, m = case["mesh"]
+    for r, out in enumerate(per):
+        coord = (r // m, r % m)
+        got = {int(k): v for k, v in json.loads(str(out["results"])).items()}
+        assert got == ref["results"], (case["name"], r)
+        for rid, want in ref["logits"].items():
+            row = out[f"l|{rid}"]
+            err = float(np.abs(row - want).max())
+            assert err <= LOGIT_TIER * float(np.abs(want).max()), \
+                (case["name"], r, rid, err)
+        for k, s in json.loads(str(out["params"])).items():
+            assert tuple(s) == ref["shapes"][k], (case["name"], r, k)
+        names = [k[2:] for k in out if k.startswith("s|")]
+        assert sorted(names) == sorted(ref["state"]), case["name"]
+        for n in names:
+            blk, want = out["s|" + n], ref["state"][n][coord]
+            assert blk.shape == want.shape, (case["name"], r, n)
+            if n.endswith("/pos"):
+                np.testing.assert_array_equal(blk, want, err_msg=n)
+            elif n.endswith(("/k", "/v")):
+                pos = out["s|" + n[:-1] + "pos"]
+                live = (pos >= 0).reshape(pos.shape
+                                          + (1,) * (blk.ndim - pos.ndim))
+                err = float(np.abs(np.where(live, blk - want, 0)).max())
+                top = float(np.abs(np.where(live, want, 0)).max()) or 1.0
+                assert err <= KV_TIER * top, (case["name"], r, n, err)
