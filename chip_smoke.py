@@ -127,6 +127,13 @@ full depth, with random weights from seed 0:
   recorded. The engines' SSD prefill and decode run
   ``ref.ssd_decode_step`` (the reference's route; no kernel), the
   cache-free forward they are held against the SSD scan kernel.
+* serve_mesh_recurrent: the recurrent archs on the serving mesh at
+  ``--mesh 1x1``: ``recurrentgemma-9b`` (full width and depth)
+  ``--paged`` on serve_rgemma's trace and ``mamba2-2.7b`` (full) dense
+  on the serve trace, bf16, each served without a mesh, twice through
+  ``launch_ranks`` at world 1 and without a mesh again (the mesh program
+  reads its per-slot states through ``serve.mesh.RecurrentBlocks``),
+  every logit row recorded.
 * train_rgemma: the train driver on ``recurrentgemma-9b`` at full width
   cut to 5 layers (one repeat of the pattern and the 2-layer RG-LRU
   tail: 2.17 B params, ~35 GB of params, gradients and AdamW moments;
@@ -161,6 +168,10 @@ full depth, with random weights from seed 0:
   cross-attention) and random fronts: bf16 timed, with the device ms of
   rebuilding the memory that every decode step pays; then under the f32
   policy against the cache-free forward.
+* serve_mesh_lockstep: the lockstep server on the serving mesh at
+  ``--mesh 1x1``: whisper-tiny (full) and llama-3.2-vision-90b (5
+  layers), gates 0.8, random fronts, bf16, served without a mesh, twice
+  through ``launch_ranks`` at world 1 and without a mesh again.
 
 It fails unless:
 
@@ -325,8 +336,8 @@ It fails unless:
   tier of its plain version on the tensor-core design;
 * serve_mesh: every request finishes in all four runs; each run's
   tokens and every recorded f32 logit row bitwise the first one-device
-  run's, 0 collectives launched, each serve kernel launched (no
-  paged decode launch dense); ``paged_lse``: each output within its tier
+  run's, 0 collectives launched, each run's launches equal the first's,
+  each serve kernel launched (no paged decode launch dense); ``paged_lse``: each output within its tier
   of the plain version and bitwise the call without lse, each lse within
   1e-5 * max(1, max|lse|) of the plain one with -inf where it is; the
   two-half merge within 1e-5 * max|whole| (f32) or 2e-2 * min(1,
@@ -346,7 +357,11 @@ It fails unless:
 * serve_mamba2: every request finishes, the allocators clean, the
   disagg transfers = requests + re-prefills with 0 KV bytes and every
   chunk's checksum 0 (the CRC of an empty payload); under f32 every
-  first-token logit within 1e-3 * max|logit| of the cache-free forward;
+  first-token logits within 1e-3 * max|logit| of the cache-free forward;
+* serve_mesh_recurrent: every request of the four runs of each arch
+  finishes; tokens and every recorded f32 logit row bitwise the first
+  run's; 0 collectives; each run's launches equal the first run's;
+  recurrentgemma's paged decode launched exactly 12 times a decode step;
 * train_rgemma: every loss and grad norm finite;
 * rglru_scan: the scan within 1e-5 * max|loop| of the loop; paged_rgemma
   at the paged decode tiers above;
@@ -362,7 +377,10 @@ It fails unless:
   cache-free forward, the greedy tokens equal to greedy decoding by the
   forward or diverging at a top-2 margin within 1e-4 * max|logit|, and
   the forward's logits at gate 0 more than 1e-3 * max away (the check is
-  not vacuous).
+  not vacuous);
+* serve_mesh_lockstep: each arch's four lockstep runs generate every
+  token, their tokens and prefill logits bitwise the first run's, 0
+  collectives, each run's launches equal the first run's.
 
 One untimed warm-up request (its own engine) and one untimed warm-up train
 step (its own model; the zebra run has its own too) run before the timed
@@ -397,8 +415,9 @@ design replaced, timed on the same bf16 inputs), ssd_cases (with
 zebra_equal, zebra_streams, zebra_tiles, train_mpmd, mpmd_chunks,
 mpmd_equal and mpmd_streams lines (the serve_rgemma, serve_mamba2,
 train_rgemma, rglru_scan, paged_rgemma, train_whisper,
-train_whisper_flash, serve_whisper and serve_vision lines print as their
-phases end, before the kernels line), and last
+train_whisper_flash, serve_whisper, serve_vision, serve_mesh_recurrent
+and serve_mesh_lockstep lines print as their phases end, before the
+kernels line), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no result.
 Details (nvcc register reports, the full result) go to
@@ -3085,14 +3104,15 @@ def train_trace_phase(torch, train_mod, smi: str, zebra_line: dict):
 # -- the serving deployments: prefix cache, disaggregation, tracing ----------
 
 def serve_run(torch, serve_mod, argv, *, params, trace=None, run=None,
-              hook=None, tracer=None, arch="mixtral-w2", mesh=None):
+              hook=None, tracer=None, arch="mixtral-w2", mesh=None,
+              **extra):
     """One serve-driver run of ``argv`` on ``arch`` (default W2; through
     ``serve_arch``, at the arch's full depth) on the given params, the
     launch counters set to 0 just before and read just after.
     ``hook(engine)`` runs on the built deployment; ``tracer`` (an
     ``obs.trace.Tracer``) is installed around the run; ``mesh``: the rank
-    of the serving mesh it runs on. Returns (summary, counts, engine,
-    printed text)."""
+    of the serving mesh it runs on; ``extra``: ``serve_arch``'s ``fronts``
+    and ``cfg``. Returns (summary, counts, engine, printed text)."""
     import contextlib
 
     from repro_torch import kernels
@@ -3110,7 +3130,8 @@ def serve_run(torch, serve_mod, argv, *, params, trace=None, run=None,
             obs_trace.use(tracer) if tracer is not None
             else contextlib.nullcontext()):
         s = serve_mod.serve_arch(arch, args, trace=trace, params=params,
-                                 run=run, engine_hook=keep, mesh=mesh)
+                                 run=run, engine_hook=keep, mesh=mesh,
+                                 **extra)
     torch.cuda.synchronize()
     return s, driver_counts(kernels), box["engine"], "".join(tee.lines)
 
@@ -3763,29 +3784,87 @@ def serve_ep_phase(torch, serve_mod, params, smi: str):
 
 # -- the recurrent archs: RG-LRU and SSD mixers (ROADMAP A8) ----------------
 
-def serve_mesh_phase(torch, serve_mod, params, smi: str):
-    """The serving mesh at ``--mesh 1x1`` (world 1): the serve trace on W2
-    at full width and depth, dense and ``--paged``, through the engine
-    built without a mesh, then twice through ``launch_ranks`` at world 1
-    (NCCL; the mesh program of ``serve.mesh`` on its one rank), then the
-    engine without a mesh again (the order one, mesh, mesh, one, so each
-    build's two runs bracket the other's), the launch and collective
-    counters set to 0 just before each mesh run and read just after.
-    Gate: every request finishes; tokens and every recorded f32 logit row
-    (the engine's, prefill and decode) of every run bitwise the first
-    one-device run's; no collective; each serve kernel launched (paged
-    decode only paged). Reported: ITL p50 and tok/s of each run (host
-    clock, this card). Returns (line, {mode: launch counts of the first
-    mesh run})."""
-    import numpy as np
-
+def bracketed_runs(torch, serve_mod, argv, outputs, *, params,
+                   trace=None, **kw) -> list:
+    """``argv`` served four times in the order one device, ``--mesh 1x1``,
+    ``--mesh 1x1``, one device (:func:`serve_run`; the mesh runs through
+    ``launch_ranks`` at world 1, NCCL, the collective counters set to 0
+    just before each and read just after), each with a fresh ``trace()``
+    where given. ``outputs(engine, summary)`` takes what a run is held
+    on. Returns
+    one dict a run: its build, summary, launch counts, collectives and
+    outputs."""
     from repro_torch.launch.mesh import launch_ranks, make_mesh
     from repro_torch.sharding import collectives as C
+    runs = []
+
+    def one(build, mesh=None):
+        C.reset_counts()
+        s, counts, eng, _ = serve_run(
+            torch, serve_mod, argv, params=params, mesh=mesh,
+            trace=trace() if trace is not None else None, **kw)
+        runs.append({"build": build, "s": s, "counts": counts,
+                     "collectives": dict(C.COUNTS), "out": outputs(eng, s)})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rank0(rank):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        one("mesh", mesh)
+        one("mesh", mesh)
+
+    one("one_device")
+    launch_ranks(rank0, 1, "cuda")
+    one("one_device")
+    return runs
+
+
+def run_numbers(s: dict) -> dict:
+    """tok/s, TTFT and ITL p50 of one serve run's summary (the lockstep
+    server reports its prefill and each decode step)."""
+    if s.get("lockstep"):
+        itl = sorted(s["itl_s"])
+        return {"tokens_per_s": s["tokens_per_s"], "ttft_s": s["ttft_s"],
+                "itl_p50_s": itl[len(itl) // 2]}
+    return {"requests": s["n_requests"], "tokens": s["n_generated_tokens"],
+            "tokens_per_s": s["tokens_per_s"],
+            "ttft_p50_s": s["ttft_s"]["p50"], "itl_p50_s": s["itl_s"]["p50"]}
+
+
+def bracket_line(runs, same, launch_keys) -> dict:
+    """The numbers and gate of :func:`bracketed_runs`: every run ok and
+    ``same`` as the first, no collective, the launches of ``launch_keys``
+    equal the first run's."""
+    launches = [{k: r["counts"][k] for k in launch_keys} for r in runs]
+    line = {"order": [r["build"] for r in runs],
+            "bitwise": all(same(r["out"], runs[0]["out"]) for r in runs),
+            "collectives": [r["collectives"] for r in runs],
+            "launches": launches,
+            "runs": [run_numbers(r["s"]) for r in runs]}
+    line["ok"] = bool(all(r["s"]["ok"] for r in runs) and line["bitwise"]
+                      and not any(line["collectives"])
+                      and all(c == launches[0] for c in launches))
+    return line
+
+
+def serve_mesh_phase(torch, serve_mod, params, smi: str):
+    """The serving mesh at ``--mesh 1x1`` (world 1): the serve trace on W2
+    at full width and depth, dense and ``--paged``, through
+    :func:`bracketed_runs` (one device, mesh, mesh, one device; the mesh
+    program of ``serve.mesh`` on its one NCCL rank). Gate: every request
+    finishes; tokens and every recorded f32 logit row (the engine's,
+    prefill and decode) of every run bitwise the first one-device run's;
+    no collective; each run's launches equal the first's, each serve
+    kernel launched (paged decode only paged). Reported: ITL p50 and tok/s
+    of each run (host clock, this card). Returns (line, {mode: launch
+    counts of the first mesh run})."""
+    import numpy as np
 
     def record(engine):
         engine.record_logits = True
 
-    def outputs(eng):
+    def outputs(eng, _s):
         return ({int(k): list(v) for k, v in eng.results.items()},
                 {int(k): np.stack(v) for k, v in eng.logits.items()})
 
@@ -3793,61 +3872,24 @@ def serve_mesh_phase(torch, serve_mod, params, smi: str):
         return a[0] == b[0] and a[1].keys() == b[1].keys() \
             and all(np.array_equal(a[1][r], b[1][r]) for r in b[1])
 
-    def one_device(argv):
-        s, _, eng, _ = serve_run(torch, serve_mod, argv, params=params,
-                                 hook=record)
-        out = outputs(eng)
-        del eng
-        gc.collect()
-        torch.cuda.empty_cache()
-        return s, out
-
-    keys = ("requests", "tokens", "tokens_per_s", "ttft_p50_s", "itl_p50_s")
     line = {"arch": "mixtral-w2", "device": torch.cuda.get_device_name(0),
-            "nvidia_smi": smi, "mesh": "1x1",
-            "order": ["one_device", "mesh", "mesh", "one_device"],
-            "modes": {}}
+            "nvidia_smi": smi, "mesh": "1x1", "modes": {}}
     counts_by, ok = {}, True
     for mode in MESH_SERVE:
         argv = SERVE_ARGS if mode == "paged" else UNPAGED_ARGS
-        s0, out0 = one_device(argv)
-        runs = []
-
-        def rank0(rank, argv=argv):
-            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-            for _ in range(2):
-                C.reset_counts()
-                s, counts, e, _ = serve_run(torch, serve_mod, argv,
-                                            params=params, hook=record,
-                                            mesh=mesh)
-                runs.append((s, counts, dict(C.COUNTS), outputs(e)))
-                del e
-                gc.collect()
-                torch.cuda.empty_cache()
-
-        launch_ranks(rank0, 1, "cuda")
-        s3, out3 = one_device(argv)
-        counts = runs[0][1]
-        bitwise = all(same(r[3], out0) for r in runs) and same(out3, out0)
-        collectives = [r[2] for r in runs]
-        launched = all(counts[k] > 0 for k in SERVE_KERNELS
-                       if k != "paged_decode") \
+        runs = bracketed_runs(torch, serve_mod, argv, outputs,
+                              params=params, hook=record)
+        sub = bracket_line(runs, same, SERVE_KERNELS)
+        counts = runs[1]["counts"]
+        sub["launched"] = all(counts[k] > 0 for k in SERVE_KERNELS
+                              if k != "paged_decode") \
             and (counts["paged_decode"] > 0) == (mode == "paged")
-        mode_ok = s0["ok"] and s3["ok"] and all(r[0]["ok"] for r in runs) \
-            and bitwise and not any(collectives) and launched
-        ok &= mode_ok
+        sub["logit_rows"] = int(sum(len(v) for v in
+                                    runs[0]["out"][1].values()))
+        sub["ok"] = bool(sub["ok"] and sub["launched"])
+        ok &= sub["ok"]
         counts_by[mode] = counts
-        line["modes"][mode] = {
-            "ok": mode_ok, "tokens_bitwise": all(
-                r[3][0] == out0[0] for r in runs) and out3[0] == out0[0],
-            "logits_bitwise": bitwise,
-            "logit_rows": int(sum(len(v) for v in out0[1].values())),
-            "collectives": collectives,
-            "mesh": serve_numbers(runs[0][0], counts),
-            "mesh_runs": [{k: serve_numbers(r[0], r[1])[k] for k in keys}
-                          for r in runs],
-            "one_device_runs": [{k: serve_numbers(s, counts)[k]
-                                 for k in keys} for s in (s0, s3)]}
+        line["modes"][mode] = sub
         del runs
         gc.collect()
         torch.cuda.empty_cache()
@@ -4186,6 +4228,118 @@ def serve_mamba2_phase(torch, serve_mod, smi: str):
         and d["kv_transfers"] == s_g["n_requests"] + d["n_preempted"]
         and len(crcs) > 0 and set(crcs) == {0})
     return line, counts
+
+
+def serve_mesh_recurrent_phase(torch, serve_mod, smi: str):
+    """The recurrent archs on the serving mesh at ``--mesh 1x1``:
+    recurrentgemma-9b at full width and depth ``--paged`` on the serve
+    trace plus the 2304-token prompt, and mamba2-2.7b at full width and
+    depth dense on the serve trace, each in bf16 through
+    :func:`bracketed_runs` (one device, mesh, mesh, one device; the mesh
+    program reads its recurrent state blocks through
+    ``serve.mesh.RecurrentBlocks``, at world 1 the whole leaves). Gate:
+    every request finishes; tokens and every recorded f32 logit row
+    bitwise the first run's in all four runs; no collective; each run's
+    launches equal the first's; recurrentgemma's paged decode launches 12
+    a decode step. Reported: ITL p50 and tok/s of each run (host clock).
+    Returns (line, {arch: launch counts of the first mesh run})."""
+    import numpy as np
+
+    from repro_torch.models import registry, stack
+
+    def record(engine):
+        engine.record_logits = True
+
+    def outputs(eng, _s):
+        return ({int(k): list(v) for k, v in eng.results.items()},
+                {int(k): np.stack(v) for k, v in eng.logits.items()},
+                eng.n_decode_steps)
+
+    def same(a, b):
+        return a[0] == b[0] and a[1].keys() == b[1].keys() \
+            and all(np.array_equal(a[1][r], b[1][r]) for r in b[1])
+
+    line = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "mesh": "1x1"}
+    counts_by, ok = {}, True
+    for arch, mode, argv, long in ((RGEMMA, "paged", RGEMMA_PAGED_ARGS,
+                                    LONG_PROMPT),
+                                   (MAMBA2, "dense", MAMBA2_DENSE_ARGS, 0)):
+        cfg = registry.get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = stack.init_model(gen, cfg, device="cuda")
+        runs = bracketed_runs(
+            torch, serve_mod, argv, outputs, params=params, arch=arch,
+            hook=record, trace=lambda: recurrent_trace(serve_mod, cfg, long))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        sub = bracket_line(runs, same, SERVE_KERNELS)
+        steps = [r["out"][2] for r in runs]
+        paged = [r["counts"]["paged_decode"] for r in runs]
+        want = [RGEMMA_ATTN_LAYERS * n if mode == "paged" else 0
+                for n in steps]
+        sub.update(arch=arch, mode=mode, decode_steps=steps,
+                   paged_decode_launches=paged,
+                   paged_decode_expected=want,
+                   logit_rows=int(sum(len(v) for v in
+                                      runs[0]["out"][1].values())),
+                   reduced=None)
+        sub["ok"] = bool(sub["ok"] and paged == want)
+        ok &= sub["ok"]
+        line[arch] = sub
+        counts_by[arch] = runs[1]["counts"]
+    line["ok"] = bool(ok)
+    return line, counts_by
+
+
+def serve_mesh_lockstep_phase(torch, serve_mod, smi: str):
+    """The lockstep server on the serving mesh at ``--mesh 1x1``:
+    whisper-tiny (full config) and llama-3.2-vision-90b (full width cut to
+    VISION_LAYERS, as serve_vision runs it), seed-0 weights with every
+    gate at XATTN_GATE and random fronts, bf16, through
+    :func:`bracketed_runs` (``serve_arch`` -> ``serve_arch_lockstep`` ->
+    ``make_serve_program(mesh=)``). Gate: the generated tokens and the
+    prefill's last-position logits bitwise the first run's in all four
+    runs; no collective; each run's launches equal the first's.
+    Returns (line, {arch: launch counts of the first mesh run})."""
+    import dataclasses
+
+    from repro_torch.models import registry, stack
+
+    def outputs(server, s):
+        return (s["tokens"], server.logits.float().cpu())
+
+    def same(a, b):
+        return a[0] == b[0] and torch.equal(a[1], b[1])
+
+    line = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "mesh": "1x1", "gate": XATTN_GATE}
+    counts_by, ok = {}, True
+    for arch, layers in ((WHISPER, None), (VISION, VISION_LAYERS)):
+        full = registry.get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = stack.init_model(gen, cfg, device="cuda")
+        with_gate(params, XATTN_GATE)
+        fronts = {k: v.to(torch.bfloat16) for k, v in
+                  random_fronts(torch, cfg, 4, 1).items()}
+        runs = bracketed_runs(
+            torch, serve_mod, ["--arch", arch] + XATTN_SERVE_ARGS, outputs,
+            params=params, arch=arch, fronts=fronts, cfg=cfg)
+        del params, fronts
+        gc.collect()
+        torch.cuda.empty_cache()
+        sub = bracket_line(runs, same, SERVE_KERNELS)
+        sub.update(arch=arch, reduced=(None if layers is None else
+                                       {"n_layers": [full.n_layers,
+                                                     layers]}))
+        ok &= sub["ok"]
+        line[arch] = sub
+        counts_by[arch] = runs[1]["counts"]
+    line["ok"] = bool(ok)
+    return line, counts_by
 
 
 def train_rgemma_phase(torch, train_mod, smi: str):
@@ -4773,6 +4927,11 @@ def main() -> int:
     print("serve_mamba2: " + json.dumps(m2_serve_line), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    rmesh_line, rmesh_counts = serve_mesh_recurrent_phase(torch, serve_mod,
+                                                          smi)
+    print("serve_mesh_recurrent: " + json.dumps(rmesh_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     rg_train_line, rg_train_counts = train_rgemma_phase(torch, train_mod,
                                                         smi)
     print("train_rgemma: " + json.dumps(rg_train_line), flush=True)
@@ -4809,13 +4968,20 @@ def main() -> int:
     print("serve_vision: " + json.dumps(sv_line), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    lmesh_line, lmesh_counts = serve_mesh_lockstep_phase(torch, serve_mod,
+                                                         smi)
+    print("serve_mesh_lockstep: " + json.dumps(lmesh_line), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     recurrent_counts = {
         **{f"serve_rgemma_{k}": c for k, c in rgemma_counts.items()},
         **{f"serve_mamba2_{k}": c for k, c in m2_serve_counts.items()},
         "train_rgemma": rg_train_counts,
         "train_whisper": whisper_counts,
         "train_whisper_flash": whisper_flash_counts,
-        "serve_whisper": sw_counts, "serve_vision": sv_counts}
+        "serve_whisper": sw_counts, "serve_vision": sv_counts,
+        **{f"serve_mesh_recurrent_{a}": c for a, c in rmesh_counts.items()},
+        **{f"serve_mesh_lockstep_{a}": c for a, c in lmesh_counts.items()}}
     for e in entries:  # launches: the sum over the main-path runs
         c = e.get("counter", e["name"])
         e["launches_by_path"] = {
@@ -4902,7 +5068,9 @@ def main() -> int:
         "train_rgemma": rg_train_line, "rglru_scan": scan_line,
         "train_whisper": whisper_line,
         "train_whisper_flash": whisper_flash_line,
-        "serve_whisper": sw_line, "serve_vision": sv_line}, indent=1))
+        "serve_whisper": sw_line, "serve_vision": sv_line,
+        "serve_mesh_recurrent": rmesh_line,
+        "serve_mesh_lockstep": lmesh_line}, indent=1))
 
     contract = ("name", "route", "design", "source", "replaces", "launches",
                 "max_abs_err", "ms", "host_ms", "fma_ms", "plain_ms",
@@ -5113,7 +5281,16 @@ def main() -> int:
              "tokens diverge from the forward's at a top-2 margin above "
              f"{F32_TIER} * max|logit|"),
             ("rglru_scan", scan_line, "the doubling scan differs from the "
-             "sequential loop beyond 1e-5 * max|loop|")):
+             "sequential loop beyond 1e-5 * max|loop|"),
+            ("serve_mesh_recurrent", rmesh_line, "a request did not "
+             "finish, a --mesh 1x1 run's tokens or f32 logit rows are not "
+             "bitwise the one-device engine's, it launched a collective, "
+             "its launches differ from the one-device run's, or the paged "
+             "decode launches are not 12 a decode step"),
+            ("serve_mesh_lockstep", lmesh_line, "a lockstep run failed, a "
+             "--mesh 1x1 run's tokens or prefill logits are not bitwise "
+             "the one-device server's, it launched a collective, or its "
+             "launches differ from the one-device run's")):
         if not line["ok"]:
             raise RuntimeError(f"{label}: {what}")
     bad_tiles = [f"{e['name']}@{e['layout']}" for e in zebra_tiles + ep_tiles

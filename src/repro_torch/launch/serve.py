@@ -66,23 +66,23 @@ tokens, ``--gen`` greedy tokens each, zero front embeddings), whatever
 ``--mesh DxM`` serves on a DATA x MODEL mesh of D*M ranks, one process
 each (``launch.mesh.launch_ranks``: NCCL on the cards, rank r on
 ``cuda:r``; gloo ranks with ``--device cpu``; under ``torchrun`` the
-process joins the group), every mode above but the lockstep server: each
+process joins the group), every mode above and the lockstep server: each
 rank holds its blocks of the weights (the "serve" rules, gathered per
 layer at use), of the KV caches (sequence split over "model") or pools
-(pages over "model") and of the slots (over "data"), the attention's
-partial results merged by log-sum-exp over "model" (``serve.mesh``);
-``--ep-size`` is the "model" axis's extent. Rank 0 prints; the run fails
-if any rank's does. ``--mesh 1x1`` (the default) is the same program on
-one rank::
+(pages over "model"), of the recurrent states (channels over "model")
+and of the slots or the lockstep batch's rows (over "data"), the
+attention's partial results merged by log-sum-exp over "model"
+(``serve.mesh``); ``--ep-size`` is the "model" axis's extent. Rank 0
+prints; the run fails if any rank's does. ``--mesh 1x1`` (the default)
+is the same program on one rank::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
         --device cpu --mesh 1x2 --paged
 
-A mesh other than 1x1 with a recurrent arch (RG-LRU, SSD or a hybrid:
-their states split over "model" by channel) or an encoder-decoder or
-vision arch (the lockstep server on a mesh), and a CUDA mesh with more
-ranks than cards, are rejected by name in one ``[serve] invalid
-configuration:`` line, exit 1, before any device work, as are the JAX
+A mesh other than 1x1 for a config that repeats its layer pattern once
+(no registry arch does) and a CUDA mesh with more ranks than cards are
+rejected by name in one ``[serve] invalid configuration:`` line, exit 1,
+before any device work, as are the JAX
 driver's own invalid combinations (``--fleet`` with ``--disagg`` or
 ``--ep-size``, ``--chaos`` without ``--fleet``, ``--prefix-cache`` on a
 recurrent arch, ...), with its messages.
@@ -232,7 +232,8 @@ def _chaos_summary(engine, serve_cfg: ServeConfig, shed: set,
 
 
 def serve_arch_lockstep(cfg, run, serve_cfg: ServeConfig, args, *,
-                        params=None, fronts=None) -> dict:
+                        params=None, fronts=None, mesh=None,
+                        engine_hook=None) -> dict:
     """Whole-batch lockstep fallback for encoder-decoder and vision archs
     (the JAX driver's ``serve_arch_lockstep``: they need per-request front
     embeddings that the continuous engines do not carry): ``--slots``
@@ -243,9 +244,13 @@ def serve_arch_lockstep(cfg, run, serve_cfg: ServeConfig, args, *,
     (``stack.zero_fronts``). Returns the JAX driver's keys
     (``tokens_per_s``, ``lockstep``, ``ok``) and the tokens generated, the
     prefill's wall time (``ttft_s``) and each decode step's (``itl_s``),
-    each read after a device synchronize."""
+    each read after a device synchronize. ``mesh``: this rank of the
+    serving mesh (None: one device); every rank returns every row.
+    ``engine_hook(server)`` is handed the built ``BatchedServer``."""
     server = build_deployment(cfg, run, serve_cfg, params=params,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
+    if engine_hook is not None:
+        engine_hook(server)
     slots, gen = serve_cfg.slots, args.gen
     dev = server.p.device
     prompts = np.random.RandomState(serve_cfg.seed).randint(
@@ -316,7 +321,8 @@ def serve_arch(arch: str, args, serve_cfg: ServeConfig = None, *,
         return {"ok": False, "n_requests": 0, "config_error": str(e)}
     if cfg.is_encdec or cfg.vision_seq > 0:
         return serve_arch_lockstep(cfg, run, serve_cfg, args, params=params,
-                                   fronts=fronts)
+                                   fronts=fronts, mesh=mesh,
+                                   engine_hook=engine_hook)
     sampling = serve_cfg.sampling
     if trace is None:
         if args.tenants:
@@ -508,8 +514,8 @@ def _archs(args) -> list:
 
 def _unported_flags(args) -> list:
     """What this command line asks that the port does not serve yet: a
-    mesh other than 1x1 for an arch whose serving mesh is not ported (a
-    recurrent arch's states split by channel, the lockstep server)."""
+    mesh other than 1x1 for a config ``serve.mesh.unported_on_mesh``
+    names."""
     try:
         d, m = parse_mesh(args.mesh)
     except ValueError:

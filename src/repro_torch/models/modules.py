@@ -853,7 +853,11 @@ def apply_ssd(params, cfg: ModelConfig, run: RunConfig, x, state=None):
     CPU, and the backward by autograd of ``ref.ssd_chunked``; that is the
     JAX package's ``use_gmm_kernel=True`` route, the only one the port has.
     With a state ({"conv", "ssm"}, :func:`init_ssd_state`) it is the
-    sequential ``ref.ssd_decode_step``, as in the JAX package."""
+    sequential ``ref.ssd_decode_step``, as in the JAX package. On the
+    serving mesh the state's ``ssm`` may be this rank's block of heads
+    (its ``heads`` = (first, last, group), ``serve.mesh.RecurrentBlocks``):
+    the step then runs on those heads and its output ``y`` is all-gathered
+    over the group along the heads, so the ``ssm`` state never moves."""
     cd = run.policy.compute_dtype
     B, S, d = x.shape
     din = cfg.ssm_expand * d
@@ -878,6 +882,12 @@ def apply_ssd(params, cfg: ModelConfig, run: RunConfig, x, state=None):
 
     if state is None:
         y, last_state = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    elif "heads" in state:
+        lo, hi, group = state["heads"]
+        y, last_state = kref.ssd_decode_step(
+            xs[:, :, lo:hi], dt[..., lo:hi], A[lo:hi], Bm, Cm,
+            state["ssm"].float())
+        y = C.gather_nograd(y, 2, group)
     else:
         y, last_state = kref.ssd_decode_step(xs, dt, A, Bm, Cm,
                                              state["ssm"].float())

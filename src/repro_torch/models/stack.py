@@ -240,19 +240,32 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     new_block_states = None
     rows = []  # per-layer aux (layer_aux)
 
+    rec = run.shard.rec if run.shard is not None and decode else None
+
+    def layer(p, spec, x, st, name, memory):
+        """One layer on its decode state ``st`` (None without one), whose
+        new recurrent state is written back into ``st``'s tensors: whole,
+        or on the serving mesh this rank's blocks (``rec``)."""
+        st_in = rec.read(name, st) if rec is not None and st else st
+        x, ns, a = _apply_layer(p, cfg, run, spec, x, positions, st_in,
+                                cache_index, page_table, layer_override,
+                                moe_override, attend_to_cache, memory)
+        if st is not None:
+            if rec is not None:
+                rec.write(name, st, ns)
+            else:
+                _write_recurrent(st, ns)
+        return x, a
+
     def one_block(x, layer_params, layer_states, memory):
         if run.shard is not None:
             layer_params = run.shard.gather_layer(layer_params, prefix)
         a = _zero_aux(x.device, aux_extras)
         for pos, spec in enumerate(pattern):
             key = f"pos{pos}"
-            st = layer_states[key] if decode else None
-            x, ns, la = _apply_layer(layer_params[key], cfg, run, spec, x,
-                                     positions, st, cache_index, page_table,
-                                     layer_override, moe_override,
-                                     attend_to_cache, memory)
-            if decode:
-                _write_recurrent(st, ns)
+            x, la = layer(layer_params[key], spec, x,
+                          layer_states[key] if decode else None,
+                          f"{prefix}/{key}", memory)
             a = _acc_aux(a, la)
         return x, a
 
@@ -280,15 +293,10 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     new_tail_states = []
     for i, (spec, tp) in enumerate(tails):
         st = tail_states[i] if tail_states else None
-        x, ns, a = _apply_layer(tp, cfg, run, spec, x, positions, st,
-                                cache_index, page_table, layer_override,
-                                moe_override, attend_to_cache, memory)
+        x, a = layer(tp, spec, x, st, f"tails/{i}", memory)
         aux = _acc_aux(aux, a)
         rows.append(_acc_aux(_zero_aux(x.device, aux_extras), a))
-        if st is not None:
-            _write_recurrent(st, ns)
-            ns = st
-        new_tail_states.append(ns)
+        new_tail_states.append(st)
 
     new_states = None
     if decode:

@@ -362,7 +362,7 @@ def build_deployment(cfg, run, serve_cfg: ServeConfig, *, params=None,
     if cfg.is_encdec or cfg.vision_seq > 0:
         # Lockstep fallback: enc-dec / vision archs need per-request front
         # embeddings the continuous engines do not carry.
-        program = make_serve_program(cfg, run, device=device)
+        program = make_serve_program(cfg, run, mesh=mesh, device=device)
         return BatchedServer(program, params, sc.slots, sc.max_len)
 
     if sc.fleet.enabled:

@@ -67,7 +67,10 @@ class ServeProgram:
 
     ``fronts`` is a dict of ``stack.apply_model``'s front keywords
     (``encoder_embeds`` / ``vision_embeds``), empty for a decoder-only
-    arch.
+    arch. The steps take and return every row of the batch; on a mesh
+    the params and state are this rank's blocks (:meth:`prepare`,
+    ``init_state``), each step runs on the rank's rows and gathers its
+    outputs over "data".
     """
 
     cfg: ModelConfig
@@ -76,67 +79,118 @@ class ServeProgram:
     prefill_step: Callable
     decode_step: Callable
     init_state: Callable     # (batch, max_len) -> dense decode state
+    layout: Callable = None  # (batch, max_len) -> serve.mesh.ServeLayout
+
+    def prepare(self, params, batch: int, max_len: int):
+        """This rank's blocks of ``params``, each matrix cast once to the
+        compute dtype (``stack.compute_params``)."""
+        return stack.compute_params(
+            self.layout(batch, max_len).local_params(params),
+            self.run.policy)
 
 
-def make_serve_program(cfg: ModelConfig, run: RunConfig, *,
+def make_serve_program(cfg: ModelConfig, run: RunConfig, *, mesh=None,
                        device="cuda") -> ServeProgram:
     """Build the lockstep server's steps (``repro/serve/engine.py``'s
     ``make_serve_program``): whole-batch prefill into a dense cache from
     line 0, then greedy decode with one scalar ``cache_index``. MoE FFNs
-    go through zebra's expert-parallel MoE (``zebra_spmd.make_ep_moe``,
-    replicated, at twice the model's capacity factor), as in the JAX
-    package; on one device that is the whole expert set. The JAX
-    function's ``shape`` and ``max_len`` size its sharded state; here the
-    server's ``batch`` and ``max_len`` size the state it allocates
-    (``init_state``). Each step takes the fronts and rebuilds the
-    cross-attention memory from them (whisper's encoder stack, the vision
-    projection) as the reference's steps do: a decode step pays the
-    encoder again, which the port does not cache either."""
-    device = torch.device(device)
-    moe_override = None
-    if cfg.is_moe:
-        from repro_torch.core.zebra_spmd import ZebraConfig, make_ep_moe
-        moe_fn = make_ep_moe(cfg, run, ZebraConfig(
-            mode="replicated", capacity_factor=cfg.capacity_factor * 2))
+    go through zebra's expert-parallel MoE (``zebra_spmd.make_ep_moe``
+    over the mesh, replicated, at twice the model's capacity factor), as
+    in the JAX package; on one device that is the whole expert set. The
+    JAX function's ``shape`` and ``max_len`` size its sharded state; here
+    the server's ``batch`` and ``max_len`` size the layout and state it
+    allocates (``init_state``). Each step takes the fronts and rebuilds
+    the cross-attention memory from them (whisper's encoder stack, the
+    vision projection) as the reference's steps do: a decode step pays
+    the encoder again, which the port does not cache either.
 
-        def moe_override(ffn_params, u):
-            y2, aux = moe_fn(ffn_params, u.reshape(-1, u.shape[-1]))
-            return y2.reshape(u.shape).to(u.dtype), aux
+    ``mesh`` (a ``launch.mesh.Mesh``; None: the 1x1 mesh of ``device``):
+    the program of this rank of the serving mesh (``serve.mesh``):
+    weights gathered per layer (the encoder's too), the dense caches
+    split by line over "model" and merged by log-sum-exp, the batch's
+    rows (prompts, fronts and the cross-attention memory built from them)
+    over "data" by ``fit_batch_axes``, the expert stacks over "model".
+    """
+    device = torch.device(device)
+    layouts = {}
+
+    def layout(batch: int, max_len: int = None):
+        """The rank's layout, step config and MoE override of a batch of
+        ``batch`` rows (built on the first call, with ``max_len``)."""
+        if batch not in layouts:
+            if max_len is None:
+                raise ValueError(f"no state of batch {batch}: init_state "
+                                 f"first")
+            lay = ServeLayout(cfg, mesh, n_slots=batch, max_len=max_len,
+                              dtype=run.policy.compute_dtype, device=device,
+                              ep_moe=cfg.is_moe)
+            run_m = dataclasses.replace(run, shard=lay.context(decode=True))
+            layouts[batch] = (lay, run_m, _lockstep_moe(cfg, run, lay))
+        return layouts[batch]
+
+    def rows(lay, fronts):
+        return {k: v[lay.rows] for k, v in fronts.items()}
 
     @torch.inference_mode()
     def prefill(params, state, tokens, fronts):
         """Full-sequence prefill writing the caches; only the final
         position is unembedded."""
+        lay, run_m, moe = layout(tokens.shape[0])
+        params = lay.gather_params(params)
         hidden, state, _ = stack.apply_model(
-            params, cfg, run, tokens, decode_state=state, cache_index=0,
-            moe_override=moe_override, return_hidden=True, **fronts)
-        return state, apply_unembedding(params["embed"], params.get(
-            "lm_head"), cfg, run.policy, hidden[:, -1])
+            params, cfg, run_m, tokens[lay.rows], decode_state=state,
+            cache_index=0, moe_override=moe, return_hidden=True,
+            **rows(lay, fronts))
+        return state, lay.gather_slots(apply_unembedding(
+            params["embed"], params.get("lm_head"), cfg, run.policy,
+            hidden[:, -1]))
 
     @torch.inference_mode()
     def decode(params, state, tok, cache_index, fronts):
         """One decode step: tok [B,1] -> greedy next token [B,1]."""
+        lay, run_m, moe = layout(tok.shape[0])
         logits, state, _ = stack.apply_model(
-            params, cfg, run, tok, decode_state=state,
-            cache_index=cache_index, moe_override=moe_override, **fronts)
-        return state, logits[:, -1].argmax(-1)[:, None]
+            lay.gather_params(params), cfg, run_m, tok[lay.rows],
+            decode_state=state, cache_index=cache_index, moe_override=moe,
+            **rows(lay, fronts))
+        return state, lay.gather_slots(logits[:, -1].argmax(-1)[:, None])
 
     return ServeProgram(
         cfg=cfg, run=run, device=device, prefill_step=prefill,
-        decode_step=decode,
-        init_state=lambda batch, max_len: stack.init_decode_state(
-            cfg, batch, max_len, run.policy.compute_dtype, device))
+        decode_step=decode, layout=lambda b, m: layout(b, m)[0],
+        init_state=lambda batch, max_len: layout(
+            batch, max_len)[0].dense_state(batch))
+
+
+def _lockstep_moe(cfg: ModelConfig, run: RunConfig, lay: ServeLayout):
+    """The lockstep server's MoE override on ``lay``'s mesh: the JAX
+    package's ``make_ep_moe`` (replicated, twice the capacity factor, the
+    tokens of the rank's rows, so the capacity is the JAX package's per
+    rank), or None for a dense arch."""
+    if not cfg.is_moe:
+        return None
+    from repro_torch.core.zebra_spmd import ZebraConfig, make_ep_moe
+    moe_fn = make_ep_moe(cfg, run, ZebraConfig(
+        mode="replicated", batch_axes=lay.batch_axes or ("data",),
+        capacity_factor=cfg.capacity_factor * 2), mesh=lay.mesh)
+
+    def moe_override(ffn_params, u):
+        y2, aux = moe_fn(ffn_params, u.reshape(-1, u.shape[-1]))
+        return y2.reshape(u.shape).to(u.dtype), aux
+    return moe_override
 
 
 class BatchedServer:
     """Minimal lockstep loop over fixed slots: the drivers' server for
     encoder-decoder and vision archs (``fronts``: their front embeddings,
-    given to every call), and the dense engine's parity reference."""
+    given to every call), and the dense engine's parity reference. On a
+    mesh it holds this rank's blocks of the params and state; the tokens
+    and logits are every row's."""
 
     def __init__(self, program: ServeProgram, params, batch: int,
                  max_len: int):
         self.p = program
-        self.params = stack.compute_params(params, program.run.policy)
+        self.params = program.prepare(params, batch, max_len)
         self.batch = batch
         self.max_len = max_len
         self.state = program.init_state(batch, max_len)
@@ -371,16 +425,10 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         """Overwrite row ``slot`` of every decode-state leaf with the
         batch-1 prefilled state (batch axis 1 on stacked block leaves, 0
         on tails): KV and cache positions alike, so a recycled slot cannot
-        leak. In place: returns the same state."""
-        slot = int(slot)
-        if not lay.owns_slot(slot):
-            return state
-        slot -= lay.rows.start
-        for dst, src in zip(state["tails"], pstate["tails"]):
-            _copy_into_slot(dst, src, slot, axis=0)
-        if state["blocks"] is not None:
-            for k, dst in state["blocks"].items():
-                _copy_into_slot(dst, pstate["blocks"][k], slot, axis=1)
+        leak. In place: returns the same state. On a mesh each leaf's
+        block takes the row if it holds that slot (``ServeLayout.insert``).
+        """
+        lay.insert(state, pstate, slot)
         return state
 
     @torch.inference_mode()
@@ -465,17 +513,9 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
     def insert(state, prec, slot):
         """Admission copies ONLY the recurrent carry into the slot row; the
         KV pages are already in the pool (written by prefill). In place:
-        returns the same state."""
-        slot = int(slot)
-        if not lay.owns_slot(slot):
-            return state
-        slot -= lay.rows.start
-        _, rec_s = stack.split_kv_state(state)
-        for dst, src in zip(rec_s["tails"], prec["tails"]):
-            _copy_into_slot(dst, src, slot, axis=0)
-        if rec_s["blocks"] is not None:
-            for k, dst in rec_s["blocks"].items():
-                _copy_into_slot(dst, prec["blocks"][k], slot, axis=1)
+        returns the same state. On a mesh the carry's blocks land in each
+        leaf's block that holds the slot (``ServeLayout.insert``)."""
+        lay.insert(stack.split_kv_state(state)[1], prec, slot)
         return state
 
     @torch.inference_mode()
@@ -519,16 +559,6 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         paged=True, page_size=page_size, n_pages=n_pages,
         max_pages=max_pages, ep=ep, ep_group=eph.group, layout=lay,
         pool=pool)
-
-
-def _copy_into_slot(dst, src, slot: int, axis: int):
-    """Write the batch-1 tree ``src`` into row ``slot`` (batch axis
-    ``axis``) of every leaf of ``dst``, in place."""
-    for k, d in dst.items():
-        if isinstance(d, dict):
-            _copy_into_slot(d, src[k], slot, axis)
-        else:
-            d.narrow(axis, slot, 1).copy_(src[k])
 
 
 class ContinuousBatchingEngine:

@@ -18,12 +18,22 @@ when it serves (the JAX package's serving programs on a mesh,
   rank allocates only its blocks; its attention runs over its own lines
   or pages and the partial results are merged by log-sum-exp over
   "model" (``models.modules.merge_attention``).
+* Recurrent states (RG-LRU ``conv`` / ``lru``, SSD ``conv`` / ``ssm``):
+  each rank stores the block its spec gives it (channels over "model").
+  A layer reads its blocks gathered over the dims they are cut on and
+  cut to the step's rows, runs its mixer whole and keeps its block of
+  the new state (:class:`RecurrentBlocks`); the SSD ``ssm`` state stays
+  a block of heads, its decode runs on those heads and all-gathers its
+  output ``y`` instead. The insert of a prefilled state into a slot
+  follows each leaf's own spec (:meth:`ServeLayout.insert`).
 * Slots: each data rank decodes the slots that ``slot_vector_spec`` gives
   its block (all of them where the slot count does not divide); the
   sampled logits are all-gathered over "data" before sampling, so every
   rank samples every slot alike and the host-side scheduler, allocator
   and prefix index, replicated, take the same decisions. Prefill runs at
-  batch 1 on every rank (the JAX package's ``batch_axes=()``).
+  batch 1 on every rank (the JAX package's ``batch_axes=()``); the
+  lockstep server's whole-batch steps split their rows over "data" as
+  the decode does.
 
 A one-device program is the 1x1 mesh (``train.step.OneDevice``): no
 block is cut, no group exists, nothing is gathered.
@@ -40,7 +50,8 @@ import torch
 from repro_torch.models import stack
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import (ShardingRules, block_index, fit_spec,
+from repro_torch.sharding.rules import (ShardingRules, block_index,
+                                        entry_axes, fit_spec,
                                         fitted_specs, local_shape,
                                         local_slice, paged_pool_spec,
                                         rules_for, slot_vector_spec)
@@ -48,6 +59,7 @@ from repro_torch.train.step import (OneDevice, ShardContext, _gather_plan,
                                     fit_batch_axes)
 
 EXPERT_KEYS = ("wi_gate", "wi_up", "wo")
+RECURRENT_LEAVES = ("conv", "lru", "ssm")
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +143,117 @@ class PoolShard:
     group: Any
 
 
+def _take(mesh, t, dim: int, entry):
+    """This rank's block of ``t`` along ``dim`` under spec entry
+    ``entry`` (``t`` itself where the entry cuts nothing)."""
+    i, n = block_index(entry, mesh, mesh.rank)
+    if n == 1:
+        return t
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def _cut_axes(mesh, entry) -> tuple:
+    """The axes of size > 1 a spec entry cuts over: the same on every rank
+    (where a block's index is not), so the ranks of a group take the same
+    branch before a collective."""
+    return tuple(a for a in entry_axes(entry) if mesh.shape[a] > 1)
+
+
+def _gather(mesh, t, dim: int, entry):
+    """The whole of ``t`` along ``dim`` from the blocks ``entry`` cuts."""
+    return C.gather_nograd(t, dim, mesh.group(entry))
+
+
+class RecurrentBlocks:
+    """How a layer reads and writes this rank's blocks of the per-slot
+    recurrent states (``ShardContext.rec``) in a step whose batch is the
+    slot rows ``rows``: the decode's rows of ``n_slots`` slots cut by
+    ``row_entry`` over ``row_group``, or the batch-1 prefill's one row.
+
+    ``specs``: {leaf name: spec} of the step's state (the JAX package's,
+    :func:`decode_state_specs`), followed whatever they are: a leaf of a
+    tail whose slot count equals the pattern's repeats is read there as
+    stacked, so its cuts fall on other dims than the intent's, and its
+    rows need not be cut as the step's. Read (:meth:`read`): each leaf
+    all-gathered over every non-row dim its spec cuts (the heads of
+    ``ssm`` excepted), then cut to the step's rows (gathered over its own
+    row cut first where that differs). Write (:meth:`write`): the mixer's
+    new state for the step's rows, all-gathered over ``row_group`` where
+    the leaf's rows differ, then this rank's block of every cut dim. An
+    ``ssm`` leaf whose heads are cut stays a block: the layer's state
+    carries ``heads`` = (first, last, group) and the SSD decode runs on
+    those heads (``modules.apply_ssd``). On one rank every gather is the
+    identity and every block the whole leaf."""
+
+    def __init__(self, mesh, specs: dict, rows: slice, row_entry,
+                 row_group):
+        self.mesh, self.rows, self.row_group = mesh, rows, row_group
+        row_axes = _cut_axes(mesh, row_entry)
+        # name -> (aligned with the step's rows, row entry, cuts, heads)
+        self.leaves = {}
+        for name, spec in specs.items():
+            leaf = name.rsplit("/", 1)[-1]
+            if leaf not in RECURRENT_LEAVES:
+                continue
+            if name.startswith("blocks/"):  # the per-layer view
+                if spec[0] is not None:
+                    raise ValueError(f"{name}: spec {spec} cuts the "
+                                     f"stacked layer dim")
+                spec = spec[1:]
+            heads = None
+            if leaf == "ssm" and len(spec) > 1 and _cut_axes(mesh, spec[1]):
+                heads = (block_index(spec[1], mesh, mesh.rank)[0],
+                         mesh.group(spec[1]))
+            cuts = tuple((d, e) for d, e in enumerate(spec)
+                         if d > 0 and _cut_axes(mesh, e)
+                         and not (heads is not None and d == 1))
+            self.leaves[name] = (_cut_axes(mesh, spec[0]) == row_axes,
+                                 spec[0], cuts, heads)
+
+    def read(self, layer: str, state: dict) -> dict:
+        """The layer state a mixer runs on: every recurrent leaf of layer
+        ``layer`` ("blocks/pos0", "tails/1") whole along its channels and
+        cut to the step's rows; the attention cache as it is."""
+        out = {}
+        for kind, leaves in state.items():
+            if kind == "kv":
+                out[kind] = leaves
+                continue
+            sub = {}
+            for k, t in leaves.items():
+                aligned, rows, cuts, heads = self.leaves[
+                    f"{layer}/{kind}/{k}"]
+                for d, e in cuts:
+                    t = _gather(self.mesh, t, d, e)
+                if not aligned:
+                    t = _gather(self.mesh, t, 0, rows)[self.rows]
+                sub[k] = t
+                if heads is not None:
+                    i, group = heads
+                    sub["heads"] = (i * t.shape[1], (i + 1) * t.shape[1],
+                                    group)
+            out[kind] = sub
+        return out
+
+    def write(self, layer: str, state: dict, new: dict) -> None:
+        """Copy this rank's blocks of a layer's new recurrent state (the
+        step's rows, as :meth:`read` gave them) into ``state``'s leaves,
+        in place."""
+        for kind, leaves in state.items():
+            if kind == "kv":
+                continue
+            for k, dst in leaves.items():
+                aligned, rows, cuts, _ = self.leaves[f"{layer}/{kind}/{k}"]
+                t = new[kind][k]
+                if not aligned:
+                    t = _take(self.mesh, C.gather_nograd(
+                        t, 0, self.row_group), 0, rows)
+                for d, e in cuts:
+                    t = _take(self.mesh, t, d, e)
+                dst.copy_(t)
+
+
 def is_expert_path(path: str) -> bool:
     parts = path.split("/")
     return len(parts) >= 2 and parts[-2] == "ffn" and parts[-1] in EXPERT_KEYS
@@ -140,10 +263,14 @@ class ServeLayout:
     """What one rank of ``mesh`` holds and gathers for a serving program
     of ``n_slots`` slots and ``max_len`` lines (see the module docstring).
     ``ep``: expert-parallel decode, whose placed expert stacks stay split
-    over "model" (each EP rank computes with its own)."""
+    over "model" (each EP rank computes with its own). ``ep_moe``: the
+    lockstep server's MoE (``zebra_spmd.make_ep_moe`` over the mesh),
+    whose expert stacks, stored under the "serve" rules, are gathered but
+    for their expert dim, which stays cut over "model"."""
 
     def __init__(self, cfg: ModelConfig, mesh, *, n_slots: int,
-                 max_len: int, dtype, device, ep: bool = False):
+                 max_len: int, dtype, device, ep: bool = False,
+                 ep_moe: bool = False):
         self.cfg, self.mesh = cfg, mesh if mesh is not None else OneDevice()
         mesh = self.mesh
         self.n_slots, self.max_len = n_slots, max_len
@@ -159,10 +286,16 @@ class ServeLayout:
                 if is_expert_path(k):
                     spec = (None,) * (len(shp) - 3) + ("model", None, None)
                     self.param_specs[k] = use[k] = spec
+        if ep_moe:
+            for k in self.shapes:
+                if is_expert_path(k) and self.param_specs[k][-3] == "model":
+                    use[k] = use[k][:-3] + ("model", None, None)
         self.plans = {k: _gather_plan(self.param_specs[k], use[k])
                       for k in self.shapes}
-        self.stacked = {k for k in self.plans if k.startswith("blocks/")}
+        self.stacked = {k for k in self.plans
+                        if k.startswith(("blocks/", "encoder/blocks/"))}
         baxes = fit_batch_axes(n_slots, mesh, self.rules.batch_axes)
+        self.batch_axes = baxes
         self.slot_spec = slot_vector_spec(n_slots, mesh, self.rules)
         idx, n = block_index(self.slot_spec[0], mesh, mesh.rank)
         per = n_slots // n
@@ -170,6 +303,7 @@ class ServeLayout:
         self.slot_group = mesh.group(baxes) if n > 1 else None
         self.model_group = mesh.group("model")
         self.split = mesh.size > 1
+        self._specs = {}
 
     # -- params --------------------------------------------------------
 
@@ -251,13 +385,59 @@ class ServeLayout:
         mesh = self.mesh
         plans = {k: [(d - 1, mesh.group(a)) for d, a in self.plans[k]]
                  for k in self.stacked if self.plans[k]}
+        rec = RecurrentBlocks(mesh, self.state_specs(self.n_slots),
+                              self.rows, self.slot_spec[0],
+                              self.slot_group) if decode else \
+            RecurrentBlocks(mesh, self.state_specs(1), slice(0, 1), None,
+                            None)
         return ShardContext(
             layer_plans=plans, kv_group=self.model_group,
             kv_rank=mesh.coords["model"], kv_size=mesh.shape["model"],
             kv_lines=self.max_len, kv_pages=n_pages,
-            slot_group=self.slot_group if decode else None)
+            slot_group=self.slot_group if decode else None, rec=rec)
 
     # -- state ---------------------------------------------------------
+
+    def state_specs(self, batch: int) -> dict:
+        """{leaf name: spec} of the dense decode state of ``batch`` rows
+        (the recurrent leaves' specs are the paged state's too)."""
+        if batch not in self._specs:
+            self._specs[batch] = decode_state_specs(
+                self.cfg, self.mesh, self.rules, batch, self.max_len,
+                self.dtype)
+        return self._specs[batch]
+
+    def insert(self, dst, src, slot: int) -> None:
+        """Write the batch-1 state ``src`` (a prefill's blocks) into row
+        ``slot`` of each leaf of ``dst`` (this rank's blocks of the
+        decode state, or of its recurrent part) that ``src`` names, in
+        place. Each leaf follows its own spec: the rank writes the row
+        where its block holds that slot, and a leaf whose non-row dims are
+        cut otherwise than the prefill's is re-blocked from the whole of
+        it (gathered on every rank, as every rank inserts)."""
+        slot = int(slot)
+        dsp, ssp = self.state_specs(self.n_slots), self.state_specs(1)
+        srcs = stack.state_leaves(src)
+        mesh = self.mesh
+        for name, d in stack.state_leaves(dst).items():
+            s = srcs[name]
+            axis = 1 if name.startswith("blocks/") else 0
+            ds, ss = dsp[name], ssp[name]
+
+            def cuts(spec):
+                return [_cut_axes(mesh, e) if i != axis else ()
+                        for i, e in enumerate(spec)]
+            if cuts(ss) != cuts(ds):
+                for i, e in enumerate(ss):
+                    if i != axis:
+                        s = _gather(mesh, s, i, e)
+                for i, e in enumerate(ds):
+                    if i != axis:
+                        s = _take(mesh, s, i, e)
+            i, _ = block_index(ds[axis], mesh, mesh.rank)
+            per = d.shape[axis]
+            if i * per <= slot < (i + 1) * per:
+                d.narrow(axis, slot - i * per, 1).copy_(s)
 
     def _block(self, specs):
         return lambda name, shape: local_shape(specs[name], shape, self.mesh)
@@ -298,9 +478,6 @@ class ServeLayout:
 
     # -- slots ---------------------------------------------------------
 
-    def owns_slot(self, slot: int) -> bool:
-        return self.rows.start <= slot < self.rows.stop
-
     def gather_slots(self, t):
         """A per-slot tensor of this rank's slots -> every slot's."""
         return C.gather_nograd(t, 0, self.slot_group)
@@ -317,14 +494,6 @@ class ServeLayout:
 def unported_on_mesh(cfg: ModelConfig) -> Optional[str]:
     """What a mesh larger than 1x1 cannot serve of ``cfg`` yet, by name;
     None when it serves it."""
-    rec = sorted({s.mixer for s in cfg.layer_layout()
-                  if s.mixer in ("rglru", "ssd")})
-    if rec:
-        return (f"{cfg.name} carries recurrent mixers {rec} (their states "
-                f"split over 'model' by channel)")
-    if cfg.is_encdec or cfg.vision_seq > 0:
-        return (f"{cfg.name} serves through the lockstep server "
-                f"(make_serve_program on a mesh)")
     if cfg.n_pattern_repeats == 1:
         return (f"{cfg.name} repeats its layer pattern once (its cache "
                 f"leaves are not stacked, so the JAX specs split their "

@@ -228,6 +228,10 @@ class ShardContext:
     kv_lines: int = 0
     kv_pages: int = 0
     slot_group: Any = None
+    # The serving mesh's per-slot recurrent states (``serve.mesh.
+    # RecurrentBlocks``): how a layer reads and writes its blocks of them
+    # (None: the states are whole).
+    rec: Any = None
 
     def attn_reduce(self, t):
         """Sum a tensor-parallel attention output over the heads' ranks."""

@@ -11,10 +11,12 @@
 * the log-sum-exp output of ``paged_decode_plain`` against a direct f64
   reference, and the two-half merge of a pool (each half through a
   rank-local table) against the whole pool's output;
-* the driver's refusals by name, before any device work: a mesh other
-  than 1x1 for a recurrent, encoder-decoder or vision arch, a CUDA mesh
+* the driver's refusals by name, before any device work: the prefix
+  cache of a recurrent arch on a mesh (the JAX message), a CUDA mesh
   larger than the cards present, an ``--ep-size`` other than the "model"
-  axis (the JAX message).
+  axis (the JAX message), a config that repeats its layer pattern once;
+  and the recurrent, encoder-decoder and vision archs, refused on a mesh
+  until the port served them, served on one (exit 0).
 """
 
 import dataclasses
@@ -185,12 +187,10 @@ def test_paged_plain_lse_and_two_half_merge(softcap, window):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("argv,why", [
-    (["--arch", "recurrentgemma-9b", "--mesh", "1x2"], "recurrent mixers"),
-    (["--arch", "mamba2-2.7b", "--mesh", "2x1", "--paged"],
-     "recurrent mixers"),
-    (["--arch", "whisper-tiny", "--mesh", "1x2"], "lockstep server"),
-    (["--arch", "llama-3.2-vision-90b", "--mesh", "2x2"],
-     "lockstep server"),
+    (["--arch", "recurrentgemma-9b", "--mesh", "1x2", "--paged",
+      "--prefix-cache"], "--prefix-cache needs per-position KV only"),
+    (["--arch", "mamba2-2.7b", "--mesh", "2x1", "--paged",
+      "--prefix-cache"], "--prefix-cache needs per-position KV only"),
     (["--arch", "llama3.2-3b", "--mesh", "1x2", "--device", "cuda"],
      "needs 2 CUDA devices"),
     (["--arch", "llama3.2-3b", "--mesh", "2"], "expected DxM"),
@@ -204,6 +204,24 @@ def test_driver_refuses_by_name(capsys, argv, why):
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and err[0].startswith(
         "[serve] invalid configuration:") and why in err[0], err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "recurrentgemma-9b", "--mesh", "1x2"],
+    ["--arch", "mamba2-2.7b", "--mesh", "2x1", "--paged"],
+    ["--arch", "mamba2-2.7b", "--mesh", "1x2", "--paged"],
+    ["--arch", "whisper-tiny", "--mesh", "1x2", "--paged"],
+    ["--arch", "llama-3.2-vision-90b", "--mesh", "2x2"],
+])
+def test_driver_serves_on_a_mesh(capfd, argv):
+    """The command lines refused by name until the recurrent states and
+    the lockstep server were ported to the mesh now serve, exit 0."""
+    cfg = registry.get_config(argv[1])
+    assert serve_mesh.unported_on_mesh(cfg) is None
+    assert serve_mod.main(["--smoke", "--device", "cpu", "--requests", "3",
+                           "--gen", "8", *argv]) == 0
+    out = capfd.readouterr().out  # rank 0, a spawned process
+    assert f"[serve] arch={argv[1]}-smoke" in out
 
 
 def test_single_pattern_repeat_refused_on_a_mesh():

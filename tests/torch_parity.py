@@ -416,6 +416,46 @@ def serve_engine_states(eng) -> dict:
     return {"state": eng.state}
 
 
+def serve_engine_workers(eng) -> dict:
+    """{part: the engine or worker holding that part's state}, the parts
+    of :func:`serve_engine_states`."""
+    if hasattr(eng, "groups"):
+        return {f"g{g.gid}": g.worker for g in eng.groups}
+    if hasattr(eng, "prefill") and hasattr(eng, "decode"):
+        return {"prefill": eng.prefill, "decode": eng.decode}
+    return {"state": eng}
+
+
+REC_SUFFIXES = ("/conv", "/lru", "/ssm")
+
+
+def snapshot_live_states(eng, leaves) -> dict:
+    """Wrap ``eng.tick`` (the engine of either package) so that after the
+    first tick with the most live decode slots the returned dict holds
+    each part's live-slot mask (``live``; all rows of a part without
+    slots) and its recurrent state leaves (``state``: ``leaves(part,
+    tree)`` -> {part|leaf: value}). A dead slot's recurrent state is not
+    read again (the next admission overwrites its row) and the packages
+    fill it differently: a dead slot's queries see no key, which the port
+    counts as a zero output; so states are held on live rows."""
+    box = {"n": -1}
+    tick = eng.tick
+
+    def wrapped():
+        tick()
+        live = {part: np.asarray(w._active).copy()
+                for part, w in serve_engine_workers(eng).items()
+                if hasattr(w, "_active")}
+        n = sum(int(a.sum()) for a in live.values())
+        if n > box["n"]:
+            state = {}
+            for part, st in serve_engine_states(eng).items():
+                state.update(leaves(part, st))
+            box.update(n=n, live=live, state=state)
+    eng.tick = wrapped
+    return box
+
+
 def serve_engine_params(eng):
     if hasattr(eng, "groups"):
         return eng.groups[0].worker.params
@@ -487,6 +527,10 @@ def serve_mesh_worker(rank: int, in_path: str, out_dir: str):
                                record_logits=not sc.fleet.enabled,
                                mesh=mesh)
         reqs = serve_requests(Request, GREEDY, case["trace"])
+        snap = snapshot_live_states(eng, lambda part, st: {
+            f"{part}|{k}": to_np(v).copy()
+            for k, v in stack.state_leaves(st).items()
+            if k.endswith(REC_SUFFIXES)})
         if sc.fleet.enabled:
             record = eng.detector.record
             eng.detector.record = lambda g, _t: record(g, SERVE_STEP_S)
@@ -495,6 +539,8 @@ def serve_mesh_worker(rank: int, in_path: str, out_dir: str):
             results = eng.run(reqs)
         out = {"results": json.dumps({str(k): v
                                       for k, v in results.items()}),
+               **{f"a|{p}": m for p, m in snap.get("live", {}).items()},
+               **{f"r|{k}": v for k, v in snap.get("state", {}).items()},
                "params": json.dumps({k: list(v.shape) for k, v in
                                      flatten(serve_engine_params(eng))
                                      .items()})}
@@ -504,6 +550,53 @@ def serve_mesh_worker(rank: int, in_path: str, out_dir: str):
             for k, v in stack.state_leaves(st).items():
                 out[f"s|{part}|{k}"] = to_np(v)
         np.savez(f"{out_dir}/{case['name']}_{rank}.npz", **out)
+
+
+def ssd_gather_worker(rank: int, out_dir: str):
+    """One rank of a 1x2 serving mesh (``launch_ranks`` target) serving
+    smoke mamba2-2.7b dense with two slots, f32: two requests admitted,
+    then the input shape, dim and group size of every all-gather of one
+    decode step (``collectives._gather``, which every gather runs through)
+    to ``out_dir/gathers_<rank>.json``."""
+    import json
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.serve import GREEDY, Request, build_deployment
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.sharding import collectives as C
+
+    torch.set_num_threads(1)
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    cfg = registry.smoke_config(registry.get_config("mamba2-2.7b"))
+    run = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    eng = build_deployment(cfg, run, ServeConfig(slots=2, max_len=32,
+                                                 prefill_chunk=8),
+                           device="cpu", mesh=mesh)
+    for rid in range(2):
+        eng.submit(Request(rid=rid, prompt=list(range(3 + rid, 11 + rid)),
+                           max_new_tokens=6, sampling=GREEDY))
+    for _ in range(8):
+        if int(eng._active.sum()) == 2:
+            break
+        eng.tick()
+    assert int(eng._active.sum()) == 2
+    seen, gather = [], C._gather
+
+    def record(t, dim, group):
+        seen.append([list(t.shape), dim, C.group_size(group),
+                     t.element_size()])
+        return gather(t, dim, group)
+    C._gather = record
+    try:
+        steps = eng.n_decode_steps
+        eng.tick()
+        assert eng.n_decode_steps == steps + 1
+    finally:
+        C._gather = gather
+    with open(f"{out_dir}/gathers_{rank}.json", "w") as f:
+        json.dump(seen, f)
 
 
 def serve_trace(arch: str, n: int, *, seed=3, rate=0.8, prompt_len=20,
@@ -568,14 +661,23 @@ def jax_serve_run(case: dict, mesh, flat_params: dict) -> dict:
     eng = jconfig.build_deployment(jcfg, mesh, run, sc, params=params,
                                    record_logits=not sc.fleet.enabled)
     reqs = serve_requests(JRequest, JGREEDY, case["trace"])
+    coord = {d.id: tuple(int(i) for i in np.argwhere(mesh.devices == d)[0])
+             for d in mesh.devices.flat}
+
+    def rec_shards(part, st):
+        out = {}
+        tree_map_with_path_names(lambda n, v: out.__setitem__(
+            f"{part}|{n}", {coord[s.device.id]: np.array(s.data)
+                            for s in v.addressable_shards})
+            if n.endswith(REC_SUFFIXES) else None, st)
+        return out
+    snap = snapshot_live_states(eng, rec_shards)
     if sc.fleet.enabled:
         record = eng.detector.record
         eng.detector.record = lambda g, _t: record(g, SERVE_STEP_S)
         results = eng.run(reqs, kills=list(sc.fleet.kills))
     else:
         results = eng.run(reqs)
-    coord = {d.id: tuple(int(i) for i in np.argwhere(mesh.devices == d)[0])
-             for d in mesh.devices.flat}
     if hasattr(eng, "ema"):       # the EP engine holds its placed params
         shapes = {}
         tree_map_with_path_names(lambda n, v: shapes.__setitem__(
@@ -597,39 +699,33 @@ def jax_serve_run(case: dict, mesh, flat_params: dict) -> dict:
     return {"results": {int(k): list(v) for k, v in results.items()},
             "logits": {rid: np.asarray(r) for rid, r in
                        serve_engine_logits(eng).items()},
-            "shapes": shapes, "state": state}
+            "shapes": shapes, "state": state, "snap": snap}
 
 
-def run_serve_mesh(tmp, mesh, world: int, cases: list) -> tuple:
-    """The port's ranks (``launch_ranks`` of ``serve_mesh_worker``,
-    spawned from a thread) beside the JAX deployments on ``mesh`` (in
-    this thread): ({case: JAX run}, {case: [rank outputs]})."""
+def run_beside_jax(tmp, world: int, worker, cases: list, inputs: dict,
+                   jax_run) -> tuple:
+    """The port's ranks (``launch_ranks`` of ``worker(rank, in_path,
+    out_dir)``, spawned from a thread, reading ``tmp/in.npz``: the JSON
+    ``cases`` and ``inputs``) beside ``jax_run(case)`` for each case in
+    this thread: ({case: JAX run}, {case: [rank outputs]})."""
     import json
     import threading
 
     from repro_torch.launch.mesh import launch_ranks
-    inits = {}
-    for c in cases:
-        if serve_case_model(c) not in inits:
-            inits[serve_case_model(c)] = jax_serve_params(c)
-    np.savez(tmp / "in.npz", cases=json.dumps(cases),
-             **{f"{a}|{k}": v for a, p in inits.items()
-                for k, v in p.items()})
+    np.savez(tmp / "in.npz", cases=json.dumps(cases), **inputs)
     box = {}
 
     def ranks():
         try:
-            launch_ranks(serve_mesh_worker, world, "cpu",
-                         str(tmp / "in.npz"), str(tmp))
+            launch_ranks(worker, world, "cpu", str(tmp / "in.npz"),
+                         str(tmp))
         except BaseException as e:  # re-raised in the test's thread
             box["error"] = e
 
     t = threading.Thread(target=ranks)
     t.start()
     try:
-        ref = {c["name"]: jax_serve_run(c, mesh,
-                                        inits[serve_case_model(c)])
-               for c in cases}
+        ref = {c["name"]: jax_run(c) for c in cases}
     finally:
         t.join()
     if "error" in box:
@@ -638,8 +734,42 @@ def run_serve_mesh(tmp, mesh, world: int, cases: list) -> tuple:
                              for r in range(world)] for c in cases}
 
 
+def run_serve_mesh(tmp, mesh, world: int, cases: list) -> tuple:
+    """The port's ranks (``serve_mesh_worker``) beside the JAX
+    deployments on ``mesh`` (:func:`run_beside_jax`)."""
+    inits = {}
+    for c in cases:
+        if serve_case_model(c) not in inits:
+            inits[serve_case_model(c)] = jax_serve_params(c)
+    return run_beside_jax(
+        tmp, world, serve_mesh_worker, cases,
+        {f"{a}|{k}": v for a, p in inits.items() for k, v in p.items()},
+        lambda c: jax_serve_run(c, mesh, inits[serve_case_model(c)]))
+
+
 LOGIT_TIER = 2e-5   # first-token logits, relative to max |logit|
 KV_TIER = 1e-5      # KV blocks on live lines, relative to the leaf's max
+REC_TIER = 1e-5     # recurrent state blocks, relative to the leaf's max
+
+
+def model_cut_leaves(case: dict) -> list:
+    """The recurrent state leaves (``conv``, ``lru``, ``ssm``) of a case's
+    decode state that its mesh cuts over "model", by the port's specs
+    (the JAX package's, ``tests/test_torch_serve_mesh_modes.py``)."""
+    from repro_torch.models import registry
+    from repro_torch.serve import mesh as serve_mesh
+    from repro_torch.sharding.rules import (MeshShape, entry_axes,
+                                            rules_for)
+    cfg = serve_case_config(registry, case)
+    mesh = MeshShape(tuple(case["mesh"]), ("data", "model"))
+    sc = case["sc"]
+    specs = serve_mesh.decode_state_specs(
+        cfg, mesh, rules_for(cfg, mesh, "serve"), sc["slots"],
+        sc["max_len"])
+    return sorted(k for k, s in specs.items()
+                  if k.endswith(("/conv", "/lru", "/ssm"))
+                  and any("model" in entry_axes(e) for e in s)
+                  and mesh.shape["model"] > 1)
 
 
 def check_serve_mesh(case: dict, ref: dict, per: list) -> None:
@@ -647,9 +777,11 @@ def check_serve_mesh(case: dict, ref: dict, per: list) -> None:
     equal; first-token logits within LOGIT_TIER * max|logit|; param block
     shapes and state block shapes equal the JAX shards at the rank's mesh
     coordinate; KV blocks within KV_TIER * max on the lines whose
-    position is >= 0 (positions equal)."""
+    position is >= 0 (positions equal); recurrent state blocks (``conv``,
+    ``lru``, ``ssm``) within REC_TIER * max of the shard."""
     import json
     d, m = case["mesh"]
+    n_live = 0
     for r, out in enumerate(per):
         coord = (r // m, r % m)
         got = {int(k): v for k, v in json.loads(str(out["results"])).items()}
@@ -669,6 +801,212 @@ def check_serve_mesh(case: dict, ref: dict, per: list) -> None:
             if n.endswith("/pos"):
                 np.testing.assert_array_equal(blk, want, err_msg=n)
             elif n.endswith(("/k", "/v")):
+                pos = out["s|" + n[:-1] + "pos"]
+                live = (pos >= 0).reshape(pos.shape
+                                          + (1,) * (blk.ndim - pos.ndim))
+                err = float(np.abs(np.where(live, blk - want, 0)).max())
+                top = float(np.abs(np.where(live, want, 0)).max()) or 1.0
+                assert err <= KV_TIER * top, (case["name"], r, n, err)
+        n_live += _check_live_states(case, ref["snap"], out, coord, r)
+    assert n_live or not ref["snap"]["state"], case["name"]
+
+
+def _check_live_states(case: dict, snap: dict, out: dict, coord,
+                       rank: int) -> int:
+    """Hold a rank's recurrent state blocks at the snapshot
+    (:func:`snapshot_live_states`) against the JAX shards on the rows of
+    live slots within REC_TIER * max; returns how many rows it held."""
+    from repro_torch.models import registry
+    from repro_torch.serve import mesh as serve_mesh
+    from repro_torch.sharding.rules import MeshShape, block_index, rules_for
+    cfg = serve_case_config(registry, case)
+    mesh = MeshShape(tuple(case["mesh"]), ("data", "model"))
+    held = 0
+    for p, live in snap["live"].items():
+        np.testing.assert_array_equal(out[f"a|{p}"], live)
+    for key, shards in snap["state"].items():
+        part, name = key.split("|", 1)
+        blk, want = out[f"r|{key}"], shards[coord]
+        assert blk.shape == want.shape, (case["name"], rank, key)
+        axis = 1 if name.startswith("blocks/") else 0
+        live = snap["live"].get(part)
+        if live is None:
+            live = np.ones(blk.shape[axis] if blk.ndim > axis else 0, bool)
+        else:
+            specs = serve_mesh.decode_state_specs(
+                cfg, mesh, rules_for(cfg, mesh, "serve"), len(live),
+                case["sc"]["max_len"])
+            i, _ = block_index(specs[name][axis], mesh, rank)
+            nb = blk.shape[axis]
+            live = live[i * nb:(i + 1) * nb]
+        if not live.any():
+            continue
+        b, w = np.compress(live, blk, axis), np.compress(live, want, axis)
+        err = float(np.abs(b.astype(np.float64) - w).max())
+        top = float(np.abs(w).max()) or 1.0
+        assert err <= REC_TIER * top, (case["name"], rank, key, err)
+        held += int(live.sum())
+    return held
+
+
+# ---------------------------------------------------------------------------
+# The lockstep server on the serving mesh
+# (tests/test_torch_serve_mesh_lockstep.py)
+# ---------------------------------------------------------------------------
+
+def lockstep_case_config(registry, case: dict):
+    """The smoke config of a lockstep case in either package, at the
+    case's capacity factor (``cf``) where it gives one."""
+    import dataclasses
+    cfg = registry.smoke_config(registry.get_config(case["arch"]))
+    if case.get("cf"):
+        cfg = dataclasses.replace(cfg, capacity_factor=case["cf"])
+    return cfg
+
+
+def lockstep_case_inputs(case: dict) -> dict:
+    """A lockstep case's seed-0 JAX init (every ``xgate`` at XATTN_GATE),
+    prompts and random fronts, numpy, by ``p|<path>``, ``prompts`` and
+    ``f|<front>``."""
+    from repro.models import registry as jreg
+    cfg = lockstep_case_config(jreg, case)
+    out = {f"p|{k}": (v * 0 + XATTN_GATE if k.endswith("/xgate") else v)
+           for k, v in jax_serve_params(case).items()}
+    out["prompts"] = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (case["batch"], case["plen"])).astype(np.int32)
+    for k, v in fronts_np(cfg, case["batch"], 2).items():
+        out[f"f|{k}"] = v
+    return out
+
+
+def lockstep_mesh_worker(rank: int, in_path: str, out_dir: str):
+    """One rank of a lockstep-on-a-mesh test (``launch_ranks`` target;
+    imports no jax): for each case of ``in_path`` (JSON ``cases`` and
+    ``<case>|`` inputs of :func:`lockstep_case_inputs`), the port's
+    ``BatchedServer`` on this rank of the case's mesh (f32): prefill and
+    ``gen`` - 1 greedy steps, then ``out_dir/<case>_<rank>.npz`` with the
+    tokens, the prefill's last-position logits, the param block shapes
+    (JSON) and every state block (``s|<leaf>``)."""
+    import json
+
+    from repro_torch.core.zebra_mpmd import _unflatten
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry, stack
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.pytree import flatten, params_from_jax
+    from repro_torch.serve import BatchedServer, make_serve_program
+
+    torch.set_num_threads(1)
+    data = np.load(in_path)
+    run = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    for case in json.loads(str(data["cases"])):
+        name = case["name"]
+        pre = f"{name}|"
+        mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
+        cfg = lockstep_case_config(registry, case)
+        params = params_from_jax(_unflatten(
+            {k[len(pre) + 2:]: data[k] for k in data.files
+             if k.startswith(pre + "p|")}))
+        fronts = {k[len(pre) + 2:]: torch.from_numpy(data[k])
+                  for k in data.files if k.startswith(pre + "f|")}
+        server = BatchedServer(
+            make_serve_program(cfg, run, mesh=mesh, device="cpu"), params,
+            case["batch"], case["plen"] + case["gen"])
+        toks = [server.submit_prefill(data[pre + "prompts"], fronts)]
+        logits = to_np(server.logits)
+        toks += [server.step(fronts) for _ in range(case["gen"] - 1)]
+        out = {"tokens": to_np(torch.cat(toks, 1)), "logits": logits,
+               "params": json.dumps({k: list(v.shape) for k, v in
+                                     flatten(server.params).items()})}
+        for k, v in stack.state_leaves(server.state).items():
+            out[f"s|{k}"] = to_np(v)
+        np.savez(f"{out_dir}/{name}_{rank}.npz", **out)
+
+
+def jax_lockstep_run(case: dict, mesh, inputs: dict) -> dict:
+    """The JAX package's lockstep server of ``case`` on ``mesh`` (f32,
+    the same inputs): tokens, prefill logits, {path: param shard shape}
+    and {leaf: {mesh coords: shard}} of the state."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import registry as jreg
+    from repro.models.config import ShapeConfig
+    from repro.models.modules import Policy as JPolicy
+    from repro.models.modules import RunConfig as JRun
+    from repro.pytree import tree_map_with_path_names
+    from repro.serve import BatchedServer as JBatchedServer
+    from repro.serve import make_serve_program as jmake_serve
+    from repro_torch.core.zebra_mpmd import _unflatten as junflatten
+
+    jcfg = lockstep_case_config(jreg, case)
+    run = JRun(policy=JPolicy(compute_dtype=jnp.float32), attn_impl="ref",
+               moe_impl="gather")
+    B, L = case["batch"], case["plen"] + case["gen"]
+    prog = jmake_serve(jcfg, mesh, run, ShapeConfig("t", "decode", L, B),
+                       max_len=L)
+    params = junflatten({k[2:]: jnp.asarray(v) for k, v in inputs.items()
+                         if k.startswith("p|")})
+    with mesh:
+        params = jax.device_put(params, prog.param_shardings)
+    fronts = {k[2:]: jnp.asarray(v) for k, v in inputs.items()
+              if k.startswith("f|")}
+    server = JBatchedServer(prog, params, B, L)
+    prompts = jnp.asarray(inputs["prompts"])
+    with mesh:  # BatchedServer.submit_prefill, keeping the logits
+        server.state, last = prog.prefill_step(params, server.state,
+                                               prompts, fronts)
+    server.cache_index = jnp.asarray(case["plen"], jnp.int32)
+    server.tokens = jnp.argmax(last, axis=-1).astype(jnp.int32)[:, None]
+    toks = [server.tokens] + [server.step(fronts)
+                              for _ in range(case["gen"] - 1)]
+    coord = {d.id: tuple(int(i) for i in np.argwhere(mesh.devices == d)[0])
+             for d in mesh.devices.flat}
+    shapes, state = {}, {}
+    tree_map_with_path_names(lambda n, v: shapes.__setitem__(
+        n, tuple(v.sharding.shard_shape(v.shape))), params)
+    tree_map_with_path_names(lambda n, v: state.__setitem__(
+        n, {coord[s.device.id]: np.array(s.data)
+            for s in v.addressable_shards}), server.state)
+    return {"tokens": np.asarray(jnp.concatenate(toks, 1)),
+            "logits": np.asarray(last), "shapes": shapes, "state": state}
+
+
+def run_lockstep_mesh(tmp, mesh, world: int, cases: list) -> tuple:
+    """The port's ranks (:func:`lockstep_mesh_worker`) beside the JAX
+    servers on ``mesh`` (:func:`run_beside_jax`): ({case: JAX run},
+    {case: [rank outputs]}, {case: inputs})."""
+    inputs = {c["name"]: lockstep_case_inputs(c) for c in cases}
+    ref, per = run_beside_jax(
+        tmp, world, lockstep_mesh_worker, cases,
+        {f"{n}|{k}": v for n, d in inputs.items() for k, v in d.items()},
+        lambda c: jax_lockstep_run(c, mesh, inputs[c["name"]]))
+    return ref, per, inputs
+
+
+def check_lockstep_mesh(case: dict, ref: dict, per: list) -> None:
+    """Every rank's tokens equal JAX's; its prefill logits within
+    LOGIT_TIER * max; its param and state block shapes equal the JAX
+    shards at its coordinate; its KV blocks within KV_TIER * max on the
+    lines whose position is >= 0 (positions equal)."""
+    import json
+    m = case["mesh"][1]
+    for r, out in enumerate(per):
+        coord = (r // m, r % m)
+        np.testing.assert_array_equal(out["tokens"], ref["tokens"])
+        err = float(np.abs(out["logits"] - ref["logits"]).max())
+        assert err <= LOGIT_TIER * float(np.abs(ref["logits"]).max()), \
+            (case["name"], r, err)
+        for k, s in json.loads(str(out["params"])).items():
+            assert tuple(s) == ref["shapes"][k], (case["name"], r, k)
+        names = sorted(k[2:] for k in out if k.startswith("s|"))
+        assert names == sorted(ref["state"]), case["name"]
+        for n in names:
+            blk, want = out["s|" + n], ref["state"][n][coord]
+            assert blk.shape == want.shape, (case["name"], r, n)
+            if n.endswith("/pos"):
+                np.testing.assert_array_equal(blk, want, err_msg=n)
+            else:
                 pos = out["s|" + n[:-1] + "pos"]
                 live = (pos >= 0).reshape(pos.shape
                                           + (1,) * (blk.ndim - pos.ndim))
