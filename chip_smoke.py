@@ -67,6 +67,13 @@ full depth, with random weights from seed 0:
   width and depth, 3 steps, through the one-process program and through
   ``--mesh 1x1`` (the mesh program on one rank of an NCCL group); with
   n >= 2 cards also ``--mesh 1xn`` and ``nx1``, one process per card;
+* train_sp: the same driver run, 3 steps, at ``--mesh 1x1`` and as model
+  rank 1 of ``--mesh 1x6`` on PyTorch's fake process-group backend
+  (collectives launched but moving no data; each run in a process of
+  its own): the rank's residual stream between blocks in seq blocks of
+  43 positions, its attention at its 3 of the 16 q heads (kv heads 0, 1,
+  1, repeated to one per q head), its 2 of the 12 experts; then 2 more
+  steps of that rank with ``attn_impl="flash"``;
 * serve_prefix: the serve driver on ``mixtral-w2`` with ``--prefix-cache
   --fair --tenants 2 --requests 8`` (a 192-token, 12-page shared prefix
   per tenant) and one exact repeat of request 0's prompt arriving 64
@@ -251,6 +258,15 @@ It fails unless:
   to the sharding rules' block shapes; a 1xn / nx1 run's losses within
   1e-2 of the world-1 run's (the step ms of both programs, the
   collective count and the bytes printed);
+* ``train_sp``: on rank 1 of the fake 1x6 world every attention call at
+  3 q and 3 kv heads (chunked, counted at the call, and flash), every
+  block's checkpoint keeping [8, 43, 2048] in storage of that size (a
+  saved-tensor hook), exactly the zebra launches per layer and step (all
+  wgmma) and flash 4 / 2 / 2 (forward, dq, dk/dv) per layer and step,
+  and a peak ``torch.cuda.max_memory_allocated`` below the 1x1 run's
+  (the rank's step ms, labelled one rank's compute with the collectives
+  not run, both peaks and the collectives by kind printed; the fake
+  backend's values are not checked);
 * each kernel agrees with its plain PyTorch version on the card, at the
   main path's shapes: bf16 outputs within 2e-2 * min(1, max|plain|) (the
   bf16 tier, scaled down where the outputs stay below 1; per decode slot
@@ -395,7 +411,8 @@ the serve_prefix, serve_disagg, serve_disagg_prefix, serve_trace,
 serve_dense, serve_fleet, serve_ep and ep_tiles lines (each as its
 phase ends), the train
 runs' lines, the train_ckpt, train_accum, remat_dots, compress,
-train_trace and train_mesh lines (each as its phase ends), the kernel
+train_trace, train_mesh and train_sp lines (each as its phase ends), the
+kernel
 tolerances,
 the ``kernels`` JSON line
 (each entry also names its ``design``: ``"wgmma"`` or ``"fma"``; ``ms``,
@@ -519,6 +536,21 @@ ZEBRA_ENGINE = {"replicated": ([216], [8]),   # (capacities, block_m)
 MESH_ARGS = ["--arch", "mixtral-w1", "--mesh", "1x1", "--steps", "3",
              "--batch", "8", "--seq", "256"]
 MESH_TIER = 1e-6            # world 1 vs one process: loss, leaf / max|leaf|
+# one rank of a wider training mesh (train_sp:): model rank SP_RANK of
+# --mesh 1xSP_M on the fake process-group backend, which moves no data, so
+# the rank's own kernels, shapes and memory are real. W1's 16 q heads over
+# 6 ranks: blocks of 3 (rank 1: q heads 3-5, which read kv heads 0, 1, 1:
+# groups of unequal size, so its kv heads repeat to one per q head); its 4
+# kv heads, wq / wk / wv / wo (2048 or 512 columns) and the 32000-row head
+# do not divide over 6 and stay whole; 2 of the 12 experts; the residual
+# stream between blocks in seq blocks of ceil(256 / 6) = 43
+SP_M, SP_RANK = 6, 1
+SP_HEADS = [3, 3]           # [q heads, kv heads] of every attention call
+SP_KEPT = [8, 43, 2048]     # what each block's checkpoint keeps (bf16)
+SP_FLASH_STEPS = 2
+# flash launches per layer and step under zebra (2 microbatches): the
+# forward and its recompute, dq and dk/dv, per microbatch
+SP_FLASH_LAUNCHES = {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
 MESH_BF16_TIER = 1e-2       # world n vs world 1 (bf16, per-shard capacity)
 ZEBRA_EQUAL_CF = 6.0        # = E / top_k: no drops, C 1024, block_m 128
 ZEBRA_GAP = 1e-2            # zebra (no drops) vs --no-zebra step 1
@@ -2835,6 +2867,149 @@ def train_mesh_phase(torch, train_mod, smi: str):
     return line, counts
 
 
+def sp_rank_worker(model: int, rank: int, out_path: str):
+    """Model rank ``rank`` of ``--mesh 1x<model>`` (MESH_ARGS) on the fake
+    process-group backend, in a process of its own: the driver's 3 zebra
+    steps (chunked attention), then at world > 1 SP_FLASH_STEPS more with
+    ``attn_impl="flash"``, each run's launch and collective counters set
+    to 0 just before and read just after. Measured on the way
+    (``obs.census.mesh_census``): the q and kv heads of every attention
+    call, what each block's checkpoint keeps for the backward (shape and
+    storage bytes); and the peak of ``torch.cuda.max_memory_allocated``
+    over the chunked run. Writes them to ``out_path`` as JSON."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.obs.census import mesh_census
+    from repro_torch.sharding import collectives as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=model)
+    try:
+        mesh = make_mesh((1, model), ("data", "model"), "cuda")
+        args = train_mod.build_parser().parse_args(
+            [a if a != "1x1" else f"1x{model}" for a in MESH_ARGS])
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        C.reset_counts()
+        with mesh_census() as rec:
+            s = train_mod.train_arch(args.arch, args, mesh=mesh)
+        torch.cuda.synchronize()
+        out = {"torch": torch.__version__, "backend": dist.get_backend(),
+               "world": model, "rank": rank, "coords": mesh.coords,
+               "counts": driver_counts(kernels),
+               "collectives": dict(C.COUNTS),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "step_ms": [t * 1e3 for t in s["step_s"]],
+               "ms_per_step": s["ms_per_step"], "zebra": s["zebra"],
+               **rec}
+        if model > 1:
+            run = RunConfig(policy=Policy(), attn_impl="flash",
+                            moe_impl="gather", remat="full")
+            kernels.reset_launch_counts()
+            with mesh_census() as rec:
+                f = train_mod.train_arch(
+                    args.arch, argparse.Namespace(**dict(
+                        vars(args), steps=SP_FLASH_STEPS)), run=run,
+                    mesh=mesh)
+            torch.cuda.synchronize()
+            out["flash"] = {"counts": driver_counts(kernels),
+                            "attn": rec["attn"],
+                            "step_ms": [t * 1e3 for t in f["step_s"]]}
+        pathlib.Path(out_path).write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_run(torch, model: int, rank: int) -> dict:
+    """:func:`sp_rank_worker` in a spawned process; its JSON."""
+    import multiprocessing
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "sp.json"
+        p = multiprocessing.get_context("spawn").Process(
+            target=sp_rank_worker, args=(model, rank, str(out)))
+        p.start()
+        p.join(timeout=600)
+        if p.is_alive():
+            p.kill()
+            p.join()
+            raise RuntimeError(f"train_sp: rank {rank} of 1x{model} timed "
+                               f"out")
+        if p.exitcode != 0 or not out.exists():
+            raise RuntimeError(f"train_sp: rank {rank} of 1x{model} exited "
+                               f"{p.exitcode}")
+        return json.loads(out.read_text())
+
+
+def train_sp_phase(torch, smi: str):
+    """Sequence parallelism and attention split by heads, on one rank of
+    a wider training mesh: the driver's zebra default on mixtral-w1 at
+    full width and depth (MESH_ARGS' batch and seq, 3 steps) at ``--mesh
+    1x1`` and as model rank SP_RANK of ``--mesh 1xSP_M`` on the fake
+    backend (collectives launched but not run: the rank's values are not
+    checked), each in a process of its own (:func:`sp_rank_worker`).
+    Gates on the 1xSP_M rank: every attention call at SP_HEADS heads, every
+    block's checkpoint keeping SP_KEPT in storage of that size, exactly
+    the zebra launches per layer and step (all wgmma), then
+    SP_FLASH_STEPS flash steps at SP_HEADS with exactly SP_FLASH_LAUNCHES
+    per layer and step; its peak memory below the 1x1 run's. Reported:
+    step ms (one rank's compute, collectives not run), both peaks and the
+    collectives by kind."""
+    from repro_torch.models import registry
+    cfg = registry.get_config("mixtral-w1")
+    layers, steps = cfg.n_layers, 3
+    one = sp_run(torch, 1, 0)
+    sp = sp_run(torch, SP_M, SP_RANK)
+    check_zebra_launches("train_sp (1x1)", one["counts"], ZEBRA_LAUNCHES,
+                         layers, steps)
+    check_zebra_launches(f"train_sp (rank {SP_RANK} of 1x{SP_M})",
+                         sp["counts"], ZEBRA_LAUNCHES, layers, steps)
+    fl = sp["flash"]
+    check_designs("train_sp (flash)", fl["counts"])
+    want_flash = {k: n * layers * SP_FLASH_STEPS
+                  for k, n in SP_FLASH_LAUNCHES.items()}
+    got_flash = {k: fl["counts"].get(k, 0) for k in SP_FLASH_LAUNCHES}
+    kept_bytes = math.prod(SP_KEPT) * 2
+    heads_ok = bool(sp["attn"]) and all(a == SP_HEADS for a in sp["attn"])
+    kept_ok = sp["kept"] == [[SP_KEPT, kept_bytes]] * (layers * steps)
+    flash_ok = got_flash == want_flash and bool(fl["attn"]) and all(
+        a == SP_HEADS for a in fl["attn"])
+    return {"arch": cfg.name, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "torch": sp["torch"],
+            "backend": sp["backend"], "mesh": f"1x{SP_M}",
+            "rank": SP_RANK, "coords": sp["coords"], "zebra": sp["zebra"],
+            "batch": 8, "seq": 256,
+            "attn_calls": len(sp["attn"]),
+            "attn_heads": sorted({tuple(a) for a in sp["attn"]}),
+            "one_rank_attn_heads": sorted({tuple(a) for a in one["attn"]}),
+            "kept": sp["kept"][:1], "kept_blocks": len(sp["kept"]),
+            "one_rank_kept": one["kept"][:1],
+            "step_ms_one_rank_compute_collectives_not_run": sp["step_ms"],
+            "ms_per_step_one_rank_compute": sp["ms_per_step"],
+            "one_rank_1x1_step_ms": one["step_ms"],
+            "peak_bytes": sp["peak_bytes"],
+            "peak_bytes_1x1": one["peak_bytes"],
+            "collectives": sp["collectives"],
+            "collectives_1x1": one["collectives"],
+            "launches_per_layer_step": {
+                k: sp["counts"][k] / (layers * steps)
+                for k in ZEBRA_LAUNCHES},
+            "flash_launches": got_flash, "flash_step_ms": fl["step_ms"],
+            "ok": heads_ok and kept_ok and flash_ok
+            and sp["peak_bytes"] < one["peak_bytes"]}
+
+
 def program_steps(torch, program, loader, params, state, n: int):
     """``n`` train steps of ``program``; (params, state, metrics per step,
     host seconds per step around work that ends in a synchronize)."""
@@ -4889,6 +5064,9 @@ def main() -> int:
     print("train_mesh: " + json.dumps(mesh_line), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 12c: one rank of --mesh 1x6 (sequence parallel, heads split) -------
+    sp_line = train_sp_phase(torch, smi)
+    print("train_sp: " + json.dumps(sp_line), flush=True)
 
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
@@ -5062,7 +5240,8 @@ def main() -> int:
         "mpmd_streams": mpmd_streams, "train_ckpt": ckpt_line,
         "train_accum": accum_line, "remat_dots": dots_line,
         "compress": compress_line, "train_trace": trace_line,
-        "train_mesh": mesh_line, "flash_cases": flash_entries + flash_cases,
+        "train_mesh": mesh_line, "train_sp": sp_line,
+        "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad,
         "serve_rgemma": rgemma_line, "serve_mamba2": m2_serve_line,
         "train_rgemma": rg_train_line, "rglru_scan": scan_line,
@@ -5248,6 +5427,12 @@ def main() -> int:
              "launched a collective, its bytes differ from the rules' "
              "block shapes, or a 1xn / nx1 run's losses differ from it "
              f"beyond {MESH_BF16_TIER}"),
+            ("train_sp", sp_line, f"rank {SP_RANK} of the fake 1x{SP_M} "
+             f"world ran an attention call at other than {SP_HEADS} heads "
+             f"(chunked or flash), a block's checkpoint kept other than "
+             f"{SP_KEPT}, its flash launches were not {SP_FLASH_LAUNCHES} "
+             "per layer and step, or its peak memory was not below the "
+             "1x1 run's"),
             ("serve_rgemma", rgemma_line, "a request did not finish, an "
              "allocator was not clean, the paged decode launches are not 12 "
              "a decode step in the paged and disagg runs and 0 in the dense "

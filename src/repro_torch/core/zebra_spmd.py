@@ -248,7 +248,9 @@ def ep_ffn_params(ffn, n_loc: int, E_loc: int, ep: EPGroup,
 
 def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
                 group=None, mesh=None) -> Callable:
-    """Returns moe_fn(ffn_params, x2d [T, d]) -> (y2d, aux) on this rank.
+    """Returns moe_fn(ffn_params, x2d [T, d]) -> (y2d, aux) on this rank;
+    in replicated mode ``moe_fn(..., reduce=f)`` returns ``f`` of the
+    rank's partial output in place of its all-reduce.
 
     ``ffn_params`` is the layer's whole MoE param dict (every expert); the
     rank takes its placement (:func:`ep_ffn_params`). ``group``: the EP
@@ -297,7 +299,7 @@ def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
         return {key: batch.all_reduce(v) / batch.size
                 for key, v in aux.items()}
 
-    def replicated(ffn, x):  # x: [T, d], the same on every rank
+    def replicated(ffn, x, reduce=None):  # x: [T, d], the same everywhere
         T, d = x.shape
         weights, idx, aux = modules.moe_route(ffn["router"], cfg,
                                               run.policy, x)
@@ -314,8 +316,8 @@ def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
                              buf[:E_loc], cd)
         out = torch.cat([out, out.new_zeros((1, C, d))])
         y = _unpack(out, meta, weights, T)
-        # sum the partial expert outputs
-        return ep.all_reduce(y), batch_mean(aux)
+        # sum the partial expert outputs (``reduce``: the caller's sum)
+        return (reduce or ep.all_reduce)(y), batch_mean(aux)
 
     def ffn_packed(ffn, bufs, keys):
         ws = [[ffn[w + s].to(cd) for s in keys]
@@ -364,10 +366,10 @@ def make_ep_moe(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig, *,
     fn = replicated if zcfg.mode == "replicated" else alltoall
     local = mesh is not None and n_loc == 0
 
-    def moe_fn(ffn_params, x2d):
+    def moe_fn(ffn_params, x2d, **kw):
         ffn = ep_ffn_params(ffn_params, n_loc, E_loc, ep, local=local)
         if not split:
-            return fn(ffn, x2d)
+            return fn(ffn, x2d, **kw)
         n = x2d.shape[0] // n_ep
         y, aux = fn(ffn, x2d[ep.rank * n:(ep.rank + 1) * n])
         return ep.all_gather(y), aux
@@ -402,7 +404,8 @@ def make_layer_override(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig,
                         *, mesh=None, group=None,
                         streams: bool = True) -> Callable:
     """The stack-level layer override implementing zebra parallelism:
-    override(layer_params, spec, x [B, S, d], positions) -> (y, aux).
+    override(layer_params, spec, x [B, S, d], positions, seq=None) -> (y,
+    aux).
 
     R microbatches (``num_microbatches`` fitted down to a divisor of B):
     attn(mb 0), then for k = 1..R-1 experts(mb k-1) || attn(mb k), then
@@ -412,11 +415,14 @@ def make_layer_override(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig,
     on it before the microbatches are concatenated. ``streams=False``
     runs the same order on one stream (a test's reference). ``mesh``:
     the mesh program's (see :func:`make_ep_moe`); x is this rank's rows,
-    microbatch k its k-th block of rows."""
+    microbatch k its k-th block of rows. ``seq`` (a ``train.step.SeqPlan``
+    over the EP axis; replicated mode): y is this rank's seq block [B,
+    ceil(S / M), d], each microbatch's expert sum over the ranks and the
+    cut to the block fused into one reduce-scatter."""
     moe_fn = make_ep_moe(cfg, run, zcfg, group=group, mesh=mesh)
     two = _Streams()
 
-    def override(layer_params, spec: LayerSpec, x, positions):
+    def override(layer_params, spec: LayerSpec, x, positions, seq=None):
         B, S, d = x.shape
         R = zcfg.num_microbatches if zcfg.pipeline else 1
         while R > 1 and B % R:
@@ -429,8 +435,12 @@ def make_layer_override(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig,
             return h, u
 
         def expert_part(h, u):
-            y2, aux = moe_fn(layer_params["ffn"], u.reshape(-1, d))
-            return h + y2.reshape(h.shape).to(h.dtype), aux
+            if seq is None:
+                y2, aux = moe_fn(layer_params["ffn"], u.reshape(-1, d))
+                return h + y2.reshape(h.shape).to(h.dtype), aux
+            y2, aux = moe_fn(layer_params["ffn"], u.reshape(-1, d),
+                             reduce=lambda y: seq.scatter(y.view(h.shape)))
+            return seq.part(h) + y2.to(h.dtype), aux
 
         if R == 1:
             h, u = attn_part(x, positions)
@@ -450,7 +460,7 @@ def make_layer_override(cfg: ModelConfig, run: RunConfig, zcfg: ZebraConfig,
         else:
             ys, auxs, y_last, aux_last = _two_stream_pipeline(
                 two, x, xs, ps, R, attn_part, expert_part)
-        y = torch.cat(ys + [y_last]).reshape(B, S, d)
+        y = torch.cat(ys + [y_last])
         # aux losses are per-token means: average them over microbatches
         aux = {key: (torch.stack([a[key] for a in auxs]).sum(0)
                      + aux_last[key]) / R for key in aux_last}

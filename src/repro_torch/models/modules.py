@@ -406,17 +406,18 @@ def _project_qkv(params, cfg: ModelConfig, run: RunConfig, x, positions,
     ``kv`` [B, T, d] where it is given (cross-attention: no RoPE), else
     from x. Returns (q, k, v, kv_pos)."""
     B, S, _ = x.shape
-    # the head counts of the weights given: a tensor-parallel rank holds
-    # its own heads' columns (and the matching kv heads)
+    # the head counts of the weights given: a tensor-parallel rank passes
+    # its own heads' columns (and the kv heads they read)
     hd = cfg.head_dim
     h, kh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     pol = run.policy
     cd = pol.compute_dtype
     kv_src = kv if kv is not None else x
     kv_pos = kv_positions if kv_positions is not None else positions
+    T = kv_src.shape[1]
     q = (x @ params["wq"].to(cd)).reshape(B, S, h, hd)
-    k = (kv_src @ params["wk"].to(cd)).reshape(B, -1, kh, hd)
-    v = (kv_src @ params["wv"].to(cd)).reshape(B, -1, kh, hd)
+    k = (kv_src @ params["wk"].to(cd)).reshape(B, T, kh, hd)
+    v = (kv_src @ params["wv"].to(cd)).reshape(B, T, kh, hd)
     if "q_norm" in params:
         q = rms_norm_headwise(params["q_norm"], q, pol)
         k = rms_norm_headwise(params["k_norm"], k, pol)
@@ -606,6 +607,12 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
     model rank 0 alone, so the merge counts them once. One rank, or a
     cache that is not split, is the case lo = 0 of the same code, whose
     merge is the identity.
+
+    On the training mesh, attention split by heads over "model"
+    (``run.shard.heads``, a ``train.step.HeadPlan``; cache-free) runs on
+    this rank's q heads and the kv heads they read, repeated to one per q
+    head where they do not form groups of one size; the output is this
+    rank's partial sum of the projection (a rank without heads adds 0).
     """
     if cache is not None and page_table is not None:
         return _apply_attention_paged(
@@ -614,8 +621,20 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
             page_table=page_table)
     B, S, _ = x.shape
     cd = run.policy.compute_dtype
+    heads = run.shard.heads if run.shard is not None and cache is None \
+        else None
+    if heads is not None:  # this rank's heads (``train.step.HeadPlan``)
+        wq, wk, wv, wo = heads.weights(params, cfg.head_dim)
+        params = dict(params, wq=wq, wk=wk, wv=wv, wo=wo)
     q, k, v, kv_pos = _project_qkv(params, cfg, run, x, positions, kv,
                                    kv_positions, rope)
+    if heads is not None:
+        if heads.n_q == 0:
+            # no head on this rank: a zero partial sum that still reaches
+            # every weight, so each weight gather's backward runs here too
+            y = q.reshape(B, S, 0) @ params["wo"].to(cd)
+            return y + (k.sum() + v.sum()).to(y.dtype), cache
+        k, v = heads.spread(k), heads.spread(v)
     structural = cache is None or not (S == 1 or attend_to_cache)
     if cache is not None:
         sh = run.shard

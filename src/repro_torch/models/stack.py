@@ -170,21 +170,23 @@ def _unbind_layers(tree, n: int):
 
 def _apply_layer(p, cfg, run, spec, x, positions, state, cache_index,
                  page_table, layer_override, moe_override=None,
-                 attend_to_cache=False, memory=None):
+                 attend_to_cache=False, memory=None, seq=None):
     """One layer: ``layer_override`` (zebra) for a MoE layer without decode
     state, else ``modules.apply_layer``; ``memory`` is the cross-attention
-    memory (encoder_out, encoder_positions) or None. Returns (x,
-    new_state, aux)."""
+    memory (encoder_out, encoder_positions) or None. ``seq`` (a block's
+    last layer under a ``train.step.SeqPlan``): the output is this rank's
+    seq block, the override's sum over the ranks fused with the cut into
+    one reduce-scatter. Returns (x, new_state, aux)."""
     if layer_override is not None and spec.ffn == "moe" and state is None:
-        y, aux = layer_override(p, spec, x, positions)
+        y, aux = layer_override(p, spec, x, positions, seq=seq)
         return y, None, aux
     enc, enc_pos = memory if memory is not None else (None, None)
-    return modules.apply_layer(p, cfg, run, spec, x, positions, state=state,
-                               encoder_out=enc, encoder_positions=enc_pos,
-                               cache_index=cache_index,
-                               moe_override=moe_override,
-                               attend_to_cache=attend_to_cache,
-                               page_table=page_table)
+    y, ns, aux = modules.apply_layer(
+        p, cfg, run, spec, x, positions, state=state, encoder_out=enc,
+        encoder_positions=enc_pos, cache_index=cache_index,
+        moe_override=moe_override, attend_to_cache=attend_to_cache,
+        page_table=page_table)
+    return (y if seq is None else seq.take(y)), ns, aux
 
 
 def _write_recurrent(state, new_state) -> None:
@@ -205,7 +207,7 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                  moe_override: Optional[Callable] = None,
                  attend_to_cache: bool = False, aux_extras=(),
                  layer_aux: bool = False, memory=None,
-                 prefix: str = "blocks"):
+                 prefix: str = "blocks", seq=None):
     """Run the stacked pattern layers + tail. Returns (x, new_states, aux).
 
     ``memory`` (encoder_out [B, T, d], encoder_positions [B, T]; see
@@ -234,7 +236,14 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
     On a mesh (``run.shard``) each layer's weights are all-gathered at the
     block's start, inside its checkpoint, so the backward gathers them
     again (FSDP); ``prefix`` is the stacked tree's path ("blocks",
-    "encoder/blocks") that names their shardings."""
+    "encoder/blocks") that names their shardings. ``seq`` (a
+    ``train.step.SeqPlan``; training only): between blocks, what each
+    block's checkpoint keeps, x is this rank's seq block [B, ceil(S / M),
+    d]; a block all-gathers it at its start, beside its weights (so the
+    recompute gathers again), runs its layers on the whole sequence, and
+    keeps its block of the output (:func:`_apply_layer`). After the last
+    block x is gathered whole once, for the tails, the final norm and the
+    loss."""
     aux = _zero_aux(x.device, aux_extras)
     decode = states is not None
     new_block_states = None
@@ -242,14 +251,14 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
 
     rec = run.shard.rec if run.shard is not None and decode else None
 
-    def layer(p, spec, x, st, name, memory):
+    def layer(p, spec, x, st, name, memory, seq=None):
         """One layer on its decode state ``st`` (None without one), whose
         new recurrent state is written back into ``st``'s tensors: whole,
         or on the serving mesh this rank's blocks (``rec``)."""
         st_in = rec.read(name, st) if rec is not None and st else st
         x, ns, a = _apply_layer(p, cfg, run, spec, x, positions, st_in,
                                 cache_index, page_table, layer_override,
-                                moe_override, attend_to_cache, memory)
+                                moe_override, attend_to_cache, memory, seq)
         if st is not None:
             if rec is not None:
                 rec.write(name, st, ns)
@@ -257,19 +266,27 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
                 _write_recurrent(st, ns)
         return x, a
 
+    S = x.shape[1]
+    last = len(pattern) - 1
+
     def one_block(x, layer_params, layer_states, memory):
         if run.shard is not None:
             layer_params = run.shard.gather_layer(layer_params, prefix)
+        if seq is not None:
+            x = seq.gather(x, S)
         a = _zero_aux(x.device, aux_extras)
         for pos, spec in enumerate(pattern):
             key = f"pos{pos}"
             x, la = layer(layer_params[key], spec, x,
                           layer_states[key] if decode else None,
-                          f"{prefix}/{key}", memory)
+                          f"{prefix}/{key}", memory,
+                          seq if pos == last else None)
             a = _acc_aux(a, la)
         return x, a
 
     if blocks is not None:
+        if seq is not None:
+            x = seq.take(x)
         block_states = states["blocks"] if decode else None
         n = next(iter(flatten(blocks).values())).shape[0]
         layer_params = _unbind_layers(blocks, n)
@@ -289,6 +306,8 @@ def _apply_stack(blocks, tails, cfg: ModelConfig, run: RunConfig, pattern,
             aux = _acc_aux(aux, a)
             rows.append(a)
         new_block_states = block_states
+        if seq is not None:
+            x = seq.gather(x, S)
 
     new_tail_states = []
     for i, (spec, tp) in enumerate(tails):
@@ -414,7 +433,9 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
         cache_index=cache_index, page_table=page_table,
         layer_override=layer_override, moe_override=moe_override,
         attend_to_cache=attend_to_cache, aux_extras=aux_extras,
-        layer_aux=layer_aux, memory=memory)
+        layer_aux=layer_aux, memory=memory,
+        seq=run.shard.seq if run.shard is not None
+        and decode_state is None else None)
 
     x = modules.apply_norm(params["final_norm"], x, run.policy)
     if return_hidden:

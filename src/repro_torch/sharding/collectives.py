@@ -8,7 +8,8 @@ and backward alike (``reset_counts`` clears it).
 Gradient convention (the mesh program's): the objective is the sum over
 the ranks of each rank's loss, and every collective's backward is its
 transpose: an all-reduce's is the all-reduce of the cotangents, an
-all-gather's the reduce-scatter. A rank's gradient of a value it holds is
+all-gather's the reduce-scatter and a reduce-scatter's the all-gather. A
+rank's gradient of a value it holds is
 then that rank's share of the global gradient, and the global gradient of
 a leaf replicated over some ranks is the sum of their shares.
 """
@@ -77,16 +78,14 @@ def _gather(t, dim: int, group):
 
 
 def _reduce_scatter(g, dim: int, group):
-    """This rank's block along ``dim`` of the group's sum of ``g``."""
+    """This rank's block along ``dim`` of the group's sum of ``g`` (the dim
+    divides over the group)."""
     n, r = group_size(group), dist.get_rank(group)
-    if dist.get_backend(group) == "nccl":
-        chunks = [c.contiguous() for c in g.chunk(n, dim)]
-        out = torch.empty_like(chunks[r])
-        dist.reduce_scatter(out, chunks, group=group)
-        launched("reduce_scatter")
-        return out
-    # gloo has no reduce-scatter: the sum, then this rank's block
-    return _sum(g, group).chunk(n, dim)[r].contiguous()
+    chunks = [c.contiguous() for c in g.chunk(n, dim)]
+    out = torch.empty_like(chunks[r])
+    dist.reduce_scatter(out, chunks, group=group)
+    launched("reduce_scatter")
+    return out
 
 
 class _AllGather(torch.autograd.Function):
@@ -107,6 +106,26 @@ def all_gather(t, dim: int, group):
     if group_size(group) == 1:
         return t
     return _AllGather.apply(t, dim, group)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+def reduce_scatter(t, dim: int, group):
+    """This rank's block along ``dim`` of the group's sum of ``t`` (the sum
+    of partial results, each rank keeping its block); its gradient is the
+    all-gather of the cotangents."""
+    if group_size(group) == 1:
+        return t
+    return _ReduceScatter.apply(t, dim, group)
 
 
 @torch.no_grad()

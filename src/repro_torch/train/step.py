@@ -21,9 +21,16 @@ by every rank on its shards (:func:`_mesh_program`):
   forward's start (autograd-aware: the backward is the reduce-scatter),
   except the zebra expert stacks over "model" (each EP
   rank uses its own experts) and, under the "hybrid" rules, the attention
-  heads and the vocabulary over "model" (Megatron tensor parallelism:
-  heads split, the output projection summed over "model"; a
-  vocab-parallel cross entropy);
+  heads and the vocabulary over "model" (Megatron tensor parallelism: a
+  rank runs its block of ceil(H / M) q heads, as JAX's constrainer splits
+  a dim of at least M, and the kv heads they read, the output projection
+  summed over "model" (:class:`HeadPlan`; head weights that do not divide
+  over "model" are stored whole and cut at use); a vocab-parallel cross
+  entropy);
+* under the "hybrid" rules ("seq" on "model") the residual stream between
+  blocks is each rank's block of the sequence (:class:`SeqPlan`):
+  all-gathered at a block's start, the block's last sum over "model" (zebra
+  replicated's expert sum) a reduce-scatter into the next block's input;
 * a rank computes on the rows of the global batch that the JAX layout
   gives its batch shard: zebra microbatch k (and accumulation slice i) is
   a global row range whose r-th block is batch shard r's;
@@ -40,6 +47,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import zebra_spmd
 from repro_torch.models import stack
@@ -201,16 +209,130 @@ def make_train_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
 # The mesh program
 # ---------------------------------------------------------------------------
 
+def _blocks_of(n: int, m: int, r: int) -> tuple:
+    """[lo, hi) of block ``r`` when ``n`` splits into ``m`` blocks of
+    ceil(n / m), the last ones padded (GSPMD's layout of a dim that does
+    not divide; a block may be empty)."""
+    b = -(-n // m)
+    return min(r * b, n), min((r + 1) * b, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqPlan:
+    """The residual stream between blocks as this rank's block of the
+    sequence over "model" (the JAX package's ``("batch", "seq", None)``
+    constraint at a block's start, where "seq" maps to "model"): ``size``
+    ranks of ``group``, this one ``rank``, blocks of ``block`` =
+    ceil(S / size) positions, the last rank's padded with zeros."""
+
+    group: Any
+    size: int
+    rank: int
+    block: int
+
+    def _check(self, S: int):
+        if -(-S // self.size) != self.block:
+            raise ValueError(f"seq {S} does not fit the plan's blocks of "
+                             f"{self.block} over {self.size} ranks")
+
+    def part(self, x):
+        """This rank's block [B, block, d] of x [B, S, d] (whole and the
+        same on every rank); a view unless it is padded."""
+        S = x.shape[1]
+        self._check(S)
+        lo, hi = _blocks_of(S, self.size, self.rank)
+        if hi - lo < self.block:
+            return F.pad(x[:, lo:hi], (0, 0, 0, self.block - (hi - lo)))
+        return x[:, lo:hi]
+
+    def take(self, x):
+        """:meth:`part` in storage of its own (so what a checkpoint keeps
+        does not hold the whole sequence's storage alive)."""
+        return self.part(x).clone(memory_format=torch.contiguous_format)
+
+    def gather(self, x, S: int):
+        """x [B, S, d] from every rank's block (the padding trimmed)."""
+        return C.all_gather(x, 1, self.group)[:, :S]
+
+    def scatter(self, y):
+        """This rank's block of the sum over the ranks of the partial
+        results y [B, S, d]: one reduce-scatter, in place of the
+        all-reduce and :meth:`take`."""
+        self._check(y.shape[1])
+        pad = self.size * self.block - y.shape[1]
+        return C.reduce_scatter(F.pad(y, (0, 0, 0, pad)) if pad else y, 1,
+                                self.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """This rank's attention heads over "model" (the JAX package's
+    constraint of q to ``("batch", None, "q_heads", None)``): q heads
+    ``q`` = [lo, hi), a block of ceil(H / M), and the kv heads ``kv`` =
+    [lo, hi) those read (q head h reads kv head h // (H / KH)).
+    ``kv_counts`` (None: every kv head of ``kv`` is read by the same
+    number of this rank's q heads, one group size) is how many of them
+    read each kv head, for a rank whose q heads do not form groups of one
+    size: its kv heads are repeated to one per q head (group size 1).
+    ``q_local`` / ``kv_local``: the weights given are this rank's block
+    already (stored split over "model"); else they are whole and cut
+    here."""
+
+    q: tuple
+    kv: tuple
+    kv_counts: Optional[tuple]
+    q_local: bool
+    kv_local: bool
+
+    @classmethod
+    def of(cls, H: int, KH: int, M: int, r: int) -> "HeadPlan":
+        q = _blocks_of(H, M, r)
+        reads = [h // (H // KH) for h in range(*q)]
+        kv = (reads[0], reads[-1] + 1) if reads else (0, 0)
+        counts = tuple(reads.count(j) for j in range(*kv))
+        return cls(q=q, kv=kv,
+                   kv_counts=counts if len(set(counts)) > 1 else None,
+                   q_local=H % M == 0, kv_local=KH % M == 0)
+
+    @property
+    def n_q(self) -> int:
+        return self.q[1] - self.q[0]
+
+    def weights(self, params, hd: int):
+        """wq, wk, wv, wo of this rank's heads."""
+        def cut(w, lo_hi, dim, local):
+            if local:
+                return w
+            lo, hi = lo_hi
+            return w.narrow(dim, lo * hd, (hi - lo) * hd)
+        return (cut(params["wq"], self.q, -1, self.q_local),
+                cut(params["wk"], self.kv, -1, self.kv_local),
+                cut(params["wv"], self.kv, -1, self.kv_local),
+                cut(params["wo"], self.q, 0, self.q_local))
+
+    def spread(self, k):
+        """k or v [B, T, kv heads, hd] as the attention call takes it: one
+        kv head per q head where the group sizes differ."""
+        if self.kv_counts is None:
+            return k
+        return torch.cat([k[:, :, j:j + 1].expand(-1, -1, n, -1)
+                          for j, n in enumerate(self.kv_counts)], dim=2)
+
+
 @dataclasses.dataclass
 class ShardContext:
     """``RunConfig.shard`` of the mesh program: the collectives the model
-    code runs. ``tp_group``: the "model" group when attention is tensor
-    parallel (None: attention is computed whole on each rank);
+    code runs. ``tp_group``: the "model" group when attention is split by
+    heads over it (``heads``, this rank's :class:`HeadPlan`; None:
+    attention is computed whole on each rank); ``seq``: the
+    :class:`SeqPlan` of the residual stream between blocks (None: whole);
     ``batch_group`` / ``n_batch``: the batch shards; ``layer_plans``:
     {stacked leaf path: [(dim of one layer, group)]} of the per-layer
     weight gathers."""
 
     tp_group: Any = None
+    heads: Optional[HeadPlan] = None
+    seq: Optional[SeqPlan] = None
     batch_group: Any = None
     n_batch: int = 1
     layer_plans: dict = dataclasses.field(default_factory=dict)
@@ -412,9 +534,16 @@ def _mesh_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
     nb = mesh.size_of(baxes)
     bblock = block_index(baxes, mesh, rank)[0]
 
-    M = mesh.shape["model"]
+    M, m_rank = mesh.shape["model"], mesh.coords["model"]
     tp = variant in ("hybrid", "tp") and M > 1
-    attn_tp = tp and cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0
+    # attention split by q heads as the constrainer splits a dim of at
+    # least M (padded blocks of ceil(H / M)); fewer heads than M: whole
+    heads = HeadPlan.of(cfg.n_heads, cfg.n_kv_heads, M, m_rank) \
+        if tp and cfg.n_heads >= M else None
+    seq = None
+    if M > 1 and rules.act_axes("seq") == "model" and shape.seq_len >= M:
+        seq = SeqPlan(group=mesh.group("model"), size=M, rank=m_rank,
+                      block=-(-shape.seq_len // M))
     own_experts = zebra and not (zcfg.mode == "alltoall"
                                  and zcfg.offload_experts)
 
@@ -423,7 +552,9 @@ def _mesh_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
         for e, lg in zip(pspecs[path], axes[path]):
             keep = e == "model" and (
                 (lg == "expert" and own_experts)
-                or (lg in ("q_heads", "kv_heads") and attn_tp))
+                or (lg == "q_heads" and heads is not None and heads.q_local)
+                or (lg == "kv_heads" and heads is not None
+                    and heads.kv_local))
             out.append(e if keep else None)
         return tuple(out)
 
@@ -438,8 +569,8 @@ def _mesh_program(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
                         batch_axes=baxes, n_batch=nb, batch_block=bblock)
 
     ctx = ShardContext(
-        tp_group=mesh.group("model") if attn_tp else None,
-        batch_group=mesh.group(baxes), n_batch=nb,
+        tp_group=mesh.group("model") if heads is not None else None,
+        heads=heads, seq=seq, batch_group=mesh.group(baxes), n_batch=nb,
         layer_plans={k: [(d - 1, mesh.group(a)) for d, a in plans[k]]
                      for k in stacked if plans[k]})
     mrun = dataclasses.replace(run, shard=ctx)

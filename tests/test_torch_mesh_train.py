@@ -11,9 +11,17 @@ padded to 16 rows, not 32, and drops) and two offloaded experts ("ep":
 batch over data x model, all-to-all dispatch), ``--no-zebra`` (the
 dropless MoE with global router statistics) and zebra replicated with
 ``accum_steps`` 2, and smoke llama3.2-3b (dense, 2D FSDP weights); at
-1x4 zebra replicated again, whose 2 kv heads do not split over "model"
-4 (JAX's constrainer leaves a dim smaller than the axis unsplit; the
-port computes attention whole on each rank). Capacity 1.25 on a skewed
+1x2 zebra replicated under ``remat="full"`` and ``"dots"``; at 1x4
+zebra replicated again: its 4 q heads split one to a rank, its 2 kv
+heads, fewer than "model" 4, stored whole (JAX's constrainer leaves a dim
+smaller than the axis unsplit) and each rank projecting the one its q
+head reads; the same at seq 30 (seq blocks of 8, 8, 8 and 6, the last
+padded), with 6 q heads over 2 kv heads (q heads 2, 2, 2 and 0 a rank:
+the last adds a zero partial sum) and with 10 over 2 (q heads 3, 3, 3
+and 1; rank 1's q heads 3, 4 and 5 read kv heads 0, 0 and 1, groups of
+unequal size, so its kv heads are repeated to one per q head).
+Under zebra replicated (the "hybrid" rules) the residual stream between
+blocks is each rank's seq block over "model". Capacity 1.25 on a skewed
 token file, so the zebra cases drop token copies. The JAX reference runs
 on conftest's ``mesh4`` (2x2) and 1x2 and 1x4 meshes of its 8 CPU
 devices, with the same init (the JAX package's, each rank keeping its
@@ -27,7 +35,13 @@ within 1e-3 * max|leaf| (the one-device port lands 3.0e-4 * max|leaf|
 from the JAX package's 1x1 mesh after the same five steps: AdamW's
 normalisation amplifies f32 summation-order differences in near-zero
 gradients); each rank's param and moment block shapes against the JAX
-arrays' shards on the device at its mesh coordinate.
+arrays' shards on the device at its mesh coordinate; and, measured on
+each rank in the first step (``repro_torch.obs.census.mesh_census``), the
+residual stream each block's checkpoint keeps ([B_loc, ceil(S / M), d]
+in storage of that size under the "hybrid" rules at M > 1, else [B_loc,
+S, d]) and the q and kv heads of every attention call (the constrainer's
+block of ceil(H / M) q heads, kv heads repeated to one per q head on a
+rank of mixed groups; a rank without heads makes no call).
 """
 
 import json
@@ -50,8 +64,9 @@ from repro.train import optimizer as jopt
 from repro.train.step import make_train_program as jmake_train_program
 from repro_torch.launch.mesh import launch_ranks
 from repro_torch.sharding.rules import MeshShape, local_slice
-from torch_parity import (MESH_B, MESH_S, MESH_STEPS, mesh_opt_cfg,
-                          mesh_train_worker, skewed_token_file)
+from torch_parity import (MESH_B, MESH_S, MESH_STEPS, mesh_case_config,
+                          mesh_model_key, mesh_opt_cfg, mesh_train_worker,
+                          skewed_token_file)
 from torch_parity import torch_single_thread  # noqa: F401 (fixture)
 
 METRICS = ("loss", "nll", "z_loss", "moe_aux_loss", "moe_z_loss",
@@ -67,11 +82,18 @@ CASES_2x2 = [
     {"name": "dense_fsdp", "arch": "llama3.2-3b", "zcfg": None},
 ]
 CASES_1x2 = [{"name": "zebra_replicated_1x2", "arch": "mixtral-d2",
-              "zcfg": REPL}]
-# 2 kv heads over model 4: attention is not split (each rank computes it
-# whole), the vocabulary and the experts are
+              "zcfg": REPL},
+             {"name": "zebra_replicated_1x2_dots", "arch": "mixtral-d2",
+              "zcfg": REPL, "remat": "dots"}]
+# 4 q heads over model 4, one a rank; the 2 kv heads are not split
 CASES_1x4 = [{"name": "zebra_replicated_1x4", "arch": "mixtral-d2",
-              "zcfg": REPL}]
+              "zcfg": REPL},
+             {"name": "zebra_replicated_1x4_s30", "arch": "mixtral-d2",
+              "zcfg": REPL, "seq": 30},
+             {"name": "zebra_replicated_1x4_h6", "arch": "mixtral-d2",
+              "zcfg": REPL, "cfg": {"n_heads": 6, "n_kv_heads": 2}},
+             {"name": "zebra_replicated_1x4_h10", "arch": "mixtral-d2",
+              "zcfg": REPL, "cfg": {"n_heads": 10, "n_kv_heads": 2}}]
 PARAM_TIER = 1e-3
 
 
@@ -82,14 +104,16 @@ def flat_names(tree):
 
 
 def jax_program(case, mesh):
-    cfg = jregistry.smoke_config(jregistry.get_config(case["arch"]))
+    cfg = mesh_case_config(jregistry, case)
     z = case.get("zcfg")
     run = JRunConfig(policy=JPolicy(compute_dtype=jnp.float32),
-                     attn_impl="chunked", moe_impl="gather", remat="full",
-                     chunk_q=16, use_gmm_kernel=not cfg.is_moe
+                     attn_impl="chunked", moe_impl="gather",
+                     remat=case.get("remat", "full"), chunk_q=16,
+                     use_gmm_kernel=not cfg.is_moe
                      or z is not None)
     return cfg, jmake_train_program(
-        cfg, mesh, run, JShapeConfig("t", "train", MESH_S, MESH_B),
+        cfg, mesh, run,
+        JShapeConfig("t", "train", case.get("seq", MESH_S), MESH_B),
         opt_cfg=mesh_opt_cfg(jopt),
         zcfg=None if z is None else JZebraConfig(capacity_factor=1.25, **z),
         accum_steps=case.get("accum", 1))
@@ -109,8 +133,8 @@ def jax_run(case, mesh, token_file):
     shape}} of the params and of the moments)."""
     cfg, prog = jax_program(case, mesh)
     loader = JDataLoader(JDataConfig(vocab_size=cfg.vocab_size,
-                                     seq_len=MESH_S, global_batch=MESH_B,
-                                     path=token_file))
+                                     seq_len=case.get("seq", MESH_S),
+                                     global_batch=MESH_B, path=token_file))
     coord = {d.id: tuple(int(i) for i in np.argwhere(mesh.devices == d)[0])
              for d in mesh.devices.flat}
 
@@ -148,8 +172,8 @@ def run_both(tmp, mesh, world, cases, token_file):
     this thread) side by side; ({case: JAX result}, {case: rank outputs})."""
     inits = {}
     for c in cases:
-        if c["arch"] not in inits:
-            inits[c["arch"]] = jax_init(c, mesh)
+        if mesh_model_key(c) not in inits:
+            inits[mesh_model_key(c)] = jax_init(c, mesh)
     box = {}
 
     def ranks():
@@ -168,7 +192,7 @@ def run_both(tmp, mesh, world, cases, token_file):
         raise box["error"]
     for c in cases:
         assert all(np.array_equal(ref[c["name"]][0][k], v)
-                   for k, v in inits[c["arch"]].items())
+                   for k, v in inits[mesh_model_key(c)].items())
     return ref, box["ranks"]
 
 
@@ -206,6 +230,7 @@ def check_case(case, shape, ref, per):
             assert tuple(s) == mu[k][coord], (k, r)
     if case.get("zcfg"):
         assert max(float(o["dropped"]) for o in per) > 0  # drops occurred
+    check_census(case, shape, per)
     worst = 0.0
     for r, out in enumerate(per):
         specs = json.loads(str(out["specs"]))
@@ -216,6 +241,40 @@ def check_case(case, shape, ref, per):
             worst = max(worst, float(np.abs(got - want).max()
                                      / (np.abs(w).max() or 1.0)))
     assert worst < PARAM_TIER, (case["name"], worst)
+
+
+def q_block(H: int, M: int, r: int) -> range:
+    """The q heads of model rank r: the constrainer's padded blocks of
+    ceil(H / M) for H >= M (the last ranks' may be short or empty)."""
+    b = -(-H // M)
+    return range(min(r * b, H), min((r + 1) * b, H))
+
+
+def check_census(case, shape, per):
+    """What each rank measured in its first step (see the module
+    docstring) against the layout the "hybrid" rules give it."""
+    cfg = mesh_case_config(jregistry, case)
+    D, M = shape
+    S = case.get("seq", MESH_S)
+    hybrid = (case.get("zcfg") or {}).get("mode") == "replicated"
+    b_loc = MESH_B // (D if hybrid else D * M) // case.get("accum", 1)
+    s_loc = -(-S // M) if hybrid and M > 1 else S
+    H, KH = cfg.n_heads, cfg.n_kv_heads
+    for r, out in enumerate(per):
+        census = json.loads(str(out["census"]))
+        want = [[b_loc, s_loc, cfg.d_model], b_loc * s_loc * cfg.d_model * 4]
+        assert census["kept"] == [want] * (cfg.n_pattern_repeats
+                                           * case.get("accum", 1)), \
+            (case["name"], r, census["kept"])
+        if hybrid and M > 1 and H >= M:
+            reads = [h // (H // KH) for h in q_block(H, M, r % M)]
+            mixed = len({reads.count(j) for j in set(reads)}) > 1
+            heads = [len(reads), len(reads) if mixed else len(set(reads))]
+        else:
+            heads = [H, KH]
+        calls = census["attn"]
+        assert calls and all(c == heads for c in calls) if heads[0] else \
+            not calls, (case["name"], r, calls, heads)
 
 
 @pytest.fixture(scope="module")
@@ -244,3 +303,59 @@ def test_mesh_1x2_matches_jax(runs_1x2, case):
 def test_mesh_1x4_matches_jax(runs_1x4, case):
     ref, ranks = runs_1x4
     check_case(case, (1, 4), ref[case["name"]], ranks[case["name"]])
+
+
+# (H, KH, M): W1's heads at the train_sp: rank's 1x6, and the MoE archs of
+# the registry (mixtral, qwen3-moe-30b-a3b, dbrx-132b) at the production
+# "model" extent 16, and the 1x4 cases above
+HEAD_SPLITS = [(16, 4, 6), (16, 4, 16), (32, 4, 16), (48, 8, 16),
+               (6, 2, 4), (10, 2, 4)]
+
+
+@pytest.mark.parametrize("H,KH,M", HEAD_SPLITS,
+                         ids=[f"{h}q{k}kv_over{m}" for h, k, m in HEAD_SPLITS])
+def test_head_plans_sum_to_the_whole_attention(H, KH, M):
+    """Every rank's ``HeadPlan`` (its q heads, the kv heads they read,
+    spread to one per q head where group sizes differ, its rows of wo)
+    covers the q heads in order, in the constrainer's blocks of
+    ceil(H / M), and the ranks' partial outputs sum to the attention of
+    all heads (f32, small widths)."""
+    import torch
+
+    from repro_torch.models.modules import Policy, attention_mask, \
+        ref_attention
+    from repro_torch.train.step import HeadPlan
+    hd, d, B, S = 4, 8, 2, 5
+    g = torch.Generator().manual_seed(H * 100 + M)
+    x = torch.randn(B, S, d, generator=g)
+    w = {k: torch.randn(d, n * hd, generator=g) * 0.3
+         for k, n in (("wq", H), ("wk", KH), ("wv", KH))}
+    w["wo"] = torch.randn(H * hd, d, generator=g) * 0.3
+    pos = torch.arange(S).expand(B, S)
+    mask = attention_mask(pos, pos, causal=True, window=0)
+    pol = Policy(compute_dtype=torch.float32)
+
+    def attend(wq, wk, wv, wo, spread=lambda t: t):
+        q = (x @ wq).reshape(B, S, -1, hd)
+        k = spread((x @ wk).reshape(B, S, -1, hd))
+        v = spread((x @ wv).reshape(B, S, -1, hd))
+        return ref_attention(q, k, v, mask, hd ** -0.5, 0.0,
+                             pol).reshape(B, S, -1) @ wo
+
+    want = attend(w["wq"], w["wk"], w["wv"], w["wo"])
+    got, heads = torch.zeros_like(want), []
+    for r in range(M):
+        plan = HeadPlan.of(H, KH, M, r)
+        assert plan.n_q == len(q_block(H, M, r))
+        heads += list(range(*plan.q))
+        if plan.n_q:
+            full = dict(w)
+            if plan.q_local:  # stored split: the rank holds its columns
+                full["wq"] = w["wq"][:, plan.q[0] * hd:plan.q[1] * hd]
+                full["wo"] = w["wo"][plan.q[0] * hd:plan.q[1] * hd]
+            if plan.kv_local:
+                for k in ("wk", "wv"):
+                    full[k] = w[k][:, plan.kv[0] * hd:plan.kv[1] * hd]
+            got += attend(*plan.weights(full, hd), spread=plan.spread)
+    assert heads == list(range(H))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

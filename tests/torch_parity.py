@@ -6,6 +6,8 @@ interpret mode, ``Policy(compute_dtype=float32)``), the port runs the
 plain versions of its kernels (CPU tensors).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -276,9 +278,26 @@ def skewed_token_file(path):
     return str(path)
 
 
+def mesh_case_config(registry, case):
+    """The smoke config of a mesh test case's arch, with the case's
+    ``cfg`` overrides (``registry``: either package's)."""
+    import dataclasses
+    return dataclasses.replace(
+        registry.smoke_config(registry.get_config(case["arch"])),
+        **case.get("cfg", {}))
+
+
+def mesh_model_key(case) -> str:
+    """The name of a mesh test case's model (its arch, and its ``cfg``
+    overrides), which keys its JAX init in a worker's inputs."""
+    return case["arch"] + "".join(f"-{k}{v}" for k, v in
+                                  sorted(case.get("cfg", {}).items()))
+
+
 def mesh_program(case, mesh):
     """The port's mesh program of a test case (f32 policy, chunked
-    attention in two query chunks, full remat)."""
+    attention in query chunks of 16; the case's ``remat``, else "full",
+    and ``seq``, else MESH_S)."""
     from repro_torch.core.zebra_spmd import ZebraConfig
     from repro_torch.models import registry
     from repro_torch.models.config import ShapeConfig
@@ -286,13 +305,13 @@ def mesh_program(case, mesh):
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_program
 
-    cfg = registry.smoke_config(registry.get_config(case["arch"]))
+    cfg = mesh_case_config(registry, case)
     run = RunConfig(policy=Policy(compute_dtype=torch.float32),
-                    attn_impl="chunked", moe_impl="gather", remat="full",
-                    chunk_q=16)
+                    attn_impl="chunked", moe_impl="gather",
+                    remat=case.get("remat", "full"), chunk_q=16)
     z = case.get("zcfg")
     return cfg, make_train_program(
-        cfg, run, ShapeConfig("t", "train", MESH_S, MESH_B),
+        cfg, run, ShapeConfig("t", "train", case.get("seq", MESH_S), MESH_B),
         opt_cfg=mesh_opt_cfg(opt), device="cpu", mesh=mesh,
         zcfg=None if z is None else ZebraConfig(capacity_factor=1.25, **z),
         accum_steps=case.get("accum", 1))
@@ -301,11 +320,13 @@ def mesh_program(case, mesh):
 def mesh_train_worker(rank: int, in_path: str, out_dir: str):
     """One rank of a mesh-program test (``launch.mesh.launch_ranks``
     target; imports no jax). ``in_path``: an npz of the cases (JSON), the
-    token file's path and the JAX init of each arch (``<arch>|<path>``).
+    token file's path and the JAX init of each model
+    (``<mesh_model_key>|<path>``).
     For each case: the mesh, this rank's blocks of the init, five steps on
     the global batches, then ``out_dir/<case>_<rank>.npz`` with the
     metrics, the final blocks (``p|<path>``), the param and moment block
-    shapes, the params' specs and the zebra engine's dropped share. A
+    shapes, the params' specs, the zebra engine's dropped share and the
+    ``obs.census.mesh_census`` of the first step (``census``). A
     case with ``save`` also checkpoints after that step (``ckpt`` dir,
     blocking) and a case with ``restore`` starts from that step of its
     ``ckpt`` dir (the restored blocks saved as ``r|params/<path>``,
@@ -316,6 +337,7 @@ def mesh_train_worker(rank: int, in_path: str, out_dir: str):
     from repro_torch.core import zebra_spmd
     from repro_torch.data import DataConfig, DataLoader
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.census import mesh_census
     from repro_torch.pytree import flatten
 
     torch.set_num_threads(1)
@@ -326,7 +348,8 @@ def mesh_train_worker(rank: int, in_path: str, out_dir: str):
         lay = prog.layout
         params = {}
         for path in lay.shapes:
-            full = torch.from_numpy(data[f"{case['arch']}|{path}"].copy())
+            full = torch.from_numpy(
+                data[f"{mesh_model_key(case)}|{path}"].copy())
             node = params
             *parents, leaf = path.split("/")
             for q in parents:
@@ -334,7 +357,8 @@ def mesh_train_worker(rank: int, in_path: str, out_dir: str):
             node[leaf] = lay.local(path, full).clone()
         state = prog.init_opt(params)
         loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=MESH_S, global_batch=MESH_B,
+                                       seq_len=case.get("seq", MESH_S),
+                                       global_batch=MESH_B,
                                        path=str(data["tokens"])))
         start, restored = 0, {}
         ckpt = CheckpointManager(case["ckpt"], mesh=mesh) \
@@ -347,9 +371,13 @@ def mesh_train_worker(rank: int, in_path: str, out_dir: str):
             restored = {f"r|{k}": to_np(v).copy() for k, v in
                         flatten({"params": params, "opt": state}).items()}
         zebra_spmd.reset_stats(True)
-        hist = []
+        hist, census = [], {}
         for step in range(start, MESH_STEPS):
-            params, state, m = prog.train_step(params, state, next(loader))
+            with mesh_census() if step == start \
+                    else contextlib.nullcontext() as rec:
+                params, state, m = prog.train_step(params, state,
+                                                   next(loader))
+            census = rec or census
             hist.append({k: float(v) for k, v in m.items()})
             if case.get("save") == step + 1:
                 ckpt.save(step + 1, params, state,
@@ -368,7 +396,8 @@ def mesh_train_worker(rank: int, in_path: str, out_dir: str):
                                     for k, v in flat.items()}),
                  mu_shapes=json.dumps({k: list(v.shape)
                                        for k, v in state["mu"].items()}),
-                 specs=json.dumps(lay.param_specs), **restored,
+                 specs=json.dumps(lay.param_specs),
+                 census=json.dumps(census), **restored,
                  **{f"p|{k}": to_np(v) for k, v in flat.items()})
 
 
