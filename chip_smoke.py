@@ -45,6 +45,12 @@ full depth, with random weights from seed 0:
   engine applies no optimizer);
 * mpmd_chunks: the same with ``--n-chunks 2`` (C 224 in chunks of 112
   rows: the lanes at block_m 16, the offloaded experts at 32);
+* mpmd_ranks: the engine across ranks, ``hetero_mpmd --ranks 4x4`` at
+  the same full-width default (4 attention ranks on 1 row of every
+  microbatch each, 4 expert lanes one rank each), attention rank 0 and
+  lane 0 each in a process of its own on PyTorch's fake process-group
+  backend (its point-to-point messages and collectives posted but moving
+  no data, its receives zeroed), 3 steps each;
 * train_ckpt: the train driver's checkpoint and resume on ``mixtral-w1``
   at full width cut to 1 layer (0.67 B params, 8.04 GB a save with the
   two AdamW moments; full depth would write 27.4 GB a save): 4 steps
@@ -231,6 +237,17 @@ It fails unless:
   the MPMD step on its streams is bitwise equal to its
   rerun and within the f32 tier of the same engine on one stream
   (``mpmd_streams:``, with both timings);
+* ``mpmd_ranks:``: lane 0 launches the one-process engine's lane
+  launches a step over N (gmm_glu 2, gmm 7, gmm_dw 3 per chunk, layer
+  and microbatch), every expert call at [E_lane, C_chunk, 2048], no
+  attention; attention rank 0 gmm_glu 2, gmm 7, gmm_dw 3 per
+  offloaded-expert call, none at a lane's shape, every attention call at
+  [1, 256, 2048]; all on the tensor-core designs; each rank's peak
+  ``torch.cuda.max_memory_allocated`` below the one-process engine's in
+  ``train_mpmd:``; every loss finite (the fake backend's values are not
+  checked; each rank's step ms, labelled one rank's compute with the
+  point-to-point sends not run, its peak beside the one-process one and
+  its messages and bytes a step by kind printed);
 * the resumed steps 3-4 of ``train_ckpt`` give the straight run's losses
   and grad norms, and its params and moments after step 4, bit for bit,
   and launch exactly the zebra counts per layer and step, all wgmma (the
@@ -431,7 +448,7 @@ design replaced, timed on the same bf16 inputs), ssd_cases (with
 ``fma_ms`` on the tensor-core design), ssd_grad, train_zebra, zebra_a2a,
 zebra_equal, zebra_streams, zebra_tiles, train_mpmd, mpmd_chunks,
 mpmd_equal and mpmd_streams lines (the serve_rgemma, serve_mamba2,
-train_rgemma, rglru_scan, paged_rgemma, train_whisper,
+train_rgemma, rglru_scan, paged_rgemma, mpmd_ranks, train_whisper,
 train_whisper_flash, serve_whisper, serve_vision, serve_mesh_recurrent
 and serve_mesh_lockstep lines print as their phases end, before the
 kernels line), and last
@@ -577,6 +594,12 @@ MPMD_GAP = 1e-2             # the bf16 loss vs the fused W1's
 # H100, the same comparisons in f32 by at most 9e-6 (PERF.md)
 MPMD_BF16_LEAF = 2e-2
 MPMD_FLIPS = 32             # of 8192 token-layer routings (1-8 measured)
+# the engine across ranks (mpmd_ranks:): hetero_mpmd's default at --ranks
+# MxN on the fake process-group backend (messages and collectives
+# launched, moving no data), attention rank 0 and lane 0 (rank M), each in
+# a process of its own
+MPMD_RANKS = (4, 4)
+MPMD_RANKS_STEPS = 3
 MAMBA2_ARGS = ["--arch", "mamba2-2.7b", "--mesh", "1x1", "--steps", "6",
                "--batch", "2", "--seq", "2048"]
 MAMBA2_WARMUP_ARGS = MAMBA2_ARGS + ["--steps", "1"]
@@ -2929,27 +2952,180 @@ def sp_rank_worker(model: int, rank: int, out_path: str):
         dist.destroy_process_group()
 
 
-def sp_run(torch, model: int, rank: int) -> dict:
-    """:func:`sp_rank_worker` in a spawned process; its JSON."""
+def spawned_json(torch, label: str, target, *args) -> dict:
+    """``target(*args, out_path)`` in a spawned process (this process's
+    cached device memory released first); the JSON it writes."""
     import multiprocessing
     import tempfile
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        out = pathlib.Path(tmp) / "sp.json"
+        out = pathlib.Path(tmp) / "out.json"
         p = multiprocessing.get_context("spawn").Process(
-            target=sp_rank_worker, args=(model, rank, str(out)))
+            target=target, args=(*args, str(out)))
         p.start()
         p.join(timeout=600)
         if p.is_alive():
             p.kill()
             p.join()
-            raise RuntimeError(f"train_sp: rank {rank} of 1x{model} timed "
-                               f"out")
+            raise RuntimeError(f"{label} timed out")
         if p.exitcode != 0 or not out.exists():
-            raise RuntimeError(f"train_sp: rank {rank} of 1x{model} exited "
-                               f"{p.exitcode}")
+            raise RuntimeError(f"{label} exited {p.exitcode}")
         return json.loads(out.read_text())
+
+
+def sp_run(torch, model: int, rank: int) -> dict:
+    """:func:`sp_rank_worker` in a spawned process; its JSON."""
+    return spawned_json(torch, f"train_sp: rank {rank} of 1x{model}",
+                        sp_rank_worker, model, rank)
+
+
+def mpmd_rank_worker(rank: int, out_path: str):
+    """Rank ``rank`` of ``hetero_mpmd --ranks MxN`` (MPMD_RANKS, the
+    full-width default) on the fake process-group backend, in a process
+    of its own: the engine built (this rank's part of the seeded model
+    kept, the fused tree dropped), then MPMD_RANKS_STEPS steps with the
+    launch counters set to 0 just before and read just after. Measured on
+    the way: the shape of every attention call's input and of every
+    expert call's packed buffer, the peak of
+    ``torch.cuda.max_memory_allocated`` over the steps, the messages and
+    bytes of the last step by kind. Writes them to ``out_path`` as JSON."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.core import zebra_mpmd as zm
+    from repro_torch.core import zebra_spmd as zs
+    from repro_torch.core.zebra_mpmd_ranks import RankGroups
+    from repro_torch.launch import hetero_mpmd as hm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M, N = MPMD_RANKS
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=M + N)
+    try:
+        args = hm.build_parser().parse_args(["--ranks", f"{M}x{N}"])
+        s = hm.build(args, ranks=RankGroups(M, N, "cuda"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        attn, experts = collections.Counter(), collections.Counter()
+        mixer, dense = zm.modules.apply_mixer_part, zs._experts_dense
+
+        def attention(p, cfg, run, spec, x, *a, **kw):
+            attn[tuple(x.shape)] += 1
+            return mixer(p, cfg, run, spec, x, *a, **kw)
+
+        def grouped(wg, wu, wo, buf, cd):
+            experts[tuple(buf.shape)] += 1
+            return dense(wg, wu, wo, buf, cd)
+        zm.modules.apply_mixer_part, zs._experts_dense = attention, grouped
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        step_s, losses, ok = [], [], True
+        for _ in range(MPMD_RANKS_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = hm.step(s)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            ok = ok and hm.finite(*out)
+            losses.append(float(out[0]))
+            del out
+        counts = driver_counts(kernels)
+        eng = s.engine
+        pathlib.Path(out_path).write_text(json.dumps({
+            "torch": torch.__version__, "backend": dist.get_backend(),
+            "rank": rank, "role": eng.ranks.role, "counts": counts,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "step_ms": [t * 1e3 for t in step_s], "loss": losses,
+            "finite": ok, "layout": hm.layout(s),
+            "attn_shapes": [[list(k), n] for k, n in attn.items()],
+            "expert_shapes": [[list(k), n] for k, n in experts.items()],
+            "messages_per_step": {f"{op} {kind}": {"messages": n,
+                                                   "bytes": b}
+                                  for (op, kind), (n, b) in
+                                  eng.traffic.items()}}))
+    finally:
+        dist.destroy_process_group()
+
+
+def mpmd_ranks_phase(torch, smi: str, one_process: dict):
+    """The zebra MPMD engine across ranks, one rank at a time: attention
+    rank 0 and lane 0 of ``hetero_mpmd --ranks 4x4`` (the full-width
+    default: W1, bf16, 8 x 256, R 2, the planned offloads clamped), each
+    in a process of its own on the fake backend, MPMD_RANKS_STEPS steps
+    (:func:`mpmd_rank_worker`; the backend moves no data, so the values
+    are not checked: the receives are zeroed, the shapes, launches and
+    memory are the rank's own). Gates: the lane launches the one-process
+    engine's lane launches a step over N (MPMD_CALL per chunk, layer and
+    microbatch), every expert call at [E_lane, C_chunk, d]; the attention
+    rank launches MPMD_CALL per offloaded-expert call, none at a lane's
+    shape, and every attention call at 1 row of 256; both all on the
+    tensor-core designs, each peak below the one-process engine's in
+    ``train_mpmd:`` (``one_process``), every loss finite. Reported: each
+    rank's step ms (its compute only, the point-to-point sends not run),
+    its peak beside the one-process one, its messages and bytes a step by
+    kind."""
+    from repro_torch import kernels
+    from repro_torch.launch import hetero_mpmd as hm
+    M, N = MPMD_RANKS
+    runs = {"attention": spawned_json(torch, "mpmd_ranks: attention rank 0",
+                                      mpmd_rank_worker, 0),
+            "lane": spawned_json(torch, f"mpmd_ranks: lane 0 (rank {M})",
+                                 mpmd_rank_worker, M)}
+    lay = runs["lane"]["layout"]
+    R, Q, L = hm.MICROBATCHES, lay["n_chunks"], len(lay["offload"])
+    steps, d = MPMD_RANKS_STEPS, 2048
+    lane_calls = R * Q * sum(e > 0 for e in lay["experts_per_lane"])
+    attn_calls = R * sum(a > 0 for a in lay["attn_experts"])
+    names = kernels.launch_counts()
+    want = {"lane": {k: MPMD_CALL.get(k, 0) * lane_calls * steps
+                     for k in names},
+            "attention": {k: MPMD_CALL.get(k, 0) * attn_calls * steps
+                          for k in names}}
+    lane_shapes = {(e, lay["C_chunk"], d) for e in lay["experts_per_lane"]
+                   if e}
+    out, ok = {}, True
+    for role, r in runs.items():
+        check_designs(f"mpmd_ranks ({role})", r["counts"])
+        got = {k: r["counts"][k] for k in names}
+        shapes = {tuple(k) for k, _n in r["expert_shapes"]}
+        if role == "lane":
+            shapes_ok = shapes == lane_shapes and not r["attn_shapes"]
+        else:
+            shapes_ok = not shapes & lane_shapes and {
+                tuple(k) for k, _n in r["attn_shapes"]} == {
+                    (hm.BATCH // (R * M), hm.SEQ, d)}
+        ok_r = (got == want[role] and shapes_ok and r["finite"]
+                and r["peak_bytes"] < one_process["max_memory_allocated"])
+        ok = ok and ok_r
+        out[role] = {
+            "rank": r["rank"], "ok": ok_r, "loss": r["loss"],
+            "step_ms_one_rank_compute_sends_not_run": r["step_ms"],
+            "peak_bytes": r["peak_bytes"],
+            "launches_per_step": {k: got[k] / steps for k in MPMD_CALL},
+            "counts": r["counts"],
+            "launches_expected_per_step": {k: want[role][k] / steps
+                                           for k in MPMD_CALL},
+            "attn_shapes": r["attn_shapes"],
+            "expert_shapes": r["expert_shapes"],
+            "messages_per_step": r["messages_per_step"]}
+    one_lane = {k: MPMD_CALL[k] * lane_calls * N for k in MPMD_CALL}
+    return {"arch": "mixtral-w1", "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "torch": runs["lane"]["torch"],
+            "backend": runs["lane"]["backend"], "ranks": f"{M}x{N}",
+            "batch": hm.BATCH, "seq": hm.SEQ, "steps": steps, "layers": L,
+            "layout": {k: lay[k] for k in ("C", "C_chunk", "offload",
+                                           "attn_experts",
+                                           "experts_per_lane")},
+            "one_process_peak_bytes": one_process["max_memory_allocated"],
+            "one_process_step_ms": one_process["step_ms"],
+            "one_process_lane_launches_per_step": one_lane,
+            **out, "ok": ok}
 
 
 def train_sp_phase(torch, smi: str):
@@ -5035,6 +5211,9 @@ def main() -> int:
     mpmd_streams = mpmd_streams_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 8b: the engine across ranks, attention rank 0 and lane 0 of 4x4 --
+    ranks_line = mpmd_ranks_phase(torch, smi, mpmd_line)
+    print("mpmd_ranks: " + json.dumps(ranks_line), flush=True)
 
     # -- main paths 9-12: the training driver's infrastructure and options --
     ckpt_line, ckpt_counts = train_ckpt_phase(torch, train_mod, smi)
@@ -5182,6 +5361,8 @@ def main() -> int:
             "zebra_a2a": a2a_counts.get(c, 0),
             "train_mpmd": mpmd_counts.get(c, 0),
             "mpmd_chunks": chunks_counts.get(c, 0),
+            "mpmd_ranks": sum(ranks_line[role]["counts"].get(c, 0)
+                              for role in ("attention", "lane")),
             "train_ckpt": ckpt_counts.get(c, 0),
             "train_accum": accum_counts.get(c, 0),
             "remat_dots": dots_counts.get(c, 0),
@@ -5237,7 +5418,8 @@ def main() -> int:
         "zebra_equal": zebra_equal, "zebra_streams": zebra_streams,
         "zebra_tiles": zebra_tiles, "train_mpmd": mpmd_line,
         "mpmd_chunks": chunks_line, "mpmd_equal": mpmd_equal,
-        "mpmd_streams": mpmd_streams, "train_ckpt": ckpt_line,
+        "mpmd_streams": mpmd_streams, "mpmd_ranks": ranks_line,
+        "train_ckpt": ckpt_line,
         "train_accum": accum_line, "remat_dots": dots_line,
         "compress": compress_line, "train_trace": trace_line,
         "train_mesh": mesh_line, "train_sp": sp_line,
@@ -5427,6 +5609,14 @@ def main() -> int:
              "launched a collective, its bytes differ from the rules' "
              "block shapes, or a 1xn / nx1 run's losses differ from it "
              f"beyond {MESH_BF16_TIER}"),
+            ("mpmd_ranks", ranks_line, "attention rank 0 or lane 0 of the "
+             "fake 4x4 world launched other expert GEMMs than MPMD_CALL per "
+             "call (the lane: the one-process engine's lane launches over "
+             "N), off the tensor-core design, an expert call at other than "
+             "a lane's [E_lane, C_chunk, d] (the lane) or at it (the "
+             "attention rank), an attention call at other than 1 x 256, a "
+             "peak not below the one-process engine's, or a loss not "
+             "finite"),
             ("train_sp", sp_line, f"rank {SP_RANK} of the fake 1x{SP_M} "
              f"world ran an attention call at other than {SP_HEADS} heads "
              f"(chunked or flash), a block's checkpoint kept other than "

@@ -51,10 +51,11 @@ reuse their memory while the consumer may still read it. The waits are
 placed where a task reads its inputs, so a stream never waits on work it
 does not need. On the CPU the same walker runs with no streams.
 
-Lanes on another device than the attention group (multi-card lanes) and
-a microbatch split over several attention devices need the mesh, which is
-not ported (ROADMAP A9); the engine raises for both. The attention
-group's size M still enters the planner.
+This engine drives one device: lanes on another device than the
+attention group and a microbatch split over several attention devices
+run in rank mode (``core/zebra_mpmd_ranks.py``, one process a rank), and
+the engine raises for both. The attention group's size M still enters
+the planner.
 
 With ``obs.trace.TRACER`` enabled, a step emits the reference's spans on
 the ``zebra-mpmd`` track (pid ``train``): ``embed mb{j}``, ``F l{l}
@@ -247,16 +248,19 @@ class ZebraMPMD:
         attn = {_device(d) for d in attn_devices}
         if len(attn) != 1:
             raise NotImplementedError(
-                f"attention devices {sorted(map(str, attn))}: splitting a "
-                f"microbatch over several attention devices needs the mesh "
-                f"(ROADMAP A9)")
+                f"attention devices {sorted(map(str, attn))}: one process "
+                f"drives one device; a microbatch split over several "
+                f"attention devices runs in rank mode, one process a rank "
+                f"(zebra_mpmd_ranks.ZebraMPMDRanks, hetero_mpmd --ranks)")
         (self.attn_device,) = attn
         self.exp_devices = [_device(d) for d in exp_devices]
         if any(d != self.attn_device for d in self.exp_devices):
             raise NotImplementedError(
                 f"expert lanes on {[str(d) for d in self.exp_devices]} "
-                f"beside attention on {self.attn_device}: lanes on other "
-                f"cards need the mesh (ROADMAP A9)")
+                f"beside attention on {self.attn_device}: one process "
+                f"drives one device; lanes on other devices run in rank "
+                f"mode, one process a rank (zebra_mpmd_ranks.ZebraMPMDRanks,"
+                f" hetero_mpmd --ranks)")
         offload = tuple(offload) if offload else tuple([0] * cfg.n_layers)
         self.plan = MPMDPlan(cfg.n_experts, offload, self.N)
         E = cfg.n_experts
@@ -411,18 +415,20 @@ class ZebraMPMD:
             grads = torch.autograd.grad(out, [*ws.values(), b], g)
         return dict(zip(ws, grads[:-1])), grads[-1]
 
-    def attn_route_bwd(self, p_layer, x, positions, g_h, g_buf, g_weights):
+    def attn_route_bwd(self, p_layer, x, positions, g_h, g_buf, g_weights,
+                       **route):
         """Backward of attn_route: (grads of the attention block and router
         by path, dx). The cotangent of h arrives already
         accumulated from both branches: the dispatched tokens (g_buf, the
-        local and remote parts) and the gate path (g_weights)."""
+        local and remote parts) and the gate path (g_weights). ``route``
+        goes to the recomputed ``attn_route``."""
         p = {k: v for k, v in p_layer.items() if k != "ffn"}
         p["ffn"] = {"router": p_layer["ffn"]["router"]}
         with torch.enable_grad():
             ps = _leaves(p)
             xx = x.detach().requires_grad_()
             h, buf, w, _idx, _meta = self.attn_route(_unflatten(ps), xx,
-                                                     positions)
+                                                     positions, **route)
             grads = torch.autograd.grad((h, buf, w), [*ps.values(), xx],
                                         (g_h, g_buf, g_weights))
         return dict(zip(ps, grads[:-1])), grads[-1]

@@ -152,6 +152,33 @@ def _pack(x, idx, E: int, C: int):
     return buf.reshape(E, C, d), (tok, slot, keep, order)
 
 
+def _pack_at(x, idx, E: int, C: int, offsets):
+    """:func:`_pack` of one block of a batch whose earlier blocks hold
+    ``offsets[e]`` copies of expert e (int64 [E]): this block's copies of
+    e take the slots from ``offsets[e]`` on, in stable (token, k) order,
+    and those at or past C are dropped, so the blocks of a batch packed
+    in turn keep the copies one pack of the whole batch keeps, in its
+    slots. Returns (buf [E, C, d], meta) as :func:`_pack`; with zero
+    offsets it is :func:`_pack`, bit for bit."""
+    T, d = x.shape
+    k = idx.shape[1]
+    flat = idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    sorted_e = flat[order]
+    counts = modules._bincount(flat, E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = (torch.arange(T * k, device=x.device) - starts[sorted_e]
+                + offsets[sorted_e])
+    keep = pos_in_e < C
+    slot = sorted_e * C + torch.where(keep, pos_in_e, 0)
+    tok = order // k
+    idx_map = torch.full((E * C + 1,), T, dtype=torch.int64, device=x.device)
+    idx_map = idx_map.index_put_((torch.where(keep, slot, E * C),),
+                                 tok)[:E * C]
+    buf = torch.cat([x, x.new_zeros((1, d))])[idx_map]
+    return buf.reshape(E, C, d), (tok, slot, keep, order)
+
+
 def _unpack(buf, meta, weights, T: int):
     """Weighted combine back to [T, d]: a gather of each copy's row, times
     its router weight (0 for dropped copies), the inverse permutation back

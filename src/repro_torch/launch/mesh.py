@@ -36,14 +36,14 @@ def backend_for(device: str) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def parse_mesh(text: str) -> tuple:
-    """"DxM" -> (D, M)."""
+def parse_mesh(text: str, flag: str = "--mesh", form: str = "DxM") -> tuple:
+    """"DxM" -> (D, M); ``flag`` and ``form`` name the option in errors."""
     try:
         d, m = (int(v) for v in text.lower().split("x"))
     except ValueError:
-        raise ValueError(f"--mesh {text!r}: expected DxM") from None
+        raise ValueError(f"{flag} {text!r}: expected {form}") from None
     if d < 1 or m < 1:
-        raise ValueError(f"--mesh {text!r}: sizes must be >= 1")
+        raise ValueError(f"{flag} {text!r}: sizes must be >= 1")
     return d, m
 
 

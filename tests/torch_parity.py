@@ -1042,3 +1042,109 @@ def check_lockstep_mesh(case: dict, ref: dict, per: list) -> None:
                 err = float(np.abs(np.where(live, blk - want, 0)).max())
                 top = float(np.abs(np.where(live, want, 0)).max()) or 1.0
                 assert err <= KV_TIER * top, (case["name"], r, n, err)
+
+
+# ---------------------------------------------------------------------------
+# The zebra MPMD engine across ranks (tests/test_torch_zebra_mpmd_ranks.py)
+# ---------------------------------------------------------------------------
+
+def mpmd_named(grads_attn) -> dict:
+    """{name: leaf} of a ``grads_attn`` tree: the non-layer paths, and
+    ``layers/<l>/<path>`` for each layer."""
+    from repro_torch.pytree import flatten
+    out = flatten({k: v for k, v in grads_attn.items() if k != "layers"})
+    for l, layer in enumerate(grads_attn["layers"]):
+        out.update({f"layers/{l}/{k}": v for k, v in flatten(layer).items()})
+    return out
+
+
+def mpmd_case_config(registry, case):
+    """The 2-layer smoke W1 of the MPMD tests (capacity factor 99, the
+    engine's ``cf`` when a case gives one)."""
+    import dataclasses
+    return dataclasses.replace(
+        registry.smoke_config(registry.get_config("mixtral-w1")),
+        n_layers=2, capacity_factor=99.0)
+
+
+def mpmd_rank_worker(rank: int, in_path: str, out_dir: str):
+    """One rank of a rank-mode MPMD test (``launch.mesh.launch_ranks``
+    target; imports no jax). ``in_path``: an npz of the cases (JSON, all at
+    one M x N), the JAX init (``p|<path>``) and the batches
+    (``tokens|<B>``, ``targets|<B>``). For each case: the engine on this
+    rank, one step, then ``out_dir/<case>_<rank>.npz`` with the loss, the
+    gradients (``g|<name>`` on an attention rank, ``e|<l>|<key>`` on a
+    lane), an attention rank's routed counts and capacity of each (layer,
+    microbatch) (``routed|<l>|<j>``, ``C``), the bytes this rank sent in
+    each hop (``hop|<kind>|<l>|<j>``), a lane's forward chunk inputs in
+    call order (``chunk|<n>``) and, for a case with ``trace``, rank 0's
+    spans of a second, traced step (``spans``). Each rank asserts its
+    bytes a hop: an attention rank's are its kept rows of the remote
+    experts (both tensors in C(B)), a lane's at most its experts' share
+    E_lane C d of the reference's hop."""
+    import json
+
+    from repro_torch.core import zebra_mpmd_ranks as zr
+    from repro_torch.core.zebra_mpmd import _unflatten
+    from repro_torch.models import registry
+    from repro_torch.models.modules import Policy, RunConfig
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.pytree import params_from_jax
+
+    torch.set_num_threads(1)
+    data = np.load(in_path)
+    cases = json.loads(str(data["cases"]))
+    run = RunConfig(policy=Policy(compute_dtype=torch.float32))
+    groups = zr.RankGroups(cases[0]["M"], cases[0]["N"], "cpu")
+    params = params_from_jax(_unflatten({k[2:]: data[k] for k in data.files
+                                         if k.startswith("p|")}))
+    for case in cases:
+        cfg = mpmd_case_config(registry, case)
+        eng = zr.ZebraMPMDRanks(
+            cfg, run, groups, num_microbatches=2,
+            offload=tuple(case["offload"]) if case["offload"] else None,
+            capacity_factor=case["cf"], n_chunks=case["Q"])
+        attn_side, exp_layers = eng.shard_params(params)
+        chunks = []
+        if groups.role == "lane":
+            fwd = eng.expert_fwd
+
+            def recording(p, buf, fwd=fwd, own=[l[0] for l in exp_layers]):
+                if any(p is o for o in own):
+                    chunks.append(to_np(buf).copy())
+                return fwd(p, buf)
+            eng.expert_fwd = recording
+        B = case["batch"]
+        batch = (torch.from_numpy(data[f"tokens|{B}"].copy()),
+                 torch.from_numpy(data[f"targets|{B}"].copy()))
+        loss, ga, ge = eng.train_step(attn_side, exp_layers, *batch)
+        out = {"loss": to_np(loss)}
+        d, size = cfg.d_model, 4
+        for (kind, l, j), n in eng.hop_bytes.items():
+            out[f"hop|{kind}|{l}|{j}"] = n
+            if groups.role == "attn":
+                counts, a = eng.routed[(l, j)], groups.index
+                C = eng.capacity(B // 2 * batch[0].shape[1])[0]
+                n_att = eng.plan.n_attn_experts(l)
+                kept = [max(0, min(C - sum(c[e] for c in counts[:a]),
+                                   counts[a][e]))
+                        for e in range(n_att, cfg.n_experts)]
+                assert n == sum(kept) * d * size * (2 if kind == "B" else 1)
+            else:
+                C = eng.capacity(B // 2 * batch[0].shape[1])[0]
+                assert n <= eng.lane_experts(l) * C * d * size
+        if ga is not None:
+            out.update({f"g|{k}": to_np(v) for k, v in mpmd_named(ga).items()})
+            out.update({f"routed|{l}|{j}": np.array(c)
+                        for (l, j), c in eng.routed.items()})
+        else:
+            out.update({f"e|{l}|{k}": to_np(v) for l, lane in enumerate(ge)
+                        for k, v in lane[0].items()})
+            out.update({f"chunk|{n}": c for n, c in enumerate(chunks)})
+        if case.get("trace"):
+            with obs_trace.use(obs_trace.Tracer()) as tr:
+                eng.train_step(attn_side, exp_layers, *batch)
+            out["spans"] = json.dumps(sorted(
+                [ev.name, sorted(ev.args.items())] for ev in tr.events
+                if ev.track == "zebra-mpmd" and ev.ph == "B"))
+        np.savez(f"{out_dir}/{case['name']}_{rank}.npz", **out)
