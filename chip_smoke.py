@@ -80,6 +80,15 @@ full depth, with random weights from seed 0:
   43 positions, its attention at its 3 of the 16 q heads (kv heads 0, 1,
   1, repeated to one per q head), its 2 of the 12 experts; then 2 more
   steps of that rank with ``attn_impl="flash"``;
+* dryrun: the dry run (``repro_torch.launch.dryrun``), one rank's step
+  traced on fake tensors on a fake process group, the kernels through
+  their fake routes (nothing launched), in a process of its own: the
+  train_zebra configuration at 1x1, held against the real step (kernel
+  calls by kernel and design per step equal to train_zebra's launches,
+  param and optimizer bytes equal to train_mesh's tree and rules, the dry
+  run's peak beside the real ``max_memory_allocated``), then
+  ``qwen3-moe-30b-a3b train_4k`` and ``llama3.2-3b decode_32k`` at 16x16,
+  rank 0 (each record and its wall seconds);
 * serve_prefix: the serve driver on ``mixtral-w2`` with ``--prefix-cache
   --fair --tenants 2 --requests 8`` (a 192-token, 12-page shared prefix
   per tenant) and one exact repeat of request 0's prompt arriving 64
@@ -137,9 +146,10 @@ full depth, with random weights from seed 0:
 * serve_mamba2: ``mamba2-2.7b`` on the serve trace: (a) dense, (b)
   ``--paged``, (d) ``--disagg`` (every chunk checksum recorded), in
   bf16; (c) ``--paged`` under the f32 policy, first-token logits
-  recorded. The engines' SSD prefill and decode run
-  ``ref.ssd_decode_step`` (the reference's route; no kernel), the
-  cache-free forward they are held against the SSD scan kernel.
+  recorded. The engines' SSD decode runs ``ref.ssd_decode_step`` (the
+  reference's route; no kernel) and their prefill from a state
+  ``ref.ssd_chunked`` (no kernel), the cache-free forward they are held
+  against the SSD scan kernel.
 * serve_mesh_recurrent: the recurrent archs on the serving mesh at
   ``--mesh 1x1``: ``recurrentgemma-9b`` (full width and depth)
   ``--paged`` on serve_rgemma's trace and ``mamba2-2.7b`` (full) dense
@@ -428,7 +438,8 @@ the serve_prefix, serve_disagg, serve_disagg_prefix, serve_trace,
 serve_dense, serve_fleet, serve_ep and ep_tiles lines (each as its
 phase ends), the train
 runs' lines, the train_ckpt, train_accum, remat_dots, compress,
-train_trace, train_mesh and train_sp lines (each as its phase ends), the
+train_trace, train_mesh, train_sp and dryrun lines (each as its phase
+ends), the
 kernel
 tolerances,
 the ``kernels`` JSON line
@@ -568,6 +579,14 @@ SP_FLASH_STEPS = 2
 # flash launches per layer and step under zebra (2 microbatches): the
 # forward and its recompute, dq and dk/dv, per microbatch
 SP_FLASH_LAUNCHES = {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
+# the dry run (dryrun:): the train_zebra configuration (arch, batch, seq;
+# zebra replicated, 2 microbatches) at 1x1, then two production cells at
+# 16x16, rank 0; the phase's wall seconds are printed beside
+# DRYRUN_BUDGET_S, the time it is meant to take on the card's host
+DRYRUN_CHECK = ("mixtral-w1", 8, 256)
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k"),
+                ("llama3.2-3b", "decode_32k"))
+DRYRUN_BUDGET_S = 120.0
 MESH_BF16_TIER = 1e-2       # world n vs world 1 (bf16, per-shard capacity)
 ZEBRA_EQUAL_CF = 6.0        # = E / top_k: no drops, C 1024, block_m 128
 ZEBRA_GAP = 1e-2            # zebra (no drops) vs --no-zebra step 1
@@ -2980,6 +2999,88 @@ def sp_run(torch, model: int, rank: int) -> dict:
                         sp_rank_worker, model, rank)
 
 
+def dryrun_worker(out_path: str):
+    """``launch.dryrun.lower_cell`` on each cell of the dryrun phase, each
+    on a fake process group of its own, in this process: the records with
+    each cell's wall seconds, written to ``out_path`` as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    arch, batch, seq = DRYRUN_CHECK
+    cells = [(arch, ShapeConfig("train_zebra", "train", seq, batch),
+              dict(mesh_shape=(1, 1), zebra_mode="replicated",
+                   microbatches=2))]
+    cells += [(a, s, {}) for a, s in DRYRUN_CELLS]
+    out = []
+    for a, s, kw in cells:
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(a, s, multi_pod=False, **kw)
+        rec["wall_s"] = time.perf_counter() - t0
+        out.append(rec)
+    pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def dryrun_phase(torch, smi: str, zebra_line: dict, mesh_line: dict):
+    """The dry run on the card's host (:func:`dryrun_worker` in a spawned
+    process). Gates: the 1x1 trace of train_zebra's configuration makes
+    per step, by kernel and by design, the kernel calls
+    (``_build.FAKE_WORK``, nothing launched) that train_zebra's real steps
+    launched per step (the wrappers' ``LAUNCHES``); its param and
+    optimizer bytes equal train_mesh's (the real tree's and the rules'
+    block shapes, W1 at --mesh 1x1); the production cells are ok; the
+    card's ``total_memory`` gives every record the ``fits_80gb`` that
+    ``H100_MEMORY_BYTES`` gave it. Reported: the card's total memory
+    beside that constant, the dry run's peak (arg + temp) beside
+    train_zebra's ``max_memory_allocated``, both records, their wall
+    seconds and the phase's beside DRYRUN_BUDGET_S."""
+    from repro_torch.core import hardware as HW
+    t0 = time.perf_counter()
+    recs = spawned_json(torch, "dryrun", dryrun_worker)
+    wall = time.perf_counter() - t0
+    chk, cells = recs[0], recs[1:]
+    steps = zebra_line["steps"]
+
+    def per_step(counts):
+        return {k: n // steps for k, n in counts.items() if n}
+    whole = all(n % steps == 0 for c in ("launches", "design_launches")
+                for n in zebra_line[c].values())
+    launches_ok = whole and chk["launches"]["by_kernel"] == per_step(
+        zebra_line["launches"]) and chk["launches"]["by_design"] == \
+        per_step(zebra_line["design_launches"])
+    bytes_ok = (chk["param_bytes_per_device"] == mesh_line["param_bytes"]
+                == mesh_line["param_bytes_rules"]
+                and chk["opt_bytes_per_device"] == mesh_line["opt_bytes"]
+                == mesh_line["opt_bytes_rules"])
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    fits_same = all((r["total_bytes_per_device"] < total_memory)
+                    == r["fits_80gb"] for r in recs if r["status"] == "ok")
+    real_peak = zebra_line["max_memory_allocated"]
+    return {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "total_memory": total_memory,
+            "h100_memory_bytes": HW.H100_MEMORY_BYTES,
+            "check": {k: chk[k] for k in (
+                "arch", "mesh", "launches", "param_bytes_per_device",
+                "opt_bytes_per_device", "arg_bytes_per_device",
+                "temp_bytes_per_device", "total_bytes_per_device",
+                "flops_per_device", "hbm_bytes_per_device", "trace_s",
+                "wall_s")},
+            "real_launches_per_step": per_step(zebra_line["launches"]),
+            "real_design_launches_per_step": per_step(
+                zebra_line["design_launches"]),
+            "real_bytes": {k: mesh_line[k] for k in (
+                "param_bytes", "param_bytes_rules", "opt_bytes",
+                "opt_bytes_rules")},
+            "real_max_memory_allocated": real_peak,
+            "dryrun_peak_over_real": chk["total_bytes_per_device"]
+            / real_peak,
+            "cells": cells, "phase_wall_s": wall,
+            "budget_s": DRYRUN_BUDGET_S,
+            "launches_ok": launches_ok, "bytes_ok": bytes_ok,
+            "fits_same_on_card": fits_same,
+            "ok": launches_ok and bytes_ok and fits_same
+            and all(c["status"] == "ok" for c in cells)}
+
+
 def mpmd_rank_worker(rank: int, out_path: str):
     """Rank ``rank`` of ``hetero_mpmd --ranks MxN`` (MPMD_RANKS, the
     full-width default) on the fake process-group backend, in a process
@@ -4516,8 +4617,9 @@ def serve_rgemma_phase(torch, serve_mod, smi: str):
 def serve_mamba2_phase(torch, serve_mod, smi: str):
     """mamba2-2.7b at full width and depth (64 SSD layers, seed 0) on the
     serve trace: (a) dense, (b) ``--paged`` and (d) ``--disagg`` in bf16,
-    the main-path runs (counted; the engines' SSD prefill and decode run
-    ``ref.ssd_decode_step``, the reference's route, no kernel), (d) with
+    the main-path runs (counted; the engines' SSD decode runs
+    ``ref.ssd_decode_step``, the reference's route, and their prefill
+    ``ref.ssd_chunked`` from the state, no kernel), (d) with
     every chunk checksum recorded; then (c) ``--paged`` under the f32
     policy, first-token logits against the cache-free forward (through the
     SSD scan kernel)."""
@@ -5246,6 +5348,9 @@ def main() -> int:
     # -- 12c: one rank of --mesh 1x6 (sequence parallel, heads split) -------
     sp_line = train_sp_phase(torch, smi)
     print("train_sp: " + json.dumps(sp_line), flush=True)
+    # -- 12d: the dry run on fake ranks (nothing launched on the card) -----
+    dryrun_line = dryrun_phase(torch, smi, zebra_line, mesh_line)
+    print("dryrun: " + json.dumps(dryrun_line), flush=True)
 
     # -- the train path's kernels at the train shapes, and the gradients ----
     w1 = registry.get_config("mixtral-w1")
@@ -5423,6 +5528,7 @@ def main() -> int:
         "train_accum": accum_line, "remat_dots": dots_line,
         "compress": compress_line, "train_trace": trace_line,
         "train_mesh": mesh_line, "train_sp": sp_line,
+        "dryrun": dryrun_line,
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad,
         "serve_rgemma": rgemma_line, "serve_mamba2": m2_serve_line,
@@ -5617,6 +5723,11 @@ def main() -> int:
              "attention rank), an attention call at other than 1 x 256, a "
              "peak not below the one-process engine's, or a loss not "
              "finite"),
+            ("dryrun", dryrun_line, "the 1x1 dry run of train_zebra's "
+             "configuration called other kernels or designs per step "
+             "than the real steps launched, its param or optimizer bytes "
+             "differ from train_mesh's, a production cell failed, or the "
+             "card's total memory would change a record's fits_80gb"),
             ("train_sp", sp_line, f"rank {SP_RANK} of the fake 1x{SP_M} "
              f"world ran an attention call at other than {SP_HEADS} heads "
              f"(chunked or flash), a block's checkpoint kept other than "

@@ -55,10 +55,16 @@ TPU_V3 = DeviceClass("tpu-v3", 123e12, 900e9, 32e9, False, 0.50, 0.0, 0.14,
 CLASSES = {c.name: c for c in
            [V100, A40, T4, L40S, A100, TPU_V5E, TPU_V4, TPU_V3]}
 
-# Roofline constants for the target deployment (per the brief).
-ROOFLINE_PEAK_FLOPS = 197e12   # TPU v5e bf16
-ROOFLINE_HBM_BW = 819e9
-ROOFLINE_ICI_BW = 50e9         # per link
+# The port's target card, the H100 SXM, for the dry run's roofline
+# (``launch/hlo_analysis.py``): the datasheet's figures, not measurements.
+H100_PEAK_FLOPS = 989e12   # dense bf16 tensor-core FLOP/s
+H100_HBM_BW = 3.35e12      # HBM3, bytes/s
+H100_NVLINK_BW = 450e9     # NVLink 4, bytes/s a direction per GPU, in a node
+H100_NET_BW = 50e9         # one 400 Gb/s NDR NIC per GPU, bytes/s a direction
+H100_NODE_GPUS = 8         # GPUs a node joins by NVLink
+# torch.cuda.get_device_properties(0).total_memory on the port's card,
+# "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi name, power limit).
+H100_MEMORY_BYTES = 85_017_493_504
 
 
 def get(name: str) -> DeviceClass:

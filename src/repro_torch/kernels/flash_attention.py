@@ -20,7 +20,10 @@ tensor cores, bf16 at head_dim 64 and 128; :func:`flash_fwd_route` and
 on any other device, an unsupported dtype or shape, or a failed build or
 launch they raise. ``LAUNCHES`` counts kernel launches, and
 ``DESIGN_LAUNCHES`` the same launches by design (``"flash_fwd:wgmma"``,
-``"flash_dq:fma"``, ...).
+``"flash_dq:fma"``, ...). Fake tensors take the fake route
+(``_build.fake``): the card's route and checks, no launch and no count
+here; ``_build.FAKE_WORK`` records the call, its work the math over the
+(query, key) pairs the mask leaves (:func:`mask_pairs`).
 """
 
 from __future__ import annotations
@@ -268,10 +271,24 @@ def _check_tma(design: str, tensors, strides):
     stride a multiple of 8 elements (16 bytes) and 16-byte aligned
     tensors. Raises otherwise, never falls back."""
     if any(st % 8 for t in tensors for st in t.stride()[:3]) or any(
-            t.data_ptr() % 16 for t in tensors):
+            _build.address(t) % 16 for t in tensors):
         raise ValueError(f"the bf16 flash {design} needs (batch, head, row) "
                          f"strides that are multiples of 8 and 16-byte "
                          f"aligned tensors, got strides {list(strides)}")
+
+
+def mask_pairs(S: int, T: int, q_len: int, kv_len: int, causal: bool,
+               window: int) -> int:
+    """(query, key) pairs the kernels' structural mask leaves (query i
+    sees key j < kv_len when i < q_len, j <= i under ``causal`` and
+    i - j < window when window > 0): the pairs whose products count as
+    a fake launch's work."""
+    n = 0
+    for i in range(min(q_len, S)):
+        hi = min(kv_len, T, i + 1) if causal else min(kv_len, T)
+        lo = max(0, i - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
 
 
 def flash_forward(q, k, v, *, scale, causal, window=0, softcap=0.0,
@@ -286,7 +303,7 @@ def flash_forward(q, k, v, *, scale, causal, window=0, softcap=0.0,
     stride a multiple of 8 elements and 16-byte aligned tensors (raises
     otherwise, never falls back); f32, and bf16 at other head_dims, run
     on the FMA kernel."""
-    if _build.on_cpu(q, k, v):
+    if not _build.fake(q) and _build.on_cpu(q, k, v):
         return flash_forward_plain(q, k, v, scale=scale, causal=causal,
                                    window=window, softcap=softcap,
                                    q_len=q_len, kv_len=kv_len)
@@ -296,6 +313,13 @@ def flash_forward(q, k, v, *, scale, causal, window=0, softcap=0.0,
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, o)
+    if _build.fake(q):
+        if design == "wgmma":
+            _check_tma("forward", (q, k, v, o), strides)
+        pairs = mask_pairs(S, dims[4], *dims[6:8], causal, window)
+        _build.record_fake("flash_fwd", design, 4 * B * H * dims[5] * pairs,
+                           (q, k, v), (o, lse))
+        return o, lse
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), ctypes.addressof(strides), *dims, int(causal),
             int(window), float(scale), float(softcap))
@@ -334,6 +358,16 @@ def _launch_backward(name, q, k, v, do, lse, delta, *, scale, causal,
     outs = (torch.empty_like(q),) if name == "dq" else \
         (torch.empty_like(k), torch.empty_like(v))
     strides = _strides(q, k, v, do, *outs)
+    if _build.fake(q):
+        if design == "wgmma":
+            _check_tma("backward", (q, k, v, do, *outs), strides)
+        # dq: s, dp and dq; dk/dv: s, dp, dv and dk (per pair, 2·hd each)
+        pairs = mask_pairs(S, dims[4], *dims[6:8], causal, window)
+        prods = 3 if name == "dq" else 4
+        _build.record_fake(f"flash_{name}", design,
+                           2 * prods * B * H * dims[5] * pairs,
+                           (q, k, v, do, lse, delta), outs)
+        return outs
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             ctypes.addressof(strides), *dims, int(causal), int(window),
@@ -365,7 +399,7 @@ def flash_backward(q, k, v, o, lse, do, *, scale, causal, window=0,
     64 or 128: the tensor cores)."""
     kw = dict(scale=scale, causal=causal, window=window, q_len=q_len,
               kv_len=kv_len)
-    if _build.on_cpu(q, k, v, o, lse, do):
+    if not _build.fake(q) and _build.on_cpu(q, k, v, o, lse, do):
         return flash_backward_plain(q, k, v, o, lse, do, **kw)
     _check(q, k, v, q_len, kv_len, o)
     if o.shape != q.shape or do.shape != q.shape:

@@ -24,7 +24,9 @@ show that its main path went through the kernels; ``VARIANT_LAUNCHES``
 splits the same launches by operand types (``"f32.bf16T->f32"``: f32 lhs,
 transposed bf16 rhs, f32 out), and ``DESIGN_LAUNCHES`` by the design that
 ran them (``"gmm:wgmma"``, ``"gmm_glu:fma"``, ...: counted, since a route
-depends on the shape).
+depends on the shape). Fake tensors take the fake route
+(``_build.fake``): the card's route and checks, no launch and no count
+here; ``_build.FAKE_WORK`` records the call.
 """
 
 from __future__ import annotations
@@ -282,7 +284,7 @@ def gmm_wgmma_plan(block_m: int, lhs_dtype=torch.bfloat16) -> dict:
 
 
 def _aligned16(name: str, *tensors):
-    if any(t.data_ptr() % 16 for t in tensors):
+    if any(_build.address(t) % 16 for t in tensors):
         raise ValueError(f"the tensor-core {name} kernel needs 16-byte "
                          f"aligned tensors")
 
@@ -322,7 +324,7 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
     the kernel: the tensor-core kernels need 16-byte aligned tensors
     (raise otherwise, never fall back); bf16 operands run only there (K
     and N multiples of 8, raises otherwise)."""
-    if _build.on_cpu(lhs, rhs, tile_group):
+    if not _build.fake(lhs) and _build.on_cpu(lhs, rhs, tile_group):
         return gmm_tiled_plain(lhs, rhs, tile_group, block_m=block_m,
                                out_dtype=out_dtype)
     out_dtype = out_dtype or lhs.dtype
@@ -337,6 +339,14 @@ def gmm_tiled(lhs, rhs, tile_group, *, block_m: int = 128, out_dtype=None):
         raise ValueError("gmm kernels take a contiguous lhs and tile_group")
     variant = tuple(_DTYPES[t] for t in (lhs.dtype, rhs.dtype, out_dtype))
     _check_tiles(Mp, tile_group, block_m)
+    if _build.fake(lhs):
+        out = torch.empty((Mp, N), dtype=out_dtype, device=lhs.device)
+        if design == "wgmma":
+            gmm_wgmma_plan(block_m, lhs.dtype)
+            _aligned16("gmm", lhs, rhs, out)
+        _build.record_fake("gmm", design, 2 * Mp * K * N,
+                           (lhs, rhs, tile_group), (out,))
+        return out
     if design == "wgmma":
         out = _gmm_wgmma(lhs, rhs, tile_group, block_m, out_dtype, trans)
     else:
@@ -422,7 +432,7 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
     picks the kernel: the tensor-core kernel (16-byte aligned tensors,
     raises otherwise) where K and N are multiples of 8, else the FMA
     kernel; neither falls back to the other."""
-    if _build.on_cpu(lhs, dout, tile_group):
+    if not _build.fake(lhs) and _build.on_cpu(lhs, dout, tile_group):
         return gmm_dw_tiled_plain(lhs, dout, tile_group, n_groups,
                                   block_m=block_m, out_dtype=out_dtype)
     Mp, K = lhs.shape
@@ -437,6 +447,13 @@ def gmm_dw_tiled(lhs, dout, tile_group, n_groups: int, *, block_m: int = 128,
             raise ValueError("gmm_dw takes contiguous tensors")
     out = torch.empty((n_groups, K, N), dtype=torch.float32,
                       device=lhs.device)
+    if _build.fake(lhs):
+        if design == "wgmma":
+            gmm_dw_wgmma_plan(block_m, lhs.dtype)
+            _aligned16("gmm_dw", lhs, dout, out)
+        _build.record_fake("gmm_dw", design, 2 * Mp * K * N,
+                           (lhs, dout, tile_group), (out,))
+        return out.to(out_dtype)
     dt = _DTYPES[lhs.dtype]
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     args = (lhs.data_ptr(), dout.data_ptr(), tile_group.data_ptr(),
@@ -501,6 +518,14 @@ def _gmm_glu_call(lhs, w_gate, w_up, tile_group, N: int, ldw: int,
     Mp, K = lhs.shape
     design = gmm_glu_route(lhs.dtype, K, N, ldw, u_off, block_m)
     out = torch.empty((Mp, N), dtype=lhs.dtype, device=lhs.device)
+    if _build.fake(lhs):
+        if design == "wgmma":
+            gmm_wgmma_plan(block_m)
+            _aligned16("gmm_glu", lhs, w_gate, w_up, out)
+        weights = (w_gate,) if w_up is w_gate else (w_gate, w_up)
+        _build.record_fake("gmm_glu", design, 4 * Mp * K * N,
+                           (lhs, *weights, tile_group), (out,))
+        return out
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     ptrs = (lhs.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
             tile_group.data_ptr(), out.data_ptr())
@@ -523,7 +548,8 @@ def gmm_glu_tiled_pair(lhs, rhs_gate, rhs_up, tile_group, *,
                        block_m: int = 128):
     """Fused GLU grouped matmul with gate/up as separate [G, K, N] weights
     (the param layout): [Mp, N] = silu(lhs @ gate) * (lhs @ up) per tile."""
-    if _build.on_cpu(lhs, rhs_gate, rhs_up, tile_group):
+    if not _build.fake(lhs) and _build.on_cpu(lhs, rhs_gate, rhs_up,
+                                              tile_group):
         return gmm_glu_plain(lhs, rhs_gate, rhs_up, tile_group,
                              block_m=block_m)
     if rhs_gate.shape != rhs_up.shape:
@@ -540,7 +566,7 @@ def gmm_glu_tiled(lhs, rhs_stacked, tile_group, *, block_m: int = 128):
     if N2 % 2:
         raise ValueError("stacked GLU weights need an even last dim")
     N = N2 // 2
-    if _build.on_cpu(lhs, rhs_stacked, tile_group):
+    if not _build.fake(lhs) and _build.on_cpu(lhs, rhs_stacked, tile_group):
         return gmm_glu_plain(lhs, rhs_stacked[..., :N], rhs_stacked[..., N:],
                              tile_group, block_m=block_m)
     return _gmm_glu_call(lhs, rhs_stacked, rhs_stacked, tile_group, N, N2, N,

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_kernel
 from repro_torch.kernels import paged_attention as pa
@@ -190,8 +191,9 @@ class _GroupProductsF32(torch.autograd.Function):
     """Unrounded f32 products of low-precision operands, with their
     gradient. On the card the GEMM writes f32 straight from bf16 operands
     (``torch.bmm(..., out_dtype=float32)``, which autograd cannot
-    differentiate); on the CPU the operands are widened first, which gives
-    the same exact products. The backward is the same f32 products of the
+    differentiate), and so on a fake tensor (the dry run's stand-in for
+    one); on the CPU the operands are widened first, which gives the same
+    exact products. The backward is the same f32 products of the
     cotangent with the widened other operand, rounded once to each
     input's dtype (the JAX package's transpose of a dot with
     ``preferred_element_type=float32``)."""
@@ -200,7 +202,7 @@ class _GroupProductsF32(torch.autograd.Function):
     def forward(ctx, a, w):
         ctx.save_for_backward(a, w)
         a3 = a.expand(w.shape[0], *a.shape) if a.dim() == 2 else a
-        if a.is_cuda:
+        if a.is_cuda or _build.fake(a):
             return torch.bmm(a3, w, out_dtype=torch.float32)
         return torch.bmm(a3.float(), w.float())
 

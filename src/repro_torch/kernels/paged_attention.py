@@ -122,7 +122,8 @@ def paged_decode_forward(q, k_pool, v_pool, page_table, q_pos, *, scale,
     row without a live line or a dead slot): what a log-sum-exp merge of
     partial results over disjoint pages weighs the row by."""
     tensors = (q, k_pool, v_pool, page_table, q_pos)
-    if _build.on_cpu(*tensors):
+    fake = _build.fake(q)
+    if not fake and _build.on_cpu(*tensors):
         return paged_decode_plain(q, k_pool, v_pool, page_table, q_pos,
                                   scale=scale, softcap=softcap, window=window,
                                   return_lse=return_lse)
@@ -147,15 +148,22 @@ def paged_decode_forward(q, k_pool, v_pool, page_table, q_pos, *, scale,
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("paged decode takes contiguous tensors")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+    if _build.address(k_pool) % 16 or _build.address(v_pool) % 16:
         raise ValueError("paged decode needs 16-byte aligned pools")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, KH, G), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if fake:  # every table slot's lines counted: the lengths are data
+        lines = B * KH * MP * ps
+        _build.record_fake("paged_decode", None, 4 * G * hd * lines,
+                           (q, page_table, q_pos),
+                           (out,) + ((lse,) if return_lse else ()),
+                           read=2 * lines * hd * k_pool.element_size())
+        return (out, lse) if return_lse else out
     plan = paged_decode_plan(B, KH, G, hd, MP, q.element_size(),
                              _sm_count(q.device.index or 0))
     part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
                        device=q.device)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, KH, G), dtype=torch.float32, device=q.device) \
-        if return_lse else None
     fn = getattr(_lib(), f"paged_decode_{_DTYPES[q.dtype]}")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              page_table.data_ptr(), q_pos.data_ptr(), part.data_ptr(),

@@ -198,6 +198,21 @@ def _check(x, dt, A, B, C):
     return b, T, h, hd, ns
 
 
+def ssd_flops(b: int, T: int, h: int, hd: int, ns: int, Q: int) -> int:
+    """The scan's products (the math, one term per factor): per (batch,
+    head) and chunk of r live rows the causal half of G·x̄ (2·hd per
+    (i, j) pair with j <= i), C·S (but for the first chunk, where S = 0)
+    and the state update (2·r·ns·hd each), and C·Bᵀ once per (batch,
+    chunk) over its pairs."""
+    flops = 0
+    for c, c0 in enumerate(range(0, T, Q)):
+        r = min(Q, T - c0)
+        pairs = r * (r + 1) // 2
+        flops += b * h * (2 * hd * pairs + 2 * r * ns * hd * (2 if c else 1))
+        flops += b * 2 * ns * pairs
+    return flops
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk):
     """x: [b, T, h, hd]; dt: [b, T, h] f32; A: [h] f32; B/C: [b, T, ns].
 
@@ -205,15 +220,28 @@ def ssd_scan(x, dt, A, B, C, *, chunk):
     f32). On CUDA tensors :func:`ssd_route` picks the kernel; the
     tensor-core design also takes a temporary f32 scratch of the chunk
     states, [b, h, ceil(T / Q), hd, ns]."""
-    if _build.on_cpu(x, dt, A, B, C):
+    fake = _build.fake(x)
+    if not fake and _build.on_cpu(x, dt, A, B, C):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     b, T, h, hd, ns = _check(x, dt, A, B, C)
     Q = chunk_rows(T, chunk)
     design = ssd_route(x.dtype, hd, ns, Q,
                        (*x.stride()[:3], *B.stride()[:2], *C.stride()[:2]),
-                       (x.data_ptr(), B.data_ptr(), C.data_ptr()))
+                       (_build.address(x), _build.address(B),
+                        _build.address(C)))
     y = torch.empty((b, T, h, hd), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, hd, ns), dtype=torch.float32, device=x.device)
+    if fake:
+        outs = (y, state)
+        if design == "wgmma":  # and its scratch of chunk states, totals
+            nc = -(-T // Q)
+            outs += (torch.empty((b, h, nc, hd, ns), dtype=torch.float32,
+                                 device=x.device),
+                     torch.empty((b, h, nc), dtype=torch.float32,
+                                 device=x.device))
+        _build.record_fake("ssd", design, ssd_flops(b, T, h, hd, ns, Q),
+                           (x, dt, A, B, C), outs)
+        return y, state
     st = [*x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
           *y.stride()[:3]]
     strides = (ctypes.c_longlong * len(st))(*st)

@@ -6,10 +6,14 @@ run policy and zebra default) on a ``--mesh DxM`` of ranks, ``--steps``
 steps on the driver's batches, and counts the collectives of the last
 step on every rank: calls, the bytes of the whole tensor each one sums or
 assembles (an all-reduce's tensor, an all-gather's output, a
-reduce-scatter's input, an all-to-all's input) and the bytes a rank sends
-on a ring (all-reduce 2 (n-1)/n of them, the others (n-1)/n, n the
-group's size). Rank 0 prints one ``[mesh_comm] {json}`` line (``--out``:
-also written there) with rank 0's counts and every rank's totals.
+reduce-scatter's input, an all-to-all's input), the operand bytes of the
+JAX package's collective tally (an all-gather's input piece, the whole
+tensor otherwise) and the bytes a rank sends on a ring (all-reduce 2
+(n-1)/n of them, the others (n-1)/n, n the group's size; a message sent
+point to point all of them, one received none). ``Counter`` is also the
+dry run's tally (``launch/dryrun.py``, ``launch/hlo_analysis.py``). Rank
+0 prints one ``[mesh_comm] {json}`` line (``--out``: also written there)
+with rank 0's counts and every rank's totals.
 
     # zebra replicated ("hybrid" rules) on 2 CPU ranks (gloo):
     PYTHONPATH=src python -m repro_torch.launch.mesh_comm --arch \\
@@ -30,7 +34,8 @@ import torch
 import torch.distributed as dist
 
 KINDS = {"all_reduce": 2, "all_gather": 1, "reduce_scatter": 1,
-         "all_to_all_single": 1, "broadcast": 1}
+         "all_to_all_single": 1, "broadcast": 1, "isend": None,
+         "irecv": None}
 
 
 def _payload(kind: str, args) -> int:
@@ -41,7 +46,15 @@ def _payload(kind: str, args) -> int:
         return sum(t.nbytes for t in args[1])
     if kind == "all_to_all_single":    # (out, inp)
         return args[1].nbytes
-    return args[0].nbytes              # all_reduce, broadcast (t)
+    return args[0].nbytes              # all_reduce, broadcast, p2p (t)
+
+
+def _ring(kind: str, N: int, n: int) -> int:
+    """Bytes a rank sends for a call of ``N`` payload bytes on a group of
+    ``n`` ranks."""
+    if KINDS[kind] is None:            # point to point: the sender's
+        return N if kind == "isend" else 0
+    return KINDS[kind] * (n - 1) * N // n
 
 
 class Counter:
@@ -61,11 +74,14 @@ class Counter:
             if self.on:
                 n = dist.get_world_size(kw.get("group"))
                 N = _payload(kind, args)
-                c = self.counts.setdefault(kind, {"calls": 0, "bytes": 0,
-                                                  "ring_bytes": 0})
+                c = self.counts.setdefault(kind, {
+                    "calls": 0, "bytes": 0, "operand_bytes": 0,
+                    "ring_bytes": 0})
                 c["calls"] += 1
                 c["bytes"] += N
-                c["ring_bytes"] += KINDS[kind] * (n - 1) * N // n
+                c["operand_bytes"] += args[1].nbytes \
+                    if kind == "all_gather" else N
+                c["ring_bytes"] += _ring(kind, N, n)
             return real(*args, **kw)
         return call
 

@@ -14,7 +14,8 @@ values.
 
 Ported: attention mixers (full and sliding-window; reference, chunked and
 flash attention), the mamba2 SSD mixer (its cache-free path through the SSD
-scan kernel, its cached path through ``ref.ssd_decode_step``), the
+scan kernel, its cached path through ``ref.ssd_decode_step`` for one
+token and ``ref.ssd_chunked`` from the state for more), the
 recurrentgemma RG-LRU mixer (its linear recurrence a doubling scan in plain
 torch, as the JAX package's ``associative_scan`` is plain ``jnp``), layers
 without a mixer (mixer ``"none"``), cross-attention over an encoder or
@@ -864,6 +865,18 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _ssd_from_state(x, dt, A, B, C, state, chunk: int):
+    """The scan from a carried f32 state: one token through the sequential
+    update (``ref.ssd_decode_step``, the JAX package's route); more
+    through the chunked dual form from that state (``ref.ssd_chunked``),
+    the same recurrence summed in another order. The JAX package scans
+    any length token by token, one compiled loop there; eagerly that is
+    some 25 launches a token (a 32768-token prefill of 64 layers: 50 M)."""
+    if x.shape[1] == 1:
+        return kref.ssd_decode_step(x, dt, A, B, C, state)
+    return kref.ssd_chunked(x, dt, A, B, C, chunk=chunk, initial_state=state)
+
+
 def apply_ssd(params, cfg: ModelConfig, run: RunConfig, x, state=None):
     """mamba2 SSD mixer. x: [B, S, d] -> (y, new_state).
 
@@ -871,8 +884,8 @@ def apply_ssd(params, cfg: ModelConfig, run: RunConfig, x, state=None):
     ``ops.ssd``: the SSD scan kernel on the card, its plain version on the
     CPU, and the backward by autograd of ``ref.ssd_chunked``; that is the
     JAX package's ``use_gmm_kernel=True`` route, the only one the port has.
-    With a state ({"conv", "ssm"}, :func:`init_ssd_state`) it is the
-    sequential ``ref.ssd_decode_step``, as in the JAX package. On the
+    With a state ({"conv", "ssm"}, :func:`init_ssd_state`) it runs from
+    that state (:func:`_ssd_from_state`). On the
     serving mesh the state's ``ssm`` may be this rank's block of heads
     (its ``heads`` = (first, last, group), ``serve.mesh.RecurrentBlocks``):
     the step then runs on those heads and its output ``y`` is all-gathered
@@ -903,13 +916,13 @@ def apply_ssd(params, cfg: ModelConfig, run: RunConfig, x, state=None):
         y, last_state = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     elif "heads" in state:
         lo, hi, group = state["heads"]
-        y, last_state = kref.ssd_decode_step(
+        y, last_state = _ssd_from_state(
             xs[:, :, lo:hi], dt[..., lo:hi], A[lo:hi], Bm, Cm,
-            state["ssm"].float())
+            state["ssm"].float(), cfg.ssm_chunk)
         y = C.gather_nograd(y, 2, group)
     else:
-        y, last_state = kref.ssd_decode_step(xs, dt, A, Bm, Cm,
-                                             state["ssm"].float())
+        y, last_state = _ssd_from_state(xs, dt, A, Bm, Cm,
+                                        state["ssm"].float(), cfg.ssm_chunk)
 
     y = y + params["D"].to(cd)[None, None, :, None] * xs
     y = y.reshape(B, S, din)

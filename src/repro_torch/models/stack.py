@@ -331,17 +331,10 @@ def zero_fronts(cfg: ModelConfig, batch: int, dtype, device="cpu") -> dict:
     drivers' launch/train.py:127-136 and launch/serve.py:141-148):
     ``encoder_embeds`` [batch, encoder_seq, d] for an encoder-decoder
     arch, ``vision_embeds`` [batch, vision_seq, vision_dim] for a vision
-    arch, nothing for a decoder-only one."""
-    fronts = {}
-    if cfg.is_encdec:
-        fronts["encoder_embeds"] = torch.zeros(
-            (batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
-            device=device)
-    if cfg.vision_seq > 0:
-        fronts["vision_embeds"] = torch.zeros(
-            (batch, cfg.vision_seq, cfg.vision_dim or cfg.d_model),
-            dtype=dtype, device=device)
-    return fronts
+    arch, nothing for a decoder-only one (``configs.inputs.front_specs``)."""
+    from repro_torch.configs.inputs import front_specs
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in front_specs(cfg, batch, dtype).items()}
 
 
 def cross_memory(params, cfg: ModelConfig, run: RunConfig, B: int,

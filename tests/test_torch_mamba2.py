@@ -7,7 +7,9 @@ the JAX init carried over by ``params_from_jax``, under the f32 policy.
 * ``apply_ssd`` cache-free (the JAX package through its Pallas kernel in
   interpret mode, ``use_gmm_kernel=True``; the port through the scan's
   plain version) and with a decode state (``ref.ssd_decode_step`` in
-  both): output and new state within 1e-5 * max|want|;
+  both), and 2 or 80 tokens from a random state (JAX token by token, the
+  port through ``ref.ssd_chunked`` from that state): output and new state
+  within 1e-5 * max|want|;
 * ``apply_model`` logits at S 80 (three chunks, the last one ragged)
   within 1e-4, the tier of tests/test_torch_model.py;
 * the deterministic init leaves (A_log, D, norm, dt_bias, conv_b) of the
@@ -96,6 +98,29 @@ def test_apply_ssd_matches_jax(model, with_state):
         for k in ("conv", "ssm"):
             assert got_state[k].dtype == tstate[k].dtype
             _close(got_state[k], want_state[k], 1e-5)
+
+
+@pytest.mark.parametrize("S", [2, 80])
+def test_apply_ssd_from_state_matches_jax(model, S):
+    """More than one token from a random non-zero state: the JAX package
+    scans them token by token, the port through ``ref.ssd_chunked`` from
+    that state (80: three chunks of 32, the last one ragged)."""
+    jcfg, jp, cfg, tp = model
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, S, cfg.d_model).astype(np.float32)
+    shapes = {k: v.shape for k, v in
+              modules.init_ssd_state(cfg, 2, torch.float32).items()}
+    st = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    got, got_state = modules.apply_ssd(
+        _layer0(tp), cfg, RUN, torch.from_numpy(x),
+        {k: torch.from_numpy(v) for k, v in st.items()})
+    want, want_state = jmodules.apply_ssd(
+        _layer0(jp), jcfg, JRUN, jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in st.items()})
+    assert got.shape == want.shape
+    _close(got, want, 1e-5)
+    for k in ("conv", "ssm"):
+        _close(got_state[k], want_state[k], 1e-5)
 
 
 def test_cache_free_logits_match_jax(model):

@@ -46,8 +46,13 @@ def assert_same(fn_port, fn_jax, *args, **kw):
 def test_device_classes_identical():
     assert {k: plain(v) for k, v in hardware.CLASSES.items()} == \
         {k: plain(v) for k, v in j_hw.CLASSES.items()}
-    for name in ("ROOFLINE_PEAK_FLOPS", "ROOFLINE_HBM_BW", "ROOFLINE_ICI_BW"):
-        assert getattr(hardware, name) == getattr(j_hw, name)
+    # The roofline constants are the port's target card's, the H100 SXM
+    # datasheet's (the dry run's roofline), not the JAX package's TPU v5e
+    # ROOFLINE_* figures.
+    assert not [n for n in dir(hardware) if n.startswith("ROOFLINE_")]
+    assert (hardware.H100_PEAK_FLOPS, hardware.H100_HBM_BW,
+            hardware.H100_NVLINK_BW, hardware.H100_NET_BW) == \
+        (989e12, 3.35e12, 450e9, 50e9)
 
 
 # ---------------------------------------------------------------------------
