@@ -136,6 +136,16 @@ full depth, with random weights from seed 0:
   the pool split in two halves, each through the kernel on a rank-local
   table, merged by log-sum-exp (``modules.merge_partials``), against the
   whole pool's kernel, with the kernel's time with and without the lse.
+* serve_tp: the serving mesh's tensor parallelism over "model":
+  ``llama3.2-3b`` at full width and depth (28 layers, d 3072, 24 q / 8 kv
+  heads, d_ff 8192, vocab 128256), bf16, on the serve trace (no EOS: the
+  generation lengths are the trace's), dense and ``--paged``, at
+  ``--mesh 1x1`` and as model rank 1 of ``--mesh 1x4`` on PyTorch's fake
+  process-group backend (collectives launched, no data moved), each mesh
+  in a process of its own: the rank computes q heads 6-11 and the kv
+  heads 2-3 they read, 2048 of the FFN's 8192 columns and 32064 of the
+  vocabulary's rows, and holds a quarter of every cache's lines and
+  pool's pages.
 * serve_rgemma: ``recurrentgemma-9b`` (38 layers: 12 x (RG-LRU, RG-LRU,
   local attention with a 2048-line window) + 2 RG-LRU; d_model 4096,
   lru_width 4096, MQA 16 x 256, a tied 256000 vocab; 9.40 B params) on
@@ -385,6 +395,14 @@ It fails unless:
   1e-5 * max(1, max|lse|) of the plain one with -inf where it is; the
   two-half merge within 1e-5 * max|whole| (f32) or 2e-2 * min(1,
   max|whole|) (bf16, the values scaled by GRAD_BF16_CT);
+* serve_tp: on rank 1 of the fake 1x4 world, in both modes, every
+  attention call at 6 q and 2 kv heads, every FFN at width 2048 and
+  summed over "model" by one collective, every unembedding a block of 32064 columns before its gather, as many decode
+  steps as the 1x1 run, the paged decode launches a decode step equal to
+  the 1x1 run's (28), and a peak ``torch.cuda.max_memory_allocated``
+  below the 1x1 run's (TTFT p50, ITL p50 and tok/s of both runs, labelled
+  one rank's compute with the collectives not run, both peaks and the
+  collectives by kind with their bytes printed);
 * train_mpmd: one step traced (``obs.trace.Tracer`` installed) is bitwise
   the untraced step, loss and every gradient leaf, with the reference's
   spans (R embed, head and embed^B, R * L F and B);
@@ -439,7 +457,7 @@ serve_dense, serve_fleet, serve_ep and ep_tiles lines (each as its
 phase ends), the train
 runs' lines, the train_ckpt, train_accum, remat_dots, compress,
 train_trace, train_mesh, train_sp and dryrun lines (each as its phase
-ends), the
+ends), the serve_tp line (after serve_mesh), the
 kernel
 tolerances,
 the ``kernels`` JSON line
@@ -642,6 +660,18 @@ WGMMA_GMM = ("gmm:bf16.bf16->bf16", "gmm:bf16.bf16->f32",
 GRAD_BF16_CT = 0.05         # cotangent scale: every bf16 gradient below 2
 # the serving mesh (serve_mesh:): the serve trace dense and paged at 1x1
 MESH_SERVE = ("dense", "paged")
+# the serving mesh's tensor parallelism (serve_tp:): llama3.2-3b at full
+# width and depth on the serve trace, at 1x1 and as model rank TP_RANK of
+# 1xTP_M on the fake backend: q heads in blocks of 6 (rank 1: q heads
+# 6-11, reading kv heads 2-3), d_ff 8192 in blocks of 2048, the vocabulary
+# 128256 in blocks of 32064
+TP_ARCH = "llama3.2-3b"
+TP_M, TP_RANK = 4, 1
+TP_ARGS = ["--arch", TP_ARCH] + UNPAGED_ARGS[2:]
+TP_HEADS = [6, 2]           # [q heads, kv heads] of every attention call
+TP_FFN = 2048               # "mlp" columns of every FFN call
+TP_VOCAB = 32064            # logit columns of every unembedding block
+TP_LAYERS = 28              # attention layers: paged decode a step
 LSE_TIER = 1e-5             # lse, kernel vs plain: of max(1, max|lse|)
 MERGE_F32_TIER = 1e-5       # two-half merge vs the whole pool (f32)
 C1_BLOCK_M = (8, 16, 32)    # the row tiles under 64 (capacity routing)
@@ -4349,6 +4379,134 @@ def serve_mesh_phase(torch, serve_mod, params, smi: str):
     return line, counts_by
 
 
+def tp_rank_worker(model: int, rank: int, out_path: str):
+    """Model rank ``rank`` of ``--mesh 1x<model>`` (TP_ARGS) on the fake
+    process-group backend, in a process of its own: the serve driver's
+    run of the serve trace, dense then ``--paged`` (each after one untimed
+    warm-up request, not counted), on the seed-0 params
+    the deployment draws (on the 1x4 rank each leaf drawn whole and cut
+    to the rank's block as it is drawn), each run's launch and
+    collective counters set to 0 just before and read just after, with
+    ``obs.census.serve_census`` (the heads, FFN width and vocabulary block
+    of every call) and ``launch.mesh_comm.Counter`` (the collectives'
+    bytes) on; the decode steps and the peak of
+    ``torch.cuda.max_memory_allocated`` of each. Writes them to
+    ``out_path`` as JSON."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh_comm import Counter
+    from repro_torch.obs.census import serve_census
+    from repro_torch.sharding import collectives as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=model)
+    try:
+        mesh = make_mesh((1, model), ("data", "model"), "cuda")
+        out = {"torch": torch.__version__, "backend": dist.get_backend(),
+               "world": model, "rank": rank, "coords": mesh.coords}
+        for mode in MESH_SERVE:
+            argv = TP_ARGS + ["--mesh", f"1x{model}"] + (
+                ["--paged"] if mode == "paged" else [])
+            serve_run(torch, serve_mod, argv + ["--requests", "1", "--gen",
+                                                "4"],
+                      params=None, arch=TP_ARCH, mesh=mesh)  # warm-up
+            box = {}
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            C.reset_counts()
+            counter = Counter()
+            try:
+                counter.on = True
+                with serve_census() as rec:
+                    s, counts, eng, _ = serve_run(
+                        torch, serve_mod, argv, params=None, arch=TP_ARCH,
+                        mesh=mesh, hook=lambda e: box.update(e=e))
+            finally:
+                counter.close()
+            out[mode] = {
+                "numbers": run_numbers(s), "ok": s["ok"],
+                "decode_steps": eng.n_decode_steps,
+                "counts": {k: counts[k] for k in SERVE_KERNELS},
+                "collectives": dict(C.COUNTS),
+                "collective_bytes": {k: c["bytes"]
+                                     for k, c in counter.counts.items()},
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "attn": sorted(set(map(tuple, rec["attn"]))),
+                "ffn": sorted(set(rec["ffn"])),
+                "ffn_sums": sorted(set(rec["ffn_sums"])),
+                "vocab": sorted(set(rec["vocab"])),
+                "weight_bytes_per_step": sorted(set(rec["weights"]))}
+            del eng, box
+        pathlib.Path(out_path).write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_tp_phase(torch, smi: str):
+    """The serving mesh's tensor parallelism on one rank of a wider mesh:
+    llama3.2-3b at full width and depth (TP_ARGS: the serve trace, bf16,
+    dense and ``--paged``) at ``--mesh 1x1`` and as model rank TP_RANK of
+    ``--mesh 1xTP_M`` on the fake backend (collectives launched but not
+    run: the rank's values are not checked), each mesh in a process of
+    its own (:func:`tp_rank_worker`). Gates on the 1xTP_M rank, in each
+    mode: every request finishes; every attention call at TP_HEADS heads,
+    every FFN at TP_FFN columns summed over "model" by one collective,
+    every unembedding block at TP_VOCAB
+    columns; as many decode steps as the 1x1 run and the same paged
+    decode launches a decode step (TP_LAYERS, paged; 0 dense); its peak
+    memory below the 1x1 run's. Reported: TTFT p50, ITL p50 and tok/s of
+    both runs (host clock; the rank's labelled one rank's compute with
+    the collectives not run), both peaks, the weight bytes a step runs on
+    and the collectives by kind with their bytes."""
+    one = spawned_json(torch, "serve_tp: 1x1", tp_rank_worker, 1, 0)
+    tp = spawned_json(torch, f"serve_tp: rank {TP_RANK} of 1x{TP_M}",
+                      tp_rank_worker, TP_M, TP_RANK)
+    line = {"arch": TP_ARCH, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "torch": tp["torch"],
+            "backend": tp["backend"], "mesh": f"1x{TP_M}", "rank": TP_RANK,
+            "coords": tp["coords"], "modes": {}}
+    ok = True
+    for mode in MESH_SERVE:
+        a, b = one[mode], tp[mode]
+        per_step = [r["counts"]["paged_decode"] / max(r["decode_steps"], 1)
+                    for r in (a, b)]
+        want = TP_LAYERS if mode == "paged" else 0
+        sub = {"attn_heads": b["attn"], "ffn_widths": b["ffn"],
+               "ffn_sums": b["ffn_sums"], "vocab_blocks": b["vocab"],
+               "one_rank_attn_heads": a["attn"],
+               "one_rank_ffn_widths": a["ffn"],
+               "one_rank_vocab_blocks": a["vocab"],
+               "decode_steps": [a["decode_steps"], b["decode_steps"]],
+               "paged_decode_per_step": per_step,
+               "launches": [a["counts"], b["counts"]],
+               "one_rank_compute_collectives_not_run": b["numbers"],
+               "one_rank_1x1": a["numbers"],
+               "peak_bytes": b["peak_bytes"],
+               "peak_bytes_1x1": a["peak_bytes"],
+               "weight_bytes_per_step": b["weight_bytes_per_step"],
+               "weight_bytes_per_step_1x1": a["weight_bytes_per_step"],
+               "collectives": b["collectives"],
+               "collective_bytes": b["collective_bytes"],
+               "collectives_1x1": a["collectives"]}
+        sub["ok"] = bool(
+            a["ok"] and b["ok"] and b["attn"] == [TP_HEADS]
+            and b["ffn"] == [TP_FFN] and b["ffn_sums"] == [1]
+            and b["vocab"] == [TP_VOCAB]
+            and a["decode_steps"] == b["decode_steps"] > 0
+            and per_step == [want, want]
+            and b["peak_bytes"] < a["peak_bytes"])
+        ok &= sub["ok"]
+        line["modes"][mode] = sub
+    line["ok"] = bool(ok)
+    return line
+
+
 def paged_lse_case(torch, cfg, label: str, B: int, MP: int, q_pos, dtype,
                    seed: int, window: int = 0):
     """The paged decode kernel's lse output (:func:`paged_case`'s inputs,
@@ -5254,6 +5412,8 @@ def main() -> int:
     del w2_params, unified_tokens
     gc.collect()
     torch.cuda.empty_cache()
+    tp_line = serve_tp_phase(torch, smi)
+    print("serve_tp: " + json.dumps(tp_line), flush=True)
     paged_lse = paged_lse_phase(torch)
     print("paged_lse: " + json.dumps(paged_lse), flush=True)
     torch.cuda.empty_cache()
@@ -5528,7 +5688,7 @@ def main() -> int:
         "train_accum": accum_line, "remat_dots": dots_line,
         "compress": compress_line, "train_trace": trace_line,
         "train_mesh": mesh_line, "train_sp": sp_line,
-        "dryrun": dryrun_line,
+        "serve_tp": tp_line, "dryrun": dryrun_line,
         "flash_cases": flash_entries + flash_cases,
         "ssd_cases": ssd_cases, "ssd_grad": ssd_grad,
         "serve_rgemma": rgemma_line, "serve_mamba2": m2_serve_line,
@@ -5734,6 +5894,13 @@ def main() -> int:
              f"{SP_KEPT}, its flash launches were not {SP_FLASH_LAUNCHES} "
              "per layer and step, or its peak memory was not below the "
              "1x1 run's"),
+            ("serve_tp", tp_line, f"rank {TP_RANK} of the fake 1x{TP_M} "
+             f"world left a request unfinished, ran an attention call at "
+             f"other than {TP_HEADS} heads, an FFN at other than {TP_FFN} "
+             f"columns or an unembedding block at other than {TP_VOCAB}, "
+             "decoded other than the 1x1 run's steps, launched other than "
+             f"{TP_LAYERS} paged decodes a decode step (paged; 0 dense), or "
+             "its peak memory was not below the 1x1 run's"),
             ("serve_rgemma", rgemma_line, "a request did not finish, an "
              "allocator was not clean, the paged decode launches are not 12 "
              "a decode step in the paged and disagg runs and 0 in the dense "

@@ -36,6 +36,7 @@ with a cache, never in training.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional
 
@@ -207,12 +208,27 @@ def init_embedding(cfg: ModelConfig):
 
 
 def apply_embedding(params, cfg: ModelConfig, policy: Policy, tokens,
-                    positions=None):
+                    positions=None, vocab=None):
     """Token embedding (scaled by sqrt(d) under ``emb_scale``), plus the
     learned position rows ``pos[positions]`` in the compute dtype where
-    the tree has them and ``positions`` [B, S] is given."""
+    the tree has them and ``positions`` [B, S] is given. ``vocab`` (a
+    ``train.step.BlockPlan``; the serving mesh): the table is this rank's
+    rows [lo, hi) of it, looked up where a token falls in them and summed
+    over the plan's group (one row and zeros: the same bits)."""
     cd = policy.compute_dtype
-    x = params["table"][tokens.long()].to(cd)
+    if vocab is None:
+        x = params["table"][tokens.long()].to(cd)
+    else:
+        t = tokens.long() - vocab.lo
+        own = (t >= 0) & (t < vocab.hi - vocab.lo)
+        table = params["table"]
+        if table.shape[0]:
+            x = table[t.clamp(0, table.shape[0] - 1)].to(cd)
+            x = torch.where(own[..., None], x, torch.zeros((), dtype=cd,
+                                                           device=x.device))
+        else:
+            x = table.new_zeros((*t.shape, table.shape[1]), dtype=cd)
+        x = C.all_reduce(x, vocab.group)
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd,
                              device=x.device)
@@ -221,13 +237,24 @@ def apply_embedding(params, cfg: ModelConfig, policy: Policy, tokens,
     return x
 
 
-def apply_unembedding(params, head, cfg: ModelConfig, policy: Policy, x):
+def apply_unembedding(params, head, cfg: ModelConfig, policy: Policy, x,
+                      vocab=None):
     """x: [..., d_model] -> logits [..., vocab] in the accum dtype.
 
     The JAX package multiplies compute-dtype operands with an unrounded f32
     result; here both operands are widened to f32 first, which gives the
     same exact products (a bf16 matmul would round the logits and create
-    argmax ties)."""
+    argmax ties). ``vocab`` (a ``train.step.BlockPlan``; the serving
+    mesh): the table is this rank's rows of it, whose logits are
+    all-gathered over the plan's group (:func:`unembed_block` is the
+    block alone)."""
+    y = unembed_block(params, head, policy, x)
+    return y if vocab is None else vocab.gather(y)
+
+
+def unembed_block(params, head, policy: Policy, x):
+    """The logits of the table's rows (this rank's block of the
+    vocabulary on the serving mesh, else all of it)."""
     table = head if head is not None else params["table"]
     acc = policy.accum_dtype
     return x.to(acc) @ table.to(policy.compute_dtype).to(acc).T
@@ -401,6 +428,79 @@ def merge_attention(out, lse, group):
                           C.gather_nograd(lse[None].contiguous(), 0, group))
 
 
+@functools.lru_cache(maxsize=None)
+def _kv_owners(plans: tuple, G: int, KH: int) -> tuple:
+    """Who sends which kv heads in :func:`_gather_heads`: kv head j
+    comes from the rank holding q head j * G, its group's first. Returns
+    (each rank's [lo, hi) of them, the gather's block kb, the gathered
+    slot of each kv head, whether that is the identity)."""
+    owner = [next(s for s, p in enumerate(plans) if p.q[0] <= j * G < p.q[1])
+             for j in range(KH)]
+    ranges = []
+    for s in range(len(plans)):
+        js = [j for j in range(KH) if owner[j] == s]
+        ranges.append((js[0], js[-1] + 1) if js else (0, 0))
+    kb = max(b - a for a, b in ranges)
+    index = tuple(owner[j] * kb + j - ranges[owner[j]][0] for j in range(KH))
+    return tuple(ranges), kb, index, index == tuple(range(len(plans) * kb))
+
+
+def _gather_heads(q, k, v, cfg: ModelConfig, sh, with_q: bool):
+    """The new tokens' k and v of every kv head, for the write into a cache
+    whose blocks hold every kv head, and with ``with_q`` the queries of
+    every q head, to attend over the rank's lines, from this rank's heads
+    (q, k, v [B, S, heads of ``sh.heads``, hd]): one all-gather over
+    ``sh.tp_group`` of each rank's q heads (padded to ceil(H / M)) beside
+    the kv heads it sends (:func:`_kv_owners`). Returns (q or None, k,
+    v)."""
+    plans, r = sh.head_plans, sh.kv_rank
+    M, H, KH = len(plans), cfg.n_heads, cfg.n_kv_heads
+    ranges, kb, index, ident = _kv_owners(plans, H // KH, KH)
+    a, n = ranges[r][0] - plans[r].kv[0], ranges[r][1] - ranges[r][0]
+    parts = [(k[:, :, a:a + n], kb), (v[:, :, a:a + n], kb)]
+    if with_q:
+        parts.insert(0, (q, -(-H // M)))
+    widths = [w for _, w in parts]
+    blk = torch.cat([F.pad(t, (0, 0, 0, w - t.shape[2])) for t, w in parts],
+                    2)
+    B, S, _, hd = blk.shape
+    got = C.gather_nograd(blk, 2, sh.tp_group).reshape(B, S, M, sum(widths),
+                                                       hd)
+    got = [t.reshape(B, S, M * w, hd)
+           for t, w in zip(got.split(widths, 3), widths)]
+    k, v = got[-2:]
+    if not ident:
+        idx = torch.tensor(index, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return (got[0][:, :, :H] if with_q else None), k, v
+
+
+def _own_heads(out, lse, cfg: ModelConfig, sh, group):
+    """This rank's q heads of the partial attentions of every head over the
+    rank's own keys (out [B, S, H, hd], lse [B, S, H] f32): with ``group``
+    (the cache split over it) each rank's partials of this rank's heads
+    come here by one all-to-all, each lse riding as extra columns of its
+    out row (its f32 bits viewed as out's dtype), and are merged in rank
+    order (:func:`merge_partials`: the bits :func:`merge_attention` gives
+    them); else the rank holds every key and takes its heads."""
+    lo, hi = sh.heads.q
+    if group is None:
+        return out[:, :, lo:hi]
+    M = len(sh.head_plans)
+    hd = out.shape[-1]
+    hb = -(-cfg.n_heads // M)
+    pad = M * hb - cfg.n_heads
+    if pad:
+        out = F.pad(out, (0, 0, 0, pad))
+        lse = F.pad(lse, (0, pad), value=-torch.inf)
+    B, S = out.shape[:2]
+    packed = torch.cat([out, lse[..., None].contiguous().view(out.dtype)], -1)
+    got = C.all_to_all_nograd(packed.reshape(B, S, M, hb, -1).movedim(2, 0),
+                              group)
+    lses = got[..., hd:].contiguous().view(lse.dtype)[..., 0]
+    return merge_partials(got[..., :hd], lses)[:, :, :hi - lo]
+
+
 def _project_qkv(params, cfg: ModelConfig, run: RunConfig, x, positions,
                  kv=None, kv_positions=None, rope: bool = True):
     """q/k/v projection + qk-norm + rope. K and V come from the memory
@@ -430,7 +530,7 @@ def _project_qkv(params, cfg: ModelConfig, run: RunConfig, x, positions,
 
 def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
                            positions, *, causal: bool, window: int, cache,
-                           cache_index, rope: bool, page_table):
+                           cache_index, rope: bool, page_table, tp=None):
     """Paged-cache attention (DESIGN.md §9): scatter this step's K/V through
     the page table into the shared pool, then attend over the slot's pages.
 
@@ -445,12 +545,20 @@ def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
     split by page over "model" (``ShardContext.pool_lo``) the rank writes
     and attends over its own pages through a table renumbered to them;
     every rank's partial result is merged by :func:`merge_attention`, the
-    identity on one rank.
+    identity on one rank. ``tp`` (the serving mesh's ``ShardContext``
+    whose ``heads`` split attention over "model"): the rank projects its
+    own heads, gathers every kv head's new lines for the write and every
+    q head for the attention in one all-gather (:func:`_gather_heads`;
+    the decode kernel takes pools of every kv head), and keeps its own
+    heads' outputs (:func:`_own_heads`); its output is its partial sum
+    of ``wo``.
     """
     B, S, _ = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
     cd = run.policy.compute_dtype
     q, k, v, _ = _project_qkv(params, cfg, run, x, positions, rope=rope)
+    if tp is not None:
+        q, k, v = _gather_heads(q, k, v, cfg, tp, with_q=True)
 
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     ps = ck.shape[1]
@@ -498,13 +606,15 @@ def _apply_attention_paged(params, cfg: ModelConfig, run: RunConfig, x,
         out, lse = kops.paged_decode_attention(
             q[:, 0], ck, cv, table, positions[:, 0].to(torch.int32),
             scale=scale, softcap=softcap, window=window, return_lse=True)
-        out = merge_attention(out, lse, group)[:, None]
+        out, lse = out[:, None], lse[:, None]
     else:
         kg, vg, kv_pos = kops.paged_gather_kv(ck, cv, table)
-        out = merge_attention(*partial_attention(
+        out, lse = partial_attention(
             q, kg, vg, positions, kv_pos, causal=causal, window=window,
-            scale=scale, softcap=softcap, policy=run.policy), group)
-    y = out.reshape(B, S, h * hd) @ params["wo"].to(cd)
+            scale=scale, softcap=softcap, policy=run.policy)
+    out = _own_heads(out, lse, cfg, tp, group) if tp is not None else \
+        merge_attention(out, lse, group)
+    y = out.reshape(B, S, -1) @ params["wo"].to(cd)
     return y, cache
 
 
@@ -609,36 +719,46 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
     cache that is not split, is the case lo = 0 of the same code, whose
     merge is the identity.
 
-    On the training mesh, attention split by heads over "model"
-    (``run.shard.heads``, a ``train.step.HeadPlan``; cache-free) runs on
-    this rank's q heads and the kv heads they read, repeated to one per q
-    head where they do not form groups of one size; the output is this
-    rank's partial sum of the projection (a rank without heads adds 0).
+    On a mesh, attention split by heads over "model" (``run.shard.heads``,
+    a ``train.step.HeadPlan``) runs on this rank's q heads and the kv
+    heads they read, repeated to one per q head where they do not form
+    groups of one size; the output is this rank's partial sum of the
+    projection (a rank without heads adds 0). With a cache (the serving
+    mesh, whose cache blocks hold every kv head) the new tokens' k and v
+    of every kv head are gathered for the write and, in a step that
+    attends over the cache, the queries of every q head with them
+    (:func:`_gather_heads`, one all-gather): every q head attends over the
+    rank's lines and each rank keeps its own heads' merged outputs
+    (:func:`_own_heads`), as the paged path does.
     """
+    sh = run.shard
+    heads = sh.heads if sh is not None else None
     if cache is not None and page_table is not None:
         return _apply_attention_paged(
             params, cfg, run, x, positions, causal=causal, window=window,
             cache=cache, cache_index=cache_index, rope=rope,
-            page_table=page_table)
+            page_table=page_table, tp=sh if heads is not None else None)
     B, S, _ = x.shape
     cd = run.policy.compute_dtype
-    heads = run.shard.heads if run.shard is not None and cache is None \
-        else None
     if heads is not None:  # this rank's heads (``train.step.HeadPlan``)
         wq, wk, wv, wo = heads.weights(params, cfg.head_dim)
         params = dict(params, wq=wq, wk=wk, wv=wv, wo=wo)
     q, k, v, kv_pos = _project_qkv(params, cfg, run, x, positions, kv,
                                    kv_positions, rope)
-    if heads is not None:
-        if heads.n_q == 0:
-            # no head on this rank: a zero partial sum that still reaches
-            # every weight, so each weight gather's backward runs here too
-            y = q.reshape(B, S, 0) @ params["wo"].to(cd)
-            return y + (k.sum() + v.sum()).to(y.dtype), cache
-        k, v = heads.spread(k), heads.spread(v)
+    if heads is not None and cache is None and heads.n_q == 0:
+        # no head on this rank: a zero partial sum that still reaches
+        # every weight, so each weight gather's backward runs here too
+        y = q.reshape(B, S, 0) @ params["wo"].to(cd)
+        return y + (k.sum() + v.sum()).to(y.dtype), cache
     structural = cache is None or not (S == 1 or attend_to_cache)
+    q_all, k_all, v_all = q, k, v
+    if heads is not None:
+        if cache is not None:
+            got, k_all, v_all = _gather_heads(q, k, v, cfg, sh,
+                                              with_q=not structural)
+            q_all = q if got is None else got
+        k, v = heads.spread(k), heads.spread(v)
     if cache is not None:
-        sh = run.shard
         lo = sh.dense_lo(window) if sh is not None else None
         Cl = cache["pos"].shape[1]
         C, group = (Cl, None) if lo is None else \
@@ -648,20 +768,24 @@ def apply_attention(params, cfg: ModelConfig, run: RunConfig, x, positions,
             fresh = lo is None or sh.kv_rank == 0
             seen = [torch.cat([cache[n], t.to(cache[n].dtype)], dim=1)
                     if fresh else cache[n].clone()
-                    for n, t in (("k", k), ("v", v), ("pos", positions))]
-        _write_dense_cache(cache, k, v, positions, cache_index, window,
-                           lo or 0, C)
+                    for n, t in (("k", k_all), ("v", v_all),
+                                 ("pos", positions))]
+        _write_dense_cache(cache, k_all, v_all, positions, cache_index,
+                           window, lo or 0, C)
         if not structural:
-            k, v, kv_pos = seen if ring_chunk else \
+            ck, cv, kv_pos = seen if ring_chunk else \
                 (cache["k"], cache["v"], cache["pos"])
-            out = merge_attention(*partial_attention(
-                q, k, v, positions, kv_pos, causal=causal, window=window,
-                scale=cfg.head_dim ** -0.5, softcap=cfg.attn_logit_softcap,
-                policy=run.policy), group)
+            out, lse = partial_attention(
+                q_all, ck, cv, positions, kv_pos, causal=causal,
+                window=window, scale=cfg.head_dim ** -0.5,
+                softcap=cfg.attn_logit_softcap, policy=run.policy)
+            out = merge_attention(out, lse, group) if heads is None else \
+                _own_heads(out, lse, cfg, sh, group)
     if structural:
-        out = _attention_inner(q, k, v, cfg, run, positions=positions,
-                               kv_pos=kv_pos, causal=causal and kv is None,
-                               window=window)
+        out = q if heads is not None and heads.n_q == 0 else \
+            _attention_inner(q, k, v, cfg, run, positions=positions,
+                             kv_pos=kv_pos, causal=causal and kv is None,
+                             window=window)
     y = out.reshape(B, S, -1) @ params["wo"].to(cd)
     return y, cache
 
@@ -707,15 +831,28 @@ def init_mlp(cfg: ModelConfig):
             "bo": ParamSpec((d,), "zeros", axes=("embed",))}
 
 
-def apply_mlp(params, cfg: ModelConfig, run: RunConfig, x):
+def apply_mlp(params, cfg: ModelConfig, run: RunConfig, x, seq=None):
+    """SwiGLU or GELU FFN. On the serving mesh (``run.shard.ffn``, a
+    ``train.step.BlockPlan``) the weights are this rank's block of the
+    "mlp" columns of ``wi_gate`` / ``wi_up`` / ``wi`` and ``bi`` and of
+    the rows of ``wo``: the partial product is summed over the plan's
+    group (with ``seq``, a ``train.step.SeqPlan``, reduce-scattered into
+    this rank's seq block) before ``bo`` is added, once."""
     cd = run.policy.compute_dtype
+    ffn = run.shard.ffn if run.shard is not None else None
+
+    def total(y):
+        if ffn is None:
+            return y
+        return seq.scatter(y) if seq is not None else \
+            C.all_reduce(y, ffn.group)
     if "wi_gate" in params:
         g = F.silu(x @ params["wi_gate"].to(cd))
         u = x @ params["wi_up"].to(cd)
-        return (g * u) @ params["wo"].to(cd)
+        return total((g * u) @ params["wo"].to(cd))
     h = F.gelu(x @ params["wi"].to(cd) + params["bi"].to(cd),
                approximate="tanh")
-    return h @ params["wo"].to(cd) + params["bo"].to(cd)
+    return total(h @ params["wo"].to(cd)) + params["bo"].to(cd)
 
 
 # ---------------------------------------------------------------------------
@@ -889,51 +1026,72 @@ def apply_ssd(params, cfg: ModelConfig, run: RunConfig, x, state=None):
     serving mesh the state's ``ssm`` may be this rank's block of heads
     (its ``heads`` = (first, last, group), ``serve.mesh.RecurrentBlocks``):
     the step then runs on those heads and its output ``y`` is all-gathered
-    over the group along the heads, so the ``ssm`` state never moves."""
+    over the group along the heads, so the ``ssm`` state never moves.
+    Where those heads are the rank's block over "model" (the state's
+    ``tp`` = (first, last, group), ``conv`` whole) the whole mixer runs on
+    them: the weights are the rank's segments of ``in_proj`` (its heads'
+    z, x and dt columns, and B and C), of the conv taps (its x channels,
+    B and C), of ``norm`` and of ``out_proj``'s rows; the gated RMSNorm's
+    sum of squares and the output are summed over the group, and the new
+    conv taps of its x channels all-gathered over it. The whole mixer is
+    the case first = 0, last = all heads, no group."""
     cd = run.policy.compute_dtype
     B, S, d = x.shape
     din = cfg.ssm_expand * d
     nh, ns = cfg.ssm_heads, cfg.ssm_state
     hd = din // nh
+    tp = state.get("tp") if state is not None else None
+    lo, hi, group = tp if tp is not None else (0, nh, None)
+    dl = (hi - lo) * hd  # this rank's x channels
 
     zxbcdt = x @ params["in_proj"].to(cd)
-    z = zxbcdt[..., :din]
-    xbc = zxbcdt[..., din:din + din + 2 * ns]
-    dt_raw = zxbcdt[..., -nh:]
+    z = zxbcdt[..., :dl]
+    xbc = zxbcdt[..., dl:2 * dl + 2 * ns]
+    dt_raw = zxbcdt[..., 2 * dl + 2 * ns:]
 
     conv_state = state["conv"] if state is not None else None
+    if tp is not None:
+        conv_state = torch.cat([conv_state[..., lo * hd:hi * hd],
+                                conv_state[..., din:]], -1)
     xbc, new_conv = causal_conv1d(xbc, params["conv_w"], params["conv_b"],
                                   conv_state)
     xbc = F.silu(xbc)
-    xs = xbc[..., :din].reshape(B, S, nh, hd)
-    Bm = xbc[..., din:din + ns]
-    Cm = xbc[..., din + ns:]
+    xs = xbc[..., :dl].reshape(B, S, hi - lo, hd)
+    Bm = xbc[..., dl:dl + ns]
+    Cm = xbc[..., dl + ns:]
 
-    dt = _softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])  # [nh]
+    dt = _softplus(dt_raw.float() + params["dt_bias"][lo:hi])
+    A = -torch.exp(params["A_log"][lo:hi])  # [last - first]
 
     if state is None:
         y, last_state = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    elif "heads" in state:
-        lo, hi, group = state["heads"]
+    elif "heads" in state and tp is None:
+        a, b, hgroup = state["heads"]
         y, last_state = _ssd_from_state(
-            xs[:, :, lo:hi], dt[..., lo:hi], A[lo:hi], Bm, Cm,
+            xs[:, :, a:b], dt[..., a:b], A[a:b], Bm, Cm,
             state["ssm"].float(), cfg.ssm_chunk)
-        y = C.gather_nograd(y, 2, group)
+        y = C.gather_nograd(y, 2, hgroup)
     else:
         y, last_state = _ssd_from_state(xs, dt, A, Bm, Cm,
                                         state["ssm"].float(), cfg.ssm_chunk)
 
-    y = y + params["D"].to(cd)[None, None, :, None] * xs
-    y = y.reshape(B, S, din)
+    y = y + params["D"][lo:hi].to(cd)[None, None, :, None] * xs
+    y = y.reshape(B, S, dl)
     # Gated RMSNorm (mamba2): norm(y * silu(z))
     yf = (y * F.silu(z)).float()
-    ms = yf.square().mean(-1, keepdim=True)
+    if group is None:
+        ms = yf.square().mean(-1, keepdim=True)
+    else:
+        ms = C.all_reduce(yf.square().sum(-1, keepdim=True), group) / din
     yf = yf * torch.rsqrt(ms + 1e-6) * params["norm"]
-    out = yf.to(cd) @ params["out_proj"].to(cd)
+    out = C.all_reduce(yf.to(cd) @ params["out_proj"].to(cd), group)
 
     new_state = None
     if state is not None:
+        if tp is not None:
+            new_conv = torch.cat([C.gather_nograd(
+                new_conv[..., :dl].contiguous(), 2, group),
+                new_conv[..., dl:]], -1)
         new_state = {"conv": new_conv.to(state["conv"].dtype),
                      "ssm": last_state.to(state["ssm"].dtype)}
     return out, new_state
@@ -1001,16 +1159,31 @@ def apply_rglru(params, cfg: ModelConfig, run: RunConfig, x, state=None):
     :func:`_lru_scan` in f32. With a state ({"conv", "lru"},
     :func:`init_rglru_state`) the conv starts from its last taps and the
     scan from ``lru``, and the new state is returned in the state's
-    dtypes."""
+    dtypes.
+
+    On the serving mesh a state whose ``tp`` = (first, last, group) holds
+    this rank's block of the channels over "model" (``serve.mesh.
+    RecurrentBlocks``): the weights are that block of every "mlp" dim
+    (the columns of the projections, the conv taps, the gates' rows), the
+    gates' partial products are summed over the group by one
+    reduce-scatter into the block, and the output is summed over it."""
     cd = run.policy.compute_dtype
+    tp = state.get("tp") if state is not None else None
     gate = F.gelu(x @ params["proj_gate"].to(cd), approximate="tanh")
     h = x @ params["proj_rec"].to(cd)
     conv_state = state["conv"] if state is not None else None
     h, new_conv = causal_conv1d(h, params["conv_w"], params["conv_b"],
                                 conv_state)
     hf = h.float()
-    i_gate = torch.sigmoid(hf @ params["w_i"].float() + params["b_i"])
-    r_gate = torch.sigmoid(hf @ params["w_a"].float() + params["b_a"])
+    if tp is None:
+        pre_i = hf @ params["w_i"].float()
+        pre_a = hf @ params["w_a"].float()
+    else:  # the rows of this rank's channels: partial sums over "model"
+        pre_i, pre_a = C.reduce_scatter(torch.stack(
+            [hf @ params["w_i"].float(), hf @ params["w_a"].float()]), 3,
+            tp[2]).unbind(0)
+    i_gate = torch.sigmoid(pre_i + params["b_i"])
+    r_gate = torch.sigmoid(pre_a + params["b_a"])
     log_a = -8.0 * r_gate * _softplus(params["lam"])  # [B, S, w]
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a.square(), min=1e-6)) \
@@ -1018,6 +1191,8 @@ def apply_rglru(params, cfg: ModelConfig, run: RunConfig, x, state=None):
     h0 = state["lru"].float() if state is not None else None
     hs = _lru_scan(a, gated, h0)
     y = (hs.to(cd) * gate) @ params["out"].to(cd)
+    if tp is not None:
+        y = C.all_reduce(y, tp[2])
     new_state = None
     if state is not None:
         new_state = {"conv": new_conv.to(state["conv"].dtype),
@@ -1104,33 +1279,45 @@ def apply_mixer_part(params, cfg: ModelConfig, run: RunConfig,
 
 
 def apply_ffn_part(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
-                   h, moe_override: Optional[Callable] = None):
+                   h, moe_override: Optional[Callable] = None, seq=None):
     """Pre-norm FFN + residual. Returns (y, aux). ``moe_override(ffn_params,
     u)`` -> (f, aux) replaces ``apply_moe`` on a MoE layer (the lockstep
-    server's expert-parallel MoE)."""
+    server's expert-parallel MoE). ``seq`` (a ``train.step.SeqPlan``):
+    y is this rank's seq block of it (a split FFN's sum over "model" a
+    reduce-scatter into it)."""
+    sh = run.shard
+    if spec.ffn == "dense" and seq is not None and sh is not None \
+            and sh.ffn is not None:
+        u = apply_norm(params["norm2"], h, run.policy)
+        return seq.part(h) + apply_mlp(params["ffn"], cfg, run, u, seq), {}
     if spec.ffn == "none":
-        return h, {}
-    u = apply_norm(params["norm2"], h, run.policy)
-    if spec.ffn == "moe":
-        f, aux = (moe_override(params["ffn"], u) if moe_override is not None
-                  else apply_moe(params["ffn"], cfg, run, u))
+        y, aux = h, {}
     else:
-        f, aux = apply_mlp(params["ffn"], cfg, run, u), {}
-    return h + f, aux
+        u = apply_norm(params["norm2"], h, run.policy)
+        if spec.ffn == "moe":
+            f, aux = (moe_override(params["ffn"], u)
+                      if moe_override is not None
+                      else apply_moe(params["ffn"], cfg, run, u))
+        else:
+            f, aux = apply_mlp(params["ffn"], cfg, run, u), {}
+        y = h + f
+    return (y if seq is None else seq.take(y)), aux
 
 
 def apply_layer(params, cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
                 x, positions, state=None, encoder_out=None,
                 encoder_positions=None, cache_index=None,
                 moe_override: Optional[Callable] = None,
-                attend_to_cache: bool = False, page_table=None):
+                attend_to_cache: bool = False, page_table=None, seq=None):
+    """One layer: :func:`apply_mixer_part`, then :func:`apply_ffn_part`
+    (with ``seq``: its output is this rank's seq block)."""
     h, new_state = apply_mixer_part(
         params, cfg, run, spec, x, positions, state=state,
         encoder_out=encoder_out, encoder_positions=encoder_positions,
         cache_index=cache_index, attend_to_cache=attend_to_cache,
         page_table=page_table)
     y, aux = apply_ffn_part(params, cfg, run, spec, h,
-                            moe_override=moe_override)
+                            moe_override=moe_override, seq=seq)
     return y, new_state, aux
 
 

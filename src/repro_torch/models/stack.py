@@ -181,12 +181,11 @@ def _apply_layer(p, cfg, run, spec, x, positions, state, cache_index,
         y, aux = layer_override(p, spec, x, positions, seq=seq)
         return y, None, aux
     enc, enc_pos = memory if memory is not None else (None, None)
-    y, ns, aux = modules.apply_layer(
+    return modules.apply_layer(
         p, cfg, run, spec, x, positions, state=state, encoder_out=enc,
         encoder_positions=enc_pos, cache_index=cache_index,
         moe_override=moe_override, attend_to_cache=attend_to_cache,
-        page_table=page_table)
-    return (y if seq is None else seq.take(y)), ns, aux
+        page_table=page_table, seq=seq)
 
 
 def _write_recurrent(state, new_state) -> None:
@@ -415,27 +414,38 @@ def apply_model(params, cfg: ModelConfig, run: RunConfig, tokens,
 
     memory = cross_memory(params, cfg, run, B, encoder_embeds,
                           vision_embeds)
+    sh = run.shard
     x = modules.apply_embedding(params["embed"], cfg, run.policy, tokens,
-                                positions)
+                                positions,
+                                vocab=sh.vocab if sh is not None else None)
     tails = [(spec, params[f"tail{i}"])
              for i, spec in enumerate(cfg.tail_specs)]
     tail_states = decode_state["tails"] if decode_state is not None else None
+    seq = None
+    if sh is not None:
+        seq = sh.seq if decode_state is None else sh.seq_for(S)
     x, new_state, aux = _apply_stack(
         params.get("blocks"), tails, cfg, run, cfg.pattern, x, positions,
         states=decode_state, tail_states=tail_states,
         cache_index=cache_index, page_table=page_table,
         layer_override=layer_override, moe_override=moe_override,
         attend_to_cache=attend_to_cache, aux_extras=aux_extras,
-        layer_aux=layer_aux, memory=memory,
-        seq=run.shard.seq if run.shard is not None
-        and decode_state is None else None)
+        layer_aux=layer_aux, memory=memory, seq=seq)
 
     x = modules.apply_norm(params["final_norm"], x, run.policy)
     if return_hidden:
         return x, new_state, aux
-    logits = modules.apply_unembedding(params["embed"], params.get("lm_head"),
-                                       cfg, run.policy, x)
-    return logits, new_state, aux
+    return unembed(params, cfg, run, x), new_state, aux
+
+
+def unembed(params, cfg: ModelConfig, run: RunConfig, x):
+    """The logits [..., vocab] (accum dtype) of hidden states x [..., d]:
+    on the serving mesh (``run.shard.vocab``) this rank's block of the
+    vocabulary, all-gathered over "model" (only the positions given: a
+    step unembeds the positions it samples)."""
+    return modules.apply_unembedding(
+        params["embed"], params.get("lm_head"), cfg, run.policy, x,
+        vocab=run.shard.vocab if run.shard is not None else None)
 
 
 # ---------------------------------------------------------------------------

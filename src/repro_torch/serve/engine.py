@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.models import stack
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import RunConfig, apply_unembedding
+from repro_torch.models.modules import RunConfig
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import sampling
 from repro_torch.serve.mesh import (ServeLayout, decode_state_specs,  # noqa: F401
@@ -141,9 +141,8 @@ def make_serve_program(cfg: ModelConfig, run: RunConfig, *, mesh=None,
             params, cfg, run_m, tokens[lay.rows], decode_state=state,
             cache_index=0, moe_override=moe, return_hidden=True,
             **rows(lay, fronts))
-        return state, lay.gather_slots(apply_unembedding(
-            params["embed"], params.get("lm_head"), cfg, run.policy,
-            hidden[:, -1]))
+        return state, lay.gather_slots(stack.unembed(params, cfg, run_m,
+                                                     hidden[:, -1]))
 
     @torch.inference_mode()
     def decode(params, state, tok, cache_index, fronts):
@@ -416,9 +415,8 @@ def _make_dense_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
             params, cfg, run_p, dev(tokens, torch.int64),
             decode_state=pstate, cache_index=int(offset),
             attend_to_cache=True, return_hidden=True, **eph.prefill_kw())
-        return pstate, apply_unembedding(
-            params["embed"], params.get("lm_head"), cfg, run.policy,
-            hidden[:, -1]).float()
+        return pstate, stack.unembed(params, cfg, run_p,
+                                     hidden[:, -1]).float()
 
     @torch.inference_mode()
     def insert(state, pstate, slot):
@@ -491,8 +489,7 @@ def _make_paged_program(cfg: ModelConfig, run: RunConfig, *, n_slots: int,
         return torch.as_tensor(np.asarray(x), device=device, dtype=dt)
 
     def unembed(params, hidden):
-        return apply_unembedding(params["embed"], params.get("lm_head"), cfg,
-                                 run.policy, hidden).float()
+        return stack.unembed(params, cfg, run_p, hidden).float()
 
     @torch.inference_mode()
     def prefill(params, state, prec, tokens, offset, ptrow):

@@ -1,31 +1,49 @@
-"""The serving mesh: what a rank of a DATA x MODEL mesh holds and gathers
-when it serves (the JAX package's serving programs on a mesh,
-``repro/serve/engine.py:38-86``, ``:263-283`` and the "serve" variant of
-``repro/sharding/rules.py``), without jax.
+"""The serving mesh: what a rank of a DATA x MODEL mesh holds, gathers
+and computes when it serves (the JAX package's serving programs on a
+mesh, ``repro/serve/engine.py:38-86``, ``:263-283``, the "serve" variant
+of ``repro/sharding/rules.py`` and the constrainer those programs
+install), without jax.
 
 * Weights: each rank stores its block of every param under the fitted
   "serve" rules (2D FSDP; the experts over "model", and under
   expert-parallel decode the placed expert stacks over "model" only, as
   ``ep_param_shardings`` pins them). A stacked layer's weights are
-  all-gathered at the layer's start (``ShardContext.layer_plans``), the
-  others once a step (:meth:`ServeLayout.gather_params`); the compute is
-  then the one-device compute on every rank, the experts of an EP rank
-  excepted.
+  gathered at the layer's start (``ShardContext.layer_plans``), the
+  others once a step (:meth:`ServeLayout.gather_params`): over "data"
+  always, over "model" only where the compute does not split them.
+* Tensor parallelism over "model" (the JAX constrainer's "serve" rules:
+  every activation axis on "model"; :class:`TPPlan`): a rank computes
+  its block of ceil(H / M) q heads (and the kv heads they read), of
+  ceil(F / M) "mlp" columns of each dense FFN, of the RG-LRU channels and
+  SSD heads its recurrent state blocks hold, and of ceil(V / M) rows of
+  the vocabulary; a dim of fewer entries than ranks stays whole, as the
+  constrainer leaves it. A weight whose split dim is stored cut over
+  "model" keeps its block, regrouped by one all-to-all
+  (``collectives.fetch``) where the stored blocks are not the compute's
+  (24 heads over 16 ranks); one stored whole is cut at use. Partial
+  results are summed over "model"; a prefill of at least M positions
+  keeps its residual stream between blocks as the rank's seq block
+  (``ShardContext.seq_for``), the block's last sum a reduce-scatter.
 * Decode state (:func:`decode_state_specs`, :func:`paged_state_specs`,
   leaf by leaf the JAX package's specs): dense KV caches split their
   sequence dim over "model" and their slots over "data"; paged pools
   split their page dim over "model" and are replicated over "data". A
-  rank allocates only its blocks; its attention runs over its own lines
-  or pages and the partial results are merged by log-sum-exp over
-  "model" (``models.modules.merge_attention``).
+  rank allocates only its blocks, which hold every kv head: the new
+  tokens' k and v are gathered over the heads' ranks before the write,
+  the queries over them before the attention over the rank's own lines
+  or pages, and the partial results of each rank's heads come back to
+  it by one all-to-all and are merged by log-sum-exp
+  (``models.modules.merge_partials``).
 * Recurrent states (RG-LRU ``conv`` / ``lru``, SSD ``conv`` / ``ssm``):
   each rank stores the block its spec gives it (channels over "model").
-  A layer reads its blocks gathered over the dims they are cut on and
-  cut to the step's rows, runs its mixer whole and keeps its block of
-  the new state (:class:`RecurrentBlocks`); the SSD ``ssm`` state stays
-  a block of heads, its decode runs on those heads and all-gathers its
-  output ``y`` instead. The insert of a prefilled state into a slot
-  follows each leaf's own spec (:meth:`ServeLayout.insert`).
+  Where a layer's blocks are the rank's channels or heads over "model"
+  the mixer runs on them (:class:`RecurrentBlocks` hands it the plan
+  under ``tp``); otherwise a layer reads its blocks gathered over the
+  dims they are cut on and cut to the step's rows, runs its mixer whole
+  and keeps its block of the new state; an SSD ``ssm`` state cut over
+  heads otherwise stays a block, its decode runs on those heads and
+  all-gathers its output ``y``. The insert of a prefilled state into a
+  slot follows each leaf's own spec (:meth:`ServeLayout.insert`).
 * Slots: each data rank decodes the slots that ``slot_vector_spec`` gives
   its block (all of them where the slot count does not divide); the
   sampled logits are all-gathered over "data" before sampling, so every
@@ -36,7 +54,7 @@ when it serves (the JAX package's serving programs on a mesh,
   the decode does.
 
 A one-device program is the 1x1 mesh (``train.step.OneDevice``): no
-block is cut, no group exists, nothing is gathered.
+block is cut, no group exists, nothing is gathered, every plan is None.
 """
 
 from __future__ import annotations
@@ -55,11 +73,15 @@ from repro_torch.sharding.rules import (ShardingRules, block_index,
                                         fitted_specs, local_shape,
                                         local_slice, paged_pool_spec,
                                         rules_for, slot_vector_spec)
-from repro_torch.train.step import (OneDevice, ShardContext, _gather_plan,
+from repro_torch.train.step import (BlockPlan, HeadPlan, OneDevice,
+                                    ShardContext, _blocks_of, _gather_plan,
                                     fit_batch_axes)
 
 EXPERT_KEYS = ("wi_gate", "wi_up", "wo")
 RECURRENT_LEAVES = ("conv", "lru", "ssm")
+# the logical axes the "serve" rules put on "model" for activations and
+# weights alike: a weight's first such dim is the one its compute splits
+TP_AXES = ("q_heads", "kv_heads", "mlp", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +206,18 @@ class RecurrentBlocks:
     ``ssm`` leaf whose heads are cut stays a block: the layer's state
     carries ``heads`` = (first, last, group) and the SSD decode runs on
     those heads (``modules.apply_ssd``). On one rank every gather is the
-    identity and every block the whole leaf."""
+    identity and every block the whole leaf.
+
+    ``split``: {layer: (first, last, group)} of the layers whose mixer
+    runs on this rank's channels (RG-LRU) or heads (SSD) over "model"
+    (:meth:`ServeLayout.rec_split`): the layer's state carries them as
+    ``tp``, and an RG-LRU layer's ``conv`` and ``lru`` blocks are read
+    and written as they are along their channels."""
 
     def __init__(self, mesh, specs: dict, rows: slice, row_entry,
-                 row_group):
+                 row_group, split: Optional[dict] = None):
         self.mesh, self.rows, self.row_group = mesh, rows, row_group
+        self.split = split or {}
         row_axes = _cut_axes(mesh, row_entry)
         # name -> (aligned with the step's rows, row entry, cuts, heads)
         self.leaves = {}
@@ -205,9 +234,12 @@ class RecurrentBlocks:
             if leaf == "ssm" and len(spec) > 1 and _cut_axes(mesh, spec[1]):
                 heads = (block_index(spec[1], mesh, mesh.rank)[0],
                          mesh.group(spec[1]))
+            own = name.rsplit("/", 2)[0] in self.split and \
+                name.split("/")[-2] == "rglru"
             cuts = tuple((d, e) for d, e in enumerate(spec)
                          if d > 0 and _cut_axes(mesh, e)
-                         and not (heads is not None and d == 1))
+                         and not (heads is not None and d == 1)
+                         and not (own and d == len(spec) - 1))
             self.leaves[name] = (_cut_axes(mesh, spec[0]) == row_axes,
                                  spec[0], cuts, heads)
 
@@ -233,6 +265,8 @@ class RecurrentBlocks:
                     i, group = heads
                     sub["heads"] = (i * t.shape[1], (i + 1) * t.shape[1],
                                     group)
+            if layer in self.split:
+                sub["tp"] = self.split[layer]
             out[kind] = sub
         return out
 
@@ -252,6 +286,109 @@ class RecurrentBlocks:
                 for d, e in cuts:
                     t = _take(self.mesh, t, d, e)
                 dst.copy_(t)
+
+
+class TPPlan:
+    """This rank's tensor-parallel blocks over "model" on the serving mesh
+    of ``cfg`` (all None / empty on a model axis of one rank), and the
+    entries of every split weight each model rank computes with
+    (:meth:`needs`).
+
+    ``head_plans``: every model rank's ``train.step.HeadPlan`` (q heads in
+    blocks of ceil(H / M), the kv heads they read; its weights are given
+    cut already) where H >= M; ``ffn`` / ``vocab``: this rank's
+    ``train.step.BlockPlan`` of the dense FFN's d_ff and of the
+    vocabulary where they are >= M; ``rec``: {param layer prefix
+    ("blocks/pos0", "tail1"): (mixer, first, last, n)} of the recurrent
+    layers whose states this rank holds as its block [first, last) of
+    the n channels (RG-LRU) or heads (SSD) over "model"
+    (:meth:`ServeLayout.rec_split`)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, group, rec: dict):
+        M, r = mesh.shape["model"], mesh.coords["model"]
+        self.cfg, self.M, self.rank, self.rec = cfg, M, r, rec
+        self.group = group
+        H, KH = cfg.n_heads, cfg.n_kv_heads
+        self.head_plans = tuple(
+            dataclasses.replace(HeadPlan.of(H, KH, M, s), q_local=True,
+                                kv_local=True)
+            for s in range(M)) if M > 1 and H >= M else ()
+        self.ffn = BlockPlan.of(cfg.d_ff, M, r, group) \
+            if M > 1 and cfg.d_ff >= M else None
+        self.vocab = BlockPlan.of(cfg.vocab_size, M, r, group) \
+            if M > 1 and cfg.vocab_size >= M else None
+        self.specs = {f"blocks/pos{p}": s for p, s in enumerate(cfg.pattern)}
+        self.specs.update({f"tail{i}": s
+                           for i, s in enumerate(cfg.tail_specs)})
+        if cfg.is_encdec:
+            self.specs["encoder/blocks/pos0"] = stack.ENCODER_SPEC
+
+    @property
+    def heads(self):
+        return self.head_plans[self.rank] if self.head_plans else None
+
+    def fields(self) -> dict:
+        """The ``ShardContext`` fields of these plans: the attention's
+        partial sums over ``tp_group`` only where its heads are split."""
+        return dict(tp_group=self.group if self.heads is not None else None,
+                    heads=self.heads, head_plans=self.head_plans,
+                    ffn=self.ffn, vocab=self.vocab)
+
+    def _ranges(self, per_rank) -> tuple:
+        """((lo, hi), ...) of each rank, the empty ones dropped."""
+        return tuple(tuple((a, b) for a, b in rs if a < b)
+                     for rs in per_rank)
+
+    def needs(self, path: str, axes: tuple):
+        """(dim, needs) of leaf ``path`` (its logical ``axes``): the dim
+        its compute splits over "model" and, for each model rank, the
+        [lo, hi) ranges of that dim it computes with; None for a leaf
+        every rank uses whole."""
+        dims = [i for i, a in enumerate(axes) if a in TP_AXES]
+        if not dims or self.M == 1:
+            return None
+        dim, M, cfg = dims[0], self.M, self.cfg
+        if path in ("embed/table", "lm_head"):
+            if self.vocab is None:
+                return None
+            return dim, self._ranges(
+                [(_blocks_of(cfg.vocab_size, M, s),) for s in range(M)])
+        parts = path.split("/")
+        leaf, sub, layer = parts[-1], parts[-2], "/".join(parts[:-2])
+        spec = self.specs.get(layer)
+        if spec is None:
+            return None
+        hd = cfg.head_dim
+        if sub in ("mixer", "xattn") and leaf in ("wq", "wk", "wv", "wo") \
+                and self.head_plans:
+            key = "kv" if leaf in ("wk", "wv") else "q"
+            return dim, self._ranges(
+                [((getattr(p, key)[0] * hd, getattr(p, key)[1] * hd),)
+                 for p in self.head_plans])
+        if sub == "ffn" and spec.ffn == "dense" and self.ffn is not None:
+            return dim, self._ranges(
+                [(_blocks_of(cfg.d_ff, M, s),) for s in range(M)])
+        if sub != "mixer" or layer not in self.rec:
+            return None
+        kind, n = self.rec[layer][0], self.rec[layer][3]
+        if kind == "rglru":
+            w = cfg.lru_width
+            return dim, self._ranges([((s * w // M, (s + 1) * w // M),)
+                                      for s in range(M)])
+        din = cfg.ssm_expand * cfg.d_model
+        ns, hs = cfg.ssm_state, din // cfg.ssm_heads
+        out = []
+        for s in range(M):
+            lo, hi = s * n // M, (s + 1) * n // M
+            x = (lo * hs, hi * hs)
+            out.append({
+                "in_proj": (x, (din + x[0], din + x[1]),
+                            (2 * din, 2 * din + 2 * ns),
+                            (2 * din + 2 * ns + lo, 2 * din + 2 * ns + hi)),
+                "conv_w": (x, (din, din + 2 * ns)),
+                "conv_b": (x, (din, din + 2 * ns)),
+            }.get(leaf, (x,)))
+        return dim, self._ranges(out)
 
 
 def is_expert_path(path: str) -> bool:
@@ -280,7 +417,23 @@ class ServeLayout:
         self.shapes = {k: tuple(s.shape) for k, s in flat.items()}
         axes = {k: s.axes for k, s in flat.items()}
         self.param_specs = fitted_specs(self.shapes, axes, self.rules, mesh)
+        self.model_group = mesh.group("model")
+        self._specs = {}
+        self.tp = TPPlan(cfg, mesh, self.model_group, self.rec_split())
         use = {k: (None,) * len(s) for k, s in self.param_specs.items()}
+        # {leaf: (dim, needs, stored cut)} of the weights split over
+        # "model" at use: a block stored over "model" stays cut there
+        self.takes = {}
+        for k, s in self.param_specs.items():
+            nd = self.tp.needs(k, axes[k])
+            if nd is None:
+                continue
+            d, needs = nd
+            if s[d] not in (None, "model"):
+                raise ValueError(f"{k}: dim {d} stored over {s[d]}")
+            self.takes[k] = (d, needs, s[d] == "model")
+            if s[d] == "model":
+                use[k] = use[k][:d] + ("model",) + use[k][d + 1:]
         if ep:
             for k, shp in self.shapes.items():
                 if is_expert_path(k):
@@ -301,9 +454,7 @@ class ServeLayout:
         per = n_slots // n
         self.rows = slice(idx * per, (idx + 1) * per)
         self.slot_group = mesh.group(baxes) if n > 1 else None
-        self.model_group = mesh.group("model")
         self.split = mesh.size > 1
-        self._specs = {}
 
     # -- params --------------------------------------------------------
 
@@ -358,10 +509,27 @@ class ServeLayout:
         return v if t.shape == v.shape else \
             t.clone(memory_format=torch.contiguous_format)
 
+    def _take(self, path: str, layer: bool):
+        """The cut of leaf ``path`` (one layer of it with ``layer``) to
+        the entries this rank computes with: an all-to-all of the stored
+        blocks over "model" (``collectives.fetch``; none where they are
+        the compute's blocks), or a slice of a leaf stored whole."""
+        d, needs, stored_cut = self.takes[path]
+        d -= int(layer)
+        if stored_cut:
+            group = self.model_group
+            return lambda v: C.fetch(v, d, group, needs)
+        rs = needs[self.mesh.coords["model"]] or ((0, 0),)
+        if len(rs) == 1:
+            return lambda v: v.narrow(d, rs[0][0], rs[0][1] - rs[0][0])
+        return lambda v: torch.cat([v.narrow(d, a, b - a) for a, b in rs],
+                                   d)
+
     def gather_params(self, params):
-        """The tree a step runs on: every non-stacked leaf all-gathered
-        over the axes its block is cut on (the stacked layers gather per
-        layer, ``ShardContext.gather_layer``)."""
+        """The tree a step runs on: every non-stacked leaf cut to this
+        rank's entries where its compute splits over "model", then
+        all-gathered over the axes its block is cut on but for those (the
+        stacked layers per layer, ``ShardContext.gather_layer``)."""
         if not self.split:
             return params
 
@@ -373,26 +541,68 @@ class ServeLayout:
                     out[k] = walk(v, path)
                     continue
                 if path not in self.stacked:
+                    if path in self.takes:
+                        v = self._take(path, False)(v)
                     for d, a in self.plans.get(path, ()):
                         v = C.gather_nograd(v, d, self.mesh.group(a))
                 out[k] = v
             return out
         return walk(params, "")
 
+    def rec_split(self) -> dict:
+        """{param layer prefix: (mixer, first, last, n)} of the recurrent
+        layers whose mixer runs on this rank's block over "model": an
+        RG-LRU layer whose ``conv`` and ``lru`` states are cut along
+        their channels over "model" alone, an SSD layer whose ``ssm``
+        state is cut along its heads so, in the decode state and in the
+        prefill's alike ([first, last) of n channels or heads)."""
+        mesh, M = self.mesh, self.mesh.shape["model"]
+        out = {}
+        if M == 1:
+            return out
+        dec, pre = self.state_specs(self.n_slots), self.state_specs(1)
+        cfg = self.cfg
+
+        def body(specs, name):
+            spec = specs[name]
+            return spec[1:] if name.startswith("blocks/") else spec
+        r = mesh.coords["model"]
+        for name in dec:
+            layer, kind, leaf = name.rsplit("/", 2)
+            if (kind, leaf) not in (("rglru", "lru"), ("ssd", "ssm")):
+                continue
+            if kind == "rglru":
+                ok = all(body(sp, f"{layer}/rglru/{lf}")[-1] == "model"
+                         for sp in (dec, pre) for lf in ("conv", "lru"))
+                n = cfg.lru_width
+            else:
+                ok = all(body(sp, name)[1] == "model" for sp in (dec, pre))
+                n = cfg.ssm_heads
+            if ok:
+                prefix = layer if layer.startswith("blocks/") else \
+                    "tail" + layer.split("/")[1]
+                out[prefix] = (kind, r * n // M, (r + 1) * n // M, n)
+        return out
+
     def context(self, *, decode: bool, n_pages: int = 0) -> ShardContext:
         """``RunConfig.shard`` of the decode step (``decode``: its slots
         split over "data") or of the batch-1 prefill."""
-        mesh = self.mesh
+        mesh, tp, group = self.mesh, self.tp, self.model_group
         plans = {k: [(d - 1, mesh.group(a)) for d, a in self.plans[k]]
                  for k in self.stacked if self.plans[k]}
+        takes = {k: self._take(k, True) for k in self.takes
+                 if k in self.stacked}
+        split = {(k if k.startswith("blocks/") else "tails/" + k[4:]):
+                 (lo, hi, group) for k, (_, lo, hi, _) in tp.rec.items()}
         rec = RecurrentBlocks(mesh, self.state_specs(self.n_slots),
                               self.rows, self.slot_spec[0],
-                              self.slot_group) if decode else \
+                              self.slot_group, split) if decode else \
             RecurrentBlocks(mesh, self.state_specs(1), slice(0, 1), None,
-                            None)
+                            None, split)
         return ShardContext(
-            layer_plans=plans, kv_group=self.model_group,
-            kv_rank=mesh.coords["model"], kv_size=mesh.shape["model"],
+            **tp.fields(), layer_plans=plans, layer_takes=takes,
+            kv_group=group, kv_rank=mesh.coords["model"],
+            kv_size=mesh.shape["model"],
             kv_lines=self.max_len, kv_pages=n_pages,
             slot_group=self.slot_group if decode else None, rec=rec)
 

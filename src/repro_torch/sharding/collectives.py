@@ -137,6 +137,63 @@ def gather_nograd(t, dim: int, group):
 
 
 @torch.no_grad()
+def all_to_all_nograd(t, group):
+    """t [n, ...] (n the group's size): block i goes to group rank i, and
+    block i of the result came from group rank i; outside autograd."""
+    if group_size(group) == 1:
+        return t
+    out = torch.empty_like(t, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, t.contiguous(), group=group)
+    launched("all_to_all")
+    return out
+
+
+def _overlaps(ranges, lo: int, hi: int) -> list:
+    """The pieces of the sorted [lo_i, hi_i) ``ranges`` inside [lo, hi)."""
+    out = []
+    for a, b in ranges:
+        a, b = max(a, lo), min(b, hi)
+        if a < b:
+            out.append((a, b))
+    return out
+
+
+@torch.no_grad()
+def fetch(t, dim: int, group, needs) -> torch.Tensor:
+    """Regroup a dim split in equal blocks over ``group`` (this rank holds
+    block ``rank`` of ``t.shape[dim]`` entries) into the entries each rank
+    needs: ``needs[r]`` is rank r's sorted, disjoint [lo, hi) ranges of
+    the whole dim (they may overlap other ranks' or be empty). Returns
+    this rank's entries in order, from one all-to-all that moves only
+    them; no collective where every rank needs exactly its own block."""
+    n, r = group_size(group), (0 if group is None else dist.get_rank(group))
+    blk = t.shape[dim]
+    if all(tuple(needs[s]) == ((s * blk, (s + 1) * blk),)
+           for s in range(n)):
+        return t
+    src = t.movedim(dim, 0)
+    send, send_sizes = [], []
+    for s in range(n):
+        pieces = _overlaps(needs[s], r * blk, (r + 1) * blk)
+        send += [src[a - r * blk:b - r * blk] for a, b in pieces]
+        send_sizes.append(sum(b - a for a, b in pieces))
+    recv_sizes = [sum(b - a for a, b in
+                      _overlaps(needs[r], s * blk, (s + 1) * blk))
+                  for s in range(n)]
+    rest = src.shape[1:]
+    inp = torch.cat(send, 0) if send else src.new_empty((0, *rest))
+    out = src.new_empty((sum(recv_sizes), *rest))
+    if n > 1:
+        dist.all_to_all_single(out, inp.contiguous(),
+                               output_split_sizes=recv_sizes,
+                               input_split_sizes=send_sizes, group=group)
+        launched("all_to_all")
+    else:
+        out = inp
+    return out.movedim(0, dim)
+
+
+@torch.no_grad()
 def broadcast_host(value: float, group, device) -> float:
     """Global rank 0's host number on every rank of ``group`` (a group
     that holds rank 0), through a tensor on ``device``."""

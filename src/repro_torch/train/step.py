@@ -319,6 +319,35 @@ class HeadPlan:
                           for j, n in enumerate(self.kv_counts)], dim=2)
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """This rank's block [lo, hi) of a dim of ``n`` entries split over the
+    ``size`` ranks of ``group`` in blocks of ``block`` = ceil(n / size),
+    the last ones short or empty (the JAX package's constraint of a dim
+    of at least ``size`` to "model"): the FFN's "mlp" width, or the
+    vocabulary (``lo`` is the offset ``train.loss._vocab_parallel``
+    reads)."""
+
+    lo: int
+    hi: int
+    block: int
+    n: int
+    group: Any
+
+    @classmethod
+    def of(cls, n: int, size: int, rank: int, group) -> "BlockPlan":
+        lo, hi = _blocks_of(n, size, rank)
+        return cls(lo=lo, hi=hi, block=-(-n // size), n=n, group=group)
+
+    def gather(self, t):
+        """The whole last dim from every rank's block of it (blocks padded
+        to ``block`` for the gather, the padding trimmed)."""
+        pad = self.block - t.shape[-1]
+        if pad:
+            t = F.pad(t, (0, pad))
+        return C.gather_nograd(t, t.dim() - 1, self.group)[..., :self.n]
+
+
 @dataclasses.dataclass
 class ShardContext:
     """``RunConfig.shard`` of the mesh program: the collectives the model
@@ -328,7 +357,8 @@ class ShardContext:
     :class:`SeqPlan` of the residual stream between blocks (None: whole);
     ``batch_group`` / ``n_batch``: the batch shards; ``layer_plans``:
     {stacked leaf path: [(dim of one layer, group)]} of the per-layer
-    weight gathers."""
+    weight gathers, ``layer_takes`` {stacked leaf path: fn} the cut of
+    one layer's leaf to this rank's block of "model" before them."""
 
     tp_group: Any = None
     heads: Optional[HeadPlan] = None
@@ -336,6 +366,15 @@ class ShardContext:
     batch_group: Any = None
     n_batch: int = 1
     layer_plans: dict = dataclasses.field(default_factory=dict)
+    layer_takes: dict = dataclasses.field(default_factory=dict)
+    # The serving mesh's tensor parallelism over "model" (``serve.mesh``;
+    # None: whole): the dense FFN's "mlp" block and the vocabulary block
+    # (:class:`BlockPlan`, each summed or gathered over its own group),
+    # and ``head_plans`` every model rank's :class:`HeadPlan` (the
+    # attention with a cache reads them).
+    ffn: Optional[BlockPlan] = None
+    vocab: Optional[BlockPlan] = None
+    head_plans: tuple = ()
     # The serving mesh (``serve/mesh.py``): KV caches split over "model",
     # each rank attending over its own lines and the partial results
     # merged by log-sum-exp over ``kv_group`` (None: one rank, nothing
@@ -380,10 +419,22 @@ class ShardContext:
             return None
         return self.kv_rank * (self.kv_pages // self.kv_size)
 
+    def seq_for(self, S: int) -> Optional[SeqPlan]:
+        """The serving mesh's :class:`SeqPlan` of an S-position step over
+        "model" (``kv_group``): a block of ceil(S / M) positions a rank
+        where S >= M, else None (the residual stream whole)."""
+        M = C.group_size(self.kv_group)
+        if M == 1 or S < M:
+            return None
+        return SeqPlan(group=self.kv_group, size=M,
+                       rank=self.kv_rank, block=-(-S // M))
+
     def gather_layer(self, tree, prefix: str):
-        """One layer of the stacked tree at ``prefix``, each weight
-        all-gathered over the mesh axes its compute does not shard."""
-        if not self.layer_plans:
+        """One layer of the stacked tree at ``prefix``, each weight cut to
+        this rank's block of "model" where it is split there
+        (``layer_takes``) and all-gathered over the mesh axes its compute
+        does not shard."""
+        if not self.layer_plans and not self.layer_takes:
             return tree
 
         def walk(t, path):
@@ -393,6 +444,8 @@ class ShardContext:
                 if isinstance(v, dict):
                     out[k] = walk(v, p)
                     continue
+                if p in self.layer_takes:
+                    v = self.layer_takes[p](v)
                 for d, g in self.layer_plans.get(p, ()):
                     v = C.all_gather(v, d, g)
                 out[k] = v

@@ -15,7 +15,15 @@ JAX weights and the same trace, f32 and greedy. Held
 first-token logits within 2e-5 * max|logit|; each rank's param, cache and
 pool block shapes against the JAX arrays' shards at its mesh coordinate;
 each rank's KV block against the JAX state's shard within 1e-5 * max on
-the lines whose position is >= 0.
+the lines whose position is >= 0; each rank's attention heads, FFN width
+and vocabulary block against the split the JAX "serve" rules give, and
+the weight bytes its steps run on (``torch_parity.check_tp_census``).
+
+A second module fixture runs llama at 1x3 (three ranks), dense and
+paged: 4 q heads in blocks of 2, 2 and 0 (the third rank computes no head
+and still holds a third of every cache's lines and pool's pages), d_ff
+and the vocabulary in blocks of 86, 86 and 84, prefill chunks of 8 in
+seq blocks of 3.
 """
 
 import jax.numpy as jnp  # noqa: F401  (conftest's CPU devices first)
@@ -62,4 +70,27 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
 def test_serve_mesh_1x2_matches_jax(runs, case):
     ref, ranks = runs
+    check_serve_mesh(case, ref[case["name"]], ranks[case["name"]])
+
+
+CASES_1X3 = [
+    {"name": f"{mode}_llama_1x3", "arch": DENSE, "mesh": [1, 3],
+     "sc": dict(BASE, max_len=30, **sc),
+     "trace": serve_trace(DENSE, 5, seed=11)}
+    for mode, sc in (("dense", {}),
+                     ("paged", {"paged": {"enabled": True, "page_size": 4,
+                                          "pool_pages": 15}}))]
+
+
+@pytest.fixture(scope="module")
+def runs_1x3(tmp_path_factory):
+    return run_serve_mesh(tmp_path_factory.mktemp("serve1x3"),
+                          jmake_mesh((1, 3), ("data", "model")), 3,
+                          CASES_1X3)
+
+
+@pytest.mark.parametrize("case", CASES_1X3,
+                         ids=[c["name"] for c in CASES_1X3])
+def test_serve_mesh_1x3_matches_jax(runs_1x3, case):
+    ref, ranks = runs_1x3
     check_serve_mesh(case, ref[case["name"]], ranks[case["name"]])

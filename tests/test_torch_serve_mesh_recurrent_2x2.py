@@ -40,9 +40,13 @@ def test_serve_mesh_recurrent_2x2_matches_jax(runs, case):
 def test_ssd_decode_gathers_y_never_the_ssm_state(tmp_path):
     """One decode step of smoke mamba2-2.7b on a 1x2 mesh (two slots):
     the only state-shaped tensors that cross "model" are each layer's
-    ``conv`` block and the SSD output ``y`` of its heads; no ``ssm``
-    block is gathered. Every other gather is a weight block (2-dim per
-    layer). The gathered bytes per decode step: L * (conv + y)."""
+    ``conv`` block (read whole for the mixer) and the new ``conv`` taps of
+    the x channels of the rank's SSD heads (each rank computes its heads:
+    the SSD output ``y`` no longer crosses, its ``out_proj`` partial sums
+    are all-reduced instead); no ``ssm`` block is gathered. Beside them
+    the step's one logits block [B, 1, V / M]; every other gather is a
+    weight block (2-dim per layer). The gathered state bytes per decode
+    step: L * (conv + its x taps)."""
     import json
 
     from repro_torch.launch.mesh import launch_ranks
@@ -54,17 +58,21 @@ def test_ssd_decode_gathers_y_never_the_ssm_state(tmp_path):
     nh, ns = cfg.ssm_heads, cfg.ssm_state
     hd = din // nh
     conv = [B, cfg.conv_width - 1, (din + 2 * ns) // M]
-    y = [B, 1, nh // M, hd]
+    x_taps = [B, cfg.conv_width - 1, din // M]
+    logits = [B, 1, cfg.vocab_size // M]
     ssm = [B, nh // M, hd, ns]
     launch_ranks(ssd_gather_worker, 2, "cpu", str(tmp_path))
     for r in range(2):
         seen = json.loads((tmp_path / f"gathers_{r}.json").read_text())
-        state = [g for g in seen if len(g[0]) >= 3]
-        assert all(len(g[0]) <= 2 for g in seen if g not in state)
+        assert [g[0] for g in seen if g[0] == logits] == [logits]
+        state = [g for g in seen if len(g[0]) >= 3 and g[0] != logits]
+        assert all(len(g[0]) <= 2 for g in seen
+                   if g not in state and g[0] != logits)
         assert not [g for g in state if g[0] == ssm]
         assert sorted(map(tuple, (g[0] for g in state))) == sorted(
-            [tuple(conv)] * L + [tuple(y)] * L)
+            [tuple(conv)] * L + [tuple(x_taps)] * L)
         assert all(g[2] == M for g in state)
         got = sum(M * g[3] * int(np.prod(g[0])) for g in state)
-        assert got == L * M * 4 * (int(np.prod(conv)) + int(np.prod(y)))
+        assert got == L * M * 4 * (int(np.prod(conv))
+                                   + int(np.prod(x_taps)))
         assert got < L * M * 4 * int(np.prod(ssm))

@@ -529,8 +529,9 @@ def serve_mesh_worker(rank: int, in_path: str, out_dir: str):
     arch (``<arch>|<path>``). For each case: the deployment on this rank
     of the mesh (f32, greedy), the trace served, then
     ``out_dir/<case>_<rank>.npz`` with the results (JSON), the first-token
-    logits by rid, the param block shapes (JSON) and every state block
-    (``s|<part>|<leaf>``)."""
+    logits by rid, the param block shapes (JSON), every state block
+    (``s|<part>|<leaf>``) and the run's ``obs.census.serve_census``, each
+    list's distinct values (JSON ``census``)."""
     import json
 
     from repro_torch.launch.mesh import make_mesh
@@ -540,6 +541,7 @@ def serve_mesh_worker(rank: int, in_path: str, out_dir: str):
     from repro_torch.serve import GREEDY, Request, build_deployment
     from repro_torch.serve import config as serve_config_mod
     from repro_torch.core.zebra_mpmd import _unflatten
+    from repro_torch.obs.census import serve_census
 
     torch.set_num_threads(1)
     data = np.load(in_path)
@@ -560,14 +562,17 @@ def serve_mesh_worker(rank: int, in_path: str, out_dir: str):
             f"{part}|{k}": to_np(v).copy()
             for k, v in stack.state_leaves(st).items()
             if k.endswith(REC_SUFFIXES)})
-        if sc.fleet.enabled:
-            record = eng.detector.record
-            eng.detector.record = lambda g, _t: record(g, SERVE_STEP_S)
-            results = eng.run(reqs, kills=list(sc.fleet.kills))
-        else:
-            results = eng.run(reqs)
+        with serve_census() as census:
+            if sc.fleet.enabled:
+                record = eng.detector.record
+                eng.detector.record = lambda g, _t: record(g, SERVE_STEP_S)
+                results = eng.run(reqs, kills=list(sc.fleet.kills))
+            else:
+                results = eng.run(reqs)
         out = {"results": json.dumps({str(k): v
                                       for k, v in results.items()}),
+               "census": json.dumps({k: sorted(set(map(json.dumps, v)))
+                                     for k, v in census.items()}),
                **{f"a|{p}": m for p, m in snap.get("live", {}).items()},
                **{f"r|{k}": v for k, v in snap.get("state", {}).items()},
                "params": json.dumps({k: list(v.shape) for k, v in
@@ -838,6 +843,80 @@ def check_serve_mesh(case: dict, ref: dict, per: list) -> None:
                 assert err <= KV_TIER * top, (case["name"], r, n, err)
         n_live += _check_live_states(case, ref["snap"], out, coord, r)
     assert n_live or not ref["snap"]["state"], case["name"]
+    check_tp_census(case, per)
+
+
+def _blocks(n: int, m: int, r: int) -> tuple:
+    """[lo, hi) of block r of n split in blocks of ceil(n / m)."""
+    b = -(-n // m)
+    return min(r * b, n), min((r + 1) * b, n)
+
+
+def _census(out) -> dict:
+    import json
+    return {k: [json.loads(v) for v in vs]
+            for k, vs in json.loads(str(out["census"])).items()}
+
+
+def check_tp_census(case: dict, per: list) -> None:
+    """Hold each rank's ``serve_census`` of ``case`` (its mesh's "model"
+    rank r of M) against the split the JAX constrainer's "serve" rules
+    give: every attention call at q heads [lo, hi) of ceil(H / M) and the
+    kv heads they read, every dense FFN at its ceil(F / M) block of d_ff
+    and summed over "model" by one collective where that is not all of
+    it, every unembedding at its ceil(V / M) block (each whole where the dim
+    is smaller than M), the RG-LRU channels and SSD heads at w / M and
+    nh / M where the layer's state is cut over "model"; every step on
+    the same weight bytes. Without expert parallelism, on an arch of
+    attention and FFN layers: the ranks of a data row run on the whole
+    model's bytes of the split leaves once, and of every other leaf
+    each (nothing of a split leaf is gathered to more than its rank)."""
+    from repro_torch.models import registry, stack
+    cfg = serve_case_config(registry, case)
+    D, M = case["mesh"]
+    H, KH, G = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    tp_axes = ("q_heads", "kv_heads", "mlp", "vocab")
+    split = unsplit = 0
+    for spec in stack.flat_param_specs(cfg).values():
+        n = 4 * int(np.prod(spec.shape))  # f32 params
+        if any(a in tp_axes for a in spec.axes) and \
+                "expert" not in spec.axes:
+            split += n
+        else:
+            unsplit += n
+    rows = {}
+    for rank, out in enumerate(per):
+        r = rank % M
+        cen = _census(out)
+
+        def blk(n):
+            lo, hi = _blocks(n, M, r) if n >= M else (0, n)
+            return hi - lo
+        q = _blocks(H, M, r) if H >= M else (0, H)
+        reads = sorted({h // G for h in range(*q)})
+        kv = reads[-1] + 1 - reads[0] if reads else 0
+        for got in cen["attn"]:
+            assert got == [q[1] - q[0], kv], (case["name"], rank, got)
+        assert cen["ffn"] in ([], [blk(cfg.d_ff)]), (case["name"], rank)
+        # a split FFN sums its partial product over "model", once a call
+        assert cen["ffn_sums"] in ([], [int(blk(cfg.d_ff) < cfg.d_ff)]), \
+            (case["name"], rank, cen["ffn_sums"])
+        assert cen["vocab"] == [blk(cfg.vocab_size)], (case["name"], rank)
+        cut = model_cut_leaves(case)
+        for key, n, leaf in (("rglru", cfg.lru_width, "/lru"),
+                             ("ssd", cfg.ssm_heads, "/ssm")):
+            if not cen[key]:
+                continue
+            assert set(cen[key]) <= {n // M, n}, (case["name"], rank, key)
+            if any(k.endswith(leaf) for k in cut):
+                assert n // M in cen[key], (case["name"], rank, key)
+        assert len(cen["weights"]) == 1, (case["name"], rank)
+        rows.setdefault(rank // M, []).append(cen["weights"][0])
+    if case["sc"].get("ep") or any(s.mixer in ("rglru", "ssd")
+                                   for s in cfg.layer_layout()):
+        return
+    for row in rows.values():
+        assert sum(row) == split + M * unsplit, (case["name"], row)
 
 
 def _check_live_states(case: dict, snap: dict, out: dict, coord,
